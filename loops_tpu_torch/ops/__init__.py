@@ -1,0 +1,4 @@
+"""Device operators: CSR SpMV (SpMM, SDDMM and the segment ops follow,
+ROADMAP A8)."""
+from loops_tpu_torch.ops.gather import gather1d  # noqa: F401
+from loops_tpu_torch.ops.spmv import SpMVOperator, spmv  # noqa: F401

@@ -1,0 +1,163 @@
+"""K1: the sorted-flat CSR SpMV kernel (``schedule='sorted_flat'``, and
+``'auto'`` for all but extreme-skew matrices).
+
+Replaces ``loops_tpu/ops/kernels/spmv_sorted.py`` (``sorted_spmv_plan``,
+``sorted_spmv_bind``, ``sorted_spmv_pallas``). What crosses over is the
+host plan's block cuts and the per-row f32 sums inside each block:
+
+1.  **Merge-path blocks** of at most ``block_atoms`` atoms, split further
+    so no block spans more than ``ROW_SPAN`` rows or crosses a
+    ``STRIPE_ROWS`` row stripe — the same cuts as the reference plan.
+2.  **Per-row sums inside a block**, in f32, by a group of lanes per row
+    (``csrc/spmv.cu`` ``sorted_spmv_kernel``); the first and last row of
+    each block go through the deterministic seam pass.
+
+What does not cross over: the column sort and chunking, the Benes
+unpermute, the touch-loop gathers and ``bucketed=`` all exist because the
+TPU has no general gather and compiles per static shape; Hopper gathers
+``x[col]`` natively and launches at any shape. Nor do the refusals that
+bounded VMEM or the Mosaic compile (degenerate shape, ``x_sublanes_cap``,
+``span_cap``, ``pad_cap``): the kernel's only resources are the CSR
+arrays in device memory. Whether a column sort helps L2 locality on the
+H100 is open (ROADMAP).
+
+What bounds K1 on an H100 is bytes: it reads the CSR arrays once (value
+and column per nonzero, the offsets of each row), gathers ``x[col]``
+(from L2 while x fits there) and writes y once, with no staged copy of
+the matrix. Lanes of a row group read neighbouring nonzeros, so the
+value and column streams are coalesced.
+
+The plan/bind split mirrors the reference's preprocess-vs-kernel
+separation (merge_path_flat.cuh:97-138): ``sorted_spmv_plan`` is pure
+host numpy and reports its cost as ``plan_ms``; ``sorted_spmv_bind``
+stages it on a device.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from loops_tpu_torch.ops.kernels import _build
+
+LANES = 128
+ROW_WINDOW = 1024             # the reference's output row window
+ROW_SPAN = ROW_WINDOW - LANES   # max block row span, as in the reference
+STRIPE_ROWS = 32768           # no block crosses a stripe, as in the reference
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def sorted_spmv_plan(csr, *, block_atoms: int = 8192):
+    """Host planning: returns ``(arrays, params)`` — pure numpy."""
+    t0 = time.perf_counter()
+    rows, cols_n = csr.shape
+    N = int(csr.nnz)
+    if N == 0:
+        return {}, dict(empty=True, rows=rows, cols_n=cols_n, num_blocks=0,
+                        plan_ms=(time.perf_counter() - t0) * 1e3)
+    K = int(block_atoms)
+    offsets = csr.offsets.astype(np.int64)
+    rid = np.repeat(np.arange(rows, dtype=np.int64), np.diff(offsets))
+
+    # ---- block cuts: merge-path atoms, K-cap, row-span + stripe ----
+    ST = max(ROW_WINDOW, min(STRIPE_ROWS, _round_up(rows, ROW_WINDOW)))
+    ST = _round_up(ST, ROW_WINDOW)
+    cuts = np.arange(0, N + K, K, dtype=np.int64)
+    st_bounds = np.arange(ST, rows, ST, dtype=np.int64)
+    cuts = np.unique(np.concatenate([cuts, offsets[st_bounds], [0, N]]))
+    cuts = cuts[cuts <= N]
+    extra = [np.arange(a, b, K, dtype=np.int64)
+             for a, b in zip(cuts[:-1], cuts[1:]) if b - a > K]
+    if extra:
+        cuts = np.unique(np.concatenate([cuts, *extra]))
+    for _ in range(64):  # split row spans > ROW_SPAN (terminates: each
+        r0 = rid[cuts[:-1]]                  # new cut strictly interior
+        r1 = rid[cuts[1:] - 1]
+        bad = np.nonzero(r1 - r0 > ROW_SPAN)[0]
+        if not len(bad):
+            break
+        cuts = np.unique(np.concatenate(
+            [cuts, offsets[r0[bad] + ROW_SPAN]]))
+
+    # lanes per row: the power of two at or above the mean nonempty-row
+    # length, at most a warp
+    mean = N / max(int(np.count_nonzero(np.diff(offsets))), 1)
+    lanes = int(min(32, 1 << max(int(np.ceil(np.log2(mean))), 0)))
+    arrays = dict(
+        offsets=csr.offsets.astype(np.int32),
+        cols=csr.indices.astype(np.int32),
+        vals=csr.vals.astype(np.float32),
+        cuts=cuts.astype(np.int32),
+        row_first=rid[cuts[:-1]].astype(np.int32),
+        row_last=rid[cuts[1:] - 1].astype(np.int32),
+    )
+    params = dict(empty=False, rows=rows, cols_n=cols_n,
+                  num_blocks=len(cuts) - 1, block_atoms=K, ST=ST,
+                  lanes_per_row=lanes,
+                  plan_ms=(time.perf_counter() - t0) * 1e3)
+    return arrays, params
+
+
+def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Launch K1 (``csrc/spmv.cu`` ``sorted_spmv_kernel`` + seam pass)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_spmv_cuda needs a CUDA tensor, got {dev}")
+    nb = int(params["num_blocks"])
+    _build.check(x, "x", torch.float32, dev, int(params["cols_n"]))
+    _build.check(b["offsets"], "offsets", torch.int32, dev,
+                 int(params["rows"]) + 1)
+    _build.check(b["cols"], "cols", torch.int32, dev, b["vals"].numel())
+    _build.check(b["vals"], "vals", torch.float32, dev)
+    _build.check(b["cuts"], "cuts", torch.int32, dev, nb + 1)
+    _build.check(b["row_first"], "row_first", torch.int32, dev, nb)
+    _build.check(b["row_last"], "row_last", torch.int32, dev, nb)
+    y = torch.zeros(int(params["rows"]), dtype=torch.float32, device=dev)
+    seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
+    _build.launch("loops_sorted_spmv_f32", "sorted_spmv", dev,
+                  b["offsets"], b["cols"], b["vals"], b["cuts"],
+                  b["row_first"], b["row_last"], x, y, seam, nb,
+                  int(params["lanes_per_row"]))
+    return y
+
+
+def sorted_spmv_plain(b: dict, x: torch.Tensor, params: dict) -> torch.Tensor:
+    """K1's plain PyTorch version over the same staged buffers: per-row
+    f32 segment sums of ``vals * x[cols]`` over the CSR offsets."""
+    prod = b["vals"] * x.to(torch.float32)[b["cols"]]
+    return torch.segment_reduce(prod, "sum", offsets=b["offsets"].long(),
+                                unsafe=True)
+
+
+def sorted_spmv_bind(arrays, params, device):
+    """Turn a plan into ``(bufs, fn)`` on ``device``; ``fn(bufs, x)``."""
+    rows = int(params["rows"])
+    if params.get("empty"):
+        def fn(b, x):
+            return torch.zeros(rows, dtype=torch.float32, device=x.device)
+        bufs = {}
+    else:
+        bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+        def fn(b, x):
+            if x.device.type == "cpu":
+                return sorted_spmv_plain(b, x, params)
+            return sorted_spmv_cuda(b, x, params)
+    fn.meta = dict(num_blocks=params["num_blocks"],
+                   block_atoms=params.get("block_atoms"),
+                   lanes_per_row=params.get("lanes_per_row"),
+                   # host planning cost, excluding the device upload —
+                   # the reference's preprocess-vs-kernel separation
+                   # (merge_path_flat.cuh:97-138)
+                   plan_ms=params["plan_ms"])
+    return bufs, fn
+
+
+def sorted_spmv(csr, *, block_atoms: int = 8192, device="cpu"):
+    """Build ``(bufs, fn)`` for CSR @ vector through K1."""
+    arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)
+    return sorted_spmv_bind(arrays, params, device)

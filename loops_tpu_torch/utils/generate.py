@@ -1,0 +1,140 @@
+"""Deterministic synthetic matrix generators.
+
+Parity with the reference's util/generate.hxx:54-113 (seeded uniform
+random CSR via random COO + dedup) plus the test-fixture factories from
+unittests/test_helpers.hxx:92-225 (identity, banded, block-diagonal,
+power-law skewed, empty-row). Every draw comes from numpy
+``default_rng(seed)``, so a seed gives the same matrix as ``loops_tpu``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from loops_tpu_torch.formats import COO, CSR
+
+
+def random_csr(rows: int, cols: int, sparsity: float = 0.1,
+               seed: int = 0, dtype=np.float32) -> CSR:
+    """Uniform random CSR: draw ~rows*cols*sparsity coordinates, dedupe
+    (reference: generate.hxx:94-113)."""
+    rng = np.random.default_rng(seed)
+    n = int(rows * cols * sparsity)
+    r = rng.integers(0, rows, size=n)
+    c = rng.integers(0, cols, size=n)
+    v = rng.uniform(0.0, 1.0, size=n).astype(dtype)
+    coo = COO((rows, cols), r, c, v).remove_duplicates(op="first")
+    return coo.to_csr()
+
+
+def identity_csr(n: int, dtype=np.float32) -> CSR:
+    i = np.arange(n)
+    return CSR((n, n), np.arange(n + 1), i, np.ones(n, dtype=dtype))
+
+
+def banded_csr(rows: int, cols: int, band: int = 1, seed: int = 0,
+               dtype=np.float32) -> CSR:
+    """Banded matrix: nonzeros at |col - row| <= band (asymmetric shapes
+    allowed)."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(rows), 2 * band + 1)
+    c = (np.tile(np.arange(-band, band + 1), rows) + r)
+    keep = (c >= 0) & (c < cols)
+    r, c = r[keep], c[keep]
+    v = rng.uniform(-1.0, 1.0, size=len(r)).astype(dtype)
+    return COO((rows, cols), r, c, v).to_csr()
+
+
+def block_diag_csr(num_blocks: int, block: int, seed: int = 0,
+                   dtype=np.float32) -> CSR:
+    """Dense blocks along the diagonal."""
+    rng = np.random.default_rng(seed)
+    n = num_blocks * block
+    base = np.arange(block)
+    r = (np.repeat(np.arange(num_blocks), block * block) * block
+         + np.tile(np.repeat(base, block), num_blocks))
+    c = (np.repeat(np.arange(num_blocks), block * block) * block
+         + np.tile(np.tile(base, block), num_blocks))
+    v = rng.uniform(-1.0, 1.0, size=len(r)).astype(dtype)
+    return COO((n, n), r, c, v).to_csr()
+
+
+def skewed_csr(rows: int, cols: int, heavy_rows: int = 1,
+               heavy_nnz: int | None = None, light_nnz: int = 2,
+               seed: int = 0, dtype=np.float32) -> CSR:
+    """Power-law-style load-balance stress: a few rows carry most of the
+    nonzeros (reference test_helpers.hxx make_skewed_csr)."""
+    rng = np.random.default_rng(seed)
+    heavy_nnz = heavy_nnz if heavy_nnz is not None else max(cols // 2, 4)
+    rs, cs = [], []
+    for i in range(rows):
+        k = heavy_nnz if i < heavy_rows else light_nnz
+        k = min(k, cols)
+        cs.append(rng.choice(cols, size=k, replace=False))
+        rs.append(np.full(k, i))
+    r = np.concatenate(rs)
+    c = np.concatenate(cs)
+    v = rng.uniform(-1.0, 1.0, size=len(r)).astype(dtype)
+    return COO((rows, cols), r, c, v).to_csr()
+
+
+def empty_row_csr(rows: int, cols: int, every: int = 3, seed: int = 0,
+                  dtype=np.float32) -> CSR:
+    """Every ``every``-th row is empty — the binary-search / planner edge
+    case (reference test_helpers.hxx make_empty_row_csr)."""
+    rng = np.random.default_rng(seed)
+    rs, cs = [], []
+    for i in range(rows):
+        if i % every == 0:
+            continue
+        k = min(1 + int(rng.integers(0, 3)), cols)
+        cs.append(rng.choice(cols, size=k, replace=False))
+        rs.append(np.full(k, i))
+    if not rs:
+        return COO((rows, cols), [], [], []).to_csr()
+    r = np.concatenate(rs)
+    c = np.concatenate(cs)
+    v = rng.uniform(-1.0, 1.0, size=len(r)).astype(dtype)
+    return COO((rows, cols), r, c, v).to_csr()
+
+
+def tridiag_csr(n: int, seed: int = 0, dtype=np.float32) -> CSR:
+    return banded_csr(n, n, band=1, seed=seed, dtype=dtype)
+
+
+def diag_csr(n: int, seed: int = 0, dtype=np.float32) -> CSR:
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    return CSR((n, n), np.arange(n + 1), i,
+               rng.uniform(0.5, 1.5, size=n).astype(dtype))
+
+
+def wide_span_csr(rows: int, cols: int = 4, seed: int = 0,
+                  dtype=np.float32) -> CSR:
+    """Nonzeros in the first and the last row only, every row between
+    empty: one work_oriented block spans all the rows (the row-window edge
+    case of the flat kernels)."""
+    rng = np.random.default_rng(seed)
+    offsets = np.ones(rows + 1, np.int64)
+    offsets[0], offsets[-1] = 0, 2
+    return CSR((rows, cols), offsets, np.array([0, cols - 1]),
+               rng.uniform(-1.0, 1.0, size=2).astype(dtype))
+
+
+def make_input_vector(n: int, seed: int = 1, dtype=np.float32) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1.0, 1.0, size=n).astype(dtype)
+
+
+# The 9-matrix SpMV correctness battery (name -> builder), the recipes of
+# the reference's unittests/test_spmv_battery.hxx:52-94.
+BATTERY = {
+    "identity": lambda: identity_csr(16),
+    "diag": lambda: diag_csr(11),
+    "tridiag": lambda: tridiag_csr(17),
+    "band_asym": lambda: banded_csr(12, 20, band=2),
+    "block_diag_2x2": lambda: block_diag_csr(5, 2),
+    "block_diag_3x3": lambda: block_diag_csr(4, 3),
+    "skewed": lambda: skewed_csr(14, 24, heavy_rows=2),
+    "empty_rows": lambda: empty_row_csr(15, 9),
+    "random": lambda: random_csr(21, 18, 0.2, seed=11),
+}

@@ -1,0 +1,199 @@
+"""The PyTorch port stands alone: it imports without JAX or ``loops_tpu``,
+no module of it imports either, and asking for a CUDA device without a
+card raises instead of dropping to the CPU."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "loops_tpu_torch")
+
+SLICE_MODULES = [
+    "loops_tpu_torch",
+    "loops_tpu_torch.utils.platform",
+    "loops_tpu_torch.utils.device",
+    "loops_tpu_torch.utils.timer",
+    "loops_tpu_torch.utils.bench",
+    "loops_tpu_torch.utils.reference",
+    "loops_tpu_torch.utils.equal",
+    "loops_tpu_torch.utils.generate",
+    "loops_tpu_torch.utils.profile_spmv",
+    "loops_tpu_torch.formats.base",
+    "loops_tpu_torch.formats.convert",
+    "loops_tpu_torch.formats.coo",
+    "loops_tpu_torch.formats.csr",
+    "loops_tpu_torch.io.filepath",
+    "loops_tpu_torch.io.market",
+    "loops_tpu_torch.layout.contract",
+    "loops_tpu_torch.layout.views",
+    "loops_tpu_torch.layout.merge_path",
+    "loops_tpu_torch.schedule.plans",
+    "loops_tpu_torch.tuning.launch_box",
+    "loops_tpu_torch.ops.gather",
+    "loops_tpu_torch.ops.spmv",
+    "loops_tpu_torch.ops.kernels._build",
+    "loops_tpu_torch.ops.kernels.spmv_sorted",
+    "loops_tpu_torch.ops.kernels.spmv_flat_v2",
+    "loops_tpu_torch.ops.kernels.spmv_flat",
+]
+
+
+def _package_sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_slice_imports_with_jax_blocked():
+    # a None entry in sys.modules makes any later import of that name fail
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['loops_tpu'] = None\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import loops_tpu_torch\n"
+        "for sub in loops_tpu_torch._SUBMODULES:\n"
+        "    getattr(loops_tpu_torch, sub)\n"
+        "assert not [m for m in sys.modules if m.startswith('jax.')]\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_no_jax_import_in_package():
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+loops_tpu\b"
+                     r"|from\s+loops_tpu\b|from\s+loops_tpu\.|"
+                     r"import\s+loops_tpu\.)", re.M)
+    offenders = []
+    for path in _package_sources():
+        with open(path) as f:
+            src = f.read()
+        offenders += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
+                      for m in pat.finditer(src)]
+    assert not offenders, offenders
+    # the scan does see the package (guards against a wrong path)
+    assert sum(1 for _ in _package_sources()) >= len(SLICE_MODULES) - 1
+
+
+def test_lazy_submodules():
+    import loops_tpu_torch
+
+    assert set(loops_tpu_torch._SUBMODULES) <= set(dir(loops_tpu_torch))
+    assert (loops_tpu_torch.ops.SpMVOperator.__module__
+            == "loops_tpu_torch.ops.spmv")
+    with pytest.raises(AttributeError):
+        loops_tpu_torch.not_a_submodule
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import generate
+    from loops_tpu_torch.utils.platform import ensure_platform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ensure_platform("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpMVOperator(generate.identity_csr(4), device="cuda")
+    assert ensure_platform("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        ensure_platform("meta")
+
+
+def test_example_refuses_cuda_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the refusal cannot be observed")
+    r = subprocess.run(
+        [sys.executable, "examples/spmv_torch.py", "--rows", "8",
+         "--cols", "8"], capture_output=True, text=True, timeout=120,
+        cwd=REPO)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+    assert ",random," not in r.stdout
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from loops_tpu_torch.ops.kernels import spmv_flat, spmv_flat_v2, spmv_sorted
+
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmv_sorted.sorted_spmv_cuda({}, x, dict(num_blocks=1, cols_n=4,
+                                                  rows=4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmv_flat_v2.flat_spmv_v2_cuda({}, x, (4, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmv_flat.flat_spmv_cuda({}, x, (4, 4), 128)
+
+
+def test_device_properties_without_card(monkeypatch):
+    from loops_tpu_torch.utils import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    device.clear_cache()
+    try:
+        p = device.properties()
+        assert p["platform"] == "cpu" and device.num_devices() == 0
+        assert device.device_kind() == "cpu"
+    finally:
+        device.clear_cache()
+
+
+def test_launch_box_rows(monkeypatch):
+    from loops_tpu_torch.tuning import launch_box
+
+    assert launch_box.launch_params("cpu").spmv_block == 64
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
+    h100 = launch_box.launch_params(torch.device("cuda", 0))
+    assert h100.spmv_block == 1024
+    assert "unmeasured on H100" in h100.provenance
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Other")
+    assert launch_box.launch_params("cuda").provenance == "fallback"
+
+
+def test_timing_on_cpu_uses_host_clock():
+    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.timer import Timer, time_fn
+
+    calls = []
+
+    def fn(v):
+        calls.append(1)
+        return v * 2
+
+    x = torch.ones(8)
+    ms = apply_ms(fn, x, iters=4, repeats=3, warmup=2)
+    assert ms >= 0 and len(calls) == 2 + 4 * 3
+    assert time_fn(fn, x, iters=3) >= 0
+    t = Timer("cpu").start()
+    assert t.stop() >= 0 and t.seconds == t.milliseconds / 1e3
+
+
+def test_profile_applies_on_cpu():
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import generate
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+
+    op = SpMVOperator(generate.random_csr(40, 30, 0.1, seed=2), "merge_path",
+                      block=16, impl="pallas2")
+    x = torch.from_numpy(generate.make_input_vector(30))
+    r = profile_applies(op, x, applies=3, warmup=1)
+    # no card: nothing ran on a device, so the whole apply is idle
+    assert r["wall_ms"] > 0 and r["device_ms"] == 0 and r["kernels"] == []
+    assert r["idle_share"] == 1.0
+
+
+def test_profile_refuses_without_card(monkeypatch):
+    from loops_tpu_torch.utils import profile_spmv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_spmv.main([])
