@@ -6,7 +6,8 @@
 Phases, one line each with its time:
 
 1. card:   ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build:  nvcc builds the three CSR SpMV kernels from ``loops_tpu_torch/csrc``;
+2. build:  nvcc builds the kernels from ``loops_tpu_torch/csrc`` (one nvcc
+   per source, in parallel, then one link): K1–K3 and K4;
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
@@ -21,11 +22,34 @@ Phases, one line each with its time:
    launched on the main path;
 6. timing: per apply, the median of CUDA-event timings, of each kernel, its
    plain version and cuSPARSE's CSR SpMV (the paper's opponent, timed only),
-   with the host plan time.
+   with the host plan time;
+7. K4 vs plain: K4 (``flat_spmm``) against its plain PyTorch version on the
+   battery, the bench matrix and the full-width arxiv-shaped GCN adjacency
+   (169,343 nodes, 2,465,171 nonzeros), F in {5, 40, 128}, f32 and bf16,
+   blocks 8 and 512, and its backward (K4 over the transpose of the masked
+   ``A[train_rows, :]``, through autograd): agreement, the Wilkinson
+   verdict, two applies bitwise equal, the launch counter;
+8. GCN inference at full width: ``models.train.evaluate`` (dims
+   [128, 128, 128, 40]) on the val and test masks through K4, its logits
+   held against the same weights on ``schedule="group_mapped"``;
+9. GCN training at full width: the bench's throughput form (bf16,
+   ``precompute_first``, ``loss_rows``) for 10 steps of
+   ``make_train_step``, then ``examples/train_gcn_torch.py --dataset
+   ogbn-arxiv --scale 1.0 --epochs 20``. The launch counters are set to 0
+   before phase 8 and read after phase 9: K4 must have launched, and every
+   operator of the models must have taken it;
+10. timing on the arxiv adjacency at F = 128, f32 and bf16: K4, its plain
+   version, ``group_mapped``, ``row_mapped`` and cuSPARSE
+   (``torch.sparse.mm``, timed only), with the host plan time; one GCN
+   train step of each form and one full-graph ``evaluate`` (CUDA events
+   around each call, median), and a ``torch.profiler`` breakdown of a step
+   and an ``evaluate``.
 
 The kernel-vs-plain tolerance is twice the Wilkinson bound the validator
 uses (``2 * 4 * nnz_row * u * sum|a*x|``, floor 1e-6): both results lie
 within one bound of the exact row sum, whatever their summation order.
+For K4 in bf16 the bound is over the bf16-rounded products, which both
+sides form identically.
 
 It exits non-zero, and prints no result, when no card is visible or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -38,6 +62,7 @@ import importlib.util
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -63,6 +88,12 @@ CLI_CASES = [
     ["--schedule", "sorted_flat"], ["--schedule", "auto"],
 ]
 BENCH_BLOCK = 1024
+SPMM_SOURCE = "loops_tpu_torch/csrc/spmm.cu"
+SPMM_REPLACES = "loops_tpu/ops/kernels/spmm_flat.py:48"
+SPMM_FS = (5, 40, 128)
+SPMM_BLOCKS = (8, 512)
+DTYPES = (None, "bfloat16")
+GCN_HIDDEN = 128
 
 
 class PhaseFailed(RuntimeError):
@@ -135,11 +166,100 @@ def kernel_vs_plain(kname, csr, x, block, device, schedule="merge_path"):
     return float(diff.max(initial=0.0))
 
 
-def run_cli(args):
-    """``examples/spmv_torch.py`` main() in this process; returns
-    (status, stdout, stderr)."""
+def spmm_pair_tolerance(csr, B, dtype):
+    """Twice the Wilkinson bound over the products the mode forms, floor
+    1e-6. In bf16, ``|bf16(a*b)| <= (1 + 2**-8) |a| |b|`` for the rounded
+    ``a``, ``b`` bounds the rounded products' sum of magnitudes."""
+    from loops_tpu_torch.formats import CSR
+    from loops_tpu_torch.utils import reference
+
+    if dtype is None:
+        l1 = reference.spmm_l1_products(csr, B)
+    else:
+        rounded = CSR(csr.shape, csr.offsets, csr.indices,
+                      reference.bf16_round(csr.vals))
+        l1 = (1 + 2.0 ** -8) * reference.spmm_l1_products(
+            rounded, reference.bf16_round(B))
+    nnz_r = csr.row_sizes().astype(np.float64)[:, None]
+    u = reference.unit_roundoff(np.float32)
+    return np.maximum(1e-6, 2 * reference.DEFAULT_WILKINSON_K * nnz_r * u * l1)
+
+
+def spmm_verdict(csr, B, C, dtype):
+    from loops_tpu_torch.utils import reference
+
+    if dtype is None:
+        return reference.rigorously_validate_spmm(csr, B, C, mxu_bf16=False)
+    return reference.rigorously_validate_spmm_bf16(csr, B, C)
+
+
+def check_spmm(label, csr, B, C, C_plain, dtype):
+    """K4's result against its plain version and the validator; returns
+    the max abs difference."""
+    require(C.shape == (csr.shape[0], B.shape[1]) and np.all(np.isfinite(C)),
+            f"{label}: bad output")
+    diff = np.abs(C.astype(np.float64) - C_plain)
+    require(np.all(diff <= spmm_pair_tolerance(csr, B, dtype)),
+            f"{label}: kernel and plain differ by {diff.max():.3e}")
+    rep = spmm_verdict(csr, B, C, dtype)
+    require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
+    return float(diff.max(initial=0.0))
+
+
+def spmm_vs_plain(label, csr, B, block, dtype, device):
+    """K4 twice and its plain version once on the same staged buffers."""
+    import torch
+
+    from loops_tpu_torch.layout import CsrLayout
+    from loops_tpu_torch.ops.kernels import _build, spmm_flat
+    from loops_tpu_torch.schedule.plans import make_plan
+
+    plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
+    b, fn = spmm_flat.flat_spmm(csr, plan, dtype=dtype, device=device)
+    Bd = torch.from_numpy(B).to(device)
+    before = _build.LAUNCHES["flat_spmm"]
+    C1 = fn(b, Bd)
+    C2 = fn(b, Bd)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES["flat_spmm"] == before + 2,
+            f"{label}: launch counter did not go up by 2")
+    require(torch.equal(C1, C2), f"{label}: two applies are not bitwise equal")
+    plain = spmm_flat.flat_spmm_plain(b, Bd, csr.shape, dtype)
+    return check_spmm(label, csr, B, C1.cpu().numpy(), plain.cpu().numpy(),
+                      dtype)
+
+
+def backward_vs_plain(graph, rows, F, dtype, device):
+    """The masked last layer's gradient through autograd: K4 over the
+    transpose of ``A[rows, :]``, against its plain version."""
+    import torch
+
+    from loops_tpu_torch.models.message_passing import masked_aggregate_operator
+    from loops_tpu_torch.ops.kernels import spmm_flat
+
+    op = masked_aggregate_operator(graph, rows, dtype=dtype, device=device)
+    bwd = op._vjp_op
+    require(op.impl_used == bwd.impl_used == "flat_spmm",
+            f"masked operator took {op.impl_used}/{bwd.impl_used}")
+    rng = np.random.default_rng(F)
+    h = torch.from_numpy(rng.normal(size=(graph.num_nodes, F)).astype(
+        np.float32)).to(device).requires_grad_(True)
+    dy = rng.normal(size=(len(op.rows), F)).astype(np.float32)
+    op._fn(h).backward(torch.from_numpy(dy).to(device))
+    torch.cuda.synchronize()
+    require(op.launches == 1 and bwd.launches == 1,
+            f"backward: launches {op.launches}/{bwd.launches}")
+    plain = spmm_flat.flat_spmm_plain(
+        bwd._bufs, torch.from_numpy(dy).to(device), bwd.mat.shape, dtype)
+    return check_spmm(f"backward F={F} {dtype or 'f32'}", bwd.mat, dy,
+                      h.grad.cpu().numpy(), plain.cpu().numpy(), dtype)
+
+
+def run_example(name, args):
+    """``examples/<name>`` main() in this process; returns (status,
+    stdout, stderr)."""
     spec = importlib.util.spec_from_file_location(
-        "spmv_torch_example", os.path.join(REPO, "examples", "spmv_torch.py"))
+        name.replace(".py", "_example"), os.path.join(REPO, "examples", name))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     out, err = io.StringIO(), io.StringIO()
@@ -180,7 +300,8 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     _build.load_library()
-    phase(2, "build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
+    phase(2, "build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)}, one per "
+          f"source in parallel, then linked -> "
           f"{os.path.relpath(_build.BUILD_INFO['path'], REPO)} in "
           f"{_build.BUILD_INFO['seconds']:.2f} s ")
 
@@ -218,8 +339,9 @@ def main() -> int:
     _build.reset_launches()
     mtx = os.path.join(REPO, "datasets", "chesapeake.mtx")
     for case in CLI_CASES:
-        status, out, err = run_cli(["-m", mtx, "--validate", "--rigorous",
-                                    "--device", "cuda", *case])
+        status, out, err = run_example(
+            "spmv_torch.py", ["-m", mtx, "--validate", "--rigorous",
+                              "--device", "cuda", *case])
         label = " ".join(case)
         csv = [ln for ln in out.splitlines() if ln.startswith("csr_")]
         print(f"  spmv_torch {label}: {csv[0] if csv else '?'} | "
@@ -314,13 +436,215 @@ def main() -> int:
         del A
     phase(6, "timing (CUDA events, median per apply)", t0)
 
+    # ---- 7. K4 vs plain, forward and backward
+    t0 = time.perf_counter()
+    from loops_tpu_torch.io import ogb
+    from loops_tpu_torch.models import GCN
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.ops.kernels import spmm_flat
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+    from loops_tpu_torch.utils.timer import time_fn
+
+    def median_ms(fn, iters):
+        return time_fn(fn, device=device, warmup=2, iters=iters,
+                       reduction=statistics.median)
+
+    th = time.perf_counter()
+    ds = ogb.load("ogbn-arxiv")
+    graph = ds.graph
+    adj = graph.gcn_normalized().adj
+    ds_s = time.perf_counter() - th
+    print(f"  arxiv-shaped dataset: {graph.num_nodes} nodes, "
+          f"{graph.num_edges} edges, GCN adjacency {adj.nnz} nnz, longest "
+          f"row {int(adj.row_sizes().max())}, {int(ds.train_mask.sum())} "
+          f"train rows; built in {ds_s:.2f} s")
+    spmm_err = 0.0
+    n_cases = 0
+    spmm_mats = {**{k: make() for k, make in generate.BATTERY.items()},
+                 "bench_32768": bench, "arxiv_gcn": adj}
+    for mname, csr in spmm_mats.items():
+        rng = np.random.default_rng(7)
+        B_all = rng.normal(size=(csr.shape[1], max(SPMM_FS))).astype(
+            np.float32)
+        for F in SPMM_FS:
+            B = np.ascontiguousarray(B_all[:, :F])
+            for dtype in DTYPES:
+                for block in SPMM_BLOCKS:
+                    label = f"{mname} F={F} {dtype or 'f32'} block={block}"
+                    spmm_err = max(spmm_err, spmm_vs_plain(
+                        label, csr, B, block, dtype, device))
+                    n_cases += 1
+    for F in (40, 128):
+        for dtype in DTYPES:
+            spmm_err = max(spmm_err, backward_vs_plain(
+                graph, ds.train_mask, F, dtype, device))
+            n_cases += 1
+    phase(7, "K4 vs plain", t0, f"{n_cases} cases (incl. 4 backward), "
+          f"max |kernel - plain| {spmm_err:.3e} ")
+
+    # ---- 8. GCN inference at full width (the main path starts here)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    dims = [ds.features.shape[1], GCN_HIDDEN, GCN_HIDDEN, ds.num_classes]
+    th = time.perf_counter()
+    model = GCN(graph, dims, dropout=0.5, device=device,
+                generator=torch.Generator().manual_seed(0))
+    gcn_build_s = time.perf_counter() - th
+    require(all(op.impl_used == "flat_spmm" for op in model.operators()),
+            f"GCN took {[op.impl_used for op in model.operators()]}")
+    acc = {m: T.evaluate(model, ds.features, ds.labels, getattr(ds, m))
+           for m in ("val_mask", "test_mask")}
+    ref = GCN(graph, dims, schedule="group_mapped", device=device)
+    ref.load_state_dict(model.state_dict())
+    model.eval()
+    ref.eval()
+    with torch.no_grad():
+        lk = model(model.prepare_features(ds.features)).cpu().numpy()
+        lg = ref(ref.prepare_features(ds.features)).cpu().numpy()
+    require(lk.shape == (graph.num_nodes, ds.num_classes)
+            and np.all(np.isfinite(lk)), "evaluate: bad logits")
+    scale = float(np.abs(lg).max())
+    logit_diff = float(np.abs(lk - lg).max())
+    agree = float((lk.argmax(1) == lg.argmax(1)).mean())
+    require(logit_diff <= 1e-4 * max(scale, 1.0),
+            f"K4 and group_mapped logits differ by {logit_diff:.3e}")
+    require(agree >= 0.999, f"argmax agrees on {agree:.4%} of rows")
+    acc_ref = {m: T.evaluate(ref, ds.features, ds.labels, getattr(ds, m))
+               for m in ("val_mask", "test_mask")}
+    print(f"  evaluate (f32, K4): val {acc['val_mask']:.4f} test "
+          f"{acc['test_mask']:.4f}; group_mapped: val "
+          f"{acc_ref['val_mask']:.4f} test {acc_ref['test_mask']:.4f}; "
+          f"max |logit diff| {logit_diff:.3e} (max |logit| {scale:.3e}), "
+          f"argmax agree {agree:.6f}; GCN build {gcn_build_s:.2f} s; "
+          f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}")
+    phase(8, "GCN inference at full width", t0)
+
+    # ---- 9. GCN training at full width
+    t0 = time.perf_counter()
+    fast = GCN(graph, dims, dropout=0.5, dtype="bfloat16",
+               precompute_first=True, loss_rows=ds.train_mask, device=device,
+               generator=torch.Generator().manual_seed(0))
+    require(all(op.impl_used == "flat_spmm" for op in fast.operators()),
+            f"throughput GCN took {[op.impl_used for op in fast.operators()]}")
+    step = T.make_train_step(
+        fast, torch.optim.Adam(fast.parameters(), lr=1e-2), ds.features,
+        ds.labels, ds.train_mask,
+        generator=torch.Generator(device).manual_seed(1))
+    losses = [float(step()) for _ in range(10)]
+    require(np.all(np.isfinite(losses)), f"train losses {losses}")
+    require(fast.launches() > 0, "the train steps launched no K4")
+    print(f"  10 bf16 throughput-form steps: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, K4 launches {fast.launches()}")
+    status, out, err = run_example("train_gcn_torch.py", [
+        "--dataset", "ogbn-arxiv", "--scale", "1.0", "--epochs", "20",
+        "--device", "cuda"])
+    for ln in out.splitlines() + err.splitlines():
+        print(f"  train_gcn_torch: {ln}")
+    require(status == 0, f"train_gcn_torch: exit status {status}")
+    require("test_accuracy:" in out, "train_gcn_torch printed no accuracy")
+    require("impl_used: flat_spmm" in err,
+            f"train_gcn_torch did not take K4: {err}")
+    gcn_launches = dict(_build.LAUNCHES)
+    require(gcn_launches["flat_spmm"] > 0, "K4 never launched on the GCN path")
+    phase(9, "GCN training at full width", t0,
+          "main-path launches " + json.dumps(gcn_launches) + " ")
+
+    # ---- 10. timing at F = 128 on the arxiv adjacency; GCN step and eval
+    t0 = time.perf_counter()
+    B128 = np.random.default_rng(8).normal(size=(adj.shape[1], 128)).astype(
+        np.float32)
+    Bd = torch.from_numpy(B128).to(device)
+    spmm_times = {}
+    for dtype in DTYPES:
+        name = dtype or "f32"
+        k4 = SpMMOperator(adj, "merge_path", "pallas", dtype=dtype,
+                          device=device)
+        builds = {}
+        for sched in ("group_mapped", "row_mapped"):
+            th = time.perf_counter()
+            builds[sched] = SpMMOperator(adj, sched, dtype=dtype,
+                                         device=device)
+            builds[sched].build_ms = (time.perf_counter() - th) * 1e3
+
+        def plain(B, op=k4, dtype=dtype):
+            return spmm_flat.flat_spmm_plain(op._bufs, B, adj.shape, dtype)
+        p1 = apply_ms(plain, Bd)
+        k1 = apply_ms(k4, Bd)
+        k2 = apply_ms(k4, Bd)
+        p2 = apply_ms(plain, Bd)
+        gm = apply_ms(builds["group_mapped"], Bd)
+        rm = apply_ms(builds["row_mapped"], Bd)
+        tdt = torch.float32 if dtype is None else torch.bfloat16
+        A = torch.sparse_csr_tensor(
+            torch.from_numpy(adj.offsets).to(device),
+            torch.from_numpy(adj.indices).to(device),
+            torch.from_numpy(adj.vals).to(device, tdt), size=adj.shape)
+        Bc = Bd.to(tdt)
+        try:
+            cs = apply_ms(lambda B: torch.sparse.mm(A, B), Bc)
+        except RuntimeError as e:  # timed only: a dtype cuSPARSE refuses
+            cs = None
+            print(f"  cuSPARSE {name}: not run ({str(e).splitlines()[0]})")
+        spmm_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+        print(f"  arxiv_gcn F=128 {name}: K4 {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, group_mapped {gm:.4f} ms, row_mapped "
+              f"{rm:.4f} ms, cuSPARSE "
+              f"{'n/a' if cs is None else f'{cs:.4f} ms'}; host plan: K4 "
+              f"{k4.meta['plan_ms']:.1f} ms, group_mapped build "
+              f"{builds['group_mapped'].build_ms:.1f} ms, row_mapped build "
+              f"{builds['row_mapped'].build_ms:.1f} ms  [{smi}]")
+        del A, Bc, k4, builds
+    slow = GCN(graph, dims, dropout=0.5, device=device,
+               generator=torch.Generator().manual_seed(0))
+    th = time.perf_counter()
+    step_f32 = T.make_train_step(
+        slow, torch.optim.Adam(slow.parameters(), lr=1e-2), ds.features,
+        ds.labels, ds.train_mask,
+        generator=torch.Generator(device).manual_seed(1))
+    prep_s = time.perf_counter() - th
+    on_card = [torch.from_numpy(a).to(device)
+               for a in (ds.features, ds.labels, ds.test_mask)]
+
+    def evaluate_on_card(_=None):
+        return T.evaluate(model, *on_card)
+    ms_fast = median_ms(step, 10)
+    ms_slow = median_ms(step_f32, 10)
+    ms_eval = median_ms(lambda: T.evaluate(model, ds.features, ds.labels,
+                                           ds.test_mask), 5)
+    ms_eval_card = median_ms(evaluate_on_card, 5)
+    print(f"  GCN train step: throughput form (bf16, precompute_first, "
+          f"loss_rows) {ms_fast:.3f} ms, default form (f32) {ms_slow:.3f} "
+          f"ms; evaluate (f32, full graph) {ms_eval:.3f} ms from host "
+          f"arrays, {ms_eval_card:.3f} ms from tensors on the card; host "
+          f"plan of the models' K4 operators "
+          f"{sum(op.meta['plan_ms'] for op in fast.operators()):.1f} ms "
+          f"(throughput form), "
+          f"{sum(op.meta['plan_ms'] for op in slow.operators()):.1f} ms "
+          f"(default form); step set-up {prep_s * 1e3:.1f} ms  [{smi}]")
+    for label, fn in (("throughput-form step", lambda _: step()),
+                      ("evaluate from tensors on the card",
+                       evaluate_on_card)):
+        r = profile_applies(fn, Bd, applies=10, warmup=2)
+        print(f"  profile {label}: wall {r['wall_ms']:.3f} ms, device "
+              f"{r['device_ms']:.3f} ms, idle {r['idle_share']:.1%}; "
+              + "; ".join(f"{name[:48]} x{n:g} {ms:.4f} ms"
+                          for name, n, ms in r["kernels"][:8]))
+    phase(10, "GCN timing (CUDA events, median)", t0)
+
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
          "launches": launches[k], "max_abs_err": max_err[k],
          "ms": times["big_2097152", k]["ms"],
          "plain_ms": times["big_2097152", k]["plain_ms"]}
-        for k, (rep_at, _, _) in KERNELS.items()]}))
+        for k, (rep_at, _, _) in KERNELS.items()]
+    kernels.append(
+        {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES, "launches": gcn_launches["flat_spmm"],
+         "max_abs_err": spmm_err, "ms": spmm_times["f32"]["ms"],
+         "plain_ms": spmm_times["f32"]["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -9,12 +9,15 @@ path:
 
 - **formats**: host-side numpy sparse containers (COO/CSR) with
   ``to_device`` staging into torch tensors.
-- **io**: the Matrix Market loader.
+- **io**: the Matrix Market loader and OGB-style node datasets.
 - **layout**: the tile/atom layout contract and the merge-path partitioner.
 - **schedule**: host planners: row_mapped, group_mapped, work_oriented,
   merge_path, and ``choose_schedule`` for ``auto``.
-- **ops**: CSR SpMV on top of the planners; plain torch executors plus
-  hand-written CUDA kernels (``ops/kernels``, sources in ``csrc/``).
+- **ops**: CSR SpMV and SpMM on top of the planners; plain torch
+  executors plus hand-written CUDA kernels (``ops/kernels``, sources in
+  ``csrc/``).
+- **models**: the GNN tier so far: graph container, message passing with
+  its SpMM gradient, GCN, training, checkpoints.
 - **tuning**: the launch box keyed by the card's name.
 - **utils**: host reference engines, the Wilkinson validator, matrix
   generators, CUDA-event timing.
@@ -27,8 +30,8 @@ __version__ = "0.1.0"
 
 from loops_tpu_torch.formats import COO, CSR  # noqa: F401
 
-_SUBMODULES = ("formats", "io", "layout", "schedule", "ops", "tuning",
-               "utils")
+_SUBMODULES = ("formats", "io", "layout", "schedule", "ops", "models",
+               "tuning", "utils")
 
 
 def __getattr__(name):

@@ -76,7 +76,8 @@ class CSR:
         return COO.from_csr(self)
 
     def to_csc(self):
-        _not_ported("CSC")
+        from loops_tpu_torch.formats.csc import CSC
+        return CSC.from_csr(self)
 
     def to_ell(self, max_pitch: int | None = None):
         _not_ported("ELL")

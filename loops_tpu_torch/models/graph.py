@@ -1,0 +1,81 @@
+"""Graph container for GNN workloads.
+
+Wraps a CSR adjacency with the preprocessing GNNs need (self-loops,
+symmetric GCN normalization, degree vectors). Host numpy, as in
+``loops_tpu/models/graph.py``: the same arrays from the same edges. The
+adjacency is a loops container, so every SpMM schedule and kernel in
+``ops/`` applies to message passing unchanged.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from loops_tpu_torch.formats import COO, CSR
+
+
+@dataclass
+class Graph:
+    """num_nodes nodes; adjacency in CSR (row = destination, columns =
+    sources, so SpMM aggregates *incoming* messages)."""
+    adj: CSR
+
+    @property
+    def num_nodes(self) -> int:
+        return self.adj.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.adj.nnz
+
+    @classmethod
+    def from_edges(cls, src, dst, num_nodes: int, weights=None,
+                   make_undirected: bool = False) -> "Graph":
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        w = (np.ones(len(src), np.float32) if weights is None
+             else np.asarray(weights, np.float32))
+        if make_undirected:
+            src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+            w = np.concatenate([w, w])
+        coo = COO((num_nodes, num_nodes), dst, src, w)
+        return cls(coo.remove_duplicates(op="first").to_csr())
+
+    def add_self_loops(self, weight: float = 1.0) -> "Graph":
+        n = self.num_nodes
+        coo = self.adj.to_coo()
+        has_loop = np.zeros(n, bool)
+        has_loop[coo.rows[coo.rows == coo.cols]] = True
+        missing = np.nonzero(~has_loop)[0]
+        rows = np.concatenate([coo.rows, missing])
+        cols = np.concatenate([coo.cols, missing])
+        vals = np.concatenate(
+            [coo.vals, np.full(len(missing), weight, np.float32)])
+        return Graph(COO(self.adj.shape, rows, cols, vals).to_csr())
+
+    def in_degrees(self) -> np.ndarray:
+        return self.adj.row_sizes()
+
+    def out_degrees(self) -> np.ndarray:
+        deg = np.zeros(self.num_nodes, np.int64)
+        np.add.at(deg, self.adj.indices, 1)
+        return deg
+
+    def gcn_normalized(self) -> "Graph":
+        """A_hat = D^-1/2 (A + I) D^-1/2 — the Kipf-Welling propagation
+        matrix."""
+        g = self.add_self_loops()
+        coo = g.adj.to_coo()
+        deg = np.zeros(g.num_nodes, np.float64)
+        np.add.at(deg, coo.rows, coo.vals.astype(np.float64))
+        dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+        vals = (coo.vals * dinv[coo.rows] * dinv[coo.cols]).astype(np.float32)
+        return Graph(CSR(g.adj.shape, g.adj.offsets, g.adj.indices, vals))
+
+    def mean_normalized(self) -> "Graph":
+        """Row-normalized adjacency (mean aggregation as one SpMM)."""
+        deg = np.maximum(self.in_degrees(), 1).astype(np.float32)
+        vals = self.adj.vals / deg[self.adj.row_ids()]
+        return Graph(CSR(self.adj.shape, self.adj.offsets, self.adj.indices,
+                         vals))

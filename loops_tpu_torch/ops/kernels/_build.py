@@ -1,10 +1,11 @@
 """Lazy nvcc build + ctypes load of the CUDA kernels, and their launch
 counters.
 
-``load_library()`` compiles ``loops_tpu_torch/csrc/*.cu`` with nvcc into
-one shared library with a plain C interface, under
-``loops_tpu_torch/_build/`` and keyed by a hash of the sources, then
-loads it with ctypes — the same lazy-build pattern as
+``load_library()`` compiles each ``loops_tpu_torch/csrc/*.cu`` with its
+own nvcc, all started together, and links the objects into one shared
+library with a plain C interface, ``libloops_kernels_<hash>.so`` under
+``loops_tpu_torch/_build/`` and keyed by a hash of the sources and flags,
+then loads it with ctypes — the same lazy-build pattern as
 ``loops_tpu/native/build.py``. It runs at the first kernel launch (or
 when called directly), never at import: the CPU tests import every
 module on machines without nvcc or a card.
@@ -28,10 +29,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
+# per-source compile flags; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0}
+LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
+            "flat_spmm": 0}
 
 # seconds the last build took in this process (0.0 when the library
 # came from an earlier build of the same sources)
@@ -43,6 +46,7 @@ _SIGNATURES = {
     "loops_sorted_spmv_f32": [_P] * 9 + [_I, _I, _P],
     "loops_flat_spmv_v2_f32": [_P] * 11 + [_I, _I, _P],
     "loops_flat_spmv_f32": [_P] * 10 + [_I, _I, _I, _P],
+    "loops_flat_spmm": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -85,19 +89,12 @@ def load_library() -> ctypes.CDLL:
             with open(f, "rb") as fh:
                 h.update(fh.read())
         h.update(" ".join(NVCC_FLAGS).encode())
-        so_path = os.path.join(BUILD_DIR, f"libloops_spmv_{h.hexdigest()[:16]}.so")
+        so_path = os.path.join(BUILD_DIR,
+                               f"libloops_kernels_{h.hexdigest()[:16]}.so")
         t0 = time.perf_counter()
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *files]
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=600)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stderr[-4000:]}")
-            os.replace(tmp, so_path)  # atomic when processes build at once
+            _build(files, so_path)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -106,6 +103,50 @@ def load_library() -> ctypes.CDLL:
         BUILD_INFO.update(seconds=time.perf_counter() - t0, path=so_path)
         _lib = lib
         return lib
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen)`` (killing all of them if one
+    outlasts its time); raise listing every failure."""
+    failed = []
+    try:
+        for cmd, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{err[-4000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _build(files, so_path: str) -> None:
+    """One nvcc per source, all started together, then one link; the
+    library is renamed into place, atomically when processes build at
+    once."""
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(f)}.{tag}.o")
+            for f in files]
+    tmp = f"{so_path}.{tag}"
+    try:
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, f])
+              for f, o in zip(files, objs)])
+        _run([_start([nvcc, "-shared", "-o", tmp, *objs])])
+        os.replace(tmp, so_path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def check(t, name: str, dtype, device, numel: int | None = None):

@@ -109,9 +109,8 @@ def flat_spmv(csr, plan, device="cpu"):
             "size) or the torch executor")
     row_first, row_last = plan.block_rows()
     arrays = dict(
-        vals=np.where(plan.valid, csr.vals[plan.atom_gather], 0).astype(
-            np.float32),
-        cols=csr.indices[plan.atom_gather].astype(np.int32),
+        vals=plan.gather(csr.vals).astype(np.float32),
+        cols=plan.gather(csr.indices).astype(np.int32),
         rel=rel.astype(np.int32),
         s0=s0,
         atom_starts=plan.atom_starts.astype(np.int32),
@@ -120,7 +119,12 @@ def flat_spmv(csr, plan, device="cpu"):
     )
     bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
+    empty = plan.num_atoms == 0
+
     def fn(b, x):
+        if empty:
+            # no nonzeros: y is zeros, and there is nothing to launch
+            return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
         if x.device.type == "cpu":
             return flat_spmv_plain(b, x, shape, R)
         return flat_spmv_cuda(b, x, shape, R)

@@ -86,9 +86,8 @@ def flat_spmv_v2(csr, plan, device="cpu"):
     """Build ``(bufs, fn(bufs, x))`` for CSR + a FlatBlockPlan."""
     row_first, row_last = plan.block_rows()
     arrays = dict(
-        vals=np.where(plan.valid, csr.vals[plan.atom_gather], 0).astype(
-            np.float32),
-        cols=csr.indices[plan.atom_gather].astype(np.int32),
+        vals=plan.gather(csr.vals).astype(np.float32),
+        cols=plan.gather(csr.indices).astype(np.int32),
         keep=_keep_flags(plan).astype(np.uint8),
         rel=plan.rel_tile.astype(np.int32),
         tile_starts=plan.tile_starts.astype(np.int32),
@@ -99,7 +98,12 @@ def flat_spmv_v2(csr, plan, device="cpu"):
     bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     shape = csr.shape
 
+    empty = plan.num_atoms == 0
+
     def fn(b, x):
+        if empty:
+            # no nonzeros: y is zeros, and there is nothing to launch
+            return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
         if x.device.type == "cpu":
             return flat_spmv_v2_plain(b, x, shape)
         return flat_spmv_v2_cuda(b, x, shape)

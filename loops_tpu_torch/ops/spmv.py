@@ -229,9 +229,8 @@ class SpMVOperator:
             bufs, fn = build(csr, plan, device=self.device)
             fn.meta["plan_ms"] = plan_ms  # host merge-path planning
             return bufs, fn
-        return self._flat_xla(
-            plan, vals=np.where(plan.valid, csr.vals[plan.atom_gather], 0),
-            gather_cols=csr.indices[plan.atom_gather])
+        return self._flat_xla(plan, vals=plan.gather(csr.vals),
+                              gather_cols=plan.gather(csr.indices))
 
     # ------------------------------------------------ flat torch executor
     def _flat_xla(self, plan, vals, gather_cols):
@@ -246,8 +245,12 @@ class SpMVOperator:
         ids = np.where(plan.valid, np.minimum(ids, rows), rows)
         bufs = dict(v=self._to(vals), gc=self._to(gather_cols),
                     ids=self._to(ids.reshape(-1)))
+        empty = plan.num_atoms == 0
 
         def fn(b, x):
+            if empty:
+                # no nonzeros (and perhaps no column to gather): zeros
+                return torch.zeros(rows, dtype=x.dtype, device=x.device)
             products = b["v"] * gather1d(x, b["gc"])       # [B, K]
             y = torch.zeros(rows + 1, dtype=x.dtype, device=x.device)
             return y.index_add_(0, b["ids"], products.reshape(-1))[:rows]

@@ -152,6 +152,17 @@ class FlatBlockPlan:
         last[has] = r0 + self.rel_tile[has, n[has] - 1]
         return first.astype(INDEX_DTYPE), last.astype(INDEX_DTYPE)
 
+    def gather(self, arr: np.ndarray) -> np.ndarray:
+        """``arr[atom_gather]`` with padding slots set to 0: a per-atom
+        array (values, columns) staged as [num_blocks, K]. A matrix with
+        no nonzeros has nothing to gather, and every slot is padding, so
+        its staged array is all zeros."""
+        arr = np.asarray(arr)
+        if arr.size == 0:
+            return np.zeros(self.atom_gather.shape, arr.dtype)
+        return np.where(self.valid, arr[self.atom_gather], 0).astype(
+            arr.dtype)
+
     @classmethod
     def from_arrays(cls, schedule: str, num_tiles: int, num_atoms: int,
                     block_atoms: int, tile_starts, atom_starts, atom_gather,

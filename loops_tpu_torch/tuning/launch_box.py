@@ -19,6 +19,8 @@ from dataclasses import dataclass
 class LaunchParams:
     # flat SpMV: atoms (+tiles for merge_path) per block
     spmv_block: int
+    # SpMM: widest feature tile one CTA of K4 covers (a multiple of 32)
+    spmm_block_f: int
     # device-memory bandwidth (GB/s) for roofline reporting
     hbm_gbps: float
     # peak dense bf16 tensor-core throughput (TFLOP/s)
@@ -28,16 +30,17 @@ class LaunchParams:
 
 # substring match on torch.cuda.get_device_name(), first match wins
 _TABLE = (
-    # spmv_block: carried from the v5e row's fallback block (1024),
-    # unmeasured on H100 (ROADMAP A7 sweeps it). Bandwidth and peak are
-    # NVIDIA's data-sheet figures for the H100 SXM at its 700 W limit.
-    ("H100", LaunchParams(1024, 3350.0, 989.0,
+    # spmv_block: carried from the v5e row's fallback block (1024);
+    # spmm_block_f: the v5e row's feature tile (256). Both unmeasured on
+    # H100 (ROADMAP A7 sweeps them). Bandwidth and peak are NVIDIA's
+    # data-sheet figures for the H100 SXM at its 700 W limit.
+    ("H100", LaunchParams(1024, 256, 3350.0, 989.0,
                           provenance="carried from v5e, unmeasured on H100")),
 )
 
 # CPU: tiny blocks so the multi-block paths are exercised in tests
-_CPU = LaunchParams(64, 0.0, 0.0, provenance="cpu test size")
-_FALLBACK = LaunchParams(1024, 0.0, 0.0, provenance="fallback")
+_CPU = LaunchParams(64, 128, 0.0, 0.0, provenance="cpu test size")
+_FALLBACK = LaunchParams(1024, 256, 0.0, 0.0, provenance="fallback")
 
 
 def launch_params(device="cpu") -> LaunchParams:

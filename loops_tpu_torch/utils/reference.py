@@ -11,8 +11,10 @@ Wilkinson forward-error bound ``K * nnz_row * eps * sum_j |A[r,j] * x[j]|``
 per row (any summation order satisfies it); a kernel that overruns the
 bound on rows where a plain f32 baseline does not is flagged POTENTIAL_BUG.
 This is how kernels whose summation order differs from the sequential
-loop (warp trees, segmented scans) are judged. Pure numpy: results from
-the device are handed over as host arrays.
+loop (warp trees, segmented scans) are judged. The SpMM half applies the
+same bound per (row, feature) entry. Host code only (numpy, and
+scipy.sparse for the SpMM products): results from the device are handed
+over as host arrays.
 """
 from __future__ import annotations
 
@@ -41,6 +43,24 @@ def spmv(csr, x, dtype=None) -> np.ndarray:
 def spmv_f64(csr, x) -> np.ndarray:
     """Double-accumulation reference (reference.hxx:146-166)."""
     return spmv(csr, x, dtype=np.float64)
+
+
+def _scipy_csr(csr, dtype, absolute: bool = False):
+    from scipy.sparse import csr_matrix
+
+    vals = csr.vals.astype(dtype)
+    return csr_matrix((np.abs(vals) if absolute else vals, csr.indices,
+                       csr.offsets), shape=csr.shape)
+
+
+def spmm(csr, B, dtype=None) -> np.ndarray:
+    """Host CSR x dense SpMM: C[r, :] = sum_nz vals * B[col, :], each row
+    summed in storage order in ``dtype`` (scipy's CSR product: the same
+    sums as ``loops_tpu``'s ``np.add.at`` loop, without the [nnz, F]
+    product array, so the validator stays quick at full width)."""
+    B = np.asarray(B)
+    dtype = dtype or np.result_type(csr.vals.dtype, B.dtype)
+    return np.asarray(_scipy_csr(csr, dtype) @ B.astype(dtype), dtype)
 
 
 def row_l1_products(csr, x) -> np.ndarray:
@@ -99,12 +119,97 @@ def rigorously_validate_spmv(csr, x, y_kernel,
     u = unit_roundoff(np.float32)
     bound = np.maximum(atol_floor, k * nnz_r * u * l1)
 
-    err_kernel = np.abs(y_kernel - y64)
-    err_naive = np.abs(y32 - y64)
-    denom = np.maximum(np.abs(y64), 1e-30)
+    return _report(k, y_kernel, y64, y32, bound)
+
+
+def spmm_l1_products(csr, B) -> np.ndarray:
+    """Per-entry ``sum_nz |v * B[col, f]|``: the conditioning term of the
+    SpMM bound, as ``|A| @ |B|`` in f64."""
+    return np.asarray(_scipy_csr(csr, np.float64, absolute=True)
+                      @ np.abs(np.asarray(B, np.float64)))
+
+
+def rigorously_validate_spmm(csr, B, C_kernel,
+                             k: float = DEFAULT_WILKINSON_K,
+                             atol_floor: float = DEFAULT_ATOL_FLOOR,
+                             mxu_bf16: bool = True) -> RigorousReport:
+    """Wilkinson validation for SpMM, per (row, feature) entry.
+
+    The same forward-error bound applies column-wise —
+    ``|C[r,f] - C64[r,f]| <= K * nnz_r * u * sum_nz |v * B[col, f]|``.
+    ``mxu_bf16=True`` widens u 256-fold, ``loops_tpu``'s constant for its
+    default-precision MXU paths (still far below bf16's own roundoff: the
+    bf16 mode is judged by ``rigorously_validate_spmm_bf16``); ``False``
+    holds an f32 path to the f32 roundoff.
+    """
+    B = np.asarray(B)
+    C_kernel = np.asarray(C_kernel, np.float64)
+    C64 = spmm(csr, B, dtype=np.float64)
+    C32 = spmm(csr, B, dtype=np.float32).astype(np.float64)
+    nnz_r = csr.row_sizes().astype(np.float64)[:, None]
+    u = (float(np.finfo(np.float32).eps) * 256.0 / 2.0 if mxu_bf16
+         else unit_roundoff(np.float32))
+    bound = np.maximum(atol_floor, k * nnz_r * u * spmm_l1_products(csr, B))
+    return _report(k, C_kernel, C64, C32, bound)
+
+
+def bf16_round(x) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even),
+    returned as float32 — the rounding of ``tensor.to(torch.bfloat16)``
+    and of CUDA's ``__float2bfloat16_rn`` for finite values (which stay
+    below 2**32 in the uint32 sum)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def bf16_products(csr, B) -> np.ndarray:
+    """[nnz, F] float32: ``bf16(bf16(v) * bf16(B[col, :]))``, the products
+    of the SpMM bf16 mode, in CSR order."""
+    v = bf16_round(csr.vals)
+    Bb = bf16_round(np.asarray(B, np.float32))
+    return bf16_round(v[:, None] * Bb[csr.indices])
+
+
+def rigorously_validate_spmm_bf16(csr, B, C_kernel,
+                                  k: float = DEFAULT_WILKINSON_K,
+                                  atol_floor: float = DEFAULT_ATOL_FLOOR
+                                  ) -> RigorousReport:
+    """Wilkinson validation of the SpMM bf16 mode, per entry, over its
+    bf16-rounded products: the mode rounds vals, B and each product to
+    bf16 by definition, so what is judged is the f32 summation —
+    ``|C[r,f] - sum_nz p| <= K * nnz_r * u32 * sum_nz |p|`` with the exact
+    sum taken in f64. (``rigorously_validate_spmm`` judges against the
+    unrounded inputs, whose bf16 rounding no f32 bound covers.)"""
+    B = np.asarray(B, np.float32)
+    rows, F = csr.shape[0], B.shape[1]
+    C64 = np.zeros((rows, F))
+    C32 = np.zeros((rows, F), np.float32)
+    l1 = np.zeros((rows, F))
+    nz = np.nonzero(csr.row_sizes())[0]
+    starts = csr.offsets[nz]
+    for f0 in range(0, F if len(nz) else 0, 32):  # bounded host memory
+        cols = slice(f0, min(f0 + 32, F))
+        p = bf16_products(csr, B[:, cols])
+        C64[nz, cols] = np.add.reduceat(p.astype(np.float64), starts, axis=0)
+        C32[nz, cols] = np.add.reduceat(p, starts, axis=0)
+        l1[nz, cols] = np.add.reduceat(np.abs(p).astype(np.float64), starts,
+                                       axis=0)
+    nnz_r = csr.row_sizes().astype(np.float64)[:, None]
+    bound = np.maximum(atol_floor,
+                       k * nnz_r * unit_roundoff(np.float32) * l1)
+    return _report(k, np.asarray(C_kernel, np.float64), C64,
+                   C32.astype(np.float64), bound)
+
+
+def _report(k, kernel, exact, naive, bound) -> RigorousReport:
+    err_kernel = np.abs(kernel - exact)
+    err_naive = np.abs(naive - exact)
+    denom = np.maximum(np.abs(exact), 1e-30)
     return RigorousReport(
         wilkinson_k=k,
-        naive_mismatches=count_errors(y_kernel, y32),
+        naive_mismatches=count_errors(kernel, naive),
         f32_baseline_overruns=int((err_naive > bound).sum()),
         kernel_overruns=int((err_kernel > bound).sum()),
         max_abs_error=float(err_kernel.max(initial=0.0)),

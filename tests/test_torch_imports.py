@@ -26,8 +26,10 @@ SLICE_MODULES = [
     "loops_tpu_torch.formats.convert",
     "loops_tpu_torch.formats.coo",
     "loops_tpu_torch.formats.csr",
+    "loops_tpu_torch.formats.csc",
     "loops_tpu_torch.io.filepath",
     "loops_tpu_torch.io.market",
+    "loops_tpu_torch.io.ogb",
     "loops_tpu_torch.layout.contract",
     "loops_tpu_torch.layout.views",
     "loops_tpu_torch.layout.merge_path",
@@ -39,6 +41,14 @@ SLICE_MODULES = [
     "loops_tpu_torch.ops.kernels.spmv_sorted",
     "loops_tpu_torch.ops.kernels.spmv_flat_v2",
     "loops_tpu_torch.ops.kernels.spmv_flat",
+    "loops_tpu_torch.ops.spmm",
+    "loops_tpu_torch.ops.kernels.spmm_flat",
+    "loops_tpu_torch.models",
+    "loops_tpu_torch.models.graph",
+    "loops_tpu_torch.models.message_passing",
+    "loops_tpu_torch.models.gcn",
+    "loops_tpu_torch.models.train",
+    "loops_tpu_torch.models.checkpoint",
 ]
 
 
@@ -55,6 +65,8 @@ def test_slice_imports_with_jax_blocked():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['loops_tpu'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "import loops_tpu_torch\n"
@@ -153,7 +165,7 @@ def test_launch_box_rows(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     h100 = launch_box.launch_params(torch.device("cuda", 0))
-    assert h100.spmv_block == 1024
+    assert h100.spmv_block == 1024 and h100.spmm_block_f == 256
     assert "unmeasured on H100" in h100.provenance
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Other")
     assert launch_box.launch_params("cuda").provenance == "fallback"

@@ -121,6 +121,25 @@ def test_operator_records_impl_used(schedule, impl, used):
         assert op.meta["plan_ms"] >= 0
 
 
+@pytest.mark.parametrize("schedule,impl", [
+    ("row_mapped", "xla"), ("group_mapped", "xla"),
+    ("work_oriented", "xla"), ("merge_path", "xla"), ("auto", "xla"),
+    ("merge_path", "pallas"), ("merge_path", "pallas2"),
+    ("work_oriented", "pallas"), ("work_oriented", "pallas2"),
+    ("merge_path", "pallas3"), ("sorted_flat", "xla")])
+@pytest.mark.parametrize("shape", [(3, 4), (0, 5), (6, 0)])
+def test_empty_matrix_gives_zeros(shape, schedule, impl):
+    # nnz == 0: loops_tpu raises IndexError staging the flat executors'
+    # buffers; the port stages all-padding blocks and returns zeros
+    rows, cols = shape
+    empty = tf.CSR(shape, np.zeros(rows + 1, np.int64),
+                   np.zeros(0, np.int64), np.zeros(0, np.float32))
+    op = SpMVOperator(empty, schedule, block=8, impl=impl)
+    y = op(np.ones(cols, np.float32))
+    assert tuple(y.shape) == (rows,) and not y.any()
+    assert op.launches == 0
+
+
 def test_unported_knobs_raise():
     csr = generate.random_csr(10, 10, 0.3, seed=1)
     for kw in (dict(reorder="degree"), dict(plan_cache="/nonexistent"),
