@@ -7,7 +7,7 @@ Phases, one line each with its time:
 
 1. card:   ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build:  nvcc builds the kernels from ``loops_tpu_torch/csrc`` (one nvcc
-   per source, in parallel, then one link): K1–K3 and K4;
+   per source, in parallel, then one link): K1–K3, K4 and K6–K9;
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
@@ -43,13 +43,37 @@ Phases, one line each with its time:
    (``torch.sparse.mm``, timed only), with the host plan time; one GCN
    train step of each form and one full-graph ``evaluate`` (CUDA events
    around each call, median), and a ``torch.profiler`` breakdown of a step
-   and an ``evaluate``.
+   and an ``evaluate``;
+11. K6–K9 vs plain: K6 (``bcsr_spmv``), K9 (``bcsr_spmm``), K8
+   (``bcsr_spmm_v2``) and K7 (``bcsr_spmm_v3``) against their plain PyTorch
+   versions on the same staged buffers: the five matrices of
+   ``tests/test_bcsr_kernels.py`` in blocks 8x128 and 16x128, F in {20,
+   300} at ``block_f`` 128, f32 and (K7, K8) bf16, then the bench's two
+   regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512; 32768^2 at 1.5%
+   for K6): agreement, the Wilkinson verdict (over sampled rows at bench
+   scale), two applies bitwise equal, the launch counter;
+12. the BCSR main path: ``examples/spmm_torch.py --format bcsr`` with
+   ``--impl pallas`` and with the torch path, ``SpMVOperator(bcsr,
+   impl="pallas")`` on the 32768^2 regime, and ``SpMMOperator`` with
+   ``pallas3`` (f32 and bf16), ``pallas2`` (f32 and bf16) and ``pallas``
+   on the 16384^2, F = 512 regime, each checked in f64 on 256 sampled
+   rows. The launch counters are set to 0 before and read after: each of
+   K6–K9 must have launched;
+13. timing of K6–K9 (plain, kernel, kernel, plain), cuSPARSE on the CSR
+   form of the same matrix and ``torch.sparse_bsr_tensor`` (timed only),
+   the host staging time, GFLOP/s as the JAX bench reports it, and the
+   bound; a ``torch.profiler`` breakdown of each f32 apply.
+
+Each kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its flops over the H100
+SXM's peak for its type (67 TFLOP/s f32 on the CUDA cores, 989 bf16).
 
 The kernel-vs-plain tolerance is twice the Wilkinson bound the validator
 uses (``2 * 4 * nnz_row * u * sum|a*x|``, floor 1e-6): both results lie
 within one bound of the exact row sum, whatever their summation order.
 For K4 in bf16 the bound is over the bf16-rounded products, which both
-sides form identically.
+sides form identically; for K7/K8 in bf16 over the bf16-rounded A and B,
+whose products are exact in f32.
 
 It exits non-zero, and prints no result, when no card is visible or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -94,6 +118,25 @@ SPMM_FS = (5, 40, 128)
 SPMM_BLOCKS = (8, 512)
 DTYPES = (None, "bfloat16")
 GCN_HIDDEN = 128
+BCSR_SOURCE = "loops_tpu_torch/csrc/bcsr.cu"
+BCSR_KERNELS = {
+    # name -> (TPU kernel it replaces, operator impl, modes)
+    "bcsr_spmv": ("loops_tpu/ops/kernels/spmv_bcsr.py:43", "pallas", (None,)),
+    "bcsr_spmm": ("loops_tpu/ops/kernels/spmm_bcsr.py:60", "pallas", (None,)),
+    "bcsr_spmm_v2": ("loops_tpu/ops/kernels/spmm_bcsr_v2.py:33", "pallas2",
+                     DTYPES),
+    "bcsr_spmm_v3": ("loops_tpu/ops/kernels/spmm_bcsr_v3.py:100", "pallas3",
+                     DTYPES),
+}
+BCSR_BLOCKS = ((8, 128), (16, 128))
+BCSR_FS = (20, 300)
+# the JAX bench's regimes (bench.py:226-228, :371-372)
+SPMM_REGIME = dict(N=16384, R=8, C=128, block_density=0.06)
+SPMM_F = 512
+SPMV_REGIME = dict(N=32768, R=8, C=128, block_density=0.015)
+# H100 SXM at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {None: 67e12, "bfloat16": 989e12}
 
 
 class PhaseFailed(RuntimeError):
@@ -255,6 +298,166 @@ def backward_vs_plain(graph, rows, F, dtype, device):
                       h.grad.cpu().numpy(), plain.cpu().numpy(), dtype)
 
 
+def bound(nbytes, flops, dtype=None):
+    """``(ms, "bytes" or "operations")``: the least time the card could
+    take to move ``nbytes`` and do ``flops``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_spmv_bound(csr):
+    """y = A x over CSR: offsets, cols, vals and x read, y written."""
+    rows, cols = csr.shape
+    nbytes = 4 * (rows + 1) + 8 * csr.nnz + 4 * cols + 4 * rows
+    return bound(nbytes, 2 * csr.nnz)
+
+
+def csr_spmm_bound(csr, F):
+    rows, cols = csr.shape
+    nbytes = 4 * (rows + 1) + 8 * csr.nnz + 4 * F * (cols + rows)
+    return bound(nbytes, 2 * csr.nnz * F)
+
+
+def bcsr_bound(bcsr, F=None, dtype=None):
+    """BCSR SpMV (``F`` None) or SpMM: the stored blocks, block columns
+    and offsets, x or B read (in the stream type), y or C (f32) written;
+    2 flops per stored value and feature."""
+    rows, cols = bcsr.shape
+    es = 2 if dtype else 4
+    index = 4 * (bcsr.num_blocks + bcsr.num_block_rows + 1)
+    if F is None:
+        return bound(index + 4 * bcsr.nnz + 4 * (cols + rows), 2 * bcsr.nnz)
+    return bound(index + es * (bcsr.nnz + F * cols) + 4 * F * rows,
+                 2 * bcsr.nnz * F, dtype)
+
+
+def bcsr_plain(kname, op):
+    """The plain version of ``op``'s kernel over ``op``'s staged
+    buffers."""
+    from loops_tpu_torch.ops.kernels import (
+        spmm_bcsr,
+        spmm_bcsr_v2,
+        spmm_bcsr_v3,
+        spmv_bcsr,
+    )
+
+    b, shape = op._bufs, op.mat.shape
+    if kname == "bcsr_spmv":
+        return lambda x: spmv_bcsr.bcsr_spmv_plain(b, x, shape)
+    if kname == "bcsr_spmm":
+        return lambda B: spmm_bcsr.bcsr_spmm_plain(b, B, shape)
+    if kname == "bcsr_spmm_v2":
+        return lambda B: spmm_bcsr_v2.bcsr_spmm_v2_plain(b, B, shape,
+                                                         op.dtype)
+    return lambda B: spmm_bcsr_v3.bcsr_spmm_v3_plain(b, B, shape, op.meta,
+                                                     op.dtype)
+
+
+def rounded_operands(csr, B, dtype):
+    """The CSR and B a mode multiplies: bf16-rounded in bf16 mode."""
+    from loops_tpu_torch.formats import CSR
+    from loops_tpu_torch.utils import reference
+
+    if dtype is None:
+        return csr, B
+    return (CSR(csr.shape, csr.offsets, csr.indices,
+                reference.bf16_round(csr.vals)), reference.bf16_round(B))
+
+
+def run_twice(kname, op, x):
+    """Two applies of ``op``: the launch counter goes up by 2 and the
+    results are bitwise equal; returns the first."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import _build
+
+    before = _build.LAUNCHES[kname]
+    y1, y2 = op(x), op(x)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES[kname] == before + 2,
+            f"{kname}: launch counter did not go up by 2")
+    require(torch.equal(y1, y2), f"{kname}: two applies are not bitwise "
+            "equal")
+    return y1
+
+
+def bcsr_spmv_vs_plain(label, csr, bcsr, device):
+    """K6 twice and its plain version once; the full validator."""
+    import torch
+
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import reference
+
+    op = SpMVOperator(bcsr, impl="pallas", device=device)
+    require(op.impl_used == "bcsr_spmv", f"{label}: took {op.impl_used}")
+    x = np.random.default_rng(5).normal(size=csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    y = run_twice("bcsr_spmv", op, xd).cpu().numpy()
+    yp = bcsr_plain("bcsr_spmv", op)(xd).cpu().numpy()
+    require(y.shape == (csr.shape[0],) and np.all(np.isfinite(y)),
+            f"{label}: bad output")
+    diff = np.abs(y.astype(np.float64) - yp)
+    require(np.all(diff <= pair_tolerance(csr, x)),
+            f"{label}: kernel and plain differ by {diff.max():.3e}")
+    rep = reference.rigorously_validate_spmv(csr, x, y)
+    require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
+    return float(diff.max(initial=0.0))
+
+
+def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
+                       block_f=128, sampled=False):
+    """One SpMM kernel twice and its plain version once on the same
+    staged buffers. Small matrices take the full validator; at bench
+    scale (``sampled``) the pair tolerance is formed on the card and the
+    validator checks 256 sampled rows."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import spmm_bcsr
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.utils import reference
+
+    impl = BCSR_KERNELS[kname][1]
+    op = SpMMOperator(bcsr, "row_mapped", impl, block_f=block_f,
+                      dtype=dtype, device=device)
+    require(op.impl_used == kname, f"{label}: took {op.impl_used}")
+    Bd = torch.from_numpy(B).to(device)
+    C = run_twice(kname, op, Bd)
+    plain = bcsr_plain(kname, op)(Bd)
+    require(tuple(C.shape) == (csr.shape[0], B.shape[1])
+            and bool(torch.isfinite(C).all()), f"{label}: bad output")
+    ops_csr, ops_B = rounded_operands(csr, B, dtype)
+    diff = (C.double() - plain.double()).abs()
+    if sampled:
+        vals = np.abs(bcsr.vals)
+        vals = reference.bf16_round(vals) if dtype else vals
+        absolute = {k: torch.from_numpy(a).to(device) for k, a in (
+            ("offsets", bcsr.block_offsets), ("bcols", bcsr.block_cols),
+            ("vals", vals))}
+        l1 = spmm_bcsr.bcsr_spmm_plain(
+            absolute, torch.from_numpy(np.abs(ops_B)).to(device),
+            bcsr.shape)
+        nnz_r = torch.from_numpy(csr.row_sizes().astype(np.float32)).to(
+            device)[:, None]
+        tol = torch.clamp(2 * reference.DEFAULT_WILKINSON_K * nnz_r
+                          * reference.unit_roundoff(np.float32) * l1,
+                          min=1e-6)
+        require(bool((diff <= tol).all()),
+                f"{label}: kernel and plain differ by {diff.max():.3e}")
+        rep = reference.validate_sampled_rows(ops_csr, ops_B, C)
+        require(rep.overruns == 0, f"{label}: {rep}")
+    else:
+        C = C.cpu().numpy()
+        diff = diff.cpu().numpy()
+        require(np.all(diff <= spmm_pair_tolerance(ops_csr, ops_B, None)),
+                f"{label}: kernel and plain differ by {diff.max():.3e}")
+        rep = reference.rigorously_validate_spmm(ops_csr, ops_B, C,
+                                                 mxu_bf16=False)
+        require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
+    return float(diff.max())
+
+
 def run_example(name, args):
     """``examples/<name>`` main() in this process; returns (status,
     stdout, stderr)."""
@@ -266,6 +469,201 @@ def run_example(name, args):
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         status = mod.main(args)
     return status, out.getvalue(), err.getvalue()
+
+
+def bcsr_phases(device, smi):
+    """Phases 11-13 (the BCSR tier); returns the max |kernel - plain| per
+    kernel, the main path's launch counts and the timings."""
+    import torch
+
+    from loops_tpu_torch.formats import BCSR
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import generate, reference
+    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.equal import count_mismatches
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+
+    # ---- 11. K6-K9 vs plain
+    t0 = time.perf_counter()
+    bcsr_err = {k: 0.0 for k in BCSR_KERNELS}
+    n_cases = 0
+    for mname, make in generate.BCSR_CASES.items():
+        csr = make()
+        B_all = np.random.default_rng(9).normal(
+            size=(csr.shape[1], max(BCSR_FS))).astype(np.float32)
+        for block in BCSR_BLOCKS:
+            bcsr = BCSR.from_csr(csr, *block)
+            label = f"{mname} {block[0]}x{block[1]}"
+            bcsr_err["bcsr_spmv"] = max(bcsr_err["bcsr_spmv"],
+                                        bcsr_spmv_vs_plain(label, csr, bcsr,
+                                                           device))
+            n_cases += 1
+            for F in BCSR_FS:
+                B = np.ascontiguousarray(B_all[:, :F])
+                for kname, (_, _, modes) in BCSR_KERNELS.items():
+                    for dtype in modes if kname != "bcsr_spmv" else ():
+                        bcsr_err[kname] = max(bcsr_err[kname],
+                                              bcsr_spmm_vs_plain(
+                            f"{label} F={F} {kname} {dtype or 'f32'}",
+                            kname, csr, bcsr, B, dtype, device))
+                        n_cases += 1
+    th = time.perf_counter()
+    spmv_csr, spmv_bcsr = generate.build_block_sparse(**SPMV_REGIME)
+    spmm_csr, spmm_bcsr = generate.build_block_sparse(**SPMM_REGIME)
+    regime_s = time.perf_counter() - th
+    print(f"  bench regimes built in {regime_s:.2f} s: SpMM "
+          f"{spmm_csr.shape[0]}^2, {spmm_bcsr.num_blocks} blocks of "
+          f"{spmm_bcsr.block_shape}, {spmm_csr.nnz} stored values; SpMV "
+          f"{spmv_csr.shape[0]}^2, {spmv_bcsr.num_blocks} blocks, "
+          f"{spmv_csr.nnz} stored values")
+    bcsr_err["bcsr_spmv"] = max(bcsr_err["bcsr_spmv"], bcsr_spmv_vs_plain(
+        "bench 32768", spmv_csr, spmv_bcsr, device))
+    n_cases += 1
+    B_bench = np.random.default_rng(1).normal(
+        size=(spmm_csr.shape[1], SPMM_F)).astype(np.float32)
+    for kname, (_, _, modes) in BCSR_KERNELS.items():
+        for dtype in modes if kname != "bcsr_spmv" else ():
+            bcsr_err[kname] = max(bcsr_err[kname], bcsr_spmm_vs_plain(
+                f"bench 16384 F={SPMM_F} {kname} {dtype or 'f32'}", kname,
+                spmm_csr, spmm_bcsr, B_bench, dtype, device, block_f=SPMM_F,
+                sampled=True))
+            n_cases += 1
+    phase(11, "K6-K9 vs plain", t0,
+          f"{n_cases} cases, max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in bcsr_err.items()) + " ")
+
+    # ---- 12. the BCSR main path
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    for case in (["--impl", "pallas"], []):
+        status, out, err = run_example(
+            "spmm_torch.py", ["--format", "bcsr", "--validate", "--device",
+                              "cuda", *case])
+        csv = [ln for ln in out.splitlines() if ln.startswith("spmm_")]
+        print(f"  spmm_torch --format bcsr {' '.join(case)}: "
+              f"{csv[0] if csv else '?'} | {err.strip()}")
+        require(status == 0 and "Errors: 0" in out,
+                f"spmm_torch {case}: exit status {status}\n{out}{err}")
+        want = "bcsr_spmm" if case else "torch"
+        require(f"impl_used: {want}" in err, f"spmm_torch {case}: {err}")
+    x_spmv = generate.make_input_vector(spmv_csr.shape[1])
+    th = time.perf_counter()
+    spmv_op = SpMVOperator(spmv_bcsr, impl="pallas", device=device)
+    spmv_build_ms = (time.perf_counter() - th) * 1e3
+    y = spmv_op(x_spmv).cpu().numpy()
+    errors = count_mismatches(y, reference.spmv(spmv_csr, x_spmv))
+    rep = reference.rigorously_validate_spmv(spmv_csr, x_spmv, y)
+    print(f"  SpMVOperator(bcsr, impl='pallas') at {spmv_csr.shape[0]}^2: "
+          f"Errors: {errors}, Verdict {rep.verdict}, launches "
+          f"{spmv_op.launches}, host staging {spmv_build_ms:.1f} ms")
+    require(errors == 0 and rep.verdict == "NOT_A_BUG" and
+            spmv_op.launches == 1, f"bcsr SpMV: {errors} errors, {rep}")
+    Bd = torch.from_numpy(B_bench).to(device)
+    spmm_ops = {}
+    for kname, (_, impl, modes) in BCSR_KERNELS.items():
+        for dtype in modes if kname != "bcsr_spmv" else ():
+            th = time.perf_counter()
+            op = SpMMOperator(spmm_bcsr, "row_mapped", impl, block_f=SPMM_F,
+                              dtype=dtype, device=device)
+            build_ms = (time.perf_counter() - th) * 1e3
+            C = op(Bd)
+            torch.cuda.synchronize()
+            ops_csr, ops_B = rounded_operands(spmm_csr, B_bench, dtype)
+            rep = reference.validate_sampled_rows(ops_csr, ops_B, C)
+            print(f"  SpMMOperator(bcsr, {impl!r}, dtype={dtype}) at "
+                  f"{spmm_csr.shape[0]}^2 F={SPMM_F}: {op.impl_used}, "
+                  f"launches {op.launches}, {rep}, host staging "
+                  f"{build_ms:.1f} ms, tiles "
+                  + json.dumps({k: v for k, v in op.meta.items()
+                                if k != "num_blocks"}))
+            require(op.impl_used == kname and op.launches == 1,
+                    f"{kname}: took {op.impl_used}, {op.launches} launches")
+            require(C.shape == (spmm_csr.shape[0], SPMM_F)
+                    and bool(torch.isfinite(C).all()) and rep.overruns == 0
+                    and rep.rel_error < 1e-5, f"{kname} {dtype}: {rep}")
+            op.build_ms = build_ms
+            spmm_ops[kname, dtype] = op
+            del C
+    bcsr_launches = dict(_build.LAUNCHES)
+    for kname in BCSR_KERNELS:
+        require(bcsr_launches[kname] > 0,
+                f"{kname} never launched on the BCSR main path")
+    phase(12, "BCSR main path", t0, "main-path launches "
+          + json.dumps({k: bcsr_launches[k] for k in BCSR_KERNELS})
+          + f" [{smi}] ")
+
+    # ---- 13. timing: plain, kernel, kernel, plain; cuSPARSE; bounds
+    t0 = time.perf_counter()
+
+    def library(A, fn, v):
+        try:
+            return apply_ms(lambda u: fn(A, u), v)
+        except (RuntimeError, NotImplementedError) as e:
+            # timed only: a format or type torch refuses
+            print(f"  library call not run ({str(e).splitlines()[0]})")
+            return None
+
+    def csr_on_card(csr):
+        return torch.sparse_csr_tensor(
+            *(torch.from_numpy(a).to(device)
+              for a in (csr.offsets, csr.indices, csr.vals)),
+            size=csr.shape)
+
+    def bsr_on_card(bcsr):
+        return torch.sparse_bsr_tensor(
+            *(torch.from_numpy(a).to(device)
+              for a in (bcsr.block_offsets, bcsr.block_cols, bcsr.vals)),
+            size=bcsr.shape)
+
+    bcsr_times = {}
+    xd = torch.from_numpy(x_spmv).to(device)
+    runs = [("bcsr_spmv", None, spmv_op, xd, spmv_csr, spmv_bcsr)] + [
+        (k, d, op, Bd, spmm_csr, spmm_bcsr)
+        for (k, d), op in spmm_ops.items()]
+    lib = {}
+    for csr, mat, v, fn in ((spmv_csr, spmv_bcsr, xd, torch.mv),
+                            (spmm_csr, spmm_bcsr, Bd, torch.matmul)):
+        A = csr_on_card(csr)
+        lib[mat.shape, "csr"] = library(A, fn, v)
+        del A
+        A = bsr_on_card(mat)
+        lib[mat.shape, "bsr"] = library(A, fn, v)
+        del A
+    for kname, dtype, op, v, csr, mat in runs:
+        plain = bcsr_plain(kname, op)
+        p1 = apply_ms(plain, v)
+        k1 = apply_ms(op, v)
+        k2 = apply_ms(op, v)
+        p2 = apply_ms(plain, v)
+        F = None if kname == "bcsr_spmv" else SPMM_F
+        b_ms, b_by = bcsr_bound(mat, F, dtype)
+        ms = (k1 + k2) / 2
+        work = 2 * csr.nnz * (F or 1)
+        lib_csr, lib_bsr = lib[mat.shape, "csr"], lib[mat.shape, "bsr"]
+        bcsr_times[kname, dtype] = dict(
+            ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_csr)
+        staging = getattr(op, "build_ms", spmv_build_ms)
+        lib_csr_s = "not run" if lib_csr is None else f"{lib_csr:.4f} ms"
+        lib_bsr_s = "not run" if lib_bsr is None else f"{lib_bsr:.4f} ms"
+        print(f"  {kname} {dtype or 'f32'} at {csr.shape[0]}^2"
+              + (f" F={F}" if F else "") + f": kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, cuSPARSE CSR {lib_csr_s}, "
+              f"torch BSR {lib_bsr_s}"
+              f"; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; "
+              f"{work / ms / 1e6:.0f} GFLOP/s; host staging {staging:.1f} ms"
+              f"  [{smi}]")
+    for kname, dtype, op, v, csr, mat in runs:
+        if dtype is None:
+            r = profile_applies(op, v, applies=10, warmup=2)
+            print(f"  profile {kname}: wall {r['wall_ms']:.4f} ms, device "
+                  f"{r['device_ms']:.4f} ms, idle {r['idle_share']:.1%}; "
+                  + "; ".join(f"{name[:40]} x{n:g} {ms:.4f} ms"
+                              for name, n, ms in r["kernels"][:4]))
+    phase(13, "BCSR timing (CUDA events, median per apply)", t0)
+    return bcsr_err, bcsr_launches, bcsr_times
 
 
 def main() -> int:
@@ -586,7 +984,8 @@ def main() -> int:
         except RuntimeError as e:  # timed only: a dtype cuSPARSE refuses
             cs = None
             print(f"  cuSPARSE {name}: not run ({str(e).splitlines()[0]})")
-        spmm_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+        spmm_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                library_ms=cs)
         print(f"  arxiv_gcn F=128 {name}: K4 {k1:.4f}/{k2:.4f} ms, plain "
               f"{p1:.4f}/{p2:.4f} ms, group_mapped {gm:.4f} ms, row_mapped "
               f"{rm:.4f} ms, cuSPARSE "
@@ -631,19 +1030,35 @@ def main() -> int:
               + "; ".join(f"{name[:48]} x{n:g} {ms:.4f} ms"
                           for name, n, ms in r["kernels"][:8]))
     phase(10, "GCN timing (CUDA events, median)", t0)
+    del model, ref, fast, slow, step, step_f32, on_card, Bd
+    torch.cuda.empty_cache()
+
+    bcsr_err, bcsr_launches, bcsr_times = bcsr_phases(device, smi)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    kernels = [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
-         "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": times["big_2097152", k]["ms"],
-         "plain_ms": times["big_2097152", k]["plain_ms"]}
-        for k, (rep_at, _, _) in KERNELS.items()]
+    kernels = []
+    big = mats["big_2097152"][0]
+    for k, (rep_at, _, _) in KERNELS.items():
+        b_ms, b_by = csr_spmv_bound(big)
+        kernels.append(
+            {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
+             "launches": launches[k], "max_abs_err": max_err[k],
+             "ms": times["big_2097152", k]["ms"],
+             "plain_ms": times["big_2097152", k]["plain_ms"],
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": times["big_2097152", k]["cusparse_ms"]})
+    b_ms, b_by = csr_spmm_bound(adj, 128)
     kernels.append(
         {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES, "launches": gcn_launches["flat_spmm"],
          "max_abs_err": spmm_err, "ms": spmm_times["f32"]["ms"],
-         "plain_ms": spmm_times["f32"]["plain_ms"]})
+         "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": spmm_times["f32"]["library_ms"]})
+    for k, (rep_at, _, _) in BCSR_KERNELS.items():
+        kernels.append(
+            {"name": k, "route": "cuda", "source": BCSR_SOURCE,
+             "replaces": rep_at, "launches": bcsr_launches[k],
+             "max_abs_err": bcsr_err[k], **bcsr_times[k, None]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

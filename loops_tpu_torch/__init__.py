@@ -7,13 +7,13 @@ schedule* as the JAX package beside it. The module tree and names follow
 ``loops_tpu`` so that each part has its counterpart at the same relative
 path:
 
-- **formats**: host-side numpy sparse containers (COO/CSR) with
-  ``to_device`` staging into torch tensors.
+- **formats**: host-side numpy sparse containers (COO, CSR, CSC, BCSR)
+  with ``to_device`` staging into torch tensors.
 - **io**: the Matrix Market loader and OGB-style node datasets.
 - **layout**: the tile/atom layout contract and the merge-path partitioner.
 - **schedule**: host planners: row_mapped, group_mapped, work_oriented,
   merge_path, and ``choose_schedule`` for ``auto``.
-- **ops**: CSR SpMV and SpMM on top of the planners; plain torch
+- **ops**: CSR and BCSR SpMV and SpMM on top of the planners; plain torch
   executors plus hand-written CUDA kernels (``ops/kernels``, sources in
   ``csrc/``).
 - **models**: the GNN tier so far: graph container, message passing with

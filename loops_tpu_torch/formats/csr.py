@@ -83,7 +83,8 @@ class CSR:
         _not_ported("ELL")
 
     def to_bcsr(self, block_rows: int, block_cols: int):
-        _not_ported("BCSR")
+        from loops_tpu_torch.formats.bcsr import BCSR
+        return BCSR.from_csr(self, block_rows, block_cols)
 
     def to_dia(self, max_diagonals: int | None = None):
         _not_ported("DIA")

@@ -1,5 +1,5 @@
 """Layout views + the merge-path partitioner: the tile/atom contract and
-its CSR-slice implementations (reference: include/loops/container/
+its implementations for the ported formats (reference: include/loops/container/
 layout.hxx + partitioning.hxx)."""
 from loops_tpu_torch.layout.contract import (  # noqa: F401
     Layout,
@@ -11,6 +11,7 @@ from loops_tpu_torch.layout.merge_path import (  # noqa: F401
     merge_path_reference,
 )
 from loops_tpu_torch.layout.views import (  # noqa: F401
+    BcsrLayout,
     CooLayout,
     CsrLayout,
     OffsetsLayout,

@@ -1,13 +1,14 @@
-"""Layout views for the CSR slice (reference: include/loops/container/
-layout.hxx:87-149, 385-421). The CSC, ELL, BCSR and DIA views come with
-their formats (ROADMAP A6).
+"""Layout views of the ported formats (reference: include/loops/
+container/layout.hxx:87-149, 239-285, 385-421). The CSC, ELL and DIA
+views come with their formats (ROADMAP A6).
 
-=========  ==================  ==========================  ================
-view       tile                atom                        tile_offsets
-=========  ==================  ==========================  ================
-CsrLayout  row                 nonzero                     row offsets
-CooLayout  nonzero (==atom)    nonzero                     arange (closed)
-=========  ==================  ==========================  ================
+==========  ==================  ==========================  ================
+view        tile                atom                        tile_offsets
+==========  ==================  ==========================  ================
+CsrLayout   row                 nonzero                     row offsets
+BcsrLayout  block-row           stored RxC block            block offsets
+CooLayout   nonzero (==atom)    nonzero                     arange (closed)
+==========  ==================  ==========================  ================
 """
 from __future__ import annotations
 
@@ -33,6 +34,15 @@ class CsrLayout(OffsetsLayout):
     @classmethod
     def from_csr(cls, csr):
         return cls(csr.offsets)
+
+
+class BcsrLayout(OffsetsLayout):
+    """Tiles are block-rows, atoms are stored block ids
+    (layout.hxx:239-285)."""
+
+    @classmethod
+    def from_bcsr(cls, bcsr):
+        return cls(bcsr.block_offsets)
 
 
 class CooLayout(Layout):

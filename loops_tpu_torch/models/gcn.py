@@ -93,7 +93,7 @@ class GCN(nn.Module):
                  schedule: str = "auto", impl: str = "xla",
                  remat: bool = False, dtype=None,
                  precompute_first: bool = False, loss_rows=None,
-                 device="cpu", generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         self.device = ensure_platform(device)
         self.dims = list(dims)

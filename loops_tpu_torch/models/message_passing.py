@@ -29,7 +29,7 @@ def _transpose_csr(csr: CSR) -> CSR:
 
 
 def _route_aggregation(adj, dtype, op: str = "gcn",
-                       device="cpu") -> tuple[str, str]:
+                       device="cuda") -> tuple[str, str]:
     """Resolve ``schedule="auto"`` to ``(schedule, impl)``.
 
     On a CUDA device a CSR sum or GCN aggregation goes to K4
@@ -40,7 +40,7 @@ def _route_aggregation(adj, dtype, op: str = "gcn",
     as in ``loops_tpu``. The rule is not fitted on the H100 yet (ROADMAP
     A7): PERF.md holds K4 against ``group_mapped`` in both dtypes.
     """
-    if (torch.device(device).type == "cuda" and isinstance(adj, CSR)
+    if (ensure_platform(device).type == "cuda" and isinstance(adj, CSR)
             and op != "mean"):
         return "merge_path", "pallas"
     return "group_mapped", "xla"
@@ -78,7 +78,7 @@ def _with_gradient(fwd_op: SpMMOperator, bwd_op: SpMMOperator):
 
 def aggregate_operator(graph: Graph, op: str = "sum",
                        schedule: str = "auto", impl: str = "xla",
-                       custom_vjp: bool = True, dtype=None, device="cpu"):
+                       custom_vjp: bool = True, dtype=None, device="cuda"):
     """Build the SpMM operator ``h -> A @ h`` for sum/mean/gcn
     aggregation.
 
@@ -152,7 +152,7 @@ def mask_rows(rows, n: int) -> np.ndarray:
 
 def masked_aggregate_operator(graph: Graph, rows, op: str = "gcn",
                               schedule: str = "auto", impl: str = "xla",
-                              dtype=None, device="cpu"):
+                              dtype=None, device="cuda"):
     """Aggregation restricted to the output rows the loss reads.
 
     Full-graph training only consumes logits at the labeled rows, so the

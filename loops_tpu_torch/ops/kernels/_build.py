@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
-            "flat_spmm": 0}
+            "flat_spmm": 0, "bcsr_spmv": 0, "bcsr_spmm": 0,
+            "bcsr_spmm_v2": 0, "bcsr_spmm_v3": 0}
 
 # seconds the last build took in this process (0.0 when the library
 # came from an earlier build of the same sources)
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "loops_flat_spmv_v2_f32": [_P] * 11 + [_I, _I, _P],
     "loops_flat_spmv_f32": [_P] * 10 + [_I, _I, _I, _P],
     "loops_flat_spmm": [_P] * 9 + [_I] * 5 + [_P],
+    "loops_bcsr_spmv_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "loops_bcsr_spmm_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 11 + [_P],
+    "loops_bcsr_spmm_v3": [_P] * 9 + [_I] * 12 + [_P],
 }
 
 _lib = None

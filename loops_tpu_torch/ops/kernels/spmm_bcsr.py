@@ -1,0 +1,169 @@
+"""K9: BCSR SpMM, one block row at a time (``SpMMOperator(bcsr,
+impl='pallas')``).
+
+Replaces ``loops_tpu/ops/kernels/spmm_bcsr.py`` (``bcsr_spmm_pallas``):
+``C[rows, F] = A(bcsr) @ B[cols, F]`` in f32, where the TPU kernel takes
+one stored block per grid step and keeps the output tile resident while
+the blocks of its row pass.
+
+The CUDA kernel (``csrc/bcsr.cu`` ``bcsr_spmm_kernel``) gives one CTA of
+128 threads to each (block row, group of 8 rows, feature tile of
+128 * FPT columns, FPT = ``block_f / 128`` up to 4): each stored block of
+the row, in order, is staged 8 x 128 at a time in shared memory and
+every thread keeps 8 x FPT sums in registers, reading rows of B
+coalesced. What bounds it on an H100: 2 flops per stored value and
+feature on the CUDA cores (IEEE f32, no TF32), and B tiles read once per
+(stored block, feature tile), mostly from L2.
+
+An empty block row's CTAs write its zeros, so the TPU's
+``_pad_empty_rows`` (zero blocks inserted so every output tile is
+visited) is dropped, with the TPU's B padding to 128-lane tiles. Kept:
+``R % 8 == 0`` and ``C % 128 == 0``, f32 only.
+
+``bcsr_spmm_plain`` is the plain version, and in the values' own type
+(f32 or f64) also the operators' ``impl='xla'`` executor for BCSR.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.ops.kernels.spmm_flat import BF16
+from loops_tpu_torch.ops.kernels.spmv_bcsr import stage
+from loops_tpu_torch.utils.platform import ensure_platform
+
+LANES = 128
+MAX_FPT = 4
+
+
+def check_blocks(bcsr) -> None:
+    """Raise ``ValueError`` unless the BCSR SpMM kernels take the block
+    shape (K7, K8 and K9 alike)."""
+    R, C = bcsr.block_shape
+    if R % 8 or C % LANES:
+        raise ValueError(
+            f"BCSR SpMM kernels need R%8==0 and C%128==0, got {R}x{C}")
+
+
+def features_per_thread(F: int, block_f: int) -> int:
+    """Feature columns per thread of K9: ``block_f / 128``, at most 4 and
+    no more than F needs."""
+    block_f = int(block_f)
+    if block_f < LANES or block_f % LANES:
+        raise ValueError(f"block_f={block_f}: K9's feature tile is a "
+                         f"positive multiple of {LANES} columns")
+    return max(1, min(block_f // LANES, MAX_FPT, -(-F // LANES)))
+
+
+def bcsr_spmm_cuda(b: dict, B: torch.Tensor, shape,
+                   block_f: int = 512) -> torch.Tensor:
+    """Launch K9 on the staged buffers: C [rows, F] float32."""
+    dev = B.device
+    if dev.type != "cuda":
+        raise ValueError(f"bcsr_spmm_cuda needs a CUDA tensor, got {dev}")
+    rows, cols = shape
+    nb, R, C = b["vals"].shape
+    if R % 8 or C % LANES:
+        raise ValueError(f"K9 needs R%8==0 and C%128==0, got {R}x{C}")
+    if B.dim() != 2 or B.shape[0] != cols:
+        raise ValueError(f"B has shape {tuple(B.shape)}, expected "
+                         f"[{cols}, F]")
+    F = B.shape[1]
+    nbr = -(-rows // R)
+    _build.check(B, "B", torch.float32, dev)
+    _build.check(b["vals"], "vals", torch.float32, dev)
+    _build.check(b["bcols"], "bcols", torch.int32, dev, nb)
+    _build.check(b["offsets"], "offsets", torch.int32, dev, nbr + 1)
+    fpt = features_per_thread(F, block_f)
+    if -(-F // (LANES * fpt)) > 65535:
+        raise ValueError(f"F={F} needs more than 65535 feature tiles")
+    out = torch.empty(rows, F, dtype=torch.float32, device=dev)
+    if rows == 0 or F == 0:
+        return out  # a grid of 0 blocks is not a launch
+    _build.launch("loops_bcsr_spmm_f32", "bcsr_spmm", dev, b["offsets"],
+                  b["bcols"], b["vals"], B, out, nbr, R, C, rows, cols, F,
+                  fpt)
+    return out
+
+
+def bcsr_spmm_plain(b: dict, B: torch.Tensor, shape) -> torch.Tensor:
+    """The plain version over the same buffers, in their value type: the
+    B tile of each stored block, a batched product, then a sorted segment
+    sum over the block rows (deterministic; no ``index_add_``)."""
+    rows, cols = shape
+    nb, R, C = b["vals"].shape
+    F = B.shape[1]
+    nbc = -(-cols // C)
+    Bp = B.new_zeros(nbc * C, F)
+    Bp[:cols] = B
+    prod = torch.bmm(b["vals"], Bp.view(nbc, C, F)[b["bcols"].long()])
+    Cb = torch.segment_reduce(prod, "sum",
+                              lengths=torch.diff(b["offsets"].long()),
+                              axis=0, unsafe=True)          # [nbr, R, F]
+    return Cb.reshape(-1, F)[:rows]
+
+
+# --- shared by K7 and K8, whose CTAs keep tiles in shared memory
+SMEM_LIMIT = 232448   # bytes of shared memory one H100 CTA may opt into
+MAX_SUPER_FT = 64     # widest feature tile of K7/K8
+
+
+def stream_type(dtype):
+    """The type K7/K8 stream A and B in: f32, or bf16 for ``dtype=
+    'bfloat16'``."""
+    if dtype not in (None, BF16):
+        raise ValueError(f"dtype={dtype!r}: K7/K8 take None (f32) or "
+                         f"{BF16!r}")
+    return torch.bfloat16 if dtype == BF16 else torch.float32
+
+
+def fit_feature_tile(block_f: int, smem_bytes) -> tuple[int, int]:
+    """``(FT, bytes)``: the widest feature tile of at most
+    ``min(block_f, 64)`` columns, halving down to 8, whose shared memory
+    ``smem_bytes(FT)`` fits one CTA; raise ``ValueError`` if none does."""
+    block_f = int(block_f)
+    if block_f < 8 or block_f % 8:
+        raise ValueError(f"block_f={block_f}: K7/K8's feature tile is a "
+                         "positive multiple of 8 columns")
+    ft = min(block_f, MAX_SUPER_FT)
+    while ft % 8 == 0 and ft >= 8:
+        if smem_bytes(ft) <= SMEM_LIMIT:
+            return ft, smem_bytes(ft)
+        ft //= 2
+    raise ValueError(f"the tiles need {smem_bytes(8)} bytes of shared "
+                     f"memory at an 8-column feature tile, past the "
+                     f"{SMEM_LIMIT} one CTA may use: fewer super rows or "
+                     "chunk blocks, or narrower blocks")
+
+
+def stage_b(B: torch.Tensor, dtype) -> tuple[torch.Tensor, int]:
+    """``(B in the stream type, row pitch)``: a row pitch that is a whole
+    number of 16-byte copies, and a 16-byte aligned base — B itself when
+    it already is, else one padded copy."""
+    T = stream_type(dtype)
+    vec = 16 // torch.empty(0, dtype=T).element_size()
+    F = B.shape[1]
+    ld = -(-F // vec) * vec
+    if B.dtype == T and ld == F and B.data_ptr() % 16 == 0:
+        return B, ld
+    return torch.nn.functional.pad(B.to(T), (0, ld - F)), ld
+
+
+def bcsr_spmm(bcsr, block_f: int = 512, device="cuda"):
+    """Build ``(bufs, fn(bufs, B))`` for BCSR @ dense through K9; ``fn``
+    runs K9 on a CUDA tensor and the plain version on a CPU tensor."""
+    device = ensure_platform(device)
+    check_blocks(bcsr)
+    if np.dtype(bcsr.vals.dtype) != np.float32:
+        raise ValueError("BCSR SpMM kernel K9 stages float32 values")
+    features_per_thread(1, block_f)
+    shape = bcsr.shape
+    bufs = stage(bcsr, device)
+
+    def fn(b, B):
+        if B.device.type == "cpu":
+            return bcsr_spmm_plain(b, B, shape)
+        return bcsr_spmm_cuda(b, B, shape, block_f)
+    fn.meta = dict(num_blocks=bcsr.num_blocks, block_f=block_f)
+    return bufs, fn

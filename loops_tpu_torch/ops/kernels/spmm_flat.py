@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.utils.platform import ensure_platform
 
 WARP = 32
 MAX_FPL = 8
@@ -132,11 +133,12 @@ def flat_spmm_plain(b: dict, B: torch.Tensor, shape, dtype=None
         axis=0, unsafe=True)
 
 
-def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cpu",
+def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
               pad_groups: int | None = None, pad_R: int | None = None):
     """Build ``(bufs, fn(bufs, B))`` for CSR @ dense over a merge-path
     FlatBlockPlan. ``fn`` runs K4 on a CUDA tensor and the plain version
     on a CPU tensor."""
+    device = ensure_platform(device)
     if pad_groups is not None or pad_R is not None:
         raise NotImplementedError(
             "pad_groups/pad_R (several shards sharing one compiled kernel) "

@@ -29,6 +29,7 @@ import torch
 
 from loops_tpu_torch.formats.base import INDEX_DTYPE
 from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
 MAX_WINDOW = 227 * 1024 // 4  # floats: an H100 block's opt-in shared memory
@@ -98,8 +99,9 @@ def row_window(plan) -> int:
     return _window(plan)[2]
 
 
-def flat_spmv(csr, plan, device="cpu"):
+def flat_spmv(csr, plan, device="cuda"):
     """Build ``(bufs, fn(bufs, x))`` for CSR + a FlatBlockPlan."""
+    device = ensure_platform(device)
     shape = csr.shape
     s0, rel, R = _window(plan)
     if R > MAX_WINDOW:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.utils.platform import ensure_platform
 
 
 def _keep_flags(plan):
@@ -82,8 +83,9 @@ def flat_spmv_v2_plain(b: dict, x: torch.Tensor, shape) -> torch.Tensor:
     return y.index_add_(0, ids.reshape(-1), prod.reshape(-1))[:rows]
 
 
-def flat_spmv_v2(csr, plan, device="cpu"):
+def flat_spmv_v2(csr, plan, device="cuda"):
     """Build ``(bufs, fn(bufs, x))`` for CSR + a FlatBlockPlan."""
+    device = ensure_platform(device)
     row_first, row_last = plan.block_rows()
     arrays = dict(
         vals=plan.gather(csr.vals).astype(np.float32),

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
 ROW_WINDOW = 1024             # the reference's output row window
@@ -157,7 +158,8 @@ def sorted_spmv_bind(arrays, params, device):
     return bufs, fn
 
 
-def sorted_spmv(csr, *, block_atoms: int = 8192, device="cpu"):
+def sorted_spmv(csr, *, block_atoms: int = 8192, device="cuda"):
     """Build ``(bufs, fn)`` for CSR @ vector through K1."""
+    device = ensure_platform(device)
     arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)
     return sorted_spmv_bind(arrays, params, device)

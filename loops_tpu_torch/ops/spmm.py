@@ -1,6 +1,8 @@
-"""SpMM — sparse matrix x dense matrix, CSR: the GNN aggregation primitive.
+"""SpMM — sparse matrix x dense matrix, CSR and BCSR: the GNN aggregation
+primitive and the block-sparse product.
 
-The port of ``loops_tpu/ops/spmm.py`` for CSR. Schedule -> execution:
+The port of ``loops_tpu/ops/spmm.py`` for CSR and BCSR. CSR, schedule ->
+execution:
 
 * ``row_mapped`` (and ``merge_path``/``work_oriented`` with
   ``impl='xla'``, which ``loops_tpu`` lowers to the same path) —
@@ -19,17 +21,30 @@ The port of ``loops_tpu/ops/spmm.py`` for CSR. Schedule -> execution:
   the skew and sorted picks to ``group_mapped``, the rest to
   ``row_mapped``.
 
-``dtype="bfloat16"`` on every path: vals and B rounded to bf16, each
+CSR ``dtype="bfloat16"`` on every path: vals and B rounded to bf16, each
 product rounded to bf16, sums in f32, output f32; the hub-dense product
 stays f32, as in ``loops_tpu``.
 
-K4 runs when the operator lives on a CUDA device; on the CPU its wrapper
-takes the plain PyTorch version. float64 values with ``impl='pallas'``
-raise ``ValueError`` on a CUDA device (K4 stages f32) and, on the CPU,
-warn and take the torch path, as ``loops_tpu`` does. ``impl_used`` names
-the path the build took and ``launches`` counts this operator's kernel
-launches. COO, ELL and BCSR raise ``NotImplementedError`` naming their
-ROADMAP item.
+BCSR (schedule ``row_mapped``; ``auto`` resolves to it), impl ->
+execution:
+
+* ``xla``     — each stored block times its B tile (a batched product),
+  then a sorted segment sum over the block rows;
+* ``pallas``  — kernel K9 (``ops/kernels/spmm_bcsr.py``), f32;
+* ``pallas2`` — kernel K8 (``ops/kernels/spmm_bcsr_v2.py``);
+* ``pallas3`` — kernel K7 (``ops/kernels/spmm_bcsr_v3.py``), the bench's.
+
+BCSR ``dtype="bfloat16"`` takes ``pallas2``/``pallas3`` only: A and B
+rounded to bf16, products and sums in f32 (``loops_tpu`` computes f32
+without a word for ``xla`` and ``pallas``; here they raise).
+
+A kernel runs when the operator lives on a CUDA device; on the CPU its
+wrapper takes the plain PyTorch version. float64 values with a kernel
+impl raise ``ValueError`` on a CUDA device (the kernels stage f32) and,
+on the CPU, warn and take the torch path, as ``loops_tpu`` does.
+``impl_used`` names the path the build took and ``launches`` counts this
+operator's kernel launches. COO and ELL raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,9 +54,16 @@ import warnings
 import numpy as np
 import torch
 
-from loops_tpu_torch.formats import CSR
+from loops_tpu_torch.formats import BCSR, CSR
 from loops_tpu_torch.layout import CsrLayout
-from loops_tpu_torch.ops.kernels import _build, spmm_flat
+from loops_tpu_torch.ops.kernels import (
+    _build,
+    spmm_bcsr,
+    spmm_bcsr_v2,
+    spmm_bcsr_v3,
+    spmm_flat,
+    spmv_bcsr,
+)
 from loops_tpu_torch.ops.kernels.spmm_flat import BF16, products
 from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
 from loops_tpu_torch.tuning.launch_box import launch_params
@@ -49,7 +71,9 @@ from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["spmm", "SpMMOperator"]
 
-_NOT_PORTED = {"COO": "A8", "ELL": "A8", "BCSR": "A6/A8"}
+_NOT_PORTED = {"COO": "A8", "ELL": "A8"}
+BCSR_KERNELS = {"pallas": "bcsr_spmm", "pallas2": "bcsr_spmm_v2",
+                "pallas3": "bcsr_spmm_v3"}
 
 
 def _dtype_mode(dtype):
@@ -60,7 +84,8 @@ def _dtype_mode(dtype):
 
 
 class SpMMOperator:
-    """An SpMM bound to one CSR matrix on one device: ``op(B) -> C``.
+    """An SpMM bound to one CSR or BCSR matrix on one device:
+    ``op(B) -> C``.
 
     Plan once on the host, execute many times; ``C`` is float32 for f32
     or bf16 mode (float64 for float64 values on the torch paths).
@@ -69,8 +94,8 @@ class SpMMOperator:
     def __init__(self, mat, schedule: str = "row_mapped",
                  impl: str = "xla", block_f: int | None = None, dtype=None,
                  hub_dense_min: int | None = None, block: int = 512,
-                 device="cpu"):
-        if not isinstance(mat, CSR):
+                 device="cuda"):
+        if not isinstance(mat, (CSR, BCSR)):
             name = type(mat).__name__
             raise NotImplementedError(
                 f"{name} SpMM is not ported to loops_tpu_torch yet (ROADMAP "
@@ -78,9 +103,6 @@ class SpMMOperator:
         if schedule not in SCHEDULES + ("auto",):
             raise ValueError(f"unknown schedule {schedule!r}; expected one "
                              f"of {SCHEDULES + ('auto',)}")
-        if impl not in ("xla", "pallas"):
-            raise ValueError(f"csr SpMM implements impl 'xla' or 'pallas', "
-                             f"got {impl!r}")
         self.device = ensure_platform(device)
         self.mat = mat
         self.rows, self.cols = mat.shape
@@ -96,7 +118,8 @@ class SpMMOperator:
         self.impl_used = "torch"
         self.launches = 0
         self.meta = {}
-        self._bufs, self._raw = self._build_csr(mat, schedule, impl)
+        build = self._build_csr if isinstance(mat, CSR) else self._build_bcsr
+        self._bufs, self._raw = build(mat, schedule, impl)
         self._kernel = (self.impl_used if self.impl_used in _build.LAUNCHES
                         else None)
         self.meta.update(getattr(self._raw, "meta", {}) or {})
@@ -123,6 +146,20 @@ class SpMMOperator:
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _f64_refusal(self, impl: str, vals_dtype, kernel: str) -> str:
+        """``impl``, or ``'xla'`` for float64 values on the CPU (with a
+        warning): the kernels stage f32. On a CUDA device the request
+        raises, so a kernel request never runs torch ops on the card."""
+        if impl == "xla" or np.dtype(vals_dtype) != np.float64:
+            return impl
+        reason = (f"impl={impl!r} stages float32 ({kernel}), and the values "
+                  "are float64")
+        if self.device.type == "cuda":
+            raise ValueError(f"{reason}; pass impl='xla' for the torch path")
+        warnings.warn(f"{reason}; falling back to the torch path",
+                      stacklevel=4)
+        return "xla"
+
     # ------------------------------------------------------------- CSR
     def _build_csr(self, csr: CSR, schedule, impl):
         if schedule == "auto":
@@ -132,19 +169,14 @@ class SpMMOperator:
             schedule = self.schedule = (
                 "group_mapped" if pick in ("group_mapped", "sorted_flat")
                 else "row_mapped")
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"csr SpMM implements impl 'xla' or 'pallas', "
+                             f"got {impl!r}")
         if impl == "pallas" and schedule != "merge_path":
             raise ValueError(
                 "csr SpMM implements impl='pallas' only with "
                 f"schedule='merge_path'; got schedule={schedule!r}")
-        if impl == "pallas" and np.dtype(csr.vals.dtype) == np.float64:
-            reason = ("impl='pallas' stages float32 (K4), and the values "
-                      "are float64")
-            if self.device.type == "cuda":
-                raise ValueError(f"{reason}; pass impl='xla' for the torch "
-                                 "path")
-            warnings.warn(f"{reason}; falling back to the torch path",
-                          stacklevel=3)
-            impl = "xla"
+        impl = self._f64_refusal(impl, csr.vals.dtype, "K4")
         if schedule == "group_mapped":
             return self._group_mapped(csr)
         if impl == "pallas":
@@ -168,6 +200,36 @@ class SpMMOperator:
             return torch.segment_reduce(prod, "sum", offsets=b["offsets"],
                                         axis=0, unsafe=True)
         return bufs, fn
+
+    # ------------------------------------------------------------ BCSR
+    def _build_bcsr(self, bcsr: BCSR, schedule, impl):
+        if schedule not in ("row_mapped", "auto"):
+            raise ValueError(
+                f"bcsr SpMM implements schedule 'row_mapped' (or 'auto'), "
+                f"got {schedule!r}: every BCSR impl runs block rows")
+        self.schedule = "row_mapped"
+        if impl not in ("xla", *BCSR_KERNELS):
+            raise ValueError(f"bcsr SpMM implements impl in ('xla', "
+                             f"'pallas', 'pallas2', 'pallas3'), got {impl!r}")
+        if self.dtype == BF16 and impl not in ("pallas2", "pallas3"):
+            raise ValueError(
+                f"bcsr SpMM dtype='bfloat16' streams bf16 through K8/K7: "
+                f"impl 'pallas2' or 'pallas3', got {impl!r}")
+        impl = self._f64_refusal(impl, bcsr.vals.dtype, "K7-K9")
+        if impl == "xla":
+            shape = bcsr.shape
+
+            def fn(b, B):
+                return spmm_bcsr.bcsr_spmm_plain(b, B, shape)
+            return spmv_bcsr.stage(bcsr, self.device), fn
+        self.impl_used = BCSR_KERNELS[impl]
+        if impl == "pallas":
+            return spmm_bcsr.bcsr_spmm(bcsr, block_f=self.block_f,
+                                       device=self.device)
+        build = (spmm_bcsr_v2.bcsr_spmm_v2 if impl == "pallas2"
+                 else spmm_bcsr_v3.bcsr_spmm_v3)
+        return build(bcsr, block_f=self.block_f, dtype=self.dtype,
+                     device=self.device)
 
     def _group_mapped(self, csr: CSR):
         """Degree-class planes with the hub-dense split."""
@@ -226,10 +288,10 @@ def _op_cache(mat) -> dict:
 
 def spmm(mat, B, schedule: str = "row_mapped", impl: str = "xla",
          block_f: int | None = None, dtype=None, block: int = 512,
-         device="cpu"):
+         device="cuda"):
     """One-shot SpMM with operator caching on the container."""
-    key = (schedule, impl, block_f, str(dtype), block,
-           str(torch.device(device)))
+    device = ensure_platform(device)
+    key = (schedule, impl, block_f, str(dtype), block, str(device))
     cache = _op_cache(mat)
     if key not in cache:
         cache[key] = SpMMOperator(mat, schedule, impl, block_f, dtype,

@@ -1,8 +1,9 @@
-"""SpMV — sparse matrix x dense vector, CSR, every schedule.
+"""SpMV — sparse matrix x dense vector: CSR (every schedule) and BCSR.
 
-The port of ``loops_tpu/ops/spmv.py`` for CSR. Every schedule's *plan* is
-host precompute (``loops_tpu_torch.schedule.plans``); the device runs
-either plain torch ops or one of the hand-written CUDA kernels.
+The port of ``loops_tpu/ops/spmv.py`` for CSR and BCSR. Every schedule's
+*plan* is host precompute (``loops_tpu_torch.schedule.plans``); the
+device runs either plain torch ops or one of the hand-written CUDA
+kernels.
 
 Schedule -> execution (CSR):
 
@@ -21,6 +22,12 @@ Schedule -> execution (CSR):
 * ``sorted_flat`` (and ``auto`` where ``choose_schedule`` picks it) —
   kernel K1 (``ops/kernels/spmv_sorted.py``).
 
+BCSR has one execution shape, ``row_mapped`` (``auto`` resolves to it):
+atoms are stored blocks and the reduction is block-row-local.
+``impl='xla'`` is a batched einsum over each block's x segment, then a
+sorted segment sum over the block rows; ``impl='pallas'`` is kernel K6
+(``ops/kernels/spmv_bcsr.py``).
+
 A kernel runs when the operator lives on a CUDA device; on the CPU each
 kernel wrapper takes its plain PyTorch version. A kernel impl the kernels
 cannot honor (float64 values; a row span past K3's window) raises on a
@@ -28,7 +35,7 @@ CUDA device and, on the CPU, warns and takes the torch executor.
 ``impl_used`` names the path the build took and ``launches`` counts this
 operator's kernel launches.
 
-COO, CSC, ELL, BCSR and DIA matrices, ``reorder=``, ``plan_cache=`` and
+COO, CSC, ELL and DIA matrices, ``reorder=``, ``plan_cache=`` and
 ``bucketed=`` are not ported yet and raise ``NotImplementedError`` naming
 the ROADMAP item.
 """
@@ -40,10 +47,16 @@ import warnings
 import numpy as np
 import torch
 
-from loops_tpu_torch.formats import CSR
+from loops_tpu_torch.formats import BCSR, CSR
 from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.ops.gather import gather1d
-from loops_tpu_torch.ops.kernels import _build, spmv_flat, spmv_flat_v2, spmv_sorted
+from loops_tpu_torch.ops.kernels import (
+    _build,
+    spmv_bcsr,
+    spmv_flat,
+    spmv_flat_v2,
+    spmv_sorted,
+)
 from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils.platform import ensure_platform
@@ -114,8 +127,8 @@ class SpMVOperator:
                  block: int | None = None, impl: str = "xla",
                  bucketed: bool = False, reorder: str | None = None,
                  class_step: float | None = None,
-                 plan_cache: str | None = None, device="cpu"):
-        if not isinstance(mat, CSR):
+                 plan_cache: str | None = None, device="cuda"):
+        if not isinstance(mat, (CSR, BCSR)):
             _not_ported(f"{type(mat).__name__} SpMV", "A6")
         if reorder is not None:
             _not_ported("reorder=", "A4 (layout/reorder.py)")
@@ -142,7 +155,8 @@ class SpMVOperator:
         # "torch" for the torch-op executors, else the kernel's name
         self.impl_used = "torch"
         self.launches = 0
-        self._bufs, self._raw = self._build_csr(mat, schedule, block, impl)
+        build = self._build_csr if isinstance(mat, CSR) else self._build_bcsr
+        self._bufs, self._raw = build(mat, schedule, block, impl)
         self._kernel = (self.impl_used if self.impl_used in _build.LAUNCHES
                         else None)
         # kernel-reported plan metadata (e.g. K1's plan_ms) survives on
@@ -232,6 +246,23 @@ class SpMVOperator:
         return self._flat_xla(plan, vals=plan.gather(csr.vals),
                               gather_cols=plan.gather(csr.indices))
 
+    # ------------------------------------------------------------- BCSR
+    def _build_bcsr(self, bcsr: BCSR, schedule, block, impl):
+        if schedule == "auto":
+            schedule = self.schedule = "row_mapped"
+        # one execution shape (the reference likewise ships only
+        # bcsr_thread_mapped); impl picks the torch ops or K6
+        _require("bcsr", schedule, impl, ("row_mapped",), ("xla", "pallas"))
+        impl = _kernel_refusal(impl, bcsr.vals.dtype, self.device)
+        if impl == "pallas":
+            self.impl_used = "bcsr_spmv"
+            return spmv_bcsr.bcsr_spmv(bcsr, device=self.device)
+        shape = bcsr.shape
+
+        def fn(b, x):
+            return spmv_bcsr.bcsr_spmv_plain(b, x, shape)
+        return spmv_bcsr.stage(bcsr, self.device), fn
+
     # ------------------------------------------------ flat torch executor
     def _flat_xla(self, plan, vals, gather_cols):
         """Two-phase blocked reduction for the flat schedules.
@@ -266,9 +297,10 @@ def _op_cache(mat) -> dict:
 
 
 def spmv(mat, x, schedule: str = "row_mapped", block: int | None = None,
-         impl: str = "xla", device="cpu"):
+         impl: str = "xla", device="cuda"):
     """One-shot SpMV with operator caching on the container."""
-    key = (schedule, block, impl, str(torch.device(device)))
+    device = ensure_platform(device)
+    key = (schedule, block, impl, str(device))
     cache = _op_cache(mat)
     if key not in cache:
         cache[key] = SpMVOperator(mat, schedule, block, impl, device=device)

@@ -25,15 +25,18 @@ class LaunchParams:
     hbm_gbps: float
     # peak dense bf16 tensor-core throughput (TFLOP/s)
     peak_tflops: float
+    # BCSR block dims (R, C) a CSR matrix is blocked into
+    bcsr_block: tuple = (8, 128)
     provenance: str = "fallback"
 
 
 # substring match on torch.cuda.get_device_name(), first match wins
 _TABLE = (
     # spmv_block: carried from the v5e row's fallback block (1024);
-    # spmm_block_f: the v5e row's feature tile (256). Both unmeasured on
-    # H100 (ROADMAP A7 sweeps them). Bandwidth and peak are NVIDIA's
-    # data-sheet figures for the H100 SXM at its 700 W limit.
+    # spmm_block_f: the v5e row's feature tile (256); bcsr_block: the v5e
+    # row's (8, 128). All unmeasured on H100 (ROADMAP A7 sweeps them).
+    # Bandwidth and peak are NVIDIA's data-sheet figures for the H100 SXM
+    # at its 700 W limit.
     ("H100", LaunchParams(1024, 256, 3350.0, 989.0,
                           provenance="carried from v5e, unmeasured on H100")),
 )
@@ -43,11 +46,13 @@ _CPU = LaunchParams(64, 128, 0.0, 0.0, provenance="cpu test size")
 _FALLBACK = LaunchParams(1024, 256, 0.0, 0.0, provenance="fallback")
 
 
-def launch_params(device="cpu") -> LaunchParams:
+def launch_params(device="cuda") -> LaunchParams:
     """Resolve tuning for ``device`` (a ``torch.device`` or its name)."""
     import torch
 
-    dev = torch.device(device)
+    from loops_tpu_torch.utils.platform import ensure_platform
+
+    dev = ensure_platform(device)
     if dev.type != "cuda":
         return _CPU
     name = torch.cuda.get_device_name(dev)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from loops_tpu_torch.formats import COO, CSR
+from loops_tpu_torch.formats import BCSR, COO, CSR
 
 
 def random_csr(rows: int, cols: int, sparsity: float = 0.1,
@@ -120,6 +120,28 @@ def wide_span_csr(rows: int, cols: int = 4, seed: int = 0,
                rng.uniform(-1.0, 1.0, size=2).astype(dtype))
 
 
+def build_block_sparse(N: int = 4096, R: int = 8, C: int = 128,
+                       block_density: float = 0.06, seed: int = 0):
+    """The JAX bench's block-sparse matrix (``bench.py``
+    ``build_block_sparse``): an N x N matrix of dense R x C blocks at
+    ``block_density`` of the block grid, N(0, 1) values. Returns
+    ``(csr, bcsr)``; the same seed gives ``loops_tpu``'s matrix."""
+    rng = np.random.default_rng(seed)
+    nbr, nbc = N // R, N // C
+    nb = int(nbr * nbc * block_density)
+    br = rng.integers(0, nbr, nb)
+    bc = rng.integers(0, nbc, nb)
+    key = np.unique(br.astype(np.int64) * nbc + bc)
+    br = (key // nbc).astype(np.int32)
+    bc = (key % nbc).astype(np.int32)
+    nb = len(key)
+    rr = np.repeat(br * R, R * C) + np.tile(np.repeat(np.arange(R), C), nb)
+    cc = np.repeat(bc * C, R * C) + np.tile(np.tile(np.arange(C), R), nb)
+    vv = rng.normal(size=nb * R * C).astype(np.float32)
+    csr = COO((N, N), rr, cc, vv).to_csr()
+    return csr, BCSR.from_csr(csr, R, C)
+
+
 def make_input_vector(n: int, seed: int = 1, dtype=np.float32) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.uniform(-1.0, 1.0, size=n).astype(dtype)
@@ -137,4 +159,15 @@ BATTERY = {
     "skewed": lambda: skewed_csr(14, 24, heavy_rows=2),
     "empty_rows": lambda: empty_row_csr(15, 9),
     "random": lambda: random_csr(21, 18, 0.2, seed=11),
+}
+
+# The five matrices of the BCSR kernel tests (``loops_tpu``'s
+# tests/test_bcsr_kernels.py): empty block rows, ragged edges, one dense
+# block diagonal, and a tall matrix of many block rows.
+BCSR_CASES = {
+    "random": lambda: random_csr(40, 36, 0.15, seed=11),
+    "skewed": lambda: skewed_csr(24, 30, heavy_rows=3),
+    "empty_rows": lambda: empty_row_csr(21, 18),
+    "block_diag": lambda: block_diag_csr(5, 4),
+    "tall": lambda: random_csr(600, 300, 0.02, seed=2),
 }

@@ -203,6 +203,52 @@ def rigorously_validate_spmm_bf16(csr, B, C_kernel,
                    C32.astype(np.float64), bound)
 
 
+@dataclass
+class SampledRowsReport:
+    """Output of :func:`validate_sampled_rows`."""
+    rows: int            # rows checked
+    rel_error: float     # max |C - C64| / max |C64| over those rows
+    overruns: int        # entries past the f32 Wilkinson bound
+
+
+def validate_sampled_rows(csr, B, C, n: int = 256, seed: int = 7,
+                          k: float = DEFAULT_WILKINSON_K,
+                          atol_floor: float = DEFAULT_ATOL_FLOOR
+                          ) -> SampledRowsReport:
+    """SpMM check at bench scale, where the full validator's host
+    products take too long: ``n`` rows drawn from ``seed`` (the JAX
+    bench's ``check_correctness`` draw), each summed in f64 and held to
+    the f32 Wilkinson bound ``K * nnz_r * u32 * sum |v * B[col, f]|``.
+    ``C`` may be a card tensor: only the drawn rows are copied back. A
+    bf16 mode is judged over its rounded operands (pass the rounded vals
+    and B): their products are exact in f32."""
+    rng = np.random.default_rng(seed)
+    chk = np.sort(rng.choice(csr.shape[0], min(n, csr.shape[0]),
+                             replace=False))
+    B = np.asarray(B, np.float64)
+    ref = np.zeros((len(chk), B.shape[1]))
+    l1 = np.zeros_like(ref)
+    for i, r in enumerate(chk):
+        a0, a1 = csr.offsets[r], csr.offsets[r + 1]
+        p = csr.vals[a0:a1, None].astype(np.float64) * B[csr.indices[a0:a1]]
+        ref[i] = p.sum(0)
+        l1[i] = np.abs(p).sum(0)
+    if hasattr(C, "cpu"):
+        import torch
+        C = C[torch.from_numpy(chk).to(C.device)].cpu().numpy()
+    else:
+        C = np.asarray(C)[chk]
+    err = np.abs(np.asarray(C, np.float64) - ref)
+    nnz_r = csr.row_sizes()[chk].astype(np.float64)[:, None]
+    bound = np.maximum(atol_floor, k * nnz_r * unit_roundoff(np.float32)
+                       * l1)
+    return SampledRowsReport(
+        rows=len(chk),
+        rel_error=float(err.max(initial=0.0)
+                        / max(np.abs(ref).max(initial=0.0), 1e-9)),
+        overruns=int((err > bound).sum()))
+
+
 def _report(k, kernel, exact, naive, bound) -> RigorousReport:
     err_kernel = np.abs(kernel - exact)
     err_naive = np.abs(naive - exact)

@@ -10,13 +10,15 @@ import time
 
 import torch
 
+from loops_tpu_torch.utils.platform import ensure_platform
+
 
 class Timer:
     """Start/stop timer: CUDA events for ``device.type == 'cuda'``, the
     host clock otherwise."""
 
-    def __init__(self, device="cpu"):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, device="cuda"):
+        self.cuda = ensure_platform(device).type == "cuda"
         self._t0 = None
         self.milliseconds = 0.0
 
@@ -43,13 +45,13 @@ class Timer:
         return self.milliseconds / 1e3
 
 
-def time_fn(fn, *args, device="cpu", warmup: int = 1, iters: int = 10,
+def time_fn(fn, *args, device="cuda", warmup: int = 1, iters: int = 10,
             reduction=min) -> float:
     """Milliseconds per call of ``fn(*args)``: ``warmup`` untimed calls,
     then ``reduction`` (default min) over ``iters`` timed calls."""
+    t = Timer(device)
     for _ in range(max(warmup, 1)):
         fn(*args)
-    t = Timer(device)
     times = []
     for _ in range(iters):
         t.start()

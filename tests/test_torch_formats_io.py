@@ -121,9 +121,9 @@ def test_to_device_returns_tensors():
 
 @pytest.mark.parametrize("target", ["to_csc", "to_ell", "to_dia"])
 def test_unported_conversions_raise(target):
-    """ELL, BCSR and DIA raise naming their ROADMAP item; CSC is ported
-    (the transpose behind the GNN aggregation's gradient) and gives the
-    arrays of ``loops_tpu``'s."""
+    """ELL and DIA raise naming their ROADMAP item; CSC (the transpose
+    behind the GNN aggregation's gradient) and BCSR are ported and give
+    the arrays of ``loops_tpu``'s."""
     t = tgen.random_csr(10, 8, 0.3, seed=2)
     if target == "to_csc":
         tc, jc = t.to_csc(), jgen.random_csr(10, 8, 0.3, seed=2).to_csc()
@@ -134,5 +134,6 @@ def test_unported_conversions_raise(target):
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(t, target)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.to_bcsr(2, 2)
+    tb, jb = t.to_bcsr(2, 2), jgen.random_csr(10, 8, 0.3, seed=2).to_bcsr(2, 2)
+    for name in ("block_offsets", "block_cols", "vals"):
+        np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name))

@@ -50,6 +50,8 @@ from loops_tpu_torch.models.message_passing import (
     masked_aggregate_operator,
 )
 
+CPU = torch.device("cpu")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIMS = [16, 24, 24, 5]
 
@@ -113,7 +115,8 @@ def test_aggregate_operator_and_gradient_match(op):
     t, j = graphs(seed=15)
     X, W = _dense(200, 6, 3), _dense(6, 8, 4)
     jop = jax_aggregate(j, op, schedule="merge_path", impl="pallas")
-    top = aggregate_operator(t, op, schedule="merge_path", impl="pallas")
+    top = aggregate_operator(t, op, schedule="merge_path", impl="pallas",
+                             device=CPU)
     assert top.impl_used == "flat_spmm"
     assert (top._vjp_op is top) == (op == "gcn")
 
@@ -136,7 +139,7 @@ def test_masked_aggregate_operator_and_gradient_match():
     Z = _dense(200, 7, 5)
     jop = jax_masked(j, mask, schedule="merge_path", impl="pallas")
     top = masked_aggregate_operator(t, mask, schedule="merge_path",
-                                    impl="pallas")
+                                    impl="pallas", device=CPU)
     np.testing.assert_array_equal(top.rows, jop.rows)
     dy = _dense(len(top.rows), 7, 6)
 
@@ -157,7 +160,7 @@ def _models(td, jd, dims=DIMS, **kw):
     params = jm.init(jax.random.PRNGKey(0))
     if "loss_rows" in kw:
         kw["loss_rows"] = td.train_mask
-    tm = GCN(td.graph, dims, dropout=0.0, **kw)
+    tm = GCN(td.graph, dims, dropout=0.0, **kw, device=CPU)
     tm.load_state_dict(params_from_jax(params))
     return tm, jm, params
 
@@ -235,7 +238,7 @@ def test_train_epochs_and_checkpoint_round_trip(tmp_path):
 
     def fresh():
         m = GCN(td.graph, DIMS, dropout=0.5,
-                generator=torch.Generator().manual_seed(0))
+                generator=torch.Generator().manual_seed(0), device=CPU)
         return m, torch.optim.Adam(m.parameters(), lr=1e-2)
     m1, o1 = fresh()
     g1 = torch.Generator().manual_seed(7)
@@ -272,7 +275,7 @@ def test_dropout_is_seeded_and_keeps_one_minus_p():
     assert abs(kept.float().mean().item() - 0.7) < 0.01
     torch.testing.assert_close(out[kept], torch.full_like(out[kept], 1 / 0.7))
     td, _ = dataset()
-    m = GCN(td.graph, DIMS, dropout=0.5)
+    m = GCN(td.graph, DIMS, dropout=0.5, device=CPU)
     x = m.prepare_features(td.features)
     runs = [m(x, generator=torch.Generator().manual_seed(5)) for _ in "ab"]
     assert torch.equal(runs[0], runs[1])
@@ -286,7 +289,7 @@ def test_dropout_is_seeded_and_keeps_one_minus_p():
 def test_remat_matches():
     td, jd = dataset()
     tm, _, _ = _models(td, jd)
-    rm = GCN(td.graph, DIMS, dropout=0.0, remat=True)
+    rm = GCN(td.graph, DIMS, dropout=0.0, remat=True, device=CPU)
     rm.load_state_dict(tm.state_dict())
     h = tm.prepare_features(td.features)
     grads = []
@@ -304,7 +307,7 @@ def test_single_layer_precompute_masked_output_is_masked():
     # loops_tpu returns the full logits here; the port the loss rows'
     td, _ = dataset()
     m = GCN(td.graph, [16, 5], dropout=0.0, precompute_first=True,
-            loss_rows=td.train_mask)
+            loss_rows=td.train_mask, device=CPU)
     h = m.prepare_features(td.features)
     full = m(h)
     sub = m(h, masked_output=True)
@@ -319,8 +322,8 @@ def test_integer_mask_is_a_mask():
     t, _ = graphs(n=50, m=200, seed=3)
     mask = (np.arange(50) % 3 == 0).astype(np.int32)
     np.testing.assert_array_equal(mask_rows(mask, 50), np.nonzero(mask)[0])
-    op = masked_aggregate_operator(t, mask)
-    ref = masked_aggregate_operator(t, mask.astype(bool))
+    op = masked_aggregate_operator(t, mask, device=CPU)
+    ref = masked_aggregate_operator(t, mask.astype(bool), device=CPU)
     np.testing.assert_array_equal(op.rows, ref.rows)
     np.testing.assert_array_equal(mask_rows(np.array([4, 9, 2]), 50),
                                   [4, 9, 2])
@@ -332,7 +335,7 @@ def test_integer_mask_is_a_mask():
 
 def test_loss_rows_must_be_the_train_mask():
     td, _ = dataset()
-    m = GCN(td.graph, DIMS, dropout=0.0, loss_rows=td.train_mask)
+    m = GCN(td.graph, DIMS, dropout=0.0, loss_rows=td.train_mask, device=CPU)
     opt = torch.optim.Adam(m.parameters())
     with pytest.raises(ValueError, match="loss_rows"):
         T.make_train_step(m, opt, td.features, td.labels, td.val_mask)

@@ -6,11 +6,13 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "loops_tpu_torch")
+CPU = torch.device("cpu")
 
 SLICE_MODULES = [
     "loops_tpu_torch",
@@ -27,6 +29,7 @@ SLICE_MODULES = [
     "loops_tpu_torch.formats.coo",
     "loops_tpu_torch.formats.csr",
     "loops_tpu_torch.formats.csc",
+    "loops_tpu_torch.formats.bcsr",
     "loops_tpu_torch.io.filepath",
     "loops_tpu_torch.io.market",
     "loops_tpu_torch.io.ogb",
@@ -43,6 +46,10 @@ SLICE_MODULES = [
     "loops_tpu_torch.ops.kernels.spmv_flat",
     "loops_tpu_torch.ops.spmm",
     "loops_tpu_torch.ops.kernels.spmm_flat",
+    "loops_tpu_torch.ops.kernels.spmv_bcsr",
+    "loops_tpu_torch.ops.kernels.spmm_bcsr",
+    "loops_tpu_torch.ops.kernels.spmm_bcsr_v2",
+    "loops_tpu_torch.ops.kernels.spmm_bcsr_v3",
     "loops_tpu_torch.models",
     "loops_tpu_torch.models.graph",
     "loops_tpu_torch.models.message_passing",
@@ -105,16 +112,84 @@ def test_lazy_submodules():
         loops_tpu_torch.not_a_submodule
 
 
-def test_cuda_request_without_card_raises(monkeypatch):
-    from loops_tpu_torch.ops.spmv import SpMVOperator
+def _tiny_csr():
     from loops_tpu_torch.utils import generate
+    return generate.identity_csr(4)
+
+
+def _tiny_plan():
+    from loops_tpu_torch.layout import CsrLayout
+    from loops_tpu_torch.schedule.plans import make_plan
+    csr = _tiny_csr()
+    return csr, make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=8)
+
+
+def _tiny_graph():
+    from loops_tpu_torch.models.graph import Graph
+    return Graph.from_edges(np.array([0, 1, 2]), np.array([1, 2, 3]), 4,
+                            make_undirected=True)
+
+
+def _tiny_bcsr():
+    from loops_tpu_torch.formats import BCSR
+    return BCSR.from_csr(_tiny_csr(), 8, 128)
+
+
+def _entry(module, name):
+    import importlib
+    return getattr(importlib.import_module(f"loops_tpu_torch.{module}"), name)
+
+
+# every public entry point of the port that takes ``device=``, called
+# without one: each defaults to the card
+NO_DEVICE_CALLS = {
+    "ensure_platform": lambda: _entry("utils.platform", "ensure_platform")(),
+    "SpMVOperator": lambda: _entry("ops.spmv", "SpMVOperator")(_tiny_csr()),
+    "spmv": lambda: _entry("ops.spmv", "spmv")(_tiny_csr(), np.ones(4)),
+    "SpMVOperator_bcsr": lambda: _entry("ops.spmv", "SpMVOperator")(
+        _tiny_bcsr(), impl="pallas"),
+    "SpMMOperator": lambda: _entry("ops.spmm", "SpMMOperator")(_tiny_csr()),
+    "spmm": lambda: _entry("ops.spmm", "spmm")(
+        _tiny_csr(), np.ones((4, 2), np.float32)),
+    "SpMMOperator_bcsr": lambda: _entry("ops.spmm", "SpMMOperator")(
+        _tiny_bcsr(), impl="pallas3"),
+    "GCN": lambda: _entry("models.gcn", "GCN")(_tiny_graph(), [3, 2]),
+    "aggregate_operator": lambda: _entry(
+        "models.message_passing", "aggregate_operator")(_tiny_graph()),
+    "masked_aggregate_operator": lambda: _entry(
+        "models.message_passing", "masked_aggregate_operator")(
+            _tiny_graph(), np.ones(4, bool)),
+    "_route_aggregation": lambda: _entry(
+        "models.message_passing", "_route_aggregation")(_tiny_csr(), None),
+    "sorted_spmv": lambda: _entry("ops.kernels.spmv_sorted",
+                                  "sorted_spmv")(_tiny_csr()),
+    "flat_spmv": lambda: _entry("ops.kernels.spmv_flat", "flat_spmv")(
+        *_tiny_plan()),
+    "flat_spmv_v2": lambda: _entry("ops.kernels.spmv_flat_v2",
+                                   "flat_spmv_v2")(*_tiny_plan()),
+    "flat_spmm": lambda: _entry("ops.kernels.spmm_flat", "flat_spmm")(
+        *_tiny_plan()),
+    "bcsr_spmv": lambda: _entry("ops.kernels.spmv_bcsr", "bcsr_spmv")(
+        _tiny_bcsr()),
+    "bcsr_spmm": lambda: _entry("ops.kernels.spmm_bcsr", "bcsr_spmm")(
+        _tiny_bcsr()),
+    "bcsr_spmm_v2": lambda: _entry("ops.kernels.spmm_bcsr_v2",
+                                   "bcsr_spmm_v2")(_tiny_bcsr()),
+    "bcsr_spmm_v3": lambda: _entry("ops.kernels.spmm_bcsr_v3",
+                                   "bcsr_spmm_v3")(_tiny_bcsr()),
+    "launch_params": lambda: _entry("tuning.launch_box", "launch_params")(),
+    "Timer": lambda: _entry("utils.timer", "Timer")(),
+    "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(NO_DEVICE_CALLS))
+def test_cuda_request_without_card_raises(monkeypatch, entry):
     from loops_tpu_torch.utils.platform import ensure_platform
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ensure_platform("cuda")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        SpMVOperator(generate.identity_csr(4), device="cuda")
+        NO_DEVICE_CALLS[entry]()
     assert ensure_platform("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         ensure_platform("meta")
@@ -161,11 +236,15 @@ def test_device_properties_without_card(monkeypatch):
 def test_launch_box_rows(monkeypatch):
     from loops_tpu_torch.tuning import launch_box
 
-    assert launch_box.launch_params("cpu").spmv_block == 64
+    assert launch_box.launch_params(CPU).spmv_block == 64
+    # a card that is visible, as far as the resolver can tell
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     h100 = launch_box.launch_params(torch.device("cuda", 0))
     assert h100.spmv_block == 1024 and h100.spmm_block_f == 256
+    assert h100.bcsr_block == (8, 128)
     assert "unmeasured on H100" in h100.provenance
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Other")
     assert launch_box.launch_params("cuda").provenance == "fallback"
@@ -184,8 +263,8 @@ def test_timing_on_cpu_uses_host_clock():
     x = torch.ones(8)
     ms = apply_ms(fn, x, iters=4, repeats=3, warmup=2)
     assert ms >= 0 and len(calls) == 2 + 4 * 3
-    assert time_fn(fn, x, iters=3) >= 0
-    t = Timer("cpu").start()
+    assert time_fn(fn, x, iters=3, device=CPU) >= 0
+    t = Timer(CPU).start()
     assert t.stop() >= 0 and t.seconds == t.milliseconds / 1e3
 
 
@@ -195,7 +274,7 @@ def test_profile_applies_on_cpu():
     from loops_tpu_torch.utils.profile_spmv import profile_applies
 
     op = SpMVOperator(generate.random_csr(40, 30, 0.1, seed=2), "merge_path",
-                      block=16, impl="pallas2")
+                      block=16, impl="pallas2", device=CPU)
     x = torch.from_numpy(generate.make_input_vector(30))
     r = profile_applies(op, x, applies=3, warmup=1)
     # no card: nothing ran on a device, so the whole apply is idle

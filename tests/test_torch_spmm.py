@@ -37,6 +37,8 @@ from loops_tpu_torch.ops.spmm import SpMMOperator, spmm
 from loops_tpu_torch.schedule.plans import make_plan
 from loops_tpu_torch.utils import generate, reference
 
+CPU = torch.device("cpu")
+
 F_MAX = 40
 FS = [5, 16, 40]
 BLOCKS = [8, 64]
@@ -79,7 +81,7 @@ def jax_result(name, schedule, impl, block, dtype):
 
 def port_result(name, schedule, impl, block, dtype, F):
     t, _, B = inputs(name)
-    op = SpMMOperator(t, schedule, impl, dtype=dtype, block=block)
+    op = SpMMOperator(t, schedule, impl, dtype=dtype, block=block, device=CPU)
     C = op(B[:, :F])
     assert isinstance(C, torch.Tensor) and C.dtype == torch.float32
     assert tuple(C.shape) == (t.shape[0], F)
@@ -176,7 +178,7 @@ def test_plain_and_kernel_mirror_agree(name, block, dtype):
     reference within the Wilkinson bound."""
     t, _, B = inputs(name)
     plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=block)
-    b, fn = spmm_flat.flat_spmm(t, plan, dtype=dtype)
+    b, fn = spmm_flat.flat_spmm(t, plan, dtype=dtype, device=CPU)
     plain = fn(b, torch.from_numpy(B)).numpy()
     np.testing.assert_array_equal(plain, _emulate_k4(b, B, t.shape, dtype))
     if dtype is None:
@@ -256,7 +258,7 @@ def test_empty_matrix_gives_zeros(schedule, impl, dtype):
     # kernel's buffers): C is zeros of shape [rows, F]
     empty = tf.CSR((6, 4), np.zeros(7, np.int64), np.zeros(0, np.int64),
                    np.zeros(0, np.float32))
-    op = SpMMOperator(empty, schedule, impl, dtype=dtype, block=8)
+    op = SpMMOperator(empty, schedule, impl, dtype=dtype, block=8, device=CPU)
     C = op(np.ones((4, 3), np.float32))
     assert tuple(C.shape) == (6, 3) and not C.any()
     assert op.launches == 0
@@ -267,7 +269,7 @@ def test_group_mapped_hub_rows_dense_product():
     t = tf.csr_from_arrays(*_arrays(jgen.skewed_csr(40, 64, heavy_rows=3,
                                                     heavy_nnz=48, seed=2)))
     B = np.random.default_rng(4).normal(size=(64, 12)).astype(np.float32)
-    op = SpMMOperator(t, "group_mapped", hub_dense_min=32)
+    op = SpMMOperator(t, "group_mapped", hub_dense_min=32, device=CPU)
     assert "hub_rows" in op._bufs and len(op._bufs["hub_tiles"]) == 3
     np.testing.assert_allclose(op(B).numpy(), reference.spmm(t, B),
                                rtol=1e-5, atol=1e-5)
@@ -276,20 +278,20 @@ def test_group_mapped_hub_rows_dense_product():
 def test_refusals():
     t, _, _ = inputs("random")
     with pytest.raises(ValueError, match="merge_path"):
-        SpMMOperator(t, "row_mapped", impl="pallas")
+        SpMMOperator(t, "row_mapped", impl="pallas", device=CPU)
     with pytest.raises(ValueError):
-        SpMMOperator(t, "sorted_flat")
+        SpMMOperator(t, "sorted_flat", device=CPU)
     with pytest.raises(ValueError):
-        SpMMOperator(t, "merge_path", impl="pallas2")
+        SpMMOperator(t, "merge_path", impl="pallas2", device=CPU)
     with pytest.raises(ValueError, match="dtype"):
-        SpMMOperator(t, "row_mapped", dtype="float16")
+        SpMMOperator(t, "row_mapped", dtype="float16", device=CPU)
     with pytest.raises(ValueError, match="shape"):
-        SpMMOperator(t, "row_mapped")(np.ones((3, 2), np.float32))
+        SpMMOperator(t, "row_mapped", device=CPU)(np.ones((3, 2), np.float32))
     with pytest.raises(NotImplementedError, match="A8"):
-        SpMMOperator(t.to_coo(), "row_mapped")
+        SpMMOperator(t.to_coo(), "row_mapped", device=CPU)
     plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=8)
     with pytest.raises(NotImplementedError, match="A10"):
-        spmm_flat.flat_spmm(t, plan, pad_R=16)
+        spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_flat.flat_spmm_cuda({}, torch.zeros(3, 2), t.shape)
 
@@ -298,7 +300,7 @@ def test_f64_pallas_warns_and_takes_torch_path():
     f64 = generate.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
     B = np.random.default_rng(2).normal(size=(18, 6))
     with pytest.warns(UserWarning, match="float64"):
-        op = SpMMOperator(f64, "merge_path", impl="pallas")
+        op = SpMMOperator(f64, "merge_path", impl="pallas", device=CPU)
     assert op.impl_used == "torch"
     C = op(B).numpy()
     assert C.dtype == np.float64
@@ -313,7 +315,7 @@ def test_feature_tiles():
         [1, 1, 1, 2, 2, 2, 4, 4, 8]
     assert fpl(128, 64) == 2 and fpl(40, 32) == 1
     with pytest.raises(ValueError, match="block_f"):
-        spmm_flat.flat_spmm(*_plan_for("random"), block_f=48)
+        spmm_flat.flat_spmm(*_plan_for("random"), block_f=48, device=CPU)
 
 
 def _plan_for(name):
@@ -323,7 +325,7 @@ def _plan_for(name):
 
 def test_spmm_caches_operator():
     t, _, B = inputs("random")
-    spmm(t, B, schedule="merge_path", impl="pallas")
-    spmm(t, B, schedule="merge_path", impl="pallas")
-    spmm(t, B, schedule="row_mapped")
+    spmm(t, B, schedule="merge_path", impl="pallas", device=CPU)
+    spmm(t, B, schedule="merge_path", impl="pallas", device=CPU)
+    spmm(t, B, schedule="row_mapped", device=CPU)
     assert len(t._spmm_ops) == 2

@@ -17,6 +17,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import loops_tpu.utils.generate as jgen
 import loops_tpu_torch.formats as tf
@@ -24,6 +25,8 @@ from loops_tpu.ops.spmv import spmv as jax_spmv
 from loops_tpu_torch.ops.spmv import SpMVOperator, spmv
 from loops_tpu_torch.utils import generate, reference
 from test_torch_spmv_kernels import ATOL, BATTERY, RTOL, _valid
+
+CPU = torch.device("cpu")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -76,7 +79,7 @@ def test_f64_refusal_warns_and_validates(schedule, impl):
     x = generate.make_input_vector(18, dtype=np.float64)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        op = SpMVOperator(csr, schedule, block=8, impl=impl)
+        op = SpMVOperator(csr, schedule, block=8, impl=impl, device=CPU)
     assert any("float64" in str(m.message) for m in w)
     assert op.impl_used == "torch"
     y = op(x).numpy()
@@ -94,11 +97,13 @@ def test_span_refusal_takes_torch_executor():
     x = generate.make_input_vector(4)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        op = SpMVOperator(csr, "work_oriented", block=8, impl="pallas")
+        op = SpMVOperator(csr, "work_oriented", block=8, impl="pallas",
+                          device=CPU)
     assert any("row window" in str(m.message) for m in w)
     assert op.impl_used == "torch"
     _valid(op(x).numpy(), csr, x, "span/pallas")
-    op2 = SpMVOperator(csr, "work_oriented", block=8, impl="pallas2")
+    op2 = SpMVOperator(csr, "work_oriented", block=8, impl="pallas2",
+                       device=CPU)
     assert op2.impl_used == "flat_spmv_v2"
     _valid(op2(x).numpy(), csr, x, "span/pallas2")
 
@@ -111,7 +116,7 @@ def test_span_refusal_takes_torch_executor():
     ("sorted_flat", "xla", "sorted_spmv"), ("auto", "xla", "sorted_spmv")])
 def test_operator_records_impl_used(schedule, impl, used):
     csr = generate.random_csr(50, 40, 0.1, seed=2)
-    op = SpMVOperator(csr, schedule, block=16, impl=impl)
+    op = SpMVOperator(csr, schedule, block=16, impl=impl, device=CPU)
     assert op.impl_used == used
     x = generate.make_input_vector(40)
     _valid(op(x).numpy(), csr, x, f"{schedule}/{impl}")
@@ -134,7 +139,7 @@ def test_empty_matrix_gives_zeros(shape, schedule, impl):
     rows, cols = shape
     empty = tf.CSR(shape, np.zeros(rows + 1, np.int64),
                    np.zeros(0, np.int64), np.zeros(0, np.float32))
-    op = SpMVOperator(empty, schedule, block=8, impl=impl)
+    op = SpMVOperator(empty, schedule, block=8, impl=impl, device=CPU)
     y = op(np.ones(cols, np.float32))
     assert tuple(y.shape) == (rows,) and not y.any()
     assert op.launches == 0
@@ -145,19 +150,19 @@ def test_unported_knobs_raise():
     for kw in (dict(reorder="degree"), dict(plan_cache="/nonexistent"),
                dict(bucketed=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SpMVOperator(csr, "merge_path", **kw)
+            SpMVOperator(csr, "merge_path", **kw, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpMVOperator(csr.to_coo(), "row_mapped")
+        SpMVOperator(csr.to_coo(), "row_mapped", device=CPU)
 
 
 def test_bad_schedule_and_impl_rejected():
     csr = generate.random_csr(10, 10, 0.3, seed=1)
     with pytest.raises(ValueError):
-        SpMVOperator(csr, "bucketing")
+        SpMVOperator(csr, "bucketing", device=CPU)
     with pytest.raises(ValueError):
-        SpMVOperator(csr, "row_mapped", impl="pallas")
+        SpMVOperator(csr, "row_mapped", impl="pallas", device=CPU)
     with pytest.raises(ValueError):
-        SpMVOperator(csr, "merge_path", impl="mosaic")
+        SpMVOperator(csr, "merge_path", impl="mosaic", device=CPU)
 
 
 def test_spmv_caches_operator_per_device():
