@@ -7,7 +7,8 @@ Phases, one line each with its time:
 
 1. card:   ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build:  nvcc builds the kernels from ``loops_tpu_torch/csrc`` (one nvcc
-   per source, in parallel, then one link): K1–K3, K4 and K6–K9;
+   per source, in parallel, then one link): K1–K3, K4, K6–K9, K5, K10
+   and K11;
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
@@ -62,7 +63,31 @@ Phases, one line each with its time:
 13. timing of K6–K9 (plain, kernel, kernel, plain), cuSPARSE on the CSR
    form of the same matrix and ``torch.sparse_bsr_tensor`` (timed only),
    the host staging time, GFLOP/s as the JAX bench reports it, and the
-   bound; a ``torch.profiler`` breakdown of each f32 apply.
+   bound; a ``torch.profiler`` breakdown of each f32 apply;
+14. stream: K11 (``stream_read``) against its plain version
+   (``torch.sum``) over 64 MiB (the JAX bench's array) and 1 GiB of
+   integers in [-8, 8], where both must give the integer total exactly,
+   and the read rate of each by the slope of 616 passes against 16; the
+   1 GiB rate
+   is the measured bound printed beside the nominal one;
+15. K5 and K10 vs plain: K5 (``sddmm_flat``) on the three matrices of
+   ``tests/test_spmm_sddmm.py:191-198`` and the SpMV battery, F in {20,
+   64, 128}; K10 (``sddmm_bcsr``) on the five BCSR matrices in 8x128 and
+   16x128 blocks, F in {20, 300}; then the regimes of phase 16 (over 4096
+   sampled nonzeros): agreement, the Wilkinson verdict, two applies
+   bitwise equal, the launch counter;
+16. the SDDMM main path at full size: ``measure_stream_gbps`` at 64 MiB
+   (the JAX bench's first step) and at 1 GiB,
+   ``sddmm(..., impl="pallas", dtype="bfloat16")`` on the JAX bench's 65536^2 regime (2,469,272 nonzeros, F = 128) and on the
+   arxiv adjacency, ``sddmm(bcsr, impl="pallas", block_f=512)`` on the
+   16384^2 BCSR regime (F = 512), COO and ``xla`` on the arxiv adjacency,
+   and ``scripts/primitives_torch.py``, each checked in f64 on sampled
+   nonzeros. The launch counters are set to 0 before and read after: K5,
+   K10 and K11 must have launched;
+17. timing of K5 and K10 (plain, kernel, kernel, plain), the torch
+   ``xla`` paths, cuSPARSE's SDDMM (``torch.sparse.sampled_addmm`` times
+   vals, timed only), the host staging time, the bound at the nominal and
+   the measured rate, and a ``torch.profiler`` breakdown of one apply.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -73,7 +98,9 @@ uses (``2 * 4 * nnz_row * u * sum|a*x|``, floor 1e-6): both results lie
 within one bound of the exact row sum, whatever their summation order.
 For K4 in bf16 the bound is over the bf16-rounded products, which both
 sides form identically; for K7/K8 in bf16 over the bf16-rounded A and B,
-whose products are exact in f32.
+whose products are exact in f32. For K5 and K10 the bound is per output,
+``2 * 4 * F * u * sum_f |term|`` (floor 1e-6), over K5's bf16-rounded
+terms, which both sides form identically.
 
 It exits non-zero, and prints no result, when no card is visible or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -134,6 +161,22 @@ BCSR_FS = (20, 300)
 SPMM_REGIME = dict(N=16384, R=8, C=128, block_density=0.06)
 SPMM_F = 512
 SPMV_REGIME = dict(N=32768, R=8, C=128, block_density=0.015)
+SDDMM_SOURCE = "loops_tpu_torch/csrc/sddmm.cu"
+SDDMM_KERNELS = {
+    # name -> TPU kernel it replaces
+    "sddmm_flat": "loops_tpu/ops/kernels/sddmm_flat.py:49",
+    "sddmm_bcsr": "loops_tpu/ops/kernels/sddmm_bcsr.py:24",
+}
+K5_FS = (20, 64, 128)
+K10_FS = (20, 300)
+# bench.py:423-432: the SDDMM regime, nothing reduced
+SDDMM_REGIME = dict(rows=65536, cols=65536, sparsity=2.47e6 / 65536 ** 2,
+                    seed=6)
+SDDMM_F = 128
+STREAM_SOURCE = "loops_tpu_torch/csrc/stream.cu"
+STREAM_REPLACES = "bench.py:122"
+# the JAX bench's 64 MiB array, and 1 GiB, far past the 50 MB L2
+STREAM_SHAPES = {"64 MiB": (32768, 512), "1 GiB": (524288, 512)}
 # H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {None: 67e12, "bfloat16": 989e12}
@@ -298,28 +341,29 @@ def backward_vs_plain(graph, rows, F, dtype, device):
                       h.grad.cpu().numpy(), plain.cpu().numpy(), dtype)
 
 
-def bound(nbytes, flops, dtype=None):
+def bound(nbytes, flops, dtype=None, rate=HBM_BYTES_PER_S):
     """``(ms, "bytes" or "operations")``: the least time the card could
-    take to move ``nbytes`` and do ``flops``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    take to move ``nbytes`` at ``rate`` bytes/s (the nominal 3.35 TB/s, or
+    K11's measured rate) and do ``flops``."""
+    t_bytes = nbytes / rate * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def csr_spmv_bound(csr):
+def csr_spmv_bound(csr, rate=HBM_BYTES_PER_S):
     """y = A x over CSR: offsets, cols, vals and x read, y written."""
     rows, cols = csr.shape
     nbytes = 4 * (rows + 1) + 8 * csr.nnz + 4 * cols + 4 * rows
-    return bound(nbytes, 2 * csr.nnz)
+    return bound(nbytes, 2 * csr.nnz, rate=rate)
 
 
-def csr_spmm_bound(csr, F):
+def csr_spmm_bound(csr, F, rate=HBM_BYTES_PER_S):
     rows, cols = csr.shape
     nbytes = 4 * (rows + 1) + 8 * csr.nnz + 4 * F * (cols + rows)
-    return bound(nbytes, 2 * csr.nnz * F)
+    return bound(nbytes, 2 * csr.nnz * F, rate=rate)
 
 
-def bcsr_bound(bcsr, F=None, dtype=None):
+def bcsr_bound(bcsr, F=None, dtype=None, rate=HBM_BYTES_PER_S):
     """BCSR SpMV (``F`` None) or SpMM: the stored blocks, block columns
     and offsets, x or B read (in the stream type), y or C (f32) written;
     2 flops per stored value and feature."""
@@ -327,9 +371,26 @@ def bcsr_bound(bcsr, F=None, dtype=None):
     es = 2 if dtype else 4
     index = 4 * (bcsr.num_blocks + bcsr.num_block_rows + 1)
     if F is None:
-        return bound(index + 4 * bcsr.nnz + 4 * (cols + rows), 2 * bcsr.nnz)
+        return bound(index + 4 * bcsr.nnz + 4 * (cols + rows), 2 * bcsr.nnz,
+                     rate=rate)
     return bound(index + es * (bcsr.nnz + F * cols) + 4 * F * rows,
-                 2 * bcsr.nnz * F, dtype)
+                 2 * bcsr.nnz * F, dtype, rate)
+
+
+def sddmm_flat_bound(csr, F, rate=HBM_BYTES_PER_S):
+    """K5: offsets, cols, vals, A and B (f32, rounded in registers) read,
+    out written; 2 flops per nonzero and feature."""
+    rows, cols = csr.shape
+    nbytes = 4 * (rows + 1) + 12 * csr.nnz + 4 * F * (rows + cols)
+    return bound(nbytes, 2 * csr.nnz * F, rate=rate)
+
+
+def sddmm_bcsr_bound(bcsr, F, rate=HBM_BYTES_PER_S):
+    """K10: block rows and columns, vals, A and B read, out written; 2
+    flops per stored value and feature."""
+    rows, cols = bcsr.shape
+    nbytes = 8 * bcsr.num_blocks + 8 * bcsr.nnz + 4 * F * (rows + cols)
+    return bound(nbytes, 2 * bcsr.nnz * F, rate=rate)
 
 
 def bcsr_plain(kname, op):
@@ -631,6 +692,16 @@ def bcsr_phases(device, smi):
         A = bsr_on_card(mat)
         lib[mat.shape, "bsr"] = library(A, fn, v)
         del A
+    # K7/K8's bf16 mode: cuSPARSE over bf16 vals and B (its output is
+    # bf16, where K7/K8 write f32; timed only)
+    A = torch.sparse_csr_tensor(
+        *(torch.from_numpy(a).to(device) for a in (spmm_csr.offsets,
+                                                    spmm_csr.indices)),
+        torch.from_numpy(spmm_csr.vals).to(device, torch.bfloat16),
+        size=spmm_csr.shape)
+    lib[spmm_bcsr.shape, "csr_bf16"] = library(A, torch.matmul,
+                                               Bd.to(torch.bfloat16))
+    del A
     for kname, dtype, op, v, csr, mat in runs:
         plain = bcsr_plain(kname, op)
         p1 = apply_ms(plain, v)
@@ -641,7 +712,8 @@ def bcsr_phases(device, smi):
         b_ms, b_by = bcsr_bound(mat, F, dtype)
         ms = (k1 + k2) / 2
         work = 2 * csr.nnz * (F or 1)
-        lib_csr, lib_bsr = lib[mat.shape, "csr"], lib[mat.shape, "bsr"]
+        lib_csr = lib[mat.shape, "csr_bf16" if dtype else "csr"]
+        lib_bsr = lib[mat.shape, "bsr"]
         bcsr_times[kname, dtype] = dict(
             ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_csr)
@@ -663,7 +735,356 @@ def bcsr_phases(device, smi):
                   + "; ".join(f"{name[:40]} x{n:g} {ms:.4f} ms"
                               for name, n, ms in r["kernels"][:4]))
     phase(13, "BCSR timing (CUDA events, median per apply)", t0)
-    return bcsr_err, bcsr_launches, bcsr_times
+    return bcsr_err, bcsr_launches, bcsr_times, (spmv_bcsr, spmm_bcsr)
+
+
+def stream_phase(device, smi):
+    """Phase 14: K11 against its plain version (``torch.sum``) at 64 MiB
+    and 1 GiB, and the read rate of each; returns them by size."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.utils import stream
+    from loops_tpu_torch.utils.bench import apply_ms
+
+    t0 = time.perf_counter()
+    res = {}
+    for label, (rows, cols) in STREAM_SHAPES.items():
+        # integers in [-8, 8]: every f32 partial sum of K11 and torch.sum is
+        # exact, so both must give the integer total exactly
+        x = stream.stream_input(rows, cols, device)
+        exact = int(x.sum(dtype=torch.float64))
+        require(exact != 0, f"stream {label}: the total is 0, so a kernel "
+                "that read nothing would pass")
+        before = _build.LAUNCHES["stream_read"]
+        p1, p2 = stream.stream_read(x), stream.stream_read(x)
+        torch.cuda.synchronize()
+        require(_build.LAUNCHES["stream_read"] == before + 2,
+                f"stream {label}: launch counter did not go up by 2")
+        require(torch.equal(p1, p2), f"stream {label}: two runs differ")
+        total = float(p1.double().sum())
+        plain = float(stream.stream_read_plain(x).double().sum())
+        err = abs(total - plain)
+        require(total == exact and plain == exact,
+                f"stream {label}: K11 {total}, plain {plain}, exact {exact}")
+        ms = stream.pass_ms(x)
+        plain_ms = apply_ms(lambda v: v.sum(), x, iters=10)
+        nbytes = x.numel() * 4
+        gbps = nbytes / ms / 1e6
+        res[label] = dict(ms=ms, plain_ms=plain_ms, gbps=gbps, err=err,
+                          nbytes=nbytes)
+        print(f"  stream {label}: K11 {ms:.4f} ms per pass = {gbps:.1f} "
+              f"GB/s ({gbps * 1e9 / HBM_BYTES_PER_S:.1%} of the nominal "
+              f"3.35 TB/s); torch.sum {plain_ms:.4f} ms = "
+              f"{nbytes / plain_ms / 1e6:.1f} GB/s; |K11 - plain| "
+              f"{err:.3e}  [{smi}]")
+        del x, p1, p2
+    phase(14, "stream (K11 vs plain, read rate)", t0)
+    return res
+
+
+def sddmm_pair_tolerance(l1, F):
+    """Twice the Wilkinson bound of each f32 dot, ``2 * 4 * F * u32 *
+    sum_f |term|``, floor 1e-6; ``l1`` is that sum, from the plain version
+    over |vals|, |A| and |B|."""
+    import torch
+
+    from loops_tpu_torch.utils import reference
+
+    return torch.clamp(2 * reference.DEFAULT_WILKINSON_K * F
+                       * reference.unit_roundoff(np.float32) * l1.double(),
+                       min=1e-6)
+
+
+def sddmm_plain(kname, b, mat):
+    """The plain version of K5 or K10 over the buffers ``b``."""
+    from loops_tpu_torch.ops.kernels import sddmm_bcsr, sddmm_flat
+
+    if kname == "sddmm_flat":
+        return lambda bb, A, B: sddmm_flat.sddmm_flat_plain(bb, A, B, mat.nnz)
+    return lambda bb, A, B: sddmm_bcsr.sddmm_bcsr_plain(bb, A, B, mat.shape)
+
+
+def sddmm_vs_plain(label, kname, mat, A, B, device, sampled=False):
+    """K5 (CSR ``mat``, bf16 operands) or K10 (BCSR ``mat``) twice and its
+    plain version once on the same staged buffers: agreement within twice
+    the Wilkinson bound, formed on the card from the plain version over
+    the terms' magnitudes; the validator over every nonzero, or over
+    4096 sampled ones (``sampled``). Returns the max |kernel - plain|."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import _build, sddmm_bcsr, sddmm_flat
+    from loops_tpu_torch.utils import reference
+
+    flat = kname == "sddmm_flat"
+    build = sddmm_flat.sddmm_flat if flat else sddmm_bcsr.sddmm_bcsr
+    b, fn = build(mat, device=device)
+    plain = sddmm_plain(kname, b, mat)
+    Ad, Bd = (torch.from_numpy(a).to(device) for a in (A, B))
+    before = _build.LAUNCHES[kname]
+    o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES[kname] == before + 2,
+            f"{label}: launch counter did not go up by 2")
+    require(torch.equal(o1, o2), f"{label}: two applies are not bitwise "
+            "equal")
+    shape = (mat.nnz,) if flat else tuple(mat.vals.shape)
+    require(tuple(o1.shape) == shape and bool(torch.isfinite(o1).all()),
+            f"{label}: bad output")
+    diff = (o1.double() - plain(b, Ad, Bd).double()).abs()
+    mags = {k: v.abs() if v.is_floating_point() else v for k, v in b.items()}
+    tol = sddmm_pair_tolerance(plain(mags, Ad.abs(), Bd.abs()), A.shape[1])
+    require(bool((diff <= tol).all()),
+            f"{label}: kernel and plain differ by {float(diff.max()):.3e}")
+    del o2
+    if flat:
+        pattern, out, operands = mat, o1, "bfloat16"
+    else:
+        pattern, slot = mat.stored_pattern()
+        out = o1.reshape(-1)[torch.from_numpy(slot).to(device)]
+        operands = None
+    if sampled:
+        rep = reference.validate_sampled_sddmm(pattern, A, B, out,
+                                               operands=operands)
+        require(rep.overruns == 0, f"{label}: {rep}")
+    else:
+        rep = reference.rigorously_validate_sddmm(
+            pattern, A, B, out.cpu().numpy(), operands)
+        require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
+    return float(diff.max())
+
+
+def sddmm_phases(device, smi, adj, rate):
+    """Phases 15-17 (the SDDMM tier, K5 and K10); ``rate`` is K11's
+    measured read rate in bytes/s. Returns the max |kernel - plain| per
+    kernel, the main path's launch counts and the timings."""
+    import torch
+
+    from loops_tpu_torch.formats import BCSR
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.sddmm import SDDMMOperator, sddmm
+    from loops_tpu_torch.utils import generate, reference
+    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+    from loops_tpu_torch.utils.stream import measure_stream_gbps
+
+    BF = "bfloat16"
+
+    def operands(shape, F, seed):
+        rng = np.random.default_rng(seed)
+        return (rng.normal(size=(shape[0], F)).astype(np.float32),
+                rng.normal(size=(shape[1], F)).astype(np.float32))
+
+    # ---- 15. K5 and K10 vs plain
+    t0 = time.perf_counter()
+    err = {k: 0.0 for k in SDDMM_KERNELS}
+    n_cases = 0
+    k5_mats = {
+        # tests/test_spmm_sddmm.py:191-198, then the SpMV battery
+        "uniform": generate.random_csr(1024, 1024, 0.01, seed=2),
+        "rect": generate.random_csr(768, 1536, 0.01, seed=3),
+        "skewed_512": generate.skewed_csr(512, 512, heavy_rows=4),
+        **{k: make() for k, make in generate.BATTERY.items()}}
+    for mname, csr in k5_mats.items():
+        for F in K5_FS:
+            A, B = operands(csr.shape, F, F)
+            err["sddmm_flat"] = max(err["sddmm_flat"], sddmm_vs_plain(
+                f"K5 {mname} F={F}", "sddmm_flat", csr, A, B, device))
+            n_cases += 1
+    for mname, make in generate.BCSR_CASES.items():
+        csr = make()
+        for block in BCSR_BLOCKS:
+            bcsr = BCSR.from_csr(csr, *block)
+            for F in K10_FS:
+                A, B = operands(csr.shape, F, F)
+                err["sddmm_bcsr"] = max(err["sddmm_bcsr"], sddmm_vs_plain(
+                    f"K10 {mname} {block[0]}x{block[1]} F={F}", "sddmm_bcsr",
+                    bcsr, A, B, device))
+                n_cases += 1
+    th = time.perf_counter()
+    bench = generate.random_csr(**SDDMM_REGIME)
+    _, bcsr = generate.build_block_sparse(**SPMM_REGIME)
+    print(f"  regimes built in {time.perf_counter() - th:.2f} s: SDDMM "
+          f"{bench.shape[0]}^2, {bench.nnz} nnz, longest row "
+          f"{int(bench.row_sizes().max())}; BCSR {bcsr.shape[0]}^2, "
+          f"{bcsr.num_blocks} blocks, {bcsr.nnz} stored values")
+    # bench.py:425-432: A and B from default_rng(8), in that order
+    rng = np.random.default_rng(8)
+    A_bench = rng.normal(size=(bench.shape[0], SDDMM_F)).astype(np.float32)
+    B_bench = rng.normal(size=(bench.shape[1], SDDMM_F)).astype(np.float32)
+    A_arx, B_arx = operands(adj.shape, SDDMM_F, 0)
+    A_blk, B_blk = operands(bcsr.shape, SPMM_F, 1)
+    regimes = [
+        ("bench 65536^2 F=128", "sddmm_flat", bench, A_bench, B_bench),
+        ("arxiv_gcn F=128", "sddmm_flat", adj, A_arx, B_arx),
+        ("bcsr 16384^2 F=512", "sddmm_bcsr", bcsr, A_blk, B_blk)]
+    for label, kname, mat, A, B in regimes:
+        err[kname] = max(err[kname], sddmm_vs_plain(
+            f"{kname} {label}", kname, mat, A, B, device, sampled=True))
+        n_cases += 1
+        torch.cuda.empty_cache()
+    phase(15, "K5 and K10 vs plain", t0,
+          f"{n_cases} cases, max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + " ")
+
+    # ---- 16. the SDDMM main path at full size
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    for label, (rows, cols) in STREAM_SHAPES.items():
+        gbps = measure_stream_gbps(device, rows, cols)
+        print(f"  measure_stream_gbps ({label}; 64 MiB is bench.py's first "
+              f"step): {gbps:.1f} GB/s  [{smi}]")
+    pattern, slot = bcsr.stored_pattern()
+    slot_d = torch.from_numpy(slot).to(device)
+    runs = [
+        # label, matrix, A, B, sddmm keywords, the validator's (csr, A, B,
+        # operands)
+        ("K5 bench 65536^2 F=128", bench, A_bench, B_bench,
+         dict(impl="pallas", dtype=BF), (bench, A_bench, B_bench, BF)),
+        ("K5 arxiv_gcn F=128", adj, A_arx, B_arx,
+         dict(impl="pallas", dtype=BF), (adj, A_arx, B_arx, BF)),
+        ("K10 bcsr 16384^2 F=512", bcsr, A_blk, B_blk,
+         dict(impl="pallas", block_f=SPMM_F), (pattern, A_blk, B_blk, None)),
+        ("COO xla f32 arxiv_gcn F=128", adj.to_coo(), A_arx, B_arx, {},
+         (adj, A_arx, B_arx, None)),
+        ("CSR xla f32 arxiv_gcn F=128", adj, A_arx, B_arx, {},
+         (adj, A_arx, B_arx, None)),
+        ("CSR xla bf16 arxiv_gcn F=128", adj, A_arx, B_arx, dict(dtype=BF),
+         (adj, reference.bf16_round(A_arx), reference.bf16_round(B_arx),
+          None)),
+    ]
+    ops = {}
+    for label, mat, A, B, kw, (vcsr, vA, vB, vop) in runs:
+        th = time.perf_counter()
+        out = sddmm(mat, A, B, device=device, **kw)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - th
+        op = list(mat._sddmm_ops.values())[-1]
+        flat = out.reshape(-1)[slot_d] if out.dim() == 3 else out
+        rep = reference.validate_sampled_sddmm(vcsr, vA, vB, flat,
+                                               operands=vop)
+        print(f"  sddmm {label}: {op.impl_used}, launches {op.launches}, "
+              f"{rep}; first call {call_s:.2f} s (host staging "
+              f"{op.meta['build_ms']:.1f} ms)")
+        require(bool(torch.isfinite(out).all()) and rep.overruns == 0
+                and rep.rel_error < 1e-5, f"{label}: {rep}")
+        want = "torch" if "xla" in label else (
+            "sddmm_flat" if label.startswith("K5") else "sddmm_bcsr")
+        require(op.impl_used == want
+                and op.launches == int(want != "torch"),
+                f"{label}: took {op.impl_used}, {op.launches} launches")
+        ops[label] = op
+        del out, flat
+    spec = importlib.util.spec_from_file_location(
+        "primitives_torch", os.path.join(REPO, "scripts",
+                                         "primitives_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf, ebuf = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(ebuf):
+        status = mod.main(["--device", "cuda"])
+    for ln in buf.getvalue().splitlines() + ebuf.getvalue().splitlines():
+        print(f"  primitives_torch: {ln}")
+    rows = [ln for ln in buf.getvalue().splitlines() if ln.startswith("| ")
+            and ln.split("|")[1].strip().isdigit()]
+    require(status == 0 and len(rows) == 3 and "impl_used: sddmm_flat"
+            in ebuf.getvalue(), "scripts/primitives_torch.py failed")
+    launches = dict(_build.LAUNCHES)
+    for kname in (*SDDMM_KERNELS, "stream_read"):
+        require(launches[kname] > 0,
+                f"{kname} never launched on the SDDMM main path")
+    phase(16, "SDDMM main path at full size", t0, "main-path launches "
+          + json.dumps({k: launches[k] for k in (*SDDMM_KERNELS,
+                                                 "stream_read")})
+          + f" [{smi}] ")
+    torch.cuda.empty_cache()
+
+    # ---- 17. timing: plain, kernel, kernel, plain; torch paths; cuSPARSE
+    t0 = time.perf_counter()
+
+    def on_card(csr, dt):
+        return torch.sparse_csr_tensor(
+            *(torch.from_numpy(a).to(device) for a in (
+                csr.offsets, csr.indices)),
+            torch.from_numpy(csr.vals).to(device, dt), size=csr.shape)
+
+    def cusparse_ms(csr, A, B):
+        """``torch.sparse.sampled_addmm`` (cuSPARSE's SDDMM) times vals:
+        bf16 where it runs, else f32; timed only."""
+        for dt in (torch.bfloat16, torch.float32):
+            S = on_card(csr, dt)
+            v = S.values()
+            Ad, Bt = (torch.from_numpy(a).to(device, dt) for a in (A, B))
+            Bt = Bt.t()
+            try:
+                ms = apply_ms(lambda a: torch.sparse.sampled_addmm(
+                    S, a, Bt, beta=0.0).values() * v, Ad, iters=10)
+                return ms, str(dt).split(".")[-1]
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"  cuSPARSE SDDMM {dt}: not run "
+                      f"({str(e).splitlines()[0]})")
+            finally:
+                del S, v, Ad, Bt
+        return None, None
+
+    times = {}
+    timed = [("bench_65536 F=128", "sddmm_flat", bench, A_bench, B_bench,
+              ops["K5 bench 65536^2 F=128"]),
+             ("arxiv_gcn F=128", "sddmm_flat", adj, A_arx, B_arx,
+              ops["K5 arxiv_gcn F=128"]),
+             ("bcsr_16384 F=512", "sddmm_bcsr", bcsr, A_blk, B_blk,
+              ops["K10 bcsr 16384^2 F=512"])]
+    for label, kname, mat, A, B, op in timed:
+        Ad, Bd = (torch.from_numpy(a).to(device) for a in (A, B))
+        raw = sddmm_plain(kname, op._bufs, mat)
+
+        def plain(a, raw=raw, b=op._bufs, Bd=Bd):
+            return raw(b, a, Bd)
+
+        def kernel(a, op=op, Bd=Bd):
+            return op(a, Bd)
+        p1 = apply_ms(plain, Ad, iters=10)
+        k1 = apply_ms(kernel, Ad)
+        k2 = apply_ms(kernel, Ad)
+        p2 = apply_ms(plain, Ad, iters=10)
+        torch_ms = {}
+        if kname == "sddmm_flat":
+            for dt in (None, BF):
+                x = SDDMMOperator(mat, dtype=dt, device=device)
+                torch_ms[dt or "f32"] = apply_ms(lambda a, x=x: x(a, Bd), Ad,
+                                                 iters=10)
+                del x
+        lib_ms, lib_dt = cusparse_ms(
+            mat if kname == "sddmm_flat" else pattern, A, B)
+        F = A.shape[1]
+        bmake = sddmm_flat_bound if kname == "sddmm_flat" else \
+            sddmm_bcsr_bound
+        b_ms, b_by = bmake(mat, F)
+        m_ms, m_by = bmake(mat, F, rate=rate)
+        ms = (k1 + k2) / 2
+        times[label] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
+        print(f"  {kname} {label}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, torch xla "
+              + (", ".join(f"{k} {v:.4f} ms" for k, v in torch_ms.items())
+                 or "= plain")
+              + ", cuSPARSE sampled_addmm "
+              + ("not run" if lib_ms is None else f"{lib_dt} {lib_ms:.4f} ms")
+              + f"; bound {b_ms:.4f} ms ({b_by}) nominal, {m_ms:.4f} ms "
+              f"({m_by}) at the measured stream; {b_ms / ms:.1%} of the "
+              f"nominal bound; host staging {op.meta['build_ms']:.1f} ms"
+              f"  [{smi}]")
+        r = profile_applies(kernel, Ad, applies=10, warmup=2)
+        print(f"  profile {kname} {label}: wall {r['wall_ms']:.4f} ms, "
+              f"device {r['device_ms']:.4f} ms, idle {r['idle_share']:.1%}; "
+              + "; ".join(f"{name[:40]} x{n:g} {t:.4f} ms"
+                          for name, n, t in r["kernels"][:4]))
+        del Ad, Bd
+        torch.cuda.empty_cache()
+    phase(17, "SDDMM timing (CUDA events, median per apply)", t0)
+    bounds = {"sddmm_flat": lambda r: sddmm_flat_bound(bench, SDDMM_F, r),
+              "sddmm_bcsr": lambda r: sddmm_bcsr_bound(bcsr, SPMM_F, r)}
+    return err, launches, times, bounds
 
 
 def main() -> int:
@@ -1033,11 +1454,26 @@ def main() -> int:
     del model, ref, fast, slow, step, step_f32, on_card, Bd
     torch.cuda.empty_cache()
 
-    bcsr_err, bcsr_launches, bcsr_times = bcsr_phases(device, smi)
+    bcsr_err, bcsr_launches, bcsr_times, bcsr_mats = bcsr_phases(device, smi)
+    stream_res = stream_phase(device, smi)
+    rate = stream_res["1 GiB"]["gbps"] * 1e9
+    sddmm_err, sddmm_launches, sddmm_times, sddmm_bounds = sddmm_phases(
+        device, smi, adj, rate)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
     big = mats["big_2097152"][0]
+    spmv_mat, spmm_mat = bcsr_mats
+    bounds = {
+        **{k: (lambda r: csr_spmv_bound(big, r)) for k in KERNELS},
+        "flat_spmm": lambda r: csr_spmm_bound(adj, 128, r),
+        "bcsr_spmv": lambda r: bcsr_bound(spmv_mat, rate=r),
+        **{k: (lambda r: bcsr_bound(spmm_mat, SPMM_F, rate=r))
+           for k in BCSR_KERNELS if k != "bcsr_spmv"},
+        **sddmm_bounds,
+        "stream_read": lambda r: bound(stream_res["1 GiB"]["nbytes"], 0,
+                                       rate=r),
+    }
     for k, (rep_at, _, _) in KERNELS.items():
         b_ms, b_by = csr_spmv_bound(big)
         kernels.append(
@@ -1059,6 +1495,31 @@ def main() -> int:
             {"name": k, "route": "cuda", "source": BCSR_SOURCE,
              "replaces": rep_at, "launches": bcsr_launches[k],
              "max_abs_err": bcsr_err[k], **bcsr_times[k, None]})
+    for k, label in (("sddmm_flat", "bench_65536 F=128"),
+                     ("sddmm_bcsr", "bcsr_16384 F=512")):
+        kernels.append(
+            {"name": k, "route": "cuda", "source": SDDMM_SOURCE,
+             "replaces": SDDMM_KERNELS[k], "launches": sddmm_launches[k],
+             "max_abs_err": sddmm_err[k], **sddmm_times[label]})
+    # at 1 GiB, where no pass fits the L2, so the byte bound holds;
+    # torch.sum is both the plain version and the one library call
+    s1g = stream_res["1 GiB"]
+    b_ms, b_by = bounds["stream_read"](HBM_BYTES_PER_S)
+    kernels.append(
+        {"name": "stream_read", "route": "cuda", "source": STREAM_SOURCE,
+         "replaces": STREAM_REPLACES,
+         "launches": sddmm_launches["stream_read"], "max_abs_err": s1g["err"],
+         "ms": s1g["ms"], "plain_ms": s1g["plain_ms"], "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": s1g["plain_ms"]})
+    print(f"measured stream (K11, 1 GiB): {rate / 1e9:.1f} GB/s; each "
+          "kernel's bound at the nominal 3.35 TB/s and at the measured "
+          f"rate  [{smi}]")
+    for entry in kernels:
+        nom, by = bounds[entry["name"]](HBM_BYTES_PER_S)
+        meas, mby = bounds[entry["name"]](rate)
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms; bound {nom:.4f} ms "
+              f"({by}) nominal, {meas:.4f} ms ({mby}) measured; "
+              f"{meas / entry['ms']:.1%} of the measured bound")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

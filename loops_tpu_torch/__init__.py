@@ -13,14 +13,14 @@ path:
 - **layout**: the tile/atom layout contract and the merge-path partitioner.
 - **schedule**: host planners: row_mapped, group_mapped, work_oriented,
   merge_path, and ``choose_schedule`` for ``auto``.
-- **ops**: CSR and BCSR SpMV and SpMM on top of the planners; plain torch
-  executors plus hand-written CUDA kernels (``ops/kernels``, sources in
-  ``csrc/``).
+- **ops**: CSR and BCSR SpMV and SpMM, and SDDMM over CSR, COO and BCSR,
+  on top of the planners; plain torch executors plus hand-written CUDA
+  kernels (``ops/kernels``, sources in ``csrc/``).
 - **models**: the GNN tier so far: graph container, message passing with
   its SpMM gradient, GCN, training, checkpoints.
 - **tuning**: the launch box keyed by the card's name.
 - **utils**: host reference engines, the Wilkinson validator, matrix
-  generators, CUDA-event timing.
+  generators, CUDA-event timing, the measured read stream (K11).
 
 The package imports torch and numpy only; it never imports JAX or
 ``loops_tpu``.

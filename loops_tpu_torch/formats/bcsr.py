@@ -118,6 +118,27 @@ class BCSR:
         return COO(self.shape, rows[keep], cols[keep],
                    self.vals[keep]).to_csr()
 
+    def stored_pattern(self):
+        """``(csr, slot)``: every stored entry inside the matrix, explicit
+        zeros kept, as a CSR in row order (the pattern block SDDMM
+        samples), and each entry's index in the flattened
+        [num_blocks, R, C] payload."""
+        from loops_tpu_torch.formats.csr import CSR
+        R, C = self.block_shape
+        rows, cols = self.shape
+        t, r, c = np.meshgrid(np.arange(self.num_blocks), np.arange(R),
+                              np.arange(C), indexing="ij")
+        gr = self.block_row_ids()[t] * R + r
+        gc = self.block_cols[t].astype(np.int64) * C + c
+        slot = (t * R + r) * C + c
+        keep = (gr < rows) & (gc < cols)
+        gr, gc, slot = gr[keep], gc[keep], slot[keep]
+        order = np.argsort(gr * max(cols, 1) + gc, kind="stable")
+        gr, gc, slot = gr[order], gc[order], slot[order]
+        offsets = np.searchsorted(gr, np.arange(rows + 1))
+        return (CSR(self.shape, offsets, gc, self.vals.reshape(-1)[slot]),
+                slot)
+
     def to_dense(self) -> np.ndarray:
         R, C = self.block_shape
         padded = np.zeros((self.num_block_rows * R, self.num_block_cols * C),

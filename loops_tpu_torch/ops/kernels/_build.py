@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
             "flat_spmm": 0, "bcsr_spmv": 0, "bcsr_spmm": 0,
-            "bcsr_spmm_v2": 0, "bcsr_spmm_v3": 0}
+            "bcsr_spmm_v2": 0, "bcsr_spmm_v3": 0, "sddmm_flat": 0,
+            "sddmm_bcsr": 0, "stream_read": 0}
 
 # seconds the last build took in this process (0.0 when the library
 # came from an earlier build of the same sources)
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "loops_bcsr_spmm_f32": [_P] * 5 + [_I] * 7 + [_P],
     "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 11 + [_P],
     "loops_bcsr_spmm_v3": [_P] * 9 + [_I] * 12 + [_P],
+    "loops_sddmm_flat": [_P] * 7 + [_I] * 5 + [_P],
+    "loops_bcsr_sddmm_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "loops_stream_read_f32": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lib = None

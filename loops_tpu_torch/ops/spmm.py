@@ -65,6 +65,7 @@ from loops_tpu_torch.ops.kernels import (
     spmv_bcsr,
 )
 from loops_tpu_torch.ops.kernels.spmm_flat import BF16, products
+from loops_tpu_torch.ops.spmv import op_cache
 from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils.platform import ensure_platform
@@ -278,21 +279,13 @@ class SpMMOperator:
         return bufs, fn
 
 
-def _op_cache(mat) -> dict:
-    cache = getattr(mat, "_spmm_ops", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(mat, "_spmm_ops", cache)
-    return cache
-
-
 def spmm(mat, B, schedule: str = "row_mapped", impl: str = "xla",
          block_f: int | None = None, dtype=None, block: int = 512,
          device="cuda"):
     """One-shot SpMM with operator caching on the container."""
     device = ensure_platform(device)
     key = (schedule, impl, block_f, str(dtype), block, str(device))
-    cache = _op_cache(mat)
+    cache = op_cache(mat, "_spmm_ops")
     if key not in cache:
         cache[key] = SpMMOperator(mat, schedule, impl, block_f, dtype,
                                   block=block, device=device)

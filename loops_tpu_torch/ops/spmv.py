@@ -288,11 +288,13 @@ class SpMVOperator:
         return bufs, fn
 
 
-def _op_cache(mat) -> dict:
-    cache = getattr(mat, "_spmv_ops", None)
+def op_cache(mat, attr: str) -> dict:
+    """The dict of operators kept on the container ``mat`` under ``attr``
+    (``_spmv_ops``, ``_spmm_ops``, ``_sddmm_ops``), made on first use."""
+    cache = getattr(mat, attr, None)
     if cache is None:
         cache = {}
-        object.__setattr__(mat, "_spmv_ops", cache)
+        object.__setattr__(mat, attr, cache)
     return cache
 
 
@@ -301,7 +303,7 @@ def spmv(mat, x, schedule: str = "row_mapped", block: int | None = None,
     """One-shot SpMV with operator caching on the container."""
     device = ensure_platform(device)
     key = (schedule, block, impl, str(device))
-    cache = _op_cache(mat)
+    cache = op_cache(mat, "_spmv_ops")
     if key not in cache:
         cache[key] = SpMVOperator(mat, schedule, block, impl, device=device)
     return cache[key](x)

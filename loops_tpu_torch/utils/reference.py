@@ -12,7 +12,8 @@ per row (any summation order satisfies it); a kernel that overruns the
 bound on rows where a plain f32 baseline does not is flagged POTENTIAL_BUG.
 This is how kernels whose summation order differs from the sequential
 loop (warp trees, segmented scans) are judged. The SpMM half applies the
-same bound per (row, feature) entry. Host code only (numpy, and
+same bound per (row, feature) entry, the SDDMM half per nonzero over its
+F products. Host code only (numpy, and
 scipy.sparse for the SpMM products): results from the device are handed
 over as host arrays.
 """
@@ -247,6 +248,104 @@ def validate_sampled_rows(csr, B, C, n: int = 256, seed: int = 7,
         rel_error=float(err.max(initial=0.0)
                         / max(np.abs(ref).max(initial=0.0), 1e-9)),
         overruns=int((err > bound).sum()))
+
+
+def sddmm(csr, A, B) -> np.ndarray:
+    """Host SDDMM: ``out_nz = vals_nz * <A[row_nz, :], B[col_nz, :]>`` in
+    f64, per nonzero in CSR order (``loops_tpu``'s ``reference.sddmm``)."""
+    A, B = np.asarray(A, np.float64), np.asarray(B, np.float64)
+    dots = np.einsum("ij,ij->i", A[csr.row_ids()], B[csr.indices])
+    return csr.vals.astype(np.float64) * dots
+
+
+SDDMM_OPERANDS = (None, "bfloat16")
+
+
+def sddmm_terms(csr, A, B, nz, operands=None) -> np.ndarray:
+    """[len(nz), F] float64: the terms whose sum is nonzero ``nz``'s
+    SDDMM value. ``operands=None``: ``vals * A[r, f] * B[c, f]``.
+    ``"bfloat16"``: the terms of the card's bf16 kernel (K5),
+    ``bf16(A[r, f]) * bf16(vals * bf16(B[c, f]))``, each exact in f32."""
+    if operands not in SDDMM_OPERANDS:
+        raise ValueError(f"operands={operands!r}: expected one of "
+                         f"{SDDMM_OPERANDS}")
+    nz = np.asarray(nz, np.int64)
+    rows = np.searchsorted(csr.offsets, nz, side="right") - 1
+    cols = csr.indices[nz]
+    if operands is None:
+        v = csr.vals[nz].astype(np.float64)[:, None]
+        return (v * np.asarray(A, np.float64)[rows]
+                * np.asarray(B, np.float64)[cols])
+    v = csr.vals[nz].astype(np.float32)[:, None]
+    a = bf16_round(np.asarray(A, np.float32)[rows])
+    g = bf16_round(v * bf16_round(np.asarray(B, np.float32)[cols]))
+    return a.astype(np.float64) * g
+
+
+def sddmm_bound(terms, k: float = DEFAULT_WILKINSON_K,
+                atol_floor: float = DEFAULT_ATOL_FLOOR) -> np.ndarray:
+    """The Wilkinson bound of each nonzero's f32 dot over its ``terms``:
+    ``K * F * u32 * sum_f |term|``, floor ``atol_floor``."""
+    F = terms.shape[1]
+    return np.maximum(atol_floor, k * F * unit_roundoff(np.float32)
+                      * np.abs(terms).sum(axis=1))
+
+
+def rigorously_validate_sddmm(csr, A, B, out, operands=None,
+                              k: float = DEFAULT_WILKINSON_K,
+                              atol_floor: float = 1e-6,
+                              chunk: int = 1 << 16) -> RigorousReport:
+    """Wilkinson validation of SDDMM, per nonzero:
+    ``|out - exact| <= K * F * u32 * |v| * sum_f |A[r,f] * B[c,f]|``
+    (floor 1e-6), the exact value in f64. With ``operands="bfloat16"`` the
+    bound is over the bf16 kernel's rounded terms (see ``sddmm_terms``),
+    whose rounding is the mode's definition, as
+    ``rigorously_validate_spmm_bf16`` does for K4; what is judged is the
+    f32 sum. The f32 baseline sums the same terms in f32, in order. The
+    nonzeros are taken ``chunk`` at a time, so host memory stays bounded."""
+    out = np.asarray(out, np.float64)
+    exact = np.zeros(csr.nnz)
+    naive = np.zeros(csr.nnz)
+    bound = np.zeros(csr.nnz)
+    for e0 in range(0, csr.nnz, chunk):
+        nz = np.arange(e0, min(e0 + chunk, csr.nnz))
+        t = sddmm_terms(csr, A, B, nz, operands)
+        exact[nz] = t.sum(axis=1)
+        naive[nz] = t.astype(np.float32).sum(axis=1, dtype=np.float32)
+        bound[nz] = sddmm_bound(t, k, atol_floor)
+    return _report(k, out, exact, naive, bound)
+
+
+@dataclass
+class SampledNonzerosReport:
+    """Output of :func:`validate_sampled_sddmm`."""
+    nonzeros: int        # nonzeros checked
+    rel_error: float     # max |out - exact| / max |exact| over them
+    overruns: int        # nonzeros past the f32 Wilkinson bound
+
+
+def validate_sampled_sddmm(csr, A, B, out, n: int = 4096, seed: int = 7,
+                           operands=None, k: float = DEFAULT_WILKINSON_K,
+                           atol_floor: float = 1e-6
+                           ) -> SampledNonzerosReport:
+    """SDDMM check at bench scale: ``n`` nonzeros drawn from ``seed``, each
+    summed in f64 and held to the bound of ``rigorously_validate_sddmm``.
+    ``out`` may be a card tensor: only the drawn values are copied back."""
+    rng = np.random.default_rng(seed)
+    nz = np.sort(rng.choice(csr.nnz, min(n, csr.nnz), replace=False))
+    t = sddmm_terms(csr, A, B, nz, operands)
+    exact = t.sum(axis=1)
+    if hasattr(out, "cpu"):
+        import torch
+        got = out[torch.from_numpy(nz).to(out.device)].cpu().numpy()
+    else:
+        got = np.asarray(out)[nz]
+    err = np.abs(np.asarray(got, np.float64) - exact)
+    return SampledNonzerosReport(
+        nonzeros=len(nz),
+        rel_error=float(err.max(initial=0.0)
+                        / max(np.abs(exact).max(initial=0.0), 1e-9)),
+        overruns=int((err > sddmm_bound(t, k, atol_floor)).sum()))
 
 
 def _report(k, kernel, exact, naive, bound) -> RigorousReport:

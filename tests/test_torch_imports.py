@@ -50,6 +50,10 @@ SLICE_MODULES = [
     "loops_tpu_torch.ops.kernels.spmm_bcsr",
     "loops_tpu_torch.ops.kernels.spmm_bcsr_v2",
     "loops_tpu_torch.ops.kernels.spmm_bcsr_v3",
+    "loops_tpu_torch.ops.sddmm",
+    "loops_tpu_torch.ops.kernels.sddmm_flat",
+    "loops_tpu_torch.ops.kernels.sddmm_bcsr",
+    "loops_tpu_torch.utils.stream",
     "loops_tpu_torch.models",
     "loops_tpu_torch.models.graph",
     "loops_tpu_torch.models.message_passing",
@@ -177,6 +181,18 @@ NO_DEVICE_CALLS = {
                                    "bcsr_spmm_v2")(_tiny_bcsr()),
     "bcsr_spmm_v3": lambda: _entry("ops.kernels.spmm_bcsr_v3",
                                    "bcsr_spmm_v3")(_tiny_bcsr()),
+    "SDDMMOperator": lambda: _entry("ops.sddmm", "SDDMMOperator")(
+        _tiny_csr(), impl="pallas", dtype="bfloat16"),
+    "sddmm": lambda: _entry("ops.sddmm", "sddmm")(
+        _tiny_csr(), np.ones((4, 2), np.float32), np.ones((4, 2), np.float32)),
+    "SDDMMOperator_bcsr": lambda: _entry("ops.sddmm", "SDDMMOperator")(
+        _tiny_bcsr(), impl="pallas"),
+    "sddmm_flat": lambda: _entry("ops.kernels.sddmm_flat", "sddmm_flat")(
+        _tiny_csr()),
+    "sddmm_bcsr": lambda: _entry("ops.kernels.sddmm_bcsr", "sddmm_bcsr")(
+        _tiny_bcsr()),
+    "measure_stream_gbps": lambda: _entry("utils.stream",
+                                          "measure_stream_gbps")(),
     "launch_params": lambda: _entry("tuning.launch_box", "launch_params")(),
     "Timer": lambda: _entry("utils.timer", "Timer")(),
     "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),
