@@ -87,7 +87,26 @@ Phases, one line each with its time:
 17. timing of K5 and K10 (plain, kernel, kernel, plain), the torch
    ``xla`` paths, cuSPARSE's SDDMM (``torch.sparse.sampled_addmm`` times
    vals, timed only), the host staging time, the bound at the nominal and
-   the measured rate, and a ``torch.profiler`` breakdown of one apply.
+   the measured rate, and a ``torch.profiler`` breakdown of one apply;
+18. K12 and K2 vs plain: K12 (``saxpy``) bitwise against ``a * x + y``
+   at the example's [8, 8192], at odd sizes and on an unaligned view; K2
+   against its plain version again, its scan now in
+   ``csrc/seg_scan.cuh``; and ``torch.matmul`` with TF32 allowed, which
+   the dots' check (below) must refuse;
+19. the tier's path: ``examples/saxpy_torch.py``, ``range_torch.py``,
+   ``custom_layout_torch.py`` and ``scripts/h100_probes.py`` at the TPU
+   scripts' sizes. Each probe holds its kernels (K13 ``seg_scan_probe``
+   and ``construct_probe``, K14 ``block_dot_f32``/``_bf16``,
+   ``smem_scatter``, ``l2_scatter``, K15 ``gather_axis0``/``1``,
+   ``row_gather_*`` per residency, ``onehot_expand``) to their plain
+   versions on the TPU scripts' seeded inputs: exact (constructs,
+   gathers, scatters, one-hot expand, the scan and the dots on integer
+   values), the scan at ``atol 1e-4``, ``dot0`` at ``1e-5``, the dots on
+   normal values within ``r2.DOT_C`` units of ``u32 sqrt(sum (a b)^2)``
+   of their float64 reference; two launches bitwise equal. Then it times
+   each by slope (launches or passes) beside its plain version and its
+   library call. The launch counters are set to 0 before and read after:
+   every K12-K15 kernel must have launched.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -177,6 +196,42 @@ STREAM_SOURCE = "loops_tpu_torch/csrc/stream.cu"
 STREAM_REPLACES = "bench.py:122"
 # the JAX bench's 64 MiB array, and 1 GiB, far past the 50 MB L2
 STREAM_SHAPES = {"64 MiB": (32768, 512), "1 GiB": (524288, 512)}
+# K12-K15: kernel -> (source, the TPU kernel it replaces)
+PROBE_KERNELS = {
+    "saxpy": ("loops_tpu_torch/csrc/saxpy.cu", "examples/saxpy.py:26"),
+    "seg_scan_probe": ("loops_tpu_torch/csrc/probes.cu",
+                       "scripts/tpu_mosaic_probe2.py:23"),
+    "construct_probe": ("loops_tpu_torch/csrc/probes.cu",
+                        "scripts/tpu_mosaic_probe.py:24"),
+    **{k: ("loops_tpu_torch/csrc/probes_r2.cu", "scripts/tpu_r2_probe.py:90")
+       for k in ("block_dot_f32", "block_dot_bf16")},
+    **{k: ("loops_tpu_torch/csrc/probes_r2.cu", "scripts/tpu_r2_probe.py:148")
+       for k in ("smem_scatter", "l2_scatter")},
+    "gather_axis0": ("loops_tpu_torch/csrc/probes_gather.cu",
+                     "scripts/tpu_r3_gather_probe.py:37"),
+    "gather_axis1": ("loops_tpu_torch/csrc/probes_gather.cu",
+                     "scripts/tpu_r3_gather_probe.py:77"),
+    **{f"row_gather_{m}_{w}": ("loops_tpu_torch/csrc/probes_gather.cu",
+                               "scripts/tpu_r4_gather_probe.py:56")
+       for m in ("sum", "mat") for w in ("smem", "l2", "hbm")},
+    "onehot_expand": ("loops_tpu_torch/csrc/probes_gather.cu",
+                      "scripts/tpu_r4_gather_probe.py:121"),
+}
+# the case of each probe kernel that stands for it in the kernels line:
+# the block dots with B streamed, where every chunk's product is needed
+PROBE_ENTRIES = {"seg_scan_probe": "seg_scan", "construct_probe": "constructs",
+                 "block_dot_f32": "M=128 streamB",
+                 "block_dot_bf16": "M=128 streamB",
+                 "smem_scatter": "smem 256x64", "l2_scatter": "L2 4096x512",
+                 "gather_axis0": "S=256", "gather_axis1": "S=256",
+                 "row_gather_sum_smem": "S=256 K=128 f32",
+                 "row_gather_sum_l2": "S=4096 K=128 f32",
+                 "row_gather_sum_hbm": "S=2097152 K=128 f32",
+                 "row_gather_mat_smem": "S=256 K=64 f32",
+                 "row_gather_mat_l2": "S=4096 K=64 f32",
+                 "row_gather_mat_hbm": "S=2097152 K=64 f32",
+                 "onehot_expand": "W=512"}
+SAXPY_SHAPE = (8, 8192)  # examples/saxpy.py: n = 1 << 16 as [8, n / 8]
 # H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {None: 67e12, "bfloat16": 989e12}
@@ -194,6 +249,20 @@ def require(cond, msg):
 def phase(n, name, t0, detail=""):
     print(f"phase {n} {name}: ok {detail}({time.perf_counter() - t0:.2f} s)",
           flush=True)
+
+
+def profile_text(r, top, width=40):
+    """A ``profile_applies`` result as one line; the profiler's trace can
+    come back empty where another tool holds the card's tracing, and then
+    only the wall time stands."""
+    wall = f"wall {r['wall_ms']:.4f} ms"
+    if not r["kernels"]:
+        return f"{wall}, device time not measured (torch.profiler recorded " \
+               "no kernel)"
+    return (f"{wall}, device {r['device_ms']:.4f} ms, idle "
+            f"{r['idle_share']:.1%}; "
+            + "; ".join(f"{name[:width]} x{n:g} {ms:.4f} ms"
+                        for name, n, ms in r["kernels"][:top]))
 
 
 def pair_tolerance(csr, x):
@@ -730,10 +799,7 @@ def bcsr_phases(device, smi):
     for kname, dtype, op, v, csr, mat in runs:
         if dtype is None:
             r = profile_applies(op, v, applies=10, warmup=2)
-            print(f"  profile {kname}: wall {r['wall_ms']:.4f} ms, device "
-                  f"{r['device_ms']:.4f} ms, idle {r['idle_share']:.1%}; "
-                  + "; ".join(f"{name[:40]} x{n:g} {ms:.4f} ms"
-                              for name, n, ms in r["kernels"][:4]))
+            print(f"  profile {kname}: {profile_text(r, 4)}")
     phase(13, "BCSR timing (CUDA events, median per apply)", t0)
     return bcsr_err, bcsr_launches, bcsr_times, (spmv_bcsr, spmm_bcsr)
 
@@ -1075,16 +1141,151 @@ def sddmm_phases(device, smi, adj, rate):
               f"nominal bound; host staging {op.meta['build_ms']:.1f} ms"
               f"  [{smi}]")
         r = profile_applies(kernel, Ad, applies=10, warmup=2)
-        print(f"  profile {kname} {label}: wall {r['wall_ms']:.4f} ms, "
-              f"device {r['device_ms']:.4f} ms, idle {r['idle_share']:.1%}; "
-              + "; ".join(f"{name[:40]} x{n:g} {t:.4f} ms"
-                          for name, n, t in r["kernels"][:4]))
+        print(f"  profile {kname} {label}: {profile_text(r, 4)}")
         del Ad, Bd
         torch.cuda.empty_cache()
     phase(17, "SDDMM timing (CUDA events, median per apply)", t0)
     bounds = {"sddmm_flat": lambda r: sddmm_flat_bound(bench, SDDMM_F, r),
               "sddmm_bcsr": lambda r: sddmm_bcsr_bound(bcsr, SPMM_F, r)}
     return err, launches, times, bounds
+
+
+def probe_phases(device, smi, rate):
+    """Phases 18-19 (K12-K15); ``rate`` is K11's measured read rate in
+    bytes/s. Returns the max |kernel - plain| per kernel, the main path's
+    launch counts and each kernel's timed record."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import _build, saxpy
+    from loops_tpu_torch.probes import common, mosaic, r2
+    from loops_tpu_torch.utils import generate
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+
+    # ---- 18. K12 and K2 vs plain; the dot check refuses TF32
+    t0 = time.perf_counter()
+    err = {k: 0.0 for k in PROBE_KERNELS}
+    rng = np.random.default_rng(0)
+    for n in (SAXPY_SHAPE[0] * SAXPY_SHAPE[1], 1, 4099, (1 << 22) + 3):
+        x, y = (torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(
+            device) for _ in range(2))
+        before = _build.LAUNCHES["saxpy"]
+        out = common.launch_twice(lambda: saxpy.saxpy(2.5, x, y, device))
+        require(_build.LAUNCHES["saxpy"] == before + 2,
+                "saxpy: launch counter did not go up by 2")
+        common.hold(f"saxpy n={n}", out, saxpy.saxpy_plain(2.5, x, y))
+        xb = torch.zeros(n + 1, device=device)
+        xb[1:] = x  # one float into its buffer: the unaligned path
+        common.hold(f"saxpy unaligned n={n}", saxpy.saxpy_cuda(2.5, xb[1:], y),
+                    saxpy.saxpy_plain(2.5, x, y))
+    # a dot that quietly used TF32 must fail the dots' check
+    tf32 = {}
+    for case in ((128, True), (8, False)):
+        A, B = r2._dot_tensors(*case, "f32", device)
+        tf32[case] = r2.tf32_units(A, B)
+        require(tf32[case] > r2.DOT_C, f"the dot check passes a TF32 product "
+                f"at M={case[0]}: {tf32[case]:.0f} units")
+    del A, B
+    k2 = 0.0
+    for make in generate.BATTERY.values():
+        csr = make()
+        for block in (8, 1024):
+            k2 = max(k2, kernel_vs_plain("flat_spmv_v2", csr,
+                                         generate.make_input_vector(
+                                             csr.shape[1]), block, device))
+    torch.cuda.empty_cache()
+    phase(18, "K12 and K2 vs plain", t0,
+          f"saxpy: 8 cases, exact; K2 after the scan moved into seg_scan.cuh: "
+          f"{2 * len(generate.BATTERY)} cases, max |kernel - plain| "
+          f"{k2:.3e}; TF32 dots "
+          + ", ".join(f"M={c[0]} {v:.0f}" for c, v in tf32.items())
+          + f" units, past the dots' {r2.DOT_C} ")
+
+    # ---- 19. the tier's path: the examples and scripts/h100_probes.py
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    for name, args in (("saxpy_torch.py", ["--device", "cuda"]),
+                       ("range_torch.py", []),
+                       ("custom_layout_torch.py", ["--device", "cuda"])):
+        status, out, errs = run_example(name, args)
+        for ln in out.splitlines():
+            print(f"  {name}: {ln}")
+        require(status == 0, f"{name}: exit status {status}\n{out}{errs}")
+        require(name == "range_torch.py" or "Errors: 0" in out,
+                f"{name}: {out}")
+    spec = importlib.util.spec_from_file_location(
+        "h100_probes", os.path.join(REPO, "scripts", "h100_probes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    # every probe holds its kernel to the plain version before it times it
+    status, recs = mod.main(["--device", "cuda"],
+                            out=lambda ln: print(f"  h100_probes: {ln}"))
+    require(status == 0, "scripts/h100_probes.py failed")
+    launches = dict(_build.LAUNCHES)
+    for k in PROBE_KERNELS:
+        require(launches[k] > 0, f"{k} never launched on the tier's path")
+    entries = {}
+    for rec in recs:
+        err[rec["name"]] = max(err[rec["name"]], rec["max_abs_err"])
+        if rec["label"] == PROBE_ENTRIES[rec["name"]]:
+            entries[rec["name"]] = rec
+    # K12 at the example's shape (what its path launches) and at 2^26
+    x, y = (torch.from_numpy(rng.normal(size=SAXPY_SHAPE).astype(
+        np.float32)).to(device) for _ in range(2))
+    entries["saxpy"] = common.record(
+        "saxpy", "[8, 8192]", common.launch_ms(lambda: saxpy.saxpy_cuda(
+            2.5, x, y), device),
+        common.launch_ms(lambda: saxpy.saxpy_plain(2.5, x, y), device),
+        common.launch_ms(lambda: torch.add(y, x, alpha=2.5), device),
+        12 * x.numel(), 2 * x.numel(), "f32", err["saxpy"], "")
+    xl, yl = (torch.randn(1 << 26, device=device) for _ in range(2))
+    big_ms = common.launch_ms(lambda: saxpy.saxpy_cuda(2.5, xl, yl), device)
+    add_ms = common.launch_ms(lambda: torch.add(yl, xl, alpha=2.5), device)
+    print(f"  saxpy [8, 8192]: {entries['saxpy']['ms']:.4f} ms (plain "
+          f"{entries['saxpy']['plain_ms']:.4f}, torch.add "
+          f"{entries['saxpy']['library_ms']:.4f}); 2^26 elements: "
+          f"{big_ms:.4f} ms = {12 * xl.numel() / big_ms / 1e6:.1f} GB/s "
+          f"(torch.add {add_ms:.4f} ms)  [{smi}]")
+    del xl, yl
+    # at these sizes a call is the host's launch path: the device time of
+    # one launch, from the profiler, beside the wall time of one call
+    v, keep = (torch.from_numpy(a).to(device) for a in mosaic.scan_inputs())
+    mat = torch.from_numpy(mosaic.construct_inputs()["shift_lane"][0]).to(
+        device)
+    for k, fn in (("saxpy", lambda _: saxpy.saxpy_cuda(2.5, x, y)),
+                  ("seg_scan_probe", lambda _: mosaic.seg_scan_cuda(v, keep)),
+                  ("construct_probe (shift_lane)",
+                   lambda _: mosaic.construct_cuda("shift_lane", mat))):
+        r = profile_applies(fn, x, applies=20, warmup=3)
+        wall = f"wall {r['wall_ms'] * 1e3:.2f} us per call"
+        if not r["kernels"]:
+            print(f"  {k}: {profile_text(r, 0)}  [{smi}]")
+            continue
+        kname, n, ms = r["kernels"][0]
+        print(f"  {k}: device {ms / n * 1e3:.2f} us per launch of "
+              f"{kname[:40]} (torch.profiler), {wall}, idle "
+              f"{r['idle_share']:.1%}  [{smi}]")
+    require(set(entries) == set(PROBE_KERNELS),
+            f"no timed record for {set(PROBE_KERNELS) - set(entries)}")
+    for k, rec in entries.items():
+        dt = "bfloat16" if rec["peak"] == "bf16" else None
+        b_ms, b_by = bound(rec["nbytes"], rec["flops"], dt)
+        m_ms, m_by = bound(rec["nbytes"], rec["flops"], dt, rate)
+        rec.update(bound_ms=b_ms, bound_by=b_by)
+        print(f"  {k} ({rec['label']}): kernel {rec['ms']:.4f} ms, plain "
+              + (f"{rec['plain_ms']:.4f}" if rec["plain_ms"] is not None
+                 else "-") + " ms, library "
+              + (f"{rec['library_ms']:.4f} ms" if rec["library_ms"]
+                 is not None else "none")
+              + f"; bound {b_ms:.4f} ms ({b_by}) nominal, {m_ms:.4f} ms "
+              f"({m_by}) at the measured stream; {b_ms / rec['ms']:.1%} of "
+              f"the nominal bound  [{smi}]")
+    torch.cuda.empty_cache()
+    phase(19, "the K12-K15 tier's path", t0, f"{len(recs)} probe cases "
+          "held to their plain versions, max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items() if v)
+          + " (the dots against float64); main-path launches "
+          + json.dumps({k: launches[k] for k in PROBE_KERNELS}) + " ")
+    return err, launches, entries
 
 
 def main() -> int:
@@ -1446,10 +1647,7 @@ def main() -> int:
                       ("evaluate from tensors on the card",
                        evaluate_on_card)):
         r = profile_applies(fn, Bd, applies=10, warmup=2)
-        print(f"  profile {label}: wall {r['wall_ms']:.3f} ms, device "
-              f"{r['device_ms']:.3f} ms, idle {r['idle_share']:.1%}; "
-              + "; ".join(f"{name[:48]} x{n:g} {ms:.4f} ms"
-                          for name, n, ms in r["kernels"][:8]))
+        print(f"  profile {label}: {profile_text(r, 8, width=48)}")
     phase(10, "GCN timing (CUDA events, median)", t0)
     del model, ref, fast, slow, step, step_f32, on_card, Bd
     torch.cuda.empty_cache()
@@ -1459,6 +1657,7 @@ def main() -> int:
     rate = stream_res["1 GiB"]["gbps"] * 1e9
     sddmm_err, sddmm_launches, sddmm_times, sddmm_bounds = sddmm_phases(
         device, smi, adj, rate)
+    probe_err, probe_launches, probe_recs = probe_phases(device, smi, rate)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -1473,6 +1672,10 @@ def main() -> int:
         **sddmm_bounds,
         "stream_read": lambda r: bound(stream_res["1 GiB"]["nbytes"], 0,
                                        rate=r),
+        **{k: (lambda r, rec=rec: bound(
+            rec["nbytes"], rec["flops"],
+            "bfloat16" if rec["peak"] == "bf16" else None, r))
+           for k, rec in probe_recs.items()},
     }
     for k, (rep_at, _, _) in KERNELS.items():
         b_ms, b_by = csr_spmv_bound(big)
@@ -1511,6 +1714,14 @@ def main() -> int:
          "launches": sddmm_launches["stream_read"], "max_abs_err": s1g["err"],
          "ms": s1g["ms"], "plain_ms": s1g["plain_ms"], "bound_ms": b_ms,
          "bound_by": b_by, "library_ms": s1g["plain_ms"]})
+    for k, (source, rep_at) in PROBE_KERNELS.items():
+        rec = probe_recs[k]
+        kernels.append(
+            {"name": k, "route": "cuda", "source": source,
+             "replaces": rep_at, "launches": probe_launches[k],
+             "max_abs_err": probe_err[k], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(f"measured stream (K11, 1 GiB): {rate / 1e9:.1f} GB/s; each "
           "kernel's bound at the nominal 3.35 TB/s and at the measured "
           f"rate  [{smi}]")

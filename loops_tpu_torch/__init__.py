@@ -20,7 +20,11 @@ path:
   its SpMM gradient, GCN, training, checkpoints.
 - **tuning**: the launch box keyed by the card's name.
 - **utils**: host reference engines, the Wilkinson validator, matrix
-  generators, CUDA-event timing, the measured read stream (K11).
+  generators, CUDA-event and slope timing, the measured read stream (K11).
+- **probes**: the design probes of the TPU scripts as H100 probe kernels
+  (K13-K15): K2's scan and constructs, the block dot on the CUDA cores
+  and the tensor cores, the scatter accumulator, launch cost, and the
+  element and row gathers.
 
 The package imports torch and numpy only; it never imports JAX or
 ``loops_tpu``.
@@ -31,7 +35,7 @@ __version__ = "0.1.0"
 from loops_tpu_torch.formats import COO, CSR  # noqa: F401
 
 _SUBMODULES = ("formats", "io", "layout", "schedule", "ops", "models",
-               "tuning", "utils")
+               "tuning", "utils", "probes")
 
 
 def __getattr__(name):

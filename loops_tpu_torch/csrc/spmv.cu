@@ -26,6 +26,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "seg_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -136,7 +138,9 @@ sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols
 // folded in warp order through shared memory, and a carry links the
 // block's 256-atom chunks. The last atom of each row run holds the run's
 // total and writes it to its row (or to the seam buffer). The TPU's
-// Mosaic compile envelopes (R > 4096, S*R > 2^22) do not exist here.
+// Mosaic compile envelopes (R > 4096, S*R > 2^22) do not exist here. The
+// scan is loops_scan::block_seg_scan (seg_scan.cuh), which the K13 probe
+// runs too.
 __global__ void __launch_bounds__(kThreads)
 flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                     const uint8_t* __restrict__ keep, const int* __restrict__ rel,
@@ -151,7 +155,6 @@ flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols
   const int n = atom_starts[b + 1] - atom_starts[b];
   const int rf = row_first[b], rl = row_last[b], t0 = tile_starts[b];
   const size_t base = static_cast<size_t>(b) * K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float carry = 0.f;  // open segment's running value before this chunk
   for (int c0 = 0; c0 < n; c0 += kThreads) {
     const int k = c0 + threadIdx.x;
@@ -162,28 +165,10 @@ flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols
       v = vals[base + k] * __ldg(x + cols[base + k]);
       f = keep[base + k] == 0;
     }
-    for (int d = 1; d < 32; d <<= 1) {
-      const float pv = __shfl_up_sync(kFull, v, d);
-      const int pf = __shfl_up_sync(kFull, f, d);
-      if (lane >= d) {
-        if (!f) v = pv + v;
-        f |= pf;
-      }
-    }
-    if (lane == 31) {
-      warp_v[warp] = v;
-      warp_f[warp] = f;
-    }
-    __syncthreads();
-    float pre = carry;
-    for (int w = 0; w < warp; ++w) pre = warp_f[w] ? warp_v[w] : pre + warp_v[w];
-    if (!f) v = pre + v;
+    v = loops_scan::block_seg_scan<kWarps>(v, f, carry, warp_v, warp_f);
     if (in && (k == n - 1 || keep[base + k + 1] == 0)) {
       store_row(t0 + rel[base + k], rf, rl, b, v, y, seam);
     }
-    for (int w = warp; w < kWarps; ++w) pre = warp_f[w] ? warp_v[w] : pre + warp_v[w];
-    carry = pre;
-    __syncthreads();  // warp_v/warp_f are rewritten by the next chunk
   }
 }
 

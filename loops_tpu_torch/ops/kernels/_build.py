@@ -4,7 +4,8 @@ counters.
 ``load_library()`` compiles each ``loops_tpu_torch/csrc/*.cu`` with its
 own nvcc, all started together, and links the objects into one shared
 library with a plain C interface, ``libloops_kernels_<hash>.so`` under
-``loops_tpu_torch/_build/`` and keyed by a hash of the sources and flags,
+``loops_tpu_torch/_build/`` and keyed by a hash of the sources (the
+``*.cu`` files and the ``*.cuh`` headers they include) and flags,
 then loads it with ctypes — the same lazy-build pattern as
 ``loops_tpu/native/build.py``. It runs at the first kernel launch (or
 when called directly), never at import: the CPU tests import every
@@ -36,7 +37,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
             "flat_spmm": 0, "bcsr_spmv": 0, "bcsr_spmm": 0,
             "bcsr_spmm_v2": 0, "bcsr_spmm_v3": 0, "sddmm_flat": 0,
-            "sddmm_bcsr": 0, "stream_read": 0}
+            "sddmm_bcsr": 0, "stream_read": 0, "saxpy": 0,
+            "seg_scan_probe": 0, "construct_probe": 0, "block_dot_f32": 0,
+            "block_dot_bf16": 0, "smem_scatter": 0, "l2_scatter": 0,
+            "gather_axis0": 0, "gather_axis1": 0, "row_gather_sum_smem": 0,
+            "row_gather_sum_l2": 0, "row_gather_sum_hbm": 0,
+            "row_gather_mat_smem": 0, "row_gather_mat_l2": 0,
+            "row_gather_mat_hbm": 0, "onehot_expand": 0}
 
 # seconds the last build took in this process (0.0 when the library
 # came from an earlier build of the same sources)
@@ -56,6 +63,15 @@ _SIGNATURES = {
     "loops_sddmm_flat": [_P] * 7 + [_I] * 5 + [_P],
     "loops_bcsr_sddmm_f32": [_P] * 6 + [_I] * 7 + [_P],
     "loops_stream_read_f32": [_P] * 2 + [_I] * 3 + [_P],
+    "loops_saxpy_f32": [ctypes.c_float] + [_P] * 3 + [_I, _I, _P],
+    "loops_seg_scan_probe": [_P] * 3 + [_I, _I, _P],
+    "loops_construct_probe": [_I] + [_P] * 4 + [_I, _P],
+    "loops_block_dot": [_P] * 3 + [_I] * 6 + [_P],
+    "loops_scatter_probe": [_P] * 3 + [_I] * 8 + [_P],
+    "loops_gather_axis0": [_P] * 3 + [_I] * 4 + [_P],
+    "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],
+    "loops_row_gather": [_P] * 3 + [_I] * 7 + [_P],
+    "loops_onehot_expand": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -68,6 +84,8 @@ def reset_launches() -> None:
 
 
 def _sources():
+    """Every source the library depends on: ``*.cu`` and the ``*.cuh``
+    headers they include (hashed; only the ``*.cu`` are compiled)."""
     return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
                   if f.endswith((".cu", ".cuh")))
 
@@ -103,7 +121,7 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            _build(files, so_path)
+            _build([f for f in files if f.endswith(".cu")], so_path)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -173,12 +191,16 @@ def check(t, name: str, dtype, device, numel: int | None = None):
 
 def launch(fn_name: str, counter: str, device, *args) -> None:
     """Call a C entry point on ``device``'s current stream; tensors in
-    ``args`` pass as pointers, ints as C ints. Raises on a nonzero CUDA
-    error code."""
+    ``args`` pass as pointers, ints as C ints, floats as C floats. Raises
+    ``KeyError`` on a counter not in ``LAUNCHES`` (before launching) and
+    ``RuntimeError`` on a nonzero CUDA error code."""
     import torch
 
+    if counter not in LAUNCHES:
+        raise KeyError(f"{counter!r} is not a launch counter of _build")
     lib = load_library()
     c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+              else ctypes.c_float(a) if isinstance(a, float)
               else ctypes.c_int(int(a)) for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -59,7 +59,9 @@ def _sync(x):
 
 def profile_applies(fn, x, applies: int = 50, warmup: int = 5) -> dict:
     """Wall and device time per ``fn(x)``, by kernel (see the module
-    docstring). On the CPU no kernel is recorded and ``device_ms`` is 0."""
+    docstring). On the CPU no kernel is recorded and ``device_ms`` is 0;
+    on a card whose trace comes back empty the same holds, so a caller
+    reads ``kernels`` only after checking that it is not empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -28,11 +28,10 @@ the wrapper runs it (``passes`` times), timed by the host clock.
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
 from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.utils.bench import run_slope_ms
 from loops_tpu_torch.utils.platform import ensure_platform
 
 LO_PASSES, HI_PASSES = 16, 616
@@ -92,23 +91,8 @@ def pass_ms(x: torch.Tensor, lo: int = LO_PASSES, hi: int = HI_PASSES,
     """Milliseconds of one sweep over ``x``: (least time of ``hi`` passes
     - least time of ``lo``) / (hi - lo); CUDA events on the card, the
     host clock on the CPU."""
-    def once(passes):
-        if x.is_cuda:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            stream_read(x, passes)
-            t1.record()
-            t1.synchronize()
-            return t0.elapsed_time(t1)
-        h0 = time.perf_counter()
-        stream_read(x, passes)
-        return (time.perf_counter() - h0) * 1e3
-    once(lo)
-    once(hi)
-    t_lo = min(once(lo) for _ in range(repeats))
-    t_hi = min(once(hi) for _ in range(repeats))
-    return (t_hi - t_lo) / (hi - lo)
+    return run_slope_ms(lambda n: stream_read(x, n), lo, hi, repeats,
+                        x.is_cuda)
 
 
 def measure_stream_gbps(device="cuda", rows: int = 524288,

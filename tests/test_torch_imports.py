@@ -60,6 +60,15 @@ SLICE_MODULES = [
     "loops_tpu_torch.models.gcn",
     "loops_tpu_torch.models.train",
     "loops_tpu_torch.models.checkpoint",
+    "loops_tpu_torch.utils.math",
+    "loops_tpu_torch.utils.sample",
+    "loops_tpu_torch.layout.partition",
+    "loops_tpu_torch.ops.kernels.saxpy",
+    "loops_tpu_torch.probes",
+    "loops_tpu_torch.probes.common",
+    "loops_tpu_torch.probes.mosaic",
+    "loops_tpu_torch.probes.r2",
+    "loops_tpu_torch.probes.gather",
 ]
 
 
@@ -144,6 +153,17 @@ def _entry(module, name):
     return getattr(importlib.import_module(f"loops_tpu_torch.{module}"), name)
 
 
+def _script_main(path):
+    """``main`` of a script of the repo (``examples/``, ``scripts/``),
+    loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3] + "_entry", os.path.join(REPO, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
 # every public entry point of the port that takes ``device=``, called
 # without one: each defaults to the card
 NO_DEVICE_CALLS = {
@@ -193,6 +213,17 @@ NO_DEVICE_CALLS = {
         _tiny_bcsr()),
     "measure_stream_gbps": lambda: _entry("utils.stream",
                                           "measure_stream_gbps")(),
+    "saxpy": lambda: _entry("ops.kernels.saxpy", "saxpy")(
+        2.5, np.ones(8, np.float32), np.ones(8, np.float32)),
+    "probes.mosaic.run": lambda: _entry("probes.mosaic", "run")(),
+    "probes.r2.run": lambda: _entry("probes.r2", "run")(quick=True),
+    "probes.gather.run": lambda: _entry("probes.gather", "run")(quick=True),
+    "examples/saxpy_torch.py": lambda: _script_main(
+        "examples/saxpy_torch.py")([]),
+    "examples/custom_layout_torch.py": lambda: _script_main(
+        "examples/custom_layout_torch.py")([]),
+    "scripts/h100_probes.py": lambda: _script_main(
+        "scripts/h100_probes.py")(["--quick"]),
     "launch_params": lambda: _entry("tuning.launch_box", "launch_params")(),
     "Timer": lambda: _entry("utils.timer", "Timer")(),
     "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),

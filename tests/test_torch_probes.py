@@ -1,0 +1,697 @@
+"""K12 and the probes K13-K15 of the port on the CPU, against the JAX side
+on the same seeded inputs:
+
+- K12's plain version against ``examples/saxpy.py`` ``saxpy_pallas``
+  (loaded by path; interpret mode on the CPU). XLA on the CPU contracts
+  ``a*x + y`` into one FMA where the plain version (and K12) round the
+  product first, so they agree within ``2**-23 (|a x| + |out|)``, one
+  rounding of each; against numpy's ``a*x + y`` in float32 bitwise.
+- K13: ``scripts/tpu_mosaic_probe{,2}.py`` run compiled calls at import,
+  so their kernels (``k_*``, ``scan_kernel``), inputs and ``np_reference``
+  are extracted with ``ast`` and run through ``pl.pallas_call(...,
+  interpret=True)``; the port's inputs equal the scripts' draws, and its
+  plain versions are held to the kernels: the scan at the script's ``atol
+  1e-4`` and exactly on integers, the constructs exactly, ``k_dot0`` at
+  ``1e-5``.
+- K14, K15: the TPU probe functions are driven at small shapes with
+  ``pallas_call`` forced to interpret mode and ``jax.jit`` off, recording
+  each concrete call. The port's inputs equal the recorded ones, and its
+  plain versions are held to the kernels' outputs and to the scripts' own
+  numpy checks (``np.take_along_axis``, ``sl[i0]``, ``win0[idx[0]]``).
+- Numpy mirrors of the CUDA kernels' thread-to-data maps: the warp scan
+  of ``csrc/seg_scan.cuh`` with its warp fold and carry, and the
+  ``mma.sync`` / ``ldmatrix`` fragment layouts of the one-hot expand and
+  the bf16 block dot.
+"""
+import ast
+import importlib.util
+import os
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from loops_tpu.utils.bench import slope_ms as jax_slope_ms
+from loops_tpu_torch.ops.kernels import _build, saxpy
+from loops_tpu_torch.probes import gather, mosaic, r2
+from loops_tpu_torch.utils import bench
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = os.path.join(REPO, "scripts")
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ------------------------------------------------------------------ K12
+def _load_example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_jax_example", os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape,a", [((8, 8192), 2.5), ((8, 128), -0.75),
+                                     ((16, 256), 3.0)])
+def test_saxpy_plain_matches_the_pallas_kernel(shape, a):
+    ex = _load_example("saxpy")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=shape).astype(np.float32)
+    y = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(ex.saxpy_pallas(a, jnp.asarray(x), jnp.asarray(y)))
+    got = saxpy.saxpy(a, x, y, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    ax = np.float32(a) * x
+    np.testing.assert_array_equal(got.numpy(), ax + y)
+    tol = 2.0 ** -23 * (np.abs(ax) + np.abs(want))
+    assert np.all(np.abs(got.numpy().astype(np.float64) - want) <= tol)
+    np.testing.assert_array_equal(saxpy.saxpy_plain(a, _t(x), _t(y)).numpy(),
+                                  got.numpy())
+
+
+def test_saxpy_wrapper_refuses_cpu_tensors():
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        saxpy.saxpy_cuda(1.0, x, x)
+
+
+# ------------------------------------------------------------------ K13
+def _script_namespace(path, assigns, functions, extra=None):
+    """Exec the module-level ``assigns`` and ``functions`` of a script
+    (never its calls), with its imports; ``extra`` names override what
+    they import."""
+    tree = ast.parse(open(path).read())
+    body = []
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            if all(not a.name.startswith("loops_tpu") for a in node.names) \
+                    and getattr(node, "module", "") != "loops_tpu.utils.bench":
+                body.append(node)
+        elif isinstance(node, ast.Assign) and all(
+                isinstance(t, ast.Name) and t.id in assigns
+                for t in node.targets):
+            body.append(node)
+        elif isinstance(node, ast.FunctionDef) and node.name in functions:
+            body.append(node)
+    ns = {}
+    exec(compile(ast.Module(body=body, type_ignores=[]), path, "exec"), ns)
+    ns.update(extra or {})
+    return ns, tree
+
+
+MOSAIC_INPUTS = ("S", "SUB", "LANES", "GS", "rng", "idx_row", "R", "vec",
+                 "mat", "sc", "su", "y0", "v8", "base")
+
+
+@pytest.fixture(scope="module")
+def mosaic_probe():
+    path = os.path.join(SCRIPTS, "tpu_mosaic_probe.py")
+    ns, tree = _script_namespace(
+        path, MOSAIC_INPUTS,
+        {n.name for n in ast.walk(ast.parse(open(path).read()))
+         if isinstance(n, ast.FunctionDef) and n.name.startswith("k_")})
+    # the script's own run(label, kernel, out_shape, *args) calls
+    runs = [[eval(compile(ast.Expression(a), path, "eval"), ns)
+             for a in node.value.args]
+            for node in tree.body if isinstance(node, ast.Expr)
+            and isinstance(node.value, ast.Call)
+            and getattr(node.value.func, "id", "") == "run"]
+    return ns, runs
+
+
+def test_mosaic_inputs_are_the_scripts(mosaic_probe):
+    ns, runs = mosaic_probe
+    assert len(runs) == len(mosaic.CONSTRUCTS) == 8
+    assert (ns["S"], ns["SUB"], ns["LANES"], ns["GS"], ns["R"]) == (
+        mosaic.S, mosaic.SUB, mosaic.LANES, mosaic.GS, mosaic.R)
+    mine = mosaic.construct_inputs()
+    by_label = {v: k for k, v in mosaic.LABELS.items()}
+    for label, _, _, *args in runs:
+        name = by_label[label]
+        theirs = [np.asarray(a) for a in args]
+        if name == "dynbase":  # the script passes (base, v)
+            theirs = [theirs[1], int(theirs[0][0])]
+        for m, t in zip(mine[name], theirs):
+            np.testing.assert_array_equal(np.asarray(m), t)
+
+
+@pytest.mark.parametrize("name", mosaic.CONSTRUCTS)
+def test_construct_plain_matches_the_interpret_kernel(mosaic_probe, name):
+    _, runs = mosaic_probe
+    label, kernel, out_shape, *args = next(
+        r for r in runs if r[0] == mosaic.LABELS[name])
+    want = np.asarray(pl.pallas_call(kernel, out_shape=out_shape,
+                                     interpret=True)(*args))
+    got = mosaic.construct(name, *(_t(a) if isinstance(a, np.ndarray) else a
+                                   for a in mosaic.construct_inputs()[name]))
+    atol = mosaic.ATOL.get(name, 0.0)
+    assert got.shape == want.shape
+    if atol:
+        np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def scan_probe():
+    path = os.path.join(SCRIPTS, "tpu_mosaic_probe2.py")
+    ns, _ = _script_namespace(path, ("SUB", "LANES", "GS", "rng", "v0",
+                                     "keep0"),
+                              ("scan_kernel", "np_reference"))
+    return ns
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_seg_scan_plain_matches_the_script(scan_probe, integer):
+    """The port's scan is the script's ``np_reference``. The script's
+    ``scan_kernel`` in interpret mode agrees with it where the lane scan
+    alone decides (the first row of each SUB block, and each lane at or
+    after its row's first reset) and departs from it in the carry into
+    rows 1-3 of a block (by up to 5.87 on these inputs): held only where
+    it agrees."""
+    ns = scan_probe
+    v, keep = mosaic.scan_inputs(integer)
+    np.testing.assert_array_equal(keep, ns["keep0"])
+    if not integer:
+        np.testing.assert_array_equal(v, ns["v0"])
+    shape = jax.ShapeDtypeStruct((ns["GS"], ns["LANES"]), jnp.float32)
+    kern = np.asarray(pl.pallas_call(ns["scan_kernel"], out_shape=shape,
+                                     interpret=True)(jnp.asarray(v),
+                                                     jnp.asarray(keep)))
+    ref = ns["np_reference"](v, keep)
+    got = mosaic.seg_scan(_t(v), _t(keep)).numpy()
+    atol = 0.0 if integer else mosaic.SCAN_ATOL
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0)
+    first = np.where((keep == 0).any(1), np.argmax(keep == 0, axis=1),
+                     mosaic.LANES)
+    lane_scan = (np.arange(mosaic.LANES)[None, :] >= first[:, None]) | (
+        np.arange(mosaic.GS)[:, None] % mosaic.SUB == 0)
+    np.testing.assert_allclose(got[lane_scan], kern[lane_scan], atol=atol,
+                               rtol=0)
+    assert np.abs(kern - ref)[~lane_scan].max() > 1.0  # the carry departs
+
+
+def test_gather_residencies_and_tables():
+    assert gather.residency(gather.SMEM_ROWS, 4) == "smem"
+    assert gather.residency(4096, 4) == "l2"
+    # the arxiv table's rows recur: the L2 serves much of it
+    assert gather.residency(gather.ARXIV_ROWS, 4) == "l2"
+    assert gather.residency(gather.HBM_ROWS, 2) == "hbm"
+    assert gather.HBM_ROWS * 128 * 2 > 4 * gather.L2_BYTES
+    slab, idx = gather.row_gather_tensors(64, 8, 64, True, CPU)
+    want = gather.row_gather_inputs(64, 8, 64, integer=True)
+    np.testing.assert_array_equal(slab.numpy(), want[0])
+    np.testing.assert_array_equal(idx.numpy(), want[1])
+    # past the arxiv table the table is drawn on the device, seeded
+    S = gather.ARXIV_ROWS + 1
+    a = gather.row_gather_tensors(S, 8, 64, True, CPU)
+    b = gather.row_gather_tensors(S, 8, 64, True, CPU)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[0], torch.round(a[0])) and a[1].dtype == torch.int32
+    assert int(a[1].min()) >= 0 and int(a[1].max()) < S
+
+
+def test_probe_wrappers_refuse_cpu_tensors():
+    v = torch.zeros(32, 128)
+    for call in (lambda: mosaic.seg_scan_cuda(v, v),
+                 lambda: mosaic.construct_cuda("shift_sub", v),
+                 lambda: r2.block_dot_cuda(torch.zeros(4, 8, 128),
+                                           torch.zeros(128, 512)),
+                 lambda: r2.scatter_cuda(torch.zeros(8, dtype=torch.int32),
+                                         torch.zeros(1, 64, 512), 256),
+                 lambda: gather.gather_axis0_cuda(v, v.int()),
+                 lambda: gather.gather_axis1_cuda(v, v.int()),
+                 lambda: gather.row_gather_cuda(v, v.int()[0], 8, True),
+                 lambda: gather.onehot_expand_cuda(v, v.int())):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+
+
+def test_launch_refuses_an_unknown_counter():
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(KeyError, match="not a launch counter"):
+        _build.launch("loops_saxpy_f32", "no_such_kernel", CPU, 1.0)
+    assert _build.LAUNCHES == before
+    for name in ("saxpy", "seg_scan_probe", "construct_probe",
+                 "block_dot_f32", "block_dot_bf16", "smem_scatter",
+                 "l2_scatter", "gather_axis0", "gather_axis1",
+                 "onehot_expand"):
+        assert name in _build.LAUNCHES
+    for mode in ("sum", "mat"):
+        for where in ("smem", "l2", "hbm"):
+            assert f"row_gather_{mode}_{where}" in _build.LAUNCHES
+
+
+def test_build_hashes_headers_and_compiles_only_sources(tmp_path,
+                                                        monkeypatch):
+    srcs = _build._sources()
+    assert any(f.endswith("seg_scan.cuh") for f in srcs)
+    assert all(f.endswith((".cu", ".cuh")) for f in srcs)
+    seen = []
+
+    def fake_start(cmd):
+        seen.append(cmd)
+        if "-shared" in cmd:  # the link: make the library it names
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+        class Done:
+            returncode = 0
+
+            def communicate(self, timeout=None):
+                return "", ""
+
+            def poll(self):
+                return 0
+        return cmd, Done()
+
+    monkeypatch.setattr(_build, "_start", fake_start)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    files = [f for f in srcs if f.endswith(".cu")]
+    _build._build(files, str(tmp_path / "lib.so"))
+    compiled = [c[-1] for c in seen if "-c" in c]
+    assert sorted(compiled) == sorted(files)
+    assert not any(c.endswith(".cuh") for c in compiled)
+    assert (tmp_path / "lib.so").exists()
+
+
+def test_saxpy_signature_takes_a_float():
+    import ctypes
+    assert _build._SIGNATURES["loops_saxpy_f32"][0] is ctypes.c_float
+
+
+# --------------------------------------------------- K14, K15: the scripts
+class _Recorder:
+    """``pl`` with ``pallas_call`` forced to interpret mode, recording
+    every concrete call: (pallas function, args, output)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, k):
+        return getattr(pl, k)
+
+    def pallas_call(self, kernel, **kw):
+        kw["interpret"] = True
+        f = pl.pallas_call(kernel, **kw)
+
+        def call(*a):
+            r = f(*a)
+            if not isinstance(r, jax.core.Tracer):
+                self.calls.append((f, a, r))
+            return r
+        return call
+
+
+class _Eager:
+    """``jax`` with ``jit`` off, so the probes' calls run eagerly."""
+
+    def __getattr__(self, k):
+        return getattr(jax, k)
+
+    @staticmethod
+    def jit(f, **kw):
+        return f
+
+
+def _drive(script, functions, **extra):
+    rec = _Recorder()
+    ns, _ = _script_namespace(
+        os.path.join(SCRIPTS, script), ("LANES",), functions,
+        dict(time=time, np=np, jax=_Eager(), jnp=jnp, pl=rec, pltpu=pltpu,
+             slope_ms=jax_slope_ms, print=lambda *a, **k: None, **extra))
+    # one timed call is enough: the check is of what the kernel computed
+    ns["timeit"] = lambda fn, *args, iters=30: (0.0, fn(*args))
+    return ns, rec
+
+
+@pytest.mark.parametrize("S,tiles", [(8, 2), (64, 1)])
+def test_axis0_plain_matches_the_tpu_probe(S, tiles):
+    ns, rec = _drive("tpu_r3_gather_probe.py", {"timeit", "probe_axis0"})
+    ns["probe_axis0"](S, tiles)
+    _, (src, idx), out = rec.calls[0]
+    src, idx, out = np.asarray(src), np.asarray(idx), np.asarray(out)
+    mine = gather.axis0_inputs(S, S * 128 * tiles)
+    np.testing.assert_array_equal(mine[0], src)
+    np.testing.assert_array_equal(mine[1], idx)
+    got = gather.gather_axis0(_t(src), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, out)
+    np.testing.assert_array_equal(got[:S], np.take_along_axis(src, idx[:S],
+                                                              axis=0))
+
+
+@pytest.mark.parametrize("S,tiles", [(8, 2), (3, 1)])
+def test_axis1_plain_matches_the_tpu_probe(S, tiles):
+    ns, rec = _drive("tpu_r3_gather_probe.py", {"timeit", "probe_axis1"})
+    ns["probe_axis1"](S, tiles)
+    _, (src, idx), out = rec.calls[0]
+    src, idx, out = np.asarray(src), np.asarray(idx), np.asarray(out)
+    mine = gather.axis1_inputs(S, S * 128 * tiles)
+    np.testing.assert_array_equal(mine[0], src)
+    np.testing.assert_array_equal(mine[1], idx)
+    got = gather.gather_axis1(_t(src), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, out)
+    np.testing.assert_array_equal(got[:S], np.take_along_axis(
+        src[:S], idx[:S], axis=1))
+
+
+@pytest.mark.parametrize("S,K,nblocks", [(16, 16, 2), (40, 32, 3)])
+@pytest.mark.parametrize("materialize", [False, True])
+def test_row_gather_plain_matches_the_tpu_probe(S, K, nblocks, materialize):
+    ns, rec = _drive("tpu_r4_gather_probe.py", {"_dynload_run"})
+    ns["_dynload_run"](S, K, nblocks, materialize)
+    f, (idx, slab), out = rec.calls[0]
+    idx, slab, out = np.asarray(idx), np.asarray(slab), np.asarray(out)
+    n = nblocks * K
+    mine = gather.row_gather_inputs(S, K, n)
+    np.testing.assert_array_equal(mine[0], slab)
+    np.testing.assert_array_equal(mine[1], idx)
+    got = gather.row_gather(_t(slab), _t(idx), K, materialize).numpy()
+    i0 = idx[:K]
+    if materialize:
+        np.testing.assert_array_equal(got, out)
+        np.testing.assert_array_equal(got[:K], slab[i0])     # r4:105
+        return
+    np.testing.assert_allclose(got, out, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[:8].sum(axis=0), slab[i0].sum(axis=0),
+                               rtol=1e-3)                   # r4:107
+    # integer-valued: the f32 sums are exact in any order
+    ints = gather.row_gather_inputs(S, K, n, integer=True)[0]
+    np.testing.assert_array_equal(
+        gather.row_gather(_t(ints), _t(idx), K, False).numpy(),
+        np.asarray(f(jnp.asarray(idx), jnp.asarray(ints))))
+
+
+@pytest.mark.parametrize("W,Kc,nblocks", [(128, 128, 2), (64, 256, 1)])
+def test_onehot_plain_matches_the_tpu_probe(W, Kc, nblocks):
+    ns, rec = _drive("tpu_r4_gather_probe.py", {"g3_onehot_expand"})
+    ns["g3_onehot_expand"](W, Kc, nblocks)
+    _, (win, idx), out = rec.calls[0]
+    win, idx, out = np.asarray(win), np.asarray(idx), np.asarray(out)
+    mine = gather.onehot_inputs(W, Kc, nblocks * Kc)
+    np.testing.assert_array_equal(mine[0], win)
+    np.testing.assert_array_equal(mine[1], idx)
+    got = gather.onehot_expand(_t(win), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, out)                  # exact
+    np.testing.assert_allclose(got[:Kc], win[idx[0]], atol=1e-2)  # r4:155
+
+
+@pytest.mark.parametrize("chm,stream_b", [(8, False), (64, True)])
+def test_block_dot_plain_matches_the_tpu_probe(chm, stream_b):
+    nch_rows = 4 * chm
+    captured = {}
+
+    def one_pass(make_fn, lo, hi, *args):
+        captured["out"] = np.asarray(make_fn(1)(*args))
+        captured["args"] = [np.asarray(a) for a in args]
+        return 1.0, 0.0
+    ns, rec = _drive("tpu_r2_probe.py", {"dot_probe"})
+    ns["slope_ms"] = one_pass
+    ns["dot_probe"](chm, 2, stream_b, nch_rows)
+    a, b = captured["args"]
+    mine = r2.dot_inputs(chm, stream_b, nch_rows=nch_rows)
+    np.testing.assert_array_equal(mine[0], a)
+    np.testing.assert_array_equal(mine[1], b)
+    A, B = _t(a), _t(b)
+    got = r2.block_dot(A, B, "f32")
+    assert tuple(got.shape) == (chm, 512)
+    assert float(r2.dot_units(got, A, B).max()) <= r2.DOT_C
+    # the TPU kept the [8, 128] corner of the sum
+    tpu = got.clone()
+    tpu[:8, :128] = torch.from_numpy(captured["out"].copy())
+    assert float(r2.dot_units(tpu, A, B).max()) <= r2.DOT_C
+
+
+def _tf32(t):
+    """``t`` with its f32 mantissa rounded to TF32's 10 bits."""
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("M,stream_b", [(8, False), (64, False),
+                                        (64, True)])
+def test_dot_check_refuses_reduced_precision(M, stream_b):
+    """An f32 sum passes ``hold_dot``; TF32 operands, or an output rounded
+    to bf16, do not, though integer inputs cannot tell them apart."""
+    A, B = (_t(a) for a in r2.dot_inputs(M, stream_b, nch_rows=64 * M))
+    err, units = r2.hold_dot("f32", r2.block_dot_plain(A, B), A, B)
+    assert units <= r2.DOT_C / 8
+    tf32 = r2.dot_reference(_tf32(A), _tf32(B)).float()
+    with pytest.raises(r2.ProbeMismatch, match="past"):
+        r2.hold_dot("tf32", tf32, A, B)
+    with pytest.raises(r2.ProbeMismatch, match="past"):
+        r2.hold_dot("bf16 out", r2.block_dot_plain(A, B).bfloat16().float(),
+                    A, B)
+    Ai, Bi = (_t(a) for a in r2.dot_inputs(M, stream_b, integer=True,
+                                           nch_rows=64 * M))
+    assert torch.equal(r2.dot_reference(_tf32(Ai), _tf32(Bi)).float(),
+                       r2.block_dot_plain(Ai, Bi))
+
+
+def test_scatter_plain_matches_the_tpu_probe():
+    captured = {}
+
+    def one_pass(make_fn, lo, hi, *args):
+        captured["out"] = np.asarray(make_fn(1)(*args))
+        captured["args"] = [np.asarray(a) for a in args]
+        return 1.0, 0.0
+    ns, rec = _drive("tpu_r2_probe.py", {"scatter_probe"})
+    ns["slope_ms"] = one_pass
+    ns["scatter_probe"](kch=2, rr=8, ft=128, acc_rows=64, nch=4, reps_hi=2)
+    offs, a = captured["args"]
+    mine_offs, _ = r2.scatter_inputs(64, nch=4, kch=2, ft=128)
+    np.testing.assert_array_equal(mine_offs, offs)
+    got = r2.scatter(_t(offs), _t(a), 64)
+    np.testing.assert_allclose(got[:8, :128].numpy(), captured["out"],
+                               atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------- numpy mirrors
+def _mirror_block_seg_scan(v, f, carry, warps):
+    """``loops_scan::block_seg_scan`` over one chunk of ``32 * warps``
+    lanes, in float32 as the card does: the __shfl_up_sync loop, the warp
+    aggregates folded in warp order, the carry."""
+    v = v.astype(np.float32).reshape(warps, 32).copy()
+    f = f.astype(np.int32).reshape(warps, 32).copy()
+    lane = np.arange(32)
+    d = 1
+    while d < 32:
+        pv = np.where(lane >= d, np.roll(v, d, axis=1), v)
+        pf = np.where(lane >= d, np.roll(f, d, axis=1), f)
+        on = lane >= d
+        v = np.where(on & (f == 0), pv + v, v).astype(np.float32)
+        f = np.where(on, f | pf, f)
+        d <<= 1
+    agg_v, agg_f = v[:, 31].copy(), f[:, 31].copy()
+    out = np.empty_like(v)
+    pre = np.float32(carry)
+    for w in range(warps):
+        out[w] = np.where(f[w] == 0, pre + v[w], v[w])
+        pre = agg_v[w] if agg_f[w] else np.float32(pre + agg_v[w])
+    return out.reshape(-1), pre
+
+
+def _mirror_seg_scan_probe(v, keep, sub, threads=256):
+    """``seg_scan_probe_kernel``: one CTA per block of ``sub`` rows,
+    chunks of 256 linked by the carry."""
+    L = sub * v.shape[1]
+    vb, kb = v.reshape(-1, L), keep.reshape(-1, L)
+    out = np.zeros_like(vb)
+    for b in range(vb.shape[0]):
+        carry = np.float32(0)
+        for c0 in range(0, L, threads):
+            n = min(threads, L - c0)
+            x = np.zeros(threads, np.float32)
+            f = np.ones(threads, np.int32)
+            x[:n] = vb[b, c0:c0 + n]
+            f[:n] = kb[b, c0:c0 + n] == 0
+            y, carry = _mirror_block_seg_scan(x, f, carry, threads // 32)
+            out[b, c0:c0 + n] = y[:n]
+    return out.reshape(v.shape)
+
+
+@pytest.mark.parametrize("shape,sub", [((32, 128), 4), ((12, 100), 3),
+                                       ((16, 64), 16)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_warp_scan_mirror(scan_probe, shape, sub, integer):
+    rng = np.random.default_rng(sum(shape) + sub)
+    v = rng.normal(size=shape).astype(np.float32)
+    if integer:
+        v = np.rint(v * 8).astype(np.float32)
+    keep = (rng.random(shape) < 0.9).astype(np.float32)
+    got = _mirror_seg_scan_probe(v, keep, sub)
+    plain = mosaic.seg_scan_plain(_t(v), _t(keep), sub).numpy()
+    if integer:
+        np.testing.assert_array_equal(got, plain)
+    else:
+        np.testing.assert_allclose(got, plain, atol=mosaic.SCAN_ATOL, rtol=0)
+    if shape == (32, 128):  # the script's shape: its reference too
+        ref = scan_probe["np_reference"](v, keep)
+        np.testing.assert_allclose(got, ref, atol=mosaic.SCAN_ATOL, rtol=0)
+
+
+def _bf16_pair(word):
+    """The two bf16 of a 32-bit register, low half first, as floats."""
+    lo = np.array([(word & 0xFFFF) << 16], np.uint32).view(np.float32)[0]
+    hi = np.array([word & 0xFFFF0000], np.uint32).view(np.float32)[0]
+    return lo, hi
+
+
+def _ldmatrix(smem, lane_rows, lane_cols, n_mats, trans):
+    """``ldmatrix.m8n8.x{n_mats}[.trans]``: matrix m's row r at the address
+    lane 8m + r gives; lane t receives, per matrix, (row t/4, columns 2(t%4)
+    and +1), or with .trans (rows 2(t%4) and +1, column t/4)."""
+    regs = np.zeros((32, n_mats, 2), np.float32)
+    for m in range(n_mats):
+        rows = [smem[lane_rows[8 * m + r], lane_cols[8 * m + r]:
+                     lane_cols[8 * m + r] + 8] for r in range(8)]
+        M = np.stack(rows)
+        for t in range(32):
+            if trans:
+                regs[t, m] = M[2 * (t % 4), t // 4], M[2 * (t % 4) + 1, t // 4]
+            else:
+                regs[t, m] = M[t // 4, 2 * (t % 4)], M[t // 4, 2 * (t % 4) + 1]
+    return regs
+
+
+def _mma_m16n8k16(a, b):
+    """mma.sync m16n8k16 row.col from per-lane fragments: a [32, 4, 2],
+    b [32, 2, 2]; returns d [32, 4] (c0..c3 of each lane)."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        for i, (r, c) in enumerate(((g, 2 * q), (g + 8, 2 * q),
+                                    (g, 2 * q + 8), (g + 8, 2 * q + 8))):
+            A[r, c:c + 2] = a[t, i]
+        for i, k in enumerate((2 * q, 2 * q + 8)):
+            B[k:k + 2, g] = b[t, i]
+    D = A @ B
+    d = np.zeros((32, 4))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        d[t] = D[g, 2 * q], D[g, 2 * q + 1], D[g + 8, 2 * q], D[g + 8, 2 * q + 1]
+    return d
+
+
+def _onehot_pair(i, c):
+    return (0x3F80 if i == c else 0) | (0x3F800000 if i == c + 1 else 0)
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_onehot_fragment_mirror(W):
+    """``onehot_expand_kernel``'s warp 0 of CTA 0 (16 rows x 128 columns):
+    the one-hot built in registers, the window through shared memory in
+    steps of 64 rows and ldmatrix.trans, the epilogue's rows and columns;
+    the result is the bf16-rounded window rows."""
+    win, idx = gather.onehot_inputs(W, 1024, 1024)
+    wb = torch.from_numpy(win).to(torch.bfloat16).float().numpy()
+    i_rows = idx[0, :16]
+    out = np.zeros((16, 128))
+    acc = np.zeros((16, 32, 4))
+    for w0 in range(0, W, 64):
+        ws = np.zeros((64, 136), np.float32)
+        ws[:, :128] = wb[w0:w0 + 64]
+        for k in range(0, 64, 16):
+            a = np.zeros((32, 4, 2), np.float32)
+            for t in range(32):
+                g, q = t // 4, t % 4
+                c = w0 + k + 2 * q
+                words = (_onehot_pair(i_rows[g], c),
+                         _onehot_pair(i_rows[g + 8], c),
+                         _onehot_pair(i_rows[g], c + 8),
+                         _onehot_pair(i_rows[g + 8], c + 8))
+                a[t] = [_bf16_pair(wd) for wd in words]
+            for j in range(16):
+                lanes = np.arange(32)
+                b = _ldmatrix(ws, k + (lanes & 15), np.full(32, j * 8), 2,
+                              trans=True)
+                acc[j] += _mma_m16n8k16(a, b)
+    for j in range(16):
+        for t in range(32):
+            g, q = t // 4, t % 4
+            for h in range(2):
+                out[g + 8 * h, j * 8 + 2 * q:j * 8 + 2 * q + 2] = \
+                    acc[j, t, 2 * h:2 * h + 2]
+    np.testing.assert_array_equal(out, wb[i_rows])
+
+
+def test_block_dot_bf16_fragment_mirror():
+    """``block_dot_bf16_kernel``'s A fragments (ldmatrix.x4 from rows of
+    136 halves) and B fragments (ldmatrix.x2.trans) over one k16 step give
+    the product of the staged tiles."""
+    rng = np.random.default_rng(3)
+    A = rng.integers(-4, 5, size=(16, 128)).astype(np.float32)
+    Bt = rng.integers(-4, 5, size=(128, 64)).astype(np.float32)
+    As = np.zeros((16, 136), np.float32)
+    As[:, :128] = A
+    Bs = np.zeros((128, 72), np.float32)
+    Bs[:, :64] = Bt
+    lanes = np.arange(32)
+    acc = np.zeros((8, 32, 4))
+    for k0 in range(0, 128, 16):
+        a = _ldmatrix(As, lanes & 15, k0 + (lanes >> 4) * 8, 4, trans=False)
+        for j in range(8):
+            b = _ldmatrix(Bs, k0 + (lanes & 15), np.full(32, j * 8), 2,
+                          trans=True)
+            acc[j] += _mma_m16n8k16(a, b)
+    C = np.zeros((16, 64))
+    for j in range(8):
+        for t in range(32):
+            g, q = t // 4, t % 4
+            C[g, j * 8 + 2 * q:j * 8 + 2 * q + 2] = acc[j, t, :2]
+            C[g + 8, j * 8 + 2 * q:j * 8 + 2 * q + 2] = acc[j, t, 2:]
+    np.testing.assert_array_equal(C, A @ Bt)
+
+
+# ------------------------------------------------- timing and the CLIs
+def test_slope_ms_chains_and_takes_the_least_of_each_side():
+    calls = []
+
+    def fn(v):
+        calls.append(1)
+        return v + 1
+    ms = bench.slope_ms(fn, torch.zeros(4), lo=2, hi=5, repeats=2)
+    # each side warmed once, then timed twice: (2 + 5) * 3 applications
+    assert len(calls) == 21 and np.isfinite(ms)
+    seen = []
+    assert bench.run_slope_ms(lambda n: seen.append(n), 1, 3, 2,
+                              cuda=False) is not None
+    assert seen == [1, 3, 1, 1, 3, 3]
+
+
+@pytest.mark.parametrize("probe", ["mosaic", "r2", "gather"])
+def test_probes_run_quick_on_the_cpu(probe):
+    mod = {"mosaic": mosaic, "r2": r2, "gather": gather}[probe]
+    lines = []
+    recs = mod.run(CPU, quick=True, out=lines.append, timed=False)
+    # the dots are held to float64 within r2.DOT_C units by the run
+    # itself; the rest to their plain versions
+    assert recs and all(r["max_abs_err"] <= 1e-4 for r in recs
+                        if not r["name"].startswith("block_dot"))
+    assert all(r["max_abs_err"] <= 1e-3 and "units, within" in r["line"]
+               for r in recs if r["name"].startswith("block_dot"))
+    assert all(r["name"] in _build.LAUNCHES for r in recs)
+    assert len(lines) >= len(recs)
+    assert all("exact=True" in ln or "OK" in ln or "within" in ln
+               or "ok=True" in ln for ln in lines)
+
+
+def test_h100_probes_cli_on_the_cpu():
+    spec = importlib.util.spec_from_file_location(
+        "h100_probes", os.path.join(SCRIPTS, "h100_probes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lines = []
+    status, recs = mod.main(["--device", "cpu", "--quick", "--probe",
+                             "mosaic"], out=lines.append)
+    assert status == 0 and len(recs) == 2
+    assert lines[0].startswith("device: cpu")
+    assert any(ln.startswith("seg_scan [32x128] SUB=4") for ln in lines)
