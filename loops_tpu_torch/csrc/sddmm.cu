@@ -12,30 +12,42 @@
 //
 // ---------------------------------------------------------------- K5
 // out[e] = sum_f bf16(A[row_e, f]) * bf16(vals_e * bf16(B[col_e, f])), f32
-// products and sums, f32 out [nnz], over a work_oriented FlatBlockPlan of K
-// atoms per block (every block full but the last, so slot b*K + s IS atom e
-// and the output is in storage order). The row of slot s of block b is
-// tile_starts[b] + rel[b*K + s]. The rounding is the TPU kernel's: vals are
-// folded into the gathered B row, rounded to bf16 (sddmm_flat.py:166-167),
-// and multiplied by the bf16 A row; a bf16 x bf16 product is exact in f32,
-// so only the f32 sum's order differs from the TPU.
+// products and sums, f32 out [nnz] in storage order, over the CSR's row
+// ids, columns and values staged as they are stored. The rounding is the
+// TPU kernel's: vals are folded into the gathered B row, rounded to bf16
+// (sddmm_flat.py:166-167), and multiplied by the bf16 A row; a bf16 x bf16
+// product is exact in f32, so only the f32 sum's order differs from the
+// TPU.
 //
-// Design: a group of G lanes (4, 8, 16 or 32, the power of two that covers
-// F in VEC-wide pieces) per atom; lane j reads pieces j, j+G, ... of the A
-// and B rows (16-byte loads when VEC = 4), rounds them to bf16 in
-// registers, folds vals in, and sums its products in order; then a fixed
-// xor-shuffle tree over the group. The ragged end of F is masked (the TPU
-// padded F to 128 lanes with zeros). Dropped with the TPU mechanism: the
-// 16-row-aligned A windows and their clamping, the power-of-two RW, the
-// rw_cap and "fewer than RW rows" refusals, GROUP padding, the one-hot MXU
-// expansion of A, the eye-mask transposes, and the [B_blk*K, Fp] gb array
-// XLA wrote before the kernel (here the B row is gathered and scaled in
-// registers).
+// What bounds K5 on an H100: the latency of its row gathers, not their
+// bytes. The first port ran one nonzero per lane group with two dependent
+// loads each (index, then row) and sat at 0.28 ns per nonzero whether A
+// and B were in L2 or not, against 0.034-0.098 ns for a bf16 row gather
+// that keeps rows in flight (the K15 probe).
 //
-// What bounds K5 on an H100: bytes. A and B are read as f32 (F * 8 bytes
-// per nonzero, the A row mostly from L1/L2 since consecutive atoms share a
-// row, the B row a random gather from L2 when B fits its 50 MB), 2 flops
-// per feature.
+// Design: a group of G lanes (a power of two, 1 to 32, covering F in
+// VEC-wide pieces) takes runs of kFlatUnroll consecutive nonzeros, and a
+// warp kFlatSteps consecutive runs of its groups. For a run the group
+// loads the row ids, columns and values, then the B pieces of every
+// nonzero and the A piece of every row the run starts (a nonzero on the
+// same row as the one before reuses its A piece), and only then multiplies;
+// the next run's indices are loaded before this run's rows are used. Lane
+// j sums pieces j, j+G, ... of each product in order, then a fixed
+// xor-shuffle tree sums the group; lane u % G writes out[e0 + u], so a
+// warp's stores are contiguous. The kernel holds 64 registers a thread
+// (ptxas spills 44-48 bytes of the 16-byte-piece instances to reach it),
+// so 32 warps of an SM keep their gathers in flight: faster on the card
+// than 24 warps without the spill. Operands are read
+// either as bf16 copies the wrapper makes once per call (16-byte pieces of
+// 8 values, half the bytes of every gather) or as f32, rounded in
+// registers; both round the same terms (bf16(v * bf16(B)) is the same from
+// either), but the f32 pieces are narrower, so F may be cut otherwise and
+// the sums agree within the f32 bound, not to the bit. Roundings to bf16
+// go two at a time (cvt.rn.bf16x2.f32): conversions run at a quarter of
+// the FMA rate. A ragged F (F % VEC != 0 for every VEC > 1) takes 1-wide
+// pieces; pieces past F and nonzeros past nnz are masked. No atomics:
+// every out[e] is one group's fixed reduction, so two applies are bitwise
+// equal.
 //
 // ---------------------------------------------------------------- K10
 // out[t] = vals[t] .* (A[i*R:(i+1)*R, :] @ B[k*C:(k+1)*C, :]^T), f32 [NB, R,
@@ -69,77 +81,194 @@ __device__ __forceinline__ float bf16r(float x) {
 
 // ---------------------------------------------------------------- K5
 constexpr int kFlatThreads = 256;
+constexpr int kFlatUnroll = 4;  // nonzeros in flight per lane group
+constexpr int kFlatSteps = 4;   // runs of nonzeros per warp
+// at most 64 registers a thread: 4 CTAs of 8 warps on an SM
+constexpr int kFlatMinBlocks = 4;
 
-template <int VEC>
-struct Piece;
-template <>
-struct Piece<4> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-};
-template <>
-struct Piece<1> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    v[0] = __ldg(p);
-  }
-};
+// VEC consecutive values of one row, kept as the raw 32-bit words of the
+// load (a bf16 piece holds two values per word) until they are used
+template <typename T, int VEC>
+struct Piece {
+  static constexpr int kBytes = static_cast<int>(sizeof(T)) * VEC;
+  static constexpr int kWords = kBytes < 4 ? 1 : kBytes / 4;
+  unsigned w[kWords];
 
-template <int G, int VEC>
-__global__ void __launch_bounds__(kFlatThreads)
-sddmm_flat_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                  const int* __restrict__ rel,
-                  const int* __restrict__ tile_starts,
-                  const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ out, int nnz, int K, int F) {
-  const int lane = threadIdx.x % G;
-  const long long e =
-      static_cast<long long>(blockIdx.x) * (kFlatThreads / G) + threadIdx.x / G;
-  // whole groups leave together, so the shuffles below see full groups
-  if (e >= nnz) return;
-  const int row = tile_starts[e / K] + rel[e];
-  const float v = vals[e];
-  const float* arow = A + static_cast<long long>(row) * F;
-  const float* brow = B + static_cast<long long>(cols[e]) * F;
-  float acc = 0.f;
-  for (int f = lane * VEC; f < F; f += G * VEC) {
-    float a[VEC], b[VEC];
-    Piece<VEC>::load(arow + f, a);
-    Piece<VEC>::load(brow + f, b);
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      acc = fmaf(bf16r(a[k]), bf16r(__fmul_rn(v, bf16r(b[k]))), acc);
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = q.x;
+      w[1] = q.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
     }
   }
-  // lanes of one group are G consecutive lanes of a warp, G a power of two
-  const unsigned mask = G == 32 ? 0xffffffffu
-                                : ((1u << G) - 1u) << (threadIdx.x & 31 & ~(G - 1));
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    acc = __fadd_rn(acc, __shfl_xor_sync(mask, acc, off));
+  // value k of the piece as a float (bf16 widens exactly)
+  __device__ __forceinline__ float operator[](int k) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[k]);
+    } else {
+      const unsigned x = w[k / 2];
+      return __uint_as_float(k % 2 ? (x & 0xffff0000u) : (x << 16));
+    }
   }
-  if (lane == 0) out[e] = acc;
+};
+
+// x and y rounded to bf16 (to nearest, ties to even) by one packed
+// conversion, then widened back exactly
+__device__ __forceinline__ void bf16r2(float& x, float& y) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(y), "f"(x));
+  x = __uint_as_float(d << 16);
+  y = __uint_as_float(d & 0xffff0000u);
 }
 
-template <int G>
-int launch_flat(const float* vals, const int* cols, const int* rel,
-                const int* ts, const float* A, const float* B, float* out,
-                int nnz, int K, int F, int vec, cudaStream_t s) {
-  const long long per = kFlatThreads / G;
-  const long long blocks = (nnz + per - 1) / per;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (vec == 4) {
-    sddmm_flat_kernel<G, 4><<<grid, kFlatThreads, 0, s>>>(
-        vals, cols, rel, ts, A, B, out, nnz, K, F);
-  } else {
-    sddmm_flat_kernel<G, 1><<<grid, kFlatThreads, 0, s>>>(
-        vals, cols, rel, ts, A, B, out, nnz, K, F);
+template <int U>
+__device__ __forceinline__ void load_run(const int* __restrict__ rows,
+                                         const int* __restrict__ cols,
+                                         const float* __restrict__ vals,
+                                         long long e0, int nnz, int (&r)[U],
+                                         int (&c)[U], float (&v)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool ok = e0 + u < nnz;
+    r[u] = ok ? __ldg(rows + e0 + u) : -1;
+    c[u] = ok ? __ldg(cols + e0 + u) : 0;
+    v[u] = ok ? __ldg(vals + e0 + u) : 0.f;
   }
+}
+
+// kRound: A and B are f32, rounded to bf16 here; otherwise they are the
+// wrapper's bf16 copies, already rounded. A warp takes kFlatSteps
+// consecutive runs of (32 / G) * U nonzeros; the next run's indices are
+// loaded before the current run's rows are used.
+template <typename T, int VEC, bool kRound>
+__global__ void __launch_bounds__(kFlatThreads, kFlatMinBlocks)
+sddmm_flat_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
+                  const float* __restrict__ vals, const T* __restrict__ A,
+                  const T* __restrict__ B, float* __restrict__ out, int nnz,
+                  int F, int G) {
+  constexpr int U = kFlatUnroll;
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (G - 1);
+  const long long per_step = static_cast<long long>(32 / G) * U;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kFlatThreads + threadIdx.x) >> 5;
+  const long long run0 = warp * per_step * kFlatSteps;
+  // whole warps leave together, so the shuffles below see every lane
+  if (run0 >= nnz) return;
+  const long long g0 = run0 + static_cast<long long>(lane / G) * U;
+  const int pieces = (F + VEC - 1) / VEC;  // VEC divides F when VEC > 1
+  int r[U], c[U];
+  float v[U];
+  load_run<U>(rows, cols, vals, g0, nnz, r, c, v);
+  for (int step = 0; step < kFlatSteps; ++step) {
+    if (run0 + step * per_step >= nnz) break;  // the same for the warp
+    const long long e0 = g0 + step * per_step;
+    int nr[U], nc[U];
+    float nv[U];
+    if (step + 1 < kFlatSteps) {
+      load_run<U>(rows, cols, vals, e0 + per_step, nnz, nr, nc, nv);
+    }
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = 0.f;
+    for (int p0 = 0; p0 < pieces; p0 += G) {
+      const int p = p0 + j;
+      const bool on = p < pieces;
+      Piece<T, VEC> a[U], b[U];
+      // every load of the run first: B pieces, then the A piece of each
+      // row
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        b[u].zero();
+        if (on && r[u] >= 0) {
+          b[u].load(B + static_cast<long long>(c[u]) * F + p * VEC);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u > 0 && r[u] == r[u - 1]) {
+          a[u] = a[u - 1];
+        } else {
+          a[u].zero();
+          if (on && r[u] >= 0) {
+            a[u].load(A + static_cast<long long>(r[u]) * F + p * VEC);
+          }
+        }
+      }
+      if (on) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int k = 0; k < VEC; k += 2) {
+            if (k + 1 < VEC) {
+              float x0 = a[u][k], x1 = a[u][k + 1];
+              float y0 = b[u][k], y1 = b[u][k + 1];
+              if constexpr (kRound) {
+                bf16r2(x0, x1);
+                bf16r2(y0, y1);
+              }
+              float g0v = __fmul_rn(v[u], y0), g1v = __fmul_rn(v[u], y1);
+              bf16r2(g0v, g1v);
+              acc[u] = fmaf(x0, g0v, acc[u]);
+              acc[u] = fmaf(x1, g1v, acc[u]);
+            } else {
+              const float x = kRound ? bf16r(a[u][k]) : a[u][k];
+              const float y = kRound ? bf16r(b[u][k]) : b[u][k];
+              acc[u] = fmaf(x, bf16r(__fmul_rn(v[u], y)), acc[u]);
+            }
+          }
+        }
+      }
+    }
+    // lanes of one group are G consecutive lanes of a warp, G a power of
+    // two, so an xor below G stays inside the group
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int off = G / 2; off > 0; off >>= 1) {
+        acc[u] = __fadd_rn(acc[u], __shfl_xor_sync(0xffffffffu, acc[u], off));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if ((u & (G - 1)) == j && e0 + u < nnz) out[e0 + u] = acc[u];
+    }
+    if (step + 1 < kFlatSteps) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        r[u] = nr[u];
+        c[u] = nc[u];
+        v[u] = nv[u];
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, bool kRound>
+int launch_flat(const int* rows, const int* cols, const float* vals,
+                const void* A, const void* B, float* out, int nnz, int F,
+                int G, cudaStream_t s) {
+  const long long per_cta = static_cast<long long>(kFlatThreads / 32) *
+                            (32 / G) * kFlatUnroll * kFlatSteps;
+  const long long blocks = (nnz + per_cta - 1) / per_cta;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  sddmm_flat_kernel<T, VEC, kRound>
+      <<<static_cast<unsigned>(blocks), kFlatThreads, 0, s>>>(
+          rows, cols, vals, static_cast<const T*>(A),
+          static_cast<const T*>(B), out, nnz, F, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -204,24 +333,33 @@ sddmm_bcsr_kernel(const int* __restrict__ brow, const int* __restrict__ bcols,
 
 extern "C" {
 
-int loops_sddmm_flat(const void* vals, const void* cols, const void* rel,
-                     const void* tile_starts, const void* A, const void* B,
-                     void* out, int nnz, int K, int F, int vec, int group,
-                     void* stream) {
+// operands: 1 for bf16 copies of A and B, 0 for f32 rounded in registers
+int loops_sddmm_flat(const void* rows, const void* cols, const void* vals,
+                     const void* A, const void* B, void* out, int nnz, int F,
+                     int vec, int group, int bf16_operands, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* v = static_cast<const float*>(vals);
+  const auto* r = static_cast<const int*>(rows);
   const auto* c = static_cast<const int*>(cols);
-  const auto* r = static_cast<const int*>(rel);
-  const auto* ts = static_cast<const int*>(tile_starts);
-  const auto* a = static_cast<const float*>(A);
-  const auto* b = static_cast<const float*>(B);
+  const auto* v = static_cast<const float*>(vals);
   auto* o = static_cast<float*>(out);
-  if (vec != 1 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
-  switch (group) {
-    case 4: return launch_flat<4>(v, c, r, ts, a, b, o, nnz, K, F, vec, s);
-    case 8: return launch_flat<8>(v, c, r, ts, a, b, o, nnz, K, F, vec, s);
-    case 16: return launch_flat<16>(v, c, r, ts, a, b, o, nnz, K, F, vec, s);
-    case 32: return launch_flat<32>(v, c, r, ts, a, b, o, nnz, K, F, vec, s);
+  if (group < 1 || group > 32 || (group & (group - 1)) ||
+      (vec > 1 && F % vec)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using BF = __nv_bfloat16;
+  if (bf16_operands) {
+    switch (vec) {
+      case 1: return launch_flat<BF, 1, false>(r, c, v, A, B, o, nnz, F, group, s);
+      case 2: return launch_flat<BF, 2, false>(r, c, v, A, B, o, nnz, F, group, s);
+      case 4: return launch_flat<BF, 4, false>(r, c, v, A, B, o, nnz, F, group, s);
+      case 8: return launch_flat<BF, 8, false>(r, c, v, A, B, o, nnz, F, group, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (vec) {
+    case 1: return launch_flat<float, 1, true>(r, c, v, A, B, o, nnz, F, group, s);
+    case 2: return launch_flat<float, 2, true>(r, c, v, A, B, o, nnz, F, group, s);
+    case 4: return launch_flat<float, 4, true>(r, c, v, A, B, o, nnz, F, group, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

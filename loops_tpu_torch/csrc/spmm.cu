@@ -11,28 +11,48 @@
 // are bitwise equal. Two modes:
 //   * f32: products vals * B in f32, summed in f32;
 //   * bf16: bf16(bf16(vals) * bf16(B)) — each product rounded to bf16 as
-//     the TPU kernel's staged products were — summed in f32.
-// The wrapper makes one bf16 copy of B for the bf16 mode (halving the
-// gather's bytes); vals are rounded to bf16 on load. Products and sums
-// use __fmul_rn/__fadd_rn (no FMA contraction), so the plain PyTorch
-// version, which sums each row run in storage order and the runs in block
-// order, gives the same bits.
+//     the TPU kernel's staged products were — summed in f32. B is read
+//     either as a bf16 copy the wrapper makes once per call (half the
+//     gather's bytes) or as f32 rounded in registers; both give the same
+//     bits.
+// Products and sums use __fmul_rn/__fadd_rn (no FMA contraction), so the
+// plain PyTorch version, which sums the same runs in the same order,
+// gives the same bits.
 // What does not cross over: the [K, R] one-hot MXU contraction, the 3-way
 // bf16 split of the f32 mode (the card multiplies f32 exactly), the
 // 4096-row VMEM output stripes with their re-cut and GROUP padding, and
 // pad_groups/pad_R (the out-of-core tier).
 //
-// Design: one CTA per (plan block, feature tile of 32*FPL columns); the
-// grid tiles F, so F = 40 is one tile of 64 columns, not 128 lanes. Warp
-// w sums the block's rows w, w+8, ... in CSR order; lane l owns columns
-// l, l+32, ... of the tile, so the B[col, :] row gather is coalesced and
-// vals/cols are warp-wide broadcasts. Rows wholly inside the block go
-// straight to C; the block's first and last row go to seam[2b], seam[2b+1]
-// ([nb, 2, F]) and spmm_seam_kernel adds them in block order.
-//
 // What bounds K4 on an H100: bytes of the B gather, F * 4 B (f32) or
-// F * 2 B (bf16) per nonzero, from L2 when B fits in its 50 MB. At 2 flops
-// per gathered element this is far below the card's ridge point.
+// F * 2 B (bf16) per nonzero, mostly from L2; at 2 flops per gathered
+// element it is far below the card's ridge point. The first port gave each
+// warp whole rows, one atom at a time, each B load waiting on its index
+// load: one row in flight per warp, and a block holding one long row kept
+// 1 of its 8 warps busy (0.172 ns per nonzero on the arxiv-shaped graph,
+// against 0.132 ns for the K15 probe's gather of the same table).
+//
+// Design: one CTA of 8 warps per (plan block, feature tile of 32*FPL
+// columns); lane l owns the FPL consecutive columns l*FPL, ... of the
+// tile, loaded and stored as one vector where F and B's alignment allow.
+//   1. The block's atom range [a0, a1) is cut into 8 warp ranges at
+//      a0 + n*w/8 (n = a1 - a0), whatever the rows. A warp reads its
+//      range's rows, columns and values 32 atoms at a time, one per lane
+//      (the next 32 before this 32's B rows are used), and hands them out
+//      by shuffles; then kUnroll atoms at a time it issues their B-row
+//      gathers and only then adds them in storage order. The kernel holds
+//      64 registers a thread, so 32 warps of an SM keep their gathers in
+//      flight (FPL = 8, F past 128, spills 52-92 bytes to fit). In bf16, products are rounded two at a time
+//      (cvt.rn.bf16x2.f32): conversions run at a quarter of the FMA rate.
+//   2. A row strictly inside a warp's range is wholly its own and goes
+//      straight to C. The warp's first and last rows go to shared memory,
+//      where the block adds the partials of each row in warp order; the
+//      block's first and last rows then go to seam[2b], seam[2b+1]
+//      ([nb, 2, F]) and spmm_seam_kernel adds them in block order, the
+//      rest to C.
+//   3. Every row of C is written once, so C needs no zeroing: a row with
+//      atoms by step 2 or the seam pass, a row with none (offsets[r] ==
+//      offsets[r+1]) as zeros by the block whose row range [row_starts[b],
+//      row_starts[b+1]) holds it.
 //
 // Offsets into B, C and seam are 64-bit. The C entry point returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -44,76 +64,270 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // atoms whose B rows a warp gathers at once
+// at most 64 registers a thread: 4 CTAs of 8 warps on an SM
+constexpr int kMinBlocks = 4;
 
-template <bool kBf16>
-struct BElem {
-  using T = float;
-};
-template <>
-struct BElem<true> {
-  using T = __nv_bfloat16;
-};
-
-__device__ __forceinline__ float load_b(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_b(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float product(float v, float b) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, b)));
+// the lane's FPL columns f, ..., f+FPL-1 of one B row, kept as the raw
+// words of the load (a bf16 word holds two columns) until they are used;
+// kVec: F % FPL == 0 and the row is aligned for one vector load, so the
+// lane's columns are all inside F or all past it
+template <typename TB, int FPL, bool kVec>
+struct Cols {
+  static constexpr bool kHalf = sizeof(TB) == 2;
+  static constexpr int kWords = kHalf ? (FPL + 1) / 2 : FPL;
+  unsigned w[kWords];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ void load(const TB* row, int f, int F) {
+    if constexpr (kVec && FPL > 1) {
+      const auto* p = reinterpret_cast<const unsigned*>(row + f);
+      if constexpr (kWords >= 4) {
+#pragma unroll
+        for (int i = 0; i < kWords; i += 4) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + i));
+          w[i] = q.x;
+          w[i + 1] = q.y;
+          w[i + 2] = q.z;
+          w[i + 3] = q.w;
+        }
+      } else if constexpr (kWords == 2) {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+        w[0] = q.x;
+        w[1] = q.y;
+      } else {
+        w[0] = __ldg(p);
+      }
+    } else if constexpr (kHalf) {
+      const auto* p = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+      for (int j = 0; j < FPL; ++j) {
+        const unsigned bits = f + j < F ? __ldg(p + f + j) : 0u;
+        w[j / 2] = j % 2 ? w[j / 2] | (bits << 16) : bits;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < FPL; ++j) {
+        w[j] = f + j < F ? __float_as_uint(__ldg(row + f + j)) : 0u;
+      }
+    }
+  }
+  __device__ __forceinline__ float operator[](int j) const {
+    if constexpr (kHalf) {
+      const unsigned x = w[j / 2];
+      return __uint_as_float(j % 2 ? (x & 0xffff0000u) : (x << 16));
+    } else {
+      return __uint_as_float(w[j]);
+    }
+  }
+};
+
+template <int FPL, bool kVec>
+__device__ __forceinline__ void store_cols(float* row, int f, int F,
+                                           const float (&x)[FPL]) {
+  if constexpr (kVec && FPL >= 4) {
+    if (f < F) {
+#pragma unroll
+      for (int j = 0; j < FPL; j += 4) {
+        *reinterpret_cast<float4*>(row + f + j) =
+            make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+      }
+    }
+  } else if constexpr (kVec && FPL == 2) {
+    if (f < F) *reinterpret_cast<float2*>(row + f) = make_float2(x[0], x[1]);
   } else {
-    return __fmul_rn(v, b);
+#pragma unroll
+    for (int j = 0; j < FPL; ++j) {
+      if (f + j < F) row[f + j] = x[j];
+    }
   }
 }
 
-template <int FPL, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+// x and y rounded to bf16 (to nearest, ties to even) by one packed
+// conversion, then widened back exactly
+__device__ __forceinline__ void bf16r2(float& x, float& y) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(y), "f"(x));
+  x = __uint_as_float(d << 16);
+  y = __uint_as_float(d & 0xffff0000u);
+}
+
+// acc[j] += v * x[j] in f32, or, in the bf16 mode, bf16(v * bf16(x[j]))
+// with v already rounded (kRoundB: x is f32 B and is rounded here)
+template <int FPL, bool kBf16, bool kRoundB, typename X>
+__device__ __forceinline__ void add_products(float (&acc)[FPL], float v,
+                                             const X& x) {
+  if constexpr (!kBf16) {
+#pragma unroll
+    for (int j = 0; j < FPL; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, x[j]));
+  } else if constexpr (FPL == 1) {
+    const float y = kRoundB ? bf16r(x[0]) : x[0];
+    acc[0] = __fadd_rn(acc[0], bf16r(__fmul_rn(v, y)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < FPL; j += 2) {
+      float y0 = x[j], y1 = x[j + 1];
+      if constexpr (kRoundB) bf16r2(y0, y1);
+      float p0 = __fmul_rn(v, y0), p1 = __fmul_rn(v, y1);
+      bf16r2(p0, p1);
+      acc[j] = __fadd_rn(acc[j], p0);
+      acc[j + 1] = __fadd_rn(acc[j + 1], p1);
+    }
+  }
+}
+
+// TB: B's element type (float, or the wrapper's bf16 copy); kBf16: the
+// bf16 mode (vals and B rounded, each product rounded)
+template <int FPL, typename TB, bool kBf16, bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flat_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                 const int* __restrict__ rows,
                  const int* __restrict__ offsets,
                  const int* __restrict__ atom_starts,
+                 const int* __restrict__ row_starts,
                  const int* __restrict__ row_first,
-                 const int* __restrict__ row_last,
-                 const typename BElem<kBf16>::T* __restrict__ B,
+                 const int* __restrict__ row_last, const TB* __restrict__ B,
                  float* __restrict__ C, float* __restrict__ seam, int K,
                  int F) {
+  constexpr int TILE = 32 * FPL;
+  constexpr int U = kUnroll;
+  // partials of each warp's first [0] and last [1] row, and those rows
+  __shared__ __align__(16) float part[kWarps][2][TILE];
+  __shared__ int prow[kWarps][2];
   const int b = blockIdx.x;
-  const int a0 = atom_starts[b], a1 = atom_starts[b + 1];
-  if (a0 == a1) return;
-  const int rf = row_first[b], rl = row_last[b];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int f0 = blockIdx.y * (32 * FPL) + lane;
-  // atom a of this block sits at staged slot b*K + (a - a0)
-  const long long slot0 = static_cast<long long>(b) * K - a0;
-  for (int r = rf + warp; r <= rl; r += kWarps) {
-    const int lo = max(offsets[r], a0);
-    const int hi = min(offsets[r + 1], a1);
-    if (lo >= hi) continue;  // no atom of row r here: C[r] stays 0
-    float acc[FPL];
+  const int tile0 = blockIdx.y * TILE;
+  const int f = tile0 + lane * FPL;
+
+  // 3. rows without atoms in this block's row range: zeros
+  float acc[FPL];
 #pragma unroll
-    for (int j = 0; j < FPL; ++j) acc[j] = 0.f;
-    for (int a = lo; a < hi; ++a) {
-      float v = vals[slot0 + a];
-      if constexpr (kBf16) v = __bfloat162float(__float2bfloat16_rn(v));
-      const auto* brow = B + static_cast<long long>(cols[slot0 + a]) * F;
+  for (int j = 0; j < FPL; ++j) acc[j] = 0.f;
+  for (int r = row_starts[b] + warp; r < row_starts[b + 1]; r += kWarps) {
+    if (offsets[r] == offsets[r + 1]) {
+      store_cols<FPL, kVec>(C + static_cast<long long>(r) * F, f, F, acc);
+    }
+  }
+  const int a0 = atom_starts[b], a1 = atom_starts[b + 1];
+  if (a0 == a1) return;  // the whole block leaves: no partials
+  const int n = a1 - a0;
+  // 1. the warp's atom range; slot s of block b holds atom a0 + s
+  const int lo = static_cast<int>(static_cast<long long>(n) * warp / kWarps);
+  const int hi =
+      static_cast<int>(static_cast<long long>(n) * (warp + 1) / kWarps);
+  const long long slot0 = static_cast<long long>(b) * K;
+  const int wf = lo < hi ? rows[slot0 + lo] : -1;
+  const int wl = lo < hi ? rows[slot0 + hi - 1] : -1;
+  if (lane == 0) {
+    prow[warp][0] = wf;
+    prow[warp][1] = wl;
+  }
+  // 2. a row's sum: to shared memory if the warp's first or last row,
+  // else (wholly the warp's) to C
+  auto emit = [&](int r) {
+    if (r == wf || r == wl) {
+      float* dst = part[warp][r == wf ? 0 : 1] + lane * FPL;
 #pragma unroll
-      for (int j = 0; j < FPL; ++j) {
-        const int f = f0 + 32 * j;
-        if (f < F) {
-          acc[j] = __fadd_rn(acc[j], product<kBf16>(v, load_b(brow + f)));
+      for (int j = 0; j < FPL; ++j) dst[j] = acc[j];
+    } else {
+      store_cols<FPL, kVec>(C + static_cast<long long>(r) * F, f, F, acc);
+    }
+  };
+  // the warp's atoms in chunks of 32: lane l holds the row, column and
+  // value of atom i0 + l, and the next chunk's are loaded before this
+  // one's B rows are used; each group of U atoms then issues its U
+  // gathers before adding any of them, in storage order
+  int cur = wf;
+  int cr = -1, cc = 0;
+  float cv = 0.f;
+  if (lo + lane < hi) {
+    cr = rows[slot0 + lo + lane];
+    cc = cols[slot0 + lo + lane];
+    cv = vals[slot0 + lo + lane];
+  }
+  for (int i0 = lo; i0 < hi; i0 += 32) {
+    int nr = -1, nc = 0;
+    float nv = 0.f;
+    if (i0 + 32 + lane < hi) {
+      nr = rows[slot0 + i0 + 32 + lane];
+      nc = cols[slot0 + i0 + 32 + lane];
+      nv = vals[slot0 + i0 + 32 + lane];
+    }
+    const int cnt = min(32, hi - i0);
+    for (int g = 0; g < cnt; g += U) {
+      int c[U], r[U];
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        r[u] = __shfl_sync(0xffffffffu, cr, g + u);
+        c[u] = __shfl_sync(0xffffffffu, cc, g + u);
+        v[u] = __shfl_sync(0xffffffffu, cv, g + u);
+        if (g + u >= cnt) r[u] = -1;
+      }
+      Cols<TB, FPL, kVec> x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x[u].zero();
+        if (r[u] >= 0 && f < F) {
+          x[u].load(B + static_cast<long long>(c[u]) * F, f, F);
         }
       }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r[u] < 0) break;
+        if (r[u] != cur) {
+          emit(cur);
+          cur = r[u];
+#pragma unroll
+          for (int j = 0; j < FPL; ++j) acc[j] = 0.f;
+        }
+        add_products<FPL, kBf16, kBf16 && sizeof(TB) == 4>(
+            acc, kBf16 ? bf16r(v[u]) : v[u], x[u]);
+      }
     }
+    cr = nr;
+    cc = nc;
+    cv = nv;
+  }
+  if (lo < hi) emit(cur);
+  __syncthreads();
+
+  // 2. the warps' partial rows, added in warp order, one thread per column
+  const int t = threadIdx.x;
+  if (t >= TILE || tile0 + t >= F) return;
+  const int rf = row_first[b], rl = row_last[b];
+  auto put = [&](int r, float s) {
     float* dst = r == rf   ? seam + 2LL * b * F
                  : r == rl ? seam + (2LL * b + 1) * F
                            : C + static_cast<long long>(r) * F;
+    dst[tile0 + t] = s;
+  };
+  int row = -1;
+  float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < FPL; ++j) {
-      const int f = f0 + 32 * j;
-      if (f < F) dst[f] = acc[j];
+  for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = prow[w][k];
+      if (r < 0 || (k == 1 && r == prow[w][0])) continue;
+      const float p = part[w][k][t];
+      if (r == row) {
+        s = __fadd_rn(s, p);
+      } else {
+        if (row >= 0) put(row, s);
+        row = r;
+        s = p;
+      }
     }
   }
+  put(row, s);
 }
 
 // Sum of row r's partials (feature f) from block c onwards, in block
@@ -158,47 +372,84 @@ spmm_seam_kernel(const int* __restrict__ row_first,
   }
 }
 
-template <int FPL>
-int launch_fpl(const float* vals, const int* cols, const int* offsets,
-               const int* atom_starts, const int* row_first,
-               const int* row_last, const void* B, float* C, float* seam,
-               int nb, int K, int F, bool bf16, cudaStream_t s) {
-  const dim3 grid(nb, (F + 32 * FPL - 1) / (32 * FPL));
-  if (bf16) {
-    flat_spmm_kernel<FPL, true><<<grid, kThreads, 0, s>>>(
-        vals, cols, offsets, atom_starts, row_first, row_last,
-        static_cast<const __nv_bfloat16*>(B), C, seam, K, F);
-  } else {
-    flat_spmm_kernel<FPL, false><<<grid, kThreads, 0, s>>>(
-        vals, cols, offsets, atom_starts, row_first, row_last,
-        static_cast<const float*>(B), C, seam, K, F);
-  }
+struct Args {
+  const float* vals;
+  const int* cols;
+  const int* rows;
+  const int* offsets;
+  const int* atom_starts;
+  const int* row_starts;
+  const int* row_first;
+  const int* row_last;
+  const void* B;
+  float* C;
+  float* seam;
+  int K, F;
+};
+
+template <int FPL, typename TB, bool kBf16, bool kVec>
+int launch_k4(const Args& a, dim3 grid, cudaStream_t s) {
+  flat_spmm_kernel<FPL, TB, kBf16, kVec><<<grid, kThreads, 0, s>>>(
+      a.vals, a.cols, a.rows, a.offsets, a.atom_starts, a.row_starts,
+      a.row_first, a.row_last, static_cast<const TB*>(a.B), a.C, a.seam, a.K,
+      a.F);
   return static_cast<int>(cudaGetLastError());
+}
+
+// mode: 0 f32; 1 bf16 over f32 B (rounded in registers); 2 bf16 over the
+// wrapper's bf16 copy of B
+template <int FPL, bool kVec>
+int launch_mode(const Args& a, dim3 grid, int mode, cudaStream_t s) {
+  switch (mode) {
+    case 0: return launch_k4<FPL, float, false, kVec>(a, grid, s);
+    case 1: return launch_k4<FPL, float, true, kVec>(a, grid, s);
+    case 2: return launch_k4<FPL, __nv_bfloat16, true, kVec>(a, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int FPL>
+int launch_fpl(const Args& a, int nb, int mode, int vec, cudaStream_t s) {
+  const dim3 grid(nb, (a.F + 32 * FPL - 1) / (32 * FPL));
+  if constexpr (FPL > 1) {
+    if (vec) return launch_mode<FPL, true>(a, grid, mode, s);
+  }
+  return launch_mode<FPL, false>(a, grid, mode, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-int loops_flat_spmm(const void* vals, const void* cols, const void* offsets,
-                    const void* atom_starts, const void* row_first,
+int loops_flat_spmm(const void* vals, const void* cols, const void* rows,
+                    const void* offsets, const void* atom_starts,
+                    const void* row_starts, const void* row_first,
                     const void* row_last, const void* B, void* C, void* seam,
-                    int nb, int K, int F, int fpl, int bf16, void* stream) {
+                    int nb, int K, int F, int fpl, int mode, int vec,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* c = static_cast<const int*>(cols);
-  const auto* o = static_cast<const int*>(offsets);
-  const auto* as = static_cast<const int*>(atom_starts);
-  const auto* rf = static_cast<const int*>(row_first);
-  const auto* rl = static_cast<const int*>(row_last);
-  auto* out = static_cast<float*>(C);
-  auto* sm = static_cast<float*>(seam);
+  const Args a{static_cast<const float*>(vals),
+               static_cast<const int*>(cols),
+               static_cast<const int*>(rows),
+               static_cast<const int*>(offsets),
+               static_cast<const int*>(atom_starts),
+               static_cast<const int*>(row_starts),
+               static_cast<const int*>(row_first),
+               static_cast<const int*>(row_last),
+               B,
+               static_cast<float*>(C),
+               static_cast<float*>(seam),
+               K,
+               F};
+  if (vec && F % fpl) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int err;
   switch (fpl) {
-    case 1: err = launch_fpl<1>(v, c, o, as, rf, rl, B, out, sm, nb, K, F, bf16, s); break;
-    case 2: err = launch_fpl<2>(v, c, o, as, rf, rl, B, out, sm, nb, K, F, bf16, s); break;
-    case 4: err = launch_fpl<4>(v, c, o, as, rf, rl, B, out, sm, nb, K, F, bf16, s); break;
-    case 8: err = launch_fpl<8>(v, c, o, as, rf, rl, B, out, sm, nb, K, F, bf16, s); break;
+    case 1: err = launch_fpl<1>(a, nb, mode, vec, s); break;
+    case 2: err = launch_fpl<2>(a, nb, mode, vec, s); break;
+    case 4: err = launch_fpl<4>(a, nb, mode, vec, s); break;
+    case 8: err = launch_fpl<8>(a, nb, mode, vec, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err) return err;
@@ -206,7 +457,7 @@ int loops_flat_spmm(const void* vals, const void* cols, const void* offsets,
   const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   spmm_seam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      rf, rl, sm, out, nb, F);
+      a.row_first, a.row_last, a.seam, a.C, nb, F);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,15 +5,23 @@ Replaces ``loops_tpu/ops/kernels/spmm_flat.py`` (``flat_spmm_pallas``):
 ``C[rows, F] = A(csr) @ B[cols, F]`` over a merge-path ``FlatBlockPlan``
 (each block at most K atoms and at most K rows). The CUDA kernel
 (``csrc/spmm.cu`` ``flat_spmm_kernel`` + ``spmm_seam_kernel``) gives one
-CTA to each (plan block, feature tile); a warp sums each row of the block
-in CSR order, rows wholly inside the block go to C, and the block's
-first and last row go through a seam pass that adds them in block order,
-so two applies are bitwise equal.
+CTA of 8 warps to each (plan block, feature tile). The block's atoms are
+cut into 8 equal warp ranges (``warp_cuts``); a warp walks its range 4
+atoms at a time, all 4 B-row gathers in flight before it adds them in
+storage order, with the next 32 atoms' indices loaded ahead. A row wholly inside a warp's range goes to C; the warps'
+first and last rows meet in shared memory, added in warp order; the
+block's first and last rows go through a seam pass that adds them in
+block order, so two applies are bitwise equal. Every row of C is written
+once (a row without atoms as zeros, by the block whose row range holds
+it), so C is allocated with ``torch.empty``.
 
 Modes: f32 (products and sums in f32) and ``dtype="bfloat16"``: vals and
 B rounded to bf16, each product rounded to bf16 (as the TPU kernel's
-staged products were), sums in f32, output f32. The wrapper makes one
-bf16 copy of B; the kernel rounds vals on load.
+staged products were), sums in f32, output f32. ``bf16_gather`` picks
+what the bf16 mode reads: ``"copy"`` (the default, the faster on the
+card), one bf16 copy of B per call (half the gather's bytes), or
+``"round"``, the f32 rows rounded in registers; both give the same bits.
+The kernel rounds vals on load.
 
 Dropped with the TPU mechanism: the [K, R] one-hot MXU contraction, the
 f32 mode's 3-way bf16 split, the 4096-row output stripes, their re-cut
@@ -35,8 +43,11 @@ from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.utils.platform import ensure_platform
 
 WARP = 32
+WARPS = 8  # per CTA: a block's atoms are cut into this many warp ranges
 MAX_FPL = 8
 BF16 = "bfloat16"
+BF16_GATHERS = ("copy", "round")
+BF16_GATHER = "copy"
 
 
 def features_per_lane(F: int, block_f: int) -> int:
@@ -58,12 +69,16 @@ def _check_block_f(block_f: int) -> int:
 
 
 def flat_spmm_cuda(b: dict, B: torch.Tensor, shape, dtype=None,
-                   block_f: int = 256) -> torch.Tensor:
+                   block_f: int = 256, bf16_gather: str = BF16_GATHER
+                   ) -> torch.Tensor:
     """Launch K4 (``csrc/spmm.cu``) on the staged buffers: C [rows, F]
-    float32."""
+    float32, every row written by the kernel."""
     dev = B.device
     if dev.type != "cuda":
         raise ValueError(f"flat_spmm_cuda needs a CUDA tensor, got {dev}")
+    if bf16_gather not in BF16_GATHERS:
+        raise ValueError(f"bf16_gather={bf16_gather!r}: expected one of "
+                         f"{BF16_GATHERS}")
     rows, cols_n = shape
     nb, K = b["vals"].shape
     if B.dim() != 2 or B.shape[0] != cols_n:
@@ -72,23 +87,32 @@ def flat_spmm_cuda(b: dict, B: torch.Tensor, shape, dtype=None,
     F = B.shape[1]
     _build.check(B, "B", torch.float32, dev)
     _build.check(b["vals"], "vals", torch.float32, dev)
-    _build.check(b["cols"], "cols", torch.int32, dev, nb * K)
+    for name in ("cols", "rows"):
+        _build.check(b[name], name, torch.int32, dev, nb * K)
     _build.check(b["offsets"], "offsets", torch.int32, dev, rows + 1)
-    _build.check(b["atom_starts"], "atom_starts", torch.int32, dev, nb + 1)
+    for name in ("atom_starts", "row_starts"):
+        _build.check(b[name], name, torch.int32, dev, nb + 1)
     for name in ("row_first", "row_last"):
         _build.check(b[name], name, torch.int32, dev, nb)
     fpl = features_per_lane(F, _check_block_f(block_f))
     if -(-F // (WARP * fpl)) > 65535:
         raise ValueError(f"F={F} needs more than 65535 feature tiles")
-    C = torch.zeros(rows, F, dtype=torch.float32, device=dev)
+    C = torch.empty(rows, F, dtype=torch.float32, device=dev)
     if nb == 0 or F == 0 or rows == 0:
         return C  # a grid of 0 blocks is not a launch: C is the answer
-    Bk = B.to(torch.bfloat16) if dtype == BF16 else B
+    mode = 0
+    if dtype == BF16:
+        mode = 2 if bf16_gather == "copy" else 1
+        if mode == 2:
+            B = B.to(torch.bfloat16)
+    # one vector load per lane: F % FPL == 0 and B aligned for it
+    vec = int(fpl > 1 and F % fpl == 0
+              and B.data_ptr() % min(16, fpl * B.element_size()) == 0)
     seam = torch.empty(2 * nb * F, dtype=torch.float32, device=dev)
     _build.launch("loops_flat_spmm", "flat_spmm", dev,
-                  b["vals"], b["cols"], b["offsets"], b["atom_starts"],
-                  b["row_first"], b["row_last"], Bk, C, seam, nb, K, F, fpl,
-                  int(dtype == BF16))
+                  b["vals"], b["cols"], b["rows"], b["offsets"],
+                  b["atom_starts"], b["row_starts"], b["row_first"],
+                  b["row_last"], B, C, seam, nb, K, F, fpl, mode, vec)
     return C
 
 
@@ -102,18 +126,38 @@ def products(vals: torch.Tensor, B: torch.Tensor, cols: torch.Tensor,
     return vals[:, None] * B[cols]
 
 
+def warp_cuts(atom_starts: torch.Tensor) -> torch.Tensor:
+    """Every block's cuts into ``WARPS`` warp ranges, ``a0 + n*w // 8``
+    for w in 0..7 (``n`` the block's atoms), flat [nb * 8] int64: the
+    kernel's formula."""
+    a0 = atom_starts[:-1].long()
+    n = atom_starts[1:].long() - a0
+    w = torch.arange(WARPS, device=a0.device)
+    return (a0[:, None] + n[:, None] * w // WARPS).reshape(-1)
+
+
+def _segment_sums(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Sums of the runs of ``x`` that begin at the sorted, distinct
+    ``starts`` (the first at 0), each in order."""
+    lengths = torch.diff(starts, append=starts.new_tensor([x.shape[0]]))
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
 def flat_spmm_plain(b: dict, B: torch.Tensor, shape, dtype=None
                     ) -> torch.Tensor:
-    """K4's plain PyTorch version over the same staged buffers: the
-    per-block products, summed per (block, row) run in storage order,
-    then the runs of each row in block order — the kernel's order, by
-    two deterministic sorted segment reductions."""
+    """K4's plain PyTorch version over the same staged buffers, in the
+    kernel's order by three sorted segment reductions: the per-atom
+    products summed in runs cut at row starts, block starts and warp cuts
+    (a warp's atoms of one row, in storage order); the runs of each
+    (block, row) in warp order; then the block sums of each row in block
+    order."""
     rows = shape[0]
     nb, K = b["vals"].shape
     F = B.shape[1]
     dev = B.device
-    a0 = b["atom_starts"][:-1].long()
-    n = b["atom_starts"][1:].long() - a0
+    starts_b = b["atom_starts"].long()
+    n = starts_b[1:] - starts_b[:-1]
     valid = torch.arange(K, device=dev)[None, :] < n[:, None]
     # the valid slots, block after block, are the CSR atoms in order
     prod = products(b["vals"][valid], B.to(torch.float32),
@@ -122,19 +166,25 @@ def flat_spmm_plain(b: dict, B: torch.Tensor, shape, dtype=None
     if nnz == 0:
         return torch.zeros(rows, F, dtype=torch.float32, device=dev)
     offsets = b["offsets"].long()
-    starts = torch.unique(torch.cat([offsets[:-1], a0]))
+    starts = torch.unique(torch.cat([offsets[:-1], warp_cuts(starts_b)]))
     starts = starts[starts < nnz]
-    run_len = torch.diff(starts, append=starts.new_tensor([nnz]))
-    part = torch.segment_reduce(prod, "sum", lengths=run_len, axis=0,
-                                unsafe=True)
-    run_row = torch.searchsorted(offsets, starts, right=True) - 1
+    runs = _segment_sums(prod, starts)
+    # (block, row) of each run; runs of one pair are consecutive
+    key = ((torch.searchsorted(starts_b, starts, right=True) - 1) * (rows + 1)
+           + torch.searchsorted(offsets, starts, right=True) - 1)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    pos = torch.nonzero(first).reshape(-1)
+    blocks = _segment_sums(runs, pos)
+    run_row = torch.searchsorted(offsets, starts[pos], right=True) - 1
     return torch.segment_reduce(
-        part, "sum", lengths=torch.bincount(run_row, minlength=rows),
+        blocks, "sum", lengths=torch.bincount(run_row, minlength=rows),
         axis=0, unsafe=True)
 
 
 def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
-              pad_groups: int | None = None, pad_R: int | None = None):
+              pad_groups: int | None = None, pad_R: int | None = None,
+              bf16_gather: str = BF16_GATHER):
     """Build ``(bufs, fn(bufs, B))`` for CSR @ dense over a merge-path
     FlatBlockPlan. ``fn`` runs K4 on a CUDA tensor and the plain version
     on a CPU tensor."""
@@ -147,17 +197,29 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
     if dtype not in (None, BF16):
         raise ValueError(f"dtype={dtype!r}: K4 takes None (f32) or "
                          f"{BF16!r}")
+    if bf16_gather not in BF16_GATHERS:
+        raise ValueError(f"bf16_gather={bf16_gather!r}: expected one of "
+                         f"{BF16_GATHERS}")
     if csr.nnz >= 2**31:
         raise ValueError(f"{csr.nnz} nonzeros: K4 stages int32 offsets")
     block_f = _check_block_f(block_f)
     shape = csr.shape
     rows = shape[0]
     row_first, row_last = plan.block_rows()
+    # each block's row range [row_starts[b], row_starts[b+1]), which
+    # together cover every row: the kernel writes zeros to those of its
+    # range that have no atoms
+    row_starts = plan.tile_starts.astype(np.int64).copy()
+    row_starts[0], row_starts[-1] = 0, rows
+    slot_rows = np.where(plan.valid, plan.tile_starts[:-1, None].astype(
+        np.int64) + plan.rel_tile, 0)
     arrays = dict(
         vals=plan.gather(csr.vals).astype(np.float32),
         cols=plan.gather(csr.indices).astype(np.int32),
+        rows=slot_rows.astype(np.int32),
         offsets=csr.offsets.astype(np.int32),
         atom_starts=plan.atom_starts.astype(np.int32),
+        row_starts=row_starts.astype(np.int32),
         row_first=row_first,
         row_last=row_last,
     )
@@ -171,7 +233,7 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
                                device=B.device)
         if B.device.type == "cpu":
             return flat_spmm_plain(b, B, shape, dtype)
-        return flat_spmm_cuda(b, B, shape, dtype, block_f)
+        return flat_spmm_cuda(b, B, shape, dtype, block_f, bf16_gather)
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms,
                    block_f=block_f)
     return bufs, fn

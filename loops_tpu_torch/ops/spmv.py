@@ -20,7 +20,9 @@ Schedule -> execution (CSR):
   (``ops/kernels/spmv_flat_v2.py``); with ``impl='pallas'`` — kernel K3
   (``ops/kernels/spmv_flat.py``).
 * ``sorted_flat`` (and ``auto`` where ``choose_schedule`` picks it) —
-  kernel K1 (``ops/kernels/spmv_sorted.py``).
+  kernel K1 (``ops/kernels/spmv_sorted.py``). ``auto`` is not a kernel
+  request: on float64 values it warns and takes the torch ``merge_path``
+  executor on every device, as the reference does.
 
 BCSR has one execution shape, ``row_mapped`` (``auto`` resolves to it):
 atoms are stored blocks and the reduction is block-row-local.
@@ -69,13 +71,15 @@ __all__ = ["spmv", "SpMVOperator", "SCHEDULES"]
 MAX_PALLAS_SPAN = spmv_flat.MAX_WINDOW
 
 
-def _kernel_refusal(impl: str, vals_dtype, device, plan=None) -> str:
+def _kernel_refusal(impl: str, vals_dtype, device, plan=None,
+                    advice: str = "impl='xla'") -> str:
     """Effective impl for a kernel build (``pallas``, ``pallas2``,
     ``pallas3``). The kernels stage float32, and K3 takes plans whose row
     span fits its window. A request they cannot honor raises on a CUDA
-    device, so a kernel request never runs torch ops on the card; on the
-    CPU, where each wrapper runs its plain version, it warns and takes the
-    torch executor, as the reference's plan-time refusals do."""
+    device, naming ``advice`` as the way to the torch executor, so a
+    kernel request never runs torch ops on the card; on the CPU, where
+    each wrapper runs its plain version, it warns and takes the torch
+    executor, as the reference's plan-time refusals do."""
     if impl not in ("pallas", "pallas2", "pallas3"):
         return impl
     if np.dtype(vals_dtype) == np.float64:
@@ -89,9 +93,9 @@ def _kernel_refusal(impl: str, vals_dtype, device, plan=None) -> str:
     else:
         return impl
     if device.type == "cuda":
-        raise ValueError(f"{reason}; pass impl='xla' for the torch executor")
-    warnings.warn(f"{reason}; falling back to the torch executor",
-                  stacklevel=4)
+        raise ValueError(f"{reason}; pass {advice} for the torch executor")
+    warnings.warn(f"{reason}; falling back to the torch executor (pass "
+                  f"{advice} to ask for it)", stacklevel=4)
     return "xla"
 
 
@@ -186,10 +190,22 @@ class SpMVOperator:
     def _build_csr(self, csr: CSR, schedule, block, impl):
         rows = self.rows
         layout = CsrLayout.from_csr(csr)
+        advice = "impl='xla'"
+        f64 = np.dtype(csr.vals.dtype) == np.float64
         if schedule == "auto":
             schedule = self.schedule = choose_schedule(layout)
+            if schedule == "sorted_flat" and f64:
+                # auto is not a kernel request: as the reference does
+                # (loops_tpu/ops/spmv.py:267-271), warn and take the
+                # merge-path torch executor on every device
+                warnings.warn(
+                    "schedule='auto' chose sorted_flat, whose kernel K1 "
+                    "stages float32; taking the torch merge-path executor "
+                    "for float64 values", stacklevel=3)
+                schedule = "merge_path"
         if schedule == "sorted_flat":
             schedule, impl = "merge_path", "pallas3"
+            advice = "schedule='merge_path'"
 
         if schedule == "row_mapped":
             _require("csr", schedule, impl, SCHEDULES, ("xla",))
@@ -225,7 +241,8 @@ class SpMVOperator:
         # balanced flat schedules
         _require("csr", schedule, impl, SCHEDULES,
                  ("xla", "pallas", "pallas2", "pallas3"))
-        impl = _kernel_refusal(impl, csr.vals.dtype, self.device)
+        impl = _kernel_refusal(impl, csr.vals.dtype, self.device,
+                               advice=advice)
         if impl == "pallas3":
             self.impl_used = "sorted_spmv"
             return spmv_sorted.sorted_spmv(csr, device=self.device)

@@ -27,7 +27,9 @@ pay this per nonzero.
   the operations model at 989 TFLOP/s (the script used the v5e's rate).
 
 Library calls (timed only): ``torch.take_along_dim`` (P1),
-``torch.gather`` (P2), ``torch.index_select`` (G2, G3).
+``torch.gather`` (P2), ``torch.nn.functional.embedding_bag(mode="sum")``
+over ``idx`` reordered into bags of K/8 outside the timing (G1),
+``torch.index_select`` (G2, G3).
 """
 from __future__ import annotations
 
@@ -205,6 +207,15 @@ def row_gather_cuda(slab: torch.Tensor, idx: torch.Tensor, K: int,
     return out
 
 
+def row_gather_bags(idx: torch.Tensor, K: int) -> torch.Tensor:
+    """G1's groups as bags: row ``g*8 + j`` of the result lists
+    ``idx[g*K + k0*8 + j]`` for k0 in order, [n / K * 8, K / 8] int64 (the
+    index ``embedding_bag`` takes for G1's sums)."""
+    n = idx.numel()
+    return idx.long().reshape(n // K, K // 8, 8).transpose(1, 2).reshape(
+        -1, K // 8)
+
+
 def row_gather_plain(slab, idx, K, materialize):
     rows = slab[idx.long()]
     if materialize:
@@ -329,10 +340,13 @@ def probe_rows(S, K, dtype, materialize, device, out=print, timed=True,
                row_gather_plain(slab, idx, K, materialize))
     N = idx.numel()
     il = idx.long()
+    bags = None if materialize else row_gather_bags(idx, K)
     ms, plain_ms, lib_ms = _times(
         lambda: row_gather(slab, idx, K, materialize),
         lambda: row_gather_plain(slab, idx, K, materialize),
-        (lambda: torch.index_select(slab, 0, il)) if materialize else None,
+        (lambda: torch.index_select(slab, 0, il)) if materialize
+        else (lambda: torch.nn.functional.embedding_bag(bags, slab,
+                                                        mode="sum")),
         device, timed)
     es = slab.element_size()
     where = residency(S, es)

@@ -120,6 +120,17 @@ def wide_span_csr(rows: int, cols: int = 4, seed: int = 0,
                rng.uniform(-1.0, 1.0, size=2).astype(dtype))
 
 
+def sized_csr(sizes, cols: int, seed: int = 0, dtype=np.float32) -> CSR:
+    """A CSR with the given row sizes, distinct sorted columns per row and
+    normal values, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    idx = [np.sort(rng.choice(cols, n, replace=False)) for n in sizes]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    indices = np.concatenate(idx).astype(np.int64)
+    return CSR((len(sizes), cols), offsets, indices,
+               rng.normal(size=len(indices)).astype(dtype))
+
+
 def build_block_sparse(N: int = 4096, R: int = 8, C: int = 128,
                        block_density: float = 0.06, seed: int = 0):
     """The JAX bench's block-sparse matrix (``bench.py``
@@ -170,4 +181,22 @@ BCSR_CASES = {
     "empty_rows": lambda: empty_row_csr(21, 18),
     "block_diag": lambda: block_diag_csr(5, 4),
     "tall": lambda: random_csr(600, 300, 0.02, seed=2),
+}
+
+# The merge-path SpMM's edge cases (K4): one row over several warps of a
+# block and several blocks; a run of empty rows longer than a block's
+# work; empty rows at the end. The first three at blocks of 8 and 64 work
+# items, the ``_512`` ones past the kernel's default of 512.
+SPMM_EDGE_CASES = {
+    "hub": lambda: sized_csr([2, 0, 3, 1, 2, 150, 1, 0, 3, 2, 1, 2, 0, 3,
+                              1, 2, 1, 3, 0, 2, 1, 2, 3, 1], 200, seed=21),
+    "empty_run": lambda: sized_csr([3] * 10 + [0] * 130 + [2] * 10, 30,
+                                   seed=22),
+    "empty_tail": lambda: sized_csr([2, 3, 1, 4] * 8 + [0] * 10, 30, seed=23),
+    "hub_512": lambda: sized_csr([2, 0, 3, 1, 2, 2900, 1, 0, 3, 2] * 3, 3000,
+                                 seed=24),
+    "empty_run_512": lambda: sized_csr([3] * 40 + [0] * 1300 + [2] * 40, 30,
+                                       seed=25),
+    "empty_tail_512": lambda: sized_csr([2, 3, 1, 4] * 50 + [0] * 700, 30,
+                                        seed=26),
 }

@@ -214,24 +214,35 @@ class SampledRowsReport:
 
 def validate_sampled_rows(csr, B, C, n: int = 256, seed: int = 7,
                           k: float = DEFAULT_WILKINSON_K,
-                          atol_floor: float = DEFAULT_ATOL_FLOOR
+                          atol_floor: float = DEFAULT_ATOL_FLOOR,
+                          bf16_products: bool = False
                           ) -> SampledRowsReport:
     """SpMM check at bench scale, where the full validator's host
     products take too long: ``n`` rows drawn from ``seed`` (the JAX
     bench's ``check_correctness`` draw), each summed in f64 and held to
     the f32 Wilkinson bound ``K * nnz_r * u32 * sum |v * B[col, f]|``.
     ``C`` may be a card tensor: only the drawn rows are copied back. A
-    bf16 mode is judged over its rounded operands (pass the rounded vals
-    and B): their products are exact in f32."""
+    bf16 mode whose products are exact in f32 is judged over its rounded
+    operands (pass the rounded vals and B); ``bf16_products`` judges the
+    SpMM bf16 mode, which rounds vals, B and each product to bf16, over
+    those rounded products (as ``rigorously_validate_spmm_bf16``)."""
     rng = np.random.default_rng(seed)
     chk = np.sort(rng.choice(csr.shape[0], min(n, csr.shape[0]),
                              replace=False))
+    if bf16_products:
+        B16 = bf16_round(np.asarray(B, np.float32))
     B = np.asarray(B, np.float64)
     ref = np.zeros((len(chk), B.shape[1]))
     l1 = np.zeros_like(ref)
     for i, r in enumerate(chk):
         a0, a1 = csr.offsets[r], csr.offsets[r + 1]
-        p = csr.vals[a0:a1, None].astype(np.float64) * B[csr.indices[a0:a1]]
+        if bf16_products:
+            v = bf16_round(np.asarray(csr.vals[a0:a1], np.float32))
+            p = bf16_round(v[:, None] * B16[csr.indices[a0:a1]]).astype(
+                np.float64)
+        else:
+            p = (csr.vals[a0:a1, None].astype(np.float64)
+                 * B[csr.indices[a0:a1]])
         ref[i] = p.sum(0)
         l1[i] = np.abs(p).sum(0)
     if hasattr(C, "cpu"):

@@ -150,3 +150,26 @@ def test_kernel_refusals_raise_on_cuda(cuda_device, impl):
                          device=cuda_device)
     assert SpMVOperator(f64, "merge_path", block=8, impl="xla",
                         device=cuda_device).impl_used == "torch"
+
+
+@pytest.mark.cuda
+def test_auto_on_f64_runs_torch_and_sorted_flat_raises(cuda_device):
+    # auto is not a kernel request: on float64 values it warns and runs
+    # the torch merge-path executor on the card; an explicit sorted_flat
+    # asks for K1, and its refusal names schedule='merge_path'
+    f64 = generate.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
+    x = generate.make_input_vector(18, dtype=np.float64)
+    with pytest.warns(UserWarning, match="float64"):
+        op = SpMVOperator(f64, "auto", block=8, device=cuda_device)
+    assert op.schedule == "sorted_flat" and op.impl_used == "torch"
+    before = dict(_build.LAUNCHES)
+    y = op(x)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before and op.launches == 0
+    assert y.dtype == torch.float64 and y.device.type == "cuda"
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               reference.spmv(f64, x, dtype=np.float64),
+                               rtol=1e-12, atol=1e-12)
+    for impl in ("xla", "pallas3"):
+        with pytest.raises(ValueError, match="schedule='merge_path'"):
+            SpMVOperator(f64, "sorted_flat", impl=impl, device=cuda_device)

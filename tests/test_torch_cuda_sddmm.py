@@ -55,23 +55,32 @@ def _twice_bound(csr, A, B, operands):
     return 2 * reference.sddmm_bound(t, atol_floor=1e-6)
 
 
-def _check_k5(csr, F, dev, block_atoms=1024, A=None, B=None):
+def _check_k5(csr, F, dev, A=None, B=None):
+    """K5 in both gathers against its plain version. The gathers round the
+    same terms but may cut F into other pieces, so they agree within the
+    same bound, not to the bit."""
     if A is None:
         A, B = _operands(csr.shape, F)
-    b, fn = sddmm_flat.sddmm_flat(csr, block_atoms=block_atoms, device=dev)
-    Ad, Bd = torch.from_numpy(A).to(dev), torch.from_numpy(B).to(dev)
-    before = _build.LAUNCHES["sddmm_flat"]
-    o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES["sddmm_flat"] == before + (2 if csr.nnz else 0)
-    assert torch.equal(o1, o2)
-    out = o1.cpu().numpy()
-    assert out.shape == (csr.nnz,) and np.all(np.isfinite(out))
+    Ad = A if isinstance(A, torch.Tensor) else torch.from_numpy(A).to(dev)
+    Bd = B if isinstance(B, torch.Tensor) else torch.from_numpy(B).to(dev)
+    A, B = Ad.cpu().numpy(), Bd.cpu().numpy()
+    outs = []
+    for gather in sddmm_flat.GATHERS:
+        b, fn = sddmm_flat.sddmm_flat(csr, device=dev, gather=gather)
+        before = _build.LAUNCHES["sddmm_flat"]
+        o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["sddmm_flat"] == before + (2 if csr.nnz else 0)
+        assert torch.equal(o1, o2)
+        outs.append(o1.cpu().numpy())
     plain = sddmm_flat.sddmm_flat_plain(b, Ad, Bd, csr.nnz).cpu().numpy()
-    diff = np.abs(out.astype(np.float64) - plain)
-    assert np.all(diff <= _twice_bound(csr, A, B, BF16)), diff.max()
-    rep = reference.rigorously_validate_sddmm(csr, A, B, out, BF16)
-    assert rep.verdict == "NOT_A_BUG", rep
+    bound = _twice_bound(csr, A, B, BF16)
+    for out in outs:
+        assert out.shape == (csr.nnz,) and np.all(np.isfinite(out))
+        diff = np.abs(out.astype(np.float64) - plain)
+        assert np.all(diff <= bound), diff.max()
+        rep = reference.rigorously_validate_sddmm(csr, A, B, out, BF16)
+        assert rep.verdict == "NOT_A_BUG", rep
 
 
 @pytest.mark.cuda
@@ -82,26 +91,26 @@ def test_k5_matches_plain(cuda_device, name, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [7, 256])
-def test_k5_at_other_block_sizes(cuda_device, K):
-    _check_k5(FLAT["skewed_512"](), 40, cuda_device, block_atoms=K)
+@pytest.mark.parametrize("F", [7, 40])
+def test_k5_runs_shorter_than_a_warp(cuda_device, F):
+    # fewer nonzeros than one warp's runs, and a tail past the last run
+    for nnz_rows in (1, 3, 37):
+        csr = generate.random_csr(nnz_rows, 50, 0.1, seed=nnz_rows)
+        _check_k5(csr, F, cuda_device)
 
 
 @pytest.mark.cuda
-def test_k5_unaligned_operands_take_scalar_loads(cuda_device):
+@pytest.mark.parametrize("F", [20, 64, 33])
+def test_k5_unaligned_operands_take_scalar_loads(cuda_device, F):
     csr = FLAT["uniform"]()
-    A, B = _operands(csr.shape, 64)
-    b, fn = sddmm_flat.sddmm_flat(csr, device=cuda_device)
+    A, B = _operands(csr.shape, F)
     # a view one float into a buffer: rows are no longer 16-byte aligned
     Ab = torch.zeros(A.size + 1, device=cuda_device)
     Ab[1:] = torch.from_numpy(A.ravel()).to(cuda_device)
     Ad = Ab[1:].view(A.shape)
     Bd = torch.from_numpy(B).to(cuda_device)
-    assert sddmm_flat._vec(64, Ad, Bd) == 1
-    out = fn(b, Ad, Bd).cpu().numpy()
-    plain = sddmm_flat.sddmm_flat_plain(b, Ad, Bd, csr.nnz).cpu().numpy()
-    assert np.all(np.abs(out.astype(np.float64) - plain)
-                  <= _twice_bound(csr, A, B, BF16))
+    assert sddmm_flat.piece_width(F, Ad, Bd) == 1
+    _check_k5(csr, F, cuda_device, Ad, Bd)
 
 
 def _check_k10(csr, block, F, dev):
@@ -205,6 +214,9 @@ def test_wrappers_check_inputs(cuda_device):
             call(torch.ones(6, csr.shape[0], device=dev).t(), B)
         with pytest.raises(ValueError, match="expected"):
             call(A, torch.ones(csr.shape[1] + 1, 6, device=dev))
+    with pytest.raises(ValueError, match="gather"):
+        sddmm_flat.sddmm_flat_cuda(b5, A, B, csr.shape, csr.nnz,
+                                   gather="f16")
     x = torch.ones(1024, device=dev)
     with pytest.raises(ValueError, match="CUDA tensor"):
         stream.stream_read_cuda(x.cpu())

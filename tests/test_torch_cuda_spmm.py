@@ -9,12 +9,14 @@ imports neither JAX nor ``loops_tpu``; run it on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_spmm.py
 
-Tolerance against the plain version: ``rtol=1e-5, atol=1e-6``. The kernel
-sums each row run in storage order and the runs in block order, as the
-plain version does, without FMA contraction, so the two agree to the bit
-where PyTorch's segment sums keep that order; the tolerance allows for
-reassociation. Each result must also pass the Wilkinson validator: the
-f32 bound for f32, the bound over the bf16-rounded products for bf16.
+K4 against its plain version: bit for bit. The kernel sums each run of a
+row inside one warp's atom range in storage order, the runs of a block in
+warp order and the blocks in block order, as the plain version's three
+segment sums do, without FMA contraction. The two bf16 gathers (a bf16
+copy of B, or f32 B rounded in registers) give the same bits. Each result
+must also pass the Wilkinson validator: the f32 bound for f32, the bound
+over the bf16-rounded products for bf16. Against the CPU torch path (the
+backward test) the tolerance is ``rtol=1e-5, atol=1e-6``.
 """
 import numpy as np
 import pytest
@@ -40,6 +42,9 @@ BATTERY = {
     **generate.BATTERY,
     "long_rows": lambda: generate.skewed_csr(30, 3000, heavy_rows=2,
                                              heavy_nnz=2500, seed=4),
+    # one row over several warps and blocks, a run of empty rows past a
+    # block's work, empty rows at the end (at blocks 8, 64 and 512)
+    **generate.SPMM_EDGE_CASES,
 }
 
 
@@ -70,17 +75,26 @@ def test_k4_matches_plain(cuda_device, name, block, F, dtype):
     csr = BATTERY[name]()
     B = _dense(csr.shape[1], F)
     plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
-    b, fn = spmm_flat.flat_spmm(csr, plan, dtype=dtype, device=cuda_device)
     Bd = torch.from_numpy(B).to(cuda_device)
-    before = _build.LAUNCHES["flat_spmm"]
-    C1 = fn(b, Bd)
-    C2 = fn(b, Bd)
-    torch.cuda.synchronize()
-    assert _build.LAUNCHES["flat_spmm"] == before + 2
-    assert torch.equal(C1, C2), "two applies differ"
+    outs = []
+    for gather in spmm_flat.BF16_GATHERS if dtype else (None,):
+        b, fn = spmm_flat.flat_spmm(
+            csr, plan, dtype=dtype, device=cuda_device,
+            **({"bf16_gather": gather} if gather else {}))
+        # NaN in the memory C will reuse: a row the kernel skips shows
+        torch.full((2 * csr.shape[0] * F + 1024,), float("nan"),
+                   device=cuda_device)
+        before = _build.LAUNCHES["flat_spmm"]
+        C1 = fn(b, Bd)
+        C2 = fn(b, Bd)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flat_spmm"] == before + 2
+        assert torch.equal(C1, C2), "two applies differ"
+        outs.append(C1)
+    assert all(torch.equal(outs[0], C) for C in outs), "the gathers differ"
     plain = spmm_flat.flat_spmm_plain(b, Bd, csr.shape, dtype)
-    C = C1.cpu().numpy()
-    np.testing.assert_allclose(C, plain.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(outs[0], plain), "K4 and its plain version differ"
+    C = outs[0].cpu().numpy()
     rep = _verdict(csr, B, C, dtype)
     assert rep.verdict == "NOT_A_BUG", rep
 
@@ -116,8 +130,7 @@ def test_k4_backward_over_transpose(cuda_device, dtype):
     bwd = op._vjp_op
     dyd = torch.from_numpy(dy).to(cuda_device)
     plain = spmm_flat.flat_spmm_plain(bwd._bufs, dyd, bwd.mat.shape, dtype)
-    np.testing.assert_allclose(g_gpu, plain.cpu().numpy(), rtol=RTOL,
-                               atol=ATOL)
+    np.testing.assert_array_equal(g_gpu, plain.cpu().numpy())
     rep = _verdict(bwd.mat, dy, g_gpu, dtype)
     assert rep.verdict == "NOT_A_BUG", rep
 
@@ -139,6 +152,9 @@ def test_k4_wrapper_checks_inputs(cuda_device):
     with pytest.raises(ValueError, match="block_f"):
         spmm_flat.flat_spmm_cuda(b, torch.zeros(cols, 4, device=cuda_device),
                                  csr.shape, block_f=48)
+    with pytest.raises(ValueError, match="bf16_gather"):
+        spmm_flat.flat_spmm_cuda(b, torch.zeros(cols, 4, device=cuda_device),
+                                 csr.shape, "bfloat16", bf16_gather="f16")
     with pytest.raises(NotImplementedError, match="A10"):
         spmm_flat.flat_spmm(csr, plan, device=cuda_device, pad_groups=2)
 

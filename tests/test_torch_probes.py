@@ -390,6 +390,19 @@ def test_row_gather_plain_matches_the_tpu_probe(S, K, nblocks, materialize):
         np.asarray(f(jnp.asarray(idx), jnp.asarray(ints))))
 
 
+@pytest.mark.parametrize("S,K", [(16, 16), (40, 32), (64, 128)])
+def test_row_gather_library_call_computes_g1(S, K):
+    # the library time of G1 is embedding_bag over idx reordered into bags
+    # of K/8: on integer rows it gives G1's sums exactly
+    slab, idx = (_t(a) for a in gather.row_gather_inputs(S, K, 3 * K,
+                                                         integer=True))
+    bags = gather.row_gather_bags(idx, K)
+    assert tuple(bags.shape) == (3 * 8, K // 8)
+    lib = torch.nn.functional.embedding_bag(bags, slab, mode="sum")
+    np.testing.assert_array_equal(
+        lib.numpy(), gather.row_gather(slab, idx, K, False).numpy())
+
+
 @pytest.mark.parametrize("W,Kc,nblocks", [(128, 128, 2), (64, 256, 1)])
 def test_onehot_plain_matches_the_tpu_probe(W, Kc, nblocks):
     ns, rec = _drive("tpu_r4_gather_probe.py", {"g3_onehot_expand"})

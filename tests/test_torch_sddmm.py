@@ -2,7 +2,7 @@
 same numpy inputs: ``sddmm`` for CSR and COO (``xla``, f32 and bf16) and
 BCSR (``xla`` and ``pallas``), K5's and K10's plain versions against the
 JAX package's Pallas kernels in interpret mode (as
-``tests/test_spmm_sddmm.py`` runs them), K5's plan and staging, nnz = 0,
+``tests/test_spmm_sddmm.py`` runs them), K5's staging, nnz = 0,
 the refusals, the operator cache, the validator from both sides, numpy
 mirrors of the two CUDA kernels' summation orders, the stream probe K11
 and ``scripts/primitives_torch.py``.
@@ -34,12 +34,10 @@ import torch
 
 import loops_tpu.utils.generate as jgen
 import loops_tpu_torch.formats as tf
-from loops_tpu.formats import BCSR as JaxBCSR, COO as JaxCOO
-from loops_tpu.layout import CsrLayout as JaxCsrLayout
+from loops_tpu.formats import BCSR as JaxBCSR, COO as JaxCOO, CSR as JaxCSR
 from loops_tpu.ops import sddmm as jax_sddmm
 from loops_tpu.ops.kernels.sddmm_bcsr import bcsr_sddmm_pallas
 from loops_tpu.ops.kernels.sddmm_flat import flat_sddmm_pallas
-from loops_tpu.schedule.plans import FlatBlockPlan as JaxFlatBlockPlan
 from loops_tpu_torch.formats import BCSR, CSR
 from loops_tpu_torch.ops import SDDMMOperator, sddmm
 from loops_tpu_torch.ops.kernels import sddmm_bcsr, sddmm_flat
@@ -233,7 +231,7 @@ def test_k10_tile_loop_mirror(block, F):
 @pytest.mark.parametrize("name", sorted(FLAT))
 def test_k5_plain_matches_pallas_kernel(name, F):
     t, A, B, want = flat_case(name, F)
-    b, fn = sddmm_flat.sddmm_flat(t, block_atoms=256, device=CPU)
+    b, fn = sddmm_flat.sddmm_flat(t, device=CPU)
     got = fn(b, torch.from_numpy(A), torch.from_numpy(B))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     got = got.numpy()
@@ -247,63 +245,66 @@ def test_k5_plain_matches_pallas_kernel(name, F):
     assert np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-9) < 2e-2
 
 
-@pytest.mark.parametrize("K", [256, 1024, 7])
-@pytest.mark.parametrize("name", ["uniform", "skewed"])
-def test_k5_plan_and_staging_match_loops_tpu(name, K):
-    j = FLAT[name]()
-    t = _port(j)
-    mine, fn = sddmm_flat.sddmm_flat(t, block_atoms=K, device=CPU)
-    theirs = JaxFlatBlockPlan.work_oriented(JaxCsrLayout.from_csr(j),
-                                            block_atoms=K)
-    np.testing.assert_array_equal(mine["tile_starts"].numpy(),
-                                  theirs.tile_starts)
-    np.testing.assert_array_equal(mine["rel"].numpy(),
-                                  theirs.rel_tile.ravel())
-    vals = np.where(theirs.valid, j.vals[theirs.atom_gather], 0)
-    cols = np.where(theirs.valid, j.indices[theirs.atom_gather], 0)
-    np.testing.assert_array_equal(mine["vals"].numpy(), vals.ravel())
-    np.testing.assert_array_equal(mine["cols"].numpy(), cols.ravel())
-    assert fn.meta["num_blocks"] == theirs.num_blocks
-    # every block but the last is full: slot e is atom e
-    assert np.all(np.diff(theirs.atom_starts)[:-1] == K)
-    rows = sddmm_flat.slot_rows(mine)[:t.nnz].numpy()
-    np.testing.assert_array_equal(rows, t.row_ids())
+@pytest.mark.parametrize("name", sorted(FLAT) + [
+    f"battery_{k}" for k in sorted(generate.BATTERY)])
+def test_k5_staging_matches_loops_tpu_csr(name):
+    """K5 stages the row ids, columns and values as the CSR stores them:
+    the JAX CSR's ``row_ids()``, ``indices`` and ``vals``, in order."""
+    if name.startswith("battery_"):
+        c = generate.BATTERY[name[len("battery_"):]]()
+        j = JaxCSR(c.shape, c.offsets, c.indices, c.vals)
+    else:
+        j = FLAT[name]()
+    b, fn = sddmm_flat.sddmm_flat(_port(j), device=CPU)
+    assert sorted(b) == ["cols", "rows", "vals"]
+    assert b["rows"].dtype == b["cols"].dtype == torch.int32
+    assert b["vals"].dtype == torch.float32
+    np.testing.assert_array_equal(b["rows"].numpy(), j.row_ids())
+    np.testing.assert_array_equal(b["cols"].numpy(), j.indices)
+    np.testing.assert_array_equal(b["vals"].numpy(), j.vals)
+    assert fn.meta["nnz"] == j.nnz
 
 
-def _k5_mirror(a, g, F):
+def _k5_mirror(a, g, vec, G):
     """numpy mirror of ``sddmm_flat_kernel`` over rounded rows a, g [n, F]:
-    the kernel's lane group and piece width, lane j summing pieces j, j+G,
-    ... in order (each product exact in f32), then the xor-shuffle
-    tree."""
-    vec = 4 if F % 4 == 0 else 1
-    G = sddmm_flat.lane_group(F, vec)
-    n = a.shape[0]
+    lane j of the group sums pieces j, j+G, ... of VEC values each, in
+    order (each product exact in f32), then the xor-shuffle tree."""
+    n, F = a.shape
     lanes = np.zeros((n, G), np.float32)
     for j in range(G):
-        for f in range(j * vec, F, G * vec):
-            for k in range(vec):
-                lanes[:, j] = lanes[:, j] + a[:, f + k] * g[:, f + k]
+        for p in range(j, -(-F // vec), G):
+            for f in range(p * vec, min(p * vec + vec, F)):
+                lanes[:, j] = lanes[:, j] + a[:, f] * g[:, f]
     off = G // 2
     while off:
         lanes = lanes + lanes[:, np.arange(G) ^ off]
         off //= 2
-    return lanes[:, 0], G
+    return lanes[:, 0]
 
 
+@pytest.mark.parametrize("gather", sddmm_flat.GATHERS)
 @pytest.mark.parametrize("F", [1, 20, 33, 64, 128, 300])
-def test_k5_lane_and_shuffle_order_mirror(F):
+def test_k5_lane_and_shuffle_order_mirror(F, gather):
     t = _port(FLAT["skewed"]())
     A, B = _operands(t.shape, F)
     terms = reference.sddmm_terms(t, A, B, np.arange(t.nnz), BF16)
     a = reference.bf16_round(A[t.row_ids()])
     v = t.vals[:, None]
     g = reference.bf16_round(v * reference.bf16_round(B[t.indices]))
-    mirror, G = _k5_mirror(a, g, F)
-    assert G == {1: 4, 20: 8, 33: 32, 64: 16, 128: 32, 300: 32}[F]
+    # the piece the wrapper picks: 16 bytes of bf16 copies, or of f32 rows
+    read = torch.bfloat16 if gather == "copy" else torch.float32
+    vec = sddmm_flat.piece_width(F, torch.zeros(4, F, dtype=read))
+    G = sddmm_flat.lane_group(F, vec)
+    assert (vec, G) == {
+        "copy": {1: (1, 1), 20: (4, 8), 33: (1, 32), 64: (8, 8),
+                 128: (8, 16), 300: (4, 32)},
+        "round": {1: (1, 1), 20: (4, 8), 33: (1, 32), 64: (4, 16),
+                  128: (4, 32), 300: (4, 32)}}[gather][F]
+    mirror = _k5_mirror(a, g, vec, G)
     exact = terms.sum(axis=1)
     bound = reference.sddmm_bound(terms)
     assert np.all(np.abs(mirror - exact) <= bound)
-    b, fn = sddmm_flat.sddmm_flat(t, device=CPU)
+    b, fn = sddmm_flat.sddmm_flat(t, device=CPU, gather=gather)
     plain = fn(b, torch.from_numpy(A), torch.from_numpy(B)).numpy()
     assert np.all(np.abs(plain.astype(np.float64) - mirror) <= 2 * bound)
 
@@ -356,6 +357,8 @@ def test_refusals_and_cpu_warning():
         SDDMMOperator(t, impl="pallas2", device=CPU)
     with pytest.raises(ValueError, match="dtype"):
         SDDMMOperator(t, dtype="float16", device=CPU)
+    with pytest.raises(ValueError, match="gather"):
+        sddmm_flat.sddmm_flat(t, gather="f16", device=CPU)
     with pytest.raises(ValueError, match="COO"):
         SDDMMOperator(t.to_coo(), impl="pallas", dtype=BF16, device=CPU)
     with pytest.raises(TypeError, match="unsupported format"):

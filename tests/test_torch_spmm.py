@@ -15,9 +15,13 @@ version.
 Tolerance in f32: ``atol=rtol=1e-4``, as the JAX test uses, and the
 port's result must get ``NOT_A_BUG`` from the f32 Wilkinson validator.
 ``_emulate_k4`` mirrors in numpy what ``csrc/spmm.cu`` does with the
-staged buffers (per-block row ranges from the CSR offsets, the seam
-pass), so a wrong staging array shows here; ``test_torch_cuda_spmm.py``
-holds the kernel against its plain version on the card.
+staged buffers (each block's atoms cut into 8 warp ranges, the warps'
+partial rows added in warp order, the seam pass, zeros for rows without
+atoms), so a wrong staging array or summation order shows here;
+``test_torch_cuda_spmm.py`` holds the kernel against its plain version on
+the card, bit for bit. The ``hub``, ``empty_run`` and ``empty_tail``
+matrices put one row across several warps and blocks, a run of empty rows
+longer than any block's work, and empty rows at the end.
 """
 import functools
 
@@ -56,6 +60,11 @@ MATRICES = {
     **{f"battery_{k}": (lambda make=make: JaxCSR(*_arrays(make())))
        for k, make in generate.BATTERY.items()
        if k not in ("identity", "skewed", "empty_rows")},
+    # generate.SPMM_EDGE_CASES at blocks 8 and 64: one row over several
+    # warps and blocks, 130 empty rows in a run, the last rows empty
+    **{k: (lambda make=make: JaxCSR(*_arrays(make())))
+       for k, make in generate.SPMM_EDGE_CASES.items()
+       if not k.endswith("_512")},
 }
 
 
@@ -114,40 +123,63 @@ def test_torch_schedules_match_loops_tpu(name, schedule, F):
 
 
 def _emulate_k4(b, B, shape, dtype=None):
-    """numpy mirror of ``csrc/spmm.cu``: per block, each row's atoms in
-    the block (from the CSR offsets) summed in order into C or the seam
-    buffer, then the seam pass in block order."""
+    """numpy mirror of ``csrc/spmm.cu``. Per block: rows of its row range
+    without atoms are zeros; its atoms are cut into 8 warp ranges at
+    ``a0 + n*w // 8``; a warp sums each row's atoms of its range in
+    storage order, a row strictly inside the range straight to C, its
+    first and last rows to the block's partials; the block adds each
+    row's partials in warp order, its first and last rows to the seam
+    buffer, the rest to C. Then the seam pass in block order. C starts as
+    NaN, so a row the kernel would not write shows."""
     rows, F = shape[0], B.shape[1]
     vals, cols = b["vals"].numpy(), b["cols"].numpy()
+    srows = b["rows"].numpy()
     off, starts = b["offsets"].numpy(), b["atom_starts"].numpy()
+    row_starts = b["row_starts"].numpy()
     rf_, rl_ = b["row_first"].numpy(), b["row_last"].numpy()
     nb, K = vals.shape
     if dtype == "bfloat16":
         vals = reference.bf16_round(vals)
         B = reference.bf16_round(B)
-    C = np.zeros((rows, F), np.float32)
-    seam = np.zeros((nb, 2, F), np.float32)
+    C = np.full((rows, F), np.nan, np.float32)
+    seam = np.full((nb, 2, F), np.nan, np.float32)
     for blk in range(nb):
-        a0, a1 = starts[blk], starts[blk + 1]
-        if a0 == a1:
-            continue
-        rf, rl = rf_[blk], rl_[blk]
-        for r in range(rf, rl + 1):
-            lo, hi = max(off[r], a0), min(off[r + 1], a1)
+        for r in range(row_starts[blk], row_starts[blk + 1]):
+            if off[r] == off[r + 1]:
+                C[r] = 0
+        n = starts[blk + 1] - starts[blk]
+        parts = []  # (row, partial) of each warp's first and last row
+        for w in range(spmm_flat.WARPS):
+            lo, hi = n * w // 8, n * (w + 1) // 8
             if lo >= hi:
                 continue
-            acc = np.zeros(F, np.float32)
+            wf, wl = srows[blk, lo], srows[blk, hi - 1]
+            runs = []  # (row, sum) in storage order
             for a in range(lo, hi):
-                p = np.float32(vals[blk, a - a0]) * B[cols[blk, a - a0]]
+                p = np.float32(vals[blk, a]) * B[cols[blk, a]]
                 if dtype == "bfloat16":
                     p = reference.bf16_round(p)
-                acc = acc + p
-            if r == rf:
-                seam[blk, 0] = acc
-            elif r == rl:
-                seam[blk, 1] = acc
+                if not runs or runs[-1][0] != srows[blk, a]:
+                    runs.append((srows[blk, a], np.zeros(F, np.float32)))
+                runs[-1] = (runs[-1][0], runs[-1][1] + p)
+            for r, acc in runs:
+                if r in (wf, wl):
+                    parts.append((r, acc))
+                else:
+                    C[r] = acc
+        sums = []
+        for r, p in parts:
+            if sums and sums[-1][0] == r:
+                sums[-1] = (r, sums[-1][1] + p)
             else:
-                C[r] = acc
+                sums.append((r, p))
+        for r, s in sums:
+            if r == rf_[blk]:
+                seam[blk, 0] = s
+            elif r == rl_[blk]:
+                seam[blk, 1] = s
+            else:
+                C[r] = s
 
     def walk(r, c, s):
         while c < nb and rf_[c] == r:
@@ -171,16 +203,19 @@ def _emulate_k4(b, B, shape, dtype=None):
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
 @pytest.mark.parametrize("block", [8, 64])
 @pytest.mark.parametrize("name", ["random_big", "skewed", "empty_rows",
-                                  "battery_band_asym"])
+                                  "battery_band_asym", "hub", "empty_run",
+                                  "empty_tail"])
 def test_plain_and_kernel_mirror_agree(name, block, dtype):
     """The plain version equals the numpy mirror of the kernel bit for
-    bit (the same products, the same order of sums), and the host
-    reference within the Wilkinson bound."""
+    bit (the same products, the same order of sums, every row written),
+    and the host reference within the Wilkinson bound."""
     t, _, B = inputs(name)
     plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=block)
     b, fn = spmm_flat.flat_spmm(t, plan, dtype=dtype, device=CPU)
     plain = fn(b, torch.from_numpy(B)).numpy()
-    np.testing.assert_array_equal(plain, _emulate_k4(b, B, t.shape, dtype))
+    mirror = _emulate_k4(b, B, t.shape, dtype)
+    assert not np.isnan(mirror).any()
+    np.testing.assert_array_equal(plain, mirror)
     if dtype is None:
         np.testing.assert_allclose(plain, reference.spmm(t, B), rtol=1e-5,
                                    atol=1e-6)
@@ -189,6 +224,27 @@ def test_plain_and_kernel_mirror_agree(name, block, dtype):
     else:
         rep = reference.rigorously_validate_spmm_bf16(t, B, plain)
     assert rep.verdict == "NOT_A_BUG", rep
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("name", ["hub_512", "empty_run_512",
+                                  "empty_tail_512"])
+def test_plain_and_kernel_mirror_agree_at_block_512(name, dtype):
+    """The edge cases sized past the kernel's default block of 512 work
+    items, at that block: the mirror and the plain version bit for bit,
+    and the host reference."""
+    t = generate.SPMM_EDGE_CASES[name]()
+    B = np.random.default_rng(1).normal(size=(t.shape[1], 24)).astype(
+        np.float32)
+    plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=512)
+    b, fn = spmm_flat.flat_spmm(t, plan, dtype=dtype, device=CPU)
+    plain = fn(b, torch.from_numpy(B)).numpy()
+    mirror = _emulate_k4(b, B, t.shape, dtype)
+    assert not np.isnan(mirror).any()
+    np.testing.assert_array_equal(plain, mirror)
+    if dtype is None:
+        np.testing.assert_allclose(plain, reference.spmm(t, B), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -294,6 +350,9 @@ def test_refusals():
         spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_flat.flat_spmm_cuda({}, torch.zeros(3, 2), t.shape)
+    with pytest.raises(ValueError, match="bf16_gather"):
+        spmm_flat.flat_spmm(t, plan, dtype="bfloat16", bf16_gather="f16",
+                            device=CPU)
 
 
 def test_f64_pallas_warns_and_takes_torch_path():

@@ -62,3 +62,21 @@ def test_merge_path_kernel_bf16_matches_loops_tpu(name, block, F):
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_torch_schedules_bf16_match_loops_tpu(name, schedule, F):
     check_bf16(name, schedule, "xla", 512, F)
+
+
+@pytest.mark.parametrize("name", ["random_big", "hub", "empty_tail"])
+def test_sampled_validator_judges_the_bf16_products(name):
+    """``validate_sampled_rows(..., bf16_products=True)``, the bench-scale
+    check of K4's bf16 mode, agrees with the full validator: the bf16
+    result passes, a shifted one and the unrounded f32 sums fail."""
+    t, B, C = port_result(name, "merge_path", "pallas", 8, BF16, 16)
+    n = t.shape[0]
+    rep = reference.validate_sampled_rows(t, B, C, n=n, bf16_products=True)
+    assert rep.rows == n and rep.overruns == 0
+    assert reference.rigorously_validate_spmm_bf16(t, B, C).verdict \
+        == "NOT_A_BUG"
+    assert reference.validate_sampled_rows(
+        t, B, C + np.float32(1e-2), n=n, bf16_products=True).overruns > 0
+    unrounded = reference.spmm(t, B)
+    assert reference.validate_sampled_rows(
+        t, B, unrounded, n=n, bf16_products=True).overruns > 0

@@ -89,6 +89,35 @@ def test_f64_refusal_warns_and_validates(schedule, impl):
     _valid(y, csr, x, f"f64/{schedule}/{impl}")
 
 
+def test_auto_on_f64_takes_torch_merge_path():
+    # auto is not a kernel request: where it picks sorted_flat for
+    # float64 values, it warns and runs the torch merge-path executor,
+    # as loops_tpu does (loops_tpu/ops/spmv.py:262-271)
+    csr = generate.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
+    x = generate.make_input_vector(18, dtype=np.float64)
+    with pytest.warns(UserWarning, match="float64"):
+        op = SpMVOperator(csr, "auto", block=8, device=CPU)
+    assert op.schedule == "sorted_flat" and op.impl_used == "torch"
+    y = op(x).numpy()
+    assert y.dtype == np.float64 and op.launches == 0
+    # loops_tpu's CPU table picks its own schedule for auto; the sums agree
+    j = jgen.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
+    y_jax = np.asarray(jax_spmv(j, x, schedule="auto", block=8))
+    np.testing.assert_allclose(y, y_jax, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(y, reference.spmv(csr, x, dtype=np.float64),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_sorted_flat_f64_refusal_names_merge_path():
+    # an explicit sorted_flat is a request for K1, whatever impl says: the
+    # way to the torch executor is schedule='merge_path'
+    csr = generate.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
+    with pytest.warns(UserWarning, match="schedule='merge_path'") as w:
+        op = SpMVOperator(csr, "sorted_flat", impl="xla", device=CPU)
+    assert "impl='xla'" not in str(w[0].message)
+    assert op.impl_used == "torch"
+
+
 def test_span_refusal_takes_torch_executor():
     # work_oriented spans are data dependent: past K3's row window the
     # build warns and, on the CPU, runs the torch executor; K2 has no such
