@@ -29,12 +29,12 @@ Phases, one line each with its time:
    over several warps and blocks, a run of empty rows past a block's work,
    empty rows at the end), the bench matrix and the full-width
    arxiv-shaped GCN adjacency (169,343 nodes, 2,465,171 nonzeros), F in
-   {5, 40, 128}, f32 and bf16 (both of its bf16 gathers), blocks 8 and
-   512, and its backward (K4 over the transpose of the masked
-   ``A[train_rows, :]``, through autograd): bit for bit, with the memory
-   C reuses filled with NaN first (so a row the kernel skips shows), the
-   Wilkinson verdict (over 256 sampled rows past 10^6 nonzeros), two
-   applies bitwise equal, the launch counter;
+   {5, 40, 128}, f32 and bf16, blocks 8 and 512, and its backward (K4
+   over the transpose of the masked ``A[train_rows, :]``, through
+   autograd): bit for bit, with the memory C reuses filled with NaN first
+   (so a row the kernel skips shows), the Wilkinson verdict (over 256
+   sampled rows past 10^6 nonzeros), two applies bitwise equal, the
+   launch counter;
 8. GCN inference at full width: ``models.train.evaluate`` (dims
    [128, 128, 128, 40]) on the val and test masks through K4, its logits
    held against the same weights on ``schedule="group_mapped"``;
@@ -44,11 +44,9 @@ Phases, one line each with its time:
    ogbn-arxiv --scale 1.0 --epochs 20``. The launch counters are set to 0
    before phase 8 and read after phase 9: K4 must have launched, and every
    operator of the models must have taken it;
-10. timing on the arxiv adjacency at F = 128, f32 and bf16 (K4's bf16
-   mode in both gathers: a bf16 copy of B, or f32 B rounded in
-   registers): K4, its plain version, ``group_mapped``, ``row_mapped`` and
-   cuSPARSE (``torch.sparse.mm``, timed only), with the host plan time;
-   one GCN
+10. timing on the arxiv adjacency at F = 128, f32 and bf16: K4, its plain
+   version, ``group_mapped``, ``row_mapped`` and cuSPARSE
+   (``torch.sparse.mm``, timed only), with the host plan time; one GCN
    train step of each form and one full-graph ``evaluate`` (CUDA events
    around each call, median), and a ``torch.profiler`` breakdown of a step
    and an ``evaluate``;
@@ -77,13 +75,11 @@ Phases, one line each with its time:
    and the read rate of each by the slope of 616 passes against 16; the
    1 GiB rate
    is the measured bound printed beside the nominal one;
-15. K5 and K10 vs plain: K5 (``sddmm_flat``, both gathers: bf16 copies
-   of A and B, or f32 rounded in registers, which must give the same
-   bits) on the three matrices of ``tests/test_spmm_sddmm.py:191-198`` and
-   the SpMV battery, F in {1, 20, 33, 64, 128, 300}, and with an A one
-   float off 16-byte alignment; K10 (``sddmm_bcsr``) on the five BCSR
-   matrices in 8x128 and
-   16x128 blocks, F in {20, 300}; then the regimes of phase 16 (over 4096
+15. K5 and K10 vs plain: K5 (``sddmm_flat``) on the three matrices of
+   ``tests/test_spmm_sddmm.py:191-198`` and the SpMV battery, F in {1, 20,
+   33, 64, 128, 300}, and with an A one float off 16-byte alignment; K10
+   (``sddmm_bcsr``) on the five BCSR matrices in 8x128 and 16x128 blocks,
+   F in {20, 300}; then the regimes of phase 16 (over 4096
    sampled nonzeros): agreement, the Wilkinson verdict, two applies
    bitwise equal, the launch counter;
 16. the SDDMM main path at full size: ``measure_stream_gbps`` at 64 MiB
@@ -94,8 +90,7 @@ Phases, one line each with its time:
    and ``scripts/primitives_torch.py``, each checked in f64 on sampled
    nonzeros. The launch counters are set to 0 before and read after: K5,
    K10 and K11 must have launched;
-17. timing of K5 (both gathers) and K10 (plain, kernel, kernel, plain),
-   the torch
+17. timing of K5 and K10 (plain, kernel, kernel, plain), the torch
    ``xla`` paths, cuSPARSE's SDDMM (``torch.sparse.sampled_addmm`` times
    vals, timed only), the host staging time, the bound at the nominal and
    the measured rate, and a ``torch.profiler`` breakdown of one apply;
@@ -392,10 +387,9 @@ def check_spmm_at_scale(label, csr, B, C, dtype):
 
 
 def spmm_vs_plain(label, csr, B, block, dtype, device):
-    """K4 twice (in bf16, in each of its gathers) and its plain version
-    once on the same staged buffers: bit for bit, and every row written
-    (the memory C reuses holds NaN first). Returns the max abs difference
-    from ``check_spmm``."""
+    """K4 twice and its plain version once on the same staged buffers: bit
+    for bit, and every row written (the memory C reuses holds NaN first).
+    Returns the max abs difference from ``check_spmm``."""
     import torch
 
     from loops_tpu_torch.layout import CsrLayout
@@ -403,34 +397,25 @@ def spmm_vs_plain(label, csr, B, block, dtype, device):
     from loops_tpu_torch.schedule.plans import make_plan
 
     plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
+    b, fn = spmm_flat.flat_spmm(csr, plan, dtype=dtype, device=device)
     Bd = torch.from_numpy(B).to(device)
-    outs = []
-    for gather in (spmm_flat.BF16_GATHERS if dtype
-                   else (spmm_flat.BF16_GATHER,)):
-        b, fn = spmm_flat.flat_spmm(csr, plan, dtype=dtype, device=device,
-                                    bf16_gather=gather)
-        torch.full((2 * csr.shape[0] * B.shape[1] + 1024,), float("nan"),
-                   device=device)
-        before = _build.LAUNCHES["flat_spmm"]
-        C1 = fn(b, Bd)
-        C2 = fn(b, Bd)
-        torch.cuda.synchronize()
-        require(_build.LAUNCHES["flat_spmm"] == before + 2,
-                f"{label}: launch counter did not go up by 2")
-        require(torch.equal(C1, C2),
-                f"{label}: two applies are not bitwise equal")
-        outs.append(C1)
-        del C2
-    require(all(torch.equal(outs[0], C) for C in outs),
-            f"{label}: the bf16 gathers differ")
+    torch.full((2 * csr.shape[0] * B.shape[1] + 1024,), float("nan"),
+               device=device)
+    before = _build.LAUNCHES["flat_spmm"]
+    C1 = fn(b, Bd)
+    C2 = fn(b, Bd)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES["flat_spmm"] == before + 2,
+            f"{label}: launch counter did not go up by 2")
+    require(torch.equal(C1, C2), f"{label}: two applies are not bitwise equal")
     plain = spmm_flat.flat_spmm_plain(b, Bd, csr.shape, dtype)
-    require(torch.equal(outs[0], plain),
+    require(torch.equal(C1, plain),
             f"{label}: K4 and its plain version differ by "
-            f"{float((outs[0] - plain).abs().max()):.3e}")
+            f"{float((C1 - plain).abs().max()):.3e}")
     if csr.nnz > SAMPLED_NNZ:
-        return check_spmm_at_scale(label, csr, B, outs[0], dtype)
-    return check_spmm(label, csr, B, outs[0].cpu().numpy(),
-                      plain.cpu().numpy(), dtype)
+        return check_spmm_at_scale(label, csr, B, C1, dtype)
+    return check_spmm(label, csr, B, C1.cpu().numpy(), plain.cpu().numpy(),
+                      dtype)
 
 
 def backward_vs_plain(graph, rows, F, dtype, device):
@@ -927,13 +912,12 @@ def sddmm_plain(kname, b, mat):
 
 def sddmm_vs_plain(label, kname, mat, A, B, device, sampled=False,
                    unaligned=False):
-    """K5 (CSR ``mat``, bf16 operands, in each of its gathers) or K10
-    (BCSR ``mat``) twice and its plain version once on the same staged
-    buffers: agreement within twice the Wilkinson bound, formed on the
-    card from the plain version over the terms' magnitudes; the validator
-    over every nonzero, or over 4096 sampled ones (``sampled``).
-    ``unaligned``: A lies one float past a 16-byte boundary. Returns the
-    max |kernel - plain|."""
+    """K5 (CSR ``mat``, bf16 operands) or K10 (BCSR ``mat``) twice and its
+    plain version once on the same staged buffers: agreement within twice
+    the Wilkinson bound, formed on the card from the plain version over
+    the terms' magnitudes; the validator over every nonzero, or over 4096
+    sampled ones (``sampled``). ``unaligned``: A lies one float past a
+    16-byte boundary. Returns the max |kernel - plain|."""
     import torch
 
     from loops_tpu_torch.ops.kernels import _build, sddmm_bcsr, sddmm_flat
@@ -943,39 +927,26 @@ def sddmm_vs_plain(label, kname, mat, A, B, device, sampled=False,
     Ad, Bd = (torch.from_numpy(a).to(device) for a in (A, B))
     if unaligned:
         Ad = torch.cat([Ad.new_zeros(1), Ad.reshape(-1)])[1:].view(A.shape)
-        require(sddmm_flat.piece_width(A.shape[1], Ad, Bd) == 1,
-                f"{label}: A is still aligned")
-    builds = ([lambda g=g: sddmm_flat.sddmm_flat(mat, device, g)
-               for g in sddmm_flat.GATHERS] if flat
-              else [lambda: sddmm_bcsr.sddmm_bcsr(mat, device=device)])
-    outs = []
-    for build in builds:
-        b, fn = build()
-        before = _build.LAUNCHES[kname]
-        o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
-        torch.cuda.synchronize()
-        require(_build.LAUNCHES[kname] == before + 2,
-                f"{label}: launch counter did not go up by 2")
-        require(torch.equal(o1, o2), f"{label}: two applies are not bitwise "
-                "equal")
-        outs.append(o1)
-        del o2
+        require(Ad.data_ptr() % 16 != 0, f"{label}: A is still aligned")
+    build = sddmm_flat.sddmm_flat if flat else sddmm_bcsr.sddmm_bcsr
+    b, fn = build(mat, device=device)
     plain = sddmm_plain(kname, b, mat)
-    mags = {k: v.abs() if v.is_floating_point() else v for k, v in b.items()}
-    tol = sddmm_pair_tolerance(plain(mags, Ad.abs(), Bd.abs()), A.shape[1])
-    want = plain(b, Ad, Bd).double()
-    err = 0.0
-    for o1 in outs:
-        diff = (o1.double() - want).abs()
-        require(bool((diff <= tol).all()),
-                f"{label}: kernel and plain differ by "
-                f"{float(diff.max()):.3e}")
-        err = max(err, float(diff.max()))
-    o1 = outs[0]
+    before = _build.LAUNCHES[kname]
+    o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
+    torch.cuda.synchronize()
+    require(_build.LAUNCHES[kname] == before + 2,
+            f"{label}: launch counter did not go up by 2")
+    require(torch.equal(o1, o2), f"{label}: two applies are not bitwise "
+            "equal")
     shape = (mat.nnz,) if flat else tuple(mat.vals.shape)
     require(tuple(o1.shape) == shape and bool(torch.isfinite(o1).all()),
             f"{label}: bad output")
-    del outs, want, tol
+    diff = (o1.double() - plain(b, Ad, Bd).double()).abs()
+    mags = {k: v.abs() if v.is_floating_point() else v for k, v in b.items()}
+    tol = sddmm_pair_tolerance(plain(mags, Ad.abs(), Bd.abs()), A.shape[1])
+    require(bool((diff <= tol).all()),
+            f"{label}: kernel and plain differ by {float(diff.max()):.3e}")
+    del o2
     if flat:
         pattern, out, operands = mat, o1, "bfloat16"
     else:
@@ -990,7 +961,7 @@ def sddmm_vs_plain(label, kname, mat, A, B, device, sampled=False,
         rep = reference.rigorously_validate_sddmm(
             pattern, A, B, out.cpu().numpy(), operands)
         require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
-    return err
+    return float(diff.max())
 
 
 def sddmm_phases(device, smi, adj, rate):
@@ -1000,7 +971,7 @@ def sddmm_phases(device, smi, adj, rate):
     import torch
 
     from loops_tpu_torch.formats import BCSR
-    from loops_tpu_torch.ops.kernels import _build, sddmm_flat
+    from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.sddmm import SDDMMOperator, sddmm
     from loops_tpu_torch.utils import generate, reference
     from loops_tpu_torch.utils.bench import apply_ms
@@ -1193,18 +1164,7 @@ def sddmm_phases(device, smi, adj, rate):
         k2 = apply_ms(kernel, Ad)
         p2 = apply_ms(plain, Ad, iters=10)
         torch_ms = {}
-        gathers = ""
         if kname == "sddmm_flat":
-            # the other gather, on the same staged buffers
-            other = [g for g in sddmm_flat.GATHERS
-                     if g != sddmm_flat.GATHER][0]
-
-            def k5_other(a, b=op._bufs, Bd=Bd, mat=mat, other=other):
-                return sddmm_flat.sddmm_flat_cuda(b, a, Bd, mat.shape,
-                                                  mat.nnz, other)
-            o1, o2 = apply_ms(k5_other, Ad), apply_ms(k5_other, Ad)
-            gathers = (f" (gather {sddmm_flat.GATHER!r}; {other!r}: "
-                       f"{o1:.4f}/{o2:.4f} ms)")
             for dt in (None, BF):
                 x = SDDMMOperator(mat, dtype=dt, device=device)
                 torch_ms[dt or "f32"] = apply_ms(lambda a, x=x: x(a, Bd), Ad,
@@ -1220,8 +1180,7 @@ def sddmm_phases(device, smi, adj, rate):
         ms = (k1 + k2) / 2
         times[label] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms)
-        print(f"  {kname} {label}: kernel {k1:.4f}/{k2:.4f} ms{gathers}, "
-              "plain "
+        print(f"  {kname} {label}: kernel {k1:.4f}/{k2:.4f} ms, plain "
               f"{p1:.4f}/{p2:.4f} ms, torch xla "
               + (", ".join(f"{k} {v:.4f} ms" for k, v in torch_ms.items())
                  or "= plain")
@@ -1685,21 +1644,6 @@ def main() -> int:
         k1 = apply_ms(k4, Bd)
         k2 = apply_ms(k4, Bd)
         p2 = apply_ms(plain, Bd)
-        gathers = ""
-        if dtype:
-            # the other bf16 gather, on the same staged buffers
-            other = [g for g in spmm_flat.BF16_GATHERS
-                     if g != spmm_flat.BF16_GATHER][0]
-
-            def k4_other(B, op=k4, other=other):
-                return spmm_flat.flat_spmm_cuda(op._bufs, B, adj.shape,
-                                                "bfloat16", op.block_f, other)
-            require(torch.equal(k4_other(Bd), k4(Bd)),
-                    "K4's bf16 gathers differ on arxiv_gcn")
-            o1 = apply_ms(k4_other, Bd)
-            o2 = apply_ms(k4_other, Bd)
-            gathers = (f" (bf16 gather {spmm_flat.BF16_GATHER!r}; "
-                       f"{other!r}: {o1:.4f}/{o2:.4f} ms)")
         gm = apply_ms(builds["group_mapped"], Bd)
         rm = apply_ms(builds["row_mapped"], Bd)
         tdt = torch.float32 if dtype is None else torch.bfloat16
@@ -1715,8 +1659,7 @@ def main() -> int:
             print(f"  cuSPARSE {name}: not run ({str(e).splitlines()[0]})")
         spmm_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                 library_ms=cs)
-        print(f"  arxiv_gcn F=128 {name}: K4 {k1:.4f}/{k2:.4f} ms{gathers}, "
-              "plain "
+        print(f"  arxiv_gcn F=128 {name}: K4 {k1:.4f}/{k2:.4f} ms, plain "
               f"{p1:.4f}/{p2:.4f} ms, group_mapped {gm:.4f} ms, row_mapped "
               f"{rm:.4f} ms, cuSPARSE "
               f"{'n/a' if cs is None else f'{cs:.4f} ms'}; host plan: K4 "

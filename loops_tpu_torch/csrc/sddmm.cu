@@ -35,19 +35,17 @@
 // j sums pieces j, j+G, ... of each product in order, then a fixed
 // xor-shuffle tree sums the group; lane u % G writes out[e0 + u], so a
 // warp's stores are contiguous. The kernel holds 64 registers a thread
-// (ptxas spills 44-48 bytes of the 16-byte-piece instances to reach it),
-// so 32 warps of an SM keep their gathers in flight: faster on the card
-// than 24 warps without the spill. Operands are read
-// either as bf16 copies the wrapper makes once per call (16-byte pieces of
-// 8 values, half the bytes of every gather) or as f32, rounded in
-// registers; both round the same terms (bf16(v * bf16(B)) is the same from
-// either), but the f32 pieces are narrower, so F may be cut otherwise and
-// the sums agree within the f32 bound, not to the bit. Roundings to bf16
-// go two at a time (cvt.rn.bf16x2.f32): conversions run at a quarter of
-// the FMA rate. A ragged F (F % VEC != 0 for every VEC > 1) takes 1-wide
-// pieces; pieces past F and nonzeros past nnz are masked. No atomics:
-// every out[e] is one group's fixed reduction, so two applies are bitwise
-// equal.
+// (ptxas spills 48 bytes of the 16-byte-piece instance to reach it), so
+// 32 warps of an SM keep their gathers in flight: faster on the card than
+// 24 warps without the spill. A and B are read as bf16 copies the wrapper
+// makes once per call: 16-byte pieces of 8 values, half the bytes of
+// every gather, and bf16(v * bf16(B)) is the same from the rounded B.
+// (Reading f32 and rounding in registers was slower on the card; PERF.md
+// has the times.) The products are rounded to bf16 two at a time
+// (cvt.rn.bf16x2.f32): conversions run at a quarter of the FMA rate. A
+// ragged F (F % VEC != 0 for every VEC > 1) takes 1-wide pieces; pieces
+// past F and nonzeros past nnz are masked. No atomics: every out[e] is one
+// group's fixed reduction, so two applies are bitwise equal.
 //
 // ---------------------------------------------------------------- K10
 // out[t] = vals[t] .* (A[i*R:(i+1)*R, :] @ B[k*C:(k+1)*C, :]^T), f32 [NB, R,
@@ -86,11 +84,11 @@ constexpr int kFlatSteps = 4;   // runs of nonzeros per warp
 // at most 64 registers a thread: 4 CTAs of 8 warps on an SM
 constexpr int kFlatMinBlocks = 4;
 
-// VEC consecutive values of one row, kept as the raw 32-bit words of the
-// load (a bf16 piece holds two values per word) until they are used
-template <typename T, int VEC>
+// VEC consecutive bf16 values of one row, kept as the raw 32-bit words of
+// the load (two values per word) until they are used
+template <int VEC>
 struct Piece {
-  static constexpr int kBytes = static_cast<int>(sizeof(T)) * VEC;
+  static constexpr int kBytes = 2 * VEC;
   static constexpr int kWords = kBytes < 4 ? 1 : kBytes / 4;
   unsigned w[kWords];
 
@@ -98,7 +96,7 @@ struct Piece {
 #pragma unroll
     for (int i = 0; i < kWords; ++i) w[i] = 0u;
   }
-  __device__ __forceinline__ void load(const T* p) {
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     if constexpr (kBytes == 16) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
       w[0] = q.x;
@@ -117,12 +115,8 @@ struct Piece {
   }
   // value k of the piece as a float (bf16 widens exactly)
   __device__ __forceinline__ float operator[](int k) const {
-    if constexpr (sizeof(T) == 4) {
-      return __uint_as_float(w[k]);
-    } else {
-      const unsigned x = w[k / 2];
-      return __uint_as_float(k % 2 ? (x & 0xffff0000u) : (x << 16));
-    }
+    const unsigned x = w[k / 2];
+    return __uint_as_float(k % 2 ? (x & 0xffff0000u) : (x << 16));
   }
 };
 
@@ -150,16 +144,16 @@ __device__ __forceinline__ void load_run(const int* __restrict__ rows,
   }
 }
 
-// kRound: A and B are f32, rounded to bf16 here; otherwise they are the
-// wrapper's bf16 copies, already rounded. A warp takes kFlatSteps
+// A and B are the wrapper's bf16 copies. A warp takes kFlatSteps
 // consecutive runs of (32 / G) * U nonzeros; the next run's indices are
 // loaded before the current run's rows are used.
-template <typename T, int VEC, bool kRound>
+template <int VEC>
 __global__ void __launch_bounds__(kFlatThreads, kFlatMinBlocks)
 sddmm_flat_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                  const float* __restrict__ vals, const T* __restrict__ A,
-                  const T* __restrict__ B, float* __restrict__ out, int nnz,
-                  int F, int G) {
+                  const float* __restrict__ vals,
+                  const __nv_bfloat16* __restrict__ A,
+                  const __nv_bfloat16* __restrict__ B,
+                  float* __restrict__ out, int nnz, int F, int G) {
   constexpr int U = kFlatUnroll;
   const int lane = threadIdx.x & 31;
   const int j = lane & (G - 1);
@@ -188,7 +182,7 @@ sddmm_flat_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
     for (int p0 = 0; p0 < pieces; p0 += G) {
       const int p = p0 + j;
       const bool on = p < pieces;
-      Piece<T, VEC> a[U], b[U];
+      Piece<VEC> a[U], b[U];
       // every load of the run first: B pieces, then the A piece of each
       // row
 #pragma unroll
@@ -215,20 +209,14 @@ sddmm_flat_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 #pragma unroll
           for (int k = 0; k < VEC; k += 2) {
             if (k + 1 < VEC) {
-              float x0 = a[u][k], x1 = a[u][k + 1];
-              float y0 = b[u][k], y1 = b[u][k + 1];
-              if constexpr (kRound) {
-                bf16r2(x0, x1);
-                bf16r2(y0, y1);
-              }
-              float g0v = __fmul_rn(v[u], y0), g1v = __fmul_rn(v[u], y1);
-              bf16r2(g0v, g1v);
-              acc[u] = fmaf(x0, g0v, acc[u]);
-              acc[u] = fmaf(x1, g1v, acc[u]);
+              float g0 = __fmul_rn(v[u], b[u][k]);
+              float g1 = __fmul_rn(v[u], b[u][k + 1]);
+              bf16r2(g0, g1);
+              acc[u] = fmaf(a[u][k], g0, acc[u]);
+              acc[u] = fmaf(a[u][k + 1], g1, acc[u]);
             } else {
-              const float x = kRound ? bf16r(a[u][k]) : a[u][k];
-              const float y = kRound ? bf16r(b[u][k]) : b[u][k];
-              acc[u] = fmaf(x, bf16r(__fmul_rn(v[u], y)), acc[u]);
+              acc[u] = fmaf(a[u][k], bf16r(__fmul_rn(v[u], b[u][k])),
+                            acc[u]);
             }
           }
         }
@@ -257,7 +245,7 @@ sddmm_flat_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   }
 }
 
-template <typename T, int VEC, bool kRound>
+template <int VEC>
 int launch_flat(const int* rows, const int* cols, const float* vals,
                 const void* A, const void* B, float* out, int nnz, int F,
                 int G, cudaStream_t s) {
@@ -265,10 +253,10 @@ int launch_flat(const int* rows, const int* cols, const float* vals,
                             (32 / G) * kFlatUnroll * kFlatSteps;
   const long long blocks = (nnz + per_cta - 1) / per_cta;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  sddmm_flat_kernel<T, VEC, kRound>
+  sddmm_flat_kernel<VEC>
       <<<static_cast<unsigned>(blocks), kFlatThreads, 0, s>>>(
-          rows, cols, vals, static_cast<const T*>(A),
-          static_cast<const T*>(B), out, nnz, F, G);
+          rows, cols, vals, static_cast<const __nv_bfloat16*>(A),
+          static_cast<const __nv_bfloat16*>(B), out, nnz, F, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,10 +321,10 @@ sddmm_bcsr_kernel(const int* __restrict__ brow, const int* __restrict__ bcols,
 
 extern "C" {
 
-// operands: 1 for bf16 copies of A and B, 0 for f32 rounded in registers
+// A and B: bf16 [rows, F] and [cols, F]
 int loops_sddmm_flat(const void* rows, const void* cols, const void* vals,
                      const void* A, const void* B, void* out, int nnz, int F,
-                     int vec, int group, int bf16_operands, void* stream) {
+                     int vec, int group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* r = static_cast<const int*>(rows);
   const auto* c = static_cast<const int*>(cols);
@@ -346,20 +334,11 @@ int loops_sddmm_flat(const void* rows, const void* cols, const void* vals,
       (vec > 1 && F % vec)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using BF = __nv_bfloat16;
-  if (bf16_operands) {
-    switch (vec) {
-      case 1: return launch_flat<BF, 1, false>(r, c, v, A, B, o, nnz, F, group, s);
-      case 2: return launch_flat<BF, 2, false>(r, c, v, A, B, o, nnz, F, group, s);
-      case 4: return launch_flat<BF, 4, false>(r, c, v, A, B, o, nnz, F, group, s);
-      case 8: return launch_flat<BF, 8, false>(r, c, v, A, B, o, nnz, F, group, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   switch (vec) {
-    case 1: return launch_flat<float, 1, true>(r, c, v, A, B, o, nnz, F, group, s);
-    case 2: return launch_flat<float, 2, true>(r, c, v, A, B, o, nnz, F, group, s);
-    case 4: return launch_flat<float, 4, true>(r, c, v, A, B, o, nnz, F, group, s);
+    case 1: return launch_flat<1>(r, c, v, A, B, o, nnz, F, group, s);
+    case 2: return launch_flat<2>(r, c, v, A, B, o, nnz, F, group, s);
+    case 4: return launch_flat<4>(r, c, v, A, B, o, nnz, F, group, s);
+    case 8: return launch_flat<8>(r, c, v, A, B, o, nnz, F, group, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,10 +11,10 @@
 // are bitwise equal. Two modes:
 //   * f32: products vals * B in f32, summed in f32;
 //   * bf16: bf16(bf16(vals) * bf16(B)) — each product rounded to bf16 as
-//     the TPU kernel's staged products were — summed in f32. B is read
-//     either as a bf16 copy the wrapper makes once per call (half the
-//     gather's bytes) or as f32 rounded in registers; both give the same
-//     bits.
+//     the TPU kernel's staged products were — summed in f32. B is read as
+//     a bf16 copy the wrapper makes once per call (half the gather's
+//     bytes; reading f32 B and rounding it in registers was slower on the
+//     card, PERF.md has the times).
 // Products and sums use __fmul_rn/__fadd_rn (no FMA contraction), so the
 // plain PyTorch version, which sums the same runs in the same order,
 // gives the same bits.
@@ -41,8 +41,10 @@
 //      by shuffles; then kUnroll atoms at a time it issues their B-row
 //      gathers and only then adds them in storage order. The kernel holds
 //      64 registers a thread, so 32 warps of an SM keep their gathers in
-//      flight (FPL = 8, F past 128, spills 52-92 bytes to fit). In bf16, products are rounded two at a time
-//      (cvt.rn.bf16x2.f32): conversions run at a quarter of the FMA rate.
+//      flight (the f32 FPL = 8 instances, F past 128, spill 52-92 bytes
+//      to fit). In bf16,
+//      products are rounded two at a time (cvt.rn.bf16x2.f32): conversions
+//      run at a quarter of the FMA rate.
 //   2. A row strictly inside a warp's range is wholly its own and goes
 //      straight to C. The warp's first and last rows go to shared memory,
 //      where the block adds the partials of each row in warp order; the
@@ -67,6 +69,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // atoms whose B rows a warp gathers at once
 // at most 64 registers a thread: 4 CTAs of 8 warps on an SM
 constexpr int kMinBlocks = 4;
+
+template <bool kBf16>
+struct BElem {
+  using T = float;
+};
+template <>
+struct BElem<true> {
+  using T = __nv_bfloat16;
+};
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -159,23 +170,20 @@ __device__ __forceinline__ void bf16r2(float& x, float& y) {
   y = __uint_as_float(d & 0xffff0000u);
 }
 
-// acc[j] += v * x[j] in f32, or, in the bf16 mode, bf16(v * bf16(x[j]))
-// with v already rounded (kRoundB: x is f32 B and is rounded here)
-template <int FPL, bool kBf16, bool kRoundB, typename X>
+// acc[j] += v * x[j] in f32, or, in the bf16 mode (v and x rounded
+// already), bf16(v * x[j])
+template <int FPL, bool kBf16, typename X>
 __device__ __forceinline__ void add_products(float (&acc)[FPL], float v,
                                              const X& x) {
   if constexpr (!kBf16) {
 #pragma unroll
     for (int j = 0; j < FPL; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, x[j]));
   } else if constexpr (FPL == 1) {
-    const float y = kRoundB ? bf16r(x[0]) : x[0];
-    acc[0] = __fadd_rn(acc[0], bf16r(__fmul_rn(v, y)));
+    acc[0] = __fadd_rn(acc[0], bf16r(__fmul_rn(v, x[0])));
   } else {
 #pragma unroll
     for (int j = 0; j < FPL; j += 2) {
-      float y0 = x[j], y1 = x[j + 1];
-      if constexpr (kRoundB) bf16r2(y0, y1);
-      float p0 = __fmul_rn(v, y0), p1 = __fmul_rn(v, y1);
+      float p0 = __fmul_rn(v, x[j]), p1 = __fmul_rn(v, x[j + 1]);
       bf16r2(p0, p1);
       acc[j] = __fadd_rn(acc[j], p0);
       acc[j + 1] = __fadd_rn(acc[j + 1], p1);
@@ -183,9 +191,9 @@ __device__ __forceinline__ void add_products(float (&acc)[FPL], float v,
   }
 }
 
-// TB: B's element type (float, or the wrapper's bf16 copy); kBf16: the
-// bf16 mode (vals and B rounded, each product rounded)
-template <int FPL, typename TB, bool kBf16, bool kVec>
+// kBf16: the bf16 mode (vals and B rounded, each product rounded), B the
+// wrapper's bf16 copy; else f32
+template <int FPL, bool kBf16, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flat_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                  const int* __restrict__ rows,
@@ -193,9 +201,11 @@ flat_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
                  const int* __restrict__ atom_starts,
                  const int* __restrict__ row_starts,
                  const int* __restrict__ row_first,
-                 const int* __restrict__ row_last, const TB* __restrict__ B,
+                 const int* __restrict__ row_last,
+                 const typename BElem<kBf16>::T* __restrict__ B,
                  float* __restrict__ C, float* __restrict__ seam, int K,
                  int F) {
+  using TB = typename BElem<kBf16>::T;
   constexpr int TILE = 32 * FPL;
   constexpr int U = kUnroll;
   // partials of each warp's first [0] and last [1] row, and those rows
@@ -288,8 +298,7 @@ flat_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
 #pragma unroll
           for (int j = 0; j < FPL; ++j) acc[j] = 0.f;
         }
-        add_products<FPL, kBf16, kBf16 && sizeof(TB) == 4>(
-            acc, kBf16 ? bf16r(v[u]) : v[u], x[u]);
+        add_products<FPL, kBf16>(acc, kBf16 ? bf16r(v[u]) : v[u], x[u]);
       }
     }
     cr = nr;
@@ -387,34 +396,29 @@ struct Args {
   int K, F;
 };
 
-template <int FPL, typename TB, bool kBf16, bool kVec>
+template <int FPL, bool kBf16, bool kVec>
 int launch_k4(const Args& a, dim3 grid, cudaStream_t s) {
-  flat_spmm_kernel<FPL, TB, kBf16, kVec><<<grid, kThreads, 0, s>>>(
+  using TB = typename BElem<kBf16>::T;
+  flat_spmm_kernel<FPL, kBf16, kVec><<<grid, kThreads, 0, s>>>(
       a.vals, a.cols, a.rows, a.offsets, a.atom_starts, a.row_starts,
       a.row_first, a.row_last, static_cast<const TB*>(a.B), a.C, a.seam, a.K,
       a.F);
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: 0 f32; 1 bf16 over f32 B (rounded in registers); 2 bf16 over the
-// wrapper's bf16 copy of B
 template <int FPL, bool kVec>
-int launch_mode(const Args& a, dim3 grid, int mode, cudaStream_t s) {
-  switch (mode) {
-    case 0: return launch_k4<FPL, float, false, kVec>(a, grid, s);
-    case 1: return launch_k4<FPL, float, true, kVec>(a, grid, s);
-    case 2: return launch_k4<FPL, __nv_bfloat16, true, kVec>(a, grid, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_mode(const Args& a, dim3 grid, int bf16, cudaStream_t s) {
+  return bf16 ? launch_k4<FPL, true, kVec>(a, grid, s)
+              : launch_k4<FPL, false, kVec>(a, grid, s);
 }
 
 template <int FPL>
-int launch_fpl(const Args& a, int nb, int mode, int vec, cudaStream_t s) {
+int launch_fpl(const Args& a, int nb, int bf16, int vec, cudaStream_t s) {
   const dim3 grid(nb, (a.F + 32 * FPL - 1) / (32 * FPL));
   if constexpr (FPL > 1) {
-    if (vec) return launch_mode<FPL, true>(a, grid, mode, s);
+    if (vec) return launch_mode<FPL, true>(a, grid, bf16, s);
   }
-  return launch_mode<FPL, false>(a, grid, mode, s);
+  return launch_mode<FPL, false>(a, grid, bf16, s);
 }
 
 }  // namespace
@@ -425,7 +429,7 @@ int loops_flat_spmm(const void* vals, const void* cols, const void* rows,
                     const void* offsets, const void* atom_starts,
                     const void* row_starts, const void* row_first,
                     const void* row_last, const void* B, void* C, void* seam,
-                    int nb, int K, int F, int fpl, int mode, int vec,
+                    int nb, int K, int F, int fpl, int bf16, int vec,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{static_cast<const float*>(vals),
@@ -446,10 +450,10 @@ int loops_flat_spmm(const void* vals, const void* cols, const void* rows,
   }
   int err;
   switch (fpl) {
-    case 1: err = launch_fpl<1>(a, nb, mode, vec, s); break;
-    case 2: err = launch_fpl<2>(a, nb, mode, vec, s); break;
-    case 4: err = launch_fpl<4>(a, nb, mode, vec, s); break;
-    case 8: err = launch_fpl<8>(a, nb, mode, vec, s); break;
+    case 1: err = launch_fpl<1>(a, nb, bf16, vec, s); break;
+    case 2: err = launch_fpl<2>(a, nb, bf16, vec, s); break;
+    case 4: err = launch_fpl<4>(a, nb, bf16, vec, s); break;
+    case 8: err = launch_fpl<8>(a, nb, bf16, vec, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err) return err;

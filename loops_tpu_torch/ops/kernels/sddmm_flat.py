@@ -19,12 +19,11 @@ a fixed xor-shuffle tree sums the group. What bounds it on an H100: the
 latency of those gathers (the first port's one nonzero in flight per
 group ran at 0.28 ns per nonzero), then their bytes.
 
-``gather`` picks what the kernel reads: ``"copy"`` (the default, the
-faster on the card) makes one bf16 copy of A and of B per call (inside
-the call, and so inside its time) and gathers 16-byte pieces of 8 values;
-``"round"`` gathers the f32 rows and rounds them in registers. Both round
-the same terms; the f32 pieces are narrower, so F may be cut into other
-pieces and the two agree within the f32 summation bound, not to the bit.
+The wrapper makes one bf16 copy of A and of B per call (inside the call,
+and so inside its time), and the kernel gathers 16-byte pieces of 8
+values of those: half the bytes of an f32 row, and the rounding of A and
+B done once. Gathering the f32 rows and rounding them in registers was
+slower on the card (PERF.md has the times).
 """
 from __future__ import annotations
 
@@ -35,8 +34,6 @@ from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.utils.platform import ensure_platform
 
 WARP = 32
-GATHERS = ("copy", "round")
-GATHER = "copy"
 
 
 def lane_group(F: int, vec: int) -> int:
@@ -48,13 +45,12 @@ def lane_group(F: int, vec: int) -> int:
     return g
 
 
-def piece_width(F: int, *tensors) -> int:
-    """Values per piece: the widest of 16, 8, 4 and 2 bytes that divides
-    the row and every tensor's start, else 1."""
-    esize = tensors[0].element_size()
-    vec = 16 // esize
-    while vec > 1 and (F % vec or any(t.data_ptr() % (vec * esize)
-                                      for t in tensors)):
+def piece_width(F: int) -> int:
+    """bf16 values per piece: the widest of 8, 4 and 2 (16, 8 and 4
+    bytes) that divides the row, else 1 (the copies start 16-byte
+    aligned)."""
+    vec = 8
+    while vec > 1 and F % vec:
         vec //= 2
     return vec
 
@@ -70,13 +66,11 @@ def check_operands(A, B, shape):
 
 
 def sddmm_flat_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
-                    nnz: int, gather: str = GATHER) -> torch.Tensor:
+                    nnz: int) -> torch.Tensor:
     """Launch K5 on the staged buffers: out [nnz] float32."""
     dev = A.device
     if dev.type != "cuda":
         raise ValueError(f"sddmm_flat_cuda needs a CUDA tensor, got {dev}")
-    if gather not in GATHERS:
-        raise ValueError(f"gather={gather!r}: expected one of {GATHERS}")
     check_operands(A, B, shape)
     F = A.shape[1]
     _build.check(A, "A", torch.float32, dev)
@@ -87,12 +81,11 @@ def sddmm_flat_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
     out = torch.empty(nnz, dtype=torch.float32, device=dev)
     if nnz == 0:
         return out  # nothing to launch (sddmm_flat.py:72-77)
-    if gather == "copy":
-        A, B = A.to(torch.bfloat16), B.to(torch.bfloat16)
-    vec = piece_width(F, A, B)
+    A16, B16 = A.to(torch.bfloat16), B.to(torch.bfloat16)
+    vec = piece_width(F)
     _build.launch("loops_sddmm_flat", "sddmm_flat", dev, b["rows"],
-                  b["cols"], b["vals"], A, B, out, nnz, F, vec,
-                  lane_group(F, vec), int(gather == "copy"))
+                  b["cols"], b["vals"], A16, B16, out, nnz, F, vec,
+                  lane_group(F, vec))
     return out
 
 
@@ -109,13 +102,11 @@ def sddmm_flat_plain(b: dict, A: torch.Tensor, B: torch.Tensor,
     return (a * g).sum(dim=1)
 
 
-def sddmm_flat(csr, device="cuda", gather: str = GATHER):
+def sddmm_flat(csr, device="cuda"):
     """Build ``(bufs, fn(bufs, A, B))`` for the CSR pattern through K5;
     ``fn`` runs K5 on CUDA tensors and the plain version on CPU tensors.
     Values are staged as f32 (they are rounded to bf16 with B anyway)."""
     device = ensure_platform(device)
-    if gather not in GATHERS:
-        raise ValueError(f"gather={gather!r}: expected one of {GATHERS}")
     nnz = int(csr.nnz)
     if nnz >= 2**31 or csr.shape[0] >= 2**31:
         raise ValueError(f"{nnz} nonzeros: K5 stages int32 indices")
@@ -129,6 +120,6 @@ def sddmm_flat(csr, device="cuda", gather: str = GATHER):
         if A.device.type == "cpu":
             check_operands(A, B, shape)
             return sddmm_flat_plain(b, A, B, nnz)
-        return sddmm_flat_cuda(b, A, B, shape, nnz, gather)
-    fn.meta = dict(nnz=nnz, gather=gather)
+        return sddmm_flat_cuda(b, A, B, shape, nnz)
+    fn.meta = dict(nnz=nnz)
     return bufs, fn

@@ -8,20 +8,20 @@ Replaces ``loops_tpu/ops/kernels/spmm_flat.py`` (``flat_spmm_pallas``):
 CTA of 8 warps to each (plan block, feature tile). The block's atoms are
 cut into 8 equal warp ranges (``warp_cuts``); a warp walks its range 4
 atoms at a time, all 4 B-row gathers in flight before it adds them in
-storage order, with the next 32 atoms' indices loaded ahead. A row wholly inside a warp's range goes to C; the warps'
-first and last rows meet in shared memory, added in warp order; the
-block's first and last rows go through a seam pass that adds them in
-block order, so two applies are bitwise equal. Every row of C is written
+storage order, with the next 32 atoms' indices loaded ahead. A row
+wholly inside a warp's range goes to C; the warps' first and last rows
+meet in shared memory, added in warp order; the block's first and last
+rows go through a seam pass that adds them in block order, so two
+applies are bitwise equal. Every row of C is written
 once (a row without atoms as zeros, by the block whose row range holds
 it), so C is allocated with ``torch.empty``.
 
 Modes: f32 (products and sums in f32) and ``dtype="bfloat16"``: vals and
 B rounded to bf16, each product rounded to bf16 (as the TPU kernel's
-staged products were), sums in f32, output f32. ``bf16_gather`` picks
-what the bf16 mode reads: ``"copy"`` (the default, the faster on the
-card), one bf16 copy of B per call (half the gather's bytes), or
-``"round"``, the f32 rows rounded in registers; both give the same bits.
-The kernel rounds vals on load.
+staged products were), sums in f32, output f32. The wrapper makes one
+bf16 copy of B per call (half the gather's bytes; reading f32 B and
+rounding it in registers was slower on the card, PERF.md has the times);
+the kernel rounds vals on load.
 
 Dropped with the TPU mechanism: the [K, R] one-hot MXU contraction, the
 f32 mode's 3-way bf16 split, the 4096-row output stripes, their re-cut
@@ -46,8 +46,6 @@ WARP = 32
 WARPS = 8  # per CTA: a block's atoms are cut into this many warp ranges
 MAX_FPL = 8
 BF16 = "bfloat16"
-BF16_GATHERS = ("copy", "round")
-BF16_GATHER = "copy"
 
 
 def features_per_lane(F: int, block_f: int) -> int:
@@ -69,16 +67,12 @@ def _check_block_f(block_f: int) -> int:
 
 
 def flat_spmm_cuda(b: dict, B: torch.Tensor, shape, dtype=None,
-                   block_f: int = 256, bf16_gather: str = BF16_GATHER
-                   ) -> torch.Tensor:
+                   block_f: int = 256) -> torch.Tensor:
     """Launch K4 (``csrc/spmm.cu``) on the staged buffers: C [rows, F]
     float32, every row written by the kernel."""
     dev = B.device
     if dev.type != "cuda":
         raise ValueError(f"flat_spmm_cuda needs a CUDA tensor, got {dev}")
-    if bf16_gather not in BF16_GATHERS:
-        raise ValueError(f"bf16_gather={bf16_gather!r}: expected one of "
-                         f"{BF16_GATHERS}")
     rows, cols_n = shape
     nb, K = b["vals"].shape
     if B.dim() != 2 or B.shape[0] != cols_n:
@@ -100,11 +94,8 @@ def flat_spmm_cuda(b: dict, B: torch.Tensor, shape, dtype=None,
     C = torch.empty(rows, F, dtype=torch.float32, device=dev)
     if nb == 0 or F == 0 or rows == 0:
         return C  # a grid of 0 blocks is not a launch: C is the answer
-    mode = 0
     if dtype == BF16:
-        mode = 2 if bf16_gather == "copy" else 1
-        if mode == 2:
-            B = B.to(torch.bfloat16)
+        B = B.to(torch.bfloat16)
     # one vector load per lane: F % FPL == 0 and B aligned for it
     vec = int(fpl > 1 and F % fpl == 0
               and B.data_ptr() % min(16, fpl * B.element_size()) == 0)
@@ -112,7 +103,8 @@ def flat_spmm_cuda(b: dict, B: torch.Tensor, shape, dtype=None,
     _build.launch("loops_flat_spmm", "flat_spmm", dev,
                   b["vals"], b["cols"], b["rows"], b["offsets"],
                   b["atom_starts"], b["row_starts"], b["row_first"],
-                  b["row_last"], B, C, seam, nb, K, F, fpl, mode, vec)
+                  b["row_last"], B, C, seam, nb, K, F, fpl,
+                  int(dtype == BF16), vec)
     return C
 
 
@@ -183,8 +175,7 @@ def flat_spmm_plain(b: dict, B: torch.Tensor, shape, dtype=None
 
 
 def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
-              pad_groups: int | None = None, pad_R: int | None = None,
-              bf16_gather: str = BF16_GATHER):
+              pad_groups: int | None = None, pad_R: int | None = None):
     """Build ``(bufs, fn(bufs, B))`` for CSR @ dense over a merge-path
     FlatBlockPlan. ``fn`` runs K4 on a CUDA tensor and the plain version
     on a CPU tensor."""
@@ -197,9 +188,6 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
     if dtype not in (None, BF16):
         raise ValueError(f"dtype={dtype!r}: K4 takes None (f32) or "
                          f"{BF16!r}")
-    if bf16_gather not in BF16_GATHERS:
-        raise ValueError(f"bf16_gather={bf16_gather!r}: expected one of "
-                         f"{BF16_GATHERS}")
     if csr.nnz >= 2**31:
         raise ValueError(f"{csr.nnz} nonzeros: K4 stages int32 offsets")
     block_f = _check_block_f(block_f)
@@ -233,7 +221,7 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
                                device=B.device)
         if B.device.type == "cpu":
             return flat_spmm_plain(b, B, shape, dtype)
-        return flat_spmm_cuda(b, B, shape, dtype, block_f, bf16_gather)
+        return flat_spmm_cuda(b, B, shape, dtype, block_f)
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms,
                    block_f=block_f)
     return bufs, fn

@@ -21,10 +21,8 @@ needs no script of its own:
   default form), dims [128, 128, 128, 40].
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
-apply), steps with ``utils.timer.time_fn`` (median of 30). Where the tree's
-kernel modules offer gathers (``sddmm_flat.GATHERS``,
-``spmm_flat.BF16_GATHERS``), each is timed on the operator's buffers too.
-``--library`` adds cuSPARSE's calls (``torch.sparse.sampled_addmm`` times
+apply), steps with ``utils.timer.time_fn`` (median of 30). ``--library``
+adds cuSPARSE's calls (``torch.sparse.sampled_addmm`` times
 vals, ``torch.sparse.mm``), timed only. The line before the JSON is the
 card's name and power limit from ``nvidia-smi``.
 """
@@ -58,7 +56,6 @@ def main(argv=None) -> int:
     from loops_tpu_torch.io import ogb
     from loops_tpu_torch.models import GCN
     from loops_tpu_torch.models import train as T
-    from loops_tpu_torch.ops.kernels import sddmm_flat, spmm_flat
     from loops_tpu_torch.ops.sddmm import SDDMMOperator
     from loops_tpu_torch.ops.spmm import SpMMOperator
     from loops_tpu_torch.utils import generate
@@ -100,10 +97,6 @@ def main(argv=None) -> int:
         Ad, Bd = (torch.from_numpy(a).to(dev) for a in (A, B))
         op = SDDMMOperator(csr, impl="pallas", dtype=BF, device=dev)
         res[f"K5 {cell}"] = apply_ms(lambda a, op=op, Bd=Bd: op(a, Bd), Ad)
-        for g in getattr(sddmm_flat, "GATHERS", ()):
-            res[f"K5 {cell} gather={g}"] = apply_ms(
-                lambda a, op=op, Bd=Bd, g=g: sddmm_flat.sddmm_flat_cuda(
-                    op._bufs, a, Bd, csr.shape, csr.nnz, g), Ad)
         if args.library:
             S = on_card(csr, torch.float32)
             v = S.values()
@@ -123,10 +116,6 @@ def main(argv=None) -> int:
         op = SpMMOperator(adj, "merge_path", "pallas", dtype=dtype,
                           device=dev)
         res[f"K4 arxiv_gcn_{name}"] = apply_ms(op, Bd)
-        for g in getattr(spmm_flat, "BF16_GATHERS", ()) if dtype else ():
-            res[f"K4 arxiv_gcn_{name} gather={g}"] = apply_ms(
-                lambda B, op=op, g=g: spmm_flat.flat_spmm_cuda(
-                    op._bufs, B, adj.shape, BF, op.block_f, g), Bd)
         if args.library and F == 128:
             S = on_card(adj, torch.float32 if dtype is None
                         else torch.bfloat16)

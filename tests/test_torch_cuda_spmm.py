@@ -12,11 +12,10 @@ imports neither JAX nor ``loops_tpu``; run it on the card with
 K4 against its plain version: bit for bit. The kernel sums each run of a
 row inside one warp's atom range in storage order, the runs of a block in
 warp order and the blocks in block order, as the plain version's three
-segment sums do, without FMA contraction. The two bf16 gathers (a bf16
-copy of B, or f32 B rounded in registers) give the same bits. Each result
-must also pass the Wilkinson validator: the f32 bound for f32, the bound
-over the bf16-rounded products for bf16. Against the CPU torch path (the
-backward test) the tolerance is ``rtol=1e-5, atol=1e-6``.
+segment sums do, without FMA contraction. Each result must also pass the
+Wilkinson validator: the f32 bound for f32, the bound over the
+bf16-rounded products for bf16. Against the CPU torch path (the backward
+test) the tolerance is ``rtol=1e-5, atol=1e-6``.
 """
 import numpy as np
 import pytest
@@ -76,25 +75,19 @@ def test_k4_matches_plain(cuda_device, name, block, F, dtype):
     B = _dense(csr.shape[1], F)
     plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
     Bd = torch.from_numpy(B).to(cuda_device)
-    outs = []
-    for gather in spmm_flat.BF16_GATHERS if dtype else (None,):
-        b, fn = spmm_flat.flat_spmm(
-            csr, plan, dtype=dtype, device=cuda_device,
-            **({"bf16_gather": gather} if gather else {}))
-        # NaN in the memory C will reuse: a row the kernel skips shows
-        torch.full((2 * csr.shape[0] * F + 1024,), float("nan"),
-                   device=cuda_device)
-        before = _build.LAUNCHES["flat_spmm"]
-        C1 = fn(b, Bd)
-        C2 = fn(b, Bd)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES["flat_spmm"] == before + 2
-        assert torch.equal(C1, C2), "two applies differ"
-        outs.append(C1)
-    assert all(torch.equal(outs[0], C) for C in outs), "the gathers differ"
+    b, fn = spmm_flat.flat_spmm(csr, plan, dtype=dtype, device=cuda_device)
+    # NaN in the memory C will reuse: a row the kernel skips shows
+    torch.full((2 * csr.shape[0] * F + 1024,), float("nan"),
+               device=cuda_device)
+    before = _build.LAUNCHES["flat_spmm"]
+    C1 = fn(b, Bd)
+    C2 = fn(b, Bd)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flat_spmm"] == before + 2
+    assert torch.equal(C1, C2), "two applies differ"
     plain = spmm_flat.flat_spmm_plain(b, Bd, csr.shape, dtype)
-    assert torch.equal(outs[0], plain), "K4 and its plain version differ"
-    C = outs[0].cpu().numpy()
+    assert torch.equal(C1, plain), "K4 and its plain version differ"
+    C = C1.cpu().numpy()
     rep = _verdict(csr, B, C, dtype)
     assert rep.verdict == "NOT_A_BUG", rep
 
@@ -152,9 +145,6 @@ def test_k4_wrapper_checks_inputs(cuda_device):
     with pytest.raises(ValueError, match="block_f"):
         spmm_flat.flat_spmm_cuda(b, torch.zeros(cols, 4, device=cuda_device),
                                  csr.shape, block_f=48)
-    with pytest.raises(ValueError, match="bf16_gather"):
-        spmm_flat.flat_spmm_cuda(b, torch.zeros(cols, 4, device=cuda_device),
-                                 csr.shape, "bfloat16", bf16_gather="f16")
     with pytest.raises(NotImplementedError, match="A10"):
         spmm_flat.flat_spmm(csr, plan, device=cuda_device, pad_groups=2)
 

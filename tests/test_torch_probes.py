@@ -250,6 +250,35 @@ def test_launch_refuses_an_unknown_counter():
             assert f"row_gather_{mode}_{where}" in _build.LAUNCHES
 
 
+def _c_entry_points():
+    """``name -> [ctypes type per parameter]`` read from the
+    ``extern "C"`` entry points of ``csrc/*.cu``: pointers (and the
+    stream) as ``c_void_p``, ``int`` as ``c_int``, ``float`` as
+    ``c_float``."""
+    import ctypes
+    import re
+
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    entries = {}
+    for path in _build._sources():
+        src = open(path).read()
+        for name, params in re.findall(r"^int (loops_\w+)\(([^)]*)\)", src,
+                                       re.M):
+            entries[name] = [
+                ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                for p in params.split(",")]
+    return entries
+
+
+def test_build_signatures_match_the_c_entry_points():
+    # a wrong argtypes list passes the CPU tests and fails at the first
+    # launch on the card: hold each to its C declaration
+    entries = _c_entry_points()
+    assert sorted(entries) == sorted(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert argtypes == entries[name], name
+
+
 def test_build_hashes_headers_and_compiles_only_sources(tmp_path,
                                                         monkeypatch):
     srcs = _build._sources()

@@ -282,29 +282,24 @@ def _k5_mirror(a, g, vec, G):
     return lanes[:, 0]
 
 
-@pytest.mark.parametrize("gather", sddmm_flat.GATHERS)
 @pytest.mark.parametrize("F", [1, 20, 33, 64, 128, 300])
-def test_k5_lane_and_shuffle_order_mirror(F, gather):
+def test_k5_lane_and_shuffle_order_mirror(F):
     t = _port(FLAT["skewed"]())
     A, B = _operands(t.shape, F)
     terms = reference.sddmm_terms(t, A, B, np.arange(t.nnz), BF16)
     a = reference.bf16_round(A[t.row_ids()])
     v = t.vals[:, None]
     g = reference.bf16_round(v * reference.bf16_round(B[t.indices]))
-    # the piece the wrapper picks: 16 bytes of bf16 copies, or of f32 rows
-    read = torch.bfloat16 if gather == "copy" else torch.float32
-    vec = sddmm_flat.piece_width(F, torch.zeros(4, F, dtype=read))
+    # the piece the wrapper picks: up to 16 bytes of the bf16 copies
+    vec = sddmm_flat.piece_width(F)
     G = sddmm_flat.lane_group(F, vec)
-    assert (vec, G) == {
-        "copy": {1: (1, 1), 20: (4, 8), 33: (1, 32), 64: (8, 8),
-                 128: (8, 16), 300: (4, 32)},
-        "round": {1: (1, 1), 20: (4, 8), 33: (1, 32), 64: (4, 16),
-                  128: (4, 32), 300: (4, 32)}}[gather][F]
+    assert (vec, G) == {1: (1, 1), 20: (4, 8), 33: (1, 32), 64: (8, 8),
+                        128: (8, 16), 300: (4, 32)}[F]
     mirror = _k5_mirror(a, g, vec, G)
     exact = terms.sum(axis=1)
     bound = reference.sddmm_bound(terms)
     assert np.all(np.abs(mirror - exact) <= bound)
-    b, fn = sddmm_flat.sddmm_flat(t, device=CPU, gather=gather)
+    b, fn = sddmm_flat.sddmm_flat(t, device=CPU)
     plain = fn(b, torch.from_numpy(A), torch.from_numpy(B)).numpy()
     assert np.all(np.abs(plain.astype(np.float64) - mirror) <= 2 * bound)
 
@@ -357,8 +352,6 @@ def test_refusals_and_cpu_warning():
         SDDMMOperator(t, impl="pallas2", device=CPU)
     with pytest.raises(ValueError, match="dtype"):
         SDDMMOperator(t, dtype="float16", device=CPU)
-    with pytest.raises(ValueError, match="gather"):
-        sddmm_flat.sddmm_flat(t, gather="f16", device=CPU)
     with pytest.raises(ValueError, match="COO"):
         SDDMMOperator(t.to_coo(), impl="pallas", dtype=BF16, device=CPU)
     with pytest.raises(TypeError, match="unsupported format"):

@@ -350,9 +350,6 @@ def test_refusals():
         spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_flat.flat_spmm_cuda({}, torch.zeros(3, 2), t.shape)
-    with pytest.raises(ValueError, match="bf16_gather"):
-        spmm_flat.flat_spmm(t, plan, dtype="bfloat16", bf16_gather="f16",
-                            device=CPU)
 
 
 def test_f64_pallas_warns_and_takes_torch_path():
