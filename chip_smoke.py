@@ -12,9 +12,12 @@ Phases, one line each with its time:
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
-   matrix (32768^2, ~4.39M nnz) and, for K3, on a 157 KB row window (past
-   the default 48 KB of shared memory): agreement, the Wilkinson verdict,
-   two runs bitwise equal, the launch counter;
+   matrix (32768^2, ~4.39M nnz), for K1 on ``generate.SPMV_EDGE_CASES``
+   (empty rows between blocks, before the first, after the last; blocks 8
+   and 64) and, for K3, on a 157 KB row window (past the default 48 KB of
+   shared memory): agreement, the Wilkinson verdict, two runs bitwise
+   equal, the launch counter, with the memory y reuses filled with NaN
+   first (K1 writes every row of a ``torch.empty`` y);
 4. main path: ``examples/spmv_torch.py`` on ``datasets/chesapeake.mtx`` with
    ``--validate --rigorous`` for every schedule and kernel impl;
 5. at scale: ``SpMVOperator`` with each kernel on the bench matrix and on
@@ -23,7 +26,11 @@ Phases, one line each with its time:
    launched on the main path;
 6. timing: per apply, the median of CUDA-event timings, of each kernel, its
    plain version and cuSPARSE's CSR SpMV (the paper's opponent, timed only),
-   with the host plan time;
+   with the host plan time; K1's time on the card alone
+   (``utils/bench.device_ms``: the applies queued behind a sleep kernel)
+   and its host share ``1 - device / apply``; and the host launch path
+   taken apart (``utils/launch_cost.py``: host microseconds per call of
+   each part and of the whole calls of K1, K12 and ``torch.add``);
 7. K4 vs plain: K4 (``flat_spmm``) against its plain PyTorch version on the
    battery, the merge-path edge cases (``generate.SPMM_EDGE_CASES``: a row
    over several warps and blocks, a run of empty rows past a block's work,
@@ -238,6 +245,7 @@ PROBE_ENTRIES = {"seg_scan_probe": "seg_scan", "construct_probe": "constructs",
                  "row_gather_mat_hbm": "S=2097152 K=64 f32",
                  "onehot_expand": "W=512"}
 SAXPY_SHAPE = (8, 8192)  # examples/saxpy.py: n = 1 << 16 as [8, n / 8]
+SAXPY_CALLS = (50, 450)  # K12's per-call slope: calls at its two ends
 # H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {None: 67e12, "bfloat16": 989e12}
@@ -309,6 +317,9 @@ def kernel_vs_plain(kname, csr, x, block, device, schedule="merge_path"):
             plain = lambda xd: spmv_flat.flat_spmv_plain(  # noqa: E731
                 b, xd, csr.shape, fn.meta["R"])
     xd = torch.from_numpy(x).to(device)
+    # NaN in the memory y will reuse: a row the kernel leaves unwritten
+    # shows (K1 allocates y with torch.empty)
+    torch.full((4 * csr.shape[0] + 1024,), float("nan"), device=device)
     before = _build.LAUNCHES[kname]
     y1 = fn(b, xd)
     y2 = fn(b, xd)
@@ -1281,11 +1292,14 @@ def probe_phases(device, smi, rate):
     # K12 at the example's shape (what its path launches) and at 2^26
     x, y = (torch.from_numpy(rng.normal(size=SAXPY_SHAPE).astype(
         np.float32)).to(device) for _ in range(2))
+    # a call is the host's launch path: the slope of 450 calls over 50
     entries["saxpy"] = common.record(
         "saxpy", "[8, 8192]", common.launch_ms(lambda: saxpy.saxpy_cuda(
-            2.5, x, y), device),
-        common.launch_ms(lambda: saxpy.saxpy_plain(2.5, x, y), device),
-        common.launch_ms(lambda: torch.add(y, x, alpha=2.5), device),
+            2.5, x, y), device, *SAXPY_CALLS),
+        common.launch_ms(lambda: saxpy.saxpy_plain(2.5, x, y), device,
+                         *SAXPY_CALLS),
+        common.launch_ms(lambda: torch.add(y, x, alpha=2.5), device,
+                         *SAXPY_CALLS),
         12 * x.numel(), 2 * x.numel(), "f32", err["saxpy"], "")
     xl, yl = (torch.randn(1 << 26, device=device) for _ in range(2))
     big_ms = common.launch_ms(lambda: saxpy.saxpy_cuda(2.5, xl, yl), device)
@@ -1350,7 +1364,8 @@ def main() -> int:
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.utils import generate, reference
-    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils import launch_cost
+    from loops_tpu_torch.utils.bench import apply_ms, device_ms
     from loops_tpu_torch.utils.equal import count_mismatches
     from loops_tpu_torch.utils.profile_spmv import MATRICES
 
@@ -1395,6 +1410,15 @@ def main() -> int:
                              kernel_vs_plain(kname, bench, x_bench, None,
                                              device))
         n_cases += 1
+    # K1 writes every row itself: empty rows between blocks, before the
+    # first and after the last
+    for make in generate.SPMV_EDGE_CASES.values():
+        csr = make()
+        for block in (8, 64):
+            max_err["sorted_spmv"] = max(max_err["sorted_spmv"], kernel_vs_plain(
+                "sorted_spmv", csr, generate.make_input_vector(csr.shape[1]),
+                block, device))
+            n_cases += 1
     wide = generate.wide_span_csr(40_000)
     max_err["flat_spmv"] = max(max_err["flat_spmv"], kernel_vs_plain(
         "flat_spmv", wide, generate.make_input_vector(wide.shape[1]), 8,
@@ -1503,7 +1527,21 @@ def main() -> int:
             print(f"  {mname} {kname}: kernel {k1:.4f}/{k2:.4f} ms, plain "
                   f"{p1:.4f}/{p2:.4f} ms, cuSPARSE {cusparse_ms:.4f} ms, "
                   f"host plan {op.meta['plan_ms']:.1f} ms  [{smi}]")
+        # K1's host share: the card's own time per apply (the applies
+        # queued behind a sleep kernel) against back-to-back applies
+        op = ops[mname, "sorted_spmv"]
+        k1_apply = apply_ms(op, xd)
+        k1_card = device_ms(op, xd)
+        print(f"  {mname} sorted_spmv: apply {k1_apply:.4f} ms, card "
+              f"{k1_card:.4f} ms, host share "
+              f"{1 - k1_card / k1_apply:.3f}  [{smi}]")
         del A
+    parts = launch_cost.launch_path_parts(device)
+    print(f"  launch path, host us per call (less {parts['empty_us']:.3f} "
+          f"us of an empty call), {smi}:")
+    for key in ("parts", "calls"):
+        for label, us in parts[key].items():
+            print(f"    {label}: {us:.2f}")
     phase(6, "timing (CUDA events, median per apply)", t0)
 
     # ---- 7. K4 vs plain, forward and backward

@@ -90,41 +90,169 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 // Benes unpermute and touch-loop gathers existed because the TPU has no
 // general gather; Hopper gathers x[col] natively, so each block reads its
 // atoms in CSR order straight from the CSR arrays.
-// Design: one CUDA block per plan block; each row of the block is summed
-// by a group of `lanes_per_row` lanes (a power of two <= 32, picked on
-// the host from the mean row length) so that neighbouring lanes read
-// neighbouring vals/cols; the group's strided partials are combined by
-// an xor-shuffle tree (fixed order, so deterministic).
-__global__ void __launch_bounds__(kThreads)
+//
+// What bounds it on an H100 is the x[col] gather: one random 32-byte
+// sector per nonzero, from L2 (or L1 for an x that fits there). A lane
+// that walks one row at a time keeps one gather in flight and waits on
+// its latency; measured on the card, once a thread keeps four or more in
+// flight the time no longer moves with the count (K1_QUADS 1, 2, 4), so
+// what is left is the rate at which the card serves random sectors.
+// The block works in two phases that do not look at rows until the
+// second:
+//   1. products: the block streams its atom range [cuts[b], cuts[b+1])
+//      as 16-byte quads of vals and cols (cache-streaming loads, so the
+//      stream of a matrix past L2 does not push x out), each
+//      thread holding kK1Quads quads, that is 4 * kK1Quads gathers, in
+//      flight, and writes vals[i] * x[cols[i]] to shared memory, aligned
+//      so that a quad is one 16-byte store;
+//   2. rows: each row of the block is summed from shared memory by a
+//      group of `lanes_per_row` lanes (a power of two <= 32, picked on
+//      the host from the mean row length), lane-strided partials then an
+//      xor-shuffle tree: a fixed order, so two runs are bitwise equal.
+// Interior rows go straight to y, the first and last row to the seam
+// pass; the block also zero-writes the empty rows between its last row
+// and the next block's first (block 0 those before its first), so every
+// row of y is written and the wrapper allocates y with torch.empty.
+// The products are rounded to f32 before they are summed, as in the plain
+// version (vals * x[cols], then segment sums).
+// The tuning knobs, fixed at build time; scripts/k1_variants_torch.py
+// builds and times other settings with -D.
+#ifndef K1_QUADS
+#define K1_QUADS 2  // 16-byte quads in flight per thread
+#endif
+#ifndef K1_MIN_BLOCKS
+#define K1_MIN_BLOCKS 4  // CTAs an SM: 64 registers a thread at 4
+#endif
+#ifndef K1_X_NO_ALLOCATE
+#define K1_X_NO_ALLOCATE 0  // gather x without allocating in L1
+#endif
+#ifndef K1_STREAM_CS
+#define K1_STREAM_CS 1  // vals and cols with the cache-streaming hint
+#endif
+constexpr int kK1Threads = 256;
+constexpr int kK1Quads = K1_QUADS;
+
+__device__ __forceinline__ float load_x(const float* p) {
+#if K1_X_NO_ALLOCATE
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+#else
+  return __ldg(p);
+#endif
+}
+
+template <typename T>
+__device__ __forceinline__ T load_stream(const T* p) {
+#if K1_STREAM_CS
+  return __ldcs(p);
+#else
+  return __ldg(p);
+#endif
+}
+// row offsets of a block held in shared memory; a block whose span is
+// wider (the host's span split gave up) reads them from device memory
+constexpr int kK1RowWindow = 1024;
+
+__global__ void __launch_bounds__(kK1Threads, K1_MIN_BLOCKS)
 sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols,
                    const float* __restrict__ vals, const int* __restrict__ cuts,
                    const int* __restrict__ row_first,
                    const int* __restrict__ row_last, const float* __restrict__ x,
-                   float* __restrict__ y, float* __restrict__ seam,
-                   int lanes_per_row) {
+                   float* __restrict__ y, float* __restrict__ seam, int rows,
+                   int nb, int lanes_per_row, int vec) {
+  extern __shared__ float4 prod4[];  // products of atoms [base, a1)
+  __shared__ int offs[kK1RowWindow + 1];
+  float* prod = reinterpret_cast<float*>(prod4);
   const int b = blockIdx.x;
+  const int tid = threadIdx.x;
   const int a0 = cuts[b], a1 = cuts[b + 1];
   const int r0 = row_first[b], r1 = row_last[b];
-  const int g = lanes_per_row;
-  const int lane = threadIdx.x & (g - 1);
-  const int group = threadIdx.x / g;
-  const int groups = blockDim.x / g;
-  // the same trip count for every thread keeps the shuffles convergent
-  const int trips = (r1 - r0 + groups) / groups;
-  for (int t = 0; t < trips; ++t) {
-    const int r = r0 + t * groups + group;
-    float acc = 0.f;
-    if (r <= r1) {
-      const int lo = max(offsets[r], a0);
-      const int hi = min(offsets[r + 1], a1);
-      for (int i = lo + lane; i < hi; i += g) {
-        acc = fmaf(vals[i], __ldg(x + cols[i]), acc);
+  const int nrows = r1 - r0 + 1;
+  const int base = a0 & ~3;  // prod[i - base] holds atom i's product
+  const bool offs_shared = nrows < kK1RowWindow;
+  if (offs_shared) {
+    for (int j = tid; j <= nrows; j += kK1Threads) offs[j] = offsets[r0 + j];
+  }
+  // empty rows up to the next block's first row (and, in block 0, before
+  // this one's): nobody else writes them
+  const int next = b + 1 < nb ? row_first[b + 1] : rows;
+  for (int r = r1 + 1 + tid; r < next; r += kK1Threads) y[r] = 0.f;
+  if (b == 0) {
+    for (int r = tid; r < r0; r += kK1Threads) y[r] = 0.f;
+  }
+
+  // ---- 1. products into shared memory: whole quads [q0, q1) inside
+  // [a0, a1), then the head [a0, head_end) and tail [tail_begin, a1) one
+  // atom at a time (every atom when the arrays are not 16-byte aligned)
+  int head_end = a1, tail_begin = a1;
+  if (vec) {
+    const int q0 = (a0 + 3) >> 2;
+    const int q1 = max(q0, a1 >> 2);
+    head_end = min(4 * q0, a1);
+    tail_begin = max(4 * q1, head_end);
+    const int4* c4 = reinterpret_cast<const int4*>(cols);
+    const float4* v4 = reinterpret_cast<const float4*>(vals);
+    for (int q = q0 + tid; q < q1; q += kK1Threads * kK1Quads) {
+      int4 c[kK1Quads];
+      float4 v[kK1Quads];
+#pragma unroll
+      for (int u = 0; u < kK1Quads; ++u) {
+        const int qu = q + u * kK1Threads;
+        if (qu < q1) {
+          c[u] = load_stream(c4 + qu);
+          v[u] = load_stream(v4 + qu);
+        }
       }
+      float4 xv[kK1Quads];
+#pragma unroll
+      for (int u = 0; u < kK1Quads; ++u) {
+        if (q + u * kK1Threads < q1) {
+          xv[u] = make_float4(load_x(x + c[u].x), load_x(x + c[u].y),
+                              load_x(x + c[u].z), load_x(x + c[u].w));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kK1Quads; ++u) {
+        const int qu = q + u * kK1Threads;
+        if (qu < q1) {
+          prod4[qu - (base >> 2)] =
+              make_float4(__fmul_rn(v[u].x, xv[u].x), __fmul_rn(v[u].y, xv[u].y),
+                          __fmul_rn(v[u].z, xv[u].z), __fmul_rn(v[u].w, xv[u].w));
+        }
+      }
+    }
+  }
+  for (int i = a0 + tid; i < head_end; i += kK1Threads) {
+    prod[i - base] =
+        __fmul_rn(load_stream(vals + i), load_x(x + load_stream(cols + i)));
+  }
+  for (int i = tail_begin + tid; i < a1; i += kK1Threads) {
+    prod[i - base] =
+        __fmul_rn(load_stream(vals + i), load_x(x + load_stream(cols + i)));
+  }
+  __syncthreads();
+
+  // ---- 2. row sums from shared memory
+  const int* ro = offs_shared ? offs : offsets + r0;
+  const int g = lanes_per_row;
+  const int lane = tid & (g - 1);
+  const int group = tid / g;
+  const int groups = kK1Threads / g;
+  // the same trip count for every thread keeps the shuffles convergent
+  const int trips = (nrows + groups - 1) / groups;
+  for (int t = 0; t < trips; ++t) {
+    const int j = t * groups + group;
+    float acc = 0.f;
+    if (j < nrows) {
+      const int lo = max(ro[j], a0) - base;
+      const int hi = min(ro[j + 1], a1) - base;
+      for (int i = lo + lane; i < hi; i += g) acc += prod[i];
     }
     for (int off = g >> 1; off > 0; off >>= 1) {
       acc += __shfl_xor_sync(kFull, acc, off);
     }
-    if (lane == 0 && r <= r1) store_row(r, r0, r1, b, acc, y, seam);
+    if (lane == 0 && j < nrows) store_row(r0 + j, r0, r1, b, acc, y, seam);
   }
 }
 
@@ -226,18 +354,33 @@ int launch_seam(const int* row_first, const int* row_last, const float* seam,
 
 extern "C" {
 
+// max_atoms: the longest block's atom count, which sizes the products'
+// shared memory (opted in past the default 48 KB)
 int loops_sorted_spmv_f32(const void* offsets, const void* cols,
                           const void* vals, const void* cuts,
                           const void* row_first, const void* row_last,
-                          const void* x, void* y, void* seam, int nb,
-                          int lanes_per_row, void* stream) {
+                          const void* x, void* y, void* seam, int rows, int nb,
+                          int lanes_per_row, int max_atoms, void* stream) {
+  if (nb <= 0 || max_atoms <= 0 || lanes_per_row <= 0 || lanes_per_row > 32 ||
+      (lanes_per_row & (lanes_per_row - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sorted_spmv_kernel<<<nb, kThreads, 0, s>>>(
+  // room for the quad-aligned range [a0 & ~3, a1)
+  const int smem = (max_atoms + 4) * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sorted_spmv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int vec = (reinterpret_cast<uintptr_t>(cols) |
+                   reinterpret_cast<uintptr_t>(vals)) % 16 == 0;
+  sorted_spmv_kernel<<<nb, kK1Threads, smem, s>>>(
       static_cast<const int*>(offsets), static_cast<const int*>(cols),
       static_cast<const float*>(vals), static_cast<const int*>(cuts),
       static_cast<const int*>(row_first), static_cast<const int*>(row_last),
       static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(seam), lanes_per_row);
+      static_cast<float*>(seam), rows, nb, lanes_per_row, vec);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_seam(static_cast<const int*>(row_first),

@@ -25,6 +25,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -52,7 +54,7 @@ BUILD_INFO = {"seconds": None, "path": None}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "loops_sorted_spmv_f32": [_P] * 9 + [_I, _I, _P],
+    "loops_sorted_spmv_f32": [_P] * 9 + [_I] * 4 + [_P],
     "loops_flat_spmv_v2_f32": [_P] * 11 + [_I, _I, _P],
     "loops_flat_spmv_f32": [_P] * 10 + [_I, _I, _I, _P],
     "loops_flat_spmm": [_P] * 11 + [_I] * 6 + [_P],
@@ -76,6 +78,14 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+# C entry point -> its ctypes function, argtypes set; filled by
+# load_library()
+_FNS: dict = {}
+# device index -> SM count (sm_count)
+_SMS: dict = {}
+# the current stream's handle without building a torch.cuda.Stream (the
+# call PyTorch's own generated launchers make); absent from CPU builds
+_CURRENT_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def reset_launches() -> None:
@@ -105,8 +115,11 @@ def _nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library."""
+    """Build (if needed) and load the kernels' shared library, and resolve
+    each C entry point of ``_SIGNATURES`` once into ``_FNS``."""
     global _lib
+    if _lib is not None:  # loaded: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -127,6 +140,7 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _FNS[name] = fn
         BUILD_INFO.update(seconds=time.perf_counter() - t0, path=so_path)
         _lib = lib
         return lib
@@ -189,22 +203,60 @@ def check(t, name: str, dtype, device, numel: int | None = None):
         raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
 
 
+def _function(fn_name: str):
+    """The ctypes function of a C entry point of ``_SIGNATURES``, loading
+    the library on first use; ``KeyError`` for any other name."""
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        load_library()
+        fn = _FNS[fn_name]
+    return fn
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream, asked anew on
+    every launch, so a launch under ``torch.cuda.stream(s)`` goes on
+    ``s``."""
+    if _CURRENT_RAW_STREAM is not None:
+        return _CURRENT_RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, asked once per
+    device."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
 def launch(fn_name: str, counter: str, device, *args) -> None:
     """Call a C entry point on ``device``'s current stream; tensors in
-    ``args`` pass as pointers, ints as C ints, floats as C floats. Raises
-    ``KeyError`` on a counter not in ``LAUNCHES`` (before launching) and
-    ``RuntimeError`` on a nonzero CUDA error code."""
-    import torch
+    ``args`` pass as pointers, ints and floats as the entry point's
+    ``_SIGNATURES`` say. Raises ``KeyError`` on a counter not in
+    ``LAUNCHES`` (before launching) and ``RuntimeError`` on a nonzero CUDA
+    error code.
 
+    The path is kept short, since at small sizes an apply costs what it
+    takes the host to launch: the function is resolved once at load,
+    tensors pass as plain ints, and the device is made current only when
+    it is not already."""
     if counter not in LAUNCHES:
         raise KeyError(f"{counter!r} is not a launch counter of _build")
-    lib = load_library()
-    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-              else ctypes.c_float(a) if isinstance(a, float)
-              else ctypes.c_int(int(a)) for a in args]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*c_args, ctypes.c_void_p(stream))
+    fn = _function(fn_name)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*c_args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*c_args, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
     LAUNCHES[counter] += 1

@@ -42,8 +42,7 @@ def saxpy_cuda(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out  # a grid of 0 blocks is not a launch
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(-(-n // (4 * BLOCK)), CTAS_PER_SM * sms)
+    blocks = min(-(-n // (4 * BLOCK)), CTAS_PER_SM * _build.sm_count(dev))
     _build.launch("loops_saxpy_f32", "saxpy", dev, float(a), x, y, out, n,
                   blocks)
     return out

@@ -8,32 +8,37 @@ host plan's block cuts and the per-row f32 sums inside each block:
 1.  **Merge-path blocks** of at most ``block_atoms`` atoms, split further
     so no block spans more than ``ROW_SPAN`` rows or crosses a
     ``STRIPE_ROWS`` row stripe — the same cuts as the reference plan.
-2.  **Per-row sums inside a block**, in f32, by a group of lanes per row
-    (``csrc/spmv.cu`` ``sorted_spmv_kernel``); the first and last row of
-    each block go through the deterministic seam pass.
+2.  **Per-row sums inside a block**, in f32 (``csrc/spmv.cu``
+    ``sorted_spmv_kernel``): the block's products ``vals * x[cols]`` go
+    to shared memory first, then a group of lanes sums each row; the
+    first and last row of each block go through the deterministic seam
+    pass.
 
 What does not cross over: the column sort and chunking, the Benes
 unpermute, the touch-loop gathers and ``bucketed=`` all exist because the
 TPU has no general gather and compiles per static shape; Hopper gathers
 ``x[col]`` natively and launches at any shape. Nor do the refusals that
 bounded VMEM or the Mosaic compile (degenerate shape, ``x_sublanes_cap``,
-``span_cap``, ``pad_cap``): the kernel's only resources are the CSR
-arrays in device memory. Whether a column sort helps L2 locality on the
-H100 is open (ROADMAP).
+``span_cap``, ``pad_cap``). The one bound kept is shared memory: a block's
+products, ``block_atoms`` floats, fit one CTA (``MAX_BLOCK_ATOMS``).
+Whether a column sort helps L2 locality on the H100 is open (ROADMAP).
 
-What bounds K1 on an H100 is bytes: it reads the CSR arrays once (value
-and column per nonzero, the offsets of each row), gathers ``x[col]``
-(from L2 while x fits there) and writes y once, with no staged copy of
-the matrix. Lanes of a row group read neighbouring nonzeros, so the
-value and column streams are coalesced.
+What bounds K1 on an H100 is the ``x[col]`` gather, one random L2 sector
+per nonzero: the kernel streams each block's values and columns as
+16-byte pieces, independent of row boundaries, with several gathers in
+flight per thread, and only then sums rows from shared memory. It writes
+every row of y (the empty rows between blocks too), so y is allocated
+with ``torch.empty``.
 
 The plan/bind split mirrors the reference's preprocess-vs-kernel
 separation (merge_path_flat.cuh:97-138): ``sorted_spmv_plan`` is pure
 host numpy and reports its cost as ``plan_ms``; ``sorted_spmv_bind``
-stages it on a device.
+stages it on a device and, on a card, checks the staged buffers once, so
+an apply checks only ``x``.
 """
 from __future__ import annotations
 
+import operator
 import time
 
 import numpy as np
@@ -46,6 +51,13 @@ LANES = 128
 ROW_WINDOW = 1024             # the reference's output row window
 ROW_SPAN = ROW_WINDOW - LANES   # max block row span, as in the reference
 STRIPE_ROWS = 32768           # no block crosses a stripe, as in the reference
+# a block's products live in one CTA's shared memory (227 KB on an H100)
+MAX_BLOCK_ATOMS = 49152
+# the block K1 builds by default: on an H100, 1024 atoms ran faster than
+# 2048 up to 16384 on both bench_32768 and big_2097152 (a smaller
+# products buffer leaves more of the SM's 256 KB to L1, which holds the
+# bench matrix's 128 KB x; scripts/k1_variants_torch.py, PERF.md section 6)
+BLOCK_ATOMS = 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -55,6 +67,10 @@ def _round_up(x: int, m: int) -> int:
 def sorted_spmv_plan(csr, *, block_atoms: int = 8192):
     """Host planning: returns ``(arrays, params)`` — pure numpy."""
     t0 = time.perf_counter()
+    if not 1 <= block_atoms <= MAX_BLOCK_ATOMS:
+        raise ValueError(f"block_atoms={block_atoms}: K1 holds a block's "
+                         f"products in shared memory, 1 to "
+                         f"{MAX_BLOCK_ATOMS} atoms")
     rows, cols_n = csr.shape
     N = int(csr.nnz)
     if N == 0:
@@ -98,31 +114,46 @@ def sorted_spmv_plan(csr, *, block_atoms: int = 8192):
     )
     params = dict(empty=False, rows=rows, cols_n=cols_n,
                   num_blocks=len(cuts) - 1, block_atoms=K, ST=ST,
-                  lanes_per_row=lanes,
+                  lanes_per_row=lanes, max_atoms=int(np.diff(cuts).max()),
                   plan_ms=(time.perf_counter() - t0) * 1e3)
     return arrays, params
 
 
-def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Launch K1 (``csrc/spmv.cu`` ``sorted_spmv_kernel`` + seam pass)."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"sorted_spmv_cuda needs a CUDA tensor, got {dev}")
+def check_staged(b: dict, params: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged buffers ``b`` are what K1
+    reads: contiguous int32/float32 tensors on ``device`` of the plan's
+    sizes."""
     nb = int(params["num_blocks"])
-    _build.check(x, "x", torch.float32, dev, int(params["cols_n"]))
-    _build.check(b["offsets"], "offsets", torch.int32, dev,
+    _build.check(b["offsets"], "offsets", torch.int32, device,
                  int(params["rows"]) + 1)
-    _build.check(b["cols"], "cols", torch.int32, dev, b["vals"].numel())
-    _build.check(b["vals"], "vals", torch.float32, dev)
-    _build.check(b["cuts"], "cuts", torch.int32, dev, nb + 1)
-    _build.check(b["row_first"], "row_first", torch.int32, dev, nb)
-    _build.check(b["row_last"], "row_last", torch.int32, dev, nb)
-    y = torch.zeros(int(params["rows"]), dtype=torch.float32, device=dev)
+    _build.check(b["cols"], "cols", torch.int32, device, b["vals"].numel())
+    _build.check(b["vals"], "vals", torch.float32, device)
+    _build.check(b["cuts"], "cuts", torch.int32, device, nb + 1)
+    _build.check(b["row_first"], "row_first", torch.int32, device, nb)
+    _build.check(b["row_last"], "row_last", torch.int32, device, nb)
+
+
+def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,
+                     staged_on=None) -> torch.Tensor:
+    """Launch K1 (``csrc/spmv.cu`` ``sorted_spmv_kernel`` + seam pass).
+    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
+    (at bind); the buffers are then not checked again, and ``x`` must lie
+    there too."""
+    if not x.is_cuda:
+        raise ValueError(f"sorted_spmv_cuda needs a CUDA tensor, got "
+                         f"{x.device}")
+    dev = x.device if staged_on is None else staged_on
+    _build.check(x, "x", torch.float32, dev, params["cols_n"])
+    if staged_on is None:
+        check_staged(b, params, dev)
+    nb = params["num_blocks"]
+    # the kernel writes every row: no fill
+    y = torch.empty(params["rows"], dtype=torch.float32, device=dev)
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_sorted_spmv_f32", "sorted_spmv", dev,
                   b["offsets"], b["cols"], b["vals"], b["cuts"],
-                  b["row_first"], b["row_last"], x, y, seam, nb,
-                  int(params["lanes_per_row"]))
+                  b["row_first"], b["row_last"], x, y, seam, params["rows"],
+                  nb, params["lanes_per_row"], params["max_atoms"])
     return y
 
 
@@ -143,11 +174,18 @@ def sorted_spmv_bind(arrays, params, device):
         bufs = {}
     else:
         bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        staged_on = bufs["vals"].device
+        if staged_on.type == "cuda":
+            check_staged(bufs, params, staged_on)
+        staged = tuple(bufs.values())
 
         def fn(b, x):
-            if x.device.type == "cpu":
+            if x.is_cpu:
                 return sorted_spmv_plain(b, x, params)
-            return sorted_spmv_cuda(b, x, params)
+            # the buffers checked at bind, none replaced since: not again
+            same = len(b) == len(staged) and all(
+                map(operator.is_, b.values(), staged))
+            return sorted_spmv_cuda(b, x, params, staged_on if same else None)
     fn.meta = dict(num_blocks=params["num_blocks"],
                    block_atoms=params.get("block_atoms"),
                    lanes_per_row=params.get("lanes_per_row"),
@@ -158,7 +196,7 @@ def sorted_spmv_bind(arrays, params, device):
     return bufs, fn
 
 
-def sorted_spmv(csr, *, block_atoms: int = 8192, device="cuda"):
+def sorted_spmv(csr, *, block_atoms: int = BLOCK_ATOMS, device="cuda"):
     """Build ``(bufs, fn)`` for CSR @ vector through K1."""
     device = ensure_platform(device)
     arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)

@@ -163,6 +163,9 @@ class SpMVOperator:
         self._bufs, self._raw = build(mat, schedule, block, impl)
         self._kernel = (self.impl_used if self.impl_used in _build.LAUNCHES
                         else None)
+        # the device as a staged tensor's reads (with its index): an x
+        # already there, of the value type and contiguous, is used as is
+        self._staged_on = torch.empty(0, device=self.device).device
         # kernel-reported plan metadata (e.g. K1's plan_ms) survives on
         # the operator
         self.meta = dict(getattr(self._raw, "meta", {}) or {})
@@ -172,6 +175,9 @@ class SpMVOperator:
         operator's device (a no-op for an already staged tensor)."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x))
+        elif (x.dtype == self._dtype and x.device == self._staged_on
+              and x.is_contiguous()):
+            return x
         return x.to(self.device, self._dtype).contiguous()
 
     def __call__(self, x):

@@ -58,7 +58,7 @@ BF16_PEAK = 989e12
 
 
 def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _build.sm_count(dev)
 
 
 def residency(rows: int, element_size: int) -> str:

@@ -69,7 +69,7 @@ DOT_C = 1024
 
 
 def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _build.sm_count(dev)
 
 
 # ------------------------------------------------------------------ dot

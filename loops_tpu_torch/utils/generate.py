@@ -200,3 +200,19 @@ SPMM_EDGE_CASES = {
     "empty_tail_512": lambda: sized_csr([2, 3, 1, 4] * 50 + [0] * 700, 30,
                                         seed=26),
 }
+
+# K1's edge cases (at blocks of 8 and 64 atoms): the merge-path ones (a
+# run of empty rows between two blocks, empty rows at the end, a row over
+# several blocks) and empty rows before the first block.
+SPMV_EDGE_CASES = {
+    **SPMM_EDGE_CASES,
+    "empty_head": lambda: sized_csr([0] * 40 + [2, 3, 1, 4] * 8 + [0] * 3, 30,
+                                    seed=27),
+}
+
+
+def ladder_csr(steps: int = 100, gap: int = 897) -> CSR:
+    """One nonzero every ``gap`` rows, ``steps`` times: a block of K1 that
+    holds several of them spans more rows than its plan's span split
+    takes apart in 64 passes, once no stripe cuts it first."""
+    return sized_csr(([1] + [0] * (gap - 1)) * steps, 30, seed=28)

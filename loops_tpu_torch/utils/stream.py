@@ -61,8 +61,7 @@ def stream_read_cuda(x: torch.Tensor, passes: int = 1) -> torch.Tensor:
     if n // 4 >= 2**31 or not 0 <= passes < 2**31:
         raise ValueError(f"{n} elements, {passes} passes: past K11's int32 "
                          "counts")
-    ctas = CTAS_PER_SM * torch.cuda.get_device_properties(
-        dev).multi_processor_count
+    ctas = CTAS_PER_SM * _build.sm_count(dev)
     out = torch.empty(ctas, dtype=torch.float32, device=dev)
     _build.launch("loops_stream_read_f32", "stream_read", dev, x, out, n // 4,
                   passes, ctas)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K4 and K5 of one checkout of ``loops_tpu_torch`` on the card, at
-the cells ``chip_smoke.py`` times them (phases 10 and 17), and print one
-JSON line.
+"""Time K1, K12, K4 and K5 of one checkout of ``loops_tpu_torch`` on the
+card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 17 and
+19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
+                                           [--cells spmv,csr]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -12,6 +13,18 @@ script on each in turns (old, new, new, old) in one command: every tree is
 timed by the same calls, the operators a user builds, so the older tree
 needs no script of its own:
 
+- K1: ``SpMVOperator(csr, "sorted_flat")`` on bench_32768 and
+  big_2097152 (``utils/profile_spmv.MATRICES``): ``apply_ms`` (CUDA events
+  over back-to-back applies), ``slope_ms`` (applies chained ``y = A y``),
+  ``device_ms`` (the card's time per apply, the applies queued behind a
+  sleep kernel) and the host share ``1 - device_ms / apply_ms``, the part
+  of an apply in which the card waits for the host (``apply_ms`` and
+  ``slope_ms`` both run at the pace of the slower side, so their ratio
+  cannot show it); K1's host microseconds per apply on a 4096^2 matrix,
+  the card held (``host_us``);
+- K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
+  by the slope of 450 back-to-back calls over 50 (``probes/common.
+  launch_ms``) and by the host clock with the card held;
 - K5: ``SDDMMOperator(csr, impl="pallas", dtype="bfloat16")`` on the JAX
   bench's 65536^2 SDDMM regime (``bench.py:414-445``) and on the
   arxiv-shaped GCN adjacency, F = 128;
@@ -21,10 +34,15 @@ needs no script of its own:
   default form), dims [128, 128, 128, 40].
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
-apply), steps with ``utils.timer.time_fn`` (median of 30). ``--library``
-adds cuSPARSE's calls (``torch.sparse.sampled_addmm`` times
-vals, ``torch.sparse.mm``), timed only. The line before the JSON is the
-card's name and power limit from ``nvidia-smi``.
+apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
+cells with this checkout's ``utils/bench.py``, loaded by path, whatever
+the tree. ``--library``
+adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
+slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
+``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
+``spmv`` (K1, K12), ``csr`` (K4, K5, the GCN step); both by default. The
+line before the JSON is the card's name and power limit from
+``nvidia-smi``.
 """
 from __future__ import annotations
 
@@ -38,13 +56,17 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# K12's per-call slope: calls at its two ends
+SAXPY_CALLS = (50, 450)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--library", action="store_true")
+    ap.add_argument("--cells", default="spmv,csr")
     args = ap.parse_args(argv)
+    cells = set(args.cells.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -53,14 +75,6 @@ def main(argv=None) -> int:
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import loops_tpu_torch
-    from loops_tpu_torch.io import ogb
-    from loops_tpu_torch.models import GCN
-    from loops_tpu_torch.models import train as T
-    from loops_tpu_torch.ops.sddmm import SDDMMOperator
-    from loops_tpu_torch.ops.spmm import SpMMOperator
-    from loops_tpu_torch.utils import generate
-    from loops_tpu_torch.utils.bench import apply_ms
-    from loops_tpu_torch.utils.timer import time_fn
 
     if not loops_tpu_torch.__file__.startswith(tree):
         raise RuntimeError(f"imported {loops_tpu_torch.__file__}, not the "
@@ -71,6 +85,90 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     res = {"tree": os.path.relpath(tree, REPO), "card": smi}
+    if "spmv" in cells:
+        res.update(spmv_cells(dev, args.library))
+    if "csr" in cells:
+        res.update(csr_cells(dev, args.library))
+    print(smi)
+    print(json.dumps(res))
+    return 0
+
+
+def _timing():
+    """This checkout's ``utils/bench.py``, loaded by path: the same timing
+    code for every tree, the older ones included."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ab_bench", os.path.join(REPO, "loops_tpu_torch", "utils", "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def spmv_cells(dev, library: bool) -> dict:
+    """K1 on bench_32768 and big_2097152, K12 on [8, 8192]."""
+    import torch
+    from loops_tpu_torch.ops.kernels import saxpy
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.probes.common import launch_ms
+    from loops_tpu_torch.utils import generate
+    from loops_tpu_torch.utils.profile_spmv import MATRICES
+
+    bench = _timing()
+    res = {}
+    for cell in ("bench_32768", "big_2097152"):
+        csr = MATRICES[cell]()
+        xd = torch.from_numpy(generate.make_input_vector(csr.shape[1])).to(
+            dev)
+        op = SpMVOperator(csr, "sorted_flat", device=dev)
+        calls = {"K1": op}
+        if library:
+            A = torch.sparse_csr_tensor(
+                *(torch.from_numpy(a).to(dev) for a in (csr.offsets,
+                                                        csr.indices,
+                                                        csr.vals)),
+                size=csr.shape)
+            calls["cuSPARSE mv"] = lambda v, A=A: torch.mv(A, v)
+        for name, fn in calls.items():
+            ap = bench.apply_ms(fn, xd)
+            card = bench.device_ms(fn, xd)
+            res[f"{name} {cell}"] = dict(
+                apply_ms=ap, slope_ms=bench.slope_ms(fn, xd), device_ms=card,
+                host_share=1 - card / ap)
+        del op, calls
+        torch.cuda.empty_cache()
+    # the host's launch path alone, with the card held (bench.host_us)
+    small = generate.random_csr(4096, 4096, 16 / 4096, seed=3)
+    op = SpMVOperator(small, "sorted_flat", device=dev)
+    xs = torch.from_numpy(generate.make_input_vector(4096)).to(dev)
+    res["K1 4096^2 host us per apply"] = bench.host_us(lambda: op(xs))
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.normal(size=(8, 8192)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    calls = {"K12 saxpy_cuda": lambda: saxpy.saxpy_cuda(2.5, x, y)}
+    if library:
+        calls["torch.add"] = lambda: torch.add(y, x, alpha=2.5)
+    for name, fn in calls.items():
+        res[f"{name} [8, 8192] us per call"] = 1e3 * launch_ms(
+            fn, dev, *SAXPY_CALLS)
+        res[f"{name} [8, 8192] host us per call"] = bench.host_us(fn)
+    return res
+
+
+def csr_cells(dev, library: bool) -> dict:
+    """K5, K4 and the GCN train step on their cells."""
+    import torch
+    from loops_tpu_torch.io import ogb
+    from loops_tpu_torch.models import GCN
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.ops.sddmm import SDDMMOperator
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.utils import generate
+    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.timer import time_fn
+
+    res = {}
     BF = "bfloat16"
 
     ds = ogb.load("ogbn-arxiv")
@@ -97,7 +195,7 @@ def main(argv=None) -> int:
         Ad, Bd = (torch.from_numpy(a).to(dev) for a in (A, B))
         op = SDDMMOperator(csr, impl="pallas", dtype=BF, device=dev)
         res[f"K5 {cell}"] = apply_ms(lambda a, op=op, Bd=Bd: op(a, Bd), Ad)
-        if args.library:
+        if library:
             S = on_card(csr, torch.float32)
             v = S.values()
             res[f"cuSPARSE sampled_addmm f32 {cell}"] = apply_ms(
@@ -116,7 +214,7 @@ def main(argv=None) -> int:
         op = SpMMOperator(adj, "merge_path", "pallas", dtype=dtype,
                           device=dev)
         res[f"K4 arxiv_gcn_{name}"] = apply_ms(op, Bd)
-        if args.library and F == 128:
+        if library and F == 128:
             S = on_card(adj, torch.float32 if dtype is None
                         else torch.bfloat16)
             Bc = Bd.to(S.dtype)
@@ -144,9 +242,7 @@ def main(argv=None) -> int:
                                           reduction=statistics.median)
         del model, step
         torch.cuda.empty_cache()
-    print(smi)
-    print(json.dumps(res))
-    return 0
+    return res
 
 
 if __name__ == "__main__":

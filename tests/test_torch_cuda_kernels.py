@@ -98,6 +98,10 @@ def test_operator_launches_kernel(cuda_device, schedule, impl, kname):
     assert op.launches == 1
     rep = reference.rigorously_validate_spmv(csr, x, y)
     assert rep.verdict == "NOT_A_BUG", rep
+    # one launch per apply, from a staged tensor too
+    y2 = op(torch.from_numpy(x).to(cuda_device))
+    assert op.launches == 2
+    assert torch.equal(y2.cpu(), torch.from_numpy(y))
 
 
 @pytest.mark.cuda
@@ -109,6 +113,18 @@ def test_wrappers_check_inputs(cuda_device):
                           device=cuda_device))
     with pytest.raises(ValueError):
         fn(b, torch.zeros(csr.shape[1] + 1, device=cuda_device))
+    with pytest.raises(ValueError):
+        fn(b, torch.zeros(2 * csr.shape[1], device=cuda_device)[::2])
+    # buffers other than the ones checked at bind are checked at the call
+    for key, bad in (("vals", b["vals"].double()), ("cols", b["cols"][:-1]),
+                     ("cuts", b["cuts"].cpu()),
+                     ("offsets", b["offsets"].repeat(2)[::2])):
+        with pytest.raises(ValueError, match=key):
+            fn({**b, key: bad}, torch.zeros(csr.shape[1], device=cuda_device))
+    # and a buffer replaced in the staged dict itself
+    b["vals"] = b["vals"].double()
+    with pytest.raises(ValueError, match="vals"):
+        fn(b, torch.zeros(csr.shape[1], device=cuda_device))
     plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=8)
     b2, fn2 = spmv_flat_v2.flat_spmv_v2(csr, plan, device=cuda_device)
     with pytest.raises(ValueError):
@@ -173,3 +189,80 @@ def test_auto_on_f64_runs_torch_and_sorted_flat_raises(cuda_device):
     for impl in ("xla", "pallas3"):
         with pytest.raises(ValueError, match="schedule='merge_path'"):
             SpMVOperator(f64, "sorted_flat", impl=impl, device=cuda_device)
+
+
+def _sorted_case(csr, block, device):
+    x = generate.make_input_vector(csr.shape[1])
+    b, fn = spmv_sorted.sorted_spmv(csr, block_atoms=block, device=device)
+    return x, torch.from_numpy(x).to(device), b, fn
+
+
+def _holds_plain(csr, x, y, b, xd, label):
+    assert not torch.isnan(y).any(), f"{label}: a row left unwritten"
+    np.testing.assert_allclose(
+        y.cpu().numpy(), spmv_sorted.sorted_spmv_plain(b, xd, None).cpu()
+        .numpy(), rtol=RTOL, atol=ATOL, err_msg=label)
+    rep = reference.rigorously_validate_spmv(csr, x, y.cpu().numpy())
+    assert rep.verdict == "NOT_A_BUG", f"{label}: {rep}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 64])
+@pytest.mark.parametrize("name", sorted(generate.SPMV_EDGE_CASES))
+def test_sorted_writes_every_row(cuda_device, name, block):
+    # y comes from torch.empty: NaN in the memory it will reuse shows a
+    # row K1 leaves unwritten (empty rows between blocks, before the first
+    # and after the last)
+    csr = generate.SPMV_EDGE_CASES[name]()
+    x, xd, b, fn = _sorted_case(csr, block, cuda_device)
+    torch.full((4 * csr.shape[0] + 1024,), float("nan"), device=cuda_device)
+    y1 = fn(b, xd)
+    y2 = fn(b, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2), f"{name}: two applies differ"
+    _holds_plain(csr, x, y1, b, xd, f"{name}/{block}")
+
+
+@pytest.mark.cuda
+def test_sorted_span_past_the_offsets_window(cuda_device, monkeypatch):
+    # no stripe cuts the ladder, so one block outruns the kernel's
+    # 1024-row window of offsets, which it then reads from device memory
+    monkeypatch.setattr(spmv_sorted, "STRIPE_ROWS", 1 << 30)
+    csr = generate.ladder_csr()
+    x, xd, b, fn = _sorted_case(csr, 8192, cuda_device)
+    assert int((b["row_last"] - b["row_first"]).max()) >= 1024
+    torch.full((4 * csr.shape[0] + 1024,), float("nan"), device=cuda_device)
+    _holds_plain(csr, x, fn(b, xd), b, xd, "ladder")
+
+
+@pytest.mark.cuda
+def test_sorted_on_a_side_stream(cuda_device):
+    # a launch under torch.cuda.stream(s) goes on s: there it waits for
+    # the product that makes its x, which the card holds back on s; on
+    # any other stream it would read x before that product is written
+    csr = generate.random_csr(3000, 2500, 0.004, seed=7)
+    x, xd, b, fn = _sorted_case(csr, 8192, cuda_device)
+    y0 = fn(b, xd)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(cuda_device)
+    s.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x2 = xd * 2.0
+        y1 = fn(b, x2)
+    s.synchronize()
+    # doubling is exact: every product and sum of y0, doubled
+    assert torch.equal(y1, y0 * 2.0)
+
+
+@pytest.mark.cuda
+def test_device_ms_sees_the_card_alone(cuda_device):
+    # on a small matrix the launch path is slower than the kernel: applies
+    # back to back wait for the host, applies queued behind a sleep do not
+    from loops_tpu_torch.utils.bench import apply_ms, device_ms
+
+    csr = generate.random_csr(2048, 2048, 4 / 2048, seed=9)
+    op = SpMVOperator(csr, "sorted_flat", device=cuda_device)
+    xd = torch.from_numpy(generate.make_input_vector(2048)).to(cuda_device)
+    card, wall = device_ms(op, xd), apply_ms(op, xd)
+    assert 0 < card < wall

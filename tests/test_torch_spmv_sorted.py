@@ -13,8 +13,11 @@ import loops_tpu.utils.generate as jgen
 import loops_tpu_torch.formats as tf
 from loops_tpu.ops.kernels.spmv_sorted import sorted_spmv_pallas
 from loops_tpu_torch.ops.kernels import spmv_sorted
+from loops_tpu_torch.utils import generate
 from test_torch_spmv_kernels import (
+    ATOL,
     BATTERY,
+    RTOL,
     _agree,
     _inputs,
     _seam_pass,
@@ -24,22 +27,40 @@ from test_torch_spmv_kernels import (
 
 
 def _emulate_sorted(a, params, x):
-    """Mirror of ``sorted_spmv_kernel``: per block, each row of
-    [row_first, row_last] summed over the block's atoms."""
+    """Mirror of ``sorted_spmv_kernel``: per block, the f32 products of its
+    atom range [cuts[b], cuts[b+1]) first (shared memory), then each row of
+    [row_first, row_last] summed by a group of ``lanes_per_row`` lanes:
+    lane l sums products lo+l, lo+l+g, ... in order, then the xor-shuffle
+    tree; interior rows go to y, the first and last to the seam buffer;
+    the empty rows after the block's last row up to the next block's
+    first (and, in block 0, those before its first) are zeroed. y starts
+    at NaN, so a row the kernel leaves unwritten shows."""
     rows, nb = params["rows"], params["num_blocks"]
-    y = np.zeros(rows, np.float32)
+    g = params["lanes_per_row"]
+    y = np.full(rows, np.nan, np.float32)
     seam = np.full(2 * nb, np.nan, np.float32)
-    off = a["offsets"]
+    off, cuts = a["offsets"], a["cuts"]
     for b in range(nb):
-        a0, a1 = a["cuts"][b], a["cuts"][b + 1]
+        a0, a1 = cuts[b], cuts[b + 1]
         rf, rl = a["row_first"][b], a["row_last"][b]
+        nxt = a["row_first"][b + 1] if b + 1 < nb else rows
+        y[rl + 1:nxt] = 0
+        if b == 0:
+            y[:rf] = 0
+        prod = a["vals"][a0:a1] * x[a["cols"][a0:a1]]
+        assert prod.dtype == np.float32
         for r in range(rf, rl + 1):
-            lo, hi = max(off[r], a0), min(off[r + 1], a1)
-            s = np.float32(np.sum(a["vals"][lo:hi] * x[a["cols"][lo:hi]],
-                                  dtype=np.float32))
-            _store(y, seam, b, r, rf, rl, s)
+            lo, hi = max(off[r], a0) - a0, min(off[r + 1], a1) - a0
+            part = np.zeros(g, np.float32)
+            for lane in range(g):
+                for i in range(lo + lane, hi, g):
+                    part[lane] = np.float32(part[lane] + prod[i])
+            o = g // 2
+            while o:
+                part = part + part[np.arange(g) ^ o]
+                o //= 2
+            _store(y, seam, b, r, rf, rl, part[0])
     return _seam_pass(a["row_first"], a["row_last"], seam, y)
-
 
 
 # -------------------------------------------------------------- K1 (sorted)
@@ -102,8 +123,61 @@ def test_sorted_empty_matrix():
     assert y.shape == (9,) and not y.any()
 
 
+@pytest.mark.parametrize("block", [8, 1024])
 @pytest.mark.parametrize("name", sorted(BATTERY))
-def test_sorted_emulated_kernel_battery(name):
+def test_sorted_emulated_kernel_battery(name, block):
     t, _, x = _inputs(name)
+    a, params = spmv_sorted.sorted_spmv_plan(t, block_atoms=block)
+    y = _emulate_sorted(a, params, x)
+    _valid(y, t, x, f"emulated/{name}")
+    tb, tfn = spmv_sorted.sorted_spmv_bind(a, params, "cpu")
+    np.testing.assert_allclose(y, tfn(tb, torch.from_numpy(x)).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("block", [8, 64])
+@pytest.mark.parametrize("name", sorted(generate.SPMV_EDGE_CASES))
+def test_sorted_emulated_kernel_edge_cases(name, block):
+    # empty rows between two blocks, before the first and after the last,
+    # and rows over several blocks: every row written once
+    t = generate.SPMV_EDGE_CASES[name]()
+    x = jgen.make_input_vector(t.shape[1])
+    a, params = spmv_sorted.sorted_spmv_plan(t, block_atoms=block)
+    covered = np.zeros(t.shape[0], bool)
+    for r0, r1 in zip(a["row_first"], a["row_last"]):
+        covered[r0:r1 + 1] = True
+    # rows outside every block's [row_first, row_last], which the kernel
+    # zeroes, in all but the cases whose blocks span their empty rows
+    assert covered.all() == (name in ("hub", "hub_512", "empty_run"))
+    y = _emulate_sorted(a, params, x)
+    assert not np.isnan(y).any()
+    _valid(y, t, x, f"emulated/{name}/{block}")
+    tb, tfn = spmv_sorted.sorted_spmv_bind(a, params, "cpu")
+    np.testing.assert_allclose(y, tfn(tb, torch.from_numpy(x)).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_sorted_span_past_the_offsets_window(monkeypatch):
+    # with no stripe to cut it, the span split's 64 passes leave a block
+    # wider than the kernel's 1024-row offsets window, which it then reads
+    # from device memory; the mirror and the plain version still agree
+    monkeypatch.setattr(spmv_sorted, "STRIPE_ROWS", 1 << 30)
+    t = generate.ladder_csr()
+    x = jgen.make_input_vector(t.shape[1])
+    a, params = spmv_sorted.sorted_spmv_plan(t)
+    assert (a["row_last"] - a["row_first"]).max() >= 1024
+    y = _emulate_sorted(a, params, x)
+    _valid(y, t, x, "emulated/ladder")
+    # a row holds at most one nonzero: its product, exactly
+    exact = np.zeros(t.shape[0], np.float32)
+    exact[t.row_ids()] = t.vals * x[t.indices]
+    np.testing.assert_array_equal(y, exact)
+
+
+def test_sorted_plan_refuses_blocks_past_shared_memory():
+    t = generate.random_csr(40, 30, 0.2, seed=2)
+    for k in (0, spmv_sorted.MAX_BLOCK_ATOMS + 1):
+        with pytest.raises(ValueError, match="shared memory"):
+            spmv_sorted.sorted_spmv_plan(t, block_atoms=k)
     a, params = spmv_sorted.sorted_spmv_plan(t, block_atoms=8)
-    _valid(_emulate_sorted(a, params, x), t, x, f"emulated/{name}")
+    assert params["max_atoms"] == int(np.diff(a["cuts"]).max()) <= 8
