@@ -95,7 +95,7 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 // sector per nonzero, from L2 (or L1 for an x that fits there). A lane
 // that walks one row at a time keeps one gather in flight and waits on
 // its latency; measured on the card, once a thread keeps four or more in
-// flight the time no longer moves with the count (K1_QUADS 1, 2, 4), so
+// flight the time no longer moves with the count (1, 2, 4 quads), so
 // what is left is the rate at which the card serves random sectors.
 // The block works in two phases that do not look at rows until the
 // second:
@@ -115,46 +115,14 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 // row of y is written and the wrapper allocates y with torch.empty.
 // The products are rounded to f32 before they are summed, as in the plain
 // version (vals * x[cols], then segment sums).
-// The tuning knobs, fixed at build time; scripts/k1_variants_torch.py
-// builds and times other settings with -D.
-#ifndef K1_QUADS
-#define K1_QUADS 2  // 16-byte quads in flight per thread
-#endif
-#ifndef K1_MIN_BLOCKS
-#define K1_MIN_BLOCKS 4  // CTAs an SM: 64 registers a thread at 4
-#endif
-#ifndef K1_X_NO_ALLOCATE
-#define K1_X_NO_ALLOCATE 0  // gather x without allocating in L1
-#endif
-#ifndef K1_STREAM_CS
-#define K1_STREAM_CS 1  // vals and cols with the cache-streaming hint
-#endif
 constexpr int kK1Threads = 256;
-constexpr int kK1Quads = K1_QUADS;
-
-__device__ __forceinline__ float load_x(const float* p) {
-#if K1_X_NO_ALLOCATE
-  float v;
-  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-#else
-  return __ldg(p);
-#endif
-}
-
-template <typename T>
-__device__ __forceinline__ T load_stream(const T* p) {
-#if K1_STREAM_CS
-  return __ldcs(p);
-#else
-  return __ldg(p);
-#endif
-}
+constexpr int kK1Quads = 2;      // 16-byte quads in flight per thread
+constexpr int kK1MinBlocks = 4;  // CTAs an SM: 64 registers a thread
 // row offsets of a block held in shared memory; a block whose span is
 // wider (the host's span split gave up) reads them from device memory
 constexpr int kK1RowWindow = 1024;
 
-__global__ void __launch_bounds__(kK1Threads, K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
 sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols,
                    const float* __restrict__ vals, const int* __restrict__ cuts,
                    const int* __restrict__ row_first,
@@ -200,16 +168,16 @@ sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols
       for (int u = 0; u < kK1Quads; ++u) {
         const int qu = q + u * kK1Threads;
         if (qu < q1) {
-          c[u] = load_stream(c4 + qu);
-          v[u] = load_stream(v4 + qu);
+          c[u] = __ldcs(c4 + qu);
+          v[u] = __ldcs(v4 + qu);
         }
       }
       float4 xv[kK1Quads];
 #pragma unroll
       for (int u = 0; u < kK1Quads; ++u) {
         if (q + u * kK1Threads < q1) {
-          xv[u] = make_float4(load_x(x + c[u].x), load_x(x + c[u].y),
-                              load_x(x + c[u].z), load_x(x + c[u].w));
+          xv[u] = make_float4(__ldg(x + c[u].x), __ldg(x + c[u].y),
+                              __ldg(x + c[u].z), __ldg(x + c[u].w));
         }
       }
 #pragma unroll
@@ -225,11 +193,11 @@ sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols
   }
   for (int i = a0 + tid; i < head_end; i += kK1Threads) {
     prod[i - base] =
-        __fmul_rn(load_stream(vals + i), load_x(x + load_stream(cols + i)));
+        __fmul_rn(__ldcs(vals + i), __ldg(x + __ldcs(cols + i)));
   }
   for (int i = tail_begin + tid; i < a1; i += kK1Threads) {
     prod[i - base] =
-        __fmul_rn(load_stream(vals + i), load_x(x + load_stream(cols + i)));
+        __fmul_rn(__ldcs(vals + i), __ldg(x + __ldcs(cols + i)));
   }
   __syncthreads();
 

@@ -56,7 +56,7 @@ MAX_BLOCK_ATOMS = 49152
 # the block K1 builds by default: on an H100, 1024 atoms ran faster than
 # 2048 up to 16384 on both bench_32768 and big_2097152 (a smaller
 # products buffer leaves more of the SM's 256 KB to L1, which holds the
-# bench matrix's 128 KB x; scripts/k1_variants_torch.py, PERF.md section 6)
+# bench matrix's 128 KB x; PERF.md section 6)
 BLOCK_ATOMS = 1024
 
 
@@ -64,7 +64,7 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def sorted_spmv_plan(csr, *, block_atoms: int = 8192):
+def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
     """Host planning: returns ``(arrays, params)`` — pure numpy."""
     t0 = time.perf_counter()
     if not 1 <= block_atoms <= MAX_BLOCK_ATOMS:
@@ -133,12 +133,30 @@ def check_staged(b: dict, params: dict, device) -> None:
     _build.check(b["row_last"], "row_last", torch.int32, device, nb)
 
 
+def staged_fingerprint(b: dict) -> tuple:
+    """What ``check_staged`` reads of each buffer and an in-place change
+    (``resize_``, ``set_``, ``as_strided_``) can alter: its address, its
+    size, its type and whether it is contiguous."""
+    return tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
+                 for t in b.values())
+
+
+def staged_unchanged(b: dict, staged: tuple, fingerprint: tuple) -> bool:
+    """Whether ``b`` holds the very tensors ``staged``, none changed in
+    place since ``fingerprint`` was taken of them."""
+    return (len(b) == len(staged)
+            and all(map(operator.is_, b.values(), staged))
+            and staged_fingerprint(b) == fingerprint)
+
+
 def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,
-                     staged_on=None) -> torch.Tensor:
+                     staged_on=None, out=None) -> torch.Tensor:
     """Launch K1 (``csrc/spmv.cu`` ``sorted_spmv_kernel`` + seam pass).
     ``staged_on``: the device on which ``check_staged`` has accepted ``b``
     (at bind); the buffers are then not checked again, and ``x`` must lie
-    there too."""
+    there too. ``out``: a float32 tensor of ``rows`` to write y into
+    instead of a new ``torch.empty`` (the kernel writes every row, which a
+    NaN-filled ``out`` shows)."""
     if not x.is_cuda:
         raise ValueError(f"sorted_spmv_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -147,8 +165,12 @@ def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,
     if staged_on is None:
         check_staged(b, params, dev)
     nb = params["num_blocks"]
-    # the kernel writes every row: no fill
-    y = torch.empty(params["rows"], dtype=torch.float32, device=dev)
+    if out is None:
+        # the kernel writes every row: no fill
+        y = torch.empty(params["rows"], dtype=torch.float32, device=dev)
+    else:
+        _build.check(out, "out", torch.float32, dev, params["rows"])
+        y = out
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_sorted_spmv_f32", "sorted_spmv", dev,
                   b["offsets"], b["cols"], b["vals"], b["cuts"],
@@ -178,14 +200,18 @@ def sorted_spmv_bind(arrays, params, device):
         if staged_on.type == "cuda":
             check_staged(bufs, params, staged_on)
         staged = tuple(bufs.values())
+        fingerprint = staged_fingerprint(bufs)
 
         def fn(b, x):
             if x.is_cpu:
                 return sorted_spmv_plain(b, x, params)
-            # the buffers checked at bind, none replaced since: not again
-            same = len(b) == len(staged) and all(
-                map(operator.is_, b.values(), staged))
+            # the buffers checked at bind, none replaced or changed in
+            # place since: not again
+            same = staged_unchanged(b, staged, fingerprint)
             return sorted_spmv_cuda(b, x, params, staged_on if same else None)
+    # the plan's parameters, for a caller of sorted_spmv_cuda on these
+    # buffers
+    fn.params = params
     fn.meta = dict(num_blocks=params["num_blocks"],
                    block_atoms=params.get("block_atoms"),
                    lanes_per_row=params.get("lanes_per_row"),

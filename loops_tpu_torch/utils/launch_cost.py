@@ -7,18 +7,18 @@ time (K12 on [8, 8192]; K1 on the 32768^2 bench matrix). This module takes
 that path apart: each part is timed alone by the host clock over ``calls``
 calls in a row (``utils/bench.host_us``: the median of ``repeats`` runs,
 each queued behind a sleep kernel so that the card never holds the host
-back), less the cost of an empty call. The parts are the operations the wrappers run, as
-primitives, so the same list times the path before and after a change:
+back), less the cost of an empty call. The parts are the operations the
+wrappers run now:
 
-* ``SpMVOperator.__call__``: ``stage(x)`` and the launch-counter
-  bookkeeping;
-* K1's wrapper: its input checks, ``torch.zeros``/``torch.empty``;
-* ``_build.launch``: the counter lookup, ``load_library()`` (a lock),
-  the per-call ctypes objects, ``torch.cuda.current_stream``, the
-  ``torch.cuda.device`` context, ``getattr`` on the library, the C call
-  itself, and the cheaper forms that replace them (a function resolved
-  once, plain ints, the raw stream, ``current_device()``);
-* K12: ``torch.cuda.get_device_properties`` and ``ensure_platform``.
+* ``SpMVOperator.__call__``: ``stage(x)`` of a staged ``x`` and the
+  launch-counter bookkeeping;
+* K1's wrapper: the test that its buffers are those checked at bind, the
+  check of ``x``, the ``torch.empty`` of y and of the seam buffer;
+* ``_build.launch``: the counter lookup, the function resolved at load,
+  the arguments as plain ints, ``current_device()``, the raw stream query
+  and the C call itself;
+* K12: its checks, ``torch.empty_like``, the cached SM count, its C call
+  and, in ``saxpy()``, ``ensure_platform``.
 
 The whole calls (``op(x)``, ``saxpy_cuda``, ``saxpy``, ``torch.add``) are
 timed the same way beside the parts. Needs an NVIDIA card.
@@ -26,7 +26,6 @@ timed the same way beside the parts. Needs an NVIDIA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
@@ -35,12 +34,6 @@ from loops_tpu_torch.ops.kernels import _build, saxpy, spmv_sorted
 from loops_tpu_torch.utils import generate
 from loops_tpu_torch.utils.bench import host_us
 from loops_tpu_torch.utils.platform import ensure_platform
-
-
-def _k1_args(b, x, y, seam, params):
-    return [b["offsets"], b["cols"], b["vals"], b["cuts"], b["row_first"],
-            b["row_last"], x, y, seam, params["rows"], params["num_blocks"],
-            params["lanes_per_row"], params["max_atoms"]]
 
 
 def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
@@ -53,46 +46,29 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
         device = torch.device(device.type, torch.cuda.current_device())
     csr = generate.random_csr(4096, 4096, 16 / 4096, seed=3)
     op = SpMVOperator(csr, "sorted_flat", device=device)
-    b = op._bufs
+    b, params = op._bufs, op._raw.params
     xd = torch.from_numpy(generate.make_input_vector(csr.shape[1])).to(device)
-    arrays, params = spmv_sorted.sorted_spmv_plan(
-        csr, block_atoms=spmv_sorted.BLOCK_ATOMS)
-    nb, rows = int(params["num_blocks"]), int(params["rows"])
+    nb, rows = params["num_blocks"], params["rows"]
     y = torch.empty(rows, device=device)
     seam = torch.empty(2 * nb, device=device)
-    lib = _build.load_library()
     k1_name = "loops_sorted_spmv_f32"
-    k1_fn = getattr(lib, k1_name)
-    k1_args = _k1_args(b, xd, y, seam, params)
-    k1_c = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else ctypes.c_int(a) for a in k1_args]
+    k1_fn = _build._function(k1_name)
+    k1_args = [b["offsets"], b["cols"], b["vals"], b["cuts"], b["row_first"],
+               b["row_last"], xd, y, seam, rows, nb, params["lanes_per_row"],
+               params["max_atoms"]]
     k1_ints = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in k1_args]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    idx = device.index
+    stream = _build._raw_stream(idx)
+    staged = tuple(b.values())
+    fingerprint = spmv_sorted.staged_fingerprint(b)
     sx, sy = (torch.randn(8, 8192, device=device) for _ in range(2))
     sout = torch.empty_like(sx)
-    sax_fn = lib.loops_saxpy_f32
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sax_fn = _build._function("loops_saxpy_f32")
     sax_blocks = min(-(-sx.numel() // (4 * saxpy.BLOCK)),
-                     saxpy.CTAS_PER_SM * sms)
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    f32, i32 = torch.float32, torch.int32
+                     saxpy.CTAS_PER_SM * _build.sm_count(device))
+    f32 = torch.float32
     counter = {"n": 0}
-
-    def seven_checks():
-        _build.check(xd, "x", f32, device, csr.shape[1])
-        _build.check(b["offsets"], "offsets", i32, device, rows + 1)
-        _build.check(b["cols"], "cols", i32, device, b["vals"].numel())
-        _build.check(b["vals"], "vals", f32, device)
-        _build.check(b["cuts"], "cuts", i32, device, nb + 1)
-        _build.check(b["row_first"], "row_first", i32, device, nb)
-        _build.check(b["row_last"], "row_last", i32, device, nb)
-
-    def context():
-        with torch.cuda.device(device):
-            pass
 
     def bookkeeping():
         before = _build.LAUNCHES["sorted_spmv"]
@@ -105,52 +81,38 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
             raise AssertionError
 
     parts = {
-        "SpMVOperator.stage(x)": lambda: op.stage(xd),
-        "x.to(device, dtype).contiguous()":
-            lambda: xd.to(device, f32).contiguous(),
+        "SpMVOperator.stage(x), x staged": lambda: op.stage(xd),
         "SpMVOperator counter bookkeeping": bookkeeping,
-        "x.device.type test": lambda: xd.device.type == "cpu",
-        "K1 seven checks (_build.check)": seven_checks,
-        "one check (x)": lambda: _build.check(xd, "x", f32, device,
-                                              csr.shape[1]),
-        "torch.zeros(rows)": lambda: torch.zeros(rows, device=device),
-        "torch.empty(rows)": lambda: torch.empty(rows, device=device),
+        "K1 staged buffers unchanged (identity, fingerprint)":
+            lambda: spmv_sorted.staged_unchanged(b, staged, fingerprint),
+        "K1 check of x": lambda: _build.check(xd, "x", f32, device,
+                                              params["cols_n"]),
+        "K1 torch.empty(rows) (y)": lambda: torch.empty(rows, device=device),
+        "K1 torch.empty(2 nb) (seam)":
+            lambda: torch.empty(2 * nb, device=device),
         "launch: counter lookup": lambda: "sorted_spmv" in _build.LAUNCHES,
-        "launch: load_library() (lock)": _build.load_library,
-        "launch: ctypes argument objects (K1)": lambda: [
-            ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else ctypes.c_float(a) if isinstance(a, float)
-            else ctypes.c_int(int(a)) for a in k1_args],
+        "launch: _build._function (resolved at load)":
+            lambda: _build._function(k1_name),
         "launch: plain int arguments (K1)": lambda: [
             a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in k1_args],
-        "launch: current_stream(device).cuda_stream":
-            lambda: torch.cuda.current_stream(device).cuda_stream,
-        "launch: raw stream query": (lambda: raw(idx)) if raw else None,
-        "launch: torch.cuda.device(device) context": context,
         "launch: torch.cuda.current_device()": torch.cuda.current_device,
-        "launch: _build._function (resolved at load)":
-            lambda: _build._function(k1_name),
-        "K12 _build.sm_count (cached)": lambda: _build.sm_count(device),
-        "launch: getattr(lib, name)": lambda: getattr(lib, k1_name),
-        "launch: C call, K1 (kernel + seam pass), ctypes objects":
-            lambda: k1_fn(*k1_c, ctypes.c_void_p(stream)),
-        "launch: C call, K1 (kernel + seam pass), plain ints":
+        "launch: raw stream query": lambda: _build._raw_stream(idx),
+        "launch: C call, K1 (kernel + seam pass)":
             lambda: k1_fn(*k1_ints, stream),
+        "K12 two checks and the shape": saxpy_checks,
+        "K12 torch.empty_like (out)": lambda: torch.empty_like(sx),
+        "K12 _build.sm_count (cached)": lambda: _build.sm_count(device),
         "launch: C call, K12": lambda: sax_fn(2.5, sx.data_ptr(),
                                               sy.data_ptr(),
                                               sout.data_ptr(), sx.numel(),
                                               sax_blocks, stream),
-        "K12 get_device_properties":
-            lambda: torch.cuda.get_device_properties(device)
-            .multi_processor_count,
-        "K12 ensure_platform('cuda')": lambda: ensure_platform("cuda"),
-        "K12 two checks and the shape": saxpy_checks,
-        "torch.empty_like (K12 out)": lambda: torch.empty_like(sx),
+        "K12 saxpy(): ensure_platform('cuda')":
+            lambda: ensure_platform("cuda"),
     }
     whole = {
         "K1 apply, SpMVOperator op(x)": lambda: op(xd),
-        "K1 wrapper sorted_spmv_cuda": lambda: op._raw(b, xd),
+        "K1 wrapper through the bound function": lambda: op._raw(b, xd),
         "K12 saxpy_cuda": lambda: saxpy.saxpy_cuda(2.5, sx, sy),
         "K12 saxpy(..., device)": lambda: saxpy.saxpy(2.5, sx, sy, device),
         "torch.add(y, x, alpha=2.5)": lambda: torch.add(sy, sx, alpha=2.5),
@@ -159,9 +121,7 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
     res = {"empty_us": empty, "parts": {}, "calls": {}}
     for key, group in (("parts", parts), ("calls", whole)):
         for label, fn in group.items():
-            if fn is not None:
-                res[key][label] = max(0.0, host_us(fn, calls, repeats)
-                                      - empty)
+            res[key][label] = max(0.0, host_us(fn, calls, repeats) - empty)
     torch.cuda.synchronize(device)
     return res
 

@@ -135,6 +135,21 @@ def test_wrappers_check_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("change", ["resize", "set"])
+def test_sorted_buffers_changed_in_place_raise(cuda_device, change):
+    # a staged buffer changed in place keeps its identity: K1 sees the
+    # change and checks its buffers again rather than read past them
+    csr = BATTERY["random"]()
+    b, fn = spmv_sorted.sorted_spmv(csr, device=cuda_device)
+    if change == "resize":
+        b["cols"].resize_(0)
+    else:
+        b["vals"].set_(torch.zeros(3, device=cuda_device))
+    with pytest.raises(ValueError, match="cols"):
+        fn(b, torch.zeros(csr.shape[1], device=cuda_device))
+
+
+@pytest.mark.cuda
 def test_flat_window_past_default_shared_memory(cuda_device):
     # a 40064-float row window (157 KB) needs K3's opt-in past 48 KB
     csr = generate.wide_span_csr(40_000)
@@ -197,6 +212,14 @@ def _sorted_case(csr, block, device):
     return x, torch.from_numpy(x).to(device), b, fn
 
 
+def _into_nan(b, xd, fn):
+    """K1 into a y filled with NaN: a row it leaves unwritten shows."""
+    out = torch.full((fn.params["rows"],), float("nan"), device=xd.device)
+    y = spmv_sorted.sorted_spmv_cuda(b, xd, fn.params, out=out)
+    assert y.data_ptr() == out.data_ptr()
+    return y
+
+
 def _holds_plain(csr, x, y, b, xd, label):
     assert not torch.isnan(y).any(), f"{label}: a row left unwritten"
     np.testing.assert_allclose(
@@ -210,17 +233,18 @@ def _holds_plain(csr, x, y, b, xd, label):
 @pytest.mark.parametrize("block", [8, 64])
 @pytest.mark.parametrize("name", sorted(generate.SPMV_EDGE_CASES))
 def test_sorted_writes_every_row(cuda_device, name, block):
-    # y comes from torch.empty: NaN in the memory it will reuse shows a
-    # row K1 leaves unwritten (empty rows between blocks, before the first
-    # and after the last)
+    # y comes from torch.empty: K1 run into NaN-filled memory shows a row
+    # it leaves unwritten (empty rows between blocks, before the first and
+    # after the last)
     csr = generate.SPMV_EDGE_CASES[name]()
     x, xd, b, fn = _sorted_case(csr, block, cuda_device)
-    torch.full((4 * csr.shape[0] + 1024,), float("nan"), device=cuda_device)
     y1 = fn(b, xd)
     y2 = fn(b, xd)
+    y3 = _into_nan(b, xd, fn)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2), f"{name}: two applies differ"
-    _holds_plain(csr, x, y1, b, xd, f"{name}/{block}")
+    assert torch.equal(y1, y3), f"{name}: the apply into NaN differs"
+    _holds_plain(csr, x, y3, b, xd, f"{name}/{block}")
 
 
 @pytest.mark.cuda
@@ -231,8 +255,7 @@ def test_sorted_span_past_the_offsets_window(cuda_device, monkeypatch):
     csr = generate.ladder_csr()
     x, xd, b, fn = _sorted_case(csr, 8192, cuda_device)
     assert int((b["row_last"] - b["row_first"]).max()) >= 1024
-    torch.full((4 * csr.shape[0] + 1024,), float("nan"), device=cuda_device)
-    _holds_plain(csr, x, fn(b, xd), b, xd, "ladder")
+    _holds_plain(csr, x, _into_nan(b, xd, fn), b, xd, "ladder")
 
 
 @pytest.mark.cuda

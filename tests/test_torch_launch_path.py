@@ -187,6 +187,30 @@ def test_k1_wrapper_refuses_a_cpu_tensor_before_any_check():
         spmv_sorted.sorted_spmv_cuda({}, torch.zeros(4), {})
 
 
+@pytest.mark.parametrize("change", ["none", "resize", "set", "as_strided",
+                                    "replaced", "dropped"])
+def test_k1_sees_staged_buffers_changed(change):
+    # K1 skips its buffer checks only for the tensors it checked at bind,
+    # none of them changed in place since
+    csr = generate.random_csr(30, 20, 0.2, seed=4)
+    b, fn = spmv_sorted.sorted_spmv(csr, block_atoms=8, device=CPU)
+    assert fn.params["rows"] == 30 and fn.params["cols_n"] == 20
+    staged = tuple(b.values())
+    fingerprint = spmv_sorted.staged_fingerprint(b)
+    if change == "resize":
+        b["cols"].resize_(0)
+    elif change == "set":
+        b["vals"].set_(torch.zeros(3))
+    elif change == "as_strided":
+        b["offsets"].as_strided_((8,), (2,))
+    elif change == "replaced":
+        b["cuts"] = b["cuts"].clone()
+    elif change == "dropped":
+        del b["row_last"]
+    assert spmv_sorted.staged_unchanged(b, staged, fingerprint) == (
+        change == "none")
+
+
 def test_operator_stages_x_once():
     csr = generate.random_csr(30, 20, 0.2, seed=4)
     op = SpMVOperator(csr, "sorted_flat", device=CPU)

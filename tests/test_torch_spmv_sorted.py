@@ -164,7 +164,7 @@ def test_sorted_span_past_the_offsets_window(monkeypatch):
     monkeypatch.setattr(spmv_sorted, "STRIPE_ROWS", 1 << 30)
     t = generate.ladder_csr()
     x = jgen.make_input_vector(t.shape[1])
-    a, params = spmv_sorted.sorted_spmv_plan(t)
+    a, params = spmv_sorted.sorted_spmv_plan(t, block_atoms=8192)
     assert (a["row_last"] - a["row_first"]).max() >= 1024
     y = _emulate_sorted(a, params, x)
     _valid(y, t, x, "emulated/ladder")
