@@ -12,12 +12,12 @@ Phases, one line each with its time:
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
-   matrix (32768^2, ~4.39M nnz), for K1 on ``generate.SPMV_EDGE_CASES``
-   (empty rows between blocks, before the first, after the last; blocks 8
-   and 64) and, for K3, on a 157 KB row window (past the default 48 KB of
-   shared memory): agreement, the Wilkinson verdict, two runs bitwise
-   equal, the launch counter, and K1 once more into a y filled with NaN
-   (it writes every row of a ``torch.empty`` y);
+   matrix (32768^2, ~4.39M nnz), on ``generate.SPMV_EDGE_CASES`` (empty
+   rows between blocks, before the first, after the last; blocks 8 and
+   64) and, for K2 and K3, on one work_oriented block over a 40064-row
+   window: agreement, the Wilkinson verdict, two runs bitwise equal, the
+   launch counter, and each kernel once more into a y filled with NaN
+   (each writes every row of a ``torch.empty`` y);
 4. main path: ``examples/spmv_torch.py`` on ``datasets/chesapeake.mtx`` with
    ``--validate --rigorous`` for every schedule and kernel impl;
 5. at scale: ``SpMVOperator`` with each kernel on the bench matrix and on
@@ -26,7 +26,7 @@ Phases, one line each with its time:
    launched on the main path;
 6. timing: per apply, the median of CUDA-event timings, of each kernel, its
    plain version and cuSPARSE's CSR SpMV (the paper's opponent, timed only),
-   with the host plan time; K1's time on the card alone
+   with the host plan time; each kernel's time on the card alone
    (``utils/bench.device_ms``: the applies queued behind a sleep kernel)
    and its host share ``1 - device / apply``; and the host launch path
    taken apart (``utils/launch_cost.py``: host microseconds per call of
@@ -323,13 +323,15 @@ def kernel_vs_plain(kname, csr, x, block, device, schedule="merge_path"):
     require(_build.LAUNCHES[kname] == before + 2,
             f"{kname}: launch counter did not go up by 2")
     require(torch.equal(y1, y2), f"{kname}: two runs are not bitwise equal")
-    if kname == "sorted_spmv":
-        # K1 allocates y with torch.empty: run into NaN-filled memory, a
-        # row it leaves unwritten shows (NaN never compares equal)
-        nan = torch.full((csr.shape[0],), float("nan"), device=device)
-        y3 = spmv_sorted.sorted_spmv_cuda(b, xd, fn.params, out=nan)
-        require(y3.data_ptr() == nan.data_ptr() and torch.equal(y1, y3),
-                f"{kname}: the apply into NaN-filled memory differs")
+    # the kernels allocate y with torch.empty: run into NaN-filled
+    # memory, a row one leaves unwritten shows (NaN never compares equal)
+    into = {"sorted_spmv": spmv_sorted.sorted_spmv_cuda,
+            "flat_spmv_v2": spmv_flat_v2.flat_spmv_v2_cuda,
+            "flat_spmv": spmv_flat.flat_spmv_cuda}[kname]
+    nan = torch.full((csr.shape[0],), float("nan"), device=device)
+    y3 = into(b, xd, fn.params, out=nan)
+    require(y3.data_ptr() == nan.data_ptr() and torch.equal(y1, y3),
+            f"{kname}: the apply into NaN-filled memory differs")
     y = y1.cpu().numpy()
     yp = plain(xd).cpu().numpy()
     diff = np.abs(y.astype(np.float64) - yp)
@@ -1410,20 +1412,23 @@ def main() -> int:
                              kernel_vs_plain(kname, bench, x_bench, None,
                                              device))
         n_cases += 1
-    # K1 writes every row itself: empty rows between blocks, before the
-    # first and after the last
+    # each kernel writes every row itself: empty rows between blocks,
+    # before the first and after the last
     for make in generate.SPMV_EDGE_CASES.values():
         csr = make()
         for block in (8, 64):
-            max_err["sorted_spmv"] = max(max_err["sorted_spmv"], kernel_vs_plain(
-                "sorted_spmv", csr, generate.make_input_vector(csr.shape[1]),
-                block, device))
-            n_cases += 1
+            for kname in KERNELS:
+                max_err[kname] = max(max_err[kname], kernel_vs_plain(
+                    kname, csr, generate.make_input_vector(csr.shape[1]),
+                    block, device))
+                n_cases += 1
+    # one work_oriented block over 40000 rows, two of them with atoms
     wide = generate.wide_span_csr(40_000)
-    max_err["flat_spmv"] = max(max_err["flat_spmv"], kernel_vs_plain(
-        "flat_spmv", wide, generate.make_input_vector(wide.shape[1]), 8,
-        device, schedule="work_oriented"))
-    n_cases += 1
+    for kname in ("flat_spmv_v2", "flat_spmv"):
+        max_err[kname] = max(max_err[kname], kernel_vs_plain(
+            kname, wide, generate.make_input_vector(wide.shape[1]), 8,
+            device, schedule="work_oriented"))
+        n_cases += 1
     phase(3, "kernels vs plain", t0,
           f"{n_cases} cases, max |kernel - plain| "
           + ", ".join(f"{k} {v:.3e}" for k, v in max_err.items()) + " ")
@@ -1527,14 +1532,16 @@ def main() -> int:
             print(f"  {mname} {kname}: kernel {k1:.4f}/{k2:.4f} ms, plain "
                   f"{p1:.4f}/{p2:.4f} ms, cuSPARSE {cusparse_ms:.4f} ms, "
                   f"host plan {op.meta['plan_ms']:.1f} ms  [{smi}]")
-        # K1's host share: the card's own time per apply (the applies
-        # queued behind a sleep kernel) against back-to-back applies
-        op = ops[mname, "sorted_spmv"]
-        k1_apply = apply_ms(op, xd)
-        k1_card = device_ms(op, xd)
-        print(f"  {mname} sorted_spmv: apply {k1_apply:.4f} ms, card "
-              f"{k1_card:.4f} ms, host share "
-              f"{1 - k1_card / k1_apply:.3f}  [{smi}]")
+        # each kernel's host share: the card's own time per apply (the
+        # applies queued behind a sleep kernel) against back-to-back
+        # applies
+        for kname in KERNELS:
+            op = ops[mname, kname]
+            k_apply = apply_ms(op, xd)
+            k_card = device_ms(op, xd)
+            print(f"  {mname} {kname}: apply {k_apply:.4f} ms, card "
+                  f"{k_card:.4f} ms, host share "
+                  f"{1 - k_card / k_apply:.3f}  [{smi}]")
         del A
     parts = launch_cost.launch_path_parts(device)
     print(f"  launch path, host us per call (less {parts['empty_us']:.3f} "

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -55,8 +56,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "loops_sorted_spmv_f32": [_P] * 9 + [_I] * 4 + [_P],
-    "loops_flat_spmv_v2_f32": [_P] * 11 + [_I, _I, _P],
-    "loops_flat_spmv_f32": [_P] * 10 + [_I, _I, _I, _P],
+    "loops_flat_spmv_v2_f32": [_P] * 11 + [_I] * 3 + [_P],
+    "loops_flat_spmv_f32": [_P] * 10 + [_I] * 5 + [_P],
     "loops_flat_spmm": [_P] * 11 + [_I] * 6 + [_P],
     "loops_bcsr_spmv_f32": [_P] * 5 + [_I] * 4 + [_P],
     "loops_bcsr_spmm_f32": [_P] * 5 + [_I] * 7 + [_P],
@@ -201,6 +202,24 @@ def check(t, name: str, dtype, device, numel: int | None = None):
         raise ValueError(f"{name} must be contiguous")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
+
+
+def staged_fingerprint(b: dict) -> tuple:
+    """What a wrapper's check of its staged buffers reads of each one and
+    an in-place change (``resize_``, ``set_``, ``as_strided_``) can
+    alter: its address, its size, its type and whether it is
+    contiguous."""
+    return tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
+                 for t in b.values())
+
+
+def staged_unchanged(b: dict, staged: tuple, fingerprint: tuple) -> bool:
+    """Whether ``b`` holds the very tensors ``staged``, none changed in
+    place since ``fingerprint`` was taken of them: a kernel whose buffers
+    were checked at bind need not check them again."""
+    return (len(b) == len(staged)
+            and all(map(operator.is_, b.values(), staged))
+            and staged_fingerprint(b) == fingerprint)
 
 
 def _function(fn_name: str):

@@ -5,22 +5,26 @@ Replaces ``loops_tpu/ops/kernels/spmv_flat.py`` (``flat_spmv_pallas``),
 which reduced each block with one [K, R] one-hot matmul into the
 128-aligned output window ``y[s0*128 : s0*128 + R]``. The CUDA kernel
 (``csrc/spmv.cu`` ``flat_spmv_kernel``) keeps the same staging (``rel``
-relative to the aligned base ``s0*128``) but holds the window in shared
-memory: each row run is summed in CSR order by the one thread that owns
-it, then the window goes to y, the block's first and last row through
-the seam pass.
+relative to the aligned base ``s0*128``) and sums each row run of a block
+on its own: interior rows go to ``y[s0*128 + rel]``, the block's first
+and last row through the seam pass.
 
-``R <= MAX_WINDOW`` stays as the shared-memory bound of that window:
-58112 floats, the 227 KB of dynamic shared memory an H100 block may opt
-into (the TPU kernel's bound was 4096 rows). Merge-path plans stay far
-below it (span <= block + 128); only a work_oriented plan over long runs
-of empty rows reaches it.
+``R <= MAX_WINDOW`` bounds the plans K3 takes: 58112 floats, the window
+one H100 block's 227 KB of shared memory holds (the TPU kernel's bound
+was 4096 rows). Merge-path plans stay far below it (span <= block +
+128); only a work_oriented plan over long runs of empty rows reaches it.
 
-What bounds K3 on an H100: bytes, as for K2 (value, column and relative
-row per staged slot, the ``x[col]`` gather), and, on matrices with long
-rows, latency: one thread walks each row run, so a block of few long
-rows keeps few of its threads busy. That is the design the TPU kernel's
-contract allows without shared-memory atomics; K2 is the parallel one.
+What bounds K3 on an H100 is what bounds K1: the ``x[col]`` gather, one
+random L2 sector per nonzero. On top of K1's bytes it streams the
+relative row (4 B) of every staged slot. The kernel works as K1 does, in
+two phases over pieces of at most ``PIECE`` slots: the products
+``vals * x[cols]`` (rounded to f32) and ``rel`` are streamed into shared
+memory as 16-byte quads with 8 gathers in flight per thread, then a
+group of ``lanes_per_row`` lanes sums each run from there in a fixed
+order, the piece's last run carried into the next piece. Each block
+writes the rows no run of it writes and no other block owns (its empty
+rows, the gap up to the next block with atoms), so y is a
+``torch.empty``; the staged buffers are checked once, at bind.
 """
 from __future__ import annotations
 
@@ -33,36 +37,55 @@ from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
 MAX_WINDOW = 227 * 1024 // 4  # floats: an H100 block's opt-in shared memory
+# the slots a block of the kernel takes at a time (csrc/spmv.cu kK3Piece)
+PIECE = 1024
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def flat_spmv_cuda(b: dict, x: torch.Tensor, shape, R: int
-                   ) -> torch.Tensor:
-    """Launch K3 (``csrc/spmv.cu`` ``flat_spmv_kernel`` + seam pass)."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"flat_spmv_cuda needs a CUDA tensor, got {dev}")
-    if R > MAX_WINDOW:
-        raise ValueError(f"row window {R} exceeds the {MAX_WINDOW}-float "
-                         "shared-memory row window")
-    rows, cols_n = shape
-    nb, K = b["vals"].shape
-    _build.check(x, "x", torch.float32, dev, cols_n)
-    _build.check(b["vals"], "vals", torch.float32, dev)
-    _build.check(b["cols"], "cols", torch.int32, dev, nb * K)
-    _build.check(b["rel"], "rel", torch.int32, dev, nb * K)
-    _build.check(b["s0"], "s0", torch.int32, dev, nb)
-    _build.check(b["atom_starts"], "atom_starts", torch.int32, dev, nb + 1)
+def check_staged(b: dict, params: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged buffers ``b`` are what K3
+    reads: contiguous int32/float32 tensors on ``device`` of the plan's
+    sizes."""
+    nb, K = params["num_blocks"], params["K"]
+    _build.check(b["vals"], "vals", torch.float32, device, nb * K)
+    _build.check(b["cols"], "cols", torch.int32, device, nb * K)
+    _build.check(b["rel"], "rel", torch.int32, device, nb * K)
+    _build.check(b["s0"], "s0", torch.int32, device, nb)
+    _build.check(b["atom_starts"], "atom_starts", torch.int32, device,
+                 nb + 1)
     for name in ("row_first", "row_last"):
-        _build.check(b[name], name, torch.int32, dev, nb)
-    y = torch.zeros(rows, dtype=torch.float32, device=dev)
+        _build.check(b[name], name, torch.int32, device, nb)
+
+
+def flat_spmv_cuda(b: dict, x: torch.Tensor, params: dict, staged_on=None,
+                   out=None) -> torch.Tensor:
+    """Launch K3 (``csrc/spmv.cu`` ``flat_spmv_kernel`` + seam pass).
+    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
+    (at bind); the buffers are then not checked again, and ``x`` must lie
+    there too. ``out``: a float32 tensor of ``rows`` to write y into
+    instead of a new ``torch.empty`` (the kernel writes every row)."""
+    if not x.is_cuda:
+        raise ValueError(f"flat_spmv_cuda needs a CUDA tensor, got "
+                         f"{x.device}")
+    dev = x.device if staged_on is None else staged_on
+    _build.check(x, "x", torch.float32, dev, params["cols_n"])
+    if staged_on is None:
+        check_staged(b, params, dev)
+    rows, nb = params["rows"], params["num_blocks"]
+    if out is None:
+        # the kernel writes every row: no fill
+        y = torch.empty(rows, dtype=torch.float32, device=dev)
+    else:
+        _build.check(out, "out", torch.float32, dev, rows)
+        y = out
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_flat_spmv_f32", "flat_spmv", dev,
                   b["vals"], b["cols"], b["rel"], b["s0"], b["atom_starts"],
-                  b["row_first"], b["row_last"], x, y, seam, nb, K, R)
+                  b["row_first"], b["row_last"], x, y, seam, rows, nb,
+                  params["K"], params["piece"], params["lanes_per_row"])
     return y
 
 
@@ -99,6 +122,17 @@ def row_window(plan) -> int:
     return _window(plan)[2]
 
 
+def lanes_per_run(plan) -> int:
+    """The lanes that sum one row run of a block: the power of two at or
+    above the plan's mean run length (atoms per run of one row inside one
+    block), at most a warp."""
+    valid, rel = plan.valid, plan.rel_tile
+    starts = valid.copy()
+    starts[:, 1:] &= rel[:, 1:] != rel[:, :-1]
+    mean = plan.num_atoms / max(int(np.count_nonzero(starts)), 1)
+    return int(min(32, 1 << max(int(np.ceil(np.log2(max(mean, 1.0)))), 0)))
+
+
 def flat_spmv(csr, plan, device="cuda"):
     """Build ``(bufs, fn(bufs, x))`` for CSR + a FlatBlockPlan."""
     device = ensure_platform(device)
@@ -120,16 +154,29 @@ def flat_spmv(csr, plan, device="cuda"):
         row_last=row_last,
     )
     bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-
+    K = int(arrays["vals"].shape[1])
+    params = dict(rows=shape[0], cols_n=shape[1], num_blocks=plan.num_blocks,
+                  K=K, R=R, piece=min(PIECE, _round_up(K, 4)),
+                  lanes_per_row=lanes_per_run(plan))
+    staged_on = bufs["vals"].device
+    if staged_on.type == "cuda":
+        check_staged(bufs, params, staged_on)
+    staged = tuple(bufs.values())
+    fingerprint = _build.staged_fingerprint(bufs)
     empty = plan.num_atoms == 0
 
     def fn(b, x):
         if empty:
             # no nonzeros: y is zeros, and there is nothing to launch
             return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
-        if x.device.type == "cpu":
+        if x.is_cpu:
             return flat_spmv_plain(b, x, shape, R)
-        return flat_spmv_cuda(b, x, shape, R)
+        # the buffers checked at bind, none replaced or changed in place
+        # since: not again
+        same = _build.staged_unchanged(b, staged, fingerprint)
+        return flat_spmv_cuda(b, x, params, staged_on if same else None)
+    # the plan's parameters, for a caller of flat_spmv_cuda on these buffers
+    fn.params = params
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms,
-                   R=R)
+                   R=R, lanes_per_row=params["lanes_per_row"])
     return bufs, fn

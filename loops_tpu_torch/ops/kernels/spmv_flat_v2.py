@@ -16,10 +16,16 @@ Of ``_stage_extraction`` the kernel takes only the ``keep`` flags
 Mosaic compile envelopes (``R > 4096``, ``S*R > 2**22``) have no
 counterpart on the GPU and are dropped.
 
-What bounds K2 on an H100 is bytes: per staged slot it reads the value
-(4 B), column (4 B), keep flag (1 B) and relative row (4 B), and gathers
-``x[col]``; the staged [B, K] buffers repeat the CSR arrays in block
-layout, so it moves more than K1 does.
+What bounds K2 on an H100 is what bounds K1: the ``x[col]`` gather, one
+random L2 sector per nonzero. On top of K1's bytes it streams the keep
+flag (1 B) of every staged slot and reads the relative row (4 B) at each
+run's end. The kernel is a register-blocked reduce-by-key: each thread
+owns ``ITEMS`` consecutive slots (two 16-byte quads, 8 gathers in
+flight), folds them sequentially, and one block scan per ``CHUNK`` slots
+over the threads' folds gives each its carry-in. Each block writes the
+rows no run of it writes and no other block owns (its empty rows, the gap
+up to the next block with atoms), so y is a ``torch.empty``; the staged
+buffers are checked once, at bind.
 """
 from __future__ import annotations
 
@@ -28,6 +34,13 @@ import torch
 
 from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.utils.platform import ensure_platform
+
+# the kernel's threads a block, the consecutive slots a thread owns, and
+# the slots one block scan covers (csrc/spmv.cu kK2Threads, kK2Items,
+# kK2Chunk)
+THREADS = 128
+ITEMS = 8
+CHUNK = THREADS * ITEMS
 
 
 def _keep_flags(plan):
@@ -45,28 +58,47 @@ def _keep_flags(plan):
     return keep
 
 
-def flat_spmv_v2_cuda(b: dict, x: torch.Tensor, shape) -> torch.Tensor:
-    """Launch K2 (``csrc/spmv.cu`` ``flat_spmv_v2_kernel`` + seam pass)."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"flat_spmv_v2_cuda needs a CUDA tensor, got {dev}")
-    rows, cols_n = shape
-    nb, K = b["vals"].shape
-    _build.check(x, "x", torch.float32, dev, cols_n)
-    _build.check(b["vals"], "vals", torch.float32, dev)
-    _build.check(b["cols"], "cols", torch.int32, dev, nb * K)
-    _build.check(b["keep"], "keep", torch.uint8, dev, nb * K)
-    _build.check(b["rel"], "rel", torch.int32, dev, nb * K)
+def check_staged(b: dict, params: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged buffers ``b`` are what K2
+    reads: contiguous tensors of their types on ``device`` of the plan's
+    sizes."""
+    nb, K = params["num_blocks"], params["K"]
+    _build.check(b["vals"], "vals", torch.float32, device, nb * K)
+    _build.check(b["cols"], "cols", torch.int32, device, nb * K)
+    _build.check(b["keep"], "keep", torch.uint8, device, nb * K)
+    _build.check(b["rel"], "rel", torch.int32, device, nb * K)
     for name in ("tile_starts", "atom_starts"):
-        _build.check(b[name], name, torch.int32, dev, nb + 1)
+        _build.check(b[name], name, torch.int32, device, nb + 1)
     for name in ("row_first", "row_last"):
-        _build.check(b[name], name, torch.int32, dev, nb)
-    y = torch.zeros(rows, dtype=torch.float32, device=dev)
+        _build.check(b[name], name, torch.int32, device, nb)
+
+
+def flat_spmv_v2_cuda(b: dict, x: torch.Tensor, params: dict,
+                      staged_on=None, out=None) -> torch.Tensor:
+    """Launch K2 (``csrc/spmv.cu`` ``flat_spmv_v2_kernel`` + seam pass).
+    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
+    (at bind); the buffers are then not checked again, and ``x`` must lie
+    there too. ``out``: a float32 tensor of ``rows`` to write y into
+    instead of a new ``torch.empty`` (the kernel writes every row)."""
+    if not x.is_cuda:
+        raise ValueError(f"flat_spmv_v2_cuda needs a CUDA tensor, got "
+                         f"{x.device}")
+    dev = x.device if staged_on is None else staged_on
+    _build.check(x, "x", torch.float32, dev, params["cols_n"])
+    if staged_on is None:
+        check_staged(b, params, dev)
+    rows, nb = params["rows"], params["num_blocks"]
+    if out is None:
+        # the kernel writes every row: no fill
+        y = torch.empty(rows, dtype=torch.float32, device=dev)
+    else:
+        _build.check(out, "out", torch.float32, dev, rows)
+        y = out
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_flat_spmv_v2_f32", "flat_spmv_v2", dev,
                   b["vals"], b["cols"], b["keep"], b["rel"],
                   b["tile_starts"], b["atom_starts"], b["row_first"],
-                  b["row_last"], x, y, seam, nb, K)
+                  b["row_last"], x, y, seam, rows, nb, params["K"])
     return y
 
 
@@ -99,15 +131,27 @@ def flat_spmv_v2(csr, plan, device="cuda"):
     )
     bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     shape = csr.shape
-
+    params = dict(rows=shape[0], cols_n=shape[1], num_blocks=plan.num_blocks,
+                  K=int(arrays["vals"].shape[1]))
+    staged_on = bufs["vals"].device
+    if staged_on.type == "cuda":
+        check_staged(bufs, params, staged_on)
+    staged = tuple(bufs.values())
+    fingerprint = _build.staged_fingerprint(bufs)
     empty = plan.num_atoms == 0
 
     def fn(b, x):
         if empty:
             # no nonzeros: y is zeros, and there is nothing to launch
             return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
-        if x.device.type == "cpu":
+        if x.is_cpu:
             return flat_spmv_v2_plain(b, x, shape)
-        return flat_spmv_v2_cuda(b, x, shape)
+        # the buffers checked at bind, none replaced or changed in place
+        # since: not again
+        same = _build.staged_unchanged(b, staged, fingerprint)
+        return flat_spmv_v2_cuda(b, x, params, staged_on if same else None)
+    # the plan's parameters, for a caller of flat_spmv_v2_cuda on these
+    # buffers
+    fn.params = params
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms)
     return bufs, fn

@@ -38,7 +38,6 @@ an apply checks only ``x``.
 """
 from __future__ import annotations
 
-import operator
 import time
 
 import numpy as np
@@ -133,20 +132,9 @@ def check_staged(b: dict, params: dict, device) -> None:
     _build.check(b["row_last"], "row_last", torch.int32, device, nb)
 
 
-def staged_fingerprint(b: dict) -> tuple:
-    """What ``check_staged`` reads of each buffer and an in-place change
-    (``resize_``, ``set_``, ``as_strided_``) can alter: its address, its
-    size, its type and whether it is contiguous."""
-    return tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
-                 for t in b.values())
-
-
-def staged_unchanged(b: dict, staged: tuple, fingerprint: tuple) -> bool:
-    """Whether ``b`` holds the very tensors ``staged``, none changed in
-    place since ``fingerprint`` was taken of them."""
-    return (len(b) == len(staged)
-            and all(map(operator.is_, b.values(), staged))
-            and staged_fingerprint(b) == fingerprint)
+# the guard of the staged buffers, shared with K2 and K3
+staged_fingerprint = _build.staged_fingerprint
+staged_unchanged = _build.staged_unchanged
 
 
 def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1, K12, K4 and K5 of one checkout of ``loops_tpu_torch`` on the
+"""Time K1–K3, K12, K4 and K5 of one checkout of ``loops_tpu_torch`` on the
 card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 17 and
 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-                                           [--cells spmv,csr]
+                                           [--cells spmv,flat,csr]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -22,6 +22,9 @@ needs no script of its own:
   ``slope_ms`` both run at the pace of the slower side, so their ratio
   cannot show it); K1's host microseconds per apply on a 4096^2 matrix,
   the card held (``host_us``);
+- K3 and K2: ``SpMVOperator(csr, "merge_path", block=1024, impl=
+  "pallas")`` and ``impl="pallas2"`` on the same two matrices, timed as K1
+  (with K1 beside them when the spmv cells are not asked for);
 - K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
   by the slope of 450 back-to-back calls over 50 (``probes/common.
   launch_ms``) and by the host clock with the card held;
@@ -40,7 +43,8 @@ the tree. ``--library``
 adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
-``spmv`` (K1, K12), ``csr`` (K4, K5, the GCN step); both by default. The
+``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step);
+``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 """
@@ -87,6 +91,11 @@ def main(argv=None) -> int:
     res = {"tree": os.path.relpath(tree, REPO), "card": smi}
     if "spmv" in cells:
         res.update(spmv_cells(dev, args.library))
+    if "flat" in cells:
+        # K1 beside them, in the same call
+        res.update(spmv_kernel_cells(
+            dev, ("K3", "K2") + (() if "spmv" in cells else ("K1",)),
+            args.library and "spmv" not in cells))
     if "csr" in cells:
         res.update(csr_cells(dev, args.library))
     print(smi)
@@ -106,12 +115,19 @@ def _timing():
     return mod
 
 
-def spmv_cells(dev, library: bool) -> dict:
-    """K1 on bench_32768 and big_2097152, K12 on [8, 8192]."""
+# the SpMV kernels of the spmv and flat cells: name -> SpMVOperator's
+# (schedule, impl); K2 and K3 at chip_smoke.py's block of 1024 work items
+SPMV_KERNELS = {"K1": ("sorted_flat", "xla"), "K3": ("merge_path", "pallas"),
+                "K2": ("merge_path", "pallas2")}
+FLAT_BLOCK = 1024
+
+
+def spmv_kernel_cells(dev, kernels, library: bool) -> dict:
+    """``kernels`` (keys of ``SPMV_KERNELS``), and cuSPARSE's ``torch.mv``
+    with ``library``, on bench_32768 and big_2097152: apply, slope, the
+    card's time alone and the host share."""
     import torch
-    from loops_tpu_torch.ops.kernels import saxpy
     from loops_tpu_torch.ops.spmv import SpMVOperator
-    from loops_tpu_torch.probes.common import launch_ms
     from loops_tpu_torch.utils import generate
     from loops_tpu_torch.utils.profile_spmv import MATRICES
 
@@ -121,8 +137,12 @@ def spmv_cells(dev, library: bool) -> dict:
         csr = MATRICES[cell]()
         xd = torch.from_numpy(generate.make_input_vector(csr.shape[1])).to(
             dev)
-        op = SpMVOperator(csr, "sorted_flat", device=dev)
-        calls = {"K1": op}
+        calls = {}
+        for name in kernels:
+            schedule, impl = SPMV_KERNELS[name]
+            calls[name] = SpMVOperator(
+                csr, schedule, impl=impl, device=dev,
+                **({} if name == "K1" else {"block": FLAT_BLOCK}))
         if library:
             A = torch.sparse_csr_tensor(
                 *(torch.from_numpy(a).to(dev) for a in (csr.offsets,
@@ -136,8 +156,21 @@ def spmv_cells(dev, library: bool) -> dict:
             res[f"{name} {cell}"] = dict(
                 apply_ms=ap, slope_ms=bench.slope_ms(fn, xd), device_ms=card,
                 host_share=1 - card / ap)
-        del op, calls
+        del calls
         torch.cuda.empty_cache()
+    return res
+
+
+def spmv_cells(dev, library: bool) -> dict:
+    """K1 on bench_32768 and big_2097152, K12 on [8, 8192]."""
+    import torch
+    from loops_tpu_torch.ops.kernels import saxpy
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.probes.common import launch_ms
+    from loops_tpu_torch.utils import generate
+
+    bench = _timing()
+    res = spmv_kernel_cells(dev, ("K1",), library)
     # the host's launch path alone, with the card held (bench.host_us)
     small = generate.random_csr(4096, 4096, 16 / 4096, seed=3)
     op = SpMVOperator(small, "sorted_flat", device=dev)

@@ -149,9 +149,100 @@ def test_sorted_buffers_changed_in_place_raise(cuda_device, change):
         fn(b, torch.zeros(csr.shape[1], device=cuda_device))
 
 
+def _flat_build(kernel, csr, plan, device):
+    """K2 or K3 on one plan: ``(bufs, fn, run into out, plain)``."""
+    if kernel == "flat_spmv_v2":
+        b, fn = spmv_flat_v2.flat_spmv_v2(csr, plan, device=device)
+        return (b, fn,
+                lambda xd, out: spmv_flat_v2.flat_spmv_v2_cuda(
+                    b, xd, fn.params, out=out),
+                lambda xd: spmv_flat_v2.flat_spmv_v2_plain(b, xd, csr.shape))
+    b, fn = spmv_flat.flat_spmv(csr, plan, device=device)
+    return (b, fn,
+            lambda xd, out: spmv_flat.flat_spmv_cuda(b, xd, fn.params,
+                                                     out=out),
+            lambda xd: spmv_flat.flat_spmv_plain(b, xd, csr.shape,
+                                                 fn.meta["R"]))
+
+
+def _flat_holds(kernel, csr, plan, device, label, tol=None):
+    """Two applies and one into a NaN-filled ``out`` bitwise equal, every
+    row written, the plain version within ``tol``, the Wilkinson verdict,
+    one launch an apply."""
+    x = generate.make_input_vector(csr.shape[1])
+    xd = torch.from_numpy(x).to(device)
+    b, fn, into, plain = _flat_build(kernel, csr, plan, device)
+    before = _build.LAUNCHES[kernel]
+    y1 = fn(b, xd)
+    y2 = fn(b, xd)
+    out = torch.full((csr.shape[0],), float("nan"), device=device)
+    y3 = into(xd, out)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before + 3, label
+    assert y3.data_ptr() == out.data_ptr()
+    assert torch.equal(y1, y2), f"{label}: two applies differ"
+    assert torch.equal(y1, y3), f"{label}: the apply into NaN differs"
+    assert not torch.isnan(y3).any(), f"{label}: a row left unwritten"
+    np.testing.assert_allclose(
+        y3.cpu().numpy(), plain(xd).cpu().numpy(), err_msg=label,
+        **(tol or dict(rtol=RTOL, atol=ATOL)))
+    rep = reference.rigorously_validate_spmv(csr, x, y3.cpu().numpy())
+    assert rep.verdict == "NOT_A_BUG", f"{label}: {rep}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flat_spmv_v2", "flat_spmv"])
+@pytest.mark.parametrize("block", [8, 64])
+@pytest.mark.parametrize("name", sorted(generate.SPMV_EDGE_CASES))
+def test_flat_writes_every_row(cuda_device, kernel, name, block):
+    # y comes from torch.empty: K2 and K3 run into NaN-filled memory show
+    # a row they leave unwritten (empty rows between blocks, blocks
+    # without atoms, before the first and after the last)
+    csr = generate.SPMV_EDGE_CASES[name]()
+    plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
+    _flat_holds(kernel, csr, plan, cuda_device, f"{kernel}/{name}/{block}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flat_spmv_v2", "flat_spmv"])
+@pytest.mark.parametrize("block", [4096, 8192])
+@pytest.mark.parametrize("name", ["random", "long_rows", "tridiag"])
+def test_flat_blocks_past_a_piece(cuda_device, kernel, name, block):
+    # blocks of more slots than K3's piece and K2's chunk (2048): runs
+    # carried from piece to piece and from chunk to chunk
+    csr = {"random": lambda: generate.random_csr(700, 600, 0.03, seed=5),
+           "long_rows": lambda: generate.skewed_csr(30, 6000, heavy_rows=2,
+                                                    heavy_nnz=5000, seed=6),
+           "tridiag": lambda: generate.tridiag_csr(3000)}[name]()
+    plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=block)
+    assert int(np.diff(plan.atom_starts).max()) > spmv_flat.PIECE
+    _flat_holds(kernel, csr, plan, cuda_device, f"{kernel}/{name}/{block}",
+                dict(rtol=1e-4, atol=1e-3) if name == "long_rows" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flat_spmv_v2", "flat_spmv"])
+@pytest.mark.parametrize("change", ["resize", "set", "replaced"])
+def test_flat_buffers_changed_after_bind_raise(cuda_device, kernel, change):
+    # K2 and K3 skip their buffer checks only for the tensors checked at
+    # bind, none changed in place since
+    csr = BATTERY["random"]()
+    plan = make_plan(CsrLayout.from_csr(csr), "merge_path", block_work=32)
+    b, fn, _, _ = _flat_build(kernel, csr, plan, cuda_device)
+    if change == "resize":
+        b["cols"].resize_(0)
+    elif change == "set":
+        b["cols"].set_(torch.zeros(3, dtype=torch.int32, device=cuda_device))
+    else:
+        b["cols"] = b["cols"].double()
+    with pytest.raises(ValueError, match="cols"):
+        fn(b, torch.zeros(csr.shape[1], device=cuda_device))
+
+
 @pytest.mark.cuda
 def test_flat_window_past_default_shared_memory(cuda_device):
-    # a 40064-float row window (157 KB) needs K3's opt-in past 48 KB
+    # a 40064-float row window (157 KB of f32), one block over 40000 rows
+    # of which two hold atoms
     csr = generate.wide_span_csr(40_000)
     x = generate.make_input_vector(4)
     plan = make_plan(CsrLayout.from_csr(csr), "work_oriented", block_atoms=8)
@@ -163,6 +254,10 @@ def test_flat_window_past_default_shared_memory(cuda_device):
                                                     fn.meta["R"]))
     rep = reference.rigorously_validate_spmv(csr, x, y.cpu().numpy())
     assert rep.verdict == "NOT_A_BUG", rep
+    # K2 on the same plan, and both into NaN: the block zeroes the rows
+    # between its two
+    for kernel in ("flat_spmv_v2", "flat_spmv"):
+        _flat_holds(kernel, csr, plan, cuda_device, f"{kernel}/wide")
 
 
 @pytest.mark.cuda
