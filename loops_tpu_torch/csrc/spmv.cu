@@ -259,9 +259,6 @@ __device__ __forceinline__ int next_row_first(const int* __restrict__ row_first,
 __device__ __forceinline__ void zero_unowned_rows(
     int b, int nb, int rows, int rf, int rl, int ahead,
     const int* __restrict__ row_first, float* __restrict__ y) {
-#ifdef LOOPS_FLAT_NO_ZERO
-  return;
-#endif
   const int tid = threadIdx.x;
   if (rf >= 0) {
     for (int r = rf + 1 + tid; r < rl; r += blockDim.x) y[r] = 0.f;
@@ -288,39 +285,33 @@ __device__ __forceinline__ void zero_unowned_rows(
 // What bounds it on an H100 is what bounds K1: the x[col] gather, one
 // random sector per nonzero, served at the card's random-sector rate
 // once enough gathers are in flight; on top of K1's bytes it streams 1 B
-// of keep per slot and reads rel at run ends. A scan that takes one slot
-// a thread keeps one gather in flight and pays a CTA scan per 256 slots,
-// so the design is CUB's reduce-by-key, register-blocked:
+// of keep per slot and the rows of the quads that end a run. A scan that
+// takes one slot a thread keeps one gather in flight and pays a CTA scan
+// per 256 slots, so the design is CUB's reduce-by-key, register-blocked:
 //   * each thread owns kK2Items = 8 consecutive slots, read as two
 //     16-byte quads of vals and cols and one 32-bit word of keep flags
-//     per quad (cache-streaming loads), so 8 gathers are in flight;
+//     per quad (cache-streaming loads), so 8 gathers are in flight; the
+//     rel quads that hold a run end are asked for before the gathers are
+//     waited on, so their latency hides behind them;
 //   * it folds its slots sequentially into (tail value, has a reset);
-//   * one loops_scan::block_seg_scan over those pairs per 256 * 8 slots
+//   * one loops_scan::block_seg_scan over those pairs per kK2Chunk slots
 //     (seg_scan.cuh, the very scan the K13 probe runs) gives each thread
 //     the open segment's value before its first slot, and links chunks;
 //   * the thread folds again from that value and stores each run end;
 //     the keep flag of the slot after its last comes from the next lane
 //     by a shuffle (lane 31 reads the byte).
+// CTAs of 128 threads, 8 an SM: with merge-path blocks of ~1000 slots,
+// 256-thread CTAs left half their threads without slots and ran 20–26%
+// slower (measured on an H100 80GB HBM3 at 700 W, PERF.md section 6).
 // The products are rounded to f32 before they are summed, as in the plain
 // version; the order of the f32 additions is fixed, so two runs are
 // bitwise equal.
-#ifndef LOOPS_K2_THREADS
-#define LOOPS_K2_THREADS 128
-#endif
-#ifndef LOOPS_K2_QUADS
-#define LOOPS_K2_QUADS 2
-#endif
-constexpr int kK2Threads = LOOPS_K2_THREADS;
+constexpr int kK2Threads = 128;
 constexpr int kK2Warps = kK2Threads / 32;
-constexpr int kK2Quads = LOOPS_K2_QUADS;
+constexpr int kK2Quads = 2;
 constexpr int kK2Items = 4 * kK2Quads;  // consecutive slots a thread
 constexpr int kK2Chunk = kK2Threads * kK2Items;
-constexpr int kK2MinBlocks = 1024 / kK2Threads;  // 64 registers a thread
-#ifdef LOOPS_K2_REL_AT_END
-constexpr bool kK2RelAhead = false;
-#else
-constexpr bool kK2RelAhead = true;
-#endif
+constexpr int kK2MinBlocks = 8;  // CTAs an SM: 64 registers a thread
 
 __device__ __forceinline__ int quad_at(const int4& q, int e) {
   return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
@@ -407,7 +398,7 @@ flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols
 #pragma unroll
       for (int u = 0; u < kK2Quads; ++u) {
         const int q = s + 4 * u;
-        if (kK2RelAhead && q < n && (ends >> (4 * u) & 0xfu)) {
+        if (q < n && (ends >> (4 * u) & 0xfu)) {
           r[u] = __ldcs(reinterpret_cast<const int4*>(rel + base + q));
         }
       }
@@ -440,8 +431,8 @@ flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols
     for (int i = 0; i < kK2Items; ++i) {
       run = (resets >> i & 1u) ? p[i] : run + p[i];
       if (s + i < n && (ends >> i & 1u)) {
-        const int row = vec && kK2RelAhead ? quad_at(r[i >> 2], i & 3)
-                                           : __ldcs(rel + base + s + i);
+        const int row =
+            vec ? quad_at(r[i >> 2], i & 3) : __ldcs(rel + base + s + i);
         store_row(t0 + row, rf, rl, b, run, y, seam);
       }
     }
@@ -463,28 +454,25 @@ flat_spmv_v2_kernel(const float* __restrict__ vals, const int* __restrict__ cols
 // two phases, over pieces of at most kK3Piece slots (the host's `piece`,
 // a multiple of 4):
 //   1. products: the piece's slots are streamed as 16-byte quads of vals,
-//      cols and rel (cache-streaming loads), kK3Quads quads a thread, so
-//      8 gathers in flight, and vals[i] * x[cols[i]] and rel[i] go to
-//      shared memory;
+//      cols and rel (cache-streaming loads), one quad a thread, and
+//      vals[i] * x[cols[i]] and rel[i] go to shared memory;
 //   2. runs: a run starts where rel changes; the warps find the starts by
 //      ballots and write them in order; a group of `lanes_per_row` lanes
 //      (a power of two <= 32, picked on the host from the plan's mean run
 //      length) sums each run, lane-strided partials then an xor-shuffle
 //      tree. The piece's last run is carried to the next piece (carry +
 //      its next part), so a run across pieces is summed in a fixed order.
+// CTAs of 128 threads, 8 an SM, and pieces of 512 slots: measured on an
+// H100 80GB HBM3 at 700 W (PERF.md section 6), 256-thread CTAs of 2 quads
+// a thread ran 22% slower on a matrix past L2, and 2 quads a thread in
+// 128 ran 1–16% slower than one (a piece's shared memory takes from the
+// L1 that serves x).
 // Interior rows go to y[s0*128 + rel], the first and last row to the seam
 // pass; two runs are bitwise equal, and no atomics are used.
-#ifndef LOOPS_K3_THREADS
-#define LOOPS_K3_THREADS 128
-#endif
-#ifndef LOOPS_K3_QUADS
-#define LOOPS_K3_QUADS 2
-#endif
-constexpr int kK3Threads = LOOPS_K3_THREADS;
+constexpr int kK3Threads = 128;
 constexpr int kK3Warps = kK3Threads / 32;
-constexpr int kK3Quads = LOOPS_K3_QUADS;  // 16-byte quads in flight a thread
-constexpr int kK3Piece = kK3Threads * kK3Quads * 4;  // 2048 slots
-constexpr int kK3MinBlocks = 1024 / kK3Threads;  // 64 registers a thread
+constexpr int kK3Piece = 4 * kK3Threads;  // one quad a thread: 512 slots
+constexpr int kK3MinBlocks = 8;  // CTAs an SM: 64 registers a thread
 // ballot rounds per warp to cover its share of a piece
 constexpr int kK3Rounds = kK3Piece / kK3Warps / 32;
 
@@ -528,35 +516,19 @@ flat_spmv_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
     const int pn = min(piece, n - p0);
     // ---- 1. products and rel into shared memory
     if (vec) {
-      const int nq = (pn + 3) >> 2;  // quads inside the row: K % 4 == 0
-      const int4* c4 = reinterpret_cast<const int4*>(cols + base + p0);
-      const float4* v4 = reinterpret_cast<const float4*>(vals + base + p0);
-      const int4* r4 = reinterpret_cast<const int4*>(rel + base + p0);
-      for (int q = tid; q < nq; q += kK3Threads * kK3Quads) {
-        int4 c[kK3Quads], r[kK3Quads];
-        float4 v[kK3Quads];
-#pragma unroll
-        for (int u = 0; u < kK3Quads; ++u) {
-          const int qu = q + u * kK3Threads;
-          if (qu < nq) {
-            c[u] = __ldcs(c4 + qu);
-            v[u] = __ldcs(v4 + qu);
-            r[u] = __ldcs(r4 + qu);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kK3Quads; ++u) {
-          const int qu = q + u * kK3Threads;
-          if (qu < nq) {
-            const float4 xv = make_float4(__ldg(x + c[u].x), __ldg(x + c[u].y),
-                                          __ldg(x + c[u].z), __ldg(x + c[u].w));
-            smem4[qu] = make_float4(
-                __fmul_rn(v[u].x, xv.x), __fmul_rn(v[u].y, xv.y),
-                __fmul_rn(v[u].z, xv.z), __fmul_rn(v[u].w, xv.w));
-            reinterpret_cast<ushort4*>(rels)[qu] =
-                make_ushort4(r[u].x, r[u].y, r[u].z, r[u].w);
-          }
-        }
+      // one quad a thread (piece <= 4 * kK3Threads), inside the row as
+      // K % 4 == 0
+      const int q = tid;
+      if (4 * q < pn) {
+        const size_t a = base + p0 + 4 * q;
+        const int4 c = __ldcs(reinterpret_cast<const int4*>(cols + a));
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(vals + a));
+        const int4 r = __ldcs(reinterpret_cast<const int4*>(rel + a));
+        const float4 xv = make_float4(__ldg(x + c.x), __ldg(x + c.y),
+                                      __ldg(x + c.z), __ldg(x + c.w));
+        smem4[q] = make_float4(__fmul_rn(v.x, xv.x), __fmul_rn(v.y, xv.y),
+                               __fmul_rn(v.z, xv.z), __fmul_rn(v.w, xv.w));
+        reinterpret_cast<ushort4*>(rels)[q] = make_ushort4(r.x, r.y, r.z, r.w);
       }
     } else {
       for (int i = tid; i < pn; i += kK3Threads) {

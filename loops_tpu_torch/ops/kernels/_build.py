@@ -222,6 +222,33 @@ def staged_unchanged(b: dict, staged: tuple, fingerprint: tuple) -> bool:
             and staged_fingerprint(b) == fingerprint)
 
 
+def staged_guard(bufs: dict, params: dict, check_staged):
+    """Check a kernel's staged buffers once, at bind (on a card), with
+    ``check_staged(bufs, params, device)``, and return ``staged_on(b)``:
+    the device they were checked on while ``b`` holds those very tensors,
+    none changed in place since, else None (the wrapper then checks ``b``
+    in full)."""
+    device = bufs["vals"].device
+    if device.type == "cuda":
+        check_staged(bufs, params, device)
+    staged = tuple(bufs.values())
+    fingerprint = staged_fingerprint(bufs)
+
+    def staged_on(b: dict):
+        return device if staged_unchanged(b, staged, fingerprint) else None
+    return staged_on
+
+
+def output(out, n: int, device) -> torch.Tensor:
+    """``out``, checked to be a contiguous float32 tensor of ``n`` on
+    ``device``, or a new ``torch.empty`` of ``n`` (for a kernel that
+    writes every element: no fill)."""
+    if out is None:
+        return torch.empty(n, dtype=torch.float32, device=device)
+    check(out, "out", torch.float32, device, n)
+    return out
+
+
 def _function(fn_name: str):
     """The ctypes function of a C entry point of ``_SIGNATURES``, loading
     the library on first use; ``KeyError`` for any other name."""

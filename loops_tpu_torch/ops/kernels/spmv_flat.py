@@ -9,22 +9,23 @@ relative to the aligned base ``s0*128``) and sums each row run of a block
 on its own: interior rows go to ``y[s0*128 + rel]``, the block's first
 and last row through the seam pass.
 
-``R <= MAX_WINDOW`` bounds the plans K3 takes: 58112 floats, the window
-one H100 block's 227 KB of shared memory holds (the TPU kernel's bound
-was 4096 rows). Merge-path plans stay far below it (span <= block +
-128); only a work_oriented plan over long runs of empty rows reaches it.
+``R <= MAX_WINDOW`` (58112 rows) bounds the plans K3 takes; the TPU
+kernel's bound was 4096 rows. The kernel holds each slot's ``rel`` in 16
+bits of shared memory, which the bound keeps exact. Merge-path plans
+stay far below it (span <= block + 128); only a work_oriented plan over
+long runs of empty rows reaches it.
 
 What bounds K3 on an H100 is what bounds K1: the ``x[col]`` gather, one
 random L2 sector per nonzero. On top of K1's bytes it streams the
 relative row (4 B) of every staged slot. The kernel works as K1 does, in
 two phases over pieces of at most ``PIECE`` slots: the products
 ``vals * x[cols]`` (rounded to f32) and ``rel`` are streamed into shared
-memory as 16-byte quads with 8 gathers in flight per thread, then a
-group of ``lanes_per_row`` lanes sums each run from there in a fixed
-order, the piece's last run carried into the next piece. Each block
-writes the rows no run of it writes and no other block owns (its empty
-rows, the gap up to the next block with atoms), so y is a
-``torch.empty``; the staged buffers are checked once, at bind.
+memory as 16-byte quads, 4 gathers in flight per thread and 8 CTAs of
+128 threads an SM, then a group of ``lanes_per_row`` lanes sums each run
+from there in a fixed order, the piece's last run carried into the next
+piece. Each block writes the rows no run of it writes and no other block
+owns (its empty rows, the gap up to the next block with atoms), so y is
+a ``torch.empty``; the staged buffers are checked once, at bind.
 """
 from __future__ import annotations
 
@@ -32,13 +33,14 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.formats.base import INDEX_DTYPE
-from loops_tpu_torch.ops.kernels import _build
+from loops_tpu_torch.ops.kernels import _build, spmv_sorted
 from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
-MAX_WINDOW = 227 * 1024 // 4  # floats: an H100 block's opt-in shared memory
+# rows: what 227 KB of f32 (an H100 block's shared memory) holds
+MAX_WINDOW = 227 * 1024 // 4
 # the slots a block of the kernel takes at a time (csrc/spmv.cu kK3Piece)
-PIECE = 1024
+PIECE = 512
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,12 +77,7 @@ def flat_spmv_cuda(b: dict, x: torch.Tensor, params: dict, staged_on=None,
     if staged_on is None:
         check_staged(b, params, dev)
     rows, nb = params["rows"], params["num_blocks"]
-    if out is None:
-        # the kernel writes every row: no fill
-        y = torch.empty(rows, dtype=torch.float32, device=dev)
-    else:
-        _build.check(out, "out", torch.float32, dev, rows)
-        y = out
+    y = _build.output(out, rows, dev)
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_flat_spmv_f32", "flat_spmv", dev,
                   b["vals"], b["cols"], b["rel"], b["s0"], b["atom_starts"],
@@ -123,14 +120,13 @@ def row_window(plan) -> int:
 
 
 def lanes_per_run(plan) -> int:
-    """The lanes that sum one row run of a block: the power of two at or
-    above the plan's mean run length (atoms per run of one row inside one
-    block), at most a warp."""
+    """The lanes that sum one row run of a block, from the plan's mean run
+    length (atoms per run of one row inside one block)."""
     valid, rel = plan.valid, plan.rel_tile
     starts = valid.copy()
     starts[:, 1:] &= rel[:, 1:] != rel[:, :-1]
-    mean = plan.num_atoms / max(int(np.count_nonzero(starts)), 1)
-    return int(min(32, 1 << max(int(np.ceil(np.log2(max(mean, 1.0)))), 0)))
+    return spmv_sorted.lanes_for(
+        plan.num_atoms / max(int(np.count_nonzero(starts)), 1))
 
 
 def flat_spmv(csr, plan, device="cuda"):
@@ -158,11 +154,7 @@ def flat_spmv(csr, plan, device="cuda"):
     params = dict(rows=shape[0], cols_n=shape[1], num_blocks=plan.num_blocks,
                   K=K, R=R, piece=min(PIECE, _round_up(K, 4)),
                   lanes_per_row=lanes_per_run(plan))
-    staged_on = bufs["vals"].device
-    if staged_on.type == "cuda":
-        check_staged(bufs, params, staged_on)
-    staged = tuple(bufs.values())
-    fingerprint = _build.staged_fingerprint(bufs)
+    staged_on = _build.staged_guard(bufs, params, check_staged)
     empty = plan.num_atoms == 0
 
     def fn(b, x):
@@ -171,10 +163,7 @@ def flat_spmv(csr, plan, device="cuda"):
             return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
         if x.is_cpu:
             return flat_spmv_plain(b, x, shape, R)
-        # the buffers checked at bind, none replaced or changed in place
-        # since: not again
-        same = _build.staged_unchanged(b, staged, fingerprint)
-        return flat_spmv_cuda(b, x, params, staged_on if same else None)
+        return flat_spmv_cuda(b, x, params, staged_on(b))
     # the plan's parameters, for a caller of flat_spmv_cuda on these buffers
     fn.params = params
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms,

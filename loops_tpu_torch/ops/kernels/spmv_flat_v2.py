@@ -88,12 +88,7 @@ def flat_spmv_v2_cuda(b: dict, x: torch.Tensor, params: dict,
     if staged_on is None:
         check_staged(b, params, dev)
     rows, nb = params["rows"], params["num_blocks"]
-    if out is None:
-        # the kernel writes every row: no fill
-        y = torch.empty(rows, dtype=torch.float32, device=dev)
-    else:
-        _build.check(out, "out", torch.float32, dev, rows)
-        y = out
+    y = _build.output(out, rows, dev)
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_flat_spmv_v2_f32", "flat_spmv_v2", dev,
                   b["vals"], b["cols"], b["keep"], b["rel"],
@@ -133,11 +128,7 @@ def flat_spmv_v2(csr, plan, device="cuda"):
     shape = csr.shape
     params = dict(rows=shape[0], cols_n=shape[1], num_blocks=plan.num_blocks,
                   K=int(arrays["vals"].shape[1]))
-    staged_on = bufs["vals"].device
-    if staged_on.type == "cuda":
-        check_staged(bufs, params, staged_on)
-    staged = tuple(bufs.values())
-    fingerprint = _build.staged_fingerprint(bufs)
+    staged_on = _build.staged_guard(bufs, params, check_staged)
     empty = plan.num_atoms == 0
 
     def fn(b, x):
@@ -146,10 +137,7 @@ def flat_spmv_v2(csr, plan, device="cuda"):
             return torch.zeros(shape[0], dtype=torch.float32, device=x.device)
         if x.is_cpu:
             return flat_spmv_v2_plain(b, x, shape)
-        # the buffers checked at bind, none replaced or changed in place
-        # since: not again
-        same = _build.staged_unchanged(b, staged, fingerprint)
-        return flat_spmv_v2_cuda(b, x, params, staged_on if same else None)
+        return flat_spmv_v2_cuda(b, x, params, staged_on(b))
     # the plan's parameters, for a caller of flat_spmv_v2_cuda on these
     # buffers
     fn.params = params

@@ -63,6 +63,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def lanes_for(mean: float) -> int:
+    """The lanes that sum one row (K1) or row run (K3) from shared memory:
+    the power of two at or above ``mean``, the mean length of the
+    nonempty rows or runs, at most a warp."""
+    return int(min(32, 1 << max(int(np.ceil(np.log2(max(mean, 1.0)))), 0)))
+
+
 def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
     """Host planning: returns ``(arrays, params)`` — pure numpy."""
     t0 = time.perf_counter()
@@ -99,10 +106,7 @@ def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
         cuts = np.unique(np.concatenate(
             [cuts, offsets[r0[bad] + ROW_SPAN]]))
 
-    # lanes per row: the power of two at or above the mean nonempty-row
-    # length, at most a warp
-    mean = N / max(int(np.count_nonzero(np.diff(offsets))), 1)
-    lanes = int(min(32, 1 << max(int(np.ceil(np.log2(mean))), 0)))
+    lanes = lanes_for(N / max(int(np.count_nonzero(np.diff(offsets))), 1))
     arrays = dict(
         offsets=csr.offsets.astype(np.int32),
         cols=csr.indices.astype(np.int32),
@@ -153,12 +157,7 @@ def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,
     if staged_on is None:
         check_staged(b, params, dev)
     nb = params["num_blocks"]
-    if out is None:
-        # the kernel writes every row: no fill
-        y = torch.empty(params["rows"], dtype=torch.float32, device=dev)
-    else:
-        _build.check(out, "out", torch.float32, dev, params["rows"])
-        y = out
+    y = _build.output(out, params["rows"], dev)
     seam = torch.empty(2 * nb, dtype=torch.float32, device=dev)
     _build.launch("loops_sorted_spmv_f32", "sorted_spmv", dev,
                   b["offsets"], b["cols"], b["vals"], b["cuts"],
@@ -184,19 +183,12 @@ def sorted_spmv_bind(arrays, params, device):
         bufs = {}
     else:
         bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-        staged_on = bufs["vals"].device
-        if staged_on.type == "cuda":
-            check_staged(bufs, params, staged_on)
-        staged = tuple(bufs.values())
-        fingerprint = staged_fingerprint(bufs)
+        staged_on = _build.staged_guard(bufs, params, check_staged)
 
         def fn(b, x):
             if x.is_cpu:
                 return sorted_spmv_plain(b, x, params)
-            # the buffers checked at bind, none replaced or changed in
-            # place since: not again
-            same = staged_unchanged(b, staged, fingerprint)
-            return sorted_spmv_cuda(b, x, params, staged_on if same else None)
+            return sorted_spmv_cuda(b, x, params, staged_on(b))
     # the plan's parameters, for a caller of sorted_spmv_cuda on these
     # buffers
     fn.params = params

@@ -65,9 +65,8 @@ from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["spmv", "SpMVOperator", "SCHEDULES"]
 
-# K3 holds a block's output rows in a shared-memory window of at most this
-# many floats; a plan whose 128-aligned row span is wider (a work_oriented
-# plan over long runs of empty rows) cannot take K3.
+# K3 takes plans whose 128-aligned row window is at most this many rows;
+# a work_oriented plan over long runs of empty rows can be wider.
 MAX_PALLAS_SPAN = spmv_flat.MAX_WINDOW
 
 

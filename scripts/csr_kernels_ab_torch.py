@@ -24,7 +24,7 @@ needs no script of its own:
   the card held (``host_us``);
 - K3 and K2: ``SpMVOperator(csr, "merge_path", block=1024, impl=
   "pallas")`` and ``impl="pallas2"`` on the same two matrices, timed as K1
-  (with K1 beside them when the spmv cells are not asked for);
+  and beside it;
 - K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
   by the slope of 450 back-to-back calls over 50 (``probes/common.
   launch_ms``) and by the host clock with the card held;
@@ -93,9 +93,7 @@ def main(argv=None) -> int:
         res.update(spmv_cells(dev, args.library))
     if "flat" in cells:
         # K1 beside them, in the same call
-        res.update(spmv_kernel_cells(
-            dev, ("K3", "K2") + (() if "spmv" in cells else ("K1",)),
-            args.library and "spmv" not in cells))
+        res.update(spmv_kernel_cells(dev, ("K3", "K2", "K1"), args.library))
     if "csr" in cells:
         res.update(csr_cells(dev, args.library))
     print(smi)

@@ -230,3 +230,37 @@ def test_host_us_times_calls_on_the_host_clock():
     calls = []
     us = bench.host_us(lambda: calls.append(1), calls=7, repeats=3)
     assert us > 0 and len(calls) == 1 + 7 * 3
+
+
+@pytest.mark.parametrize("change", ["none", "resize", "set", "replaced"])
+def test_staged_guard_sees_buffers_changed(change):
+    # the guard K1, K2 and K3 share: the buffers are checked at bind only
+    # on a card, and a call skips its check only for the very tensors
+    # checked then, none changed in place since
+    checked = []
+    bufs = {"vals": torch.zeros(6), "cols": torch.zeros(6, dtype=torch.int32)}
+    staged_on = _build.staged_guard(
+        bufs, {}, lambda b, p, d: checked.append(d))
+    assert checked == []  # on the CPU: nothing to check at bind
+    b = dict(bufs)
+    if change == "resize":
+        b["cols"].resize_(2)
+    elif change == "set":
+        b["vals"].set_(torch.zeros(3))
+    elif change == "replaced":
+        b["vals"] = b["vals"].clone()
+    assert staged_on(b) == (CPU if change == "none" else None)
+
+
+@pytest.mark.parametrize("out", ["none", "good", "short", "double"])
+def test_output_is_empty_or_a_checked_out(out):
+    given = {"none": None, "good": torch.full((5,), float("nan")),
+             "short": torch.zeros(4),
+             "double": torch.zeros(5, dtype=torch.float64)}[out]
+    if out in ("short", "double"):
+        with pytest.raises(ValueError, match="out"):
+            _build.output(given, 5, CPU)
+        return
+    y = _build.output(given, 5, CPU)
+    assert y.shape == (5,) and y.dtype == torch.float32
+    assert (y is given) == (out == "good")
