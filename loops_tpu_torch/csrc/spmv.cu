@@ -516,14 +516,17 @@ flat_spmv_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
     const int pn = min(piece, n - p0);
     // ---- 1. products and rel into shared memory
     if (vec) {
-      // one quad a thread (piece <= 4 * kK3Threads), inside the row as
-      // K % 4 == 0
-      const int q = tid;
-      if (4 * q < pn) {
-        const size_t a = base + p0 + 4 * q;
-        const int4 c = __ldcs(reinterpret_cast<const int4*>(cols + a));
-        const float4 v = __ldcs(reinterpret_cast<const float4*>(vals + a));
-        const int4 r = __ldcs(reinterpret_cast<const int4*>(rel + a));
+      // quads inside the row, as K % 4 == 0; one trip, as piece <= 4 *
+      // kK3Threads, but as a loop it ran 10% faster on a matrix that fits
+      // L2 than a guarded single quad (1% slower past L2; PERF.md sec. 6)
+      const int nq = (pn + 3) >> 2;
+      const int4* c4 = reinterpret_cast<const int4*>(cols + base + p0);
+      const float4* v4 = reinterpret_cast<const float4*>(vals + base + p0);
+      const int4* r4 = reinterpret_cast<const int4*>(rel + base + p0);
+      for (int q = tid; q < nq; q += kK3Threads) {
+        const int4 c = __ldcs(c4 + q);
+        const float4 v = __ldcs(v4 + q);
+        const int4 r = __ldcs(r4 + q);
         const float4 xv = make_float4(__ldg(x + c.x), __ldg(x + c.y),
                                       __ldg(x + c.z), __ldg(x + c.w));
         smem4[q] = make_float4(__fmul_rn(v.x, xv.x), __fmul_rn(v.y, xv.y),
