@@ -61,10 +61,13 @@ Phases, one line each with its time:
    (``bcsr_spmm_v2``) and K7 (``bcsr_spmm_v3``) against their plain PyTorch
    versions on the same staged buffers: the five matrices of
    ``tests/test_bcsr_kernels.py`` in blocks 8x128 and 16x128, F in {20,
-   300} at ``block_f`` 128, f32 and (K7, K8) bf16, then the bench's two
-   regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512; 32768^2 at 1.5%
-   for K6): agreement, the Wilkinson verdict (over sampled rows at bench
-   scale), two applies bitwise equal, the launch counter;
+   300, 513} at ``block_f`` 128, f32 and (K7, K8) bf16; K7 and K9 also on
+   the edge cases of ``tests/test_torch_cuda_bcsr.py`` (``cols`` not a
+   multiple of C, empty block rows and empty super-rows, chunks of one
+   block, F in {20, 513}) and each into a NaN-filled ``out=``; then the
+   bench's two regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512;
+   32768^2 at 1.5% for K6): agreement, the Wilkinson verdict (over sampled
+   rows at bench scale), two applies bitwise equal, the launch counter;
 12. the BCSR main path: ``examples/spmm_torch.py --format bcsr`` with
    ``--impl pallas`` and with the torch path, ``SpMVOperator(bcsr,
    impl="pallas")`` on the 32768^2 regime, and ``SpMMOperator`` with
@@ -188,7 +191,13 @@ BCSR_KERNELS = {
                      DTYPES),
 }
 BCSR_BLOCKS = ((8, 128), (16, 128))
-BCSR_FS = (20, 300)
+BCSR_FS = (20, 300, 513)
+# K7's and K9's edge cases (tests/test_torch_cuda_bcsr.py): B's rows past
+# the last full block column, empty block rows and, at two block rows a
+# super-row, empty super-rows; chunks of one and of two blocks
+BCSR_EDGE_FS = (20, 513)
+K7_EDGE_TILES = ({}, {"super_rows": 2, "chunk_blocks": 1},
+                 {"super_rows": 2, "chunk_blocks": 2})
 # the JAX bench's regimes (bench.py:226-228, :371-372)
 SPMM_REGIME = dict(N=16384, R=8, C=128, block_density=0.06)
 SPMM_F = 512
@@ -609,6 +618,13 @@ def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
     require(op.impl_used == kname, f"{label}: took {op.impl_used}")
     Bd = torch.from_numpy(B).to(device)
     C = run_twice(kname, op, Bd)
+    if kname in ("bcsr_spmm", "bcsr_spmm_v3"):
+        # K7 and K9 write every row of C: into NaN-filled memory, a row
+        # one leaves unwritten shows
+        out = torch.full_like(C, float("nan"))
+        op._raw(op._bufs, Bd, out=out)
+        torch.cuda.synchronize()
+        require(torch.equal(out, C), f"{label}: out= differs from C")
     plain = bcsr_plain(kname, op)(Bd)
     require(tuple(C.shape) == (csr.shape[0], B.shape[1])
             and bool(torch.isfinite(C).all()), f"{label}: bad output")
@@ -641,6 +657,71 @@ def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
                                                  mxu_bf16=False)
         require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
     return float(diff.max())
+
+
+def k7_k9_edges_vs_plain(device):
+    """K9 and K7 (f32, bf16; at the card's tiles and at two block rows a
+    super-row, chunks of one and two blocks) on ``BCSR_EDGE``, blocks 8 and
+    16 rows: two applies bitwise equal and into NaN-filled ``out=``, the
+    pair tolerance against the plain version, the Wilkinson verdict.
+    Returns the max |kernel - plain| per kernel and the case count."""
+    import torch
+
+    from loops_tpu_torch.formats import BCSR
+    from loops_tpu_torch.ops.kernels import spmm_bcsr, spmm_bcsr_v3
+    from loops_tpu_torch.utils import generate, reference
+
+    err = {"bcsr_spmm": 0.0, "bcsr_spmm_v3": 0.0}
+    n = 0
+    edges = {
+        "ragged_cols": generate.random_csr(100, 300, 0.04, seed=21),
+        "empty_super_rows": generate.sized_csr(
+            [3] * 16 + [0] * 40 + [2] * 16 + [0] * 9, 390, seed=22),
+    }
+    for name, csr in edges.items():
+        for block in BCSR_BLOCKS:
+            bcsr = BCSR.from_csr(csr, *block)
+            builds = [("bcsr_spmm", None, {},
+                       spmm_bcsr.bcsr_spmm(bcsr, device=device))]
+            for dtype in DTYPES:
+                for kw in K7_EDGE_TILES:
+                    builds.append(("bcsr_spmm_v3", dtype, kw,
+                                   spmm_bcsr_v3.bcsr_spmm_v3(
+                                       bcsr, dtype=dtype, device=device,
+                                       **kw)))
+            for F in BCSR_EDGE_FS:
+                B = np.random.default_rng(F).normal(
+                    size=(csr.shape[1], F)).astype(np.float32)
+                Bd = torch.from_numpy(B).to(device)
+                ops_csr, ops_B = rounded_operands(csr, B, dtype=None)
+                for kname, dtype, kw, (b, fn) in builds:
+                    label = (f"edge {name} {block[0]}x{block[1]} F={F} "
+                             f"{kname} {dtype or 'f32'} {kw}")
+                    C1, C2 = fn(b, Bd), fn(b, Bd)
+                    out = torch.full_like(C1, float("nan"))
+                    fn(b, Bd, out=out)
+                    torch.cuda.synchronize()
+                    require(torch.equal(C1, C2) and torch.equal(out, C1),
+                            f"{label}: applies differ")
+                    if kname == "bcsr_spmm":
+                        plain = spmm_bcsr.bcsr_spmm_plain(b, Bd, csr.shape)
+                    else:
+                        plain = spmm_bcsr_v3.bcsr_spmm_v3_plain(
+                            b, Bd, csr.shape, fn.meta, dtype)
+                    ops_csr, ops_B = rounded_operands(csr, B, dtype)
+                    C = C1.cpu().numpy()
+                    diff = np.abs(C.astype(np.float64)
+                                  - plain.cpu().numpy())
+                    require(np.all(diff <= spmm_pair_tolerance(
+                        ops_csr, ops_B, None)),
+                        f"{label}: kernel and plain differ by "
+                        f"{diff.max():.3e}")
+                    rep = reference.rigorously_validate_spmm(
+                        ops_csr, ops_B, C, mxu_bf16=False)
+                    require(rep.verdict == "NOT_A_BUG", f"{label}: {rep}")
+                    err[kname] = max(err[kname], float(diff.max(initial=0)))
+                    n += 1
+    return err, n
 
 
 def run_example(name, args):
@@ -694,6 +775,10 @@ def bcsr_phases(device, smi):
                             f"{label} F={F} {kname} {dtype or 'f32'}",
                             kname, csr, bcsr, B, dtype, device))
                         n_cases += 1
+    edge_err, n_edge = k7_k9_edges_vs_plain(device)
+    for k, v in edge_err.items():
+        bcsr_err[k] = max(bcsr_err[k], v)
+    n_cases += n_edge
     th = time.perf_counter()
     spmv_csr, spmv_bcsr = generate.build_block_sparse(**SPMV_REGIME)
     spmm_csr, spmm_bcsr = generate.build_block_sparse(**SPMM_REGIME)

@@ -18,7 +18,8 @@
 // Precision. f32 is IEEE f32 on the CUDA cores (fmaf; no TF32). The bf16
 // mode of K7/K8 rounds the operands (A blocks and B) to bf16 and multiplies
 // and sums in f32: a bf16 x bf16 product is exact in f32, so this is what
-// the TPU's jnp.dot(bf16, bf16, preferred_element_type=f32) computes.
+// the TPU's jnp.dot(bf16, bf16, preferred_element_type=f32) computes. K7
+// does it on the tensor cores (mma.sync, f32 sums), K8 on the CUDA cores.
 //
 // Not carried over from the TPU kernels: the (8, 128) register tiling, K6's
 // GROUP/KCH chunking with its 3-way bf16 split and ones-contraction on the
@@ -29,7 +30,9 @@
 // once (bytes; 2 flops per 4-byte value). The SpMMs do 2 * R * C * F flops
 // per stored block; in IEEE f32 on the CUDA cores (67 TFLOP/s) that is the
 // bound at F = 512, while in bf16 only the tensor cores could reach the
-// byte bound: these FMA kernels are the simple first version.
+// byte bound. Below the bound, what the card pays is the B tiles re-read
+// from L2 (K9 and K8: one per stored block; K7: one per super-row and
+// column) and, per staged tile, the FMAs each shared load feeds.
 //
 // Offsets into vals, B and the output are 64-bit. Each C entry point
 // returns cudaGetLastError() so the Python wrapper raises on a refused
@@ -37,6 +40,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -97,75 +102,6 @@ bcsr_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
   }
 }
 
-// ---------------------------------------------------------------- K9
-// One CTA of 128 threads per (block row, group of 8 rows, feature tile of
-// 128 * FPT columns). For each stored block of the row, in order, the 8 x
-// 128 sub-blocks are staged in shared memory (transposed, so a thread reads
-// a column's 8 values as two float4); thread i owns features i, i+128, ...
-// and keeps 8 x FPT sums in registers, reading B[col, f] coalesced.
-constexpr int kSpmmThreads = 128;
-
-template <int FPT>
-__global__ void __launch_bounds__(kSpmmThreads)
-bcsr_spmm_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
-                 const float* __restrict__ vals, const float* __restrict__ B,
-                 float* __restrict__ out, int R, int C, int rows, int cols,
-                 int F) {
-  __shared__ __align__(16) float sA[128 * kRowGroup];  // [c][r]
-  const int groups = R / kRowGroup;
-  const int br = blockIdx.x / groups;
-  const int r0 = (blockIdx.x % groups) * kRowGroup;
-  const int f0 = blockIdx.y * (kSpmmThreads * FPT) + threadIdx.x;
-  float acc[kRowGroup][FPT];
-#pragma unroll
-  for (int r = 0; r < kRowGroup; ++r) {
-#pragma unroll
-    for (int k = 0; k < FPT; ++k) acc[r][k] = 0.f;
-  }
-  const int t0 = offsets[br], t1 = offsets[br + 1];
-  for (int t = t0; t < t1; ++t) {
-    const long long col0 = static_cast<long long>(bcols[t]) * C;
-    const float* blk = vals + (static_cast<long long>(t) * R + r0) * C;
-    for (int c0 = 0; c0 < C && col0 + c0 < cols; c0 += 128) {
-      __syncthreads();  // the previous sub-block has been read
-#pragma unroll
-      for (int r = 0; r < kRowGroup; ++r) {
-        sA[threadIdx.x * kRowGroup + r] = __ldg(blk + r * C + c0 + threadIdx.x);
-      }
-      __syncthreads();
-      // columns past the matrix hold zeros and have no row of B
-      const int cn = static_cast<int>(min(128LL, cols - col0 - c0));
-      for (int c = 0; c < cn; ++c) {
-        const float* brow = B + (col0 + c0 + c) * F;
-        float b[FPT];
-#pragma unroll
-        for (int k = 0; k < FPT; ++k) {
-          const int f = f0 + kSpmmThreads * k;
-          b[k] = f < F ? __ldg(brow + f) : 0.f;
-        }
-        const float4 a0 = *reinterpret_cast<const float4*>(sA + c * kRowGroup);
-        const float4 a1 = *reinterpret_cast<const float4*>(sA + c * kRowGroup + 4);
-        const float a[kRowGroup] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int r = 0; r < kRowGroup; ++r) {
-#pragma unroll
-          for (int k = 0; k < FPT; ++k) acc[r][k] = fmaf(a[r], b[k], acc[r][k]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowGroup; ++r) {
-    const long long row = static_cast<long long>(br) * R + r0 + r;
-    if (row >= rows) break;
-#pragma unroll
-    for (int k = 0; k < FPT; ++k) {
-      const int f = f0 + kSpmmThreads * k;
-      if (f < F) out[row * F + f] = acc[r][k];
-    }
-  }
-}
-
 // ------------------------------------------------- K7/K8 shared pieces
 // Both walk a super-row (SUPER consecutive block rows) for one feature tile
 // of FT columns with 256 threads: the f32 accumulator tile [SUPER*R][FT]
@@ -186,6 +122,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
 
 // n contiguous elements (n * sizeof(T) a multiple of 16) into shared memory
 template <typename T>
@@ -196,12 +137,13 @@ __device__ __forceinline__ void load_contig(T* dst, const T* src, long long n) {
   }
 }
 
-// B rows [row0, row0 + C), columns [f0, f0 + FT) into dst[C][FT]; ld is B's
-// row pitch in elements (ld * sizeof(T) a multiple of 16)
+// B rows [row0, row0 + C), columns [f0, f0 + FT) into dst[C][FT] at row
+// pitch dp; ld is B's row pitch in elements (ld * sizeof(T) and
+// dp * sizeof(T) multiples of 16)
 template <typename T>
-__device__ __forceinline__ void load_b_tile(T* dst, const T* B, long long row0,
-                                            int C, int FT, int f0, int cols,
-                                            int F, int ld) {
+__device__ __forceinline__ void load_b_tile(T* dst, int dp, const T* B,
+                                            long long row0, int C, int FT,
+                                            int f0, int cols, int F, int ld) {
   constexpr int V = 16 / sizeof(T);
   const int per_row = FT / V;
   for (int i = threadIdx.x; i < C * per_row; i += blockDim.x) {
@@ -214,7 +156,7 @@ __device__ __forceinline__ void load_b_tile(T* dst, const T* B, long long row0,
       src = B + row * ld + f;
       bytes = min(V, F - f) * static_cast<int>(sizeof(T));
     }
-    cp_async16(dst + c * FT + v, src, bytes);
+    cp_async16(dst + c * dp + v, src, bytes);
   }
 }
 
@@ -233,13 +175,14 @@ __device__ __forceinline__ void zero_acc(float* acc, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
 }
 
-__device__ __forceinline__ void store_acc(const float* acc, float* out,
+// the accumulator tile [SR][FT] at row pitch ap into out's rows from row0
+__device__ __forceinline__ void store_acc(const float* acc, int ap, float* out,
                                           long long row0, int SR, int FT,
                                           int f0, int rows, int F) {
   for (int i = threadIdx.x; i < SR * FT; i += blockDim.x) {
     const long long row = row0 + i / FT;
     const int f = f0 + i % FT;
-    if (row < rows && f < F) out[row * F + f] = acc[i];
+    if (row < rows && f < F) out[row * F + f] = acc[(i / FT) * ap + i % FT];
   }
 }
 
@@ -267,15 +210,15 @@ bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
   const int t1 = offsets[min((s + 1) * SUPER, nbr)];
   if (t0 < t1) {
     load_contig(abuf, vals + t0 * RC, RC);
-    load_b_tile(bbuf, B, static_cast<long long>(bcols[t0]) * C, C, FT, f0,
-                cols, F, ld);
+    load_b_tile(bbuf, FT, B, static_cast<long long>(bcols[t0]) * C, C, FT,
+                f0, cols, F, ld);
   }
   cp_async_commit();
   for (int t = t0; t < t1; ++t) {
     const int slot = (t - t0) & 1;
     if (t + 1 < t1) {
       load_contig(abuf + (1 - slot) * RC, vals + (t + 1) * RC, RC);
-      load_b_tile(bbuf + (1 - slot) * C * FT, B,
+      load_b_tile(bbuf + (1 - slot) * C * FT, FT, B,
                   static_cast<long long>(bcols[t + 1]) * C, C, FT, f0, cols,
                   F, ld);
     }
@@ -296,7 +239,8 @@ bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
     __syncthreads();  // before the next prefetch overwrites this slot
   }
   __syncthreads();
-  store_acc(acc, out, static_cast<long long>(s) * SR, SR, FT, f0, rows, F);
+  store_acc(acc, FT, out, static_cast<long long>(s) * SR, SR, FT, f0, rows,
+            F);
 }
 
 // ---------------------------------------------------------------- K7
@@ -304,10 +248,190 @@ bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
 // (loops_tpu's _stage_chunks): a chunk's A slab [KCH*R][C] is one
 // contiguous copy, and the B tile of its column is loaded only where
 // bfetch == 1 (into buffer bslot), once per (super-row, column), and reused
-// by the following chunks of that column. Each thread owns 4 x 4 register
-// tiles of the chunk's live rows x FT and adds them into the accumulator at
-// the blocks' rowoff; chunks are separated by barriers, so each (row, f)
-// is summed in chunk order.
+// by the following chunks of that column. The card's tiles are large
+// (SUPER * R output rows, the f32 accumulator [SUPER*R][FT] in shared
+// memory) so that chunks fill and each B tile serves many blocks.
+//
+// Chunk t + 1's slab, rowoff and B tile are copied in with cp.async while
+// chunk t is computed; the chunk arrays of t + 2 are read into registers
+// at the same time, so no step waits on an index load.
+//
+// A chunk's work is cut into units: 8 slab rows (one block, or an 8-row
+// part of a taller one) x 16 features. Warp w owns feature group w % G
+// (G = FT / 16, a divisor of the 8 warps) and units w / G, w / G + 8 / G,
+// ...; it adds each unit's sums into the accumulator rows of the block's
+// rowoff. A chunk's blocks lie in distinct block rows and a warp's units
+// are its own, so no two writes meet; chunks are separated by barriers:
+// each (row, f) is summed in chunk order.
+//
+// bf16: the transposed product outᵀ = Bᵀ Aᵀ on mma.sync m16n8k16 (f32
+// sums): 16 features are the mma's M, a unit's 8 rows its N, C its K. The
+// warp keeps Bᵀ's fragments for its 16 features over 128 columns in 32
+// registers (ldmatrix.trans of the row-major B tile) and, per unit, reads
+// A's fragments with ldmatrix over the row-major slab: 8 mma per unit, the
+// even and the odd k-steps in two chains, added at the end. Accumulator
+// fragment (feature gid (+8), rows 2 tig, 2 tig + 1) lands at
+// acc[rowoff * R + 2 tig (+1)][16 g + gid (+8)]. Rows of A and B are
+// padded by 16 bytes so ldmatrix reads no bank twice.
+//
+// f32: IEEE fmaf on the CUDA cores. Lane (split s, quad fq) keeps 8 rows x
+// 4 features over columns 32 j + 4 s + i: 8 float4 of A (two addresses a
+// phase) and 4 float4 of B feed 128 FMAs. The 8 splits are then summed
+// across lanes in three shuffle rounds, each lane keeping half of what it
+// holds, so lane s ends with row s: (((S_s + S_s^4) + (S_s^2 + S_s^6)) +
+// ((S_s^1 + S_s^5) + (S_s^3 + S_s^7))), the same lanes in the same order
+// on every run. B's rows are padded by 16 bytes: a phase reads two rows.
+constexpr int kK7Warps = kSuperThreads / 32;
+constexpr int kK7Unit = 16;  // features of a unit
+
+template <typename T>
+struct K7Layout {  // row pads (elements) of the staged slab and B tile
+  static constexpr int kPadA = sizeof(T) == 2 ? 8 : 0;
+  static constexpr int kPadB = sizeof(T) == 2 ? 8 : 4;
+};
+
+// n rows of C contiguous elements into dst at row pitch dp
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, int dp, const T* src, int n,
+                                          int C) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_row = C / V;
+  for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
+    const int r = i / per_row, v = (i % per_row) * V;
+    cp_async16(dst + r * dp + v, src + static_cast<long long>(r) * C + v, 16);
+  }
+}
+
+// one unit's 8 mma (bf16): the even and the odd k-steps in two chains
+__device__ __forceinline__ void k7_mma(float d[4], float e[4],
+                                       const __nv_bfloat16* ar,
+                                       const unsigned (&bf)[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ks += 2) {
+    unsigned af[4];
+    loops_tc::ldmatrix_x4(af, ar + 16 * ks);
+    loops_tc::mma_bf16(d, bf[ks], af);
+    loops_tc::mma_bf16(e, bf[ks + 1], af + 2);
+  }
+}
+
+// a unit's fragments (feature gid (+8), rows 2 tig, 2 tig + 1) into acc
+__device__ __forceinline__ void k7_add(float* acc, const float d[4],
+                                       const float e[4], int row, int accp,
+                                       int col) {
+  const int lane = threadIdx.x & 31;
+  float* dst = acc + (row + 2 * (lane & 3)) * accp + col + (lane >> 2);
+  dst[0] += d[0] + e[0];
+  dst[accp] += d[1] + e[1];
+  dst[8] += d[2] + e[2];
+  dst[accp + 8] += d[3] + e[3];
+}
+
+// one warp: the chunk's units of feature group g, bf16; two units at a
+// time, their mma chains interleaved
+__device__ __forceinline__ void k7_units(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, float* acc,
+    const int* ro, int tiles, int R, int C, int ap, int bp, int accp, int g,
+    int first, int stride) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < C; c0 += 128) {
+    unsigned bf[8][4];
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int row = c0 + 16 * ks + (lane & 7) + 8 * (lane >> 4);
+      loops_tc::ldmatrix_x4_trans(
+          bf[ks], b + row * bp + kK7Unit * g + 8 * ((lane >> 3) & 1));
+    }
+    const int lrow = (lane & 7) * ap + c0 + 8 * (lane >> 3);
+    int q = first;
+    for (; q + stride < tiles; q += 2 * stride) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
+      float d2[4] = {0.f, 0.f, 0.f, 0.f}, e2[4] = {0.f, 0.f, 0.f, 0.f};
+      const int q2 = q + stride;
+      k7_mma(d, e, a + 8 * q * ap + lrow, bf);
+      k7_mma(d2, e2, a + 8 * q2 * ap + lrow, bf);
+      k7_add(acc, d, e, ro[8 * q / R] * R + (8 * q) % R, accp, kK7Unit * g);
+      k7_add(acc, d2, e2, ro[8 * q2 / R] * R + (8 * q2) % R, accp,
+             kK7Unit * g);
+    }
+    if (q < tiles) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
+      k7_mma(d, e, a + 8 * q * ap + lrow, bf);
+      k7_add(acc, d, e, ro[8 * q / R] * R + (8 * q) % R, accp, kK7Unit * g);
+    }
+  }
+}
+
+// one warp: the chunk's units of feature group g, f32
+__device__ __forceinline__ void k7_units(
+    const float* a, const float* b, float* acc, const int* ro, int tiles,
+    int R, int C, int ap, int bp, int accp, int g, int first, int stride) {
+  const int lane = threadIdx.x & 31, s = lane >> 2, fq = lane & 3;
+  const bool h2 = s & 4, h1 = s & 2, h0 = s & 1;
+  const float* bq = b + kK7Unit * g + 4 * fq;
+  for (int q = first; q < tiles; q += stride) {
+    const float* ar = a + 8 * q * ap;
+    float sum[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum[r][k] = 0.f;
+    }
+    for (int c0 = 4 * s; c0 < C; c0 += 128) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 32 * j;
+        float av[8][4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) load4(ar + r * ap + c, av[r]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float bv[4];
+          load4(bq + (c + i) * bp, bv);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) sum[r][k] = fmaf(av[r][i], bv[k], sum[r][k]);
+          }
+        }
+      }
+    }
+    // splits s and s ^ 4 (lane ^ 16): the upper split keeps rows 4..7
+    float p[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float send = h2 ? sum[r][k] : sum[r + 4][k];
+        const float keep = h2 ? sum[r + 4][k] : sum[r][k];
+        p[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      }
+    }
+    // then s ^ 2 (lane ^ 8) keeps two of the four rows, s ^ 1 (lane ^ 4) one
+    float u[2][4], v[4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float send = h1 ? p[r][k] : p[r + 2][k];
+        const float keep = h1 ? p[r + 2][k] : p[r][k];
+        u[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float send = h0 ? u[0][k] : u[1][k];
+      const float keep = h0 ? u[1][k] : u[0][k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+    const int arow = ro[8 * q / R] * R + (8 * q) % R + s;
+    float4* dst = reinterpret_cast<float4*>(acc + arow * accp + kK7Unit * g + 4 * fq);
+    float4 o = *dst;
+    o.x += v[0]; o.y += v[1]; o.z += v[2]; o.w += v[3];
+    *dst = o;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kSuperThreads)
 bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
@@ -319,72 +443,163 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
                     int C, int rows, int cols, int F, int ld, int SUPER,
                     int KCH, int FT) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int ap = C + K7Layout<T>::kPadA, bp = FT + K7Layout<T>::kPadB;
+  const int accp = FT + 4;
   const int SR = SUPER * R, QR = KCH * R;
   float* acc = reinterpret_cast<float*>(smem);
-  T* abuf = reinterpret_cast<T*>(acc + SR * FT);  // [2][QR*C]
-  T* bbuf = abuf + 2 * QR * C;                     // [2][C*FT]
+  T* abuf = reinterpret_cast<T*>(acc + SR * accp);  // [2][QR][ap]
+  T* bbuf = abuf + 2 * QR * ap;                      // [2][C][bp]
+  int* robuf = reinterpret_cast<int*>(bbuf + 2 * C * bp);  // [2][KCH]
   const int s = blockIdx.x, f0 = blockIdx.y * FT;
   const long long QC = static_cast<long long>(QR) * C;
-  const long long RC = static_cast<long long>(R) * C;
-  zero_acc(acc, SR * FT);
+  const int G = FT / kK7Unit, warp = threadIdx.x >> 5;
+  // chunk t's slab and rowoff into slot `slot`, its B tile if it fetches
+  auto stage = [&](int t, int slot, int n, int fetch, int col, int bs) {
+    load_rows(abuf + slot * QR * ap, ap, a3d + t * QC, n * R, C);
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      cp_async4(robuf + slot * KCH + k,
+                rowoff + static_cast<long long>(t) * KCH + k);
+    }
+    if (fetch) {
+      load_b_tile(bbuf + bs * C * bp, bp, B, static_cast<long long>(col) * C,
+                  C, FT, f0, cols, F, ld);
+    }
+  };
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < SR * accp / 4; i += blockDim.x) {
+    reinterpret_cast<float4*>(acc)[i] = zero4;
+  }
   const int t0 = chunk_ptr[s], t1 = chunk_ptr[s + 1];
+  int n0 = 0, bs0 = 0;                  // chunk t: live blocks, B slot
+  int n1 = 0, f1 = 0, c1 = 0, bs1 = 0;  // chunk t + 1
   if (t0 < t1) {  // a super-row's first chunk always fetches
-    load_contig(abuf, a3d + t0 * QC, nlive[t0] * RC);
-    load_b_tile(bbuf + bslot[t0] * C * FT, B,
-                static_cast<long long>(ccol[t0]) * C, C, FT, f0, cols, F, ld);
+    n0 = nlive[t0];
+    bs0 = bslot[t0];
+    stage(t0, 0, n0, 1, ccol[t0], bs0);
   }
   cp_async_commit();
-  const int nf = FT / 4;
+  if (t0 + 1 < t1) {
+    n1 = nlive[t0 + 1]; f1 = bfetch[t0 + 1];
+    c1 = ccol[t0 + 1]; bs1 = bslot[t0 + 1];
+  }
   for (int t = t0; t < t1; ++t) {
     const int aslot = (t - t0) & 1;
-    if (t + 1 < t1) {
-      load_contig(abuf + (1 - aslot) * QC, a3d + (t + 1) * QC,
-                  nlive[t + 1] * RC);
-      // a fetch goes to the other B buffer than the one chunk t reads
-      if (bfetch[t + 1]) {
-        load_b_tile(bbuf + bslot[t + 1] * C * FT, B,
-                    static_cast<long long>(ccol[t + 1]) * C, C, FT, f0, cols,
-                    F, ld);
-      }
+    int n2 = 0, f2 = 0, c2 = 0, bs2 = 0;  // chunk t + 2, read now
+    if (t + 2 < t1) {
+      n2 = nlive[t + 2]; f2 = bfetch[t + 2];
+      c2 = ccol[t + 2]; bs2 = bslot[t + 2];
     }
+    // a fetch goes to the other B buffer than the one chunk t reads
+    if (t + 1 < t1) stage(t + 1, 1 - aslot, n1, f1, c1, bs1);
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
-    const T* a = abuf + aslot * QC;
-    const T* b = bbuf + bslot[t] * C * FT;
-    const int* ro = rowoff + static_cast<long long>(t) * KCH;
-    const int tiles = nlive[t] * R / 4 * nf;
-    for (int tile = threadIdx.x; tile < tiles; tile += blockDim.x) {
-      const int q0 = tile / nf * 4, fq = tile % nf * 4;
-      float sum[4][4];
+    k7_units(abuf + aslot * QR * ap, bbuf + bs0 * C * bp, acc,
+             robuf + aslot * KCH, n0 * R / 8, R, C, ap, bp, accp, warp % G,
+             warp / G, kK7Warps / G);
+    __syncthreads();  // before the next prefetch overwrites these buffers
+    n0 = n1; bs0 = bs1;
+    n1 = n2; f1 = f2; c1 = c2; bs1 = bs2;
+  }
+  // the tile out, four features a store where F allows
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = threadIdx.x; i < SR * FT / 4; i += blockDim.x) {
+    const int r = i / (FT / 4), f = (i % (FT / 4)) * 4;
+    const long long row = static_cast<long long>(s) * SR + r;
+    if (row >= rows) break;
+    const float4 v = *reinterpret_cast<const float4*>(acc + r * accp + f);
+    float* o = out + row * F + f0 + f;
+    if (vec && f0 + f + 4 <= F) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      for (int k = 0; k < 4 && f0 + f + k < F; ++k) o[k] = w[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K9
+// One CTA of 128 threads per (block row, group of 8 rows, feature tile of
+// 512 columns). Thread i owns the 4 contiguous features 4i..4i+3 and keeps
+// 8 rows x 4 features in registers. For each stored block of the row, in
+// storage order, the 8 x 128 sub-block is staged transposed in shared
+// memory (a column's 8 values are two float4, read by every thread: a
+// broadcast), and B's rows are read straight from L2 as 16-byte loads,
+// U columns' loads in flight before their 32 FMAs each. Every output is
+// one thread's fmaf chain over the row's blocks in storage order and their
+// columns in order.
+constexpr int kSpmmThreads = 128;
+constexpr int kK9Tile = 4 * kSpmmThreads;  // feature columns of a CTA
+
+template <int U>
+__global__ void __launch_bounds__(kSpmmThreads)
+bcsr_spmm_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
+                 const float* __restrict__ vals, const float* __restrict__ B,
+                 float* __restrict__ out, int R, int C, int rows, int cols,
+                 int F, int ld) {
+  __shared__ __align__(16) float sA[128 * kRowGroup];  // [c][r]
+  const int groups = R / kRowGroup;
+  const int br = blockIdx.x / groups;
+  const int r0 = (blockIdx.x % groups) * kRowGroup;
+  const int f = blockIdx.y * kK9Tile + 4 * threadIdx.x;
+  // B's row pitch ld is a multiple of 4 and ld >= F: a float4 at f < F
+  // lies in its row
+  const bool live = f < F;
+  float acc[kRowGroup][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+  for (int r = 0; r < kRowGroup; ++r) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sum[i][j] = 0.f;
+    for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
+  }
+  const int t0 = offsets[br], t1 = offsets[br + 1];
+  for (int t = t0; t < t1; ++t) {
+    const long long col0 = static_cast<long long>(bcols[t]) * C;
+    const float* blk = vals + (static_cast<long long>(t) * R + r0) * C;
+    for (int c0 = 0; c0 < C && col0 + c0 < cols; c0 += 128) {
+      __syncthreads();  // the previous sub-block has been read
+#pragma unroll
+      for (int r = 0; r < kRowGroup; ++r) {
+        sA[threadIdx.x * kRowGroup + r] = __ldg(blk + r * C + c0 + threadIdx.x);
       }
-      for (int c = 0; c < C; ++c) {
-        float av[4], bv[4];
+      __syncthreads();
+      // columns past the matrix hold zeros and have no row of B
+      const int cn = static_cast<int>(min(128LL, cols - col0 - c0));
+      const float* brow = B + (col0 + c0) * ld + f;
+      for (int c = 0; c < cn; c += U) {
+        float4 b[U];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = to_f(a[(q0 + i) * C + c]);
-        load4(b + c * FT + fq, bv);
+        for (int i = 0; i < U; ++i) {
+          b[i] = live && c + i < cn
+                     ? __ldg(reinterpret_cast<const float4*>(
+                           brow + static_cast<long long>(c + i) * ld))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < U; ++i) {
+          if (c + i < cn) {
+            float a[kRowGroup];
+            load4(sA + (c + i) * kRowGroup, a);
+            load4(sA + (c + i) * kRowGroup + 4, a + 4);
+            const float bv[4] = {b[i].x, b[i].y, b[i].z, b[i].w};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sum[i][j] = fmaf(av[i], bv[j], sum[i][j]);
+            for (int r = 0; r < kRowGroup; ++r) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(a[r], bv[k], acc[r][k]);
+            }
+          }
         }
       }
-      // R % 8 == 0: the 4 rows lie in one block of the chunk
-      const int arow = ro[q0 / R] * R + q0 % R;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[(arow + i) * FT + fq + j] += sum[i][j];
-      }
     }
-    __syncthreads();  // before the next prefetch overwrites these buffers
   }
-  __syncthreads();
-  store_acc(acc, out, static_cast<long long>(s) * SR, SR, FT, f0, rows, F);
+#pragma unroll
+  for (int r = 0; r < kRowGroup; ++r) {
+    const long long row = static_cast<long long>(br) * R + r0 + r;
+    if (row >= rows) break;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (f + k < F) out[row * F + f + k] = acc[r][k];
+    }
+  }
 }
 
 template <typename K>
@@ -412,23 +627,30 @@ int loops_bcsr_spmv_f32(const void* offsets, const void* bcols,
 
 int loops_bcsr_spmm_f32(const void* offsets, const void* bcols,
                         const void* vals, const void* B, void* out, int nbr,
-                        int R, int C, int rows, int cols, int F, int fpt,
+                        int R, int C, int rows, int cols, int F, int ld,
                         void* stream) {
   const dim3 grid(static_cast<unsigned>(nbr) * (R / kRowGroup),
-                  (F + kSpmmThreads * fpt - 1) / (kSpmmThreads * fpt));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* o = static_cast<const int*>(offsets);
-  const auto* bc = static_cast<const int*>(bcols);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* b = static_cast<const float*>(B);
-  auto* c = static_cast<float*>(out);
-  switch (fpt) {
-    case 1: bcsr_spmm_kernel<1><<<grid, kSpmmThreads, 0, s>>>(o, bc, v, b, c, R, C, rows, cols, F); break;
-    case 2: bcsr_spmm_kernel<2><<<grid, kSpmmThreads, 0, s>>>(o, bc, v, b, c, R, C, rows, cols, F); break;
-    case 3: bcsr_spmm_kernel<3><<<grid, kSpmmThreads, 0, s>>>(o, bc, v, b, c, R, C, rows, cols, F); break;
-    case 4: bcsr_spmm_kernel<4><<<grid, kSpmmThreads, 0, s>>>(o, bc, v, b, c, R, C, rows, cols, F); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                  (F + kK9Tile - 1) / kK9Tile);
+  bcsr_spmm_kernel<4><<<grid, kSpmmThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(offsets), static_cast<const int*>(bcols),
+      static_cast<const float*>(vals), static_cast<const float*>(B),
+      static_cast<float*>(out), R, C, rows, cols, F, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sweep only: K9 with 8 columns' loads in flight
+int loops_bcsr_spmm_f32_r(const void* offsets, const void* bcols,
+                          const void* vals, const void* B, void* out, int nbr,
+                          int R, int C, int rows, int cols, int F, int ld,
+                          void* stream) {
+  const dim3 grid(static_cast<unsigned>(nbr) * (R / kRowGroup),
+                  (F + kK9Tile - 1) / kK9Tile);
+  bcsr_spmm_kernel<8><<<grid, kSpmmThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(offsets), static_cast<const int*>(bcols),
+      static_cast<const float*>(vals), static_cast<const float*>(B),
+      static_cast<float*>(out), R, C, rows, cols, F, ld);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Hopper helpers shared by the probe kernels (csrc/probes_r2.cu,
-// csrc/probes_gather.cu): the dynamic shared-memory opt-in, ldmatrix and
-// mma.sync m16n8k16 with bf16 inputs and f32 sums.
+// csrc/probes_gather.cu) and K7's bf16 mode (csrc/bcsr.cu): the dynamic
+// shared-memory opt-in, ldmatrix and mma.sync m16n8k16 with bf16 inputs
+// and f32 sums.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * gid + tig):
 //   A (16 x 16): a[0] = (row gid, cols 2tig, 2tig+1), a[1] = row gid + 8,
@@ -34,6 +35,16 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// four 8x8 matrices, each transposed: over row-major B [k][n] (lane l
+// gives row k0 + l % 8 + 8 (l / 16) at column n0 + 8 ((l / 8) % 2)) it
+// yields the A fragment of the product Bᵀ (16 n x 16 k).
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x2_trans(unsigned r[2], const void* p) {

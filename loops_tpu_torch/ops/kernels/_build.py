@@ -228,7 +228,7 @@ def staged_guard(bufs: dict, params: dict, check_staged):
     the device they were checked on while ``b`` holds those very tensors,
     none changed in place since, else None (the wrapper then checks ``b``
     in full)."""
-    device = bufs["vals"].device
+    device = next(iter(bufs.values())).device
     if device.type == "cuda":
         check_staged(bufs, params, device)
     staged = tuple(bufs.values())
@@ -239,13 +239,17 @@ def staged_guard(bufs: dict, params: dict, check_staged):
     return staged_on
 
 
-def output(out, n: int, device) -> torch.Tensor:
-    """``out``, checked to be a contiguous float32 tensor of ``n`` on
-    ``device``, or a new ``torch.empty`` of ``n`` (for a kernel that
-    writes every element: no fill)."""
+def output(out, shape, device) -> torch.Tensor:
+    """``out``, checked to be a contiguous float32 tensor of ``shape`` (an
+    int for a vector) on ``device``, or a new ``torch.empty`` of it (for a
+    kernel that writes every element: no fill)."""
     if out is None:
-        return torch.empty(n, dtype=torch.float32, device=device)
-    check(out, "out", torch.float32, device, n)
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    check(out, "out", torch.float32, device)
+    want = (tuple(shape) if isinstance(shape, (tuple, list))
+            else (int(shape),))
+    if tuple(out.shape) != want:
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {want}")
     return out
 
 

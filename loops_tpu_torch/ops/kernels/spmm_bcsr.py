@@ -7,18 +7,30 @@ one stored block per grid step and keeps the output tile resident while
 the blocks of its row pass.
 
 The CUDA kernel (``csrc/bcsr.cu`` ``bcsr_spmm_kernel``) gives one CTA of
-128 threads to each (block row, group of 8 rows, feature tile of
-128 * FPT columns, FPT = ``block_f / 128`` up to 4): each stored block of
-the row, in order, is staged 8 x 128 at a time in shared memory and
-every thread keeps 8 x FPT sums in registers, reading rows of B
-coalesced. What bounds it on an H100: 2 flops per stored value and
-feature on the CUDA cores (IEEE f32, no TF32), and B tiles read once per
-(stored block, feature tile), mostly from L2.
+128 threads to each (block row, group of 8 rows, feature tile of 512
+columns). Thread i owns the 4 contiguous features 4i..4i+3 and keeps
+8 rows x 4 features in registers. Each stored block of the row, in
+storage order, is staged 8 x 128 at a time in shared memory, transposed
+(a column's 8 values are two float4 every thread reads: a broadcast),
+and B's rows come straight from L2 as 16-byte loads, 4 columns' loads in
+flight before their 32 FMAs each; at 59 registers and 4 KB a CTA, 32
+warps an SM keep enough of them in flight. Each output is one thread's
+``fmaf`` chain over the row's blocks in storage order.
+
+What bounds it on an H100: 2 flops per stored value and feature on the
+CUDA cores (IEEE f32, no TF32), and B's rows read once per (stored
+block, feature tile), from L2 when B fits its 50 MB: 4.00 GB at the
+bench's 16384^2, F = 512 regime. Two redesigns measured slower on the
+card and were not kept (PERF.md, PR 9): B tiles staged in shared memory
+by ``cp.async`` with 8 x 8 register tiles, and one B tile per column of a
+group of block rows.
 
 An empty block row's CTAs write its zeros, so the TPU's
 ``_pad_empty_rows`` (zero blocks inserted so every output tile is
 visited) is dropped, with the TPU's B padding to 128-lane tiles. Kept:
-``R % 8 == 0`` and ``C % 128 == 0``, f32 only.
+``R % 8 == 0`` and ``C % 128 == 0``, f32 only. The staged buffers are
+checked once, at bind (``_build.staged_guard``), and C is a
+``torch.empty`` or a checked ``out=``: the kernel writes every row.
 
 ``bcsr_spmm_plain`` is the plain version, and in the values' own type
 (f32 or f64) also the operators' ``impl='xla'`` executor for BCSR.
@@ -34,7 +46,8 @@ from loops_tpu_torch.ops.kernels.spmv_bcsr import stage
 from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
-MAX_FPT = 4
+# feature columns of one K9 CTA (csrc/bcsr.cu kK9Tile)
+K9_TILE = 512
 
 
 def check_blocks(bcsr) -> None:
@@ -46,45 +59,61 @@ def check_blocks(bcsr) -> None:
             f"BCSR SpMM kernels need R%8==0 and C%128==0, got {R}x{C}")
 
 
-def features_per_thread(F: int, block_f: int) -> int:
-    """Feature columns per thread of K9: ``block_f / 128``, at most 4 and
-    no more than F needs."""
+def check_block_f(block_f: int) -> int:
+    """``block_f``, the TPU kernel's feature tile, checked: a positive
+    multiple of 128 lanes. K9's tile on the card is 512 columns
+    (``K9_TILE``) whatever it is."""
     block_f = int(block_f)
     if block_f < LANES or block_f % LANES:
         raise ValueError(f"block_f={block_f}: K9's feature tile is a "
                          f"positive multiple of {LANES} columns")
-    return max(1, min(block_f // LANES, MAX_FPT, -(-F // LANES)))
+    return block_f
 
 
-def bcsr_spmm_cuda(b: dict, B: torch.Tensor, shape,
-                   block_f: int = 512) -> torch.Tensor:
-    """Launch K9 on the staged buffers: C [rows, F] float32."""
-    dev = B.device
-    if dev.type != "cuda":
-        raise ValueError(f"bcsr_spmm_cuda needs a CUDA tensor, got {dev}")
+def check_staged(b: dict, params: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged buffers ``b`` are what K9
+    reads: contiguous int32/float32 tensors on ``device`` of the
+    matrix's sizes."""
+    nb, R, C = params["num_blocks"], params["R"], params["C"]
+    _build.check(b["vals"], "vals", torch.float32, device, nb * R * C)
+    _build.check(b["bcols"], "bcols", torch.int32, device, nb)
+    _build.check(b["offsets"], "offsets", torch.int32, device,
+                 params["nbr"] + 1)
+
+
+def bcsr_spmm_cuda(b: dict, B: torch.Tensor, shape, staged_on=None,
+                   out=None, params=None) -> torch.Tensor:
+    """Launch K9 on the staged buffers: C [rows, F] float32.
+    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
+    (at bind, with ``params``); the buffers are then not checked again.
+    ``out``: a float32 [rows, F] tensor to write C into instead of a new
+    ``torch.empty`` (the kernel writes every row)."""
+    if not B.is_cuda:
+        raise ValueError(f"bcsr_spmm_cuda needs a CUDA tensor, got "
+                         f"{B.device}")
     rows, cols = shape
-    nb, R, C = b["vals"].shape
+    dev = B.device if staged_on is None else staged_on
+    if params is None:
+        nb, R, C = b["vals"].shape
+        params = dict(num_blocks=nb, R=R, C=C, nbr=-(-rows // R))
+    R, C = params["R"], params["C"]
     if R % 8 or C % LANES:
         raise ValueError(f"K9 needs R%8==0 and C%128==0, got {R}x{C}")
     if B.dim() != 2 or B.shape[0] != cols:
         raise ValueError(f"B has shape {tuple(B.shape)}, expected "
                          f"[{cols}, F]")
-    F = B.shape[1]
-    nbr = -(-rows // R)
     _build.check(B, "B", torch.float32, dev)
-    _build.check(b["vals"], "vals", torch.float32, dev)
-    _build.check(b["bcols"], "bcols", torch.int32, dev, nb)
-    _build.check(b["offsets"], "offsets", torch.int32, dev, nbr + 1)
-    fpt = features_per_thread(F, block_f)
-    if -(-F // (LANES * fpt)) > 65535:
-        raise ValueError(f"F={F} needs more than 65535 feature tiles")
-    out = torch.empty(rows, F, dtype=torch.float32, device=dev)
+    if staged_on is None:
+        check_staged(b, params, dev)
+    F = B.shape[1]
+    C_out = _build.output(out, (rows, F), dev)
     if rows == 0 or F == 0:
-        return out  # a grid of 0 blocks is not a launch
+        return C_out  # a grid of 0 blocks is not a launch
+    Bk, ld = stage_b(B, None)
     _build.launch("loops_bcsr_spmm_f32", "bcsr_spmm", dev, b["offsets"],
-                  b["bcols"], b["vals"], B, out, nbr, R, C, rows, cols, F,
-                  fpt)
-    return out
+                  b["bcols"], b["vals"], Bk, C_out, params["nbr"], R, C,
+                  rows, cols, F, ld)
+    return C_out
 
 
 def bcsr_spmm_plain(b: dict, B: torch.Tensor, shape) -> torch.Tensor:
@@ -106,7 +135,7 @@ def bcsr_spmm_plain(b: dict, B: torch.Tensor, shape) -> torch.Tensor:
 
 # --- shared by K7 and K8, whose CTAs keep tiles in shared memory
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 CTA may opt into
-MAX_SUPER_FT = 64     # widest feature tile of K7/K8
+MAX_SUPER_FT = 64     # widest feature tile of K8
 
 
 def stream_type(dtype):
@@ -119,12 +148,12 @@ def stream_type(dtype):
 
 
 def fit_feature_tile(block_f: int, smem_bytes) -> tuple[int, int]:
-    """``(FT, bytes)``: the widest feature tile of at most
+    """K8's ``(FT, bytes)``: the widest feature tile of at most
     ``min(block_f, 64)`` columns, halving down to 8, whose shared memory
     ``smem_bytes(FT)`` fits one CTA; raise ``ValueError`` if none does."""
     block_f = int(block_f)
     if block_f < 8 or block_f % 8:
-        raise ValueError(f"block_f={block_f}: K7/K8's feature tile is a "
+        raise ValueError(f"block_f={block_f}: K8's feature tile is a "
                          "positive multiple of 8 columns")
     ft = min(block_f, MAX_SUPER_FT)
     while ft % 8 == 0 and ft >= 8:
@@ -151,19 +180,27 @@ def stage_b(B: torch.Tensor, dtype) -> tuple[torch.Tensor, int]:
 
 
 def bcsr_spmm(bcsr, block_f: int = 512, device="cuda"):
-    """Build ``(bufs, fn(bufs, B))`` for BCSR @ dense through K9; ``fn``
-    runs K9 on a CUDA tensor and the plain version on a CPU tensor."""
+    """Build ``(bufs, fn(bufs, B, out=None))`` for BCSR @ dense through
+    K9; ``fn`` runs K9 on a CUDA tensor and the plain version on a CPU
+    tensor."""
     device = ensure_platform(device)
     check_blocks(bcsr)
     if np.dtype(bcsr.vals.dtype) != np.float32:
         raise ValueError("BCSR SpMM kernel K9 stages float32 values")
-    features_per_thread(1, block_f)
+    check_block_f(block_f)
     shape = bcsr.shape
+    R, C = bcsr.block_shape
     bufs = stage(bcsr, device)
+    params = dict(num_blocks=bcsr.num_blocks, R=R, C=C,
+                  nbr=-(-shape[0] // R))
+    staged_on = _build.staged_guard(bufs, params, check_staged)
 
-    def fn(b, B):
+    def fn(b, B, out=None):
         if B.device.type == "cpu":
             return bcsr_spmm_plain(b, B, shape)
-        return bcsr_spmm_cuda(b, B, shape, block_f)
-    fn.meta = dict(num_blocks=bcsr.num_blocks, block_f=block_f)
+        return bcsr_spmm_cuda(b, B, shape, staged_on(b), out, params)
+    fn.params = params
+    fn.staged_on = staged_on
+    fn.meta = dict(num_blocks=bcsr.num_blocks, block_f=block_f,
+                   FT=K9_TILE)
     return bufs, fn

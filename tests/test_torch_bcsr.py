@@ -217,27 +217,233 @@ def test_k7_buffer_protocol_mirror(name, super_kch):
                                rtol=1e-5, atol=1e-5)
 
 
+def _ldmatrix(smem, lane_rows, lane_cols, n_mats, trans):
+    """``ldmatrix.m8n8.x{n_mats}[.trans]``: matrix m's row r at the address
+    lane 8m + r gives; lane t receives, per matrix, (row t/4, columns 2(t%4)
+    and +1), or with .trans (rows 2(t%4) and +1, column t/4)."""
+    regs = np.zeros((32, n_mats, 2), np.float64)
+    for m in range(n_mats):
+        M = np.stack([smem[lane_rows[8 * m + r],
+                           lane_cols[8 * m + r]:lane_cols[8 * m + r] + 8]
+                      for r in range(8)])
+        t = np.arange(32)
+        if trans:
+            regs[:, m] = np.stack([M[2 * (t % 4), t // 4],
+                                   M[2 * (t % 4) + 1, t // 4]], 1)
+        else:
+            regs[:, m] = np.stack([M[t // 4, 2 * (t % 4)],
+                                   M[t // 4, 2 * (t % 4) + 1]], 1)
+    return regs
+
+
+def _mma_m16n8k16(a, b):
+    """mma.sync m16n8k16 row.col from per-lane fragments: a [32, 4, 2],
+    b [32, 2, 2]; returns d [32, 4] (c0..c3 of each lane)."""
+    A, Bm = np.zeros((16, 16)), np.zeros((16, 8))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        for i, (r, c) in enumerate(((g, 2 * q), (g + 8, 2 * q),
+                                    (g, 2 * q + 8), (g + 8, 2 * q + 8))):
+            A[r, c:c + 2] = a[t, i]
+        for i, k in enumerate((2 * q, 2 * q + 8)):
+            Bm[k:k + 2, g] = b[t, i]
+    D = A @ Bm
+    g, q = np.arange(32) // 4, np.arange(32) % 4
+    return np.stack([D[g, 2 * q], D[g, 2 * q + 1], D[g + 8, 2 * q],
+                     D[g + 8, 2 * q + 1]], 1)
+
+
+def _k7_unit_bf16(As, Bs, q, g):
+    """One warp's unit of ``k7_units`` (bf16): Bᵀ's fragments by
+    ldmatrix.x4.trans over the B tile, A's by ldmatrix.x4 over the slab,
+    the even and odd k-steps in two chains; returns the 16 x 8 (feature,
+    row) tile as the lanes' accumulator fragments place it."""
+    lanes = np.arange(32)
+    d, e = np.zeros((32, 4)), np.zeros((32, 4))
+    for c0 in range(0, As.shape[1] - 8, 128):
+        for ks in range(0, 8, 2):
+            af = _ldmatrix(As, 8 * q + (lanes & 7),
+                           c0 + 16 * ks + 8 * (lanes >> 3), 4, trans=False)
+            for k, chain in ((ks, d), (ks + 1, e)):
+                bf = _ldmatrix(Bs, c0 + 16 * k + (lanes & 7) + 8 * (lanes >> 4),
+                               16 * g + 8 * ((lanes >> 3) & 1), 4, trans=True)
+                chain += _mma_m16n8k16(bf, af[:, 2 * (k - ks):2 * (k - ks) + 2])
+    tile = np.zeros((16, 8))
+    gid, tig = lanes >> 2, lanes & 3
+    tile[gid, 2 * tig], tile[gid, 2 * tig + 1] = (d + e)[:, 0], (d + e)[:, 1]
+    tile[gid + 8, 2 * tig], tile[gid + 8, 2 * tig + 1] = (d + e)[:, 2], \
+        (d + e)[:, 3]
+    return tile
+
+
+def _k7_unit_f32(As, Bs, q, g):
+    """One warp's unit of ``k7_units`` (f32), in its float32 order: lane
+    (split s, quad fq) sums columns 32 j + 4 s + i by fma, then three
+    shuffle rounds leave row s at lane s as (((S_s + S_s^4) + (S_s^2 +
+    S_s^6)) + ((S_s^1 + S_s^5) + (S_s^3 + S_s^7))); returns [8, 16]."""
+    C = As.shape[1]
+    f32 = np.float32
+    S = np.zeros((8, 8, 16), f32)  # split, row, feature
+    a = As[8 * q:8 * q + 8]
+    for s in range(8):
+        for c0 in range(4 * s, C, 32):
+            for i in range(4):
+                c = c0 + i
+                S[s] = (a[:, c:c + 1].astype(np.float64)
+                        * Bs[c, 16 * g:16 * g + 16].astype(np.float64)
+                        + S[s]).astype(f32)
+    out = np.zeros((8, 16), f32)
+    for r in range(8):
+        P = [S[x][r] + S[x ^ 4][r] for x in range(8)]
+        Q = [P[x] + P[x ^ 2] for x in range(8)]
+        out[r] = Q[r] + Q[r ^ 1]
+    return out
+
+
+def _emulate_k7_tiles(b, B, shape, meta, bf16):
+    """numpy mirror of ``bcsr_spmm_v3_kernel``'s work split: per
+    (super-row, feature tile) an f32 accumulator; per chunk, warp w takes
+    feature group w % G and units w / G, w / G + 8 / G, ...; each unit's
+    tile adds into the accumulator rows at rowoff. Asserts that no two
+    units of a chunk write the same accumulator entry."""
+    rows, cols = shape
+    R, KCH, SUPER, FT = meta["R"], meta["KCH"], meta["SUPER"], meta["FT"]
+    a3d = b["a3d"].float().numpy()
+    C = a3d.shape[2] if a3d.size else 128
+    ptr, ccol, bslot, rowoff, nlive = (
+        b[k].numpy() for k in ("chunk_ptr", "ccol", "bslot", "rowoff",
+                               "nlive"))
+    F = B.shape[1]
+    G = FT // 16
+    nft = -(-F // FT)
+    Bp = np.zeros((-(-cols // C) * C, nft * FT), np.float32)
+    Bp[:cols, :F] = B
+    SR = SUPER * R
+    out = np.zeros((len(ptr) - 1, SR, nft * FT))
+    for s in range(len(ptr) - 1):
+        for ft in range(nft):
+            acc = np.zeros((SR, FT), np.float32)
+            for t in range(ptr[s], ptr[s + 1]):
+                Bs = np.zeros((C, FT + 8), np.float32)
+                Bs[:, :FT] = Bp[ccol[t] * C:(ccol[t] + 1) * C,
+                                ft * FT:(ft + 1) * FT]
+                As = np.zeros((KCH * R, C + 8), np.float32)
+                As[:, :C] = a3d[t]
+                written = np.zeros((SR, FT), bool)
+                for w in range(8):
+                    g = w % G
+                    for q in range(w // G, nlive[t] * R // 8, 8 // G):
+                        arow = rowoff[t * KCH + 8 * q // R] * R + 8 * q % R
+                        fs = slice(16 * g, 16 * g + 16)
+                        assert not written[arow:arow + 8, fs].any()
+                        written[arow:arow + 8, fs] = True
+                        acc[arow:arow + 8, fs] += (
+                            _k7_unit_bf16(As, Bs, q, g).T if bf16
+                            else _k7_unit_f32(As[:, :C], Bs, q, g))
+            out[s, :, ft * FT:(ft + 1) * FT] = acc
+    return out.reshape(-1, nft * FT)[:rows, :F]
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("block,super_kch,block_f", [
+    ((8, 128), (4, 2), 32), ((8, 128), (None, None), 64),
+    ((16, 128), (2, 2), 16), ((8, 256), (4, 4), 32)])
+def test_k7_tile_order_mirror(dtype, block, super_kch, block_f):
+    """K7's units on the card: the m16n8k16 fragments of the transposed
+    product (bf16) and the f32 register tiles with their cross-lane sums,
+    placed at the accumulator rows rowoff names, give A @ B over the
+    mode's operands."""
+    csr = generate.random_csr(70, 300, 0.03, seed=4)
+    tb = BCSR.from_csr(csr, *block)
+    b, fn = spmm_bcsr_v3.bcsr_spmm_v3(
+        tb, block_f=block_f, super_rows=super_kch[0],
+        chunk_blocks=super_kch[1], dtype=dtype, device=CPU)
+    B = np.random.default_rng(7).normal(size=(300, 40)).astype(np.float32)
+    ops_B = reference.bf16_round(B) if dtype else B
+    ops_csr = (tf.csr_from_arrays(csr.shape, csr.offsets, csr.indices,
+                                  reference.bf16_round(csr.vals))
+               if dtype else csr)
+    mirror = _emulate_k7_tiles(b, ops_B, csr.shape, fn.meta, dtype)
+    np.testing.assert_allclose(mirror, reference.spmm(ops_csr, ops_B),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _emulate_k9(b, B, shape):
+    """numpy mirror of ``bcsr_spmm_kernel``'s sums in their float32 order:
+    each output (row, feature) is one thread's fma chain over the row's
+    blocks in storage order and each block's columns in order, stopping at
+    the matrix's last column; the thread's 4 features are contiguous."""
+    rows, cols = shape
+    vals = b["vals"].numpy()
+    nb, R, C = vals.shape
+    off, bcols = b["offsets"].numpy(), b["bcols"].numpy()
+    out = np.zeros((len(off) - 1, R, B.shape[1]), np.float32)
+    for br in range(len(off) - 1):
+        acc = np.zeros((R, B.shape[1]), np.float32)
+        for t in range(off[br], off[br + 1]):
+            c0 = bcols[t] * C
+            for c in range(min(C, cols - c0)):
+                acc = (vals[t, :, c:c + 1].astype(np.float64)
+                       * B[c0 + c].astype(np.float64) + acc).astype(
+                    np.float32)
+        out[br] = acc
+    return out.reshape(-1, B.shape[1])[:rows]
+
+
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (8, 256)])
+@pytest.mark.parametrize("name", ["random", "empty_rows", "wide"])
+def test_k9_storage_order_mirror(name, block):
+    """K9's per-output fma chains, over the row's blocks in storage order,
+    give A @ B; the plain version agrees within the pair tolerance."""
+    t, _ = pair(name)
+    tb = BCSR.from_csr(t, *block)
+    B = np.random.default_rng(8).normal(size=(t.shape[1], 70)).astype(
+        np.float32)
+    b, fn = spmm_bcsr.bcsr_spmm(tb, device=CPU)
+    mirror = _emulate_k9(b, B, t.shape)
+    np.testing.assert_allclose(mirror, reference.spmm(t, B), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(fn(b, torch.from_numpy(B)).numpy(), mirror,
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_card_tiles_fit_shared_memory():
-    # the card's defaults at the bench's 8 x 128 blocks
+    # the card's defaults at the bench's 8 x 128 blocks, in both modes
     f32, bf16 = torch.float32, torch.bfloat16
+    assert spmm_bcsr_v3.card_tiles(8) == (128, 4)
+    assert spmm_bcsr_v3.card_tiles(8, "bfloat16") == (64, 8)
+    assert spmm_bcsr_v3.card_tiles(16, "bfloat16") == (32, 4)
     t7 = spmm_bcsr_v3.tiles(8, 128, f32, *spmm_bcsr_v3.card_tiles(8), 512)
-    assert (t7["SUPER"], t7["KCH"], t7["FT"]) == (32, 8, 64)
-    assert t7["smem"] == 196608
-    assert spmm_bcsr_v3.tiles(8, 128, bf16, 32, 8, 512)["smem"] == 131072
+    assert (t7["SUPER"], t7["KCH"], t7["FT"]) == (128, 4, 32)
+    # acc [1024][36] f32 + 2 slabs [32][128] + 2 B tiles [128][36] + rowoff
+    assert t7["smem"] == 4 * 1024 * 36 + 2 * 4 * (32 * 128 + 128 * 36) \
+        + 2 * 4 * 4 == 217120
+    tb = spmm_bcsr_v3.tiles(8, 128, bf16,
+                            *spmm_bcsr_v3.card_tiles(8, "bfloat16"), 512)
+    assert (tb["SUPER"], tb["KCH"], tb["FT"]) == (64, 8, 64)
+    # bf16 rows padded by 16 bytes for ldmatrix
+    assert tb["smem"] == 4 * 512 * 68 + 2 * 2 * (64 * 136 + 128 * 72) \
+        + 2 * 4 * 8 == 211008
+    for t in (t7, tb):
+        assert t["smem"] <= spmm_bcsr.SMEM_LIMIT
+        assert t["FT"] in (16, 32, 64, 128)  # a divisor of 8 warps' units
     t8 = spmm_bcsr_v2.tiles(8, 128, f32, None, 512)
     assert (t8["SUPER"], t8["FT"], t8["smem"]) == (16, 64, 106496)
-    # wider blocks halve the feature tile until the CTA fits
-    assert spmm_bcsr_v3.tiles(8, 256, f32, 32, 8, 512)["FT"] == 32
-    assert spmm_bcsr_v3.tiles(8, 128, f32, 32, 8, 16)["FT"] == 16
+    # wider blocks halve the feature tile until the CTA fits; block_f caps it
+    assert spmm_bcsr_v3.tiles(8, 256, bf16, 64, 8, 512)["FT"] == 32
+    assert spmm_bcsr_v3.tiles(8, 128, bf16, 64, 8, 16)["FT"] == 16
+    assert spmm_bcsr_v3.tiles(8, 128, f32, 8, 4, 512)["FT"] == 128
     with pytest.raises(ValueError, match="shared memory"):
         spmm_bcsr_v3.tiles(8, 4096, f32, 32, 8, 512)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         spmm_bcsr_v3.tiles(8, 128, f32, 32, 8, 12)
-    assert spmm_bcsr.features_per_thread(512, 512) == 4
-    assert spmm_bcsr.features_per_thread(20, 512) == 1
-    assert spmm_bcsr.features_per_thread(300, 256) == 2
+    # the defaults shrink KCH, then SUPER, for blocks too wide to fit
+    assert spmm_bcsr_v3.default_tiles(8, 1024, f32, None, 512)["KCH"] < 4
+    # K9: one 512-column tile a CTA; block_f is checked as the TPU's tile
+    assert spmm_bcsr.K9_TILE == 512
+    assert spmm_bcsr.check_block_f(256) == 256
     with pytest.raises(ValueError, match="multiple of 128"):
-        spmm_bcsr.features_per_thread(300, 96)
+        spmm_bcsr.check_block_f(96)
 
 
 def test_stage_b_pads_only_when_needed():

@@ -32,7 +32,7 @@ from loops_tpu_torch.ops.spmv import SpMVOperator
 from loops_tpu_torch.utils import generate, reference
 
 BLOCKS = [(8, 128), (16, 128), (8, 256)]
-FS = [20, 300]
+FS = [20, 300, 513]
 BF16 = "bfloat16"
 SPMM = {
     # kernel -> (its build function at block_f 128, its modes)
@@ -78,6 +78,11 @@ def _plain(kname, b, Bd, shape, dtype, meta):
 
 def _check_spmm(kname, csr, bcsr, F, dtype, dev, **kw):
     b, fn = SPMM[kname][0](bcsr, dtype, dev, **kw)
+    _check_bound(kname, b, fn, csr, F, dtype, dev)
+    return fn.meta
+
+
+def _check_bound(kname, b, fn, csr, F, dtype, dev):
     B = np.random.default_rng(F).normal(size=(csr.shape[1], F)).astype(
         np.float32)
     Bd = torch.from_numpy(B).to(dev)
@@ -96,7 +101,12 @@ def _check_spmm(kname, csr, bcsr, F, dtype, dev, **kw):
     rep = reference.rigorously_validate_spmm(ops_csr, ops_B, C,
                                              mxu_bf16=False)
     assert rep.verdict == "NOT_A_BUG", rep
-    return fn.meta
+    if kname != "bcsr_spmm_v2":
+        # K7 and K9 write every row of a torch.empty C, or of out=
+        out = torch.full_like(C1, float("nan"))
+        assert fn(b, Bd, out=out) is out
+        torch.cuda.synchronize()
+        assert torch.equal(out, C1)
 
 
 @pytest.mark.cuda
@@ -237,3 +247,56 @@ def test_float64_kernel_requests_raise(cuda_device):
     y = SpMVOperator(bcsr, impl="xla", device=cuda_device)(
         np.ones(140))
     assert y.dtype == torch.float64
+
+
+# K7's and K9's edge cases: B's rows past the last full block column (cols
+# not a multiple of C), empty block rows and, at two block rows a
+# super-row, empty super-rows; chunks of one block
+EDGE = {
+    "ragged_cols": lambda: generate.random_csr(100, 300, 0.04, seed=21),
+    "empty_super_rows": lambda: generate.sized_csr(
+        [3] * 16 + [0] * 40 + [2] * 16 + [0] * 9, 390, seed=22),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [20, 513])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128)])
+@pytest.mark.parametrize("name", sorted(EDGE))
+@pytest.mark.parametrize("kname,dtype", [k for k in SPMM_CASES
+                                         if k[0] != "bcsr_spmm_v2"])
+def test_k7_k9_edge_cases(cuda_device, kname, dtype, name, block, F):
+    csr = EDGE[name]()
+    bcsr = BCSR.from_csr(csr, *block)
+    kws = [{}] if kname == "bcsr_spmm" else [
+        {}, dict(super_rows=2, chunk_blocks=1), dict(super_rows=2,
+                                                     chunk_blocks=2)]
+    for kw in kws:
+        meta = _check_spmm(kname, csr, bcsr, F, dtype, cuda_device, **kw)
+        if kw.get("chunk_blocks") == 1:
+            assert meta["chunks"] == meta["num_blocks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kname,dtype", [k for k in SPMM_CASES
+                                         if k[0] != "bcsr_spmm_v2"])
+def test_k7_k9_check_staged_buffers_and_out(cuda_device, kname, dtype):
+    csr = generate.BCSR_CASES["tall"]()
+    b, fn = SPMM[kname][0](BCSR.from_csr(csr, 8, 128), dtype, cuda_device)
+    Bd = torch.ones(csr.shape[1], 24, device=cuda_device)
+    C = fn(b, Bd)
+    for bad in (torch.zeros(csr.shape[0], 23, device=cuda_device),
+                torch.zeros(csr.shape[0] + 1, 24, device=cuda_device),
+                torch.zeros(csr.shape[0], 24, device=cuda_device,
+                            dtype=torch.float64)):
+        with pytest.raises(ValueError, match="out"):
+            fn(b, Bd, out=bad)
+    key = "bcols" if kname == "bcsr_spmm" else "ccol"
+    # a replaced buffer is checked again: one of the right kind passes
+    b[key] = b[key].clone()
+    assert fn.staged_on(b) is None
+    assert torch.equal(fn(b, Bd), C)
+    # one changed in place is refused
+    b[key].resize_(b[key].numel() - 1)
+    with pytest.raises(ValueError, match=key):
+        fn(b, Bd)

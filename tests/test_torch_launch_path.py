@@ -17,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from loops_tpu_torch.ops.kernels import _build, spmv_sorted
+from loops_tpu_torch.formats import BCSR
+from loops_tpu_torch.ops.kernels import (
+    _build,
+    spmm_bcsr,
+    spmm_bcsr_v3,
+    spmv_sorted,
+)
 from loops_tpu_torch.ops.spmv import SpMVOperator
 from loops_tpu_torch.utils import generate
 
@@ -264,3 +270,57 @@ def test_output_is_empty_or_a_checked_out(out):
     y = _build.output(given, 5, CPU)
     assert y.shape == (5,) and y.dtype == torch.float32
     assert (y is given) == (out == "good")
+
+
+@pytest.mark.parametrize("out", ["none", "good", "rows", "cols", "flat",
+                                 "double"])
+def test_output_of_a_matrix_is_empty_or_a_checked_out(out):
+    # K7 and K9 write every row of C [rows, F]
+    given = {"none": None, "good": torch.full((3, 5), float("nan")),
+             "rows": torch.zeros(4, 5), "cols": torch.zeros(3, 4),
+             "flat": torch.zeros(15),
+             "double": torch.zeros(3, 5, dtype=torch.float64)}[out]
+    if out not in ("none", "good"):
+        with pytest.raises(ValueError, match="out"):
+            _build.output(given, (3, 5), CPU)
+        return
+    C = _build.output(given, (3, 5), CPU)
+    assert C.shape == (3, 5) and C.dtype == torch.float32
+    assert (C is given) == (out == "good")
+
+
+def _bcsr_binds():
+    """K9 and K7 (f32 and bf16) bound on the CPU: (name, bufs, fn, the
+    wrapper's check of its staged buffers, its parameters)."""
+    csr = generate.random_csr(40, 300, 0.05, seed=4)
+    bcsr = BCSR.from_csr(csr, 8, 128)
+    b9, f9 = spmm_bcsr.bcsr_spmm(bcsr, device=CPU)
+    yield "K9", b9, f9, spmm_bcsr.check_staged, f9.params
+    for dtype in (None, "bfloat16"):
+        b7, f7 = spmm_bcsr_v3.bcsr_spmm_v3(bcsr, dtype=dtype, device=CPU)
+        yield f"K7 {dtype}", b7, f7, spmm_bcsr_v3.check_staged, f7.meta
+
+
+@pytest.mark.parametrize("change", ["none", "resize", "set", "dtype",
+                                    "replaced"])
+def test_k7_k9_check_staged_buffers_changed_again(change):
+    # each checks its staged buffers once at bind; a call skips the check
+    # only for the very tensors checked then, none changed in place since,
+    # and the full check then refuses what changed
+    for name, b, fn, check_staged, params in _bcsr_binds():
+        check_staged(b, params, CPU)
+        key = "bcols" if name == "K9" else "ccol"
+        if change == "resize":
+            b[key].resize_(b[key].numel() - 1)
+        elif change == "set":
+            b[key].set_(torch.zeros(2, dtype=torch.int32))
+        elif change == "dtype":
+            b[key] = b[key].long()
+        elif change == "replaced":
+            b[key] = b[key].clone()
+        assert fn.staged_on(b) == (CPU if change == "none" else None), name
+        if change in ("resize", "set", "dtype"):
+            with pytest.raises(ValueError, match=key):
+                check_staged(b, params, CPU)
+        else:
+            check_staged(b, params, CPU)
