@@ -432,8 +432,8 @@ __device__ __forceinline__ void k7_units(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kSuperThreads)
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
 bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
                     const int* __restrict__ ccol, const int* __restrict__ bfetch,
                     const int* __restrict__ bslot,
@@ -496,7 +496,7 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
     __syncthreads();
     k7_units(abuf + aslot * QR * ap, bbuf + bs0 * C * bp, acc,
              robuf + aslot * KCH, n0 * R / 8, R, C, ap, bp, accp, warp % G,
-             warp / G, kK7Warps / G);
+             warp / G, NT / 32 / G);
     __syncthreads();  // before the next prefetch overwrites these buffers
     n0 = n1; bs0 = bs1;
     n1 = n2; f1 = f2; c1 = c2; bs1 = bs2;
@@ -525,13 +525,14 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
 // storage order, the 8 x 128 sub-block is staged transposed in shared
 // memory (a column's 8 values are two float4, read by every thread: a
 // broadcast), and B's rows are read straight from L2 as 16-byte loads,
-// U columns' loads in flight before their 32 FMAs each. Every output is
-// one thread's fmaf chain over the row's blocks in storage order and their
-// columns in order.
+// 8 columns' loads in flight before their 32 FMAs each (80 registers, 4 KB
+// of shared memory: 24 warps an SM). Every output is one thread's fmaf
+// chain over the row's blocks in storage order and their columns in
+// order.
 constexpr int kSpmmThreads = 128;
 constexpr int kK9Tile = 4 * kSpmmThreads;  // feature columns of a CTA
+constexpr int kK9Cols = 8;                 // B rows in flight a thread
 
-template <int U>
 __global__ void __launch_bounds__(kSpmmThreads)
 bcsr_spmm_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
                  const float* __restrict__ vals, const float* __restrict__ B,
@@ -565,17 +566,17 @@ bcsr_spmm_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
       // columns past the matrix hold zeros and have no row of B
       const int cn = static_cast<int>(min(128LL, cols - col0 - c0));
       const float* brow = B + (col0 + c0) * ld + f;
-      for (int c = 0; c < cn; c += U) {
-        float4 b[U];
+      for (int c = 0; c < cn; c += kK9Cols) {
+        float4 b[kK9Cols];
 #pragma unroll
-        for (int i = 0; i < U; ++i) {
+        for (int i = 0; i < kK9Cols; ++i) {
           b[i] = live && c + i < cn
                      ? __ldg(reinterpret_cast<const float4*>(
                            brow + static_cast<long long>(c + i) * ld))
                      : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
-        for (int i = 0; i < U; ++i) {
+        for (int i = 0; i < kK9Cols; ++i) {
           if (c + i < cn) {
             float a[kRowGroup];
             load4(sA + (c + i) * kRowGroup, a);
@@ -631,23 +632,8 @@ int loops_bcsr_spmm_f32(const void* offsets, const void* bcols,
                         void* stream) {
   const dim3 grid(static_cast<unsigned>(nbr) * (R / kRowGroup),
                   (F + kK9Tile - 1) / kK9Tile);
-  bcsr_spmm_kernel<4><<<grid, kSpmmThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(offsets), static_cast<const int*>(bcols),
-      static_cast<const float*>(vals), static_cast<const float*>(B),
-      static_cast<float*>(out), R, C, rows, cols, F, ld);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// sweep only: K9 with 8 columns' loads in flight
-int loops_bcsr_spmm_f32_r(const void* offsets, const void* bcols,
-                          const void* vals, const void* B, void* out, int nbr,
-                          int R, int C, int rows, int cols, int F, int ld,
-                          void* stream) {
-  const dim3 grid(static_cast<unsigned>(nbr) * (R / kRowGroup),
-                  (F + kK9Tile - 1) / kK9Tile);
-  bcsr_spmm_kernel<8><<<grid, kSpmmThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  bcsr_spmm_kernel<<<grid, kSpmmThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(offsets), static_cast<const int*>(bcols),
       static_cast<const float*>(vals), static_cast<const float*>(B),
       static_cast<float*>(out), R, C, rows, cols, F, ld);
@@ -701,21 +687,21 @@ int loops_bcsr_spmm_v3(const void* chunk_ptr, const void* ccol,
   const auto* nl = static_cast<const int*>(nlive);
   auto* c = static_cast<float*>(out);
   int err;
-  if (bf16) {
-    auto k = bcsr_spmm_v3_kernel<__nv_bfloat16>;
-    if ((err = set_smem(k, smem))) return err;
-    k<<<grid, kSuperThreads, smem, s>>>(
-        cp, cc, bf, bs, ro, nl, static_cast<const __nv_bfloat16*>(a3d),
-        static_cast<const __nv_bfloat16*>(B), c, R, C, rows, cols, F, ld,
-        SUPER, KCH, FT);
-  } else {
-    auto k = bcsr_spmm_v3_kernel<float>;
-    if ((err = set_smem(k, smem))) return err;
-    k<<<grid, kSuperThreads, smem, s>>>(
-        cp, cc, bf, bs, ro, nl, static_cast<const float*>(a3d),
-        static_cast<const float*>(B), c, R, C, rows, cols, F, ld, SUPER, KCH,
-        FT);
+#define K7_LAUNCH(TYPE, NT)                                                  \
+  {                                                                          \
+    auto k = bcsr_spmm_v3_kernel<TYPE, NT>;                                  \
+    if ((err = set_smem(k, smem))) return err;                               \
+    k<<<grid, NT, smem, s>>>(cp, cc, bf, bs, ro, nl,                         \
+                             static_cast<const TYPE*>(a3d),                  \
+                             static_cast<const TYPE*>(B), c, R, C, rows,     \
+                             cols, F, ld, SUPER, KCH, FT);                   \
   }
+  if (bf16 & 1) {
+    if (bf16 & 2) K7_LAUNCH(__nv_bfloat16, 512) else K7_LAUNCH(__nv_bfloat16, 256)
+  } else {
+    if (bf16 & 2) K7_LAUNCH(float, 512) else K7_LAUNCH(float, 256)
+  }
+#undef K7_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -235,7 +235,8 @@ def bcsr_spmm_v3_cuda(b: dict, B: torch.Tensor, shape, t: dict,
                   b["ccol"], b["bfetch"], b["bslot"], b["rowoff"],
                   b["nlive"], b["a3d"], Bk, C_out, t["nsup"], R, C, rows,
                   cols, F, ld, t["SUPER"], KCH, t["FT"],
-                  int(Bk.dtype == torch.bfloat16), t["smem"])
+                  int(Bk.dtype == torch.bfloat16) | t.get("wide", 0),
+                  t["smem"])
     return C_out
 
 

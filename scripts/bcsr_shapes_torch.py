@@ -31,8 +31,8 @@ sys.path.insert(0, REPO)
 
 # (super_rows, chunk_blocks, block_f) per mode
 SHAPES = {
-    None: [(128, 4, 512), (64, 8, 512), (32, 4, 32), (128, 2, 512)],
-    "bfloat16": [(64, 8, 512), (128, 8, 512), (64, 4, 32), (64, 4, 512)],
+    None: [(128, 4, 512), (64, 8, 512), (64, 4, 512)],
+    "bfloat16": [(64, 8, 512), (128, 8, 512), (64, 4, 512)],
 }
 GROUPS = (8, 16)
 
@@ -94,40 +94,18 @@ def main(argv=None) -> int:
                     f" smem={t['smem']}"
                     f" fill={t['num_blocks'] / max(t['chunks'], 1):.2f}"
                     f" fetches={t['b_fetches']}")
-            run(name, bufs, fn, lambda b, v, t=t, dtype=dtype:
-                spmm_bcsr_v3.bcsr_spmm_v3_plain(b, v, csr.shape, t, dtype))
-            del bufs, fn
-    if None in modes and not args.quick:
-        for g in GROUPS:
-            bufs, fn = spmm_bcsr_v3.bcsr_spmm_v3(
-                bcsr, super_rows=g, chunk_blocks=g, device=dev)
-            t = fn.meta
-            run(f"grouped walk (K7 f32 SUPER=KCH={g}) FT={t['FT']} "
-                f"fetches={t['b_fetches']}", bufs, fn,
-                lambda b, v, t=t: spmm_bcsr_v3.bcsr_spmm_v3_plain(
-                    b, v, csr.shape, t))
+            plain = (lambda b, v, t=t, dtype=dtype:
+                     spmm_bcsr_v3.bcsr_spmm_v3_plain(b, v, csr.shape, t,
+                                                     dtype))
+            run(name, bufs, fn, plain)
+            wide = dict(t, wide=2)  # 512 threads a CTA
+            run(name + " 512 threads", bufs,
+                lambda b, v, wide=wide, dtype=dtype:
+                spmm_bcsr_v3.bcsr_spmm_v3_cuda(b, v, csr.shape, wide, dtype),
+                plain)
             del bufs, fn
     bufs, fn = spmm_bcsr.bcsr_spmm(bcsr, device=dev)
     run("K9", bufs, fn,
-        lambda b, v: spmm_bcsr.bcsr_spmm_plain(b, v, csr.shape))
-    import ctypes
-
-    from loops_tpu_torch.ops.kernels import _build
-    fr = _build.load_library().loops_bcsr_spmm_f32_r
-    fr.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fr.restype = ctypes.c_int
-
-    def k9r(b, v):
-        Bk, ld = spmm_bcsr.stage_b(v, None)
-        out = torch.empty(16384, v.shape[1], device=dev)
-        err = fr(b["offsets"].data_ptr(), b["bcols"].data_ptr(),
-                 b["vals"].data_ptr(), Bk.data_ptr(), out.data_ptr(), 2048,
-                 8, 128, 16384, 16384, v.shape[1], ld,
-                 torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
-        return out
-    run("K9 with 8 columns in flight", bufs, k9r,
         lambda b, v: spmm_bcsr.bcsr_spmm_plain(b, v, csr.shape))
     if not args.quick:
         for dtype in modes:
