@@ -693,7 +693,6 @@ def k7_k9_edges_vs_plain(device):
                 B = np.random.default_rng(F).normal(
                     size=(csr.shape[1], F)).astype(np.float32)
                 Bd = torch.from_numpy(B).to(device)
-                ops_csr, ops_B = rounded_operands(csr, B, dtype=None)
                 for kname, dtype, kw, (b, fn) in builds:
                     label = (f"edge {name} {block[0]}x{block[1]} F={F} "
                              f"{kname} {dtype or 'f32'} {kw}")

@@ -432,8 +432,8 @@ __device__ __forceinline__ void k7_units(
   }
 }
 
-template <typename T, int NT>
-__global__ void __launch_bounds__(NT)
+template <typename T>
+__global__ void __launch_bounds__(kSuperThreads)
 bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
                     const int* __restrict__ ccol, const int* __restrict__ bfetch,
                     const int* __restrict__ bslot,
@@ -496,12 +496,13 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
     __syncthreads();
     k7_units(abuf + aslot * QR * ap, bbuf + bs0 * C * bp, acc,
              robuf + aslot * KCH, n0 * R / 8, R, C, ap, bp, accp, warp % G,
-             warp / G, NT / 32 / G);
+             warp / G, kK7Warps / G);
     __syncthreads();  // before the next prefetch overwrites these buffers
     n0 = n1; bs0 = bs1;
     n1 = n2; f1 = f2; c1 = c2; bs1 = bs2;
   }
-  // the tile out, four features a store where F allows
+  __syncthreads();  // an empty super-row's zeros, written by all threads
+  // the tile out, four features a store where F and out's alignment allow
   const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   for (int i = threadIdx.x; i < SR * FT / 4; i += blockDim.x) {
     const int r = i / (FT / 4), f = (i % (FT / 4)) * 4;
@@ -687,21 +688,21 @@ int loops_bcsr_spmm_v3(const void* chunk_ptr, const void* ccol,
   const auto* nl = static_cast<const int*>(nlive);
   auto* c = static_cast<float*>(out);
   int err;
-#define K7_LAUNCH(TYPE, NT)                                                  \
-  {                                                                          \
-    auto k = bcsr_spmm_v3_kernel<TYPE, NT>;                                  \
-    if ((err = set_smem(k, smem))) return err;                               \
-    k<<<grid, NT, smem, s>>>(cp, cc, bf, bs, ro, nl,                         \
-                             static_cast<const TYPE*>(a3d),                  \
-                             static_cast<const TYPE*>(B), c, R, C, rows,     \
-                             cols, F, ld, SUPER, KCH, FT);                   \
-  }
-  if (bf16 & 1) {
-    if (bf16 & 2) K7_LAUNCH(__nv_bfloat16, 512) else K7_LAUNCH(__nv_bfloat16, 256)
+  if (bf16) {
+    auto k = bcsr_spmm_v3_kernel<__nv_bfloat16>;
+    if ((err = set_smem(k, smem))) return err;
+    k<<<grid, kSuperThreads, smem, s>>>(
+        cp, cc, bf, bs, ro, nl, static_cast<const __nv_bfloat16*>(a3d),
+        static_cast<const __nv_bfloat16*>(B), c, R, C, rows, cols, F, ld,
+        SUPER, KCH, FT);
   } else {
-    if (bf16 & 2) K7_LAUNCH(float, 512) else K7_LAUNCH(float, 256)
+    auto k = bcsr_spmm_v3_kernel<float>;
+    if ((err = set_smem(k, smem))) return err;
+    k<<<grid, kSuperThreads, smem, s>>>(
+        cp, cc, bf, bs, ro, nl, static_cast<const float*>(a3d),
+        static_cast<const float*>(B), c, R, C, rows, cols, F, ld, SUPER, KCH,
+        FT);
   }
-#undef K7_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,8 @@ columns). Thread i owns the 4 contiguous features 4i..4i+3 and keeps
 8 rows x 4 features in registers. Each stored block of the row, in
 storage order, is staged 8 x 128 at a time in shared memory, transposed
 (a column's 8 values are two float4 every thread reads: a broadcast),
-and B's rows come straight from L2 as 16-byte loads, 4 columns' loads in
-flight before their 32 FMAs each; at 59 registers and 4 KB a CTA, 32
+and B's rows come straight from L2 as 16-byte loads, 8 columns' loads in
+flight before their 32 FMAs each; at 80 registers and 4 KB a CTA, 24
 warps an SM keep enough of them in flight. Each output is one thread's
 ``fmaf`` chain over the row's blocks in storage order.
 

@@ -83,16 +83,13 @@ def default_tiles(R: int, C: int, T, dtype, block_f: int) -> dict:
     """K7's tiles at ``card_tiles``, KCH and then SUPER halved until a CTA
     fits (wide blocks)."""
     SUPER, KCH = card_tiles(R, dtype)
-    while True:
-        try:
-            return tiles(R, C, T, SUPER, KCH, block_f)
-        except ValueError:
-            if KCH == 1 and SUPER == 1:
-                raise
-            if KCH > 1:
-                KCH //= 2
-            else:
-                SUPER //= 2
+    while (smem_bytes(R, C, T, SUPER, KCH, UNIT) > SMEM_LIMIT
+           and SUPER * KCH > 1):
+        if KCH > 1:
+            KCH //= 2
+        else:
+            SUPER //= 2
+    return tiles(R, C, T, SUPER, KCH, block_f)
 
 
 def _stage_chunks(bcsr, SUPER: int, KCH: int):
@@ -235,8 +232,7 @@ def bcsr_spmm_v3_cuda(b: dict, B: torch.Tensor, shape, t: dict,
                   b["ccol"], b["bfetch"], b["bslot"], b["rowoff"],
                   b["nlive"], b["a3d"], Bk, C_out, t["nsup"], R, C, rows,
                   cols, F, ld, t["SUPER"], KCH, t["FT"],
-                  int(Bk.dtype == torch.bfloat16) | t.get("wide", 0),
-                  t["smem"])
+                  int(Bk.dtype == torch.bfloat16), t["smem"])
     return C_out
 
 

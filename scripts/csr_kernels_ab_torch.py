@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1–K3, K12, K4 and K5 of one checkout of ``loops_tpu_torch`` on the
-card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 17 and
-19), and print one JSON line.
+"""Time K1–K3, K12, K4, K5, K7–K9 of one checkout of ``loops_tpu_torch``
+on the card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 13,
+17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-                                           [--cells spmv,flat,csr]
+                                           [--cells spmv,flat,csr,bcsr]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -34,7 +34,13 @@ needs no script of its own:
 - K4: ``SpMMOperator(adj, "merge_path", "pallas", dtype)`` at F = 128 and
   at the GCN's last layer, F = 40, f32 and bf16;
 - the GCN train step of both forms of phase 10 (bf16 throughput form, f32
-  default form), dims [128, 128, 128, 40].
+  default form), dims [128, 128, 128, 40];
+- K7 (f32 and bf16), K9 and, as the unchanged control, K8 (f32 and bf16):
+  ``SpMMOperator(bcsr, "row_mapped", impl, block_f=512, dtype)`` on
+  bcsr_spmm_16384_f512 (``build_block_sparse(16384, 8, 128, 0.06,
+  seed=0)``, B [16384, 512] from ``default_rng(1)``), by ``apply_ms`` and
+  ``device_ms``; with ``--library`` cuSPARSE's ``torch.matmul`` on the
+  CSR form, f32 and bf16 (vals and B in bf16).
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
 apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
@@ -43,14 +49,15 @@ the tree. ``--library``
 adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
-``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step);
-``spmv,csr`` by default. The
+``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
+``bcsr`` (K7, K9, K8); ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -96,6 +103,8 @@ def main(argv=None) -> int:
         res.update(spmv_kernel_cells(dev, ("K3", "K2", "K1"), args.library))
     if "csr" in cells:
         res.update(csr_cells(dev, args.library))
+    if "bcsr" in cells:
+        res.update(bcsr_cells(dev, args.library))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -273,6 +282,46 @@ def csr_cells(dev, library: bool) -> dict:
                                           reduction=statistics.median)
         del model, step
         torch.cuda.empty_cache()
+    return res
+
+
+# the BCSR SpMM kernels of the bcsr cells: name -> (impl, dtype)
+BCSR_KERNELS = {"K7 f32": ("pallas3", None), "K7 bf16": ("pallas3", "bfloat16"),
+                "K9 f32": ("pallas", None), "K8 f32": ("pallas2", None),
+                "K8 bf16": ("pallas2", "bfloat16")}
+
+
+def bcsr_cells(dev, library: bool) -> dict:
+    """K7, K9 and K8 on bcsr_spmm_16384_f512 (``chip_smoke.py`` phase 13):
+    apply and the card's time alone."""
+    import torch
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.utils import generate
+
+    bench = _timing()
+    csr, bcsr = generate.build_block_sparse(16384, 8, 128, 0.06, 0)
+    Bd = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(16384, 512)).astype(np.float32)).to(dev)
+    res = {}
+    for name, (impl, dtype) in BCSR_KERNELS.items():
+        op = SpMMOperator(bcsr, "row_mapped", impl, block_f=512, dtype=dtype,
+                          device=dev)
+        res[f"{name} bcsr_spmm_16384_f512"] = dict(
+            apply_ms=bench.apply_ms(op, Bd), device_ms=bench.device_ms(op, Bd))
+        del op
+        torch.cuda.empty_cache()
+    if library:
+        for dt, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            A = torch.sparse_csr_tensor(
+                *(torch.from_numpy(a).to(dev) for a in (csr.offsets,
+                                                        csr.indices)),
+                torch.from_numpy(csr.vals).to(dev, dt), size=csr.shape)
+            Bc = Bd.to(dt)
+            fn = functools.partial(torch.matmul, A)
+            res[f"cuSPARSE {label} bcsr_spmm_16384_f512"] = dict(
+                apply_ms=bench.apply_ms(fn, Bc),
+                device_ms=bench.device_ms(fn, Bc))
+            del A, Bc
     return res
 
 

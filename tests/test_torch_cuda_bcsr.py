@@ -78,11 +78,6 @@ def _plain(kname, b, Bd, shape, dtype, meta):
 
 def _check_spmm(kname, csr, bcsr, F, dtype, dev, **kw):
     b, fn = SPMM[kname][0](bcsr, dtype, dev, **kw)
-    _check_bound(kname, b, fn, csr, F, dtype, dev)
-    return fn.meta
-
-
-def _check_bound(kname, b, fn, csr, F, dtype, dev):
     B = np.random.default_rng(F).normal(size=(csr.shape[1], F)).astype(
         np.float32)
     Bd = torch.from_numpy(B).to(dev)
@@ -107,6 +102,7 @@ def _check_bound(kname, b, fn, csr, F, dtype, dev):
         assert fn(b, Bd, out=out) is out
         torch.cuda.synchronize()
         assert torch.equal(out, C1)
+    return fn.meta
 
 
 @pytest.mark.cuda
