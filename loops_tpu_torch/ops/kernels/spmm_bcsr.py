@@ -21,7 +21,7 @@ What bounds it on an H100: 2 flops per stored value and feature on the
 CUDA cores (IEEE f32, no TF32), and B's rows read once per (stored
 block, feature tile), from L2 when B fits its 50 MB: 4.00 GB at the
 bench's 16384^2, F = 512 regime. Two redesigns measured slower on the
-card and were not kept (PERF.md, PR 9): B tiles staged in shared memory
+card and were not kept (PERF.md §6): B tiles staged in shared memory
 by ``cp.async`` with 8 x 8 register tiles, and one B tile per column of a
 group of block rows.
 
