@@ -61,10 +61,11 @@ Phases, one line each with its time:
    (``bcsr_spmm_v2``) and K7 (``bcsr_spmm_v3``) against their plain PyTorch
    versions on the same staged buffers: the five matrices of
    ``tests/test_bcsr_kernels.py`` in blocks 8x128 and 16x128, F in {20,
-   300, 513} at ``block_f`` 128, f32 and (K7, K8) bf16; K7 and K9 also on
-   the edge cases of ``tests/test_torch_cuda_bcsr.py`` (``cols`` not a
-   multiple of C, empty block rows and empty super-rows, chunks of one
-   block, F in {20, 513}) and each into a NaN-filled ``out=``; then the
+   300, 513} at ``block_f`` 128, f32 and (K7, K8) bf16; K7, K8 and K9
+   also on the edge cases of ``tests/test_torch_cuda_bcsr.py`` (``cols``
+   not a multiple of C, empty block rows and empty super-rows, chunks of
+   one block, super-rows of one block row, F in {20, 513}), and each into
+   a NaN-filled ``out=``; then the
    bench's two regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512;
    32768^2 at 1.5% for K6): agreement, the Wilkinson verdict (over sampled
    rows at bench scale), two applies bitwise equal, the launch counter;
@@ -89,9 +90,11 @@ Phases, one line each with its time:
    ``tests/test_spmm_sddmm.py:191-198`` and the SpMV battery, F in {1, 20,
    33, 64, 128, 300}, and with an A one float off 16-byte alignment; K10
    (``sddmm_bcsr``) on the five BCSR matrices in 8x128 and 16x128 blocks,
-   F in {20, 300}; then the regimes of phase 16 (over 4096
-   sampled nonzeros): agreement, the Wilkinson verdict, two applies
-   bitwise equal, the launch counter;
+   F in {20, 300}, and on the edge cases (``cols`` not a multiple of C,
+   empty block rows; blocks of 8, 16, 24 and 72 rows and 256 columns; F
+   in {1, 20, 513}), each also into a NaN-filled ``out=``; then the
+   regimes of phase 16 (over 4096 sampled nonzeros): agreement, the
+   Wilkinson verdict, two applies bitwise equal, the launch counter;
 16. the SDDMM main path at full size: ``measure_stream_gbps`` at 64 MiB
    (the JAX bench's first step) and at 1 GiB,
    ``sddmm(..., impl="pallas", dtype="bfloat16")`` on the JAX bench's 65536^2 regime (2,469,272 nonzeros, F = 128) and on the
@@ -192,12 +195,13 @@ BCSR_KERNELS = {
 }
 BCSR_BLOCKS = ((8, 128), (16, 128))
 BCSR_FS = (20, 300, 513)
-# K7's and K9's edge cases (tests/test_torch_cuda_bcsr.py): B's rows past
-# the last full block column, empty block rows and, at two block rows a
-# super-row, empty super-rows; chunks of one and of two blocks
+# K7's, K8's and K9's edge cases (tests/test_torch_cuda_bcsr.py): B's rows
+# past the last full block column, empty block rows and, at two block rows
+# a super-row, empty super-rows; chunks of one and of two blocks (K7)
 BCSR_EDGE_FS = (20, 513)
 K7_EDGE_TILES = ({}, {"super_rows": 2, "chunk_blocks": 1},
                  {"super_rows": 2, "chunk_blocks": 2})
+K8_EDGE_TILES = ({}, {"super_rows": 2}, {"super_rows": 1})
 # the JAX bench's regimes (bench.py:226-228, :371-372)
 SPMM_REGIME = dict(N=16384, R=8, C=128, block_density=0.06)
 SPMM_F = 512
@@ -210,6 +214,12 @@ SDDMM_KERNELS = {
 }
 K5_FS = (1, 20, 33, 64, 128, 300)
 K10_FS = (20, 300)
+# K10's edge cases (tests/test_torch_cuda_sddmm.py) on the BCSR edge
+# matrices: blocks of 24 rows (part of a CTA's rows unused), 72 (one block
+# over two CTA row slices) and 256 columns (two column slices), F ragged
+# and past the feature tile
+K10_EDGE_BLOCKS = ((8, 128), (16, 128), (24, 128), (72, 128), (8, 256))
+K10_EDGE_FS = (1, 20, 513)
 # bench.py:423-432: the SDDMM regime, nothing reduced
 SDDMM_REGIME = dict(rows=65536, cols=65536, sparsity=2.47e6 / 65536 ** 2,
                     seed=6)
@@ -618,13 +628,12 @@ def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
     require(op.impl_used == kname, f"{label}: took {op.impl_used}")
     Bd = torch.from_numpy(B).to(device)
     C = run_twice(kname, op, Bd)
-    if kname in ("bcsr_spmm", "bcsr_spmm_v3"):
-        # K7 and K9 write every row of C: into NaN-filled memory, a row
-        # one leaves unwritten shows
-        out = torch.full_like(C, float("nan"))
-        op._raw(op._bufs, Bd, out=out)
-        torch.cuda.synchronize()
-        require(torch.equal(out, C), f"{label}: out= differs from C")
+    # K7, K8 and K9 write every row of C: into NaN-filled memory, a row
+    # one leaves unwritten shows
+    out = torch.full_like(C, float("nan"))
+    op._raw(op._bufs, Bd, out=out)
+    torch.cuda.synchronize()
+    require(torch.equal(out, C), f"{label}: out= differs from C")
     plain = bcsr_plain(kname, op)(Bd)
     require(tuple(C.shape) == (csr.shape[0], B.shape[1])
             and bool(torch.isfinite(C).all()), f"{label}: bad output")
@@ -659,26 +668,27 @@ def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
     return float(diff.max())
 
 
-def k7_k9_edges_vs_plain(device):
-    """K9 and K7 (f32, bf16; at the card's tiles and at two block rows a
-    super-row, chunks of one and two blocks) on ``BCSR_EDGE``, blocks 8 and
-    16 rows: two applies bitwise equal and into NaN-filled ``out=``, the
-    pair tolerance against the plain version, the Wilkinson verdict.
-    Returns the max |kernel - plain| per kernel and the case count."""
+def bcsr_edges_vs_plain(device):
+    """K9, K7 (f32, bf16; at the card's tiles and at two block rows a
+    super-row, chunks of one and two blocks) and K8 (f32, bf16; at the
+    card's tiles and at two and one block rows a super-row) on
+    ``BCSR_EDGE``, blocks 8 and 16 rows: two applies bitwise equal and
+    into NaN-filled ``out=``, the pair tolerance against the plain
+    version, the Wilkinson verdict. Returns the max |kernel - plain| per
+    kernel and the case count."""
     import torch
 
     from loops_tpu_torch.formats import BCSR
-    from loops_tpu_torch.ops.kernels import spmm_bcsr, spmm_bcsr_v3
+    from loops_tpu_torch.ops.kernels import (
+        spmm_bcsr,
+        spmm_bcsr_v2,
+        spmm_bcsr_v3,
+    )
     from loops_tpu_torch.utils import generate, reference
 
-    err = {"bcsr_spmm": 0.0, "bcsr_spmm_v3": 0.0}
+    err = {"bcsr_spmm": 0.0, "bcsr_spmm_v2": 0.0, "bcsr_spmm_v3": 0.0}
     n = 0
-    edges = {
-        "ragged_cols": generate.random_csr(100, 300, 0.04, seed=21),
-        "empty_super_rows": generate.sized_csr(
-            [3] * 16 + [0] * 40 + [2] * 16 + [0] * 9, 390, seed=22),
-    }
-    for name, csr in edges.items():
+    for name, csr in bcsr_edge_matrices().items():
         for block in BCSR_BLOCKS:
             bcsr = BCSR.from_csr(csr, *block)
             builds = [("bcsr_spmm", None, {},
@@ -687,6 +697,11 @@ def k7_k9_edges_vs_plain(device):
                 for kw in K7_EDGE_TILES:
                     builds.append(("bcsr_spmm_v3", dtype, kw,
                                    spmm_bcsr_v3.bcsr_spmm_v3(
+                                       bcsr, dtype=dtype, device=device,
+                                       **kw)))
+                for kw in K8_EDGE_TILES:
+                    builds.append(("bcsr_spmm_v2", dtype, kw,
+                                   spmm_bcsr_v2.bcsr_spmm_v2(
                                        bcsr, dtype=dtype, device=device,
                                        **kw)))
             for F in BCSR_EDGE_FS:
@@ -704,6 +719,9 @@ def k7_k9_edges_vs_plain(device):
                             f"{label}: applies differ")
                     if kname == "bcsr_spmm":
                         plain = spmm_bcsr.bcsr_spmm_plain(b, Bd, csr.shape)
+                    elif kname == "bcsr_spmm_v2":
+                        plain = spmm_bcsr_v2.bcsr_spmm_v2_plain(
+                            b, Bd, csr.shape, dtype)
                     else:
                         plain = spmm_bcsr_v3.bcsr_spmm_v3_plain(
                             b, Bd, csr.shape, fn.meta, dtype)
@@ -721,6 +739,17 @@ def k7_k9_edges_vs_plain(device):
                     err[kname] = max(err[kname], float(diff.max(initial=0)))
                     n += 1
     return err, n
+
+
+def bcsr_edge_matrices():
+    """The BCSR edge cases (``tests/test_torch_cuda_bcsr.py``): B's rows
+    past the last full block column, and empty block rows, which at two
+    block rows a super-row make empty super-rows."""
+    from loops_tpu_torch.utils import generate
+
+    return {"ragged_cols": generate.random_csr(100, 300, 0.04, seed=21),
+            "empty_super_rows": generate.sized_csr(
+                [3] * 16 + [0] * 40 + [2] * 16 + [0] * 9, 390, seed=22)}
 
 
 def run_example(name, args):
@@ -774,7 +803,7 @@ def bcsr_phases(device, smi):
                             f"{label} F={F} {kname} {dtype or 'f32'}",
                             kname, csr, bcsr, B, dtype, device))
                         n_cases += 1
-    edge_err, n_edge = k7_k9_edges_vs_plain(device)
+    edge_err, n_edge = bcsr_edges_vs_plain(device)
     for k, v in edge_err.items():
         bcsr_err[k] = max(bcsr_err[k], v)
     n_cases += n_edge
@@ -1038,6 +1067,13 @@ def sddmm_vs_plain(label, kname, mat, A, B, device, sampled=False,
             f"{label}: launch counter did not go up by 2")
     require(torch.equal(o1, o2), f"{label}: two applies are not bitwise "
             "equal")
+    if not flat:
+        # K10 writes every element of every block: into NaN-filled
+        # memory, one it leaves unwritten shows
+        o2 = torch.full_like(o1, float("nan"))
+        fn(b, Ad, Bd, out=o2)
+        torch.cuda.synchronize()
+        require(torch.equal(o2, o1), f"{label}: out= differs")
     shape = (mat.nnz,) if flat else tuple(mat.vals.shape)
     require(tuple(o1.shape) == shape and bool(torch.isfinite(o1).all()),
             f"{label}: bad output")
@@ -1116,6 +1152,15 @@ def sddmm_phases(device, smi, adj, rate):
                 err["sddmm_bcsr"] = max(err["sddmm_bcsr"], sddmm_vs_plain(
                     f"K10 {mname} {block[0]}x{block[1]} F={F}", "sddmm_bcsr",
                     bcsr, A, B, device))
+                n_cases += 1
+    for mname, csr in bcsr_edge_matrices().items():
+        for block in K10_EDGE_BLOCKS:
+            bcsr = BCSR.from_csr(csr, *block)
+            for F in K10_EDGE_FS:
+                A, B = operands(csr.shape, F, F)
+                err["sddmm_bcsr"] = max(err["sddmm_bcsr"], sddmm_vs_plain(
+                    f"K10 edge {mname} {block[0]}x{block[1]} F={F}",
+                    "sddmm_bcsr", bcsr, A, B, device))
                 n_cases += 1
     th = time.perf_counter()
     bench = generate.random_csr(**SDDMM_REGIME)

@@ -18,8 +18,8 @@
 // Precision. f32 is IEEE f32 on the CUDA cores (fmaf; no TF32). The bf16
 // mode of K7/K8 rounds the operands (A blocks and B) to bf16 and multiplies
 // and sums in f32: a bf16 x bf16 product is exact in f32, so this is what
-// the TPU's jnp.dot(bf16, bf16, preferred_element_type=f32) computes. K7
-// does it on the tensor cores (mma.sync, f32 sums), K8 on the CUDA cores.
+// the TPU's jnp.dot(bf16, bf16, preferred_element_type=f32) computes. Both
+// do it on the tensor cores (mma.sync, f32 sums).
 //
 // Not carried over from the TPU kernels: the (8, 128) register tiling, K6's
 // GROUP/KCH chunking with its 3-way bf16 split and ones-contraction on the
@@ -32,7 +32,8 @@
 // bound at F = 512, while in bf16 only the tensor cores could reach the
 // byte bound. Below the bound, what the card pays is the B tiles re-read
 // from L2 (K9 and K8: one per stored block; K7: one per super-row and
-// column) and, per staged tile, the FMAs each shared load feeds.
+// column) and, per staged tile, the FMAs each shared load feeds. K7 and K8
+// share their units of work (8 rows x 16 features a warp, below).
 //
 // Offsets into vals, B and the output are 64-bit. Each C entry point
 // returns cudaGetLastError() so the Python wrapper raises on a refused
@@ -44,11 +45,6 @@
 #include "tensor_core.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // ---------------------------------------------------------------- K6
 // One warp per block row. Lane l owns columns l, l+32, l+64, l+96 of the
@@ -128,15 +124,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// n contiguous elements (n * sizeof(T) a multiple of 16) into shared memory
-template <typename T>
-__device__ __forceinline__ void load_contig(T* dst, const T* src, long long n) {
-  constexpr int V = 16 / sizeof(T);
-  for (long long i = threadIdx.x; i < n / V; i += blockDim.x) {
-    cp_async16(dst + i * V, src + i * V, 16);
-  }
-}
-
 // B rows [row0, row0 + C), columns [f0, f0 + FT) into dst[C][FT] at row
 // pitch dp; ld is B's row pitch in elements (ld * sizeof(T) and
 // dp * sizeof(T) multiples of 16)
@@ -164,114 +151,25 @@ __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
-  v[0] = __low2float(lo); v[1] = __high2float(lo);
-  v[2] = __low2float(hi); v[3] = __high2float(hi);
-}
 
-__device__ __forceinline__ void zero_acc(float* acc, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
-}
-
-// the accumulator tile [SR][FT] at row pitch ap into out's rows from row0
-__device__ __forceinline__ void store_acc(const float* acc, int ap, float* out,
-                                          long long row0, int SR, int FT,
-                                          int f0, int rows, int F) {
-  for (int i = threadIdx.x; i < SR * FT; i += blockDim.x) {
-    const long long row = row0 + i / FT;
-    const int f = f0 + i % FT;
-    if (row < rows && f < F) out[row * F + f] = acc[(i / FT) * ap + i % FT];
-  }
-}
-
-// ---------------------------------------------------------------- K8
-// Stored blocks of the super-row in storage order; per block each thread
-// sums whole dot products (r, f) over C and adds them into the accumulator
-// row of the block's block row. A given (row, f) is always owned by the
-// same thread, and blocks are separated by barriers: sums in block order.
-template <typename T>
-__global__ void __launch_bounds__(kSuperThreads)
-bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
-                    const int* __restrict__ bcols, const int* __restrict__ brow,
-                    const T* __restrict__ vals, const T* __restrict__ B,
-                    float* __restrict__ out, int nbr, int R, int C, int rows,
-                    int cols, int F, int ld, int SUPER, int FT) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SR = SUPER * R;
-  float* acc = reinterpret_cast<float*>(smem);
-  T* abuf = reinterpret_cast<T*>(acc + SR * FT);  // [2][R*C]
-  T* bbuf = abuf + 2 * R * C;                      // [2][C*FT]
-  const int s = blockIdx.x, f0 = blockIdx.y * FT;
-  const long long RC = static_cast<long long>(R) * C;
-  zero_acc(acc, SR * FT);
-  const int t0 = offsets[min(s * SUPER, nbr)];
-  const int t1 = offsets[min((s + 1) * SUPER, nbr)];
-  if (t0 < t1) {
-    load_contig(abuf, vals + t0 * RC, RC);
-    load_b_tile(bbuf, FT, B, static_cast<long long>(bcols[t0]) * C, C, FT,
-                f0, cols, F, ld);
-  }
-  cp_async_commit();
-  for (int t = t0; t < t1; ++t) {
-    const int slot = (t - t0) & 1;
-    if (t + 1 < t1) {
-      load_contig(abuf + (1 - slot) * RC, vals + (t + 1) * RC, RC);
-      load_b_tile(bbuf + (1 - slot) * C * FT, FT, B,
-                  static_cast<long long>(bcols[t + 1]) * C, C, FT, f0, cols,
-                  F, ld);
-    }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const T* a = abuf + slot * RC;
-    const T* b = bbuf + slot * C * FT;
-    const int arow = (brow[t] - s * SUPER) * R;
-    for (int o = threadIdx.x; o < R * FT; o += blockDim.x) {
-      const int r = o / FT, f = o % FT;
-      float sum = 0.f;
-      for (int c = 0; c < C; ++c) {
-        sum = fmaf(to_f(a[r * C + c]), to_f(b[c * FT + f]), sum);
-      }
-      acc[(arow + r) * FT + f] += sum;
-    }
-    __syncthreads();  // before the next prefetch overwrites this slot
-  }
-  __syncthreads();
-  store_acc(acc, FT, out, static_cast<long long>(s) * SR, SR, FT, f0, rows,
-            F);
-}
-
-// ---------------------------------------------------------------- K7
-// The super-row's stored blocks come as column-sorted chunks of KCH blocks
-// (loops_tpu's _stage_chunks): a chunk's A slab [KCH*R][C] is one
-// contiguous copy, and the B tile of its column is loaded only where
-// bfetch == 1 (into buffer bslot), once per (super-row, column), and reused
-// by the following chunks of that column. The card's tiles are large
-// (SUPER * R output rows, the f32 accumulator [SUPER*R][FT] in shared
-// memory) so that chunks fill and each B tile serves many blocks.
-//
-// Chunk t + 1's slab, rowoff and B tile are copied in with cp.async while
-// chunk t is computed; the chunk arrays of t + 2 are read into registers
-// at the same time, so no step waits on an index load.
-//
-// A chunk's work is cut into units: 8 slab rows (one block, or an 8-row
-// part of a taller one) x 16 features. Warp w owns feature group w % G
-// (G = FT / 16, a divisor of the 8 warps) and units w / G, w / G + 8 / G,
-// ...; it adds each unit's sums into the accumulator rows of the block's
-// rowoff. A chunk's blocks lie in distinct block rows and a warp's units
-// are its own, so no two writes meet; chunks are separated by barriers:
-// each (row, f) is summed in chunk order.
+// ------------------------------------------------- K7/K8 units of work
+// A step's work (a chunk of K7, a block of K8) is cut into units: 8 rows
+// of the staged A (one block, or an 8-row part of a taller one) x 16
+// features. Warp w owns feature group w % G (G = FT / 16, a divisor of the
+// 8 warps) and units w / G, w / G + 8 / G, ...; it adds each unit's sums
+// into the accumulator rows row_of(unit). A step's units lie in distinct
+// accumulator rows or feature groups and a warp's units are its own, so
+// no two writes meet; steps are separated by barriers: each (row, f) is
+// summed in step order.
 //
 // bf16: the transposed product outᵀ = Bᵀ Aᵀ on mma.sync m16n8k16 (f32
 // sums): 16 features are the mma's M, a unit's 8 rows its N, C its K. The
 // warp keeps Bᵀ's fragments for its 16 features over 128 columns in 32
 // registers (ldmatrix.trans of the row-major B tile) and, per unit, reads
-// A's fragments with ldmatrix over the row-major slab: 8 mma per unit, the
+// A's fragments with ldmatrix over the row-major A: 8 mma per unit, the
 // even and the odd k-steps in two chains, added at the end. Accumulator
 // fragment (feature gid (+8), rows 2 tig, 2 tig + 1) lands at
-// acc[rowoff * R + 2 tig (+1)][16 g + gid (+8)]. Rows of A and B are
+// acc[row_of(unit) + 2 tig (+1)][16 g + gid (+8)]. Rows of A and B are
 // padded by 16 bytes so ldmatrix reads no bank twice.
 //
 // f32: IEEE fmaf on the CUDA cores. Lane (split s, quad fq) keeps 8 rows x
@@ -285,7 +183,7 @@ constexpr int kK7Warps = kSuperThreads / 32;
 constexpr int kK7Unit = 16;  // features of a unit
 
 template <typename T>
-struct K7Layout {  // row pads (elements) of the staged slab and B tile
+struct K7Layout {  // row pads (elements) of the staged A and B tile
   static constexpr int kPadA = sizeof(T) == 2 ? 8 : 0;
   static constexpr int kPadB = sizeof(T) == 2 ? 8 : 4;
 };
@@ -327,11 +225,12 @@ __device__ __forceinline__ void k7_add(float* acc, const float d[4],
   dst[accp + 8] += d[3] + e[3];
 }
 
-// one warp: the chunk's units of feature group g, bf16; two units at a
+// one warp: the step's units of feature group g, bf16; two units at a
 // time, their mma chains interleaved
+template <typename RowOf>
 __device__ __forceinline__ void k7_units(
     const __nv_bfloat16* a, const __nv_bfloat16* b, float* acc,
-    const int* ro, int tiles, int R, int C, int ap, int bp, int accp, int g,
+    RowOf row_of, int tiles, int C, int ap, int bp, int accp, int g,
     int first, int stride) {
   const int lane = threadIdx.x & 31;
   for (int c0 = 0; c0 < C; c0 += 128) {
@@ -350,24 +249,65 @@ __device__ __forceinline__ void k7_units(
       const int q2 = q + stride;
       k7_mma(d, e, a + 8 * q * ap + lrow, bf);
       k7_mma(d2, e2, a + 8 * q2 * ap + lrow, bf);
-      k7_add(acc, d, e, ro[8 * q / R] * R + (8 * q) % R, accp, kK7Unit * g);
-      k7_add(acc, d2, e2, ro[8 * q2 / R] * R + (8 * q2) % R, accp,
-             kK7Unit * g);
+      k7_add(acc, d, e, row_of(q), accp, kK7Unit * g);
+      k7_add(acc, d2, e2, row_of(q2), accp, kK7Unit * g);
     }
     if (q < tiles) {
       float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
       k7_mma(d, e, a + 8 * q * ap + lrow, bf);
-      k7_add(acc, d, e, ro[8 * q / R] * R + (8 * q) % R, accp, kK7Unit * g);
+      k7_add(acc, d, e, row_of(q), accp, kK7Unit * g);
     }
   }
 }
 
-// one warp: the chunk's units of feature group g, f32
-__device__ __forceinline__ void k7_units(
-    const float* a, const float* b, float* acc, const int* ro, int tiles,
-    int R, int C, int ap, int bp, int accp, int g, int first, int stride) {
+// the 8 column splits of a warp's f32 unit summed across lanes in three
+// shuffle rounds; lane (s, fq) adds row s, features 4 fq.. into acc at
+// row0 + s, column col + 4 fq
+__device__ __forceinline__ void k7_fold_f32(const float (&sum)[8][4],
+                                            float* acc, int row0, int accp,
+                                            int col) {
   const int lane = threadIdx.x & 31, s = lane >> 2, fq = lane & 3;
   const bool h2 = s & 4, h1 = s & 2, h0 = s & 1;
+  // splits s and s ^ 4 (lane ^ 16): the upper split keeps rows 4..7
+  float p[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float send = h2 ? sum[r][k] : sum[r + 4][k];
+      const float keep = h2 ? sum[r + 4][k] : sum[r][k];
+      p[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+  }
+  // then s ^ 2 (lane ^ 8) keeps two of the four rows, s ^ 1 (lane ^ 4) one
+  float u[2][4], v[4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float send = h1 ? p[r][k] : p[r + 2][k];
+      const float keep = h1 ? p[r + 2][k] : p[r][k];
+      u[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float send = h0 ? u[0][k] : u[1][k];
+    const float keep = h0 ? u[1][k] : u[0][k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  float4* dst = reinterpret_cast<float4*>(acc + (row0 + s) * accp + col + 4 * fq);
+  float4 o = *dst;
+  o.x += v[0]; o.y += v[1]; o.z += v[2]; o.w += v[3];
+  *dst = o;
+}
+
+// one warp: the step's units of feature group g, f32
+template <typename RowOf>
+__device__ __forceinline__ void k7_units(
+    const float* a, const float* b, float* acc, RowOf row_of, int tiles,
+    int C, int ap, int bp, int accp, int g, int first, int stride) {
+  const int lane = threadIdx.x & 31, s = lane >> 2, fq = lane & 3;
   const float* bq = b + kK7Unit * g + 4 * fq;
   for (int q = first; q < tiles; q += stride) {
     const float* ar = a + 8 * q * ap;
@@ -396,42 +336,52 @@ __device__ __forceinline__ void k7_units(
         }
       }
     }
-    // splits s and s ^ 4 (lane ^ 16): the upper split keeps rows 4..7
-    float p[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float send = h2 ? sum[r][k] : sum[r + 4][k];
-        const float keep = h2 ? sum[r + 4][k] : sum[r][k];
-        p[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-      }
-    }
-    // then s ^ 2 (lane ^ 8) keeps two of the four rows, s ^ 1 (lane ^ 4) one
-    float u[2][4], v[4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float send = h1 ? p[r][k] : p[r + 2][k];
-        const float keep = h1 ? p[r + 2][k] : p[r][k];
-        u[r][k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float send = h0 ? u[0][k] : u[1][k];
-      const float keep = h0 ? u[1][k] : u[0][k];
-      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-    }
-    const int arow = ro[8 * q / R] * R + (8 * q) % R + s;
-    float4* dst = reinterpret_cast<float4*>(acc + arow * accp + kK7Unit * g + 4 * fq);
-    float4 o = *dst;
-    o.x += v[0]; o.y += v[1]; o.z += v[2]; o.w += v[3];
-    *dst = o;
+    k7_fold_f32(sum, acc, row_of(q), accp, kK7Unit * g);
   }
 }
 
+__device__ __forceinline__ void zero_tile(float* acc, int n) {
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
+    reinterpret_cast<float4*>(acc)[i] = zero4;
+  }
+}
+
+// the accumulator tile [SR][FT] (row pitch accp) into out's rows from row0,
+// four features a store where F and out's alignment allow
+__device__ __forceinline__ void store_tile(const float* acc, int accp,
+                                           float* out, long long row0, int SR,
+                                           int FT, int f0, int rows, int F) {
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = threadIdx.x; i < SR * FT / 4; i += blockDim.x) {
+    const int r = i / (FT / 4), f = (i % (FT / 4)) * 4;
+    const long long row = row0 + r;
+    if (row >= rows) break;
+    const float4 v = *reinterpret_cast<const float4*>(acc + r * accp + f);
+    float* o = out + row * F + f0 + f;
+    if (vec && f0 + f + 4 <= F) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      for (int k = 0; k < 4 && f0 + f + k < F; ++k) o[k] = w[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K7
+// The super-row's stored blocks come as column-sorted chunks of KCH blocks
+// (loops_tpu's _stage_chunks): a chunk's A slab [KCH*R][C] is one
+// contiguous copy, and the B tile of its column is loaded only where
+// bfetch == 1 (into buffer bslot), once per (super-row, column), and reused
+// by the following chunks of that column. The card's tiles are large
+// (SUPER * R output rows, the f32 accumulator [SUPER*R][FT] in shared
+// memory) so that chunks fill and each B tile serves many blocks.
+//
+// Chunk t + 1's slab, rowoff and B tile are copied in with cp.async while
+// chunk t is computed; the chunk arrays of t + 2 are read into registers
+// at the same time, so no step waits on an index load. A chunk's blocks
+// lie in distinct block rows; unit q of a chunk adds into the rows of its
+// block's rowoff.
 template <typename T>
 __global__ void __launch_bounds__(kSuperThreads)
 bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
@@ -465,10 +415,7 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
                   C, FT, f0, cols, F, ld);
     }
   };
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < SR * accp / 4; i += blockDim.x) {
-    reinterpret_cast<float4*>(acc)[i] = zero4;
-  }
+  zero_tile(acc, SR * accp);
   const int t0 = chunk_ptr[s], t1 = chunk_ptr[s + 1];
   int n0 = 0, bs0 = 0;                  // chunk t: live blocks, B slot
   int n1 = 0, f1 = 0, c1 = 0, bs1 = 0;  // chunk t + 1
@@ -494,29 +441,203 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
+    const int* ro = robuf + aslot * KCH;
     k7_units(abuf + aslot * QR * ap, bbuf + bs0 * C * bp, acc,
-             robuf + aslot * KCH, n0 * R / 8, R, C, ap, bp, accp, warp % G,
-             warp / G, kK7Warps / G);
+             [ro, R](int q) { return ro[8 * q / R] * R + (8 * q) % R; },
+             n0 * R / 8, C, ap, bp, accp, warp % G, warp / G, kK7Warps / G);
     __syncthreads();  // before the next prefetch overwrites these buffers
     n0 = n1; bs0 = bs1;
     n1 = n2; f1 = f2; c1 = c2; bs1 = bs2;
   }
   __syncthreads();  // an empty super-row's zeros, written by all threads
-  // the tile out, four features a store where F and out's alignment allow
-  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (int i = threadIdx.x; i < SR * FT / 4; i += blockDim.x) {
-    const int r = i / (FT / 4), f = (i % (FT / 4)) * 4;
-    const long long row = static_cast<long long>(s) * SR + r;
-    if (row >= rows) break;
-    const float4 v = *reinterpret_cast<const float4*>(acc + r * accp + f);
-    float* o = out + row * F + f0 + f;
-    if (vec && f0 + f + 4 <= F) {
-      *reinterpret_cast<float4*>(o) = v;
-    } else {
-      const float w[4] = {v.x, v.y, v.z, v.w};
-      for (int k = 0; k < 4 && f0 + f + k < F; ++k) o[k] = w[k];
+  store_tile(acc, accp, out, static_cast<long long>(s) * SR, SR, FT, f0,
+             rows, F);
+}
+
+// K8 f32 with B's rows straight from L2 (sweep variant): lane (s, fq)
+// loads the float4s of B it multiplies, 8 rows in flight, in place of the
+// staged tile; the same sums in the same order as k7_units (f32). kGlobalA:
+// A's float4s from global memory (L1) too, at pitch ap
+template <bool kGlobalA, typename RowOf>
+__device__ __forceinline__ void k8_units_direct(
+    const float* a, const float* __restrict__ B, long long col0, int cn,
+    int ld, int fcol, bool live, float* acc, RowOf row_of, int tiles, int C,
+    int ap, int accp, int g, int first, int stride) {
+  const int lane = threadIdx.x & 31, s = lane >> 2;
+  const float* bq = B + col0 * ld + fcol;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = first; q < tiles; q += stride) {
+    const float* ar = a + 8 * q * ap;
+    float sum[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum[r][k] = 0.f;
     }
+    for (int c0 = 4 * s; c0 < C; c0 += 128) {
+#pragma unroll
+      for (int jj = 0; jj < 4; jj += 2) {
+        float4 bv[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int c = c0 + 32 * (jj + (k >> 2)) + (k & 3);
+          bv[k] = live && c < cn
+                      ? __ldg(reinterpret_cast<const float4*>(
+                            bq + static_cast<long long>(c) * ld))
+                      : zero4;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 32 * (jj + h);
+          float av[8][4];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if constexpr (kGlobalA) {
+              const float4 q4 = __ldg(reinterpret_cast<const float4*>(
+                  ar + r * ap + c));
+              av[r][0] = q4.x; av[r][1] = q4.y; av[r][2] = q4.z;
+              av[r][3] = q4.w;
+            } else {
+              load4(ar + r * ap + c, av[r]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float bw[4] = {bv[4 * h + i].x, bv[4 * h + i].y,
+                                 bv[4 * h + i].z, bv[4 * h + i].w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) sum[r][k] = fmaf(av[r][i], bw[k], sum[r][k]);
+            }
+          }
+        }
+      }
+    }
+    k7_fold_f32(sum, acc, row_of(q), accp, kK7Unit * g);
   }
+}
+
+// ---------------------------------------------------------------- K8
+// The super-row's stored blocks in storage order, one block a step: the
+// block's R x C values and its B tile are copied in with cp.async while
+// the block before is computed (the block column of t + 2 and the block
+// row of t + 1 are read into registers a step ahead, so no copy waits on
+// an index load), and the block's R / 8 units of every feature group add
+// into the accumulator rows of its block row. The units are K7's: in bf16
+// the transposed product on mma.sync, in f32 the 8 x 4 register tiles
+// summed across lanes in a fixed order. Every (row, f) is summed in block
+// order, each block's sum over C in the units' fixed order.
+//
+// Every block re-reads its B tile (C x FT) from L2: 4.00 GB an apply in
+// f32, 2.00 GB in bf16 at the bench's 16384^2, F = 512 regime. A copy of
+// one step (a 128 x 128 tile, 64 KB in f32) runs under the products of the
+// step before, so L2's rate, not the FMAs, sets the time.
+template <typename T, bool kDirect, int NST>
+__global__ void __launch_bounds__(kSuperThreads, kDirect ? 2 : 1)
+bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
+                    const int* __restrict__ bcols, const int* __restrict__ brow,
+                    const T* __restrict__ vals, const T* __restrict__ B,
+                    float* __restrict__ out, int nbr, int R, int C, int rows,
+                    int cols, int F, int ld, int SUPER, int FT) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ap = C + K7Layout<T>::kPadA, bp = FT + K7Layout<T>::kPadB;
+  const int accp = FT + 4;
+  const int SR = SUPER * R;
+  float* acc = reinterpret_cast<float*>(smem);
+  T* abuf = reinterpret_cast<T*>(acc + SR * accp);  // [NST][R][ap]
+  T* bbuf = abuf + NST * R * ap;                     // [NST][C][bp]
+  const int s = blockIdx.x, f0 = blockIdx.y * FT;
+  const long long RC = static_cast<long long>(R) * C;
+  const int G = FT / kK7Unit, warp = threadIdx.x >> 5;
+  auto stage = [&](int t, int slot, int col) {
+    load_rows(abuf + slot * R * ap, ap, vals + t * RC, R, C);
+    if (!kDirect) {
+      load_b_tile(bbuf + slot * C * bp, bp, B,
+                  static_cast<long long>(col) * C, C, FT, f0, cols, F, ld);
+    }
+  };
+  zero_tile(acc, SR * accp);
+  const int t0 = offsets[min(s * SUPER, nbr)];
+  const int t1 = offsets[min((s + 1) * SUPER, nbr)];
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (t0 + i < t1) stage(t0 + i, i, bcols[t0 + i]);
+    cp_async_commit();
+  }
+  // the column of the next block to stage, the block row and column of t
+  int cst = t0 + NST - 1 < t1 ? bcols[t0 + NST - 1] : 0;
+  int rcur = t0 < t1 ? brow[t0] : 0, ccur = t0 < t1 ? bcols[t0] : 0;
+  for (int t = t0; t < t1; ++t) {
+    const int slot = (t - t0) % NST;
+    const int cst2 = t + NST < t1 ? bcols[t + NST] : 0;
+    const int rnext = t + 1 < t1 ? brow[t + 1] : 0;
+    const int cnext = t + 1 < t1 ? bcols[t + 1] : 0;
+    if (t + NST - 1 < t1) stage(t + NST - 1, (t - t0 + NST - 1) % NST, cst);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 1));
+    __syncthreads();
+    const int arow = (rcur - s * SUPER) * R;
+    const auto row_of = [arow](int q) { return arow + 8 * q; };
+    if constexpr (kDirect) {
+      const long long col0 = static_cast<long long>(ccur) * C;
+      const int fcol = f0 + kK7Unit * (warp % G) + 4 * ((threadIdx.x & 31) & 3);
+      k8_units_direct<false>(
+          abuf + slot * R * ap, reinterpret_cast<const float*>(B), col0,
+          static_cast<int>(min(static_cast<long long>(C), cols - col0)), ld,
+          fcol, fcol < F, acc, row_of, R / 8, C, ap, accp, warp % G, warp / G,
+          kK7Warps / G);
+    } else {
+      k7_units(abuf + slot * R * ap, bbuf + slot * C * bp, acc, row_of,
+               R / 8, C, ap, bp, accp, warp % G, warp / G, kK7Warps / G);
+    }
+    __syncthreads();  // before the next prefetch overwrites this slot
+    cst = cst2; rcur = rnext; ccur = cnext;
+  }
+  __syncthreads();  // an empty super-row's zeros, written by all threads
+  store_tile(acc, accp, out, static_cast<long long>(s) * SR, SR, FT, f0,
+             rows, F);
+}
+
+// K8 f32, sweep variant: A's and B's float4s straight from global memory,
+// no staging and no barrier between blocks (a lane's accumulator entries
+// are its own), each warp streaming the super-row's blocks on its own
+__global__ void __launch_bounds__(kSuperThreads, 2)
+bcsr_spmm_v2_ldg_kernel(const int* __restrict__ offsets,
+                        const int* __restrict__ bcols,
+                        const int* __restrict__ brow,
+                        const float* __restrict__ vals,
+                        const float* __restrict__ B, float* __restrict__ out,
+                        int nbr, int R, int C, int rows, int cols, int F,
+                        int ld, int SUPER, int FT) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int accp = FT + 4;
+  const int SR = SUPER * R;
+  float* acc = reinterpret_cast<float*>(smem);
+  const int s = blockIdx.x, f0 = blockIdx.y * FT;
+  const long long RC = static_cast<long long>(R) * C;
+  const int G = FT / kK7Unit, warp = threadIdx.x >> 5;
+  zero_tile(acc, SR * accp);
+  __syncthreads();
+  const int t0 = offsets[min(s * SUPER, nbr)];
+  const int t1 = offsets[min((s + 1) * SUPER, nbr)];
+  const int fcol = f0 + kK7Unit * (warp % G) + 4 * ((threadIdx.x & 31) & 3);
+  int rcur = t0 < t1 ? brow[t0] : 0, ccur = t0 < t1 ? bcols[t0] : 0;
+  for (int t = t0; t < t1; ++t) {
+    const int rnext = t + 1 < t1 ? brow[t + 1] : 0;
+    const int cnext = t + 1 < t1 ? bcols[t + 1] : 0;
+    const int arow = (rcur - s * SUPER) * R;
+    const long long col0 = static_cast<long long>(ccur) * C;
+    k8_units_direct<true>(
+        vals + t * RC, B, col0,
+        static_cast<int>(min(static_cast<long long>(C), cols - col0)), ld,
+        fcol, fcol < F, acc, [arow](int q) { return arow + 8 * q; }, R / 8,
+        C, C, accp, warp % G, warp / G, kK7Warps / G);
+    rcur = rnext; ccur = cnext;
+  }
+  __syncthreads();
+  store_tile(acc, accp, out, static_cast<long long>(s) * SR, SR, FT, f0,
+             rows, F);
 }
 
 // ---------------------------------------------------------------- K9
@@ -644,8 +765,8 @@ int loops_bcsr_spmm_f32(const void* offsets, const void* bcols,
 int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
                        const void* brow, const void* vals, const void* B,
                        void* out, int nbr, int R, int C, int rows, int cols,
-                       int F, int ld, int SUPER, int FT, int bf16, int smem,
-                       void* stream) {
+                       int F, int ld, int SUPER, int FT, int bf16, int mode,
+                       int stages, int smem, void* stream) {
   const int nsup = (nbr + SUPER - 1) / SUPER;
   const dim3 grid(nsup, (F + FT - 1) / FT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -653,16 +774,32 @@ int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
   const auto* bc = static_cast<const int*>(bcols);
   const auto* br = static_cast<const int*>(brow);
   auto* c = static_cast<float*>(out);
+  if (FT % kK7Unit || kK7Warps % (FT / kK7Unit) || stages < 2 ||
+      stages > 6 || (bf16 && mode)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int err;
   if (bf16) {
-    auto k = bcsr_spmm_v2_kernel<__nv_bfloat16>;
+    auto k = stages == 6   ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 6>
+             : stages == 4 ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 4>
+             : stages == 3 ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 3>
+                           : bcsr_spmm_v2_kernel<__nv_bfloat16, false, 2>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const __nv_bfloat16*>(vals),
         static_cast<const __nv_bfloat16*>(B), c, nbr, R, C, rows, cols, F, ld,
         SUPER, FT);
+  } else if (mode == 2) {
+    auto k = bcsr_spmm_v2_ldg_kernel;
+    if ((err = set_smem(k, smem))) return err;
+    k<<<grid, kSuperThreads, smem, s>>>(
+        o, bc, br, static_cast<const float*>(vals),
+        static_cast<const float*>(B), c, nbr, R, C, rows, cols, F, ld, SUPER,
+        FT);
   } else {
-    auto k = bcsr_spmm_v2_kernel<float>;
+    auto k = mode == 1 ? bcsr_spmm_v2_kernel<float, true, 2>
+             : stages == 3 ? bcsr_spmm_v2_kernel<float, false, 3>
+                           : bcsr_spmm_v2_kernel<float, false, 2>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const float*>(vals),

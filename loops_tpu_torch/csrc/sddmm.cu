@@ -54,22 +54,37 @@
 // (r, c) is summed over all of F in order, then scaled by vals once
 // (sddmm_bcsr.py:59-61).
 //
-// Design: one CTA of 128 threads per (stored block, sub-tile of ROWS rows x
-// 128 columns), ROWS = 16 when R % 16 == 0 else 8. The TPU's innermost grid
-// axis over feature tiles becomes the CTA's own loop: A [ROWS, FT] (stored
-// transposed, so a thread reads its ROWS values as float4 broadcasts) and B
-// [128, FT] (row pitch FT + 1, so the 128 threads read distinct banks) are
-// staged in shared memory per FT = 64 columns; thread c keeps ROWS sums of
-// column c in registers. Rows of A past `rows` and of B past `cols` load as
-// zeros (the JAX side pads both). What bounds K10 on an H100: 2 * R * C * F
-// flops per block on the CUDA cores (67 TFLOP/s f32); the A and B tiles
-// come mostly from L2.
+// What bounds K10 on an H100: 2 * R * C * F flops per block on the CUDA
+// cores (67 TFLOP/s f32: 0.239 ms at the bench's 16384^2, F = 512 regime).
+// The first port gave each block its own CTA, which read its own 128 x F
+// slab of B: blocks of one block column (~119 at the bench's density)
+// re-read the same slab, 4.0 GB an apply from L2, with 3 shared loads per
+// 8 FMAs.
+//
+// Design: the wrapper stages at bind a permutation of the stored blocks
+// sorted by block column (storage order within a column), cut into groups
+// of at most G blocks of one column (gptr). One CTA of 2 * ROWS threads
+// takes a group's ROWS rows (G blocks of R rows, G = ROWS / R; a block of
+// more than ROWS rows spreads over blockIdx.z) by a 128-column slice of C
+// (blockIdx.y), and loads each B feature tile once for its G blocks:
+// FT features of A's rows and B's 128 rows are double-buffered in shared
+// memory with cp.async (rows past the matrix, features past F
+// zero-filled), the next tile's copy under this tile's FMAs. Thread (row
+// group rg, column group cg) keeps an 8 x 8 register tile: rows 8 rg..8 rg
+// + 7, columns cg + 16 j; per 4 features it reads 8 float4 of A (the
+// lanes of a phase share a row: a broadcast) and 8 of B (rows at pitch FT
+// + 4: the 8 lanes of a phase read distinct banks), for 256 FMAs. B's L2
+// traffic falls by G (0.5 GB at G = 8); A's rows are read once per block
+// and column slice. Every output is written through the permutation to
+// out[t], so out stays [NB, R, C] in storage order.
 //
 // Offsets into A, B, vals and out are 64-bit. Each C entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -261,60 +276,142 @@ int launch_flat(const int* rows, const int* cols, const float* vals,
 }
 
 // ---------------------------------------------------------------- K10
-constexpr int kBcsrThreads = 128;  // one per column of a 128-wide sub-tile
-constexpr int kFT = 64;            // feature tile staged in shared memory
+constexpr int kK10Cols = 128;  // output columns of a CTA: a slice of C
 
-template <int ROWS>
-__global__ void __launch_bounds__(kBcsrThreads)
-sddmm_bcsr_kernel(const int* __restrict__ brow, const int* __restrict__ bcols,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   loops_tc::smem_addr(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+// ROWS: A rows of a CTA (G blocks of R rows); FT: features a step
+template <int ROWS, int FT, int MINB>
+__global__ void __launch_bounds__(2 * ROWS, MINB)
+sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
+                  const int* __restrict__ brow, const int* __restrict__ bcols,
                   const float* __restrict__ vals, const float* __restrict__ A,
                   const float* __restrict__ B, float* __restrict__ out, int R,
-                  int C, int rows, int cols, int F) {
-  __shared__ __align__(16) float sA[kFT * ROWS];        // [f][r]
-  __shared__ float sB[kBcsrThreads * (kFT + 1)];        // [c][f], pitch FT+1
-  const int t = blockIdx.x;
-  const int subs_c = C / kBcsrThreads;
-  const int r0 = (blockIdx.y / subs_c) * ROWS;
-  const int c0 = (blockIdx.y % subs_c) * kBcsrThreads;
-  const long long arow0 = static_cast<long long>(brow[t]) * R + r0;
-  const long long bcol0 = static_cast<long long>(bcols[t]) * C + c0;
-  const int c = threadIdx.x;
-  float acc[ROWS];
+                  int C, int rows, int cols, int F, int lda, int ldb) {
+  constexpr int kThreads = 2 * ROWS;  // ROWS / 8 row groups x 16 col groups
+  constexpr int kPitch = FT + 4;      // row pitch of the staged tiles
+  constexpr int kQuads = FT / 4;      // 16-byte copies a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);  // [2][ROWS][kPitch]
+  float* Bs = As + 2 * ROWS * kPitch;          // [2][kK10Cols][kPitch]
+  __shared__ long long arow[ROWS];  // A's row of each CTA row, or -1
+  __shared__ long long orow[ROWS];  // out's offset of the row, or -1
+  const int g0 = gptr[blockIdx.x], n = gptr[blockIdx.x + 1] - g0;
+  const int c0 = blockIdx.y * kK10Cols;
+  const long long bcol0 = static_cast<long long>(bcols[perm[g0]]) * C + c0;
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+    const int v = blockIdx.z * ROWS + i, b = v / R, r = v % R;
+    long long ar = -1, o = -1;
+    if (b < n) {
+      const int t = perm[g0 + b];
+      ar = static_cast<long long>(brow[t]) * R + r;
+      if (ar >= rows) ar = -1;
+      o = (static_cast<long long>(t) * R + r) * C + c0;
+    }
+    arow[i] = ar;
+    orow[i] = o;
+  }
+  __syncthreads();
+  // feature tile k of the CTA's A rows and B rows into buffer `slot`
+  auto stage = [&](int k, int slot) {
+    const int f0 = k * FT;
+    float* as = As + slot * ROWS * kPitch;
+    float* bs = Bs + slot * kK10Cols * kPitch;
+    for (int i = threadIdx.x; i < ROWS * kQuads; i += kThreads) {
+      const int r = i / kQuads, f = (i % kQuads) * 4;
+      const long long ar = arow[r];
+      const float* src = A;
+      int bytes = 0;
+      if (ar >= 0 && f0 + f < F) {
+        src = A + ar * lda + f0 + f;
+        bytes = min(4, F - f0 - f) * 4;
+      }
+      cp_async16(as + r * kPitch + f, src, bytes);
+    }
+    for (int i = threadIdx.x; i < kK10Cols * kQuads; i += kThreads) {
+      const int c = i / kQuads, f = (i % kQuads) * 4;
+      const float* src = B;
+      int bytes = 0;
+      if (bcol0 + c < cols && f0 + f < F) {
+        src = B + (bcol0 + c) * ldb + f0 + f;
+        bytes = min(4, F - f0 - f) * 4;
+      }
+      cp_async16(bs + c * kPitch + f, src, bytes);
+    }
+  };
+  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  float acc[8][8];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-  for (int f0 = 0; f0 < F; f0 += kFT) {
-    const int fn = min(kFT, F - f0);
-    __syncthreads();  // the previous tile has been read
-    for (int i = threadIdx.x; i < ROWS * kFT; i += kBcsrThreads) {
-      const int r = i / kFT, f = i % kFT;
-      const long long ar = arow0 + r;
-      sA[f * ROWS + r] =
-          (ar < rows && f < fn) ? __ldg(A + ar * F + f0 + f) : 0.f;
-    }
-    for (int i = threadIdx.x; i < kBcsrThreads * kFT; i += kBcsrThreads) {
-      const int cc = i / kFT, f = i % kFT;
-      const long long bc = bcol0 + cc;
-      sB[cc * (kFT + 1) + f] =
-          (bc < cols && f < fn) ? __ldg(B + bc * F + f0 + f) : 0.f;
-    }
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  }
+  const int steps = (F + FT - 1) / FT;
+  if (steps > 0) stage(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int k = 0; k < steps; ++k) {
+    const int slot = k & 1;
+    if (k + 1 < steps) stage(k + 1, 1 - slot);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
-    for (int f = 0; f < fn; ++f) {
-      const float b = sB[c * (kFT + 1) + f];
+    const float* as = As + (slot * ROWS + 8 * rg) * kPitch;
+    const float* bs = Bs + (slot * kK10Cols + cg) * kPitch;
+#pragma unroll 2
+    for (int f = 0; f < FT; f += 4) {
+      float4 b[8];
 #pragma unroll
-      for (int r = 0; r < ROWS; r += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(sA + f * ROWS + r);
-        acc[r] = fmaf(a.x, b, acc[r]);
-        acc[r + 1] = fmaf(a.y, b, acc[r + 1]);
-        acc[r + 2] = fmaf(a.z, b, acc[r + 2]);
-        acc[r + 3] = fmaf(a.w, b, acc[r + 3]);
+      for (int j = 0; j < 8; ++j) {
+        b[j] = *reinterpret_cast<const float4*>(bs + 16 * j * kPitch + f);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(as + r * kPitch + f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[r][j] = fmaf(a.x, b[j].x, acc[r][j]);
+          acc[r][j] = fmaf(a.y, b[j].y, acc[r][j]);
+          acc[r][j] = fmaf(a.z, b[j].z, acc[r][j]);
+          acc[r][j] = fmaf(a.w, b[j].w, acc[r][j]);
+        }
       }
     }
+    __syncthreads();  // before the next copy overwrites this slot
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const long long o = (static_cast<long long>(t) * R + r0 + r) * C + c0 + c;
-    out[o] = __fmul_rn(__ldg(vals + o), acc[r]);
+  for (int r = 0; r < 8; ++r) {
+    const long long o = orow[8 * rg + r];
+    if (o < 0) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long e = o + cg + 16 * j;
+      out[e] = __fmul_rn(__ldg(vals + e), acc[r][j]);
+    }
   }
+}
+
+template <int ROWS, int FT, int MINB>
+int launch_bcsr(const int* gptr, const int* perm, const int* brow,
+                const int* bcols, const float* vals, const float* A,
+                const float* B, float* out, int groups, int G, int R, int C,
+                int rows, int cols, int F, int lda, int ldb, cudaStream_t s) {
+  const int zs = (G * R + ROWS - 1) / ROWS;
+  if (C / kK10Cols > 65535 || zs > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = (2 * ROWS + 2 * kK10Cols) * (FT + 4) * 4;
+  auto k = sddmm_bcsr_kernel<ROWS, FT, MINB>;
+  const int err = loops_tc::set_smem(k, smem);
+  if (err) return err;
+  const dim3 grid(static_cast<unsigned>(groups), C / kK10Cols, zs);
+  k<<<grid, 2 * ROWS, smem, s>>>(gptr, perm, brow, bcols, vals, A, B, out, R,
+                                 C, rows, cols, F, lda, ldb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -343,34 +440,37 @@ int loops_sddmm_flat(const void* rows, const void* cols, const void* vals,
   }
 }
 
-int loops_bcsr_sddmm_f32(const void* brow, const void* bcols,
-                         const void* vals, const void* A, const void* B,
-                         void* out, int nb, int R, int C, int rows, int cols,
-                         int F, int rows_per_cta, void* stream) {
+// A and B: f32 [rows, F] and [cols, F] at row pitches lda and ldb
+// (multiples of 4, 16-byte aligned bases); groups of at most G blocks
+int loops_bcsr_sddmm_f32(const void* gptr, const void* perm, const void* brow,
+                         const void* bcols, const void* vals, const void* A,
+                         const void* B, void* out, int groups, int G, int R,
+                         int C, int rows, int cols, int F, int lda, int ldb,
+                         int rows_per_cta, int ft, int minb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R % rows_per_cta || C % kBcsrThreads) {
+  if (C % kK10Cols || lda % 4 || ldb % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long subs =
-      static_cast<long long>(R / rows_per_cta) * (C / kBcsrThreads);
-  if (subs > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nb, static_cast<unsigned>(subs));
+  const auto* gp = static_cast<const int*>(gptr);
+  const auto* pm = static_cast<const int*>(perm);
   const auto* br = static_cast<const int*>(brow);
   const auto* bc = static_cast<const int*>(bcols);
   const auto* v = static_cast<const float*>(vals);
   const auto* a = static_cast<const float*>(A);
   const auto* b = static_cast<const float*>(B);
   auto* o = static_cast<float*>(out);
-  if (rows_per_cta == 16) {
-    sddmm_bcsr_kernel<16><<<grid, kBcsrThreads, 0, s>>>(br, bc, v, a, b, o, R,
-                                                        C, rows, cols, F);
-  } else if (rows_per_cta == 8) {
-    sddmm_bcsr_kernel<8><<<grid, kBcsrThreads, 0, s>>>(br, bc, v, a, b, o, R,
-                                                       C, rows, cols, F);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define LOOPS_K10(ROWS, FT, MINB)                                            \
+  if (rows_per_cta == ROWS && ft == FT && minb == MINB) {                    \
+    return launch_bcsr<ROWS, FT, MINB>(gp, pm, br, bc, v, a, b, o, groups,   \
+                                       G, R, C, rows, cols, F, lda, ldb, s); \
   }
-  return static_cast<int>(cudaGetLastError());
+  LOOPS_K10(64, 32, 1)
+  LOOPS_K10(64, 32, 4)
+  LOOPS_K10(64, 16, 1)
+  LOOPS_K10(64, 64, 1)
+  LOOPS_K10(128, 32, 1)
+#undef LOOPS_K10
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

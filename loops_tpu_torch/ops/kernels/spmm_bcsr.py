@@ -135,7 +135,6 @@ def bcsr_spmm_plain(b: dict, B: torch.Tensor, shape) -> torch.Tensor:
 
 # --- shared by K7 and K8, whose CTAs keep tiles in shared memory
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 CTA may opt into
-MAX_SUPER_FT = 64     # widest feature tile of K8
 
 
 def stream_type(dtype):
@@ -145,25 +144,6 @@ def stream_type(dtype):
         raise ValueError(f"dtype={dtype!r}: K7/K8 take None (f32) or "
                          f"{BF16!r}")
     return torch.bfloat16 if dtype == BF16 else torch.float32
-
-
-def fit_feature_tile(block_f: int, smem_bytes) -> tuple[int, int]:
-    """K8's ``(FT, bytes)``: the widest feature tile of at most
-    ``min(block_f, 64)`` columns, halving down to 8, whose shared memory
-    ``smem_bytes(FT)`` fits one CTA; raise ``ValueError`` if none does."""
-    block_f = int(block_f)
-    if block_f < 8 or block_f % 8:
-        raise ValueError(f"block_f={block_f}: K8's feature tile is a "
-                         "positive multiple of 8 columns")
-    ft = min(block_f, MAX_SUPER_FT)
-    while ft % 8 == 0 and ft >= 8:
-        if smem_bytes(ft) <= SMEM_LIMIT:
-            return ft, smem_bytes(ft)
-        ft //= 2
-    raise ValueError(f"the tiles need {smem_bytes(8)} bytes of shared "
-                     f"memory at an 8-column feature tile, past the "
-                     f"{SMEM_LIMIT} one CTA may use: fewer super rows or "
-                     "chunk blocks, or narrower blocks")
 
 
 def stage_b(B: torch.Tensor, dtype) -> tuple[torch.Tensor, int]:

@@ -5,24 +5,35 @@ Replaces ``loops_tpu/ops/kernels/spmm_bcsr_v2.py``
 (``bcsr_spmm_pallas_v2``): one grid step owns a super-row of SUPER block
 rows and a feature tile, walks the super-row's stored blocks in order
 with double-buffered copies of each A block and its B tile, and
-accumulates on chip; the output tile is written once.
+accumulates on chip; the output tile is written once. Its plan is the
+block offsets, ``bcols`` and ``brow``, walked in storage order: no chunk
+staging (that is K7's).
 
 The CUDA kernel (``csrc/bcsr.cu`` ``bcsr_spmm_v2_kernel``) keeps that
 contract with one CTA of 256 threads per (super-row, feature tile):
 ``cp.async`` double-buffers the R x C block and the C x FT B tile into
-shared memory, the f32 accumulator [SUPER * R, FT] sits in shared memory,
-and each thread sums whole dot products over C for its (row, feature)
-pairs, adding them in block order. SUPER is the TPU's 128 / R block rows
-(128 output rows); FT is 64 columns, halved while the CTA's shared
-memory, ``4 * SUPER*R*FT + 2 * es * (R*C + C*FT)`` bytes (es = 4 in f32,
-2 in bf16), passes 227 KB: 104 KB at 8 x 128 blocks in f32.
+shared memory, and the f32 accumulator [SUPER * R, FT + 4] sits in shared
+memory. A block's work is K7's units (``spmm_bcsr_v3``): 8 rows x 16
+features a warp, warp w on feature group w % (FT / 16); in bf16 the
+transposed product on ``mma.sync`` m16n8k16 with f32 sums, in f32 IEEE
+``fmaf`` over 8 x 4 register tiles whose eight column splits are summed
+across lanes in a fixed order. Each (row, f) adds its blocks' sums in
+storage order. FT is the widest of 16, 32, 64 and 128 columns up to
+``block_f`` whose CTA fits 227 KB; SUPER is 128 output rows (16 block
+rows at R = 8), halved for wide blocks until a CTA fits.
 
-What bounds it on an H100: 2 flops per stored value and feature on the
-CUDA cores, and one B tile per (stored block, feature tile) from L2;
-each FMA here reads its operands from shared memory.
+What bounds it on an H100: 2 flops per stored value and feature (IEEE f32
+on the CUDA cores: 0.239 ms at the bench's 16384^2, F = 512 regime; bf16
+on the tensor cores: bytes, 0.024 ms), far below what re-reading one B
+tile per stored block costs: 4.00 GB of B from L2 an apply in f32, 2.00 GB
+in bf16. Each step's copy runs under the products of the step before, so
+L2's rate sets the time.
 
 ``dtype="bfloat16"`` streams A and B in bf16 (rounded operands, products
-exact in f32, f32 sums). Kept: ``R % 8 == 0`` and ``C % 128 == 0``.
+exact in f32, f32 sums). Kept: ``R % 8 == 0`` and ``C % 128 == 0``. The
+staged buffers are checked once, at bind (``_build.staged_guard``), and
+C is a ``torch.empty`` or a checked ``out=``: the kernel writes every
+row.
 """
 from __future__ import annotations
 
@@ -31,57 +42,116 @@ import torch
 
 from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.ops.kernels.spmm_bcsr import (
+    SMEM_LIMIT,
     bcsr_spmm_plain,
     check_blocks,
-    fit_feature_tile,
     stage_b,
     stream_type,
 )
+from loops_tpu_torch.ops.kernels.spmm_bcsr_v3 import UNIT, WARPS
 from loops_tpu_torch.ops.kernels.spmv_bcsr import stage
 from loops_tpu_torch.utils.platform import ensure_platform
 
+# output rows of a super-row on the card (one block row at R = 8)
+SUPER_ROWS = 8
 
-def tiles(R: int, C: int, T, super_rows: int | None, block_f: int) -> dict:
-    """The card's SUPER, FT and shared-memory bytes for K8."""
-    SUPER = super_rows or max(128 // R, 1)
+
+def smem_bytes(R: int, C: int, T, SUPER: int, FT: int,
+               mode: int = 0, stages: int = 2) -> int:
+    """Shared memory of one K8 CTA: the f32 accumulator [SUPER*R][FT + 4],
+    ``stages`` A blocks and B tiles in the stream type ``T`` (K7's row
+    pads: 16 bytes in bf16, B's in f32); mode 1: no B tiles; mode 2: the
+    accumulator only."""
     es = torch.empty(0, dtype=T).element_size()
-    FT, smem = fit_feature_tile(
-        block_f, lambda ft: 4 * SUPER * R * ft + 2 * es * (R * C + C * ft))
-    return dict(SUPER=SUPER, FT=FT, smem=smem)
+    pad_a, pad_b = (8, 8) if T == torch.bfloat16 else (0, 4)
+    b_tiles = 0 if mode else C * (FT + pad_b)
+    a_blocks = 0 if mode == 2 else R * (C + pad_a)
+    return 4 * SUPER * R * (FT + 4) + stages * es * (a_blocks + b_tiles)
+
+
+def tiles(R: int, C: int, T, super_rows: int | None, block_f: int,
+          mode: int = 0, stages: int = 2) -> dict:
+    """The card's SUPER, FT and shared-memory bytes for K8: FT the widest
+    feature tile of ``16 * 2^k`` columns (k <= 3: a 16-column unit for
+    each of up to 8 warps) up to ``block_f``, at ``super_rows`` block rows
+    or by default ``SUPER_ROWS`` output rows, halved until a CTA fits;
+    ``ValueError`` if none does."""
+    block_f = int(block_f)
+    if block_f < UNIT or block_f % UNIT:
+        raise ValueError(f"block_f={block_f}: K8's feature tile is a "
+                         f"positive multiple of {UNIT} columns")
+    ft = UNIT
+    while 2 * ft <= min(block_f, WARPS * UNIT):
+        ft *= 2
+    SUPER = super_rows or max(SUPER_ROWS // R, 1)
+    while True:
+        for f in (ft, ft // 2, ft // 4, ft // 8):
+            if f < UNIT:
+                break
+            smem = smem_bytes(R, C, T, SUPER, f, mode, stages)
+            if smem <= SMEM_LIMIT:
+                return dict(SUPER=SUPER, FT=f, smem=smem, mode=mode,
+                            stages=stages)
+        if super_rows or SUPER == 1:
+            raise ValueError(
+                f"the tiles need "
+                f"{smem_bytes(R, C, T, SUPER, UNIT, mode, stages)}"
+                f" bytes of shared memory at a {UNIT}-column feature tile, "
+                f"past the {SMEM_LIMIT} one CTA may use: fewer super rows "
+                "or narrower blocks")
+        SUPER //= 2
+
+
+def check_staged(b: dict, t: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged buffers ``b`` are what K8
+    reads: contiguous tensors on ``device`` of the matrix's sizes, the
+    values in the stream type."""
+    nb, R, C = t["num_blocks"], t["R"], t["C"]
+    _build.check(b["vals"], "vals", stream_type(t["dtype"]), device,
+                 nb * R * C)
+    _build.check(b["bcols"], "bcols", torch.int32, device, nb)
+    _build.check(b["brow"], "brow", torch.int32, device, nb)
+    _build.check(b["offsets"], "offsets", torch.int32, device,
+                 t["nbr"] + 1)
 
 
 def bcsr_spmm_v2_cuda(b: dict, B: torch.Tensor, shape, t: dict,
-                      dtype=None) -> torch.Tensor:
-    """Launch K8 on the staged buffers: C [rows, F] float32."""
-    dev = B.device
-    if dev.type != "cuda":
-        raise ValueError(f"bcsr_spmm_v2_cuda needs a CUDA tensor, got {dev}")
+                      dtype=None, staged_on=None, out=None) -> torch.Tensor:
+    """Launch K8 on the staged buffers: C [rows, F] float32.
+    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
+    (at bind); the buffers are then not checked again. ``out``: a float32
+    [rows, F] tensor to write C into instead of a new ``torch.empty``
+    (the kernel writes every row)."""
+    if not B.is_cuda:
+        raise ValueError(f"bcsr_spmm_v2_cuda needs a CUDA tensor, got "
+                         f"{B.device}")
     rows, cols = shape
-    nb, R, C = b["vals"].shape
+    dev = B.device if staged_on is None else staged_on
+    R, C = t["R"], t["C"]
     if R % 8 or C % 128:
         raise ValueError(f"K8 needs R%8==0 and C%128==0, got {R}x{C}")
     if B.dim() != 2 or B.shape[0] != cols:
         raise ValueError(f"B has shape {tuple(B.shape)}, expected "
                          f"[{cols}, F]")
     F = B.shape[1]
-    nbr = -(-rows // R)
     _build.check(B, "B", torch.float32, dev)
-    _build.check(b["vals"], "vals", stream_type(dtype), dev)
-    _build.check(b["bcols"], "bcols", torch.int32, dev, nb)
-    _build.check(b["brow"], "brow", torch.int32, dev, nb)
-    _build.check(b["offsets"], "offsets", torch.int32, dev, nbr + 1)
+    if stream_type(dtype) != stream_type(t["dtype"]):
+        raise ValueError(f"dtype={dtype!r}: the buffers were staged for "
+                         f"dtype={t['dtype']!r}")
+    if staged_on is None:
+        check_staged(b, t, dev)
     if -(-F // t["FT"]) > 65535:
         raise ValueError(f"F={F} needs more than 65535 feature tiles")
-    out = torch.empty(rows, F, dtype=torch.float32, device=dev)
+    C_out = _build.output(out, (rows, F), dev)
     if rows == 0 or F == 0:
-        return out  # a grid of 0 blocks is not a launch
+        return C_out  # a grid of 0 blocks is not a launch
     Bk, ld = stage_b(B, dtype)
     _build.launch("loops_bcsr_spmm_v2", "bcsr_spmm_v2", dev, b["offsets"],
-                  b["bcols"], b["brow"], b["vals"], Bk, out, nbr, R, C,
-                  rows, cols, F, ld, t["SUPER"], t["FT"], int(Bk.dtype ==
-                                                             torch.bfloat16),
+                  b["bcols"], b["brow"], b["vals"], Bk, C_out, t["nbr"], R,
+                  C, rows, cols, F, ld, t["SUPER"], t["FT"],
+                  int(Bk.dtype == torch.bfloat16), t["mode"], t["stages"],
                   t["smem"])
-    return out
+    return C_out
 
 
 def bcsr_spmm_v2_plain(b: dict, B: torch.Tensor, shape,
@@ -93,22 +163,32 @@ def bcsr_spmm_v2_plain(b: dict, B: torch.Tensor, shape,
 
 
 def bcsr_spmm_v2(bcsr, block_f: int = 512, super_rows: int | None = None,
-                 dtype=None, device="cuda"):
-    """Build ``(bufs, fn(bufs, B))`` for BCSR @ dense through K8; ``fn``
-    runs K8 on a CUDA tensor and the plain version on a CPU tensor."""
+                 dtype=None, device="cuda", mode: int | None = None,
+                 stages: int = 2):
+    """Build ``(bufs, fn(bufs, B, out=None))`` for BCSR @ dense through
+    K8; ``fn`` runs K8 on a CUDA tensor and the plain version on a CPU
+    tensor."""
     device = ensure_platform(device)
     check_blocks(bcsr)
     T = stream_type(dtype)
+    if mode is None:
+        mode = 1 if T == torch.float32 else 0
+    if mode and T != torch.float32:
+        raise ValueError("modes 1 and 2 are f32 modes of K8")
     R, C = bcsr.block_shape
-    t = tiles(R, C, T, super_rows, block_f)
+    t = tiles(R, C, T, super_rows, block_f, mode, stages)
     shape = bcsr.shape
+    t.update(R=R, C=C, num_blocks=bcsr.num_blocks,
+             nbr=-(-shape[0] // R), dtype=dtype)
     bufs = stage(bcsr, device, T)
     bufs["brow"] = torch.from_numpy(
         bcsr.block_row_ids().astype(np.int32)).to(device)
+    staged_on = _build.staged_guard(bufs, t, check_staged)
 
-    def fn(b, B):
+    def fn(b, B, out=None):
         if B.device.type == "cpu":
             return bcsr_spmm_v2_plain(b, B, shape, dtype)
-        return bcsr_spmm_v2_cuda(b, B, shape, t, dtype)
-    fn.meta = dict(num_blocks=bcsr.num_blocks, **t)
+        return bcsr_spmm_v2_cuda(b, B, shape, t, dtype, staged_on(b), out)
+    fn.staged_on = staged_on
+    fn.meta = dict(t)
     return bufs, fn

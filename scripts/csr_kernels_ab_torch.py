@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K1–K3, K12, K4, K5, K7–K9 of one checkout of ``loops_tpu_torch``
+"""Time K1–K3, K12, K4, K5, K7–K10 of one checkout of ``loops_tpu_torch``
 on the card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 13,
 17 and 19), and print one JSON line.
 
@@ -35,12 +35,17 @@ needs no script of its own:
   at the GCN's last layer, F = 40, f32 and bf16;
 - the GCN train step of both forms of phase 10 (bf16 throughput form, f32
   default form), dims [128, 128, 128, 40];
-- K7 (f32 and bf16), K9 and, as the unchanged control, K8 (f32 and bf16):
-  ``SpMMOperator(bcsr, "row_mapped", impl, block_f=512, dtype)`` on
-  bcsr_spmm_16384_f512 (``build_block_sparse(16384, 8, 128, 0.06,
-  seed=0)``, B [16384, 512] from ``default_rng(1)``), by ``apply_ms`` and
-  ``device_ms``; with ``--library`` cuSPARSE's ``torch.matmul`` on the
-  CSR form, f32 and bf16 (vals and B in bf16).
+- K7 (f32 and bf16), K9 and K8 (f32 and bf16): ``SpMMOperator(bcsr,
+  "row_mapped", impl, block_f=512, dtype)`` on bcsr_spmm_16384_f512
+  (``build_block_sparse(16384, 8, 128, 0.06, seed=0)``, B [16384, 512]
+  from ``default_rng(1)``), by ``apply_ms`` and ``device_ms``; with
+  ``--library`` cuSPARSE's ``torch.matmul`` on the CSR form, f32 and bf16
+  (vals and B in bf16);
+- K10: ``SDDMMOperator(bcsr, impl="pallas", block_f=512)`` on
+  bcsr_sddmm_16384_f512 (the same matrix; A and B [16384, 512] from
+  ``default_rng(1)``, as ``chip_smoke.py`` phase 17 draws them), by
+  ``apply_ms`` and ``device_ms``; with ``--library`` cuSPARSE's
+  ``torch.sparse.sampled_addmm`` over the stored pattern times vals.
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
 apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
@@ -50,7 +55,7 @@ adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
-``bcsr`` (K7, K9, K8); ``spmv,csr`` by default. The
+``bcsr`` (K7, K9, K8, K10); ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 """
@@ -292,9 +297,11 @@ BCSR_KERNELS = {"K7 f32": ("pallas3", None), "K7 bf16": ("pallas3", "bfloat16"),
 
 
 def bcsr_cells(dev, library: bool) -> dict:
-    """K7, K9 and K8 on bcsr_spmm_16384_f512 (``chip_smoke.py`` phase 13):
-    apply and the card's time alone."""
+    """K7, K9 and K8 on bcsr_spmm_16384_f512 (``chip_smoke.py`` phase 13)
+    and K10 on bcsr_sddmm_16384_f512 (phase 17): apply and the card's time
+    alone."""
     import torch
+    from loops_tpu_torch.ops.sddmm import SDDMMOperator
     from loops_tpu_torch.ops.spmm import SpMMOperator
     from loops_tpu_torch.utils import generate
 
@@ -322,6 +329,31 @@ def bcsr_cells(dev, library: bool) -> dict:
                 apply_ms=bench.apply_ms(fn, Bc),
                 device_ms=bench.device_ms(fn, Bc))
             del A, Bc
+    del Bd
+    torch.cuda.empty_cache()
+    # K10 on the same matrix, A and B as chip_smoke.py phase 17 draws them
+    rng = np.random.default_rng(1)
+    Ad, Bd = (torch.from_numpy(rng.normal(size=(16384, 512)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    op = SDDMMOperator(bcsr, impl="pallas", block_f=512, device=dev)
+    fn = functools.partial(lambda a, op, Bd: op(a, Bd), op=op, Bd=Bd)
+    res["K10 bcsr_sddmm_16384_f512"] = dict(
+        apply_ms=bench.apply_ms(fn, Ad), device_ms=bench.device_ms(fn, Ad))
+    del op
+    if library:
+        pattern, _ = bcsr.stored_pattern()
+        S = torch.sparse_csr_tensor(
+            *(torch.from_numpy(a).to(dev) for a in (
+                pattern.offsets, pattern.indices, pattern.vals)),
+            size=pattern.shape)
+        v = S.values()
+        fn = functools.partial(
+            lambda a, S, v, Bt: torch.sparse.sampled_addmm(
+                S, a, Bt, beta=0.0).values() * v, S=S, v=v, Bt=Bd.t())
+        res["cuSPARSE sampled_addmm f32 bcsr_sddmm_16384_f512"] = dict(
+            apply_ms=bench.apply_ms(fn, Ad, iters=10),
+            device_ms=bench.device_ms(fn, Ad))
+        del S, v
     return res
 
 

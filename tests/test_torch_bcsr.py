@@ -368,6 +368,80 @@ def test_k7_tile_order_mirror(dtype, block, super_kch, block_f):
                                rtol=1e-5, atol=1e-5)
 
 
+def _emulate_k8_tiles(b, B, shape, meta, bf16):
+    """numpy mirror of ``bcsr_spmm_v2_kernel``'s work split: per
+    (super-row, feature tile) an f32 accumulator; the super-row's blocks
+    in storage order (``offsets``), one a step; warp w takes feature group
+    w % G and the block's units w / G, w / G + 8 / G, ...; each unit is
+    K7's (the m16n8k16 fragments in bf16, the f32 register tiles with
+    their cross-lane sums) and adds into the accumulator rows of the
+    block's block row (``brow``). Asserts that no two units of a block
+    write the same accumulator entry."""
+    rows, cols = shape
+    R, C, SUPER, FT = meta["R"], meta["C"], meta["SUPER"], meta["FT"]
+    vals = b["vals"].float().numpy()
+    off, bcols, brow = (b[k].numpy() for k in ("offsets", "bcols", "brow"))
+    F = B.shape[1]
+    G = FT // 16
+    nft = -(-F // FT)
+    Bp = np.zeros((-(-cols // C) * C, nft * FT), np.float32)
+    Bp[:cols, :F] = B
+    SR = SUPER * R
+    nbr = len(off) - 1
+    nsup = -(-nbr // SUPER)
+    out = np.zeros((nsup, SR, nft * FT), np.float32)
+    for s in range(nsup):
+        t0, t1 = off[min(s * SUPER, nbr)], off[min((s + 1) * SUPER, nbr)]
+        for ft in range(nft):
+            acc = np.zeros((SR, FT), np.float32)
+            for t in range(t0, t1):
+                Bs = np.zeros((C, FT + 8), np.float32)
+                Bs[:, :FT] = Bp[bcols[t] * C:(bcols[t] + 1) * C,
+                                ft * FT:(ft + 1) * FT]
+                As = np.zeros((R, C + 8), np.float32)
+                As[:, :C] = vals[t]
+                arow = (brow[t] - s * SUPER) * R
+                written = np.zeros((SR, FT), bool)
+                for w in range(8):
+                    g = w % G
+                    for q in range(w // G, R // 8, 8 // G):
+                        row, fs = arow + 8 * q, slice(16 * g, 16 * g + 16)
+                        assert not written[row:row + 8, fs].any()
+                        written[row:row + 8, fs] = True
+                        acc[row:row + 8, fs] += (
+                            _k7_unit_bf16(As, Bs, q, g).T if bf16
+                            else _k7_unit_f32(As[:, :C], Bs, q, g))
+            out[s, :, ft * FT:(ft + 1) * FT] = acc
+    return out.reshape(-1, nft * FT)[:rows, :F]
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("block,super_rows,block_f", [
+    ((8, 128), None, 128), ((8, 128), 2, 32), ((16, 128), 4, 64),
+    ((8, 256), 2, 16)])
+def test_k8_tile_order_mirror(dtype, block, super_rows, block_f):
+    """K8's steps on the card: one block a step in storage order, K7's
+    units (bf16 fragments of the transposed product; f32 column-split
+    register tiles summed across lanes in a fixed order) split over the
+    warps and added at the block row's accumulator rows, give A @ B over
+    the mode's operands; the plain version agrees."""
+    csr = generate.random_csr(70, 300, 0.03, seed=4)
+    tb = BCSR.from_csr(csr, *block)
+    b, fn = spmm_bcsr_v2.bcsr_spmm_v2(tb, block_f=block_f,
+                                      super_rows=super_rows, dtype=dtype,
+                                      device=CPU)
+    B = np.random.default_rng(7).normal(size=(300, 40)).astype(np.float32)
+    ops_B = reference.bf16_round(B) if dtype else B
+    ops_csr = (tf.csr_from_arrays(csr.shape, csr.offsets, csr.indices,
+                                  reference.bf16_round(csr.vals))
+               if dtype else csr)
+    mirror = _emulate_k8_tiles(b, ops_B, csr.shape, fn.meta, dtype)
+    np.testing.assert_allclose(mirror, reference.spmm(ops_csr, ops_B),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(fn(b, torch.from_numpy(B)).numpy(), mirror,
+                               rtol=1e-5, atol=1e-5)
+
+
 def _emulate_k9(b, B, shape):
     """numpy mirror of ``bcsr_spmm_kernel``'s sums in their float32 order:
     each output (row, feature) is one thread's fma chain over the row's
@@ -427,8 +501,10 @@ def test_card_tiles_fit_shared_memory():
     for t in (t7, tb):
         assert t["smem"] <= spmm_bcsr.SMEM_LIMIT
         assert t["FT"] in (16, 32, 64, 128)  # a divisor of 8 warps' units
-    t8 = spmm_bcsr_v2.tiles(8, 128, f32, None, 512)
-    assert (t8["SUPER"], t8["FT"], t8["smem"]) == (16, 64, 106496)
+    # K8: one block row a super-row at 8-row blocks, 128-column tiles
+    t8 = spmm_bcsr_v2.tiles(8, 128, f32, None, 512, 1)
+    assert (t8["SUPER"], t8["FT"], t8["smem"]) == (1, 128, 4 * 8 * 132
+                                                   + 2 * 4 * 8 * 128)
     # wider blocks halve the feature tile until the CTA fits; block_f caps it
     assert spmm_bcsr_v3.tiles(8, 256, bf16, 64, 8, 512)["FT"] == 32
     assert spmm_bcsr_v3.tiles(8, 128, bf16, 64, 8, 16)["FT"] == 16

@@ -1,7 +1,8 @@
 """The BCSR kernels K6–K9 of ``loops_tpu_torch`` (``csrc/bcsr.cu``) on the
 card: each against its plain PyTorch version on the same staged buffers,
 two applies bitwise equal, the launch counter, the operators' routing,
-and the wrappers' input checks.
+the wrappers' input checks, and (K7–K9) the edge cases, a NaN-filled
+``out=`` written in full and the staged-buffer checks.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor ``loops_tpu``; run it on the card with
@@ -96,12 +97,11 @@ def _check_spmm(kname, csr, bcsr, F, dtype, dev, **kw):
     rep = reference.rigorously_validate_spmm(ops_csr, ops_B, C,
                                              mxu_bf16=False)
     assert rep.verdict == "NOT_A_BUG", rep
-    if kname != "bcsr_spmm_v2":
-        # K7 and K9 write every row of a torch.empty C, or of out=
-        out = torch.full_like(C1, float("nan"))
-        assert fn(b, Bd, out=out) is out
-        torch.cuda.synchronize()
-        assert torch.equal(out, C1)
+    # K7, K8 and K9 write every row of a torch.empty C, or of out=
+    out = torch.full_like(C1, float("nan"))
+    assert fn(b, Bd, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, C1)
     return fn.meta
 
 
@@ -245,9 +245,9 @@ def test_float64_kernel_requests_raise(cuda_device):
     assert y.dtype == torch.float64
 
 
-# K7's and K9's edge cases: B's rows past the last full block column (cols
-# not a multiple of C), empty block rows and, at two block rows a
-# super-row, empty super-rows; chunks of one block
+# K7's, K8's and K9's edge cases: B's rows past the last full block column
+# (cols not a multiple of C), empty block rows and, at two block rows a
+# super-row, empty super-rows; chunks of one block (K7)
 EDGE = {
     "ragged_cols": lambda: generate.random_csr(100, 300, 0.04, seed=21),
     "empty_super_rows": lambda: generate.sized_csr(
@@ -259,14 +259,14 @@ EDGE = {
 @pytest.mark.parametrize("F", [20, 513])
 @pytest.mark.parametrize("block", [(8, 128), (16, 128)])
 @pytest.mark.parametrize("name", sorted(EDGE))
-@pytest.mark.parametrize("kname,dtype", [k for k in SPMM_CASES
-                                         if k[0] != "bcsr_spmm_v2"])
+@pytest.mark.parametrize("kname,dtype", SPMM_CASES)
 def test_k7_k9_edge_cases(cuda_device, kname, dtype, name, block, F):
     csr = EDGE[name]()
     bcsr = BCSR.from_csr(csr, *block)
-    kws = [{}] if kname == "bcsr_spmm" else [
-        {}, dict(super_rows=2, chunk_blocks=1), dict(super_rows=2,
-                                                     chunk_blocks=2)]
+    kws = {"bcsr_spmm": [{}],
+           "bcsr_spmm_v2": [{}, dict(super_rows=2), dict(super_rows=1)],
+           "bcsr_spmm_v3": [{}, dict(super_rows=2, chunk_blocks=1),
+                            dict(super_rows=2, chunk_blocks=2)]}[kname]
     for kw in kws:
         meta = _check_spmm(kname, csr, bcsr, F, dtype, cuda_device, **kw)
         if kw.get("chunk_blocks") == 1:
@@ -274,8 +274,7 @@ def test_k7_k9_edge_cases(cuda_device, kname, dtype, name, block, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kname,dtype", [k for k in SPMM_CASES
-                                         if k[0] != "bcsr_spmm_v2"])
+@pytest.mark.parametrize("kname,dtype", SPMM_CASES)
 def test_k7_k9_check_staged_buffers_and_out(cuda_device, kname, dtype):
     csr = generate.BCSR_CASES["tall"]()
     b, fn = SPMM[kname][0](BCSR.from_csr(csr, 8, 128), dtype, cuda_device)
@@ -287,7 +286,7 @@ def test_k7_k9_check_staged_buffers_and_out(cuda_device, kname, dtype):
                             dtype=torch.float64)):
         with pytest.raises(ValueError, match="out"):
             fn(b, Bd, out=bad)
-    key = "bcols" if kname == "bcsr_spmm" else "ccol"
+    key = "ccol" if kname == "bcsr_spmm_v3" else "bcols"
     # a replaced buffer is checked again: one of the right kind passes
     b[key] = b[key].clone()
     assert fn.staged_on(b) is None

@@ -105,10 +105,10 @@ def test_k5_unaligned_operands(cuda_device, F):
     _check_k5(csr, F, cuda_device, Ad, torch.from_numpy(B).to(cuda_device))
 
 
-def _check_k10(csr, block, F, dev):
+def _check_k10(csr, block, F, dev, **kw):
     bcsr = BCSR.from_csr(csr, *block)
     A, B = _operands(csr.shape, F)
-    b, fn = sddmm_bcsr.sddmm_bcsr(bcsr, device=dev)
+    b, fn = sddmm_bcsr.sddmm_bcsr(bcsr, device=dev, **kw)
     Ad, Bd = torch.from_numpy(A).to(dev), torch.from_numpy(B).to(dev)
     before = _build.LAUNCHES["sddmm_bcsr"]
     o1, o2 = fn(b, Ad, Bd), fn(b, Ad, Bd)
@@ -128,6 +128,12 @@ def _check_k10(csr, block, F, dev):
     assert rep.verdict == "NOT_A_BUG", rep
     # entries outside the matrix are zero
     assert not np.delete(out.reshape(-1), slot).any()
+    # every element of a torch.empty out, or of out=, is written
+    o3 = torch.full_like(o1, float("nan"))
+    assert fn(b, Ad, Bd, out=o3) is o3
+    torch.cuda.synchronize()
+    assert torch.equal(o3, o1)
+    return fn.meta
 
 
 @pytest.mark.cuda
@@ -136,6 +142,52 @@ def _check_k10(csr, block, F, dev):
 @pytest.mark.parametrize("name", sorted(generate.BCSR_CASES))
 def test_k10_matches_plain(cuda_device, name, block, F):
     _check_k10(generate.BCSR_CASES[name](), block, F, cuda_device)
+
+
+# K10's edge cases: B's rows past the last full block column, empty block
+# rows, groups cut short where a column ends, blocks of 24 rows (part of a
+# CTA's rows unused), of 72 (one block over two CTA row slices) and 256
+# columns (two column slices), F ragged and past the feature tile
+K10_EDGE = {
+    "ragged_cols": lambda: generate.random_csr(100, 300, 0.04, seed=21),
+    "empty_super_rows": lambda: generate.sized_csr(
+        [3] * 16 + [0] * 40 + [2] * 16 + [0] * 9, 390, seed=22),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 20, 513])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (24, 128),
+                                   (72, 128), (8, 256)])
+@pytest.mark.parametrize("name", sorted(K10_EDGE))
+def test_k10_edge_cases(cuda_device, name, block, F):
+    meta = _check_k10(K10_EDGE[name](), block, F, cuda_device)
+    assert meta["G"] == max(meta["rows_per_cta"] // block[0], 1)
+
+
+@pytest.mark.cuda
+def test_k10_checks_staged_buffers_and_out(cuda_device):
+    csr = generate.BCSR_CASES["tall"]()
+    b, fn = sddmm_bcsr.sddmm_bcsr(BCSR.from_csr(csr, 8, 128),
+                                  device=cuda_device)
+    A, B = (torch.from_numpy(a).to(cuda_device)
+            for a in _operands(csr.shape, 24))
+    out = fn(b, A, B)
+    nb = out.shape[0]
+    for bad in (torch.zeros(nb, 8, 127, device=cuda_device),
+                torch.zeros(nb + 1, 8, 128, device=cuda_device),
+                torch.zeros(nb, 8, 128, device=cuda_device,
+                            dtype=torch.float64)):
+        with pytest.raises(ValueError, match="out"):
+            fn(b, A, B, out=bad)
+    # a replaced buffer is checked again: one of the right kind passes
+    b["perm"] = b["perm"].clone()
+    assert fn.staged_on(b) is None
+    assert torch.equal(fn(b, A, B), out)
+    # one changed in place is refused
+    b["perm"].resize_(b["perm"].numel() - 1)
+    with pytest.raises(ValueError, match="perm"):
+        fn(b, A, B)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,9 @@ import torch
 from loops_tpu_torch.formats import BCSR
 from loops_tpu_torch.ops.kernels import (
     _build,
+    sddmm_bcsr,
     spmm_bcsr,
+    spmm_bcsr_v2,
     spmm_bcsr_v3,
     spmv_sorted,
 )
@@ -290,8 +292,8 @@ def test_output_of_a_matrix_is_empty_or_a_checked_out(out):
 
 
 def _bcsr_binds():
-    """K9 and K7 (f32 and bf16) bound on the CPU: (name, bufs, fn, the
-    wrapper's check of its staged buffers, its parameters)."""
+    """K9, K7 and K8 (f32 and bf16) and K10 bound on the CPU: (name, bufs,
+    fn, the wrapper's check of its staged buffers, its parameters)."""
     csr = generate.random_csr(40, 300, 0.05, seed=4)
     bcsr = BCSR.from_csr(csr, 8, 128)
     b9, f9 = spmm_bcsr.bcsr_spmm(bcsr, device=CPU)
@@ -299,6 +301,10 @@ def _bcsr_binds():
     for dtype in (None, "bfloat16"):
         b7, f7 = spmm_bcsr_v3.bcsr_spmm_v3(bcsr, dtype=dtype, device=CPU)
         yield f"K7 {dtype}", b7, f7, spmm_bcsr_v3.check_staged, f7.meta
+        b8, f8 = spmm_bcsr_v2.bcsr_spmm_v2(bcsr, dtype=dtype, device=CPU)
+        yield f"K8 {dtype}", b8, f8, spmm_bcsr_v2.check_staged, f8.meta
+    b10, f10 = sddmm_bcsr.sddmm_bcsr(bcsr, device=CPU)
+    yield "K10", b10, f10, sddmm_bcsr.check_staged, f10.meta
 
 
 @pytest.mark.parametrize("change", ["none", "resize", "set", "dtype",
@@ -307,9 +313,11 @@ def test_k7_k9_check_staged_buffers_changed_again(change):
     # each checks its staged buffers once at bind; a call skips the check
     # only for the very tensors checked then, none changed in place since,
     # and the full check then refuses what changed
+    names = []
     for name, b, fn, check_staged, params in _bcsr_binds():
+        names.append(name)
         check_staged(b, params, CPU)
-        key = "bcols" if name == "K9" else "ccol"
+        key = "ccol" if name.startswith("K7") else "bcols"
         if change == "resize":
             b[key].resize_(b[key].numel() - 1)
         elif change == "set":
@@ -324,3 +332,28 @@ def test_k7_k9_check_staged_buffers_changed_again(change):
                 check_staged(b, params, CPU)
         else:
             check_staged(b, params, CPU)
+    assert names == ["K9", "K7 None", "K8 None", "K7 bfloat16",
+                     "K8 bfloat16", "K10"]
+
+
+@pytest.mark.parametrize("kernel,buf", [
+    *(("K8", k) for k in ("vals", "bcols", "brow", "offsets")),
+    *(("K10", k) for k in ("vals", "bcols", "brow", "perm", "gptr"))])
+def test_k8_k10_check_every_staged_buffer(kernel, buf):
+    # every buffer the kernel reads is in its check: one of another size
+    # or type is refused by name
+    binds = [x for x in _bcsr_binds() if x[0].startswith(kernel)]
+    assert binds
+    for name, b, fn, check_staged, params in binds:
+        assert sorted(b) == sorted(
+            ("vals", "bcols", "brow", "offsets") if kernel == "K8"
+            else ("vals", "bcols", "brow", "perm", "gptr"))
+        check_staged(b, params, CPU)
+        bad = dict(b)
+        bad[buf] = b[buf][:-1]
+        assert fn.staged_on(bad) is None
+        with pytest.raises(ValueError, match=buf):
+            check_staged(bad, params, CPU)
+        bad[buf] = b[buf].double()
+        with pytest.raises(ValueError, match=buf):
+            check_staged(bad, params, CPU)

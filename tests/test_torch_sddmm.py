@@ -183,36 +183,75 @@ def _dense_block_oracle(tb, A, B):
 
 
 def _k10_mirror(tb, A, B):
-    """numpy mirror of ``sddmm_bcsr_kernel``: per (block, sub-tile of ROWS
-    rows x 128 columns) the 64-column feature tiles in order, rows past
-    the matrix as zeros, one fused multiply-add per feature (f64 product,
-    one rounding to f32), then one product with vals."""
+    """numpy mirror of ``sddmm_bcsr_kernel`` over the staged groups: per
+    (group, 128-column slice, ROWS-row slice) the CTA's rows are its
+    blocks' rows in permutation order, A's rows past the matrix and B's
+    rows past its columns zeros; the feature tiles of FT in order (the
+    last zero-filled past F), each (r, c) one fused multiply-add per
+    feature (f64 product, one rounding to f32) in its thread's 8 x 8
+    register tile (rows 8 rg.., columns cg + 16 j), then one product with
+    vals, written to out[t] through the permutation. Asserts that the
+    groups hold blocks of one column, at most G each, and that every
+    output is written exactly once."""
     R, C = tb.block_shape
     rows, cols = tb.shape
     F = A.shape[1]
-    ROWS = sddmm_bcsr.rows_per_cta(R)
-    out = np.zeros((tb.num_blocks, R, C), np.float32)
-    for t, br in enumerate(tb.block_row_ids()):
-        for r0 in range(0, R, ROWS):
-            for c0 in range(0, C, 128):
-                ar = br * R + r0 + np.arange(ROWS)
-                bc = tb.block_cols[t] * C + c0 + np.arange(128)
-                a = np.where((ar < rows)[:, None], A[np.minimum(ar, rows - 1)],
-                             0).astype(np.float64)
-                b = np.where((bc < cols)[:, None], B[np.minimum(bc, cols - 1)],
-                             0).astype(np.float64)
+    b, fn = sddmm_bcsr.sddmm_bcsr(tb, device=CPU)
+    ROWS, FT, G = (fn.meta[k] for k in ("rows_per_cta", "FT", "G"))
+    perm, gptr, brow, bcols = (b[k].numpy() for k in ("perm", "gptr", "brow",
+                                                      "bcols"))
+    vals = b["vals"].numpy()
+    assert sorted(perm) == list(range(tb.num_blocks))
+    steps = -(-F // FT)
+    Ap = np.zeros((rows, steps * FT), np.float64)
+    Ap[:, :F] = A
+    Bp = np.zeros((cols, steps * FT), np.float64)
+    Bp[:, :F] = B
+    # thread (rg, cg) of the CTA's 2 * ROWS: rows 8 rg + i, columns cg + 16 j
+    tid = np.arange(2 * ROWS)
+    tile_r = (8 * (tid[:, None, None] >> 4) + np.arange(8)[None, :, None]
+              + 0 * np.arange(8)[None, None, :])
+    tile_c = ((tid[:, None, None] & 15) + 16 * np.arange(8)[None, None, :]
+              + 0 * np.arange(8)[None, :, None])
+    assert sorted(zip(tile_r.ravel(), tile_c.ravel())) == [
+        (r, c) for r in range(ROWS) for c in range(128)]
+    out = np.full(vals.shape, np.nan, np.float32)
+    written = np.zeros(vals.shape, np.int64)
+    for g in range(len(gptr) - 1):
+        blocks = perm[gptr[g]:gptr[g + 1]]
+        n = len(blocks)
+        assert 1 <= n <= G and len(set(bcols[blocks])) == 1
+        for c0 in range(0, C, 128):
+            bc = bcols[blocks[0]] * C + c0 + np.arange(128)
+            bm = np.where((bc < cols)[:, None],
+                          Bp[np.minimum(bc, cols - 1)], 0)    # [128, Fp]
+            for v0 in range(0, -(-G * R // ROWS) * ROWS, ROWS):
+                v = v0 + np.arange(ROWS)
+                slot, r = v // R, v % R
+                live = slot < n
+                t = blocks[np.minimum(slot, n - 1)]
+                ar = brow[t] * R + r
+                am = np.where((live & (ar < rows))[:, None],
+                              Ap[np.minimum(ar, rows - 1)], 0)  # [ROWS, Fp]
                 acc = np.zeros((ROWS, 128), np.float32)
-                for f0 in range(0, F, 64):
-                    for f in range(f0, min(f0 + 64, F)):
-                        acc = (a[:, f, None] * b[None, :, f]
+                for k in range(steps):
+                    for f in range(k * FT, (k + 1) * FT):
+                        acc = (am[:, f, None] * bm[None, :, f]
                                + acc).astype(np.float32)
-                out[t, r0:r0 + ROWS, c0:c0 + 128] = (
-                    tb.vals[t, r0:r0 + ROWS, c0:c0 + 128] * acc)
+                tile = acc[tile_r, tile_c]                   # per thread
+                for i in np.flatnonzero(live):
+                    cs = slice(c0, c0 + 128)
+                    got = np.zeros(128, np.float32)
+                    got[tile_c[tile_r == i]] = tile[tile_r == i]
+                    out[t[i], r[i], cs] = vals[t[i], r[i], cs] * got
+                    written[t[i], r[i], cs] += 1
+    assert (written == 1).all()
     return out
 
 
 @pytest.mark.parametrize("block,F", [((8, 128), 20), ((16, 128), 150),
-                                     ((8, 256), 70)])
+                                     ((8, 256), 70), ((24, 128), 33),
+                                     ((72, 128), 5)])
 def test_k10_tile_loop_mirror(block, F):
     t = _port(BCSR_CASES["tall"]())
     tb = BCSR.from_csr(t, *block)
@@ -224,6 +263,32 @@ def test_k10_tile_loop_mirror(block, F):
     np.testing.assert_allclose(fn(b, torch.from_numpy(A),
                                   torch.from_numpy(B)).numpy(), mirror,
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_k10_groups_are_column_runs(G):
+    """The staged groups: every stored block once, sorted by block column
+    and in storage order within one, cut into runs of at most G blocks
+    that never span two columns."""
+    t = _port(BCSR_CASES["tall"]())
+    tb = BCSR.from_csr(t, 8, 128)
+    perm, gptr = sddmm_bcsr.stage_groups(tb, G)
+    bcols = tb.block_cols
+    assert perm.dtype == gptr.dtype == np.int32
+    assert gptr[0] == 0 and gptr[-1] == tb.num_blocks
+    assert np.array_equal(perm, np.lexsort((np.arange(tb.num_blocks),
+                                            bcols)))
+    sizes = np.diff(gptr)
+    assert (sizes >= 1).all() and (sizes <= G).all()
+    for g in range(len(sizes)):
+        cols = bcols[perm[gptr[g]:gptr[g + 1]]]
+        assert (cols == cols[0]).all()
+        # a group is cut short only where its column ends
+        if sizes[g] < G and g + 1 < len(sizes):
+            assert bcols[perm[gptr[g + 1]]] != cols[0]
+    empty = sddmm_bcsr.stage_groups(BCSR.from_csr(
+        _port(JaxCOO((12, 10), [], [], []).to_csr()), 8, 128), G)
+    assert [a.tolist() for a in empty] == [[], [0]]
 
 
 # --------------------------------------------------------------------- K5
