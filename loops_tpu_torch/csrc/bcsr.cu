@@ -454,12 +454,32 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
              rows, F);
 }
 
-// K8 f32 with B's rows straight from L2 (sweep variant): lane (s, fq)
-// loads the float4s of B it multiplies, 8 rows in flight, in place of the
-// staged tile; the same sums in the same order as k7_units (f32). kGlobalA:
-// A's float4s from global memory (L1) too, at pitch ap
-template <bool kGlobalA, typename RowOf>
-__device__ __forceinline__ void k8_units_direct(
+// ---------------------------------------------------------------- K8
+// The super-row's stored blocks in storage order, one block a step: the
+// block's R x C values (and, in bf16, its B tile) are copied in with
+// cp.async while the block before is computed (the block row and column of
+// t + 1 and t + 2 are read into registers ahead, so no step waits on an
+// index load), and the block's R / 8 units of every feature group add into
+// the accumulator rows of its block row. The units are K7's: in bf16 the
+// transposed product on mma.sync over the staged B tile; in f32 the 8 x 4
+// register tiles summed across lanes in a fixed order, with B's float4s
+// read straight from L2, 8 rows in flight (k8_units). Every (row, f) is
+// summed in block order, each block's sum over C in the units' fixed
+// order.
+//
+// Every block re-reads its B tile (C x FT) from L2: 4.00 GB an apply in
+// f32, 2.00 GB in bf16 at the bench's 16384^2, F = 512 regime, and that
+// sets the time. In f32, loads straight from L2 ran 2x faster on the card
+// than cp.async tiles (PERF.md §6, PR 10): with no B tile in shared memory
+// and 128 registers, two CTAs share an SM. Super-rows of one block row ran
+// faster than taller ones.
+
+// K8 f32: lane (s, fq) loads the float4s of B it multiplies straight from
+// L2 (rows past the matrix and features past F as zeros), 8 rows in
+// flight, where k7_units (f32) reads a staged tile: the same sums in the
+// same order
+template <typename RowOf>
+__device__ __forceinline__ void k8_units(
     const float* a, const float* __restrict__ B, long long col0, int cn,
     int ld, int fcol, bool live, float* acc, RowOf row_of, int tiles, int C,
     int ap, int accp, int g, int first, int stride) {
@@ -491,16 +511,7 @@ __device__ __forceinline__ void k8_units_direct(
           const int c = c0 + 32 * (jj + h);
           float av[8][4];
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            if constexpr (kGlobalA) {
-              const float4 q4 = __ldg(reinterpret_cast<const float4*>(
-                  ar + r * ap + c));
-              av[r][0] = q4.x; av[r][1] = q4.y; av[r][2] = q4.z;
-              av[r][3] = q4.w;
-            } else {
-              load4(ar + r * ap + c, av[r]);
-            }
-          }
+          for (int r = 0; r < 8; ++r) load4(ar + r * ap + c, av[r]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float bw[4] = {bv[4 * h + i].x, bv[4 * h + i].y,
@@ -518,35 +529,21 @@ __device__ __forceinline__ void k8_units_direct(
   }
 }
 
-// ---------------------------------------------------------------- K8
-// The super-row's stored blocks in storage order, one block a step: the
-// block's R x C values and its B tile are copied in with cp.async while
-// the block before is computed (the block column of t + 2 and the block
-// row of t + 1 are read into registers a step ahead, so no copy waits on
-// an index load), and the block's R / 8 units of every feature group add
-// into the accumulator rows of its block row. The units are K7's: in bf16
-// the transposed product on mma.sync, in f32 the 8 x 4 register tiles
-// summed across lanes in a fixed order. Every (row, f) is summed in block
-// order, each block's sum over C in the units' fixed order.
-//
-// Every block re-reads its B tile (C x FT) from L2: 4.00 GB an apply in
-// f32, 2.00 GB in bf16 at the bench's 16384^2, F = 512 regime. A copy of
-// one step (a 128 x 128 tile, 64 KB in f32) runs under the products of the
-// step before, so L2's rate, not the FMAs, sets the time.
-template <typename T, bool kDirect, int NST>
-__global__ void __launch_bounds__(kSuperThreads, kDirect ? 2 : 1)
+template <typename T>
+__global__ void __launch_bounds__(kSuperThreads, sizeof(T) == 4 ? 2 : 1)
 bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
                     const int* __restrict__ bcols, const int* __restrict__ brow,
                     const T* __restrict__ vals, const T* __restrict__ B,
                     float* __restrict__ out, int nbr, int R, int C, int rows,
                     int cols, int F, int ld, int SUPER, int FT) {
+  constexpr bool kDirect = sizeof(T) == 4;  // f32: B straight from L2
   extern __shared__ __align__(16) unsigned char smem[];
   const int ap = C + K7Layout<T>::kPadA, bp = FT + K7Layout<T>::kPadB;
   const int accp = FT + 4;
   const int SR = SUPER * R;
   float* acc = reinterpret_cast<float*>(smem);
-  T* abuf = reinterpret_cast<T*>(acc + SR * accp);  // [NST][R][ap]
-  T* bbuf = abuf + NST * R * ap;                     // [NST][C][bp]
+  T* abuf = reinterpret_cast<T*>(acc + SR * accp);  // [2][R][ap]
+  T* bbuf = abuf + 2 * R * ap;                       // [2][C][bp], bf16
   const int s = blockIdx.x, f0 = blockIdx.y * FT;
   const long long RC = static_cast<long long>(R) * C;
   const int G = FT / kK7Unit, warp = threadIdx.x >> 5;
@@ -560,82 +557,46 @@ bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
   zero_tile(acc, SR * accp);
   const int t0 = offsets[min(s * SUPER, nbr)];
   const int t1 = offsets[min((s + 1) * SUPER, nbr)];
-#pragma unroll
-  for (int i = 0; i < NST - 1; ++i) {
-    if (t0 + i < t1) stage(t0 + i, i, bcols[t0 + i]);
-    cp_async_commit();
+  if (t0 < t1) stage(t0, 0, bcols[t0]);
+  cp_async_commit();
+  int rcur = 0, ccur = 0, rnext = 0, cnext = 0;  // blocks t and t + 1
+  if (t0 < t1) {
+    rcur = brow[t0];
+    ccur = bcols[t0];
   }
-  // the column of the next block to stage, the block row and column of t
-  int cst = t0 + NST - 1 < t1 ? bcols[t0 + NST - 1] : 0;
-  int rcur = t0 < t1 ? brow[t0] : 0, ccur = t0 < t1 ? bcols[t0] : 0;
+  if (t0 + 1 < t1) {
+    rnext = brow[t0 + 1];
+    cnext = bcols[t0 + 1];
+  }
   for (int t = t0; t < t1; ++t) {
-    const int slot = (t - t0) % NST;
-    const int cst2 = t + NST < t1 ? bcols[t + NST] : 0;
-    const int rnext = t + 1 < t1 ? brow[t + 1] : 0;
-    const int cnext = t + 1 < t1 ? bcols[t + 1] : 0;
-    if (t + NST - 1 < t1) stage(t + NST - 1, (t - t0 + NST - 1) % NST, cst);
+    const int slot = (t - t0) & 1;
+    int r2 = 0, c2 = 0;  // block t + 2, read now
+    if (t + 2 < t1) {
+      r2 = brow[t + 2];
+      c2 = bcols[t + 2];
+    }
+    if (t + 1 < t1) stage(t + 1, 1 - slot, cnext);
     cp_async_commit();
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 1));
+    cp_async_wait_prior();
     __syncthreads();
     const int arow = (rcur - s * SUPER) * R;
     const auto row_of = [arow](int q) { return arow + 8 * q; };
     if constexpr (kDirect) {
       const long long col0 = static_cast<long long>(ccur) * C;
       const int fcol = f0 + kK7Unit * (warp % G) + 4 * ((threadIdx.x & 31) & 3);
-      k8_units_direct<false>(
-          abuf + slot * R * ap, reinterpret_cast<const float*>(B), col0,
-          static_cast<int>(min(static_cast<long long>(C), cols - col0)), ld,
-          fcol, fcol < F, acc, row_of, R / 8, C, ap, accp, warp % G, warp / G,
-          kK7Warps / G);
+      k8_units(abuf + slot * R * ap, reinterpret_cast<const float*>(B), col0,
+               static_cast<int>(min(static_cast<long long>(C), cols - col0)),
+               ld, fcol, fcol < F, acc, row_of, R / 8, C, ap, accp, warp % G,
+               warp / G, kK7Warps / G);
     } else {
       k7_units(abuf + slot * R * ap, bbuf + slot * C * bp, acc, row_of,
                R / 8, C, ap, bp, accp, warp % G, warp / G, kK7Warps / G);
     }
     __syncthreads();  // before the next prefetch overwrites this slot
-    cst = cst2; rcur = rnext; ccur = cnext;
+    rcur = rnext; ccur = cnext;
+    rnext = r2; cnext = c2;
   }
   __syncthreads();  // an empty super-row's zeros, written by all threads
-  store_tile(acc, accp, out, static_cast<long long>(s) * SR, SR, FT, f0,
-             rows, F);
-}
-
-// K8 f32, sweep variant: A's and B's float4s straight from global memory,
-// no staging and no barrier between blocks (a lane's accumulator entries
-// are its own), each warp streaming the super-row's blocks on its own
-__global__ void __launch_bounds__(kSuperThreads, 2)
-bcsr_spmm_v2_ldg_kernel(const int* __restrict__ offsets,
-                        const int* __restrict__ bcols,
-                        const int* __restrict__ brow,
-                        const float* __restrict__ vals,
-                        const float* __restrict__ B, float* __restrict__ out,
-                        int nbr, int R, int C, int rows, int cols, int F,
-                        int ld, int SUPER, int FT) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int accp = FT + 4;
-  const int SR = SUPER * R;
-  float* acc = reinterpret_cast<float*>(smem);
-  const int s = blockIdx.x, f0 = blockIdx.y * FT;
-  const long long RC = static_cast<long long>(R) * C;
-  const int G = FT / kK7Unit, warp = threadIdx.x >> 5;
-  zero_tile(acc, SR * accp);
-  __syncthreads();
-  const int t0 = offsets[min(s * SUPER, nbr)];
-  const int t1 = offsets[min((s + 1) * SUPER, nbr)];
-  const int fcol = f0 + kK7Unit * (warp % G) + 4 * ((threadIdx.x & 31) & 3);
-  int rcur = t0 < t1 ? brow[t0] : 0, ccur = t0 < t1 ? bcols[t0] : 0;
-  for (int t = t0; t < t1; ++t) {
-    const int rnext = t + 1 < t1 ? brow[t + 1] : 0;
-    const int cnext = t + 1 < t1 ? bcols[t + 1] : 0;
-    const int arow = (rcur - s * SUPER) * R;
-    const long long col0 = static_cast<long long>(ccur) * C;
-    k8_units_direct<true>(
-        vals + t * RC, B, col0,
-        static_cast<int>(min(static_cast<long long>(C), cols - col0)), ld,
-        fcol, fcol < F, acc, [arow](int q) { return arow + 8 * q; }, R / 8,
-        C, C, accp, warp % G, warp / G, kK7Warps / G);
-    rcur = rnext; ccur = cnext;
-  }
-  __syncthreads();
   store_tile(acc, accp, out, static_cast<long long>(s) * SR, SR, FT, f0,
              rows, F);
 }
@@ -765,8 +726,8 @@ int loops_bcsr_spmm_f32(const void* offsets, const void* bcols,
 int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
                        const void* brow, const void* vals, const void* B,
                        void* out, int nbr, int R, int C, int rows, int cols,
-                       int F, int ld, int SUPER, int FT, int bf16, int mode,
-                       int stages, int smem, void* stream) {
+                       int F, int ld, int SUPER, int FT, int bf16, int smem,
+                       void* stream) {
   const int nsup = (nbr + SUPER - 1) / SUPER;
   const dim3 grid(nsup, (F + FT - 1) / FT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -774,32 +735,19 @@ int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
   const auto* bc = static_cast<const int*>(bcols);
   const auto* br = static_cast<const int*>(brow);
   auto* c = static_cast<float*>(out);
-  if (FT % kK7Unit || kK7Warps % (FT / kK7Unit) || stages < 2 ||
-      stages > 6 || (bf16 && mode)) {
+  if (FT % kK7Unit || kK7Warps % (FT / kK7Unit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int err;
   if (bf16) {
-    auto k = stages == 6   ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 6>
-             : stages == 4 ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 4>
-             : stages == 3 ? bcsr_spmm_v2_kernel<__nv_bfloat16, false, 3>
-                           : bcsr_spmm_v2_kernel<__nv_bfloat16, false, 2>;
+    auto k = bcsr_spmm_v2_kernel<__nv_bfloat16>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const __nv_bfloat16*>(vals),
         static_cast<const __nv_bfloat16*>(B), c, nbr, R, C, rows, cols, F, ld,
         SUPER, FT);
-  } else if (mode == 2) {
-    auto k = bcsr_spmm_v2_ldg_kernel;
-    if ((err = set_smem(k, smem))) return err;
-    k<<<grid, kSuperThreads, smem, s>>>(
-        o, bc, br, static_cast<const float*>(vals),
-        static_cast<const float*>(B), c, nbr, R, C, rows, cols, F, ld, SUPER,
-        FT);
   } else {
-    auto k = mode == 1 ? bcsr_spmm_v2_kernel<float, true, 2>
-             : stages == 3 ? bcsr_spmm_v2_kernel<float, false, 3>
-                           : bcsr_spmm_v2_kernel<float, false, 2>;
+    auto k = bcsr_spmm_v2_kernel<float>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const float*>(vals),

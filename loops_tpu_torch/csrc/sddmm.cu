@@ -277,6 +277,8 @@ int launch_flat(const int* rows, const int* cols, const float* vals,
 
 // ---------------------------------------------------------------- K10
 constexpr int kK10Cols = 128;  // output columns of a CTA: a slice of C
+constexpr int kK10Rows = 64;   // A rows of a CTA: G = 64 / R blocks
+constexpr int kK10FT = 32;     // features a step
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
@@ -285,14 +287,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
-// ROWS: A rows of a CTA (G blocks of R rows); FT: features a step
-template <int ROWS, int FT, int MINB>
-__global__ void __launch_bounds__(2 * ROWS, MINB)
+__global__ void __launch_bounds__(2 * kK10Rows)
 sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
                   const int* __restrict__ brow, const int* __restrict__ bcols,
                   const float* __restrict__ vals, const float* __restrict__ A,
                   const float* __restrict__ B, float* __restrict__ out, int R,
                   int C, int rows, int cols, int F, int lda, int ldb) {
+  constexpr int ROWS = kK10Rows, FT = kK10FT;
   constexpr int kThreads = 2 * ROWS;  // ROWS / 8 row groups x 16 col groups
   constexpr int kPitch = FT + 4;      // row pitch of the staged tiles
   constexpr int kQuads = FT / 4;      // 16-byte copies a row
@@ -395,25 +396,6 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
   }
 }
 
-template <int ROWS, int FT, int MINB>
-int launch_bcsr(const int* gptr, const int* perm, const int* brow,
-                const int* bcols, const float* vals, const float* A,
-                const float* B, float* out, int groups, int G, int R, int C,
-                int rows, int cols, int F, int lda, int ldb, cudaStream_t s) {
-  const int zs = (G * R + ROWS - 1) / ROWS;
-  if (C / kK10Cols > 65535 || zs > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = (2 * ROWS + 2 * kK10Cols) * (FT + 4) * 4;
-  auto k = sddmm_bcsr_kernel<ROWS, FT, MINB>;
-  const int err = loops_tc::set_smem(k, smem);
-  if (err) return err;
-  const dim3 grid(static_cast<unsigned>(groups), C / kK10Cols, zs);
-  k<<<grid, 2 * ROWS, smem, s>>>(gptr, perm, brow, bcols, vals, A, B, out, R,
-                                 C, rows, cols, F, lda, ldb);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -446,31 +428,24 @@ int loops_bcsr_sddmm_f32(const void* gptr, const void* perm, const void* brow,
                          const void* bcols, const void* vals, const void* A,
                          const void* B, void* out, int groups, int G, int R,
                          int C, int rows, int cols, int F, int lda, int ldb,
-                         int rows_per_cta, int ft, int minb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C % kK10Cols || lda % 4 || ldb % 4) {
+                         void* stream) {
+  const int zs = (G * R + kK10Rows - 1) / kK10Rows;
+  if (C % kK10Cols || lda % 4 || ldb % 4 || C / kK10Cols > 65535 ||
+      zs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* gp = static_cast<const int*>(gptr);
-  const auto* pm = static_cast<const int*>(perm);
-  const auto* br = static_cast<const int*>(brow);
-  const auto* bc = static_cast<const int*>(bcols);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* a = static_cast<const float*>(A);
-  const auto* b = static_cast<const float*>(B);
-  auto* o = static_cast<float*>(out);
-#define LOOPS_K10(ROWS, FT, MINB)                                            \
-  if (rows_per_cta == ROWS && ft == FT && minb == MINB) {                    \
-    return launch_bcsr<ROWS, FT, MINB>(gp, pm, br, bc, v, a, b, o, groups,   \
-                                       G, R, C, rows, cols, F, lda, ldb, s); \
-  }
-  LOOPS_K10(64, 32, 1)
-  LOOPS_K10(64, 32, 4)
-  LOOPS_K10(64, 16, 1)
-  LOOPS_K10(64, 64, 1)
-  LOOPS_K10(128, 32, 1)
-#undef LOOPS_K10
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = (2 * kK10Rows + 2 * kK10Cols) * (kK10FT + 4) * 4;
+  int err = loops_tc::set_smem(sddmm_bcsr_kernel, smem);
+  if (err) return err;
+  const dim3 grid(static_cast<unsigned>(groups), C / kK10Cols, zs);
+  sddmm_bcsr_kernel<<<grid, 2 * kK10Rows, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(gptr), static_cast<const int*>(perm),
+      static_cast<const int*>(brow), static_cast<const int*>(bcols),
+      static_cast<const float*>(vals), static_cast<const float*>(A),
+      static_cast<const float*>(B), static_cast<float*>(out), R, C, rows,
+      cols, F, lda, ldb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

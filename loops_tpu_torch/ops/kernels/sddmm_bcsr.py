@@ -47,10 +47,10 @@ ROWS = 64
 FT = 32
 
 
-def group_blocks(R: int, rows_per_cta: int = ROWS) -> int:
+def group_blocks(R: int) -> int:
     """G, the blocks of one block column a K10 CTA takes: as many R-row
-    blocks as its rows hold, at least one."""
-    return max(rows_per_cta // R, 1)
+    blocks as its ``ROWS`` rows hold, at least one."""
+    return max(ROWS // R, 1)
 
 
 def stage_groups(bcsr, G: int) -> tuple[np.ndarray, np.ndarray]:
@@ -94,7 +94,7 @@ def sddmm_bcsr_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
     if t is None:
         nb, R, C = b["vals"].shape
         t = dict(num_blocks=nb, R=R, C=C, groups=b["gptr"].numel() - 1,
-                 G=group_blocks(R), rows_per_cta=ROWS, FT=FT, minb=1)
+                 G=group_blocks(R), rows_per_cta=ROWS, FT=FT)
     nb, R, C = t["num_blocks"], t["R"], t["C"]
     if R % 8 or C % LANES:
         raise ValueError(f"K10 needs R%8==0 and C%128==0, got {R}x{C}")
@@ -112,7 +112,7 @@ def sddmm_bcsr_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
     _build.launch("loops_bcsr_sddmm_f32", "sddmm_bcsr", dev, b["gptr"],
                   b["perm"], b["brow"], b["bcols"], b["vals"], Ak, Bk, o,
                   t["groups"], t["G"], R, C, rows, cols, A.shape[1], lda,
-                  ldb, t["rows_per_cta"], t["FT"], t["minb"])
+                  ldb)
     return o
 
 
@@ -157,8 +157,7 @@ def stage_blocks(bcsr, device) -> dict:
     return b
 
 
-def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda",
-               rows_per_cta: int = ROWS, ft: int = FT, minb: int = 1):
+def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda"):
     """Build ``(bufs, fn(bufs, A, B, out=None))`` for block SDDMM through
     K10; ``fn`` runs K10 on CUDA tensors and the plain version on CPU
     tensors."""
@@ -172,14 +171,13 @@ def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda",
     if int(block_f) < 1:
         raise ValueError(f"block_f={block_f}: expected >= 1")
     shape = bcsr.shape
-    G = group_blocks(R, rows_per_cta)
+    G = group_blocks(R)
     perm, gptr = stage_groups(bcsr, G)
     bufs = stage_blocks(bcsr, device)
     bufs["perm"] = torch.from_numpy(perm).to(device)
     bufs["gptr"] = torch.from_numpy(gptr).to(device)
     t = dict(num_blocks=bcsr.num_blocks, R=R, C=C, groups=len(gptr) - 1,
-             G=G, rows_per_cta=rows_per_cta, FT=ft, minb=minb,
-             block_f=int(block_f))
+             G=G, rows_per_cta=ROWS, FT=FT, block_f=int(block_f))
     staged_on = _build.staged_guard(bufs, t, check_staged)
 
     def fn(b, A, B, out=None):

@@ -11,23 +11,26 @@ staging (that is K7's).
 
 The CUDA kernel (``csrc/bcsr.cu`` ``bcsr_spmm_v2_kernel``) keeps that
 contract with one CTA of 256 threads per (super-row, feature tile):
-``cp.async`` double-buffers the R x C block and the C x FT B tile into
-shared memory, and the f32 accumulator [SUPER * R, FT + 4] sits in shared
-memory. A block's work is K7's units (``spmm_bcsr_v3``): 8 rows x 16
-features a warp, warp w on feature group w % (FT / 16); in bf16 the
-transposed product on ``mma.sync`` m16n8k16 with f32 sums, in f32 IEEE
-``fmaf`` over 8 x 4 register tiles whose eight column splits are summed
-across lanes in a fixed order. Each (row, f) adds its blocks' sums in
-storage order. FT is the widest of 16, 32, 64 and 128 columns up to
-``block_f`` whose CTA fits 227 KB; SUPER is 128 output rows (16 block
-rows at R = 8), halved for wide blocks until a CTA fits.
+``cp.async`` double-buffers the R x C block into shared memory, and the
+f32 accumulator [SUPER * R, FT + 4] sits in shared memory. A block's work
+is K7's units (``spmm_bcsr_v3``): 8 rows x 16 features a warp, warp w on
+feature group w % (FT / 16). In bf16 the block's C x FT B tile is
+double-buffered beside it and the units are the transposed product on
+``mma.sync`` m16n8k16 with f32 sums; in f32 they are IEEE ``fmaf`` over
+8 x 4 register tiles whose eight column splits are summed across lanes
+in a fixed order, each lane reading its float4s of B straight from L2,
+8 rows in flight. Each (row, f) adds its blocks' sums in storage order.
+FT is the widest of 16, 32, 64 and 128 columns up to ``block_f`` whose
+CTA fits 227 KB. SUPER is one block row at 8-row blocks
+(``SUPER_ROWS`` output rows), halved for wide blocks until a CTA fits:
+on the card the B path and super-rows were chosen by measurement
+(PERF.md §6, PR 10).
 
 What bounds it on an H100: 2 flops per stored value and feature (IEEE f32
 on the CUDA cores: 0.239 ms at the bench's 16384^2, F = 512 regime; bf16
 on the tensor cores: bytes, 0.024 ms), far below what re-reading one B
 tile per stored block costs: 4.00 GB of B from L2 an apply in f32, 2.00 GB
-in bf16. Each step's copy runs under the products of the step before, so
-L2's rate sets the time.
+in bf16, which sets the time.
 
 ``dtype="bfloat16"`` streams A and B in bf16 (rounded operands, products
 exact in f32, f32 sums). Kept: ``R % 8 == 0`` and ``C % 128 == 0``. The
@@ -56,21 +59,18 @@ from loops_tpu_torch.utils.platform import ensure_platform
 SUPER_ROWS = 8
 
 
-def smem_bytes(R: int, C: int, T, SUPER: int, FT: int,
-               mode: int = 0, stages: int = 2) -> int:
-    """Shared memory of one K8 CTA: the f32 accumulator [SUPER*R][FT + 4],
-    ``stages`` A blocks and B tiles in the stream type ``T`` (K7's row
-    pads: 16 bytes in bf16, B's in f32); mode 1: no B tiles; mode 2: the
-    accumulator only."""
-    es = torch.empty(0, dtype=T).element_size()
-    pad_a, pad_b = (8, 8) if T == torch.bfloat16 else (0, 4)
-    b_tiles = 0 if mode else C * (FT + pad_b)
-    a_blocks = 0 if mode == 2 else R * (C + pad_a)
-    return 4 * SUPER * R * (FT + 4) + stages * es * (a_blocks + b_tiles)
+def smem_bytes(R: int, C: int, T, SUPER: int, FT: int) -> int:
+    """Shared memory of one K8 CTA: the f32 accumulator [SUPER*R][FT + 4]
+    and two A blocks in the stream type ``T``, and in bf16 two B tiles
+    (K7's row pads of 16 bytes); f32 reads B straight from L2."""
+    acc = 4 * SUPER * R * (FT + 4)
+    if T == torch.bfloat16:
+        return acc + 2 * 2 * (R * (C + 8) + C * (FT + 8))
+    return acc + 2 * 4 * R * C
 
 
-def tiles(R: int, C: int, T, super_rows: int | None, block_f: int,
-          mode: int = 0, stages: int = 2) -> dict:
+def tiles(R: int, C: int, T, super_rows: int | None,
+          block_f: int) -> dict:
     """The card's SUPER, FT and shared-memory bytes for K8: FT the widest
     feature tile of ``16 * 2^k`` columns (k <= 3: a 16-column unit for
     each of up to 8 warps) up to ``block_f``, at ``super_rows`` block rows
@@ -88,17 +88,15 @@ def tiles(R: int, C: int, T, super_rows: int | None, block_f: int,
         for f in (ft, ft // 2, ft // 4, ft // 8):
             if f < UNIT:
                 break
-            smem = smem_bytes(R, C, T, SUPER, f, mode, stages)
+            smem = smem_bytes(R, C, T, SUPER, f)
             if smem <= SMEM_LIMIT:
-                return dict(SUPER=SUPER, FT=f, smem=smem, mode=mode,
-                            stages=stages)
+                return dict(SUPER=SUPER, FT=f, smem=smem)
         if super_rows or SUPER == 1:
             raise ValueError(
-                f"the tiles need "
-                f"{smem_bytes(R, C, T, SUPER, UNIT, mode, stages)}"
-                f" bytes of shared memory at a {UNIT}-column feature tile, "
-                f"past the {SMEM_LIMIT} one CTA may use: fewer super rows "
-                "or narrower blocks")
+                f"the tiles need {smem_bytes(R, C, T, SUPER, UNIT)} bytes "
+                f"of shared memory at a {UNIT}-column feature tile, past "
+                f"the {SMEM_LIMIT} one CTA may use: fewer super rows or "
+                "narrower blocks")
         SUPER //= 2
 
 
@@ -149,8 +147,7 @@ def bcsr_spmm_v2_cuda(b: dict, B: torch.Tensor, shape, t: dict,
     _build.launch("loops_bcsr_spmm_v2", "bcsr_spmm_v2", dev, b["offsets"],
                   b["bcols"], b["brow"], b["vals"], Bk, C_out, t["nbr"], R,
                   C, rows, cols, F, ld, t["SUPER"], t["FT"],
-                  int(Bk.dtype == torch.bfloat16), t["mode"], t["stages"],
-                  t["smem"])
+                  int(Bk.dtype == torch.bfloat16), t["smem"])
     return C_out
 
 
@@ -163,20 +160,15 @@ def bcsr_spmm_v2_plain(b: dict, B: torch.Tensor, shape,
 
 
 def bcsr_spmm_v2(bcsr, block_f: int = 512, super_rows: int | None = None,
-                 dtype=None, device="cuda", mode: int | None = None,
-                 stages: int = 2):
+                 dtype=None, device="cuda"):
     """Build ``(bufs, fn(bufs, B, out=None))`` for BCSR @ dense through
     K8; ``fn`` runs K8 on a CUDA tensor and the plain version on a CPU
     tensor."""
     device = ensure_platform(device)
     check_blocks(bcsr)
     T = stream_type(dtype)
-    if mode is None:
-        mode = 1 if T == torch.float32 else 0
-    if mode and T != torch.float32:
-        raise ValueError("modes 1 and 2 are f32 modes of K8")
     R, C = bcsr.block_shape
-    t = tiles(R, C, T, super_rows, block_f, mode, stages)
+    t = tiles(R, C, T, super_rows, block_f)
     shape = bcsr.shape
     t.update(R=R, C=C, num_blocks=bcsr.num_blocks,
              nbr=-(-shape[0] // R), dtype=dtype)

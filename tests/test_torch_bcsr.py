@@ -502,9 +502,17 @@ def test_card_tiles_fit_shared_memory():
         assert t["smem"] <= spmm_bcsr.SMEM_LIMIT
         assert t["FT"] in (16, 32, 64, 128)  # a divisor of 8 warps' units
     # K8: one block row a super-row at 8-row blocks, 128-column tiles
-    t8 = spmm_bcsr_v2.tiles(8, 128, f32, None, 512, 1)
+    t8 = spmm_bcsr_v2.tiles(8, 128, f32, None, 512)
     assert (t8["SUPER"], t8["FT"], t8["smem"]) == (1, 128, 4 * 8 * 132
                                                    + 2 * 4 * 8 * 128)
+    # in bf16 two B tiles beside the two blocks, rows padded by 16 bytes
+    t8b = spmm_bcsr_v2.tiles(8, 128, bf16, None, 512)
+    assert (t8b["SUPER"], t8b["FT"], t8b["smem"]) == (
+        1, 128, 4 * 8 * 132 + 2 * 2 * (8 * 136 + 128 * 136))
+    assert spmm_bcsr_v2.tiles(16, 128, f32, 4, 64)["FT"] == 64
+    assert spmm_bcsr_v2.tiles(8, 128, f32, None, 16)["FT"] == 16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        spmm_bcsr_v2.tiles(8, 128, f32, None, 24)
     # wider blocks halve the feature tile until the CTA fits; block_f caps it
     assert spmm_bcsr_v3.tiles(8, 256, bf16, 64, 8, 512)["FT"] == 32
     assert spmm_bcsr_v3.tiles(8, 128, bf16, 64, 8, 16)["FT"] == 16
