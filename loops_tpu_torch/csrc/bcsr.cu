@@ -529,72 +529,14 @@ __device__ __forceinline__ void k8_units(
   }
 }
 
-// K8 bf16 (sweep variant): each warp reads its feature group's rows of B
-// straight from L2 into registers (16-byte loads, 8 in flight), stores
-// them to its own [C][24] region of shared memory and takes K7's
-// fragments from there, so no CTA barrier waits on B
-constexpr int kK8Pitch = 24;  // row pitch (elements) of a warp's B region
-template <typename RowOf>
-__device__ __forceinline__ void k8_units_bf16(
-    const __nv_bfloat16* a, const __nv_bfloat16* __restrict__ B,
-    __nv_bfloat16* wreg, long long col0, int cn, int ld, int fcol, int F,
-    float* acc, RowOf row_of, int tiles, int C, int ap, int accp, int g,
-    int first, int stride) {
-  const int lane = threadIdx.x & 31, h = lane & 1, rl = lane >> 1;
-  const int f = fcol + 8 * h;
-  const bool live = f < F;
-  const __nv_bfloat16* bq = B + col0 * ld + f;
-  for (int c0 = 0; c0 < C; c0 += 128) {
-    uint4 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = c0 + 16 * i + rl;
-      v[i] = live && c < cn ? __ldg(reinterpret_cast<const uint4*>(
-                                  bq + static_cast<long long>(c) * ld))
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
-    __syncwarp();  // the last chunk's fragments have been read
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      *reinterpret_cast<uint4*>(wreg + (16 * i + rl) * kK8Pitch + 8 * h) =
-          v[i];
-    }
-    __syncwarp();
-    unsigned bf[8][4];
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      const int row = 16 * ks + (lane & 7) + 8 * (lane >> 4);
-      loops_tc::ldmatrix_x4_trans(
-          bf[ks], wreg + row * kK8Pitch + 8 * ((lane >> 3) & 1));
-    }
-    const int lrow = (lane & 7) * ap + c0 + 8 * (lane >> 3);
-    int q = first;
-    for (; q + stride < tiles; q += 2 * stride) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
-      float d2[4] = {0.f, 0.f, 0.f, 0.f}, e2[4] = {0.f, 0.f, 0.f, 0.f};
-      const int q2 = q + stride;
-      k7_mma(d, e, a + 8 * q * ap + lrow, bf);
-      k7_mma(d2, e2, a + 8 * q2 * ap + lrow, bf);
-      k7_add(acc, d, e, row_of(q), accp, kK7Unit * g);
-      k7_add(acc, d2, e2, row_of(q2), accp, kK7Unit * g);
-    }
-    if (q < tiles) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
-      k7_mma(d, e, a + 8 * q * ap + lrow, bf);
-      k7_add(acc, d, e, row_of(q), accp, kK7Unit * g);
-    }
-  }
-}
-
-template <typename T, bool kWarpB>
-__global__ void __launch_bounds__(kSuperThreads,
-                                  sizeof(T) == 4 || kWarpB ? 2 : 1)
+template <typename T>
+__global__ void __launch_bounds__(kSuperThreads, sizeof(T) == 4 ? 2 : 1)
 bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
                     const int* __restrict__ bcols, const int* __restrict__ brow,
                     const T* __restrict__ vals, const T* __restrict__ B,
                     float* __restrict__ out, int nbr, int R, int C, int rows,
                     int cols, int F, int ld, int SUPER, int FT) {
-  constexpr bool kDirect = sizeof(T) == 4 || kWarpB;  // no staged B tile
+  constexpr bool kDirect = sizeof(T) == 4;  // f32: B straight from L2
   extern __shared__ __align__(16) unsigned char smem[];
   const int ap = C + K7Layout<T>::kPadA, bp = FT + K7Layout<T>::kPadB;
   const int accp = FT + 4;
@@ -639,18 +581,7 @@ bcsr_spmm_v2_kernel(const int* __restrict__ offsets,
     __syncthreads();
     const int arow = (rcur - s * SUPER) * R;
     const auto row_of = [arow](int q) { return arow + 8 * q; };
-    if constexpr (kWarpB) {
-      const long long col0 = static_cast<long long>(ccur) * C;
-      k8_units_bf16(abuf + slot * R * ap,
-                    reinterpret_cast<const __nv_bfloat16*>(B),
-                    reinterpret_cast<__nv_bfloat16*>(bbuf) +
-                        warp * C * kK8Pitch,
-                    col0,
-                    static_cast<int>(min(static_cast<long long>(C),
-                                         cols - col0)),
-                    ld, f0 + kK7Unit * (warp % G), F, acc, row_of, R / 8, C,
-                    ap, accp, warp % G, warp / G, kK7Warps / G);
-    } else if constexpr (kDirect) {
+    if constexpr (kDirect) {
       const long long col0 = static_cast<long long>(ccur) * C;
       const int fcol = f0 + kK7Unit * (warp % G) + 4 * ((threadIdx.x & 31) & 3);
       k8_units(abuf + slot * R * ap, reinterpret_cast<const float*>(B), col0,
@@ -795,8 +726,8 @@ int loops_bcsr_spmm_f32(const void* offsets, const void* bcols,
 int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
                        const void* brow, const void* vals, const void* B,
                        void* out, int nbr, int R, int C, int rows, int cols,
-                       int F, int ld, int SUPER, int FT, int bf16,
-                       int warp_b, int smem, void* stream) {
+                       int F, int ld, int SUPER, int FT, int bf16, int smem,
+                       void* stream) {
   const int nsup = (nbr + SUPER - 1) / SUPER;
   const dim3 grid(nsup, (F + FT - 1) / FT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -809,15 +740,14 @@ int loops_bcsr_spmm_v2(const void* offsets, const void* bcols,
   }
   int err;
   if (bf16) {
-    auto k = warp_b ? bcsr_spmm_v2_kernel<__nv_bfloat16, true>
-                    : bcsr_spmm_v2_kernel<__nv_bfloat16, false>;
+    auto k = bcsr_spmm_v2_kernel<__nv_bfloat16>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const __nv_bfloat16*>(vals),
         static_cast<const __nv_bfloat16*>(B), c, nbr, R, C, rows, cols, F, ld,
         SUPER, FT);
   } else {
-    auto k = bcsr_spmm_v2_kernel<float, false>;
+    auto k = bcsr_spmm_v2_kernel<float>;
     if ((err = set_smem(k, smem))) return err;
     k<<<grid, kSuperThreads, smem, s>>>(
         o, bc, br, static_cast<const float*>(vals),

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "loops_flat_spmm": [_P] * 11 + [_I] * 6 + [_P],
     "loops_bcsr_spmv_f32": [_P] * 5 + [_I] * 4 + [_P],
     "loops_bcsr_spmm_f32": [_P] * 5 + [_I] * 7 + [_P],
-    "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 12 + [_P],
+    "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 11 + [_P],
     "loops_bcsr_spmm_v3": [_P] * 9 + [_I] * 12 + [_P],
     "loops_sddmm_flat": [_P] * 6 + [_I] * 4 + [_P],
     "loops_bcsr_sddmm_f32": [_P] * 8 + [_I] * 9 + [_P],

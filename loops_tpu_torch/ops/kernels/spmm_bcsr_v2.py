@@ -59,21 +59,18 @@ from loops_tpu_torch.utils.platform import ensure_platform
 SUPER_ROWS = 8
 
 
-def smem_bytes(R: int, C: int, T, SUPER: int, FT: int,
-               warp_b: bool = False) -> int:
+def smem_bytes(R: int, C: int, T, SUPER: int, FT: int) -> int:
     """Shared memory of one K8 CTA: the f32 accumulator [SUPER*R][FT + 4]
     and two A blocks in the stream type ``T``, and in bf16 two B tiles
-    (K7's row pads of 16 bytes); f32 reads B straight from L2. ``warp_b``:
-    a [C][24] bf16 region of B a warp in place of the tiles."""
+    (K7's row pads of 16 bytes); f32 reads B straight from L2."""
     acc = 4 * SUPER * R * (FT + 4)
     if T == torch.bfloat16:
-        b = 8 * C * 24 if warp_b else 2 * C * (FT + 8)
-        return acc + 2 * (2 * R * (C + 8) + b)
+        return acc + 2 * 2 * (R * (C + 8) + C * (FT + 8))
     return acc + 2 * 4 * R * C
 
 
 def tiles(R: int, C: int, T, super_rows: int | None,
-          block_f: int, warp_b: bool = False) -> dict:
+          block_f: int) -> dict:
     """The card's SUPER, FT and shared-memory bytes for K8: FT the widest
     feature tile of ``16 * 2^k`` columns (k <= 3: a 16-column unit for
     each of up to 8 warps) up to ``block_f``, at ``super_rows`` block rows
@@ -91,9 +88,9 @@ def tiles(R: int, C: int, T, super_rows: int | None,
         for f in (ft, ft // 2, ft // 4, ft // 8):
             if f < UNIT:
                 break
-            smem = smem_bytes(R, C, T, SUPER, f, warp_b)
+            smem = smem_bytes(R, C, T, SUPER, f)
             if smem <= SMEM_LIMIT:
-                return dict(SUPER=SUPER, FT=f, smem=smem, warp_b=warp_b)
+                return dict(SUPER=SUPER, FT=f, smem=smem)
         if super_rows or SUPER == 1:
             raise ValueError(
                 f"the tiles need {smem_bytes(R, C, T, SUPER, UNIT)} bytes "
@@ -150,8 +147,7 @@ def bcsr_spmm_v2_cuda(b: dict, B: torch.Tensor, shape, t: dict,
     _build.launch("loops_bcsr_spmm_v2", "bcsr_spmm_v2", dev, b["offsets"],
                   b["bcols"], b["brow"], b["vals"], Bk, C_out, t["nbr"], R,
                   C, rows, cols, F, ld, t["SUPER"], t["FT"],
-                  int(Bk.dtype == torch.bfloat16), int(t["warp_b"]),
-                  t["smem"])
+                  int(Bk.dtype == torch.bfloat16), t["smem"])
     return C_out
 
 
@@ -164,7 +160,7 @@ def bcsr_spmm_v2_plain(b: dict, B: torch.Tensor, shape,
 
 
 def bcsr_spmm_v2(bcsr, block_f: int = 512, super_rows: int | None = None,
-                 dtype=None, device="cuda", warp_b: bool = False):
+                 dtype=None, device="cuda"):
     """Build ``(bufs, fn(bufs, B, out=None))`` for BCSR @ dense through
     K8; ``fn`` runs K8 on a CUDA tensor and the plain version on a CPU
     tensor."""
@@ -172,7 +168,7 @@ def bcsr_spmm_v2(bcsr, block_f: int = 512, super_rows: int | None = None,
     check_blocks(bcsr)
     T = stream_type(dtype)
     R, C = bcsr.block_shape
-    t = tiles(R, C, T, super_rows, block_f, warp_b and T != torch.float32)
+    t = tiles(R, C, T, super_rows, block_f)
     shape = bcsr.shape
     t.update(R=R, C=C, num_blocks=bcsr.num_blocks,
              nbr=-(-shape[0] // R), dtype=dtype)
