@@ -64,8 +64,8 @@ Phases, one line each with its time:
    300, 513} at ``block_f`` 128, f32 and (K7, K8) bf16; K7, K8 and K9
    also on the edge cases of ``tests/test_torch_cuda_bcsr.py`` (``cols``
    not a multiple of C, empty block rows and empty super-rows, chunks of
-   one block, super-rows of one block row, F in {20, 513}), and each into
-   a NaN-filled ``out=``; then the
+   one block, super-rows of two block rows, F in {20, 513}), and each
+   into a NaN-filled ``out=``; then the
    bench's two regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512;
    32768^2 at 1.5% for K6): agreement, the Wilkinson verdict (over sampled
    rows at bench scale), two applies bitwise equal, the launch counter;
@@ -201,7 +201,7 @@ BCSR_FS = (20, 300, 513)
 BCSR_EDGE_FS = (20, 513)
 K7_EDGE_TILES = ({}, {"super_rows": 2, "chunk_blocks": 1},
                  {"super_rows": 2, "chunk_blocks": 2})
-K8_EDGE_TILES = ({}, {"super_rows": 2}, {"super_rows": 1})
+K8_EDGE_TILES = ({}, {"super_rows": 2})
 # the JAX bench's regimes (bench.py:226-228, :371-372)
 SPMM_REGIME = dict(N=16384, R=8, C=128, block_density=0.06)
 SPMM_F = 512
@@ -670,12 +670,12 @@ def bcsr_spmm_vs_plain(label, kname, csr, bcsr, B, dtype, device,
 
 def bcsr_edges_vs_plain(device):
     """K9, K7 (f32, bf16; at the card's tiles and at two block rows a
-    super-row, chunks of one and two blocks) and K8 (f32, bf16; at the
-    card's tiles and at two and one block rows a super-row) on
-    ``BCSR_EDGE``, blocks 8 and 16 rows: two applies bitwise equal and
-    into NaN-filled ``out=``, the pair tolerance against the plain
-    version, the Wilkinson verdict. Returns the max |kernel - plain| per
-    kernel and the case count."""
+    super-row, chunks of one and two blocks) and K8 (f32, bf16; at one
+    block row a super-row and at two) on ``bcsr_edge_matrices()``, blocks
+    8 and 16 rows: two applies bitwise equal and into NaN-filled
+    ``out=``, the pair tolerance against the plain version, the Wilkinson
+    verdict. Returns the max |kernel - plain| per kernel and the case
+    count."""
     import torch
 
     from loops_tpu_torch.formats import BCSR
@@ -684,7 +684,7 @@ def bcsr_edges_vs_plain(device):
         spmm_bcsr_v2,
         spmm_bcsr_v3,
     )
-    from loops_tpu_torch.utils import generate, reference
+    from loops_tpu_torch.utils import reference
 
     err = {"bcsr_spmm": 0.0, "bcsr_spmm_v2": 0.0, "bcsr_spmm_v3": 0.0}
     n = 0

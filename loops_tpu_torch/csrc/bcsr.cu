@@ -101,23 +101,15 @@ bcsr_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
 // ------------------------------------------------- K7/K8 shared pieces
 // Both walk a super-row (SUPER consecutive block rows) for one feature tile
 // of FT columns with 256 threads: the f32 accumulator tile [SUPER*R][FT]
-// lives in shared memory, A and the C x FT B tile are double-buffered into
-// shared memory with cp.async (16-byte copies; bytes past the matrix or
-// past F are zero-filled), and the tile is written to the output once.
+// lives in shared memory, A and (but for K8 in f32) the C x FT B tile are
+// double-buffered into shared memory with cp.async (16-byte copies; bytes
+// past the matrix or past F are zero-filled), and the tile is written to
+// the output once.
 constexpr int kSuperThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+using loops_tc::cp_async16;
+using loops_tc::cp_async_commit;
+using loops_tc::cp_async_wait_prior;
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),

@@ -56,10 +56,9 @@
 //
 // What bounds K10 on an H100: 2 * R * C * F flops per block on the CUDA
 // cores (67 TFLOP/s f32: 0.239 ms at the bench's 16384^2, F = 512 regime).
-// The first port gave each block its own CTA, which read its own 128 x F
-// slab of B: blocks of one block column (~119 at the bench's density)
-// re-read the same slab, 4.0 GB an apply from L2, with 3 shared loads per
-// 8 FMAs.
+// The blocks of one block column (~119 at the bench's density) all need
+// the same 128 x F slab of B: read once per block, that is 4.0 GB an
+// apply from L2.
 //
 // Design: the wrapper stages at bind a permutation of the stored blocks
 // sorted by block column (storage order within a column), cut into groups
@@ -76,7 +75,8 @@
 // + 4: the 8 lanes of a phase read distinct banks), for 256 FMAs. B's L2
 // traffic falls by G (0.5 GB at G = 8); A's rows are read once per block
 // and column slice. Every output is written through the permutation to
-// out[t], so out stays [NB, R, C] in storage order.
+// out[t], so out stays [NB, R, C] in storage order. ROWS = 64 and FT = 32
+// ran fastest of the shapes tried on the card (PERF.md §6, PR 10).
 //
 // Offsets into A, B, vals and out are 64-bit. Each C entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
@@ -280,13 +280,6 @@ constexpr int kK10Cols = 128;  // output columns of a CTA: a slice of C
 constexpr int kK10Rows = 64;   // A rows of a CTA: G = 64 / R blocks
 constexpr int kK10FT = 32;     // features a step
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   loops_tc::smem_addr(smem)),
-               "l"(gmem), "r"(bytes));
-}
-
 __global__ void __launch_bounds__(2 * kK10Rows)
 sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
                   const int* __restrict__ brow, const int* __restrict__ bcols,
@@ -332,7 +325,7 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
         src = A + ar * lda + f0 + f;
         bytes = min(4, F - f0 - f) * 4;
       }
-      cp_async16(as + r * kPitch + f, src, bytes);
+      loops_tc::cp_async16(as + r * kPitch + f, src, bytes);
     }
     for (int i = threadIdx.x; i < kK10Cols * kQuads; i += kThreads) {
       const int c = i / kQuads, f = (i % kQuads) * 4;
@@ -342,7 +335,7 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
         src = B + (bcol0 + c) * ldb + f0 + f;
         bytes = min(4, F - f0 - f) * 4;
       }
-      cp_async16(bs + c * kPitch + f, src, bytes);
+      loops_tc::cp_async16(bs + c * kPitch + f, src, bytes);
     }
   };
   const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
@@ -354,12 +347,12 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
   }
   const int steps = (F + FT - 1) / FT;
   if (steps > 0) stage(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
+  loops_tc::cp_async_commit();
   for (int k = 0; k < steps; ++k) {
     const int slot = k & 1;
     if (k + 1 < steps) stage(k + 1, 1 - slot);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
+    loops_tc::cp_async_commit();
+    loops_tc::cp_async_wait_prior();
     __syncthreads();
     const float* as = As + (slot * ROWS + 8 * rg) * kPitch;
     const float* bs = Bs + (slot * kK10Cols + cg) * kPitch;

@@ -1,7 +1,7 @@
 // Hopper helpers shared by the probe kernels (csrc/probes_r2.cu,
-// csrc/probes_gather.cu) and K7's bf16 mode (csrc/bcsr.cu): the dynamic
-// shared-memory opt-in, ldmatrix and mma.sync m16n8k16 with bf16 inputs
-// and f32 sums.
+// csrc/probes_gather.cu), K7/K8 (csrc/bcsr.cu) and K10 (csrc/sddmm.cu):
+// the dynamic shared-memory opt-in, 16-byte cp.async copies, ldmatrix and
+// mma.sync m16n8k16 with bf16 inputs and f32 sums.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * gid + tig):
 //   A (16 x 16): a[0] = (row gid, cols 2tig, 2tig+1), a[1] = row gid + 8,
@@ -29,6 +29,21 @@ int set_smem(K kernel, int bytes) {
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, the bytes past `bytes` zero-filled (L2 only)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait for all but the newest committed group
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {

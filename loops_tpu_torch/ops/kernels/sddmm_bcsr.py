@@ -80,21 +80,16 @@ def check_staged(b: dict, t: dict, device) -> None:
 
 
 def sddmm_bcsr_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
-                    t: dict | None = None, staged_on=None,
-                    out=None) -> torch.Tensor:
+                    t: dict, staged_on=None, out=None) -> torch.Tensor:
     """Launch K10 on the staged buffers: out [NB, R, C] float32. ``t``:
-    the bind's parameters (``fn.meta``; by default read off ``b``).
-    ``staged_on``: the device on which ``check_staged`` has accepted ``b``
-    (at bind); the buffers are then not checked again. ``out``: a float32
-    [NB, R, C] tensor to write into instead of a new ``torch.empty``."""
+    the bind's parameters (``fn.meta``). ``staged_on``: the device on
+    which ``check_staged`` has accepted ``b`` (at bind); the buffers are
+    then not checked again. ``out``: a float32 [NB, R, C] tensor to write
+    into instead of a new ``torch.empty``."""
     if not A.is_cuda:
         raise ValueError(f"sddmm_bcsr_cuda needs a CUDA tensor, got "
                          f"{A.device}")
     dev = A.device if staged_on is None else staged_on
-    if t is None:
-        nb, R, C = b["vals"].shape
-        t = dict(num_blocks=nb, R=R, C=C, groups=b["gptr"].numel() - 1,
-                 G=group_blocks(R), rows_per_cta=ROWS, FT=FT)
     nb, R, C = t["num_blocks"], t["R"], t["C"]
     if R % 8 or C % LANES:
         raise ValueError(f"K10 needs R%8==0 and C%128==0, got {R}x{C}")

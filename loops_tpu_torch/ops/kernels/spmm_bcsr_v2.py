@@ -21,10 +21,9 @@ double-buffered beside it and the units are the transposed product on
 in a fixed order, each lane reading its float4s of B straight from L2,
 8 rows in flight. Each (row, f) adds its blocks' sums in storage order.
 FT is the widest of 16, 32, 64 and 128 columns up to ``block_f`` whose
-CTA fits 227 KB. SUPER is one block row at 8-row blocks
-(``SUPER_ROWS`` output rows), halved for wide blocks until a CTA fits:
-on the card the B path and super-rows were chosen by measurement
-(PERF.md §6, PR 10).
+CTA fits 227 KB. A super-row is one block row unless ``super_rows`` says
+otherwise: on the card the B path and the super-rows were chosen by
+measurement (PERF.md §6, PR 10).
 
 What bounds it on an H100: 2 flops per stored value and feature (IEEE f32
 on the CUDA cores: 0.239 ms at the bench's 16384^2, F = 512 regime; bf16
@@ -55,10 +54,6 @@ from loops_tpu_torch.ops.kernels.spmm_bcsr_v3 import UNIT, WARPS
 from loops_tpu_torch.ops.kernels.spmv_bcsr import stage
 from loops_tpu_torch.utils.platform import ensure_platform
 
-# output rows of a super-row on the card (one block row at R = 8)
-SUPER_ROWS = 8
-
-
 def smem_bytes(R: int, C: int, T, SUPER: int, FT: int) -> int:
     """Shared memory of one K8 CTA: the f32 accumulator [SUPER*R][FT + 4]
     and two A blocks in the stream type ``T``, and in bf16 two B tiles
@@ -71,33 +66,28 @@ def smem_bytes(R: int, C: int, T, SUPER: int, FT: int) -> int:
 
 def tiles(R: int, C: int, T, super_rows: int | None,
           block_f: int) -> dict:
-    """The card's SUPER, FT and shared-memory bytes for K8: FT the widest
-    feature tile of ``16 * 2^k`` columns (k <= 3: a 16-column unit for
-    each of up to 8 warps) up to ``block_f``, at ``super_rows`` block rows
-    or by default ``SUPER_ROWS`` output rows, halved until a CTA fits;
-    ``ValueError`` if none does."""
+    """The card's SUPER, FT and shared-memory bytes for K8: ``super_rows``
+    block rows a super-row (one by default), FT the widest feature tile
+    of ``16 * 2^k`` columns (k <= 3: a 16-column unit for each of up to 8
+    warps) up to ``block_f`` whose CTA fits; ``ValueError`` if none
+    does."""
     block_f = int(block_f)
     if block_f < UNIT or block_f % UNIT:
         raise ValueError(f"block_f={block_f}: K8's feature tile is a "
                          f"positive multiple of {UNIT} columns")
+    SUPER = super_rows or 1
     ft = UNIT
     while 2 * ft <= min(block_f, WARPS * UNIT):
         ft *= 2
-    SUPER = super_rows or max(SUPER_ROWS // R, 1)
-    while True:
-        for f in (ft, ft // 2, ft // 4, ft // 8):
-            if f < UNIT:
-                break
-            smem = smem_bytes(R, C, T, SUPER, f)
-            if smem <= SMEM_LIMIT:
-                return dict(SUPER=SUPER, FT=f, smem=smem)
-        if super_rows or SUPER == 1:
-            raise ValueError(
-                f"the tiles need {smem_bytes(R, C, T, SUPER, UNIT)} bytes "
-                f"of shared memory at a {UNIT}-column feature tile, past "
-                f"the {SMEM_LIMIT} one CTA may use: fewer super rows or "
-                "narrower blocks")
-        SUPER //= 2
+    while ft >= UNIT:
+        smem = smem_bytes(R, C, T, SUPER, ft)
+        if smem <= SMEM_LIMIT:
+            return dict(SUPER=SUPER, FT=ft, smem=smem)
+        ft //= 2
+    raise ValueError(f"the tiles need {smem_bytes(R, C, T, SUPER, UNIT)} "
+                     f"bytes of shared memory at a {UNIT}-column feature "
+                     f"tile, past the {SMEM_LIMIT} one CTA may use: fewer "
+                     "super rows or narrower blocks")
 
 
 def check_staged(b: dict, t: dict, device) -> None:

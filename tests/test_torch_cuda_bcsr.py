@@ -264,7 +264,7 @@ def test_k7_k9_edge_cases(cuda_device, kname, dtype, name, block, F):
     csr = EDGE[name]()
     bcsr = BCSR.from_csr(csr, *block)
     kws = {"bcsr_spmm": [{}],
-           "bcsr_spmm_v2": [{}, dict(super_rows=2), dict(super_rows=1)],
+           "bcsr_spmm_v2": [{}, dict(super_rows=2)],
            "bcsr_spmm_v3": [{}, dict(super_rows=2, chunk_blocks=1),
                             dict(super_rows=2, chunk_blocks=2)]}[kname]
     for kw in kws:

@@ -243,11 +243,13 @@ def test_wrappers_check_inputs(cuda_device):
     A = torch.ones(csr.shape[0], 6, device=dev)
     B = torch.ones(csr.shape[1], 6, device=dev)
     b5, _ = sddmm_flat.sddmm_flat(csr, device=dev)
-    b10, _ = sddmm_bcsr.sddmm_bcsr(BCSR.from_csr(csr, 8, 128), device=dev)
+    b10, f10 = sddmm_bcsr.sddmm_bcsr(BCSR.from_csr(csr, 8, 128),
+                                     device=dev)
     calls = {
         "K5": lambda A, B: sddmm_flat.sddmm_flat_cuda(b5, A, B, csr.shape,
                                                       csr.nnz),
-        "K10": lambda A, B: sddmm_bcsr.sddmm_bcsr_cuda(b10, A, B, csr.shape),
+        "K10": lambda A, B: sddmm_bcsr.sddmm_bcsr_cuda(b10, A, B, csr.shape,
+                                                       f10.meta),
     }
     for call in calls.values():
         with pytest.raises(ValueError, match="CUDA tensor"):

@@ -458,9 +458,9 @@ def test_wrappers_refuse_cpu_tensors():
     b5, _ = sddmm_flat.sddmm_flat(t, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         sddmm_flat.sddmm_flat_cuda(b5, A, B, t.shape, t.nnz)
-    b10, _ = sddmm_bcsr.sddmm_bcsr(BCSR.from_csr(t, 8, 128), device=CPU)
+    b10, f10 = sddmm_bcsr.sddmm_bcsr(BCSR.from_csr(t, 8, 128), device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        sddmm_bcsr.sddmm_bcsr_cuda(b10, A, B, t.shape)
+        sddmm_bcsr.sddmm_bcsr_cuda(b10, A, B, t.shape, f10.meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         stream.stream_read_cuda(torch.zeros(64))
 
