@@ -280,7 +280,6 @@ constexpr int kK10Cols = 128;  // output columns of a CTA: a slice of C
 constexpr int kK10Rows = 64;   // A rows of a CTA: G = 64 / R blocks
 constexpr int kK10FT = 32;     // features a step
 
-template <int kMap>
 __global__ void __launch_bounds__(2 * kK10Rows)
 sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
                   const int* __restrict__ brow, const int* __restrict__ bcols,
@@ -339,13 +338,7 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
       loops_tc::cp_async16(bs + c * kPitch + f, src, bytes);
     }
   };
-  // kMap 0: a warp is 2 row groups x 16 column groups, a thread's columns
-  // cg + 16 j; kMap 1 (sweep): a warp is 4 row groups x 8 column groups of
-  // one 64-column half, a thread's columns half + cg + 8 j
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int rg = kMap ? (w & 1) * 4 + (lane >> 3) : threadIdx.x >> 4;
-  const int cg = kMap ? (w >> 1) * 64 + (lane & 7) : threadIdx.x & 15;
-  constexpr int kStep = kMap ? 8 : 16;
+  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
   float acc[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -368,7 +361,7 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
       float4 b[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        b[j] = *reinterpret_cast<const float4*>(bs + kStep * j * kPitch + f);
+        b[j] = *reinterpret_cast<const float4*>(bs + 16 * j * kPitch + f);
       }
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
@@ -390,7 +383,7 @@ sddmm_bcsr_kernel(const int* __restrict__ gptr, const int* __restrict__ perm,
     if (o < 0) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long e = o + cg + kStep * j;
+      const long long e = o + cg + 16 * j;
       out[e] = __fmul_rn(__ldg(vals + e), acc[r][j]);
     }
   }
@@ -428,18 +421,18 @@ int loops_bcsr_sddmm_f32(const void* gptr, const void* perm, const void* brow,
                          const void* bcols, const void* vals, const void* A,
                          const void* B, void* out, int groups, int G, int R,
                          int C, int rows, int cols, int F, int lda, int ldb,
-                         int map, void* stream) {
+                         void* stream) {
   const int zs = (G * R + kK10Rows - 1) / kK10Rows;
   if (C % kK10Cols || lda % 4 || ldb % 4 || C / kK10Cols > 65535 ||
       zs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = (2 * kK10Rows + 2 * kK10Cols) * (kK10FT + 4) * 4;
-  auto k = map ? sddmm_bcsr_kernel<1> : sddmm_bcsr_kernel<0>;
-  int err = loops_tc::set_smem(k, smem);
+  int err = loops_tc::set_smem(sddmm_bcsr_kernel, smem);
   if (err) return err;
   const dim3 grid(static_cast<unsigned>(groups), C / kK10Cols, zs);
-  k<<<grid, 2 * kK10Rows, smem, static_cast<cudaStream_t>(stream)>>>(
+  sddmm_bcsr_kernel<<<grid, 2 * kK10Rows, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(gptr), static_cast<const int*>(perm),
       static_cast<const int*>(brow), static_cast<const int*>(bcols),
       static_cast<const float*>(vals), static_cast<const float*>(A),

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 11 + [_P],
     "loops_bcsr_spmm_v3": [_P] * 9 + [_I] * 12 + [_P],
     "loops_sddmm_flat": [_P] * 6 + [_I] * 4 + [_P],
-    "loops_bcsr_sddmm_f32": [_P] * 8 + [_I] * 10 + [_P],
+    "loops_bcsr_sddmm_f32": [_P] * 8 + [_I] * 9 + [_P],
     "loops_stream_read_f32": [_P] * 2 + [_I] * 3 + [_P],
     "loops_saxpy_f32": [ctypes.c_float] + [_P] * 3 + [_I, _I, _P],
     "loops_seg_scan_probe": [_P] * 3 + [_I, _I, _P],

@@ -107,7 +107,7 @@ def sddmm_bcsr_cuda(b: dict, A: torch.Tensor, B: torch.Tensor, shape,
     _build.launch("loops_bcsr_sddmm_f32", "sddmm_bcsr", dev, b["gptr"],
                   b["perm"], b["brow"], b["bcols"], b["vals"], Ak, Bk, o,
                   t["groups"], t["G"], R, C, rows, cols, A.shape[1], lda,
-                  ldb, t.get("map", 0))
+                  ldb)
     return o
 
 
@@ -152,7 +152,7 @@ def stage_blocks(bcsr, device) -> dict:
     return b
 
 
-def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda", map: int = 0):
+def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda"):
     """Build ``(bufs, fn(bufs, A, B, out=None))`` for block SDDMM through
     K10; ``fn`` runs K10 on CUDA tensors and the plain version on CPU
     tensors."""
@@ -172,7 +172,7 @@ def sddmm_bcsr(bcsr, block_f: int = 512, device="cuda", map: int = 0):
     bufs["perm"] = torch.from_numpy(perm).to(device)
     bufs["gptr"] = torch.from_numpy(gptr).to(device)
     t = dict(num_blocks=bcsr.num_blocks, R=R, C=C, groups=len(gptr) - 1,
-             G=G, rows_per_cta=ROWS, FT=FT, block_f=int(block_f), map=map)
+             G=G, rows_per_cta=ROWS, FT=FT, block_f=int(block_f))
     staged_on = _build.staged_guard(bufs, t, check_staged)
 
     def fn(b, A, B, out=None):
