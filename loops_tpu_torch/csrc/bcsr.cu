@@ -462,7 +462,7 @@ bcsr_spmm_v3_kernel(const int* __restrict__ chunk_ptr,
 // Every block re-reads its B tile (C x FT) from L2: 4.00 GB an apply in
 // f32, 2.00 GB in bf16 at the bench's 16384^2, F = 512 regime, and that
 // sets the time. In f32, loads straight from L2 ran 2x faster on the card
-// than cp.async tiles (PERF.md §6, PR 10): with no B tile in shared memory
+// than cp.async tiles (PERF.md §6): with no B tile in shared memory
 // and 128 registers, two CTAs share an SM. Super-rows of one block row ran
 // faster than taller ones.
 

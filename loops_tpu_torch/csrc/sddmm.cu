@@ -76,7 +76,7 @@
 // traffic falls by G (0.5 GB at G = 8); A's rows are read once per block
 // and column slice. Every output is written through the permutation to
 // out[t], so out stays [NB, R, C] in storage order. ROWS = 64 and FT = 32
-// ran fastest of the shapes tried on the card (PERF.md §6, PR 10).
+// ran fastest of the shapes tried on the card (PERF.md §6).
 //
 // Offsets into A, B, vals and out are 64-bit. Each C entry point returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.

@@ -23,7 +23,7 @@ in a fixed order, each lane reading its float4s of B straight from L2,
 FT is the widest of 16, 32, 64 and 128 columns up to ``block_f`` whose
 CTA fits 227 KB. A super-row is one block row unless ``super_rows`` says
 otherwise: on the card the B path and the super-rows were chosen by
-measurement (PERF.md §6, PR 10).
+measurement (PERF.md §6).
 
 What bounds it on an H100: 2 flops per stored value and feature (IEEE f32
 on the CUDA cores: 0.239 ms at the bench's 16384^2, F = 512 regime; bf16
