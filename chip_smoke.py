@@ -55,8 +55,10 @@ Phases, one line each with its time:
    version, ``group_mapped``, ``row_mapped`` and cuSPARSE
    (``torch.sparse.mm``, timed only), with the host plan time; one GCN
    train step of each form and one full-graph ``evaluate`` (CUDA events
-   around each call, median), and a ``torch.profiler`` breakdown of a step
-   and an ``evaluate``;
+   around each call, median), a ``torch.profiler`` breakdown of a step
+   and an ``evaluate`` (read only where the trace holds every launch the
+   counters saw, else "not measured"), and the step's card time by
+   ``utils/bench.device_ms`` with its idle share;
 11. K6–K9 vs plain: K6 (``bcsr_spmv``), K9 (``bcsr_spmm``), K8
    (``bcsr_spmm_v2``) and K7 (``bcsr_spmm_v3``) against their plain PyTorch
    versions on the same staged buffers: the five matrices of
@@ -106,7 +108,9 @@ Phases, one line each with its time:
 17. timing of K5 and K10 (plain, kernel, kernel, plain), the torch
    ``xla`` paths, cuSPARSE's SDDMM (``torch.sparse.sampled_addmm`` times
    vals, timed only), the host staging time, the bound at the nominal and
-   the measured rate, and a ``torch.profiler`` breakdown of one apply;
+   the measured rate, a ``torch.profiler`` breakdown of one apply (or "not
+   measured") and the apply's card time by ``utils/bench.device_ms``
+   with its idle share;
 18. K12 and K2 vs plain: K12 (``saxpy``) bitwise against ``a * x + y``
    at the example's [8, 8192], at odd sizes and on an unaligned view; K2
    against its plain version again, its scan now in
@@ -122,10 +126,14 @@ Phases, one line each with its time:
    gathers, scatters, one-hot expand, the scan and the dots on integer
    values), the scan at ``atol 1e-4``, ``dot0`` at ``1e-5``, the dots on
    normal values within ``r2.DOT_C`` units of ``u32 sqrt(sum (a b)^2)``
-   of their float64 reference; two launches bitwise equal. Then it times
-   each by slope (launches or passes) beside its plain version and its
-   library call. The launch counters are set to 0 before and read after:
-   every K12-K15 kernel must have launched.
+   of their float64 reference, ``l2_scatter`` on the script's normal
+   values bit for bit against the sequential (pass, chunk, slab) order
+   computed on the CPU (1 and 3 passes); two launches bitwise equal.
+   Then it times each by slope (launches or passes) beside its plain
+   version and its library call, and prints the two kernels redesigned
+   last (``l2_scatter``, ``block_dot_f32``) against ``index_add_`` and
+   ``torch.matmul``. The launch counters are set to 0 before and read
+   after: every K12-K15 kernel must have launched.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -284,17 +292,29 @@ def phase(n, name, t0, detail=""):
 
 
 def profile_text(r, top, width=40):
-    """A ``profile_applies`` result as one line; the profiler's trace can
-    come back empty where another tool holds the card's tracing, and then
-    only the wall time stands."""
+    """A ``profile_applies`` result as one line; where the profiler's
+    trace lacks launches (empty, fewer than the wrappers counted, or not
+    a whole number per apply), only the wall time stands."""
     wall = f"wall {r['wall_ms']:.4f} ms"
-    if not r["kernels"]:
-        return f"{wall}, device time not measured (torch.profiler recorded " \
-               "no kernel)"
+    if r["not_measured"]:
+        return (f"{wall}, device time not measured ("
+                + "; ".join(r["not_measured"][:4]) + ")")
     return (f"{wall}, device {r['device_ms']:.4f} ms, idle "
             f"{r['idle_share']:.1%}; "
             + "; ".join(f"{name[:width]} x{n:g} {ms:.4f} ms"
                         for name, n, ms in r["kernels"][:top]))
+
+
+def card_text(fn, x, wall_ms):
+    """The card's own ms per ``fn(x)`` (``utils/bench.device_ms``: calls
+    queued behind a sleep kernel) beside ``wall_ms``, one call's time
+    measured apart, and the share of it in which the card waits: a
+    device time that no dropped trace event can shorten."""
+    from loops_tpu_torch.utils.bench import device_ms
+
+    card = device_ms(fn, x, applies=10)
+    return (f"card {card:.4f} ms (device_ms), wall {wall_ms:.4f} ms, idle "
+            f"{max(0.0, 1 - card / wall_ms):.1%}")
 
 
 def pair_tolerance(csr, x):
@@ -1337,6 +1357,7 @@ def sddmm_phases(device, smi, adj, rate):
               f"  [{smi}]")
         r = profile_applies(kernel, Ad, applies=10, warmup=2)
         print(f"  profile {kname} {label}: {profile_text(r, 4)}")
+        print(f"  {kname} {label}: {card_text(kernel, Ad, ms)}  [{smi}]")
         del Ad, Bd
         torch.cuda.empty_cache()
     phase(17, "SDDMM timing (CUDA events, median per apply)", t0)
@@ -1415,6 +1436,9 @@ def probe_phases(device, smi, rate):
     status, recs = mod.main(["--device", "cuda"],
                             out=lambda ln: print(f"  h100_probes: {ln}"))
     require(status == 0, "scripts/h100_probes.py failed")
+    require(any(r["name"] == "l2_scatter" and "sequential order bit for "
+                "bit" in r["line"] for r in recs),
+            "l2_scatter was not held to the sequential order")
     launches = dict(_build.LAUNCHES)
     for k in PROBE_KERNELS:
         require(launches[k] > 0, f"{k} never launched on the tier's path")
@@ -1452,7 +1476,7 @@ def probe_phases(device, smi, rate):
                    lambda _: mosaic.construct_cuda("shift_lane", mat))):
         r = profile_applies(fn, x, applies=20, warmup=3)
         wall = f"wall {r['wall_ms'] * 1e3:.2f} us per call"
-        if not r["kernels"]:
+        if r["not_measured"]:
             print(f"  {k}: {profile_text(r, 0)}  [{smi}]")
             continue
         kname, n, ms = r["kernels"][0]
@@ -1474,6 +1498,12 @@ def probe_phases(device, smi, rate):
               + f"; bound {b_ms:.4f} ms ({b_by}) nominal, {m_ms:.4f} ms "
               f"({m_by}) at the measured stream; {b_ms / rec['ms']:.1%} of "
               f"the nominal bound  [{smi}]")
+    for k, lib in (("l2_scatter", "index_add_"),
+                   ("block_dot_f32", "torch.matmul, TF32 off")):
+        rec = entries[k]
+        print(f"  {k} ({rec['label']}): {rec['ms']:.4f} ms per pass, {lib} "
+              f"{rec['library_ms']:.4f} ms in this run: "
+              f"{rec['library_ms'] / rec['ms']:.2f}x  [{smi}]")
     torch.cuda.empty_cache()
     phase(19, "the K12-K15 tier's path", t0, f"{len(recs)} probe cases "
           "held to their plain versions, max |kernel - plain| "
@@ -1873,6 +1903,9 @@ def main() -> int:
                        evaluate_on_card)):
         r = profile_applies(fn, Bd, applies=10, warmup=2)
         print(f"  profile {label}: {profile_text(r, 8, width=48)}")
+    # (evaluate ends in a host sync: the card alone is not measurable so)
+    print(f"  throughput-form step: {card_text(lambda _: step(), Bd, ms_fast)}"
+          f"  [{smi}]")
     phase(10, "GCN timing (CUDA events, median)", t0)
     del model, ref, fast, slow, step, step_f32, on_card, Bd
     torch.cuda.empty_cache()

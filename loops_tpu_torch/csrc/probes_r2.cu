@@ -1,40 +1,64 @@
 // K14 probes for Hopper (sm_90a): the per-chunk cost of the BCSR block
 // product and of its shared-memory scatter accumulator.
 //
-// block_dot_f32_kernel / block_dot_bf16_kernel  replace
-//   scripts/tpu_r2_probe.py dot_probe: acc += A[c] @ B over NCH chunks of
-//   A [M, 128] (M in {8, 64, 128}), B [128, 512] resident or a distinct
-//   B[c] streamed per chunk, `passes` sweeps over the chunks inside one
-//   launch (the TPU's reps), so the slope over passes is the cost of one
-//   sweep. Every product is consumed: a CTA owns a column tile of acc and
-//   a strided share of the chunks, keeps its share of acc in registers
-//   across all its chunks and passes, and writes it to partial[g] at the
-//   end; the wrapper sums the partials over g. (The TPU kept an [8, 128]
-//   corner; on the card a corner alone would let the compiler drop the
-//   rest.)
-//   * f32: IEEE fmaf on the CUDA cores, the unit of K7 and K9. A chunk and
-//     the CTA's B tile are staged in shared memory; each thread holds a
-//     register tile of rows x 4 columns, one float4 of B and a broadcast
-//     of A per k. Bound: 67 TFLOP/s.
+// block_dot_f32_kernel / block_dot_f32_rows_kernel / block_dot_bf16_kernel
+//   replace scripts/tpu_r2_probe.py dot_probe: acc += A[c] @ B over NCH
+//   chunks of A [M, 128] (M in {8, 64, 128}), B [128, 512] resident or a
+//   distinct B[c] streamed per chunk, `passes` sweeps over the chunks
+//   inside one launch (the TPU's reps), so the slope over passes is the
+//   cost of one sweep. Every product is consumed: a CTA owns a column tile
+//   of acc and a strided share of the chunks, keeps its share of acc in
+//   registers across all its chunks and passes, and writes it to
+//   partial[g] at the end; the wrapper sums the partials over g. (The TPU
+//   kept an [8, 128] corner; on the card a corner alone would let the
+//   compiler drop the rest.)
+//   * f32, M = 64 and 128 (block_dot_f32_kernel): IEEE fmaf on the CUDA
+//     cores, the unit of K7 and K9; bound by 67 TFLOP/s. What held the
+//     first design back was shared memory, not the FMAs: 8 scalar A loads
+//     and one float4 B load per 32 FMAs. Here each thread keeps an 8 x 8
+//     register tile (rows rg*4.. and M/2 + rg*4.., columns cg*4.. and
+//     NT/2 + cg*4..), and A is stored k-major in shared memory, so one k
+//     costs two float4 loads of A and two of B for 64 FMAs; a warp's
+//     loads cover 64 and 128 contiguous bytes (one wavefront each). A
+//     chunk runs as 4 k-slices of 32 through a ring of two stages: the
+//     next slice's B comes by cp.async and its A into registers (then
+//     transposed into its stage) while the current slice's FMAs run, one
+//     barrier a slice. Resident B takes the same path (its slices come
+//     from L2). 128 columns a CTA at M = 128 (256 at M = 64), two CTAs an
+//     SM.
+//   * f32, M = 8 (block_dot_f32_rows_kernel): the first design, kept
+//     there: 8 rows do not fill an 8 x 8 tile of 256 threads. A chunk and
+//     the CTA's B tile are staged in shared memory; each thread holds one
+//     row x 4 columns, one float4 of B and a broadcast of A per k.
 //   * bf16: A and B in bf16, f32 sums, on the tensor cores with mma.sync
 //     m16n8k16 (what the TPU's MXU did at default precision). Fragments
 //     come from shared memory by ldmatrix (B with .trans), rows padded by
 //     16 bytes so that the eight 16-byte rows of a fragment fall in eight
-//     bank groups. Bound: 989 TFLOP/s.
-//   Neither overlaps the staging of a chunk with its products: what a
-//   chunk costs is the question.
+//     bank groups. Bound: 989 TFLOP/s. It does not overlap the staging of
+//     a chunk with its products.
 // scatter_smem_kernel / scatter_l2_kernel  replace tpu_r2_probe.py
 //   scatter_probe: per chunk, KCH = 8 accumulates of an (R = 8, F) slab
 //   into a resident accumulator at offsets that are random multiples of R.
-//   One thread owns each (row-in-block j, feature f), as in K7: it adds
-//   every slab row j into acc[off * R + j][f], so no two threads touch one
-//   element and no atomics are needed.
+//   No float atomics: each output element is one thread's sum, in the
+//   order (pass, chunk, slab) of a sequential loop.
 //   * smem: the accumulator a CTA can hold, K7's 256 rows x 64 features
-//     (64 KB of shared memory); the 512 features run as 8 CTA column
-//     tiles, and the chunks are shared over `groups` CTAs per tile, each
-//     with its own accumulator, summed by the wrapper.
-//   * l2: the TPU's [4096, 512] f32 accumulator (8 MB) in device memory,
-//     where it lies in the 50 MB L2: one thread per (j, f), 4096 in all.
+//     (64 KB of shared memory); one thread owns each (row-in-block j,
+//     feature f) and adds every slab row j into acc[off * R + j][f]; the
+//     512 features run as 8 CTA column tiles, and the chunks are shared
+//     over `groups` CTAs per tile, each with its own accumulator, summed
+//     by the wrapper.
+//   * l2: the TPU's [4096, 512] f32 accumulator in device memory, as a
+//     segment sum over a plan staged on the host (probes/r2.py
+//     scatter_plan): the slabs sorted stably by destination block (perm)
+//     and each block's run of them (seg). A persistent grid (8 CTAs of 256
+//     threads an SM) walks the items (destination block, 128-feature
+//     tile): a thread sums its float4 of the block's R x 128 outputs in
+//     registers over the block's slabs, 16-byte loads with 8 slabs in
+//     flight, and writes it once a pass (zeros for a block no slab hits).
+//     The stable sort keeps each output's terms in (pass, chunk, slab)
+//     order. Bound: reading the 67 MB of slabs, past the 50 MB L2, from
+//     device memory. (The first design gave one thread each (j, f), 4096
+//     threads on 16 of 132 SMs, each walking all 4096 slabs.)
 //
 // C entry points return cudaGetLastError().
 #include <cstdint>
@@ -52,84 +76,197 @@ using loops_tc::set_smem;
 
 constexpr int kK = 128;    // the contraction: A chunks are [M, 128]
 constexpr int kN = 512;    // B is [128, 512]
-constexpr int kDotThreads = 256;
-constexpr int kApad = kK + 1;  // f32 A rows padded: rows in distinct banks
 
 // ------------------------------------------------------------- f32 dot
-template <int M>
-struct F32Tile {
-  static constexpr int NT = M >= 16 ? 64 : 128;         // columns per CTA
-  static constexpr int C4 = NT / 4;                      // threads per row group
-  static constexpr int RPT = M * NT / (kDotThreads * 4);  // rows per thread
-  static constexpr int kSmemFloats = M * kApad + kK * NT;
+using loops_tc::cp_async16;
+using loops_tc::cp_async_commit;
+using loops_tc::cp_async_wait_all;
+
+// M = 64 and 128: 8 x 8 register tiles, k-major A, two-stage k-slices
+template <int M, int NT>
+struct DotTile {
+  static constexpr int RG = M / 8, CG = NT / 8;  // row and column groups
+  static constexpr int kThreads = RG * CG;
+  static constexpr int WR = RG / 4;              // warps along the rows
+  static constexpr int KS = 32;                  // k a slice
+  static constexpr int kSlices = kK / KS;
+  static constexpr int LDA = M + 4;              // As[k][LDA], 16-byte rows
+  static constexpr int kStage = KS * LDA + KS * NT;  // floats: A, then B
+  static constexpr int kSmemFloats = 2 * kStage;
+  static constexpr int kALoads = M * KS / 4 / kThreads;   // float4s a thread
+  static constexpr int kBCopies = KS * NT / 4 / kThreads;  // 16-byte copies
+  static_assert(RG % 4 == 0 && CG % 8 == 0 && kALoads >= 1 && kBCopies >= 1,
+                "a warp is 4 row groups x 8 column groups");
 };
 
-// the CTA's [kK][NT] column tile of src [kK][kN] into shared memory
-template <int NT>
-__device__ __forceinline__ void stage_b_f32(float* Bs, const float* src, int n0) {
-  for (int e = threadIdx.x; e < kK * NT / 4; e += kDotThreads) {
-    const int k = e / (NT / 4), q = e % (NT / 4);
-    reinterpret_cast<float4*>(Bs)[e] =
-        reinterpret_cast<const float4*>(src + static_cast<size_t>(k) * kN + n0)[q];
-  }
+// where a thread's i-th float4 of an A slice lies: row m, k-quad kq (a
+// warp reads 8 rows x 4 quads, 64 contiguous bytes a row)
+template <class T>
+__device__ __forceinline__ void a_slot(int i, int& m, int& kq) {
+  const int idx = threadIdx.x + T::kThreads * i;
+  const int lane = idx & 31, w = idx >> 5;
+  kq = (lane & 3) + 4 * (w & 1);
+  m = (lane >> 2) + 8 * (w >> 1);
 }
 
-// (min 1 CTA per SM: without it ptxas held M = 8 to 32 registers and
-// spilled)
-template <int M>
-__global__ void __launch_bounds__(kDotThreads, 1)
+template <int M, int NT>
+__global__ void __launch_bounds__(DotTile<M, NT>::kThreads, 2)
 block_dot_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                      float* __restrict__ partial, int nch, int stream_b,
                      int passes) {
-  using T = F32Tile<M>;
+  using T = DotTile<M, NT>;
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int rg = (warp % T::WR) * 4 + (lane & 3);
+  const int cg = (warp / T::WR) * 8 + (lane >> 2);
+  const int n0 = blockIdx.x * NT;
+  const int g = blockIdx.y, groups = gridDim.y;
+  const int mine = (nch - g + groups - 1) / groups;  // chunks of this CTA
+  const int items = passes * mine * T::kSlices;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  float4 ra[T::kALoads];
+  // item -> (chunk, k0): passes x this CTA's chunks x k-slices, in order
+  auto chunk_of = [&](int item) { return g + groups * ((item / T::kSlices) % mine); };
+  auto load_a = [&](int item) {
+    const float* src = A + static_cast<size_t>(chunk_of(item)) * M * kK +
+                       (item % T::kSlices) * T::KS;
+#pragma unroll
+    for (int i = 0; i < T::kALoads; ++i) {
+      int m, kq;
+      a_slot<T>(i, m, kq);
+      ra[i] = __ldg(reinterpret_cast<const float4*>(src + m * kK + 4 * kq));
+    }
+  };
+  auto store_a = [&](float* As) {  // transposed: As[k][m]
+#pragma unroll
+    for (int i = 0; i < T::kALoads; ++i) {
+      int m, kq;
+      a_slot<T>(i, m, kq);
+      float* d = As + 4 * kq * T::LDA + m;
+      d[0] = ra[i].x;
+      d[T::LDA] = ra[i].y;
+      d[2 * T::LDA] = ra[i].z;
+      d[3 * T::LDA] = ra[i].w;
+    }
+  };
+  auto copy_b = [&](float* Bs, int item) {
+    const float* src = B + (stream_b ? static_cast<size_t>(chunk_of(item)) * kK * kN : 0) +
+                       static_cast<size_t>((item % T::kSlices) * T::KS) * kN + n0;
+#pragma unroll
+    for (int i = 0; i < T::kBCopies; ++i) {
+      const int e = t + T::kThreads * i;
+      const int k = e / (NT / 4), q = e % (NT / 4);
+      cp_async16(Bs + k * NT + 4 * q, src + static_cast<size_t>(k) * kN + 4 * q, 16);
+    }
+    cp_async_commit();
+  };
+
+  if (items > 0) {
+    load_a(0);
+    copy_b(smem + T::KS * T::LDA, 0);
+    store_a(smem);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  for (int it = 0; it < items; ++it) {
+    float* As = smem + (it & 1) * T::kStage;
+    const float* Bs = As + T::KS * T::LDA;
+    float* nxt = smem + ((it + 1) & 1) * T::kStage;
+    const bool more = it + 1 < items;
+    if (more) {
+      load_a(it + 1);
+      copy_b(nxt + T::KS * T::LDA, it + 1);
+    }
+#pragma unroll
+    for (int k = 0; k < T::KS; ++k) {
+      const float4 a0 = reinterpret_cast<const float4*>(As + k * T::LDA)[rg];
+      const float4 a1 = reinterpret_cast<const float4*>(As + k * T::LDA + M / 2)[rg];
+      const float4 b0 = reinterpret_cast<const float4*>(Bs + k * NT)[cg];
+      const float4 b1 = reinterpret_cast<const float4*>(Bs + k * NT + NT / 2)[cg];
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+    if (more) store_a(nxt);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = (r < 4 ? 0 : M / 2) + rg * 4 + (r & 3);
+    float* dst = partial + (static_cast<size_t>(g) * M + row) * kN + n0;
+    reinterpret_cast<float4*>(dst)[cg] =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    reinterpret_cast<float4*>(dst + NT / 2)[cg] =
+        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+}
+
+// M = 8: one row x 4 columns a thread, the chunk and B tile staged whole
+constexpr int kRowsThreads = 256;
+constexpr int kRowsNT = 128;             // columns per CTA
+constexpr int kApad = kK + 1;            // A rows padded: rows in distinct banks
+constexpr int kRowsSmemFloats = 8 * kApad + kK * kRowsNT;
+
+// (min 1 CTA per SM: without it ptxas held the kernel to 32 registers
+// and spilled)
+__global__ void __launch_bounds__(kRowsThreads, 1)
+block_dot_f32_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ partial, int nch, int stream_b,
+                          int passes) {
+  constexpr int M = 8, NT = kRowsNT, C4 = NT / 4;
   extern __shared__ float smem[];
   float* As = smem;               // [M][kApad]
   float* Bs = smem + M * kApad;   // [kK][NT]
   const int t = threadIdx.x;
-  const int c4 = t % T::C4, rg = t / T::C4;
-  const int n0 = blockIdx.x * T::NT;
+  const int c4 = t % C4, r = t / C4;
+  const int n0 = blockIdx.x * NT;
   const int g = blockIdx.y, groups = gridDim.y;
-  float acc[T::RPT][4];
-#pragma unroll
-  for (int i = 0; i < T::RPT; ++i)
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-
-  if (!stream_b) stage_b_f32<T::NT>(Bs, B, n0);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  // the CTA's [kK][NT] column tile of a [kK][kN] B into shared memory
+  auto stage_b = [&](const float* src) {
+    for (int e = t; e < kK * C4; e += kRowsThreads) {
+      const int k = e / C4, q = e % C4;
+      reinterpret_cast<float4*>(Bs)[e] =
+          reinterpret_cast<const float4*>(src + static_cast<size_t>(k) * kN + n0)[q];
+    }
+  };
+  if (!stream_b) stage_b(B);
   for (int p = 0; p < passes; ++p) {
     for (int c = g; c < nch; c += groups) {
       __syncthreads();  // the previous chunk's reads are done
       const float4* a4 = reinterpret_cast<const float4*>(A + static_cast<size_t>(c) * M * kK);
-      for (int e = t; e < M * kK / 4; e += kDotThreads) {
+      for (int e = t; e < M * kK / 4; e += kRowsThreads) {
         const float4 v = a4[e];
-        const int r = (4 * e) / kK, k = (4 * e) % kK;
-        float* dst = As + r * kApad + k;
+        float* dst = As + (4 * e) / kK * kApad + (4 * e) % kK;
         dst[0] = v.x;
         dst[1] = v.y;
         dst[2] = v.z;
         dst[3] = v.w;
       }
-      if (stream_b) stage_b_f32<T::NT>(Bs, B + static_cast<size_t>(c) * kK * kN, n0);
+      if (stream_b) stage_b(B + static_cast<size_t>(c) * kK * kN);
       __syncthreads();
 #pragma unroll 4
       for (int k = 0; k < kK; ++k) {
-        const float4 b = reinterpret_cast<const float4*>(Bs + k * T::NT)[c4];
-#pragma unroll
-        for (int i = 0; i < T::RPT; ++i) {
-          const float a = As[(rg * T::RPT + i) * kApad + k];
-          acc[i][0] = fmaf(a, b.x, acc[i][0]);
-          acc[i][1] = fmaf(a, b.y, acc[i][1]);
-          acc[i][2] = fmaf(a, b.z, acc[i][2]);
-          acc[i][3] = fmaf(a, b.w, acc[i][3]);
-        }
+        const float4 b = reinterpret_cast<const float4*>(Bs + k * NT)[c4];
+        const float a = As[r * kApad + k];
+        acc[0] = fmaf(a, b.x, acc[0]);
+        acc[1] = fmaf(a, b.y, acc[1]);
+        acc[2] = fmaf(a, b.z, acc[2]);
+        acc[3] = fmaf(a, b.w, acc[3]);
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < T::RPT; ++i) {
-    const int r = rg * T::RPT + i;
-    reinterpret_cast<float4*>(partial + (static_cast<size_t>(g) * M + r) * kN + n0)[c4] =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  reinterpret_cast<float4*>(partial + (static_cast<size_t>(g) * M + r) * kN + n0)[c4] =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
 // ------------------------------------------------------------ bf16 dot
@@ -236,6 +373,23 @@ block_dot_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
+// the f32 tile's columns a CTA: 128 at M = 128, 256 at M = 64
+template <int M>
+constexpr int dot_nt() { return M == 128 ? 128 : 256; }
+
+template <int M, int NT>
+int launch_dot_f32(const void* A, const void* B, void* partial, int nch,
+                   int stream_b, int passes, int groups, cudaStream_t s) {
+  using T = DotTile<M, NT>;
+  const int bytes = T::kSmemFloats * 4;
+  auto k = block_dot_f32_kernel<M, NT>;
+  if (const int e = set_smem(k, bytes)) return e;
+  k<<<dim3(kN / NT, groups), T::kThreads, bytes, s>>>(
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<float*>(partial), nch, stream_b, passes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int M>
 int launch_dot(int bf16, const void* A, const void* B, void* partial, int nch,
                int stream_b, int passes, int groups, cudaStream_t s) {
@@ -247,14 +401,15 @@ int launch_dot(int bf16, const void* A, const void* B, void* partial, int nch,
     k<<<dim3(kN / T::NT, groups), 128, bytes, s>>>(
         static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
         static_cast<float*>(partial), nch, stream_b, passes);
-  } else {
-    using T = F32Tile<M>;
-    const int bytes = T::kSmemFloats * 4;
-    auto k = block_dot_f32_kernel<M>;
-    if (const int e = set_smem(k, bytes)) return e;
-    k<<<dim3(kN / T::NT, groups), kDotThreads, bytes, s>>>(
+  } else if constexpr (M == 8) {
+    const int bytes = kRowsSmemFloats * 4;
+    if (const int e = set_smem(block_dot_f32_rows_kernel, bytes)) return e;
+    block_dot_f32_rows_kernel<<<dim3(kN / kRowsNT, groups), kRowsThreads, bytes, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(B),
         static_cast<float*>(partial), nch, stream_b, passes);
+  } else {
+    return launch_dot_f32<M, dot_nt<M>()>(A, B, partial, nch, stream_b, passes,
+                                          groups, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -289,25 +444,71 @@ scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
   }
 }
 
-// thread T of the grid: j = T / F, f = T % F; acc is [acc_rows][F]
-__global__ void __launch_bounds__(256)
-scatter_l2_kernel(const int* __restrict__ offs, const float* __restrict__ a,
-                  float* __restrict__ acc, int nch, int kch, int rr, int F,
-                  int acc_rows, int passes) {
-  const int T = blockIdx.x * blockDim.x + threadIdx.x;
-  if (T >= rr * F) return;
-  const int j = T / F, f = T % F;
-  for (int r = j; r < acc_rows; r += rr) acc[static_cast<size_t>(r) * F + f] = 0.f;
-  const size_t slab = static_cast<size_t>(kch) * rr * F;
-  for (int p = 0; p < passes; ++p) {
-    for (int c = 0; c < nch; ++c) {
-      const float* ac = a + c * slab + static_cast<size_t>(j) * F + f;
-      for (int i = 0; i < kch; ++i) {
-        const size_t row = static_cast<size_t>(offs[c * kch + i]) * rr + j;
-        acc[row * F + f] += ac[static_cast<size_t>(i) * rr * F];
+// A persistent grid over the items (destination block, feature tile),
+// item = blk * tiles + tile: thread (j, q) of a CTA takes the float4 at
+// row j, features 4q.. of the tile of each of its items. Each pass walks
+// all the CTA's items, so a slab is read again only after a whole sweep
+// (67 MB, past the L2) has gone by: the slope over passes is the cost of
+// one sweep. Pass 0 starts each output at 0; a later pass carries it on
+// from acc, where the same thread left it. passes = 0 writes zeros.
+template <int FT, int U, bool kStreaming>
+__global__ void __launch_bounds__(1024)
+scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
+                  const float* __restrict__ a, float* __restrict__ acc,
+                  int blocks, int rr, int F, int passes) {
+  const int tiles = F / FT, items = blocks * tiles;
+  const int j = threadIdx.x / (FT / 4), q = threadIdx.x % (FT / 4);
+  const size_t slab = static_cast<size_t>(rr) * F;  // floats a slab
+  auto load = [&](const float* p) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    return kStreaming ? __ldcs(p4) : __ldg(p4);
+  };
+  for (int pass = 0; pass < (passes > 0 ? passes : 1); ++pass) {
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int blk = item / tiles;
+      const int f = (item % tiles) * FT + 4 * q;
+      float4* dst = reinterpret_cast<float4*>(
+          acc + (static_cast<size_t>(blk) * rr + j) * F + f);
+      float4 sum = pass == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
+      const float* src = a + static_cast<size_t>(j) * F + f;
+      const int s1 = passes > 0 ? seg[blk + 1] : seg[blk];
+      int k = seg[blk];
+      for (; k + U <= s1; k += U) {  // U slabs in flight, added in order
+        float4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) v[u] = load(src + perm[k + u] * slab);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          sum.x += v[u].x;
+          sum.y += v[u].y;
+          sum.z += v[u].z;
+          sum.w += v[u].w;
+        }
       }
+      for (; k < s1; ++k) {
+        const float4 v = load(src + perm[k] * slab);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      *dst = sum;
     }
   }
+}
+
+template <int FT, int U, bool kStreaming>
+int launch_scatter_l2(const void* perm, const void* seg, const void* a,
+                      void* acc, int blocks, int rr, int F, int passes,
+                      int ctas, cudaStream_t s) {
+  if (F % FT || rr * FT / 4 > 1024 || ctas <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  scatter_l2_kernel<FT, U, kStreaming><<<ctas, rr * FT / 4, 0, s>>>(
+      static_cast<const int*>(perm), static_cast<const int*>(seg),
+      static_cast<const float*>(a), static_cast<float*>(acc), blocks, rr, F,
+      passes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -331,29 +532,69 @@ int loops_block_dot(const void* A, const void* B, void* partial, int nch,
   }
 }
 
-// smem: out is partial [groups, acc_rows, F]; else out is acc [acc_rows, F]
-int loops_scatter_probe(const void* offs, const void* a, void* out, int nch,
-                        int kch, int rr, int F, int acc_rows, int passes,
-                        int groups, int smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nch <= 0 || kch <= 0 || rr <= 0 || passes < 0 || acc_rows % rr) {
+// offs [nch * kch] block offsets, a [nch, kch * rr, F], partial
+// [groups, acc_rows, F]
+int loops_scatter_smem(const void* offs, const void* a, void* partial, int nch,
+                       int kch, int rr, int F, int acc_rows, int passes,
+                       int groups, void* stream) {
+  const int bytes = acc_rows * kScatterFT * 4;
+  if (nch <= 0 || kch <= 0 || rr <= 0 || passes < 0 || acc_rows % rr ||
+      F % kScatterFT || rr * kScatterFT > 1024 || groups <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (smem) {
-    const int bytes = acc_rows * kScatterFT * 4;
-    if (F % kScatterFT || rr * kScatterFT > 1024 || groups <= 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (const int e = set_smem(scatter_smem_kernel, bytes)) return e;
-    scatter_smem_kernel<<<dim3(F / kScatterFT, groups), rr * kScatterFT, bytes, s>>>(
-        static_cast<const int*>(offs), static_cast<const float*>(a),
-        static_cast<float*>(out), nch, kch, rr, F, acc_rows, passes);
-  } else {
-    scatter_l2_kernel<<<(rr * F + 255) / 256, 256, 0, s>>>(
-        static_cast<const int*>(offs), static_cast<const float*>(a),
-        static_cast<float*>(out), nch, kch, rr, F, acc_rows, passes);
-  }
+  if (const int e = set_smem(scatter_smem_kernel, bytes)) return e;
+  scatter_smem_kernel<<<dim3(F / kScatterFT, groups), rr * kScatterFT, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(offs), static_cast<const float*>(a),
+      static_cast<float*>(partial), nch, kch, rr, F, acc_rows, passes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// perm [nslabs] slab indices sorted stably by destination block, seg
+// [blocks + 1] each block's run in perm, a [nslabs, rr, F], acc
+// [blocks * rr, F] (every element written), over a grid of ctas CTAs
+int loops_scatter_l2(const void* perm, const void* seg, const void* a,
+                     void* acc, int blocks, int rr, int F, int passes,
+                     int ctas, void* stream) {
+  if (blocks <= 0 || rr <= 0 || passes < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_scatter_l2<128, 8, false>(perm, seg, a, acc, blocks, rr, F,
+                                          passes, ctas,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// shape sweep (timing only): the L2 scatter at feature tile ft, u slabs
+// in flight, streaming loads or not; the f32 dot at M = 64 with nt
+// columns a CTA
+int loops_scatter_l2_variant(const void* perm, const void* seg, const void* a,
+                             void* acc, int blocks, int rr, int F, int passes,
+                             int ctas, int ft, int u, int cs, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LOOPS_L2_CASE(FT_, U_)                                                 \
+  if (ft == FT_ && u == U_)                                                    \
+    return cs ? launch_scatter_l2<FT_, U_, true>(perm, seg, a, acc, blocks,   \
+                                                 rr, F, passes, ctas, s)      \
+              : launch_scatter_l2<FT_, U_, false>(perm, seg, a, acc, blocks,  \
+                                                  rr, F, passes, ctas, s);
+  LOOPS_L2_CASE(32, 4) LOOPS_L2_CASE(32, 8) LOOPS_L2_CASE(64, 4)
+  LOOPS_L2_CASE(64, 8) LOOPS_L2_CASE(128, 4) LOOPS_L2_CASE(128, 8)
+  LOOPS_L2_CASE(256, 4)
+#undef LOOPS_L2_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int loops_block_dot_f32_variant(const void* A, const void* B, void* partial,
+                                int nch, int M, int stream_b, int passes,
+                                int groups, int nt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 64 && nt == 128)
+    return launch_dot_f32<64, 128>(A, B, partial, nch, stream_b, passes, groups, s);
+  if (M == 64 && nt == 256)
+    return launch_dot_f32<64, 256>(A, B, partial, nch, stream_b, passes, groups, s);
+  if (M == 128 && nt == 128)
+    return launch_dot_f32<128, 128>(A, B, partial, nch, stream_b, passes, groups, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

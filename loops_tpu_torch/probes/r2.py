@@ -14,16 +14,22 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
   consumed: the result is the whole [M, 512] sum.
 - **scatter** (``scatter_probe``, ``:148``): KCH = 8 accumulates of an
   (R = 8, 512) slab per chunk into a resident accumulator at random
-  multiples of R; one thread per (row in block, feature), no atomics. The
-  TPU held [4096, 512] f32 in VMEM; a CTA holds K7's 256 x 64 in shared
-  memory (``smem=True``, 512 features as 8 column tiles), and the TPU's
-  [4096, 512] runs in device memory, where it lies in L2 (``smem=False``).
+  multiples of R, no atomics. The TPU held [4096, 512] f32 in VMEM; a CTA
+  holds K7's 256 x 64 in shared memory (``smem=True``, 512 features as 8
+  column tiles, one thread per (row in block, feature)), and the TPU's
+  [4096, 512] runs in device memory as a segment sum (``smem=False``):
+  ``scatter_plan`` sorts the slabs stably by destination block once, on
+  the host, and the kernel sums each block's slabs in that order, so each
+  output's terms keep the (pass, chunk, slab) order of a sequential loop
+  (``scatter_sequential``), bit for bit on any input.
 - **dispatch** (``dispatch_probe``, ``:200``): the host microseconds of one
   launch of K12 on [8, 128] through ``_build.launch`` (ctypes), beside
   ``torch.add`` on the same tensors.
 
 Checks: integer-valued inputs give exact sums in any order, so the dots
-and the scatter are held to their plain versions exactly on them. On the
+and the scatter are held to their plain versions exactly on them; the L2
+scatter is also held bit for bit to ``scatter_sequential`` on the
+script's normal inputs. On the
 script's normal inputs the dots are held to the plain version computed in
 float64 (``dot_reference``), per output within ``DOT_C`` units of ``u32
 sqrt(sum (a b)^2)`` (``sqrt(n) u32 rms|a b|`` over the n = 128 NCH terms;
@@ -61,6 +67,8 @@ MODES = ("f32", "bf16")
 KCH, RR, FT, NCH_SCATTER = 8, 8, 512, 512
 SMEM_ROWS, L2_ROWS = 256, 4096
 SMEM_FT = 64
+# the L2 scatter's feature tile (csrc/probes_r2.cu) and CTAs an SM
+L2_FT, L2_CTAS_PER_SM = 128, 8
 U32 = 2.0 ** -24
 # The dots' bound, in units of u32 sqrt(sum (a b)^2) per output: several
 # times the largest reading of the f32 and bf16 kernels on the card, and
@@ -102,10 +110,24 @@ def _dot_shapes(A, B, mode):
     return want, nch, B.dim() == 3
 
 
+def dot_grid(M: int, mode: str) -> tuple[int, int]:
+    """``(column tiles, CTAs per SM)`` of the dot kernel for ``M``
+    (``csrc/probes_r2.cu``): bf16 64 columns a CTA (256 at M = 8); f32 the
+    8 x 8 tiles' 128 columns at M = 128 and 256 at M = 64, two CTAs an SM,
+    and the one-row kernel's 128 at M = 8."""
+    if mode == "bf16":
+        return N // (64 if M >= 64 else 256), 4
+    if M == 8:
+        return N // 128, 4
+    return N // (128 if M == 128 else 256), 2
+
+
 def block_dot_cuda(A: torch.Tensor, B: torch.Tensor, mode: str = "f32",
-                   passes: int = 1) -> torch.Tensor:
+                   passes: int = 1, out=None) -> torch.Tensor:
     """Launch the block-dot probe: ``passes`` times the sum over chunks of
-    ``A[c] @ B`` (or ``B[c]``), [M, 512] f32."""
+    ``A[c] @ B`` (or ``B[c]``), [M, 512] f32, into ``out`` when given.
+    The CTAs' partial sums (a ``torch.empty`` the kernel fills) are added
+    in group order."""
     dev = A.device
     if dev.type != "cuda":
         raise ValueError(f"block_dot_cuda needs a CUDA tensor, got {dev}")
@@ -113,13 +135,13 @@ def block_dot_cuda(A: torch.Tensor, B: torch.Tensor, mode: str = "f32",
     _build.check(A, "A", want, dev)
     _build.check(B, "B", want, dev)
     M = A.shape[1]
-    grid_x = N // (64 if M >= 64 else 256) if mode == "bf16" else \
-        N // (64 if M >= 16 else 128)
-    groups = min(nch, -(-4 * _sms(dev) // grid_x))
+    o = _build.output(out, (M, N), dev)
+    grid_x, per_sm = dot_grid(M, mode)
+    groups = min(nch, -(-per_sm * _sms(dev) // grid_x))
     partial = torch.empty(groups, M, N, dtype=torch.float32, device=dev)
     _build.launch("loops_block_dot", f"block_dot_{mode}", dev, A, B, partial,
                   nch, M, int(stream_b), passes, groups, int(mode == "bf16"))
-    return partial.sum(0)
+    return torch.sum(partial, 0, out=o)
 
 
 def _chunk_sum(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -139,10 +161,10 @@ def block_dot_plain(A: torch.Tensor, B: torch.Tensor, mode: str = "f32",
     return acc
 
 
-def block_dot(A, B, mode="f32", passes=1) -> torch.Tensor:
+def block_dot(A, B, mode="f32", passes=1, out=None) -> torch.Tensor:
     if A.device.type == "cpu":
         return block_dot_plain(A, B, mode, passes)
-    return block_dot_cuda(A, B, mode, passes)
+    return block_dot_cuda(A, B, mode, passes, out)
 
 
 def block_dot_library(A, B_stacked) -> torch.Tensor:
@@ -253,45 +275,122 @@ def probe_dot(M, stream_b, mode, device, out=print, timed=True,
 
 # -------------------------------------------------------------- scatter
 def scatter_inputs(acc_rows: int, nch: int = NCH_SCATTER, kch: int = KCH,
-                   rr: int = RR, ft: int = FT):
+                   rr: int = RR, ft: int = FT, normal: bool = False):
     """``default_rng(2)`` as the script: block offsets in [0, acc_rows/R -
-    1), then the slabs [nch, kch * R, ft], here integers in [-8, 8]."""
+    1), then the slabs [nch, kch * R, ft], integers in [-8, 8] (exact
+    sums in any order), or with ``normal`` the script's own normal
+    draws."""
     rng = np.random.default_rng(2)
     offs = rng.integers(0, acc_rows // rr - 1, nch * kch).astype(np.int32)
-    a = rng.integers(-8, 9, size=(nch, kch * rr, ft)).astype(np.float32)
-    return offs, a
+    size = (nch, kch * rr, ft)
+    a = rng.normal(size=size) if normal else rng.integers(-8, 9, size=size)
+    return offs, a.astype(np.float32)
+
+
+def scatter_plan(offs, acc_rows: int, rr: int = RR
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The L2 scatter's plan from the slabs' block offsets (in (chunk,
+    slab) order): ``perm``, the slab indices sorted stably by destination
+    block, and ``seg``, where each block's run starts in ``perm``
+    (``acc_rows / rr + 1`` entries), both int32. Raises ``ValueError`` on
+    an offset past the accumulator."""
+    off = np.asarray(offs).astype(np.int64).reshape(-1)
+    if acc_rows % rr:
+        raise ValueError(f"{acc_rows} rows are not whole blocks of R={rr}")
+    blocks = acc_rows // rr
+    if off.size and (off.min() < 0 or off.max() >= blocks):
+        raise ValueError(f"block offsets must lie in [0, {blocks}), got "
+                         f"[{off.min()}, {off.max()}]")
+    perm = np.argsort(off, kind="stable")
+    seg = np.searchsorted(off[perm], np.arange(blocks + 1))
+    return perm.astype(np.int32), seg.astype(np.int32)
+
+
+def check_plan(b: dict, t: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged plan ``b`` is what the L2
+    scatter reads: contiguous int32 tensors on ``device`` of the plan's
+    sizes."""
+    _build.check(b["perm"], "perm", torch.int32, device, t["slabs"])
+    _build.check(b["seg"], "seg", torch.int32, device, t["blocks"] + 1)
+
+
+def scatter_l2_cuda(b: dict, a: torch.Tensor, t: dict, staged_on=None,
+                    passes: int = 1, out=None) -> torch.Tensor:
+    """Launch the L2 scatter on the staged plan ``b``: the accumulator
+    [acc_rows, F] after ``passes`` sweeps, into ``out`` when given (every
+    element written). ``staged_on``: the device on which ``check_plan``
+    has accepted ``b`` (at bind); it is then not checked again."""
+    if not a.is_cuda:
+        raise ValueError(f"scatter_l2_cuda needs a CUDA tensor, got "
+                         f"{a.device}")
+    dev = a.device if staged_on is None else staged_on
+    rr, F = t["rr"], a.shape[-1]
+    if a.dim() != 3 or a.shape[1] % rr or F % L2_FT or \
+            a.shape[0] * a.shape[1] // rr != t["slabs"]:
+        raise ValueError(f"scatter: slabs {tuple(a.shape)} for a plan of "
+                         f"{t['slabs']} slabs of R={rr} rows, F a multiple "
+                         f"of {L2_FT}")
+    _build.check(a, "a", torch.float32, dev)
+    if staged_on is None:
+        check_plan(b, t, dev)
+    o = _build.output(out, (t["blocks"] * rr, F), dev)
+    ctas = min(t["blocks"] * (F // L2_FT), L2_CTAS_PER_SM * _sms(dev))
+    _build.launch("loops_scatter_l2", "l2_scatter", dev, b["perm"], b["seg"],
+                  a, o, t["blocks"], rr, F, passes, ctas)
+    return o
+
+
+def l2_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
+    """Build ``(bufs, fn(bufs, a, passes=1, out=None))`` for the L2
+    scatter at the block offsets ``offs``: the plan (``scatter_plan``)
+    staged on ``device`` and checked there once (``_build.staged_guard``);
+    ``fn`` runs the kernel on CUDA tensors and ``scatter_plain`` on CPU
+    ones."""
+    device = ensure_platform(device)
+    off = offs.cpu().numpy() if isinstance(offs, torch.Tensor) else offs
+    perm, seg = scatter_plan(off, acc_rows, rr)
+    bufs = {"perm": torch.from_numpy(perm).to(device),
+            "seg": torch.from_numpy(seg).to(device)}
+    t = dict(slabs=len(perm), blocks=acc_rows // rr, rr=rr)
+    staged_on = _build.staged_guard(bufs, t, check_plan)
+    off_cpu = torch.from_numpy(np.asarray(off, np.int32))
+
+    def fn(b, a, passes=1, out=None):
+        if a.device.type == "cpu":
+            return scatter_plain(off_cpu, a, acc_rows, passes, rr)
+        return scatter_l2_cuda(b, a, t, staged_on(b), passes, out)
+    fn.staged_on = staged_on
+    fn.meta = dict(t)
+    return bufs, fn
 
 
 def scatter_cuda(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
                  smem: bool = True, passes: int = 1, rr: int = RR
                  ) -> torch.Tensor:
     """Launch the scatter probe: the accumulator [acc_rows, F] after
-    ``passes`` sweeps (shared memory: the sum of the CTAs' own)."""
+    ``passes`` sweeps (shared memory: the sum of the CTAs' own; L2: the
+    plan staged for this one call, see ``l2_scatter``)."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"scatter_cuda needs a CUDA tensor, got {dev}")
+    if not smem:
+        bufs, fn = l2_scatter(offs, acc_rows, rr, dev)
+        return fn(bufs, a, passes)
     nch, rows, F = a.shape
     kch = rows // rr
-    if rows % rr or acc_rows % rr or (smem and (F % SMEM_FT or rr * SMEM_FT
-                                                > 1024)):
+    if rows % rr or acc_rows % rr or F % SMEM_FT or rr * SMEM_FT > 1024:
         raise ValueError(f"scatter: slabs [{nch}, {rows}, {F}] with R={rr}, "
                          f"{acc_rows} rows")
-    if smem and acc_rows * SMEM_FT * 4 > 227 * 1024:
+    if acc_rows * SMEM_FT * 4 > 227 * 1024:
         raise ValueError(f"{acc_rows} x {SMEM_FT} f32 is past a CTA's 227 KB "
                          "of shared memory")
     _build.check(a, "a", torch.float32, dev)
     _build.check(offs, "offs", torch.int32, dev, nch * kch)
-    if smem:
-        groups = min(nch, max(1, 3 * _sms(dev) // (F // SMEM_FT)))
-        part = torch.empty(groups, acc_rows, F, dtype=torch.float32,
-                           device=dev)
-    else:
-        groups, part = 0, torch.empty(acc_rows, F, dtype=torch.float32,
-                                      device=dev)
-    _build.launch("loops_scatter_probe",
-                  "smem_scatter" if smem else "l2_scatter", dev, offs, a,
-                  part, nch, kch, rr, F, acc_rows, passes, groups, int(smem))
-    return part.sum(0) if smem else part
+    groups = min(nch, max(1, 3 * _sms(dev) // (F // SMEM_FT)))
+    part = torch.empty(groups, acc_rows, F, dtype=torch.float32, device=dev)
+    _build.launch("loops_scatter_smem", "smem_scatter", dev, offs, a, part,
+                  nch, kch, rr, F, acc_rows, passes, groups)
+    return part.sum(0)
 
 
 def scatter_plain(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
@@ -307,6 +406,21 @@ def scatter_plain(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
     return acc
 
 
+def scatter_sequential(offs, a, acc_rows: int, passes: int = 1,
+                       rr: int = RR) -> np.ndarray:
+    """The sequential loop in numpy f32: for each pass, chunk and slab in
+    order, its R rows added into the block at its offset. The order the
+    L2 scatter keeps: its result equals this bit for bit."""
+    off = np.asarray(offs).reshape(-1)
+    a = np.asarray(a, np.float32)
+    slabs = a.reshape(len(off), rr, a.shape[-1])
+    acc = np.zeros((acc_rows, a.shape[-1]), np.float32)
+    for _ in range(passes):
+        for s, o in enumerate(off):
+            acc[o * rr:(o + 1) * rr] += slabs[s]
+    return acc
+
+
 def scatter(offs, a, acc_rows, smem=True, passes=1) -> torch.Tensor:
     if a.device.type == "cpu":
         return scatter_plain(offs, a, acc_rows, passes)
@@ -315,17 +429,36 @@ def scatter(offs, a, acc_rows, smem=True, passes=1) -> torch.Tensor:
 
 def probe_scatter(smem: bool, device, out=print, timed=True,
                   nch: int = NCH_SCATTER) -> dict:
+    """Check one accumulator (exact on integer slabs; the L2 one also bit
+    for bit against ``scatter_sequential`` on the script's normal slabs,
+    over 1 and 3 passes), then time it by the slope over passes (2 and
+    10) beside its plain version (``index_add_``, also the library
+    call)."""
     acc_rows = SMEM_ROWS if smem else L2_ROWS
     offs, a = (torch.from_numpy(v).to(device)
                for v in scatter_inputs(acc_rows, nch))
-    err = hold(f"scatter {'smem' if smem else 'l2'}",
-               launch_twice(lambda: scatter(offs, a, acc_rows, smem)),
+    if smem:
+        run = lambda n: scatter(offs, a, acc_rows, True, n)  # noqa: E731
+    else:
+        plan, fn = l2_scatter(offs, acc_rows, device=device)
+        run = lambda n: fn(plan, a, n)  # noqa: E731
+    name = "smem_scatter" if smem else "l2_scatter"
+    err = hold(name, launch_twice(lambda: run(1)),
                scatter_plain(offs, a, acc_rows))
+    order = ""
+    if not smem:
+        offs_n, a_n = scatter_inputs(acc_rows, nch, normal=True)
+        an = torch.from_numpy(a_n).to(device)
+        for passes in (1, 3):
+            want = scatter_sequential(offs_n, a_n, acc_rows, passes)
+            hold(f"{name} normal, {passes} passes", fn(plan, an, passes),
+                 torch.from_numpy(want).to(device))
+        del an
+        order = "  sequential order bit for bit (normal, 1 and 3 passes)"
     ms = plain_ms = None
     if timed:
         cuda = a.is_cuda
-        ms = run_slope_ms(lambda n: scatter(offs, a, acc_rows, smem, n),
-                          2, 10, 3, cuda)
+        ms = run_slope_ms(run, 2, 10, 3, cuda)
         plain_ms = run_slope_ms(
             lambda n: scatter_plain(offs, a, acc_rows, n), 1, 3, 3, cuda)
     where = (f"smem acc [{acc_rows}x{SMEM_FT}] per CTA" if smem
@@ -334,12 +467,11 @@ def probe_scatter(smem: bool, device, out=print, timed=True,
     line = (f"scatter kch={KCH} R={RR} FT={FT} {where}: "
             + (f"{us:.3f} us/chunk ({us / KCH * 1e3:.1f} ns per (R,FT) "
                "add)" if timed else f"({nch} chunks)")
-            + "  exact=True")
+            + "  exact=True" + order)
     out(line)
     nbytes = 4 * (a.numel() + offs.numel() + acc_rows * FT)
-    return record("smem_scatter" if smem else "l2_scatter",
-                  "smem 256x64" if smem else "L2 4096x512", ms, plain_ms,
-                  plain_ms, nbytes, a.numel(), "f32", err, line)
+    return record(name, "smem 256x64" if smem else "L2 4096x512", ms,
+                  plain_ms, plain_ms, nbytes, a.numel(), "f32", err, line)
 
 
 # ------------------------------------------------------------- dispatch

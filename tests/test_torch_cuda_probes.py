@@ -11,7 +11,9 @@ imports neither JAX nor ``loops_tpu``; run it on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_probes.py
 
 Exact: saxpy, the scan on integer values, the constructs but ``dot0``, the
-gathers, the scatter, the one-hot expand, the dots on integer values. The
+gathers, the scatter, the one-hot expand, the dots on integer values; the
+L2 scatter also on normal values, bit for bit against the sequential
+(pass, chunk, slab) order computed on the CPU (``r2.scatter_sequential``). The
 scan on normal values at ``atol 1e-4`` and ``dot0`` at ``1e-5`` (the
 scripts' own); the dots on normal values within ``r2.DOT_C`` units of
 their float64 reference (``r2.hold_dot``), which a TF32 product fails.
@@ -169,6 +171,59 @@ def test_scatter(cuda_device, smem, nch):
     r2.hold(name, got, r2.scatter_plain(offs, a, rows))
     r2.hold(name, r2.scatter(offs, a, rows, smem, passes=2),
             r2.scatter_plain(offs, a, rows, passes=2))
+    if smem:
+        return
+    # normal values: the sequential order bit for bit, into a NaN-filled
+    # out= that the kernel writes in full
+    offs_n, a_n = r2.scatter_inputs(rows, nch, normal=True)
+    b, fn = r2.l2_scatter(offs_n, rows, device=cuda_device)
+    an = torch.from_numpy(a_n).to(cuda_device)
+    for passes in (1, 3):
+        out = torch.full((rows, r2.FT), float("nan"), device=cuda_device)
+        got = _counted(name, 1, lambda: fn(b, an, passes, out=out))
+        assert got is out
+        assert torch.equal(got.cpu(), torch.from_numpy(
+            r2.scatter_sequential(offs_n, a_n, rows, passes)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_blocks", "crowded", "F=128",
+                                  "F=256"])
+def test_l2_scatter_edge_plans(cuda_device, case):
+    """Blocks no slab hits (written as zeros), blocks of many slabs (past
+    the 8 in flight), and feature widths of one and two 128-feature
+    tiles."""
+    rng = np.random.default_rng(7)
+    rows, F = 512, 128
+    if case == "empty_blocks":
+        offs = rng.integers(0, 5, 16).astype(np.int32)
+    elif case == "crowded":
+        offs = rng.choice([0, 9, 63], size=40).astype(np.int32)
+    else:
+        F = int(case[2:])
+        offs = rng.integers(0, 64, 24).astype(np.int32)
+    a = rng.normal(size=(len(offs) // 8, 8 * r2.RR, F)).astype(np.float32)
+    b, fn = r2.l2_scatter(offs, rows, device=cuda_device)
+    ad = torch.from_numpy(a).to(cuda_device)
+    for passes in (0, 1, 3):
+        out = torch.full((rows, F), float("nan"), device=cuda_device)
+        fn(b, ad, passes, out=out)
+        assert torch.equal(out.cpu(), torch.from_numpy(
+            r2.scatter_sequential(offs, a, rows, passes)))
+    with pytest.raises(ValueError, match="multiple of"):
+        fn(b, torch.zeros(len(offs) // 8, 8 * r2.RR, 192,
+                          device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", r2.DOT_CASES)
+def test_block_dot_into_out(cuda_device, case):
+    """``out=`` takes the summed partials: a NaN-filled one is written in
+    full and equals a fresh result."""
+    A, B = r2._dot_tensors(*case, "f32", cuda_device, nch_rows=1024)
+    out = torch.full((case[0], 512), float("nan"), device=cuda_device)
+    got = r2.block_dot(A, B, "f32", 2, out=out)
+    assert got is out and torch.equal(out, r2.block_dot(A, B, "f32", 2))
 
 
 @pytest.mark.cuda

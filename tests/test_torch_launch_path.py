@@ -357,3 +357,31 @@ def test_k8_k10_check_every_staged_buffer(kernel, buf):
         bad[buf] = b[buf].double()
         with pytest.raises(ValueError, match=buf):
             check_staged(bad, params, CPU)
+
+
+@pytest.mark.parametrize("buf", ["perm", "seg"])
+@pytest.mark.parametrize("change", ["none", "resize", "set", "dtype",
+                                    "replaced"])
+def test_l2_scatter_checks_its_plan_once(change, buf):
+    # K14's L2 scatter checks its staged plan at bind; a call skips the
+    # check only for the very tensors checked then, none changed in place
+    # since, and the full check then refuses what changed
+    from loops_tpu_torch.probes import r2
+
+    offs, _ = r2.scatter_inputs(512, 4)
+    b, fn = r2.l2_scatter(offs, 512, device=CPU)
+    r2.check_plan(b, fn.meta, CPU)
+    if change == "resize":
+        b[buf].resize_(b[buf].numel() - 1)
+    elif change == "set":
+        b[buf].set_(torch.zeros(2, dtype=torch.int32))
+    elif change == "dtype":
+        b[buf] = b[buf].long()
+    elif change == "replaced":
+        b[buf] = b[buf].clone()
+    assert fn.staged_on(b) == (CPU if change == "none" else None)
+    if change in ("resize", "set", "dtype"):
+        with pytest.raises(ValueError, match=buf):
+            r2.check_plan(b, fn.meta, CPU)
+    else:
+        r2.check_plan(b, fn.meta, CPU)

@@ -19,9 +19,11 @@ on the same seeded inputs:
   plain versions are held to the kernels' outputs and to the scripts' own
   numpy checks (``np.take_along_axis``, ``sl[i0]``, ``win0[idx[0]]``).
 - Numpy mirrors of the CUDA kernels' thread-to-data maps: the warp scan
-  of ``csrc/seg_scan.cuh`` with its warp fold and carry, and the
+  of ``csrc/seg_scan.cuh`` with its warp fold and carry, the
   ``mma.sync`` / ``ldmatrix`` fragment layouts of the one-hot expand and
-  the bf16 block dot.
+  the bf16 block dot, the f32 block dot's 8 x 8 register tiles over
+  k-slices (and the one-row tile at M = 8), and the L2 scatter's plan
+  and segment walk, bit for bit against a sequential loop.
 """
 import ast
 import importlib.util
@@ -691,6 +693,185 @@ def test_block_dot_bf16_fragment_mirror():
             C[g, j * 8 + 2 * q:j * 8 + 2 * q + 2] = acc[j, t, :2]
             C[g + 8, j * 8 + 2 * q:j * 8 + 2 * q + 2] = acc[j, t, 2:]
     np.testing.assert_array_equal(C, A @ Bt)
+
+
+def _dot_f32_mirror(A, B, groups, passes=1):
+    """``block_dot_f32_kernel`` (M 64, 128) and ``block_dot_f32_rows_kernel``
+    (M 8) in numpy: each CTA (column tile x, group g) stages its k-slices
+    through the kernel's thread maps into shared-memory arrays started at
+    NaN, and each thread's register tile takes its products in (pass,
+    chunk, k) order. Asserts every slot of a stage is written once per
+    slice and every output of the [M, 512] tile by one thread; returns
+    the sum of the partials over g."""
+    nch, M, K = A.shape
+    N = 512
+    stream = B.ndim == 3
+    if M == 8:  # one row x 4 columns a thread; the whole chunk a step
+        NT, threads, KS = 128, 256, K
+        t = np.arange(threads)
+        rows = (t // 32)[:, None]
+        cols = 4 * (t % 32)[:, None] + np.arange(4)
+    else:
+        NT, KS = (128 if M == 128 else 256), 32
+        RG, CG = M // 8, NT // 8
+        threads, WR = RG * CG, RG // 4
+        t = np.arange(threads)
+        lane, warp = t & 31, t >> 5
+        rg = (warp % WR) * 4 + (lane & 3)
+        cg = (warp // WR) * 8 + (lane >> 2)
+        q4 = np.arange(4)
+        rows = np.concatenate([rg[:, None] * 4 + q4,
+                               M // 2 + rg[:, None] * 4 + q4], 1)
+        cols = np.concatenate([cg[:, None] * 4 + q4,
+                               NT // 2 + cg[:, None] * 4 + q4], 1)
+        # the A slice's float4s: row m, k-quad kq (a_slot)
+        idx = t[:, None] + threads * np.arange(M * KS // 4 // threads)
+        ln, w = idx & 31, idx >> 5
+        kq, m = (ln & 3) + 4 * (w & 1), (ln >> 2) + 8 * (w >> 1)
+        # the B slice's 16-byte copies
+        e = t[:, None] + threads * np.arange(KS * NT // 4 // threads)
+        bk, bq = e // (NT // 4), e % (NT // 4)
+    owned = np.zeros((M, NT), int)
+    np.add.at(owned, (rows[:, :, None], cols[:, None, :]), 1)
+    assert (owned == 1).all()
+    partial = np.zeros((groups, M, N), np.float32)
+    for x in range(N // NT):
+        n0 = x * NT
+        for g in range(groups):
+            mine = len(range(g, nch, groups))
+            acc = np.zeros((threads, rows.shape[1], cols.shape[1]),
+                           np.float32)
+            for it in range(passes * mine * (K // KS)):
+                c = g + groups * ((it // (K // KS)) % mine)
+                k0 = (it % (K // KS)) * KS
+                Bc = B[c] if stream else B
+                if M == 8:
+                    As, Bs = A[c].T, Bc[:, n0:n0 + NT]  # [k][m], [k][n]
+                else:
+                    As = np.full((KS, M), np.nan, np.float32)
+                    Bs = np.full((KS, NT), np.nan, np.float32)
+                    seen = np.zeros((KS, M), int)
+                    for i in range(m.shape[1]):
+                        for d in range(4):
+                            kk = 4 * kq[:, i] + d
+                            As[kk, m[:, i]] = A[c, m[:, i], k0 + kk]
+                            np.add.at(seen, (kk, m[:, i]), 1)
+                    assert (seen == 1).all()
+                    for i in range(bk.shape[1]):
+                        for d in range(4):
+                            Bs[bk[:, i], 4 * bq[:, i] + d] = \
+                                Bc[k0 + bk[:, i], n0 + 4 * bq[:, i] + d]
+                    assert not np.isnan(Bs).any()
+                for k in range(KS):
+                    acc += As[k][rows][:, :, None] * Bs[k][cols][:, None, :]
+            partial[g][rows[:, :, None], n0 + cols[:, None, :]] = acc
+    return partial.sum(0)
+
+
+@pytest.mark.parametrize("M,stream_b", r2.DOT_CASES)
+def test_block_dot_f32_tile_mirror(M, stream_b):
+    """Every output of each ``DOT_CASES`` shape is one thread's, every
+    slot of a stage is written once a slice, and the CTAs' tiles over
+    their chunks sum to the plain version exactly (integer inputs)."""
+    A, B = r2.dot_inputs(M, stream_b, integer=True, nch_rows=5 * M)
+    want = r2.block_dot_plain(_t(A), _t(B), passes=2).numpy()
+    for groups in (1, 2):  # a CTA of one chunk and of several
+        np.testing.assert_array_equal(_dot_f32_mirror(A, B, groups, 2), want)
+    grid_x, _ = r2.dot_grid(M, "f32")
+    assert grid_x == 512 // (128 if M in (8, 128) else 256)
+
+
+def _scatter_l2_mirror(offs, a, acc_rows, passes=1, ft=r2.L2_FT, u=8):
+    """``scatter_l2_kernel`` in numpy f32: the plan (``scatter_plan``),
+    then CTA (block, feature tile), thread (j, q) summing its float4 over
+    the block's run of ``perm`` in groups of ``u`` slabs; every output
+    written by one thread, into an accumulator started at NaN."""
+    nch, rows, F = a.shape
+    rr = r2.RR
+    perm, seg = r2.scatter_plan(offs, acc_rows)
+    slabs = a.reshape(-1, rr, F)
+    acc = np.full((acc_rows, F), np.nan, np.float32)
+    owned = np.zeros((acc_rows, F), int)
+    t = np.arange(rr * ft // 4)
+    j, q = t // (ft // 4), t % (ft // 4)
+    for blk in range(acc_rows // rr):
+        for y in range(F // ft):
+            f = y * ft + 4 * q[:, None] + np.arange(4)   # [threads, 4]
+            s = np.zeros((len(t), 4), np.float32)
+            for _ in range(passes):
+                k = seg[blk]
+                while k < seg[blk + 1]:
+                    group = perm[k:min(k + u, seg[blk + 1])]
+                    v = [slabs[p][j[:, None], f] for p in group]  # loads
+                    for x in v:                                  # adds
+                        s += x
+                    k += len(group)
+            acc[blk * rr + j[:, None], f] = s
+            np.add.at(owned, (blk * rr + j[:, None], f), 1)
+    assert (owned == 1).all()
+    return acc
+
+
+def _scatter_cases():
+    # the quick size; offsets that leave most blocks empty; a few blocks
+    # that take many slabs each
+    yield "quick", r2.scatter_inputs(r2.L2_ROWS, r2.NCH_SCATTER // 32,
+                                     normal=True)
+    offs, a = r2.scatter_inputs(512, 2, normal=True)
+    yield "sparse", (offs, a)
+    rng = np.random.default_rng(5)
+    offs = rng.choice([0, 3, 62], size=24).astype(np.int32)
+    yield "crowded", (offs, rng.normal(size=(3, 64, 128)).astype(np.float32))
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("case", ["quick", "sparse", "crowded"])
+def test_scatter_l2_plan_mirror(case, passes):
+    """The segment walk over the stably sorted plan equals the sequential
+    (pass, chunk, slab) loop bit for bit on normal-valued slabs."""
+    offs, a = dict(_scatter_cases())[case]
+    acc_rows = {"quick": r2.L2_ROWS, "sparse": 512, "crowded": 512}[case]
+    perm, seg = r2.scatter_plan(offs, acc_rows)
+    counts = np.diff(seg)
+    if case == "sparse":
+        assert (counts == 0).sum() > len(counts) // 2
+    if case == "crowded":
+        assert counts.max() > 8
+    got = _scatter_l2_mirror(offs, a, acc_rows, passes)
+    want = r2.scatter_sequential(offs, a, acc_rows, passes)
+    np.testing.assert_array_equal(got, want)
+    # a block no slab hits is written as zeros
+    empty = np.flatnonzero(counts == 0)
+    assert (got.reshape(-1, r2.RR, a.shape[-1])[empty] == 0).all()
+    # and the plain version (index_add_ on the CPU) takes the same order
+    np.testing.assert_array_equal(
+        r2.scatter_plain(_t(offs), _t(a), acc_rows, passes).numpy(), want)
+
+
+def test_scatter_plan_is_a_stable_sort_with_its_runs():
+    offs = np.array([2, 0, 2, 1, 0, 2], np.int32)
+    perm, seg = r2.scatter_plan(offs, 4 * r2.RR)
+    assert perm.tolist() == [1, 4, 3, 0, 2, 5]
+    assert seg.tolist() == [0, 2, 3, 6, 6]
+    assert perm.dtype == seg.dtype == np.int32
+    for bad in (np.array([0, 4], np.int32), np.array([-1], np.int32)):
+        with pytest.raises(ValueError, match="offsets"):
+            r2.scatter_plan(bad, 4 * r2.RR)
+    with pytest.raises(ValueError, match="blocks"):
+        r2.scatter_plan(offs, 4 * r2.RR + 1)
+
+
+def test_l2_scatter_binds_on_the_cpu():
+    offs, a = r2.scatter_inputs(512, 4, normal=True)
+    bufs, fn = r2.l2_scatter(offs, 512, device=CPU)
+    assert sorted(bufs) == ["perm", "seg"]
+    assert fn.meta == dict(slabs=32, blocks=64, rr=r2.RR)
+    assert fn.staged_on(bufs) == CPU
+    got = fn(bufs, _t(a), 2)
+    np.testing.assert_array_equal(got.numpy(), r2.scatter_sequential(
+        offs, a, 512, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        r2.scatter_l2_cuda(bufs, _t(a), fn.meta)
 
 
 # ------------------------------------------------- timing and the CLIs
