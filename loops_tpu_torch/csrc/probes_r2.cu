@@ -451,7 +451,7 @@ scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
 // (67 MB, past the L2) has gone by: the slope over passes is the cost of
 // one sweep. Pass 0 starts each output at 0; a later pass carries it on
 // from acc, where the same thread left it. passes = 0 writes zeros.
-template <int FT, int U, bool kStreaming>
+template <int FT, int U>
 __global__ void __launch_bounds__(1024)
 scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
                   const float* __restrict__ a, float* __restrict__ acc,
@@ -460,8 +460,7 @@ scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
   const int j = threadIdx.x / (FT / 4), q = threadIdx.x % (FT / 4);
   const size_t slab = static_cast<size_t>(rr) * F;  // floats a slab
   auto load = [&](const float* p) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    return kStreaming ? __ldcs(p4) : __ldg(p4);
+    return __ldg(reinterpret_cast<const float4*>(p));
   };
   for (int pass = 0; pass < (passes > 0 ? passes : 1); ++pass) {
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -497,14 +496,14 @@ scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
   }
 }
 
-template <int FT, int U, bool kStreaming>
+template <int FT, int U>
 int launch_scatter_l2(const void* perm, const void* seg, const void* a,
                       void* acc, int blocks, int rr, int F, int passes,
                       int ctas, cudaStream_t s) {
   if (F % FT || rr * FT / 4 > 1024 || ctas <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  scatter_l2_kernel<FT, U, kStreaming><<<ctas, rr * FT / 4, 0, s>>>(
+  scatter_l2_kernel<FT, U><<<ctas, rr * FT / 4, 0, s>>>(
       static_cast<const int*>(perm), static_cast<const int*>(seg),
       static_cast<const float*>(a), static_cast<float*>(acc), blocks, rr, F,
       passes);
@@ -559,42 +558,8 @@ int loops_scatter_l2(const void* perm, const void* seg, const void* a,
   if (blocks <= 0 || rr <= 0 || passes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_scatter_l2<128, 8, false>(perm, seg, a, acc, blocks, rr, F,
-                                          passes, ctas,
-                                          static_cast<cudaStream_t>(stream));
-}
-
-// shape sweep (timing only): the L2 scatter at feature tile ft, u slabs
-// in flight, streaming loads or not; the f32 dot at M = 64 with nt
-// columns a CTA
-int loops_scatter_l2_variant(const void* perm, const void* seg, const void* a,
-                             void* acc, int blocks, int rr, int F, int passes,
-                             int ctas, int ft, int u, int cs, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LOOPS_L2_CASE(FT_, U_)                                                 \
-  if (ft == FT_ && u == U_)                                                    \
-    return cs ? launch_scatter_l2<FT_, U_, true>(perm, seg, a, acc, blocks,   \
-                                                 rr, F, passes, ctas, s)      \
-              : launch_scatter_l2<FT_, U_, false>(perm, seg, a, acc, blocks,  \
-                                                  rr, F, passes, ctas, s);
-  LOOPS_L2_CASE(32, 4) LOOPS_L2_CASE(32, 8) LOOPS_L2_CASE(64, 4)
-  LOOPS_L2_CASE(64, 8) LOOPS_L2_CASE(128, 4) LOOPS_L2_CASE(128, 8)
-  LOOPS_L2_CASE(256, 4)
-#undef LOOPS_L2_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int loops_block_dot_f32_variant(const void* A, const void* B, void* partial,
-                                int nch, int M, int stream_b, int passes,
-                                int groups, int nt, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M == 64 && nt == 128)
-    return launch_dot_f32<64, 128>(A, B, partial, nch, stream_b, passes, groups, s);
-  if (M == 64 && nt == 256)
-    return launch_dot_f32<64, 256>(A, B, partial, nch, stream_b, passes, groups, s);
-  if (M == 128 && nt == 128)
-    return launch_dot_f32<128, 128>(A, B, partial, nch, stream_b, passes, groups, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_scatter_l2<128, 8>(perm, seg, a, acc, blocks, rr, F, passes,
+                                   ctas, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -72,8 +72,6 @@ _SIGNATURES = {
     "loops_block_dot": [_P] * 3 + [_I] * 6 + [_P],
     "loops_scatter_smem": [_P] * 3 + [_I] * 7 + [_P],
     "loops_scatter_l2": [_P] * 4 + [_I] * 5 + [_P],
-    "loops_scatter_l2_variant": [_P] * 4 + [_I] * 8 + [_P],
-    "loops_block_dot_f32_variant": [_P] * 3 + [_I] * 6 + [_P],
     "loops_gather_axis0": [_P] * 3 + [_I] * 4 + [_P],
     "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],
     "loops_row_gather": [_P] * 3 + [_I] * 7 + [_P],
