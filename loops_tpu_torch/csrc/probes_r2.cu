@@ -13,13 +13,14 @@
 //   kept an [8, 128] corner; on the card a corner alone would let the
 //   compiler drop the rest.)
 //   * f32, M = 64 and 128 (block_dot_f32_kernel): IEEE fmaf on the CUDA
-//     cores, the unit of K7 and K9; bound by 67 TFLOP/s. What held the
-//     first design back was shared memory, not the FMAs: 8 scalar A loads
-//     and one float4 B load per 32 FMAs. Here each thread keeps an 8 x 8
-//     register tile (rows rg*4.. and M/2 + rg*4.., columns cg*4.. and
-//     NT/2 + cg*4..), and A is stored k-major in shared memory, so one k
-//     costs two float4 loads of A and two of B for 64 FMAs; a warp's
-//     loads cover 64 and 128 contiguous bytes (one wavefront each). A
+//     cores, the unit of K7 and K9; bound by 67 TFLOP/s, which the FMAs
+//     reach only while shared loads issue well below them (one
+//     shared-load wavefront a clock against four FMA instructions). So
+//     each thread keeps an 8 x 8 register tile (rows rg*4.. and
+//     M/2 + rg*4.., columns cg*4.. and NT/2 + cg*4..), and A is stored
+//     k-major in shared memory: one k costs two float4 loads of A and two
+//     of B for 64 FMAs, and a warp's loads cover 64 and 128 contiguous
+//     bytes (one wavefront each). A
 //     chunk runs as 4 k-slices of 32 through a ring of two stages: the
 //     next slice's B comes by cp.async and its A into registers (then
 //     transposed into its stage) while the current slice's FMAs run, one
@@ -57,8 +58,8 @@
 //     flight, and writes it once a pass (zeros for a block no slab hits).
 //     The stable sort keeps each output's terms in (pass, chunk, slab)
 //     order. Bound: reading the 67 MB of slabs, past the 50 MB L2, from
-//     device memory. (The first design gave one thread each (j, f), 4096
-//     threads on 16 of 132 SMs, each walking all 4096 slabs.)
+//     device memory; every SM streams them, 2048 threads an SM with 8
+//     loads in flight each.
 //
 // C entry points return cudaGetLastError().
 #include <cstdint>

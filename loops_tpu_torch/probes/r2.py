@@ -29,13 +29,13 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
 Checks: integer-valued inputs give exact sums in any order, so the dots
 and the scatter are held to their plain versions exactly on them; the L2
 scatter is also held bit for bit to ``scatter_sequential`` on the
-script's normal inputs. On the
-script's normal inputs the dots are held to the plain version computed in
-float64 (``dot_reference``), per output within ``DOT_C`` units of ``u32
-sqrt(sum (a b)^2)`` (``sqrt(n) u32 rms|a b|`` over the n = 128 NCH terms;
-bf16 products are exact in f32). That is a statistical bound: an IEEE f32
-sum of random terms stays within it, while rounding the operands to TF32
-(10 mantissa bits) moves an output by about 6,700 units rms.
+script's normal inputs. On those the dots are held to the plain version
+computed in float64 (``dot_reference``), per output within ``DOT_C``
+units of ``u32 sqrt(sum (a b)^2)`` (``sqrt(n) u32 rms|a b|`` over the n
+= 128 NCH terms; bf16 products are exact in f32). That is a statistical
+bound: an IEEE f32 sum of random terms stays within it, while rounding
+the operands to TF32 (10 mantissa bits) moves an output by about 6,700
+units rms.
 """
 from __future__ import annotations
 
@@ -437,11 +437,11 @@ def probe_scatter(smem: bool, device, out=print, timed=True,
     acc_rows = SMEM_ROWS if smem else L2_ROWS
     offs, a = (torch.from_numpy(v).to(device)
                for v in scatter_inputs(acc_rows, nch))
-    if smem:
-        run = lambda n: scatter(offs, a, acc_rows, True, n)  # noqa: E731
-    else:
-        plan, fn = l2_scatter(offs, acc_rows, device=device)
-        run = lambda n: fn(plan, a, n)  # noqa: E731
+    plan, fn = (None, None) if smem else l2_scatter(offs, acc_rows,
+                                                     device=device)
+
+    def run(n):
+        return scatter(offs, a, acc_rows, True, n) if smem else fn(plan, a, n)
     name = "smem_scatter" if smem else "l2_scatter"
     err = hold(name, launch_twice(lambda: run(1)),
                scatter_plain(offs, a, acc_rows))
