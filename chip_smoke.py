@@ -58,7 +58,8 @@ Phases, one line each with its time:
    around each call, median), a ``torch.profiler`` breakdown of a step
    and an ``evaluate`` (read only where the trace holds every launch the
    counters saw, else "not measured"), and the step's card time by
-   ``utils/bench.device_ms`` with its idle share;
+   ``utils/bench.device_ms`` beside ``apply_ms`` of the same calls
+   queued, and the share in which the card waits;
 11. K6–K9 vs plain: K6 (``bcsr_spmv``), K9 (``bcsr_spmm``), K8
    (``bcsr_spmm_v2``) and K7 (``bcsr_spmm_v3``) against their plain PyTorch
    versions on the same staged buffers: the five matrices of
@@ -110,7 +111,8 @@ Phases, one line each with its time:
    vals, timed only), the host staging time, the bound at the nominal and
    the measured rate, a ``torch.profiler`` breakdown of one apply (or "not
    measured") and the apply's card time by ``utils/bench.device_ms``
-   with its idle share;
+   beside ``apply_ms`` of the same calls queued, and the share in which
+   the card waits;
 18. K12 and K2 vs plain: K12 (``saxpy``) bitwise against ``a * x + y``
    at the example's [8, 8192], at odd sizes and on an unaligned view; K2
    against its plain version again, its scan now in
@@ -129,7 +131,8 @@ Phases, one line each with its time:
    of their float64 reference, ``l2_scatter`` on the script's normal
    values bit for bit against the sequential (pass, chunk, slab) order
    computed on the CPU (1 and 3 passes); two launches bitwise equal.
-   Then it times each by slope (launches or passes) beside its plain
+   Then it times each by slope (launches or passes; the scatters by one
+   pass from an empty L2, as their byte bounds assume) beside its plain
    version and its library call, and prints the two kernels redesigned
    last (``l2_scatter``, ``block_dot_f32``) against ``index_add_`` and
    ``torch.matmul``. The launch counters are set to 0 before and read
@@ -305,16 +308,18 @@ def profile_text(r, top, width=40):
                         for name, n, ms in r["kernels"][:top]))
 
 
-def card_text(fn, x, wall_ms):
+def card_text(fn, x):
     """The card's own ms per ``fn(x)`` (``utils/bench.device_ms``: calls
-    queued behind a sleep kernel) beside ``wall_ms``, one call's time
-    measured apart, and the share of it in which the card waits: a
-    device time that no dropped trace event can shorten."""
-    from loops_tpu_torch.utils.bench import device_ms
+    queued behind a sleep kernel) beside the ms per call of the same calls
+    queued back to back (``apply_ms``), and the share of the latter in
+    which the card waits for the host: a device time that no dropped
+    trace event can shorten. A negative share shows the pair disagrees."""
+    from loops_tpu_torch.utils.bench import apply_ms, device_ms
 
     card = device_ms(fn, x, applies=10)
-    return (f"card {card:.4f} ms (device_ms), wall {wall_ms:.4f} ms, idle "
-            f"{max(0.0, 1 - card / wall_ms):.1%}")
+    queued = apply_ms(fn, x, iters=10)
+    return (f"card {card:.4f} ms (device_ms), queued {queued:.4f} ms "
+            f"(apply_ms), card waits {1 - card / queued:.1%}")
 
 
 def pair_tolerance(csr, x):
@@ -1357,7 +1362,7 @@ def sddmm_phases(device, smi, adj, rate):
               f"  [{smi}]")
         r = profile_applies(kernel, Ad, applies=10, warmup=2)
         print(f"  profile {kname} {label}: {profile_text(r, 4)}")
-        print(f"  {kname} {label}: {card_text(kernel, Ad, ms)}  [{smi}]")
+        print(f"  {kname} {label}: {card_text(kernel, Ad)}  [{smi}]")
         del Ad, Bd
         torch.cuda.empty_cache()
     phase(17, "SDDMM timing (CUDA events, median per apply)", t0)
@@ -1436,8 +1441,8 @@ def probe_phases(device, smi, rate):
     status, recs = mod.main(["--device", "cuda"],
                             out=lambda ln: print(f"  h100_probes: {ln}"))
     require(status == 0, "scripts/h100_probes.py failed")
-    require(any(r["name"] == "l2_scatter" and "sequential order bit for "
-                "bit" in r["line"] for r in recs),
+    require(any(r["name"] == "l2_scatter" and r.get("order_checked")
+                for r in recs),
             "l2_scatter was not held to the sequential order")
     launches = dict(_build.LAUNCHES)
     for k in PROBE_KERNELS:
@@ -1498,10 +1503,11 @@ def probe_phases(device, smi, rate):
               + f"; bound {b_ms:.4f} ms ({b_by}) nominal, {m_ms:.4f} ms "
               f"({m_by}) at the measured stream; {b_ms / rec['ms']:.1%} of "
               f"the nominal bound  [{smi}]")
-    for k, lib in (("l2_scatter", "index_add_"),
-                   ("block_dot_f32", "torch.matmul, TF32 off")):
+    for k, how, lib in (
+            ("l2_scatter", "one pass from an empty L2", "index_add_"),
+            ("block_dot_f32", "per pass", "torch.matmul, TF32 off")):
         rec = entries[k]
-        print(f"  {k} ({rec['label']}): {rec['ms']:.4f} ms per pass, {lib} "
+        print(f"  {k} ({rec['label']}): {rec['ms']:.4f} ms {how}, {lib} "
               f"{rec['library_ms']:.4f} ms in this run: "
               f"{rec['library_ms'] / rec['ms']:.2f}x  [{smi}]")
     torch.cuda.empty_cache()
@@ -1904,7 +1910,7 @@ def main() -> int:
         r = profile_applies(fn, Bd, applies=10, warmup=2)
         print(f"  profile {label}: {profile_text(r, 8, width=48)}")
     # (evaluate ends in a host sync: the card alone is not measurable so)
-    print(f"  throughput-form step: {card_text(lambda _: step(), Bd, ms_fast)}"
+    print(f"  throughput-form step: {card_text(lambda _: step(), Bd)}"
           f"  [{smi}]")
     phase(10, "GCN timing (CUDA events, median)", t0)
     del model, ref, fast, slow, step, step_f32, on_card, Bd

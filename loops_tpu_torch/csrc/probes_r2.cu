@@ -57,9 +57,10 @@
 //     registers over the block's slabs, 16-byte loads with 8 slabs in
 //     flight, and writes it once a pass (zeros for a block no slab hits).
 //     The stable sort keeps each output's terms in (pass, chunk, slab)
-//     order. Bound: reading the 67 MB of slabs, past the 50 MB L2, from
-//     device memory; every SM streams them, 2048 threads an SM with 8
-//     loads in flight each.
+//     order. Bound: reading the 67 MB of slabs from device memory, which
+//     is what one pass does when the L2 holds none of them (the probe
+//     times it so, the L2 emptied first); every SM streams them, 2048
+//     threads an SM with 8 loads in flight each.
 //
 // C entry points return cudaGetLastError().
 #include <cstdint>
@@ -448,10 +449,11 @@ scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
 // A persistent grid over the items (destination block, feature tile),
 // item = blk * tiles + tile: thread (j, q) of a CTA takes the float4 at
 // row j, features 4q.. of the tile of each of its items. Each pass walks
-// all the CTA's items, so a slab is read again only after a whole sweep
-// (67 MB, past the L2) has gone by: the slope over passes is the cost of
-// one sweep. Pass 0 starts each output at 0; a later pass carries it on
-// from acc, where the same thread left it. passes = 0 writes zeros.
+// all the CTA's items, so a slab is read again only after the rest of a
+// sweep (67 MB) has gone by; the L2 (50 MB) still holds part of it then,
+// so a later pass reads less from device memory than the first. Pass 0
+// starts each output at 0; a later pass carries it on from acc, where the
+// same thread left it. passes >= 1 (the wrapper writes zeros for 0).
 template <int FT, int U>
 __global__ void __launch_bounds__(1024)
 scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
@@ -463,7 +465,7 @@ scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
   auto load = [&](const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
   };
-  for (int pass = 0; pass < (passes > 0 ? passes : 1); ++pass) {
+  for (int pass = 0; pass < passes; ++pass) {
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int blk = item / tiles;
       const int f = (item % tiles) * FT + 4 * q;
@@ -471,7 +473,7 @@ scatter_l2_kernel(const int* __restrict__ perm, const int* __restrict__ seg,
           acc + (static_cast<size_t>(blk) * rr + j) * F + f);
       float4 sum = pass == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
       const float* src = a + static_cast<size_t>(j) * F + f;
-      const int s1 = passes > 0 ? seg[blk + 1] : seg[blk];
+      const int s1 = seg[blk + 1];
       int k = seg[blk];
       for (; k + U <= s1; k += U) {  // U slabs in flight, added in order
         float4 v[U];
@@ -556,7 +558,7 @@ int loops_scatter_smem(const void* offs, const void* a, void* partial, int nch,
 int loops_scatter_l2(const void* perm, const void* seg, const void* a,
                      void* acc, int blocks, int rr, int F, int passes,
                      int ctas, void* stream) {
-  if (blocks <= 0 || rr <= 0 || passes < 0) {
+  if (blocks <= 0 || rr <= 0 || passes <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_scatter_l2<128, 8>(perm, seg, a, acc, blocks, rr, F, passes,

@@ -21,7 +21,11 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
   ``scatter_plan`` sorts the slabs stably by destination block once, on
   the host, and the kernel sums each block's slabs in that order, so each
   output's terms keep the (pass, chunk, slab) order of a sequential loop
-  (``scatter_sequential``), bit for bit on any input.
+  (``scatter_sequential``), bit for bit on any input. Both accumulators
+  are timed by one pass with the L2 emptied first (``utils/bench.
+  cold_ms``): their bound charges all 67 MB of slabs at device memory's
+  rate, and a later pass of a run finds part of them still in the 50 MB
+  L2 (the slope over passes is printed beside, as the warm time).
 - **dispatch** (``dispatch_probe``, ``:200``): the host microseconds of one
   launch of K12 on [8, 128] through ``_build.launch`` (ctypes), beside
   ``torch.add`` on the same tensors.
@@ -54,7 +58,7 @@ from loops_tpu_torch.probes.common import (
     record,
     sync,
 )
-from loops_tpu_torch.utils.bench import run_slope_ms
+from loops_tpu_torch.utils.bench import cold_ms, run_slope_ms
 from loops_tpu_torch.utils.platform import ensure_platform
 from loops_tpu_torch.utils.stream import pass_ms, stream_input
 
@@ -334,6 +338,8 @@ def scatter_l2_cuda(b: dict, a: torch.Tensor, t: dict, staged_on=None,
     if staged_on is None:
         check_plan(b, t, dev)
     o = _build.output(out, (t["blocks"] * rr, F), dev)
+    if passes == 0:
+        return o.zero_()
     ctas = min(t["blocks"] * (F // L2_FT), L2_CTAS_PER_SM * _sms(dev))
     _build.launch("loops_scatter_l2", "l2_scatter", dev, b["perm"], b["seg"],
                   a, o, t["blocks"], rr, F, passes, ctas)
@@ -365,17 +371,12 @@ def l2_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
 
 
 def scatter_cuda(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
-                 smem: bool = True, passes: int = 1, rr: int = RR
-                 ) -> torch.Tensor:
-    """Launch the scatter probe: the accumulator [acc_rows, F] after
-    ``passes`` sweeps (shared memory: the sum of the CTAs' own; L2: the
-    plan staged for this one call, see ``l2_scatter``)."""
+                 passes: int = 1, rr: int = RR) -> torch.Tensor:
+    """Launch the shared-memory scatter: the accumulator [acc_rows, F]
+    after ``passes`` sweeps, the sum of the CTAs' own."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"scatter_cuda needs a CUDA tensor, got {dev}")
-    if not smem:
-        bufs, fn = l2_scatter(offs, acc_rows, rr, dev)
-        return fn(bufs, a, passes)
     nch, rows, F = a.shape
     kch = rows // rr
     if rows % rr or acc_rows % rr or F % SMEM_FT or rr * SMEM_FT > 1024:
@@ -422,18 +423,25 @@ def scatter_sequential(offs, a, acc_rows: int, passes: int = 1,
 
 
 def scatter(offs, a, acc_rows, smem=True, passes=1) -> torch.Tensor:
+    """One call of either accumulator (the L2 one through ``l2_scatter``,
+    its plan staged for this call); the plain version on CPU tensors."""
     if a.device.type == "cpu":
         return scatter_plain(offs, a, acc_rows, passes)
-    return scatter_cuda(offs, a, acc_rows, smem, passes)
+    if smem:
+        return scatter_cuda(offs, a, acc_rows, passes)
+    bufs, fn = l2_scatter(offs, acc_rows, device=a.device)
+    return fn(bufs, a, passes)
 
 
 def probe_scatter(smem: bool, device, out=print, timed=True,
                   nch: int = NCH_SCATTER) -> dict:
     """Check one accumulator (exact on integer slabs; the L2 one also bit
     for bit against ``scatter_sequential`` on the script's normal slabs,
-    over 1 and 3 passes), then time it by the slope over passes (2 and
-    10) beside its plain version (``index_add_``, also the library
-    call)."""
+    over 1 and 3 passes, and its record then has ``order_checked``), then
+    time one pass with the L2 emptied first (``cold_ms``) beside its plain
+    version and the library call (``index_add_`` into a zeroed
+    accumulator), and the slope over passes 2 and 10 (warm: part of the
+    slabs still in the L2 from the pass before)."""
     acc_rows = SMEM_ROWS if smem else L2_ROWS
     offs, a = (torch.from_numpy(v).to(device)
                for v in scatter_inputs(acc_rows, nch))
@@ -455,23 +463,32 @@ def probe_scatter(smem: bool, device, out=print, timed=True,
                  torch.from_numpy(want).to(device))
         del an
         order = "  sequential order bit for bit (normal, 1 and 3 passes)"
-    ms = plain_ms = None
+    ms = plain_ms = lib_ms = warm = None
     if timed:
-        cuda = a.is_cuda
-        ms = run_slope_ms(run, 2, 10, 3, cuda)
-        plain_ms = run_slope_ms(
-            lambda n: scatter_plain(offs, a, acc_rows, n), 1, 3, 3, cuda)
+        ms = cold_ms(lambda: run(1), device)
+        plain_ms = cold_ms(lambda: scatter_plain(offs, a, acc_rows), device)
+        rows = (offs.long()[:, None] * RR
+                + torch.arange(RR, device=a.device)).reshape(-1)
+        acc, flat = a.new_zeros(acc_rows, FT), a.reshape(-1, FT)
+        lib_ms = cold_ms(lambda: acc.index_add_(0, rows, flat), device)
+        del acc, rows
+        warm = run_slope_ms(run, 2, 10, 3, a.is_cuda)
     where = (f"smem acc [{acc_rows}x{SMEM_FT}] per CTA" if smem
              else f"L2 acc [{acc_rows}x{FT}] in device memory")
     us = ms * 1e3 / nch if timed else None
     line = (f"scatter kch={KCH} R={RR} FT={FT} {where}: "
             + (f"{us:.3f} us/chunk ({us / KCH * 1e3:.1f} ns per (R,FT) "
-               "add)" if timed else f"({nch} chunks)")
+               f"add), one pass from an empty L2 {ms:.4f} ms, warm "
+               f"{warm:.4f} ms a pass (slope over passes)" if timed
+               else f"({nch} chunks)")
             + "  exact=True" + order)
     out(line)
     nbytes = 4 * (a.numel() + offs.numel() + acc_rows * FT)
-    return record(name, "smem 256x64" if smem else "L2 4096x512", ms,
-                  plain_ms, plain_ms, nbytes, a.numel(), "f32", err, line)
+    rec = record(name, "smem 256x64" if smem else "L2 4096x512", ms,
+                 plain_ms, lib_ms, nbytes, a.numel(), "f32", err, line)
+    if not smem:
+        rec["order_checked"] = True
+    return rec
 
 
 # ------------------------------------------------------------- dispatch

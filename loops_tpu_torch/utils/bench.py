@@ -21,6 +21,11 @@ run with no gap between them. ``1 - device_ms / apply_ms`` is then the
 share of an apply in which the card waits for the host. ``host_us`` times
 the host's side of a call the same way, with the card held so that it
 never makes the host wait.
+
+``cold_ms`` times one call whose operands would otherwise sit in the L2
+from the call before: each call follows a write of ``FLUSH_BYTES`` and a
+read of as many from a second buffer, and the events bracket the call
+alone.
 """
 from __future__ import annotations
 
@@ -139,3 +144,40 @@ def host_us(fn, calls: int = 100, repeats: int = 5) -> float:
     if cuda:
         torch.cuda.synchronize()
     return float(statistics.median(runs))
+
+
+# bytes a flush writes and then reads: over twice the H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+
+
+def cold_ms(fn, device, repeats: int = 5,
+            flush_bytes: int = FLUSH_BYTES) -> float:
+    """Median over ``repeats`` of the milliseconds of one ``fn()`` with
+    the L2 emptied of its operands first: a write of ``flush_bytes``, then
+    a read of as many from a second buffer, so that the L2 holds clean
+    lines of the flush alone and none is written back while ``fn`` runs.
+    CUDA events bracket ``fn`` alone; on the CPU the host clock times it,
+    with no flush."""
+    fn()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        n = flush_bytes // 4
+        dirty = torch.empty(n, device=device)
+        clean = torch.ones(n, device=device)
+    samples = []
+    for _ in range(repeats):
+        if not cuda:
+            h0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - h0) * 1e3)
+            continue
+        dirty.fill_(0.0)
+        clean.sum()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        samples.append(t0.elapsed_time(t1))
+    return float(statistics.median(samples))

@@ -301,7 +301,7 @@ def test_wrappers_check_inputs(cuda_device):
                           torch.ones(128, 512, device=dev))
     with pytest.raises(ValueError, match="227 KB"):
         r2.scatter_cuda(torch.zeros(8, dtype=torch.int32, device=dev),
-                        torch.ones(1, 64, 512, device=dev), 4096, smem=True)
+                        torch.ones(1, 64, 512, device=dev), 4096)
     src = torch.ones(8, 128, device=dev)
     with pytest.raises(ValueError, match="dtype"):
         gather.gather_axis0_cuda(src, torch.zeros(8, 128, device=dev))

@@ -874,7 +874,26 @@ def test_l2_scatter_binds_on_the_cpu():
         r2.scatter_l2_cuda(bufs, _t(a), fn.meta)
 
 
+@pytest.mark.parametrize("smem", [True, False])
+def test_probe_scatter_times_one_cold_pass_and_records_the_order_check(smem):
+    lines = []
+    rec = r2.probe_scatter(smem, CPU, out=lines.append, nch=16)
+    assert rec["name"] == ("smem_scatter" if smem else "l2_scatter")
+    assert rec.get("order_checked", False) is not smem
+    assert all(np.isfinite(rec[k]) and rec[k] > 0
+               for k in ("ms", "plain_ms", "library_ms"))
+    assert "one pass from an empty L2" in lines[0] and "warm" in lines[0]
+
+
 # ------------------------------------------------- timing and the CLIs
+def test_cold_ms_brackets_one_call_per_repeat():
+    calls = []
+    ms = bench.cold_ms(lambda: calls.append(time.sleep(0.001)), "cpu",
+                       repeats=3)
+    # one warm call, then one call a repeat, each near 1 ms
+    assert len(calls) == 4 and 0.5 < ms < 500
+
+
 def test_slope_ms_chains_and_takes_the_least_of_each_side():
     calls = []
 
