@@ -45,13 +45,7 @@ needs no script of its own:
   bcsr_sddmm_16384_f512 (the same matrix; A and B [16384, 512] from
   ``default_rng(1)``, as ``chip_smoke.py`` phase 17 draws them), by
   ``apply_ms`` and ``device_ms``; with ``--library`` cuSPARSE's
-  ``torch.sparse.sampled_addmm`` over the stored pattern times vals;
-- K14's two scatters (``probes/r2.py``) on the TPU script's integer
-  slabs, the shared-memory one (256 x 64 a CTA) and the L2 one (4096 x
-  512; bound once with ``l2_scatter`` where the tree has it, else through
-  ``r2.scatter``): one pass with the L2 emptied first (``cold_ms``), and
-  the slope over passes 2 and 10 (warm); with ``--library``
-  ``index_add_`` into a zeroed accumulator, one call from an empty L2.
+  ``torch.sparse.sampled_addmm`` over the stored pattern times vals.
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
 apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
@@ -61,8 +55,7 @@ adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
-``bcsr`` (K7, K9, K8, K10), ``scatter`` (K14's scatters); ``spmv,csr``
-by default. The
+``bcsr`` (K7, K9, K8, K10); ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 """
@@ -117,8 +110,6 @@ def main(argv=None) -> int:
         res.update(csr_cells(dev, args.library))
     if "bcsr" in cells:
         res.update(bcsr_cells(dev, args.library))
-    if "scatter" in cells:
-        res.update(scatter_cells(dev, args.library))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -363,43 +354,6 @@ def bcsr_cells(dev, library: bool) -> dict:
             apply_ms=bench.apply_ms(fn, Ad, iters=10),
             device_ms=bench.device_ms(fn, Ad))
         del S, v
-    return res
-
-
-def scatter_cells(dev, library: bool) -> dict:
-    """K14's shared-memory and L2 scatters at the TPU script's sizes: one
-    pass from an empty L2 and the warm slope over passes."""
-    import torch
-    from loops_tpu_torch.probes import r2
-
-    bench = _timing()
-    res = {}
-    for smem in (True, False):
-        rows = r2.SMEM_ROWS if smem else r2.L2_ROWS
-        offs, a = (torch.from_numpy(v).to(dev)
-                   for v in r2.scatter_inputs(rows))
-        if smem or not hasattr(r2, "l2_scatter"):
-            def run(n):
-                return r2.scatter(offs, a, rows, smem, n)
-        else:
-            b, fn = r2.l2_scatter(offs, rows, device=dev)
-
-            def run(n):
-                return fn(b, a, n)
-        name = "smem_scatter 256x64" if smem else "l2_scatter 4096x512"
-        res[name] = dict(cold_ms=bench.cold_ms(lambda: run(1), dev),
-                         warm_ms=bench.run_slope_ms(run, 2, 10, 3))
-        if library:
-            idx = (offs.long()[:, None] * r2.RR + torch.arange(
-                r2.RR, device=dev)).reshape(-1)
-            acc = a.new_zeros(rows, a.shape[2])
-            flat = a.reshape(-1, a.shape[2])
-            res[f"index_add_ {name.split()[1]}"] = dict(
-                cold_ms=bench.cold_ms(lambda: acc.index_add_(0, idx, flat),
-                                      dev))
-            del acc, idx
-        del offs, a, run
-        torch.cuda.empty_cache()
     return res
 
 
