@@ -68,7 +68,7 @@ Phases, one line each with its time:
    also on the edge cases of ``tests/test_torch_cuda_bcsr.py`` (``cols``
    not a multiple of C, empty block rows and empty super-rows, chunks of
    one block, super-rows of two block rows, F in {20, 513}), and each
-   into a NaN-filled ``out=``; then the
+   (K6 on every matrix) into a NaN-filled ``out=``; then the
    bench's two regimes (16384^2 in 8x128 blocks at ~6% fill, F = 512;
    32768^2 at 1.5% for K6): agreement, the Wilkinson verdict (over sampled
    rows at bench scale), two applies bitwise equal, the launch counter;
@@ -82,7 +82,10 @@ Phases, one line each with its time:
 13. timing of K6–K9 (plain, kernel, kernel, plain), cuSPARSE on the CSR
    form of the same matrix and ``torch.sparse_bsr_tensor`` (timed only),
    the host staging time, GFLOP/s as the JAX bench reports it, and the
-   bound; a ``torch.profiler`` breakdown of each f32 apply;
+   bound; K6's card time warm (``utils/bench.device_ms``) and from an
+   empty L2 (``cold_ms``, the regime of its byte bound: its 64 MB of
+   blocks are 1.3 times the L2) beside its apply and cuSPARSE's CSR SpMV
+   from an empty L2; a ``torch.profiler`` breakdown of each f32 apply;
 14. stream: K11 (``stream_read``) against its plain version
    (``torch.sum``) over 64 MiB (the JAX bench's array) and 1 GiB of
    integers in [-8, 8], where both must give the integer total exactly,
@@ -133,10 +136,12 @@ Phases, one line each with its time:
    computed on the CPU (1 and 3 passes); two launches bitwise equal.
    Then it times each by slope (launches or passes; the scatters by one
    pass from an empty L2, as their byte bounds assume) beside its plain
-   version and its library call, and prints the two kernels redesigned
-   last (``l2_scatter``, ``block_dot_f32``) against ``index_add_`` and
-   ``torch.matmul``. The launch counters are set to 0 before and read
-   after: every K12-K15 kernel must have launched.
+   version and its library call, prints ``onehot_expand`` at W = 128, 512
+   and 2048 against ``index_select`` and its byte bound, and the two
+   kernels redesigned last (``onehot_expand`` at W = 512 against
+   ``index_select``; ``bcsr_spmv`` from an empty L2 against cuSPARSE's
+   CSR SpMV and ``torch.sparse_bsr_tensor``). The launch counters are set
+   to 0 before and read after: every K12-K15 kernel must have launched.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -151,8 +156,8 @@ whose products are exact in f32. For K5 and K10 the bound is per output,
 ``2 * 4 * F * u * sum_f |term|`` (floor 1e-6), over K5's bf16-rounded
 terms, which both sides form identically.
 
-It exits non-zero, and prints no result, when no card is visible or any
-phase fails. The line before the last is a JSON object with one entry per
+It exits non-zero, and prints no result, when no card is visible, any
+phase fails or a kernel's time is under its nominal bound. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -612,7 +617,8 @@ def run_twice(kname, op, x):
 
 
 def bcsr_spmv_vs_plain(label, csr, bcsr, device):
-    """K6 twice and its plain version once; the full validator."""
+    """K6 twice, once more into a NaN-filled ``out=``, and its plain
+    version once; the full validator."""
     import torch
 
     from loops_tpu_torch.ops.spmv import SpMVOperator
@@ -623,7 +629,13 @@ def bcsr_spmv_vs_plain(label, csr, bcsr, device):
     x = np.random.default_rng(5).normal(size=csr.shape[1]).astype(
         np.float32)
     xd = torch.from_numpy(x).to(device)
-    y = run_twice("bcsr_spmv", op, xd).cpu().numpy()
+    yd = run_twice("bcsr_spmv", op, xd)
+    # K6 writes every row: into NaN-filled memory, a row it skips shows
+    out = torch.full_like(yd, float("nan"))
+    op._raw(op._bufs, xd, out=out)
+    torch.cuda.synchronize()
+    require(torch.equal(out, yd), f"{label}: out= differs from y")
+    y = yd.cpu().numpy()
     yp = bcsr_plain("bcsr_spmv", op)(xd).cpu().numpy()
     require(y.shape == (csr.shape[0],) and np.all(np.isfinite(y)),
             f"{label}: bad output")
@@ -800,7 +812,7 @@ def bcsr_phases(device, smi):
     from loops_tpu_torch.ops.spmm import SpMMOperator
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.utils import generate, reference
-    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.bench import apply_ms, cold_ms, device_ms
     from loops_tpu_torch.utils.equal import count_mismatches
     from loops_tpu_torch.utils.profile_spmv import profile_applies
 
@@ -920,8 +932,10 @@ def bcsr_phases(device, smi):
     # ---- 13. timing: plain, kernel, kernel, plain; cuSPARSE; bounds
     t0 = time.perf_counter()
 
-    def library(A, fn, v):
+    def library(A, fn, v, cold=False):
         try:
+            if cold:
+                return cold_ms(lambda: fn(A, v), device)
             return apply_ms(lambda u: fn(A, u), v)
         except (RuntimeError, NotImplementedError) as e:
             # timed only: a format or type torch refuses
@@ -950,6 +964,8 @@ def bcsr_phases(device, smi):
                             (spmm_csr, spmm_bcsr, Bd, torch.matmul)):
         A = csr_on_card(csr)
         lib[mat.shape, "csr"] = library(A, fn, v)
+        if mat is spmv_bcsr:  # K6 is timed from an empty L2 too
+            lib[mat.shape, "csr_cold"] = library(A, fn, v, cold=True)
         del A
         A = bsr_on_card(mat)
         lib[mat.shape, "bsr"] = library(A, fn, v)
@@ -989,6 +1005,26 @@ def bcsr_phases(device, smi):
               f"; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; "
               f"{work / ms / 1e6:.0f} GFLOP/s; host staging {staging:.1f} ms"
               f"  [{smi}]")
+    # K6's card time: its 64 MB of blocks are 1.3 times the L2, so a warm
+    # apply finds part of them there; its byte bound assumes they come
+    # from device memory, as one apply from an empty L2 does
+    k6 = bcsr_times["bcsr_spmv", None]
+    k6.update(apply_ms=k6["ms"], warm_ms=device_ms(spmv_op, xd),
+              cold_ms=cold_ms(lambda: spmv_op(xd), device),
+              library_apply_ms=k6["library_ms"],
+              library_ms=lib[spmv_bcsr.shape, "csr_cold"],
+              bsr_ms=lib[spmv_bcsr.shape, "bsr"])
+    k6["ms"] = k6["cold_ms"]
+    lib_s = ("not run" if k6["library_ms"] is None
+             else f"{k6['library_ms']:.4f} ms")
+    print(f"  bcsr_spmv card time at {spmv_csr.shape[0]}^2: "
+          f"{k6['warm_ms']:.4f} ms warm (device_ms), {k6['cold_ms']:.4f} ms "
+          f"from an empty L2 (cold_ms), apply {k6['apply_ms']:.4f} ms; "
+          f"cuSPARSE CSR from an empty L2 {lib_s}; bound "
+          f"{k6['bound_ms']:.4f} ms (bytes), {k6['bound_ms'] / k6['ms']:.1%} "
+          f"of it cold; its plan "
+          + json.dumps({k: spmv_op.meta[k] for k in (
+              "run_blocks", "runs", "cut_block_rows")}) + f"  [{smi}]")
     for kname, dtype, op, v, csr, mat in runs:
         if dtype is None:
             r = profile_applies(op, v, applies=10, warmup=2)
@@ -1371,10 +1407,12 @@ def sddmm_phases(device, smi, adj, rate):
     return err, launches, times, bounds
 
 
-def probe_phases(device, smi, rate):
+def probe_phases(device, smi, rate, k6):
     """Phases 18-19 (K12-K15); ``rate`` is K11's measured read rate in
-    bytes/s. Returns the max |kernel - plain| per kernel, the main path's
-    launch counts and each kernel's timed record."""
+    bytes/s, ``k6`` K6's times from phase 13 (the line of the two kernels
+    redesigned last names it). Returns the max |kernel - plain| per
+    kernel, the main path's launch counts and each kernel's timed
+    record."""
     import torch
 
     from loops_tpu_torch.ops.kernels import _build, saxpy
@@ -1503,13 +1541,31 @@ def probe_phases(device, smi, rate):
               + f"; bound {b_ms:.4f} ms ({b_by}) nominal, {m_ms:.4f} ms "
               f"({m_by}) at the measured stream; {b_ms / rec['ms']:.1%} of "
               f"the nominal bound  [{smi}]")
-    for k, how, lib in (
-            ("l2_scatter", "one pass from an empty L2", "index_add_"),
-            ("block_dot_f32", "per pass", "torch.matmul, TF32 off")):
-        rec = entries[k]
-        print(f"  {k} ({rec['label']}): {rec['ms']:.4f} ms {how}, {lib} "
-              f"{rec['library_ms']:.4f} ms in this run: "
-              f"{rec['library_ms'] / rec['ms']:.2f}x  [{smi}]")
+    # G3 at each W: bit for bit its plain version (held above), against
+    # index_select and the bytes the function moves
+    for rec in recs:
+        if rec["name"] == "onehot_expand":
+            b_ms, b_by = bound(rec["nbytes"], rec["flops"], "bfloat16")
+            print(f"  onehot_expand ({rec['label']}): {rec['ms']:.4f} ms, "
+                  f"index_select {rec['library_ms']:.4f} ms "
+                  f"({rec['library_ms'] / rec['ms']:.2f}x); bound "
+                  f"{b_ms:.4f} ms ({b_by}), {b_ms / rec['ms']:.1%} of it; "
+                  f"exact  [{smi}]")
+    g3 = entries["onehot_expand"]
+    print(f"  the two kernels redesigned last: onehot_expand "
+          f"({g3['label']}) {g3['ms']:.4f} ms per launch, index_select "
+          f"{g3['library_ms']:.4f} ms in this run "
+          f"({g3['library_ms'] / g3['ms']:.2f}x); bcsr_spmv (32768^2) "
+          f"{k6['cold_ms']:.4f} ms from an empty L2, cuSPARSE csrmv "
+          + ("not run" if k6["library_ms"] is None
+             else f"{k6['library_ms']:.4f} ms "
+             f"({k6['library_ms'] / k6['cold_ms']:.2f}x)")
+          + " (warm applies: " + f"{k6['apply_ms']:.4f} against "
+          + ("not run" if k6["library_apply_ms"] is None
+             else f"{k6['library_apply_ms']:.4f}")
+          + "), torch.sparse_bsr_tensor "
+          + ("not run" if k6["bsr_ms"] is None
+             else f"{k6['bsr_ms']:.4f} ms") + f"  [{smi}]")
     torch.cuda.empty_cache()
     phase(19, "the K12-K15 tier's path", t0, f"{len(recs)} probe cases "
           "held to their plain versions, max |kernel - plain| "
@@ -1921,7 +1977,8 @@ def main() -> int:
     rate = stream_res["1 GiB"]["gbps"] * 1e9
     sddmm_err, sddmm_launches, sddmm_times, sddmm_bounds = sddmm_phases(
         device, smi, adj, rate)
-    probe_err, probe_launches, probe_recs = probe_phases(device, smi, rate)
+    probe_err, probe_launches, probe_recs = probe_phases(
+        device, smi, rate, bcsr_times["bcsr_spmv", None])
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -1995,6 +2052,10 @@ def main() -> int:
         print(f"  {entry['name']}: {entry['ms']:.4f} ms; bound {nom:.4f} ms "
               f"({by}) nominal, {meas:.4f} ms ({mby}) measured; "
               f"{meas / entry['ms']:.1%} of the measured bound")
+        # a time under the least the card could take is a timing or a
+        # bound that is wrong
+        require(nom <= entry["ms"], f"{entry['name']}: {entry['ms']:.4f} ms "
+                f"is under its nominal bound {nom:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

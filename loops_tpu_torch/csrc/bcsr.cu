@@ -3,8 +3,9 @@
 // A BCSR matrix stores dense R x C blocks (R % 8 == 0, C % 128 == 0) with
 // block-row offsets and a block column per block. Every kernel here reads x
 // or B as dense C-wide segments per stored block: there is no per-nonzero
-// gather. None uses float atomics: every output element is summed by one
-// thread in one fixed order, so two applies are bitwise equal.
+// gather. None uses float atomics: every output element is summed in one
+// fixed order (K6: a warp's lanes, then a seam pass for a block row cut
+// across warps), so two applies are bitwise equal.
 //
 // K6  bcsr_spmv_kernel     replaces loops_tpu/ops/kernels/spmv_bcsr.py
 //                          bcsr_spmv_pallas
@@ -27,7 +28,8 @@
 // _pad_empty_rows (here a CTA of an empty block row writes its zeros).
 //
 // What bounds them on an H100 (per PERF.md): K6 streams the stored blocks
-// once (bytes; 2 flops per 4-byte value). The SpMMs do 2 * R * C * F flops
+// once (bytes; 2 flops per 4-byte value) from device memory: at the
+// bench's 32768^2 regime they are 64 MB, past the 50 MB L2. The SpMMs do 2 * R * C * F flops
 // per stored block; in IEEE f32 on the CUDA cores (67 TFLOP/s) that is the
 // bound at F = 512, while in bf16 only the tensor cores could reach the
 // byte bound. Below the bound, what the card pays is the B tiles re-read
@@ -47,55 +49,153 @@
 namespace {
 
 // ---------------------------------------------------------------- K6
-// One warp per block row. Lane l owns columns l, l+32, l+64, l+96 of the
-// 128-wide block; for a group of 8 rows it keeps 8 partial sums in
-// registers and walks the row's blocks in storage order (x segment loaded
-// once per block, coalesced block loads), then a fixed shuffle tree sums
-// each row across the lanes and lane r writes row r of the group.
-constexpr int kSpmvThreads = 256;
+// Balanced runs of stored blocks, one warp a run. The host plan
+// (ops/kernels/spmv_bcsr.py plan_runs) packs whole block rows, in storage
+// order, into runs of at most run_blocks (<= 32) blocks, with the empty
+// block rows that follow them; a block row longer than a run is cut into
+// runs of its own. runs[0..2][w] hold run w's first block, first block row
+// and seam slot (-1 but for a cut block row), each with one entry past the
+// last run. So every warp streams about the same bytes, and no long block
+// row leaves a tail of warps that wait on one load after another, as one
+// warp a block row did.
+//
+// Lane l owns columns 4l..4l+3 of the 128-wide block: per block it issues
+// one float4 of x and, per group of 8 rows, 8 float4 of vals; a step
+// issues two blocks' loads, whatever block rows they belong to, before it
+// closes the rows that end there and adds them. vals are read once (__ldcs: evict first, so the
+// 64 MB stream does not push x out of L1/L2); x by __ldg. Each row's sum
+// is a lane's products (rounded to f32, no fma) added in block and column
+// order, then a fixed xor tree over the 32 lanes; lane r writes row r of
+// the group to y, or for a cut block row to its run's seam slot, and
+// bcsr_spmv_seam_kernel adds a cut row's slots in run order. An empty
+// block row is walked like the others and written as zeros, so y can be a
+// torch.empty.
 constexpr int kRowGroup = 8;
+constexpr int kK6Threads = 128;
+constexpr int kSeamThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kSpmvThreads)
+// x[c..c+3], zero past the last column; one float4 when x is 16-byte
+// aligned
+__device__ __forceinline__ float4 x_segment(const float* __restrict__ x, long long c,
+                                            int cols, bool vec) {
+  if (vec && c + 4 <= cols) return __ldg(reinterpret_cast<const float4*>(x + c));
+  return make_float4(c < cols ? __ldg(x + c) : 0.f, c + 1 < cols ? __ldg(x + c + 1) : 0.f,
+                     c + 2 < cols ? __ldg(x + c + 2) : 0.f,
+                     c + 3 < cols ? __ldg(x + c + 3) : 0.f);
+}
+
+// a lane's slice of one block: 8 rows of its 4 columns, and x there
+struct K6Slice {
+  float4 v[kRowGroup];
+  float4 x;
+};
+
+__device__ __forceinline__ void k6_load(K6Slice& s, const float4* __restrict__ vals,
+                                        const float* __restrict__ x, long long t, int col,
+                                        int R, int r0, int lane, int cols, bool vec) {
+  const float4* p = vals + (t * R + r0) * 32 + lane;
+#pragma unroll
+  for (int r = 0; r < kRowGroup; ++r) s.v[r] = __ldcs(p + r * 32);
+  s.x = x_segment(x, static_cast<long long>(col) * 128 + 4 * lane, cols, vec);
+}
+
+// acc[r] += row r . x over the lane's 4 columns, in column order
+__device__ __forceinline__ void k6_add(float (&acc)[kRowGroup], const K6Slice& s) {
+#pragma unroll
+  for (int r = 0; r < kRowGroup; ++r) {
+    acc[r] = __fadd_rn(acc[r], __fmul_rn(s.v[r].x, s.x.x));
+    acc[r] = __fadd_rn(acc[r], __fmul_rn(s.v[r].y, s.x.y));
+    acc[r] = __fadd_rn(acc[r], __fmul_rn(s.v[r].z, s.x.z));
+    acc[r] = __fadd_rn(acc[r], __fmul_rn(s.v[r].w, s.x.w));
+  }
+}
+
+__global__ void __launch_bounds__(kK6Threads)
 bcsr_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
-                 const float* __restrict__ vals, const float* __restrict__ x,
-                 float* __restrict__ y, int nbr, int R, int rows, int cols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int br = blockIdx.x * (kSpmvThreads / 32) + warp;
-  if (br >= nbr) return;
-  const int t0 = offsets[br], t1 = offsets[br + 1];
+                 const int* __restrict__ runs, const float4* __restrict__ vals,
+                 const float* __restrict__ x, float* __restrict__ y,
+                 float* __restrict__ seam, int nruns, int R, int rows, int cols, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * (kK6Threads / 32) + (threadIdx.x >> 5);
+  if (w >= nruns) return;
+  const int t0 = runs[w], t1 = runs[w + 1];
+  const int b0 = runs[nruns + 1 + w], b1 = max(runs[nruns + 2 + w], b0 + 1);
+  const int slot = runs[2 * (nruns + 1) + w];
+  const int mycol = t0 + lane < t1 ? bcols[t0 + lane] : 0;  // block t0 + l's column
   for (int r0 = 0; r0 < R; r0 += kRowGroup) {
+    // lanes hold the ends of block rows bb .. bb + 31 (in this run)
+    int bb = b0, cur = b0;
+    int myend = bb + lane < b1 ? min(offsets[bb + 1 + lane], t1) : t1;
     float acc[kRowGroup];
 #pragma unroll
     for (int r = 0; r < kRowGroup; ++r) acc[r] = 0.f;
-    for (int t = t0; t < t1; ++t) {
-      const long long c0 = static_cast<long long>(bcols[t]) * 128;
-      float xs[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long c = c0 + lane + 32 * j;
-        xs[j] = c < cols ? __ldg(x + c) : 0.f;
-      }
-      const float* blk = vals + (static_cast<long long>(t) * R + r0) * 128 + lane;
+    // block row cur's total: a fixed xor tree; lane r writes row r of the
+    // group (to the seam slot for a cut block row); then the next row
+    auto flush = [&]() {
+      float mine = 0.f;
 #pragma unroll
       for (int r = 0; r < kRowGroup; ++r) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[r] = fmaf(__ldg(blk + r * 128 + 32 * j), xs[j], acc[r]);
+        for (int off = 16; off > 0; off >>= 1) {
+          acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(kFull, acc[r], off));
+        }
+        if (lane == r) mine = acc[r];
+        acc[r] = 0.f;
+      }
+      if (lane < kRowGroup) {
+        if (slot >= 0) {
+          seam[static_cast<long long>(slot) * R + r0 + lane] = mine;
+        } else {
+          const long long row = static_cast<long long>(cur) * R + r0 + lane;
+          if (row < rows) y[row] = mine;
         }
       }
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int r = 0; r < kRowGroup; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      if (++cur - bb == 32) {
+        bb = cur;
+        myend = bb + lane < b1 ? min(offsets[bb + 1 + lane], t1) : t1;
       }
-      if (lane == r) mine = acc[r];
+    };
+    // the rows that end by block t (empty ones too) are done
+    auto close_before = [&](int t) {
+      while (__shfl_sync(kFull, myend, cur - bb) <= t) flush();
+    };
+    // two blocks' loads a step, issued before the rows they close are
+    // summed, whatever rows the two belong to
+    for (int t = t0; t < t1; t += 2) {
+      const bool two = t + 1 < t1;
+      K6Slice a, b;
+      k6_load(a, vals, x, t, __shfl_sync(kFull, mycol, t - t0), R, r0, lane, cols, vec);
+      if (two) {
+        k6_load(b, vals, x, t + 1, __shfl_sync(kFull, mycol, t + 1 - t0), R, r0, lane, cols,
+                vec);
+      }
+      close_before(t);
+      k6_add(acc, a);
+      if (two) {
+        close_before(t + 1);
+        k6_add(acc, b);
+      }
     }
-    const long long row = static_cast<long long>(br) * R + r0 + lane;
-    if (lane < kRowGroup && row < rows) y[row] = mine;
+    while (cur < b1) flush();  // the last row with blocks, then empty ones
   }
+}
+
+// A cut block row's total: its runs' slots added in run order, one
+// thread a row. splits[0][s] is the block row, splits[1][s] its first
+// slot (splits[1][nsplit]: past the last).
+__global__ void __launch_bounds__(kSeamThreads)
+bcsr_spmv_seam_kernel(const int* __restrict__ splits, const float* __restrict__ seam,
+                      float* __restrict__ y, int nsplit, int R, int rows) {
+  const long long i = static_cast<long long>(blockIdx.x) * kSeamThreads + threadIdx.x;
+  if (i >= static_cast<long long>(nsplit) * R) return;
+  const int s = static_cast<int>(i / R), r = static_cast<int>(i % R);
+  const long long row = static_cast<long long>(splits[s]) * R + r;
+  if (row >= rows) return;
+  const int a = splits[nsplit + 1 + s], z = splits[nsplit + 2 + s];
+  float v = seam[static_cast<long long>(a) * R + r];
+  for (int k = a + 1; k < z; ++k) v = __fadd_rn(v, seam[static_cast<long long>(k) * R + r]);
+  y[row] = v;
 }
 
 // ------------------------------------------------- K7/K8 shared pieces
@@ -688,16 +788,28 @@ int set_smem(K kernel, int smem) {
 
 extern "C" {
 
-int loops_bcsr_spmv_f32(const void* offsets, const void* bcols,
-                        const void* vals, const void* x, void* y, int nbr,
-                        int R, int rows, int cols, void* stream) {
-  const int per_cta = kSpmvThreads / 32;
-  const unsigned grid = static_cast<unsigned>((nbr + per_cta - 1) / per_cta);
-  bcsr_spmv_kernel<<<grid, kSpmvThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+int loops_bcsr_spmv_f32(const void* offsets, const void* bcols, const void* runs,
+                        const void* splits, const void* vals, const void* x, void* y,
+                        void* seam, int nruns, int nsplit, int R, int rows, int cols,
+                        int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nruns <= 0 || nsplit < 0 || R % kRowGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per_cta = kK6Threads / 32;
+  bcsr_spmv_kernel<<<(nruns + per_cta - 1) / per_cta, kK6Threads, 0, s>>>(
       static_cast<const int*>(offsets), static_cast<const int*>(bcols),
-      static_cast<const float*>(vals), static_cast<const float*>(x),
-      static_cast<float*>(y), nbr, R, rows, cols);
+      static_cast<const int*>(runs), static_cast<const float4*>(vals),
+      static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(seam), nruns,
+      R, rows, cols, vec);
+  if (nsplit > 0) {
+    if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+    const long long n = static_cast<long long>(nsplit) * R;
+    bcsr_spmv_seam_kernel<<<static_cast<unsigned>((n + kSeamThreads - 1) / kSeamThreads),
+                            kSeamThreads, 0, s>>>(static_cast<const int*>(splits),
+                                                  static_cast<const float*>(seam),
+                                                  static_cast<float*>(y), nsplit, R, rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

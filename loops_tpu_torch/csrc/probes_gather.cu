@@ -11,28 +11,27 @@
 // gather_axis1_kernel  replaces tpu_r3_gather_probe.py probe_axis1:
 //   out[i, j] = src[i, idx[i, j]]. A warp holds row i in registers (a
 //   float4 a lane) and gathers inside the row by __shfl_sync.
-// row_gather_kernel  replaces scripts/tpu_r4_gather_probe.py _dynload_run:
+// row_gather_kernel  replaces scripts/tpu_r4_gather_probe.py _dynload_run
+//   and g3_onehot_expand:
 //   rows of a [S, 128] slab (f32 or bf16) gathered by idx, either summed
 //   in groups of 8 (G1: out[g*8 + j] = sum_k0 slab[idx[g*K + k0 + j]], f32
-//   sums in k0 order) or materialized (G2: out[r] = slab[idx[r]]). A warp
-//   takes one output row, a lane 4 of its 128 values; a warp's indices are
-//   loaded 32 at a time and passed by __shfl_sync. The slab sits in shared
-//   memory (kSmem: S = 256) or is read through __ldg: from L2 at the
-//   TPU's S and, for the most part, at the 169,343-row arxiv table (86.7
+//   sums in k0 order) or materialized (G2: out[r] = slab[idx[r]]; G3:
+//   out[g*K + k] = f32(win[idx[(g*rep)*K + k]]), the first of the rep = 8
+//   repeated idx rows of each block of K output rows, each bf16 value
+//   widened to f32). A warp takes one output row, a lane 4 of its 128
+//   values; a warp's indices are loaded 32 at a time and passed by
+//   __shfl_sync. The grid is persistent (a few CTAs an SM, a grid-stride
+//   loop), so each CTA stages the slab once. The slab sits in shared
+//   memory when a CTA can hold it (G1/G2: S = 256; G3: W <= 512, 128 KB of
+//   bf16) or is read through __ldg: from L2 at the TPU's S and at G3's
+//   W = 2048 and, for the most part, at the 169,343-row arxiv table (86.7
 //   MB, whose rows recur); from device memory at a 2,097,152-row table,
 //   over 10 times the 50 MB L2.
-// onehot_expand_kernel  replaces tpu_r4_gather_probe.py g3_onehot_expand:
-//   OH[Kc, W] @ win[W, 128] with a bf16 one-hot, on the tensor cores
-//   (mma.sync m16n8k16, f32 sums). The one-hot is built in registers from
-//   each row's index, straight into the A fragments; the bf16 window is
-//   staged through shared memory in steps of 64 rows (W = 2048 is 512 KB)
-//   and read by ldmatrix.trans. A CTA computes 128 rows x 128 columns,
-//   each of its 8 warps 16 rows. Exact: each output is one window value
-//   plus zeros.
+//   G3 was a one-hot product on the TPU's MXU only because the TPU has no
+//   general gather; here it is the gather it computes, bit for bit.
 //
-// What bounds them: bytes for the gathers (what each index and output
-// moves, plus the table once); operations for the one-hot expand
-// (2 * W * 128 per row at 989 TFLOP/s bf16).
+// What bounds them: bytes, what each index and output moves, plus the
+// table once (G3: the window, one idx row per block, the f32 rows).
 //
 // C entry points return cudaGetLastError().
 #include <cstdint>
@@ -125,11 +124,16 @@ __device__ __forceinline__ void copy4(__nv_bfloat16* o, const __nv_bfloat16* p,
   *reinterpret_cast<uint2*>(o) = ldg ? __ldg(reinterpret_cast<const uint2*>(p))
                                      : *reinterpret_cast<const uint2*>(p);
 }
+// G3: 4 bf16 widened to one float4
+__device__ __forceinline__ void copy4(float* o, const __nv_bfloat16* p, bool ldg) {
+  *reinterpret_cast<float4*>(o) = load4(p, ldg);
+}
 
-template <typename T, bool kSmem, bool kSum>
+// O: the materialized rows' type (T, or f32 for G3; G1 writes f32 sums)
+template <typename T, typename O, bool kSmem, bool kSum>
 __global__ void __launch_bounds__(kGatherThreads)
 row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
-                  void* __restrict__ out_, int S, int K, int n) {
+                  void* __restrict__ out_, int S, int K, int n, int rep) {
   extern __shared__ __align__(16) unsigned char gsmem[];
   const T* from = slab;
   if (kSmem) {
@@ -167,9 +171,14 @@ row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
       reinterpret_cast<float4*>(out + static_cast<size_t>(o) * kLanes)[lane] = acc;
     }
   } else {
-    T* out = static_cast<T*>(out_);
+    // output row o reads idx[o + (o / K) * (rep - 1) * K]: the first of
+    // the rep idx rows of its block of K (G2: rep = 1, idx[o])
+    O* out = static_cast<O*>(out_);
     for (int b = w0 * 32; b < n; b += warps * 32) {  // 32 rows a warp a step
-      const int mine = b + lane < n ? idx[b + lane] : 0;
+      const int o = b + lane;
+      const int mine =
+          o < n ? idx[static_cast<size_t>(o) + static_cast<size_t>(o / K) * (rep - 1) * K]
+                : 0;
       const int m = min(32, n - b);
       for (int q = 0; q < m; ++q) {
         const int r = __shfl_sync(kFull, mine, q);
@@ -180,82 +189,28 @@ row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   }
 }
 
-template <typename T>
+// The grid is persistent: at most `blocks` CTAs, and no more than the SMs
+// hold at once, so that no CTA waits for a second wave with its share of
+// the rows.
+template <typename T, typename O, bool kSum>
 int launch_rows(const void* slab, const void* idx, void* out, int S, int K,
-                int n, int smem, int sum, int blocks, cudaStream_t s) {
+                int n, int rep, int smem, int blocks, cudaStream_t s) {
   const int bytes = smem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
-  const T* sl = static_cast<const T*>(slab);
-  const int* ix = static_cast<const int*>(idx);
-#define LOOPS_ROWS(SM, SU)                                          \
-  {                                                                 \
-    auto k = row_gather_kernel<T, SM, SU>;                          \
-    if (const int e = set_smem(k, bytes)) return e;                 \
-    k<<<blocks, kGatherThreads, bytes, s>>>(sl, ix, out, S, K, n);  \
+  auto k = smem ? row_gather_kernel<T, O, true, kSum> : row_gather_kernel<T, O, false, kSum>;
+  if (const int e = set_smem(k, bytes)) return e;
+  int dev = 0, sms = 0, fit = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) {
+    return static_cast<int>(e);
   }
-  if (smem && sum) LOOPS_ROWS(true, true)
-  else if (smem) LOOPS_ROWS(true, false)
-  else if (sum) LOOPS_ROWS(false, true)
-  else LOOPS_ROWS(false, false)
-#undef LOOPS_ROWS
+  if (const cudaError_t e =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, k, kGatherThreads, bytes)) {
+    return static_cast<int>(e);
+  }
+  blocks = min(blocks, max(fit, 1) * sms);
+  k<<<blocks, kGatherThreads, bytes, s>>>(static_cast<const T*>(slab),
+                                          static_cast<const int*>(idx), out, S, K, n, rep);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------------------ G3
-constexpr int kOhRows = 128;  // output rows per CTA, 16 per warp
-constexpr int kOhStep = 64;   // window rows staged per step
-constexpr int kOhLd = kLanes + 8;  // padded bf16 row: ldmatrix conflict-free
-
-__device__ __forceinline__ unsigned onehot_pair(int i, int c) {
-  // two bf16 (c, c + 1): 1.0 is 0x3f80; the lower column in the low half
-  return (i == c ? 0x3f80u : 0u) | (i == c + 1 ? 0x3f800000u : 0u);
-}
-
-__global__ void __launch_bounds__(256)
-onehot_expand_kernel(const __nv_bfloat16* __restrict__ win,
-                     const int* __restrict__ idx, float* __restrict__ out,
-                     int W, int Kc) {
-  __shared__ __align__(16) __nv_bfloat16 ws[kOhStep * kOhLd];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kOhRows + warp * 16;
-  const long long g = row0 / Kc;  // the block of Kc rows these belong to
-  // the block's indices are the first of its 8 repeated idx rows
-  const int* ib = idx + g * 8 * Kc + (row0 - g * Kc);
-  const int i0 = ib[gid], i1 = ib[gid + 8];
-  float acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  for (int w0 = 0; w0 < W; w0 += kOhStep) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kOhStep * kLanes / 8; e += 256) {
-      const int r = e / (kLanes / 8), q = e % (kLanes / 8);
-      *reinterpret_cast<uint4*>(ws + r * kOhLd + 8 * q) =
-          *reinterpret_cast<const uint4*>(win + static_cast<size_t>(w0 + r) * kLanes + 8 * q);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kOhStep; k += 16) {
-      const int c = w0 + k + 2 * tig;
-      const unsigned a[4] = {onehot_pair(i0, c), onehot_pair(i1, c),
-                             onehot_pair(i0, c + 8), onehot_pair(i1, c + 8)};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        unsigned b[2];
-        loops_tc::ldmatrix_x2_trans(b, ws + (k + (lane & 15)) * kOhLd + j * 8);
-        loops_tc::mma_bf16(acc[j], a, b);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = j * 8 + 2 * tig;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<float2*>(out + (row0 + gid + 8 * h) * kLanes + col) =
-          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-  }
 }
 
 }  // namespace
@@ -296,20 +251,23 @@ int loops_row_gather(const void* slab, const void* idx, void* out, int S, int K,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_rows<__nv_bfloat16>(slab, idx, out, S, K, n, smem, sum, blocks, s)
-              : launch_rows<float>(slab, idx, out, S, K, n, smem, sum, blocks, s);
+  using bf = __nv_bfloat16;
+  if (sum) {
+    return bf16 ? launch_rows<bf, float, true>(slab, idx, out, S, K, n, 1, smem, blocks, s)
+                : launch_rows<float, float, true>(slab, idx, out, S, K, n, 1, smem, blocks, s);
+  }
+  return bf16 ? launch_rows<bf, bf, false>(slab, idx, out, S, K, n, 1, smem, blocks, s)
+              : launch_rows<float, float, false>(slab, idx, out, S, K, n, 1, smem, blocks, s);
 }
 
-// win [W, 128] bf16, idx [rows / Kc * 8, Kc] int32, out [rows, 128] f32
+// G3: win [W, 128] bf16, idx [rows / Kc * 8, Kc] int32, out [rows, 128] f32
 int loops_onehot_expand(const void* win, const void* idx, void* out, int W,
-                        int Kc, int rows, void* stream) {
-  if (W <= 0 || W % kOhStep || Kc % kOhRows || rows % Kc) {
+                        int Kc, int rows, int smem, int blocks, void* stream) {
+  if (W <= 0 || Kc <= 0 || rows % Kc || blocks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  onehot_expand_kernel<<<rows / kOhRows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(win), static_cast<const int*>(idx),
-      static_cast<float*>(out), W, Kc);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<__nv_bfloat16, float, false>(win, idx, out, W, Kc, rows, 8, smem,
+                                                  blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

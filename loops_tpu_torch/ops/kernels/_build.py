@@ -59,7 +59,7 @@ _SIGNATURES = {
     "loops_flat_spmv_v2_f32": [_P] * 11 + [_I] * 3 + [_P],
     "loops_flat_spmv_f32": [_P] * 10 + [_I] * 5 + [_P],
     "loops_flat_spmm": [_P] * 11 + [_I] * 6 + [_P],
-    "loops_bcsr_spmv_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "loops_bcsr_spmv_f32": [_P] * 8 + [_I] * 6 + [_P],
     "loops_bcsr_spmm_f32": [_P] * 5 + [_I] * 7 + [_P],
     "loops_bcsr_spmm_v2": [_P] * 6 + [_I] * 11 + [_P],
     "loops_bcsr_spmm_v3": [_P] * 9 + [_I] * 12 + [_P],
@@ -75,7 +75,7 @@ _SIGNATURES = {
     "loops_gather_axis0": [_P] * 3 + [_I] * 4 + [_P],
     "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],
     "loops_row_gather": [_P] * 3 + [_I] * 7 + [_P],
-    "loops_onehot_expand": [_P] * 3 + [_I] * 3 + [_P],
+    "loops_onehot_expand": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -22,9 +22,15 @@ pay this per nonzero.
   bf16, which the 50 MB L2 may partly hold). G2 is exact; G1 runs on
   integer-valued slabs, where its f32 sums are exact.
 - **G3** ``onehot_expand`` (``r4:121``): ``OH[Kc, W] @ win[W, 128]`` with a
-  bf16 one-hot on the tensor cores, W in {128, 512, 2048}, Kc = 1024, N =
-  2,097,152 rows; exact against the bf16-rounded window rows. Printed with
-  the operations model at 989 TFLOP/s (the script used the v5e's rate).
+  bf16 one-hot, W in {128, 512, 2048}, Kc = 1024, N = 2,097,152 rows. The
+  TPU ran it on the MXU because it has no general gather; what it computes
+  is a row gather, ``out[g*Kc + k] = f32(bf16(win)[idx[g*8, k]])``, and
+  that is what the card runs: G2's kernel with a bf16 window widened to
+  f32 rows and the index of each block's first idx row. The window sits
+  in shared memory up to W = 512 (128 KB) and is read from L2 at W =
+  2048. Exact against the bf16-rounded window rows; its bound is the
+  bytes the function moves (the window, one idx row per block, the f32
+  rows), with no operations.
 
 Library calls (timed only): ``torch.take_along_dim`` (P1),
 ``torch.gather`` (P2), ``torch.nn.functional.embedding_bag(mode="sum")``
@@ -51,10 +57,10 @@ G1_CASES = ((1024, 32), (4096, 128), (4096, 512))
 G2_CASE = (4096, 64)
 SMEM_ROWS = 256
 G3_W, G3_KC = (128, 512, 2048), 1024
+G3_REP = 8                    # idx rows per block of Kc output rows
 SMEM_BYTES = 227 * 1024       # a CTA's shared memory on an H100
 L2_BYTES = 50 * 2**20         # the H100's L2
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-BF16_PEAK = 989e12
 
 
 def _sms(dev) -> int:
@@ -69,6 +75,18 @@ def residency(rows: int, element_size: int) -> str:
     if nbytes <= SMEM_BYTES:
         return "smem"
     return "l2" if nbytes <= 4 * L2_BYTES else "hbm"
+
+
+def rows_grid(rows: int, element_size: int, sms: int) -> tuple[str, int]:
+    """``row_gather_kernel``'s launch over a [rows, 128] table: its
+    residency and the CTAs of its persistent grid, as many an SM as the
+    staged table leaves room for (at most 8) in shared memory, else 8
+    (the launch cuts them to what the SMs hold at once)."""
+    where = residency(rows, element_size)
+    per_sm = 8
+    if where == "smem":
+        per_sm = max(1, min(8, SMEM_BYTES // (rows * LANES * element_size)))
+    return where, per_sm * sms
 
 
 # ------------------------------------------------------------------- P1
@@ -191,10 +209,7 @@ def row_gather_cuda(slab: torch.Tensor, idx: torch.Tensor, K: int,
                          f"== 0, got {tuple(slab.shape)}, K={K}, n={n}")
     _build.check(slab, "slab", slab.dtype, dev)
     _build.check(idx, "idx", torch.int32, dev)
-    es = slab.element_size()
-    where = residency(S, es)
-    bytes_ = S * LANES * es
-    per_sm = max(1, min(8, SMEM_BYTES // bytes_)) if where == "smem" else 8
+    where, blocks = rows_grid(S, slab.element_size(), _sms(dev))
     if materialize:
         out = torch.empty(n, LANES, dtype=slab.dtype, device=dev)
     else:
@@ -202,8 +217,7 @@ def row_gather_cuda(slab: torch.Tensor, idx: torch.Tensor, K: int,
     _build.launch("loops_row_gather",
                   f"row_gather_{'mat' if materialize else 'sum'}_{where}", dev,
                   slab, idx, out, S, K, n, int(slab.dtype == torch.bfloat16),
-                  int(where == "smem"), int(not materialize),
-                  per_sm * _sms(dev))
+                  int(where == "smem"), int(not materialize), blocks)
     return out
 
 
@@ -248,30 +262,35 @@ def onehot_inputs(W: int, Kc: int = G3_KC, n: int = N_ROWS):
 
 
 def onehot_expand_cuda(win: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``OH @ bf16(win)`` per block of Kc rows: [nblocks * Kc, 128] f32."""
+    """``bf16(win)`` rows gathered by each block's first idx row and
+    widened: [nblocks * Kc, 128] f32 (``csrc/probes_gather.cu``
+    ``row_gather_kernel``; the window in shared memory up to W = 512)."""
     dev = win.device
     if dev.type != "cuda":
         raise ValueError(f"onehot_expand_cuda needs a CUDA tensor, got {dev}")
     W = win.shape[0]
-    if win.dim() != 2 or win.shape[1] != LANES or W % 64 or idx.dim() != 2 \
-            or idx.shape[0] % 8 or idx.shape[1] % 128:
-        raise ValueError(f"onehot_expand: win [W, 128] with W % 64 == 0 and "
-                         f"idx [nblocks * 8, Kc] with Kc % 128 == 0, got "
-                         f"{tuple(win.shape)}, {tuple(idx.shape)}")
+    if win.dim() != 2 or win.shape[1] != LANES or W == 0 or idx.dim() != 2 \
+            or idx.shape[0] % G3_REP or idx.shape[1] == 0:
+        raise ValueError(f"onehot_expand: win [W, 128] with W > 0 and idx "
+                         f"[nblocks * {G3_REP}, Kc], got {tuple(win.shape)}, "
+                         f"{tuple(idx.shape)}")
     _build.check(win, "win", torch.float32, dev)
     _build.check(idx, "idx", torch.int32, dev)
     Kc = idx.shape[1]
-    rows = idx.shape[0] // 8 * Kc
+    rows = idx.shape[0] // G3_REP * Kc
     wb = win.to(torch.bfloat16)
     out = torch.empty(rows, LANES, dtype=torch.float32, device=dev)
+    if rows == 0:
+        return out  # a grid over no rows is not a launch
+    where, blocks = rows_grid(W, 2, _sms(dev))
     _build.launch("loops_onehot_expand", "onehot_expand", dev, wb, idx, out,
-                  W, Kc, rows)
+                  W, Kc, rows, int(where == "smem"), blocks)
     return out
 
 
 def onehot_rows(idx: torch.Tensor) -> torch.Tensor:
     """The window row of every output row: each block's first idx row."""
-    return idx[::8].reshape(-1)
+    return idx[::G3_REP].reshape(-1)
 
 
 def onehot_expand_plain(win, idx):
@@ -374,16 +393,20 @@ def probe_onehot(W, device, out=print, timed=True, n=N_ROWS) -> dict:
     ms, plain_ms, lib_ms = _times(
         lambda: onehot_expand(win, idx), lambda: onehot_expand_plain(win, idx),
         lambda: torch.index_select(wr, 0, rl), device, timed)
-    flops = 2 * N * W * LANES
-    model = 2 * W * LANES / BF16_PEAK * 1e9
-    line = (f"G3 oh   W={W:5d} Kc={G3_KC} N={N / 1e6:.2f}M: "
-            + (f"{ms:8.3f} ms = {ms * 1e6 / N:6.3f} ns/row " if timed
-               else "")
-            + f"(ops-model {model:.3f} ns/row at 989 TFLOP/s)  ok=True")
+    where = residency(W, 2)
+    line = (f"G3 oh   W={W:5d} ({where}) Kc={G3_KC} N={N / 1e6:.2f}M: "
+            + (f"{ms:8.3f} ms = {ms * 1e6 / N:6.3f} ns/row = "
+               f"{N * LANES * 4 / ms / 1e6:7.1f} GB/s of f32 rows  " if timed
+               else "") + "exact=True")
     out(line)
-    nbytes = 2 * W * LANES + 4 * (N // G3_KC) * 8 * G3_KC + 4 * N * LANES
-    return record("onehot_expand", f"W={W}", ms, plain_ms, lib_ms, nbytes,
-                  flops, "bf16", err, line)
+    return record("onehot_expand", f"W={W}", ms, plain_ms, lib_ms,
+                  onehot_bytes(W, N // G3_KC, G3_KC), 0, "bf16", err, line)
+
+
+def onehot_bytes(W: int, nblocks: int, Kc: int) -> int:
+    """What G3 must move: the bf16 window once, one idx row per block (of
+    its 8 repeats) and the f32 output rows."""
+    return 2 * W * LANES + 4 * nblocks * Kc + 4 * nblocks * Kc * LANES
 
 
 def library_baselines(device, out=print, n_elems=N_ELEMS, n_rows=N_ROWS,

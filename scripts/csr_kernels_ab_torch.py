@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1–K3, K12, K4, K5, K7–K10 of one checkout of ``loops_tpu_torch``
-on the card, at the cells ``chip_smoke.py`` times them (phases 6, 10, 13,
-17 and 19), and print one JSON line.
+"""Time K1–K10, K12 and K15's G1 and G3 of one checkout of
+``loops_tpu_torch`` on the card, at the cells ``chip_smoke.py`` times them
+(phases 6, 10, 13, 17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-                                           [--cells spmv,flat,csr,bcsr]
+        [--cells spmv,flat,csr,bcsr,bcsrmv,gather] [--k6-runs 4,8,16]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -45,7 +45,22 @@ needs no script of its own:
   bcsr_sddmm_16384_f512 (the same matrix; A and B [16384, 512] from
   ``default_rng(1)``, as ``chip_smoke.py`` phase 17 draws them), by
   ``apply_ms`` and ``device_ms``; with ``--library`` cuSPARSE's
-  ``torch.sparse.sampled_addmm`` over the stored pattern times vals.
+  ``torch.sparse.sampled_addmm`` over the stored pattern times vals;
+- K6: ``SpMVOperator(bcsr, impl="pallas")`` on bcsr_spmv_32768
+  (``build_block_sparse(32768, 8, 128, 0.015, seed=0)``, x from
+  ``make_input_vector``) by ``apply_ms``, ``device_ms`` and ``cold_ms``
+  (one apply from an empty L2, the regime of its byte bound: its 64 MB of
+  blocks are 1.3 times the 50 MB L2, so a warm apply finds part of them
+  there); with ``--library`` cuSPARSE's ``torch.mv`` on the CSR form and
+  on ``torch.sparse_bsr_tensor``, timed the same three ways; with
+  ``--k6-runs`` also K6 built at each of those ``run_blocks`` (the blocks a
+  warp takes at most; a tree whose K6 has no such plan skips them);
+- K15 G3 ``onehot_expand`` at W = 128, 512 and 2048 and G1
+  ``row_gather`` (sums, K = 128 f32) from shared memory (S = 256) and
+  from L2 (S = 4096), at ``probes/gather.py``'s sizes (N = 2,097,152
+  rows): ms per launch by the slope of 20 launches over 4
+  (``probes/common.launch_ms``); with ``--library``
+  ``torch.index_select`` (G3) and ``embedding_bag`` (G1).
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
 apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
@@ -55,7 +70,8 @@ adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
-``bcsr`` (K7, K9, K8, K10); ``spmv,csr`` by default. The
+``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1);
+``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 """
@@ -81,6 +97,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--cells", default="spmv,csr")
+    ap.add_argument("--k6-runs", default="")
     args = ap.parse_args(argv)
     cells = set(args.cells.split(","))
     import torch
@@ -110,6 +127,12 @@ def main(argv=None) -> int:
         res.update(csr_cells(dev, args.library))
     if "bcsr" in cells:
         res.update(bcsr_cells(dev, args.library))
+    if "bcsrmv" in cells:
+        res.update(bcsr_spmv_cells(
+            dev, args.library,
+            [int(v) for v in args.k6_runs.split(",") if v]))
+    if "gather" in cells:
+        res.update(gather_cells(dev, args.library))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -354,6 +377,77 @@ def bcsr_cells(dev, library: bool) -> dict:
             apply_ms=bench.apply_ms(fn, Ad, iters=10),
             device_ms=bench.device_ms(fn, Ad))
         del S, v
+    return res
+
+
+def bcsr_spmv_cells(dev, library: bool, run_blocks=()) -> dict:
+    """K6 on bcsr_spmv_32768 (``chip_smoke.py`` phase 13): apply, the
+    card's time alone, and one apply from an empty L2; the same for K6
+    built at each of ``run_blocks``."""
+    import inspect
+
+    import torch
+    from loops_tpu_torch.ops.kernels import spmv_bcsr
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import generate
+
+    bench = _timing()
+    csr, bcsr = generate.build_block_sparse(32768, 8, 128, 0.015, 0)
+    xd = torch.from_numpy(generate.make_input_vector(32768)).to(dev)
+    calls = {"K6": SpMVOperator(bcsr, impl="pallas", device=dev)}
+    if "run_blocks" in inspect.signature(spmv_bcsr.bcsr_spmv).parameters:
+        for L in run_blocks:
+            b, fn = spmv_bcsr.bcsr_spmv(bcsr, device=dev, run_blocks=L)
+            calls[f"K6 run_blocks={L}"] = functools.partial(fn, b)
+    if library:
+        for name, A in (
+                ("cuSPARSE csrmv", torch.sparse_csr_tensor(
+                    *(torch.from_numpy(a).to(dev) for a in (
+                        csr.offsets, csr.indices, csr.vals)),
+                    size=csr.shape)),
+                ("torch bsr mv", torch.sparse_bsr_tensor(
+                    *(torch.from_numpy(a).to(dev) for a in (
+                        bcsr.block_offsets, bcsr.block_cols, bcsr.vals)),
+                    size=bcsr.shape))):
+            calls[name] = functools.partial(torch.mv, A)
+    res = {}
+    for name, fn in calls.items():
+        try:
+            res[f"{name} bcsr_spmv_32768"] = dict(
+                apply_ms=bench.apply_ms(fn, xd),
+                device_ms=bench.device_ms(fn, xd),
+                cold_ms=bench.cold_ms(lambda fn=fn: fn(xd), dev))
+        except (RuntimeError, NotImplementedError) as e:
+            # timed only: a format torch refuses on the card
+            res[f"{name} bcsr_spmv_32768"] = str(e).splitlines()[0]
+    return res
+
+
+def gather_cells(dev, library: bool) -> dict:
+    """K15 G3 at W = 128, 512 and 2048, G1 (K = 128 f32) from shared
+    memory and from L2: ms per launch by slope."""
+    import torch
+    from loops_tpu_torch.probes import gather as G
+    from loops_tpu_torch.probes.common import launch_ms
+
+    res = {}
+    for W in G.G3_W:
+        win, idx = (torch.from_numpy(a).to(dev) for a in G.onehot_inputs(W))
+        res[f"G3 W={W}"] = launch_ms(lambda: G.onehot_expand(win, idx), dev)
+        if library:
+            wr = win.to(torch.bfloat16).float()
+            rl = G.onehot_rows(idx).long()
+            res[f"index_select G3 W={W}"] = launch_ms(
+                lambda: torch.index_select(wr, 0, rl), dev)
+    for S in (G.SMEM_ROWS, 4096):
+        slab, idx = G.row_gather_tensors(S, 128, G.N_ROWS, True, dev)
+        res[f"G1 S={S} K=128 f32"] = launch_ms(
+            lambda: G.row_gather(slab, idx, 128, False), dev)
+        if library:
+            bags = G.row_gather_bags(idx, 128)
+            res[f"embedding_bag G1 S={S}"] = launch_ms(
+                lambda: torch.nn.functional.embedding_bag(bags, slab,
+                                                          mode="sum"), dev)
     return res
 
 

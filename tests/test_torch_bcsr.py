@@ -1,7 +1,10 @@
 """The BCSR tier of the port on the CPU: the container, its layout view,
 the bench's block-sparse generator, K7's chunk staging and traffic count
-— all held identical to ``loops_tpu``'s for the same inputs — and the
-refusals and the example CLI. The operators against ``loops_tpu``'s are
+— all held identical to ``loops_tpu``'s for the same inputs — the numpy
+mirrors of K6–K9's work splits and summation orders (K6's,
+``k6_mirror``, lives in the JAX-free ``test_torch_cuda_bcsr.py``, which
+holds the kernel to it on the card), and the refusals and the example
+CLI. The operators against ``loops_tpu``'s are
 in ``test_torch_bcsr_slice.py``.
 """
 import os
@@ -20,7 +23,7 @@ from loops_tpu.ops.kernels.spmm_bcsr_v3 import (
     _stage_chunks as jax_stage_chunks,
     bcsr_spmm_pallas_v3,
 )
-from loops_tpu_torch.formats import BCSR
+from loops_tpu_torch.formats import BCSR, CSR
 from loops_tpu_torch.layout import BcsrLayout, check_layout_invariants
 from loops_tpu_torch.ops.kernels import (
     spmm_bcsr,
@@ -31,6 +34,7 @@ from loops_tpu_torch.ops.kernels import (
 from loops_tpu_torch.ops.spmm import SpMMOperator
 from loops_tpu_torch.ops.spmv import SpMVOperator
 from loops_tpu_torch.utils import generate, reference
+from test_torch_cuda_bcsr import K6_CASES, k6_mirror
 
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -481,6 +485,88 @@ def test_k9_storage_order_mirror(name, block):
                                rtol=1e-5, atol=1e-5)
 
 
+def _check_k6_plan(off, runs, splits, L):
+    """Every stored block in one run of at most L blocks, in storage
+    order; every block row walked by one run, or (cut, longer than L) by
+    runs of its own whose seam slots run in order."""
+    nbr, nb = len(off) - 1, off[-1]
+    t, b, slot = runs
+    assert t[0] == 0 and t[-1] == nb and (np.diff(t) >= 0).all()
+    assert (np.diff(t) <= L).all() and b[-1] == nbr
+    owner = np.zeros(nbr, np.int64)
+    cut = dict(zip(splits[0, :-1], splits[1, :-1]))
+    for w in range(len(t) - 1):
+        rows_w = range(b[w], max(b[w + 1], b[w] + 1))
+        for br in rows_w:
+            owner[br] += 1
+            if slot[w] < 0:  # whole block rows
+                assert off[br] >= t[w] and off[br + 1] <= t[w + 1]
+        if slot[w] >= 0:
+            (br,) = rows_w
+            assert off[br + 1] - off[br] > L
+            assert slot[w] == cut[br] + (t[w] - off[br]) // L
+    for br, first in cut.items():
+        assert owner[br] == -(-(off[br + 1] - off[br]) // L)
+        owner[br] = 1
+    assert (owner == 1).all()
+    assert splits[1, -1] == slot[-1] == (slot[:-1] >= 0).sum()
+
+
+@pytest.mark.parametrize("L", [1, 2, 5, 8, 32])
+def test_k6_plan_runs(L):
+    rng = np.random.default_rng(L)
+    for sizes in ([0] * 7, [0, 0, 3, 0, 0], rng.poisson(3.8, 300),
+                  [40, 0, 1, 33, 0], [0] * 5 + [9] * 4 + [0] * 5):
+        off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        runs, splits = spmv_bcsr.plan_runs(off, L)
+        assert runs.dtype == splits.dtype == np.int32
+        _check_k6_plan(off, runs.astype(np.int64), splits.astype(np.int64),
+                       L)
+    with pytest.raises(ValueError, match="run_blocks"):
+        spmv_bcsr.plan_runs(off, 33)
+
+
+@pytest.mark.parametrize("run_blocks", [1, 3, spmv_bcsr.RUN_BLOCKS])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128)])
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_k6_run_order_mirror(name, block, run_blocks):
+    """K6's runs and summation order (``k6_mirror``, which the kernel
+    equals bit for bit on the card): from a NaN y every row is written
+    once; on integer values, whose f32 sums are exact, it equals the
+    plain version bit for bit, and on normal values it lies within the
+    pair tolerance of it and passes the Wilkinson validator."""
+    csr = K6_CASES[name]()
+    bcsr = BCSR.from_csr(csr, *block)
+    b, fn = spmv_bcsr.bcsr_spmv(bcsr, device=CPU, run_blocks=run_blocks)
+    _check_k6_plan(b["offsets"].numpy().astype(np.int64),
+                   b["runs"].numpy().astype(np.int64),
+                   b["splits"].numpy().astype(np.int64), run_blocks)
+    if name == "long_row":
+        assert fn.meta["cut_block_rows"] > 0
+    rng = np.random.default_rng(7)
+    ints = CSR(csr.shape, csr.offsets, csr.indices,
+               np.rint(csr.vals * 3).astype(np.float32))
+    bi, _ = spmv_bcsr.bcsr_spmv(BCSR.from_csr(ints, *block), device=CPU,
+                                run_blocks=run_blocks)
+    xi = rng.integers(-4, 5, size=csr.shape[1]).astype(np.float32)
+    y, writes = k6_mirror(bi, xi, csr.shape)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(
+        y, spmv_bcsr.bcsr_spmv_plain(bi, torch.from_numpy(xi),
+                                     csr.shape).numpy())
+    x = rng.normal(size=csr.shape[1]).astype(np.float32)
+    y, writes = k6_mirror(b, x, csr.shape)
+    assert (writes == 1).all()
+    plain = fn(b, torch.from_numpy(x)).numpy()
+    tol = 2 * reference.DEFAULT_WILKINSON_K * csr.row_sizes() \
+        * reference.unit_roundoff(np.float32) \
+        * reference.row_l1_products(csr, x)
+    assert np.all(np.abs(y.astype(np.float64) - plain)
+                  <= np.maximum(1e-6, tol))
+    assert reference.rigorously_validate_spmv(csr, x, y).verdict \
+        == "NOT_A_BUG"
+
+
 def test_card_tiles_fit_shared_memory():
     # the card's defaults at the bench's 8 x 128 blocks, in both modes
     f32, bf16 = torch.float32, torch.bfloat16
@@ -597,6 +683,8 @@ def test_bcsr_wrappers_refuse_cpu_tensors():
     bufs6, _ = spmv_bcsr.bcsr_spmv(b, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmv_bcsr.bcsr_spmv_cuda(bufs6, x, t.shape)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmv_bcsr.bcsr_spmv_cuda(bufs6, x, t.shape, out=torch.zeros(40))
     bufs9, _ = spmm_bcsr.bcsr_spmm(b, device=CPU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_bcsr.bcsr_spmm_cuda(bufs9, B, t.shape)

@@ -1,8 +1,11 @@
 """The BCSR kernels K6–K9 of ``loops_tpu_torch`` (``csrc/bcsr.cu``) on the
 card: each against its plain PyTorch version on the same staged buffers,
 two applies bitwise equal, the launch counter, the operators' routing,
-the wrappers' input checks, and (K7–K9) the edge cases, a NaN-filled
-``out=`` written in full and the staged-buffer checks.
+the wrappers' input checks, the edge cases, a NaN-filled ``out=``
+written in full and the staged-buffer checks; K6 also bit for bit
+against ``k6_mirror``, the numpy mirror of its runs and summation order
+(which ``tests/test_torch_bcsr.py`` holds to the plain version on the
+CPU).
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor ``loops_tpu``; run it on the card with
@@ -156,6 +159,122 @@ def test_spmv_kernel_matches_plain(cuda_device, name, block):
                   <= np.maximum(1e-6, tol))
     assert reference.rigorously_validate_spmv(csr, x, y).verdict \
         == "NOT_A_BUG"
+
+
+def k6_mirror(b, x, shape):
+    """numpy mirror of K6 (``bcsr_spmv_kernel`` and its seam pass) over
+    its staged buffers: each run's warp walks its block rows; lane l's
+    partial of a row is its 4 columns' products, each rounded to f32,
+    added in block and column order; a row's total is the xor tree over
+    the lanes (16, 8, 4, 2, 1); a cut block row's seam slots are added in
+    run order. y starts at NaN, so a row the plan leaves unwritten shows.
+    Returns y and how many times each row was written."""
+    rows, cols = shape
+    vals = b["vals"].cpu().numpy()
+    R, C = vals.shape[1:]
+    off, bcols = b["offsets"].cpu().numpy(), b["bcols"].cpu().numpy()
+    runs, splits = b["runs"].cpu().numpy(), b["splits"].cpu().numpy()
+    xp = np.zeros(-(-cols // C) * C, np.float32)
+    xp[:cols] = x
+    lanes = np.arange(32)
+    y = np.full(rows, np.nan, np.float32)
+    writes = np.zeros(rows, np.int64)
+    seam = np.full(runs.shape[1] * R, np.nan, np.float32)
+
+    def put(br, v):
+        r = np.arange(br * R, br * R + R)
+        keep = r < rows
+        y[r[keep]] = v[keep]
+        writes[r[keep]] += 1
+    for w in range(runs.shape[1] - 1):
+        t, t1 = runs[0, w], runs[0, w + 1]
+        b0, slot = runs[1, w], runs[2, w]
+        for br in range(b0, max(runs[1, w + 1], b0 + 1)):
+            e = min(off[br + 1], t1)
+            acc = np.zeros((R, 32), np.float32)
+            for tt in range(t, e):
+                v = vals[tt].reshape(R, 32, 4)
+                seg = xp[bcols[tt] * C:bcols[tt] * C + C].reshape(32, 4)
+                for i in range(4):
+                    acc = acc + v[:, :, i] * seg[:, i]
+            t = max(t, e)
+            for o in (16, 8, 4, 2, 1):
+                acc = acc + acc[:, lanes ^ o]
+            if slot >= 0:
+                seam[slot * R:slot * R + R] = acc[:, 0]
+            else:
+                put(br, acc[:, 0])
+    for s in range(splits.shape[1] - 1):
+        a, z = splits[1, s], splits[1, s + 1]
+        v = seam[a * R:a * R + R]
+        for k in range(a + 1, z):
+            v = v + seam[k * R:k * R + R]
+        put(splits[0, s], v)
+    return y, writes
+
+
+# K6's cases: empty block rows (first, between, last), a block row of 40
+# blocks, longer than a run (cut, with a seam pass), cols not a multiple
+# of 128
+K6_CASES = {
+    "empty_rows": lambda: generate.sized_csr(
+        [0] * 9 + [3] * 20 + [0] * 30 + [2] * 10 + [0] * 11, 390, seed=23),
+    "long_row": lambda: generate.sized_csr(
+        [2] * 16 + [2500] * 8 + [1] * 24, 5000, seed=24),
+    "ragged_cols": lambda: generate.random_csr(100, 300, 0.04, seed=21),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_blocks", [1, 3, spmv_bcsr.RUN_BLOCKS])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128)])
+@pytest.mark.parametrize("name", sorted({**generate.BCSR_CASES,
+                                         **K6_CASES}))
+def test_spmv_kernel_equals_its_mirror(cuda_device, name, block,
+                                       run_blocks):
+    # bit for bit, into a NaN-filled out= (every row written once)
+    csr = {**generate.BCSR_CASES, **K6_CASES}[name]()
+    b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, *block),
+                                device=cuda_device, run_blocks=run_blocks)
+    x = np.random.default_rng(4).normal(size=csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    out = torch.full((csr.shape[0],), float("nan"), device=cuda_device)
+    assert fn(b, xd, out=out) is out
+    mirror, writes = k6_mirror(b, x, csr.shape)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out.cpu().numpy(), mirror)
+    # an x off 16-byte alignment takes the scalar loads: the same sums
+    xs = torch.empty(csr.shape[1] + 1, device=cuda_device)[1:]
+    xs.copy_(xd)
+    assert torch.equal(fn(b, xs), out)
+
+
+@pytest.mark.cuda
+def test_spmv_kernel_checks_staged_buffers_and_out(cuda_device):
+    csr = K6_CASES["long_row"]()
+    b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, 8, 128),
+                                device=cuda_device, run_blocks=4)
+    assert fn.meta["cut_block_rows"] > 0
+    xd = torch.ones(csr.shape[1], device=cuda_device)
+    y = fn(b, xd)
+    for bad in (torch.zeros(csr.shape[0] - 1, device=cuda_device),
+                torch.zeros(csr.shape[0], device=cuda_device,
+                            dtype=torch.float64),
+                torch.zeros(csr.shape[0], 2, device=cuda_device),
+                torch.zeros(csr.shape[0])):
+        with pytest.raises(ValueError, match="out"):
+            fn(b, xd, out=bad)
+    assert fn.staged_on(b) is not None
+    for key in ("runs", "splits", "bcols", "offsets", "vals"):
+        # a replaced buffer is checked again: one of the right kind passes
+        bb = dict(b, **{key: b[key].clone()})
+        assert fn.staged_on(bb) is None
+        assert torch.equal(fn(bb, xd), y)
+        # one changed in place is refused
+        bb[key].resize_(bb[key].numel() - 1)
+        with pytest.raises(ValueError, match=key):
+            fn(bb, xd)
 
 
 @pytest.mark.cuda

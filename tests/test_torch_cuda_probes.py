@@ -266,10 +266,26 @@ def test_row_gather(cuda_device, dtype, S, K, mat):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [64, *gather.G3_W])
-@pytest.mark.parametrize("n", [2048, gather.N_ROWS])
+@pytest.mark.parametrize("n", [2048, 3 * gather.G3_KC, gather.N_ROWS])
 def test_onehot_expand(cuda_device, W, n):
+    # bit for bit the plain version (two launches equal), 2, 3 (odd) and
+    # 2048 blocks of Kc rows
     rec = gather.probe_onehot(W, cuda_device, lambda s: None, False, n)
-    assert rec["max_abs_err"] == 0.0
+    assert rec["max_abs_err"] == 0.0 and rec["flops"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 512, 2048, 3000])
+@pytest.mark.parametrize("Kc,nblocks", [(100, 5), (33, 1), (1024, 7)])
+def test_onehot_expand_odd_shapes(cuda_device, W, Kc, nblocks):
+    # blocks of Kc rows that cut a warp's steps of 32 rows, one block,
+    # odd block counts; windows in shared memory, from L2 and one of W
+    # past a power of two
+    win, idx = (torch.from_numpy(a).to(cuda_device)
+                for a in gather.onehot_inputs(W, Kc, nblocks * Kc))
+    out = gather.onehot_expand(win, idx)
+    assert tuple(out.shape) == (nblocks * Kc, 128)
+    assert torch.equal(out, gather.onehot_expand_plain(win, idx))
 
 
 @pytest.mark.cuda
@@ -308,7 +324,7 @@ def test_wrappers_check_inputs(cuda_device):
     with pytest.raises(ValueError, match="n % K"):
         gather.row_gather_cuda(src, torch.zeros(12, dtype=torch.int32,
                                                 device=dev), 8, False)
-    with pytest.raises(ValueError, match="W % 64"):
+    with pytest.raises(ValueError, match="nblocks"):
         gather.onehot_expand_cuda(torch.ones(100, 128, device=dev),
-                                  torch.zeros(8, 128, dtype=torch.int32,
+                                  torch.zeros(12, 128, dtype=torch.int32,
                                               device=dev))

@@ -24,6 +24,7 @@ from loops_tpu_torch.ops.kernels import (
     spmm_bcsr,
     spmm_bcsr_v2,
     spmm_bcsr_v3,
+    spmv_bcsr,
     spmv_sorted,
 )
 from loops_tpu_torch.ops.spmv import SpMVOperator
@@ -292,10 +293,13 @@ def test_output_of_a_matrix_is_empty_or_a_checked_out(out):
 
 
 def _bcsr_binds():
-    """K9, K7 and K8 (f32 and bf16) and K10 bound on the CPU: (name, bufs,
-    fn, the wrapper's check of its staged buffers, its parameters)."""
+    """K6, K9, K7 and K8 (f32 and bf16) and K10 bound on the CPU: (name,
+    bufs, fn, the wrapper's check of its staged buffers, its
+    parameters)."""
     csr = generate.random_csr(40, 300, 0.05, seed=4)
     bcsr = BCSR.from_csr(csr, 8, 128)
+    b6, f6 = spmv_bcsr.bcsr_spmv(bcsr, device=CPU)
+    yield "K6", b6, f6, spmv_bcsr.check_staged, f6.params
     b9, f9 = spmm_bcsr.bcsr_spmm(bcsr, device=CPU)
     yield "K9", b9, f9, spmm_bcsr.check_staged, f9.params
     for dtype in (None, "bfloat16"):
@@ -332,7 +336,7 @@ def test_k7_k9_check_staged_buffers_changed_again(change):
                 check_staged(b, params, CPU)
         else:
             check_staged(b, params, CPU)
-    assert names == ["K9", "K7 None", "K8 None", "K7 bfloat16",
+    assert names == ["K6", "K9", "K7 None", "K8 None", "K7 bfloat16",
                      "K8 bfloat16", "K10"]
 
 
@@ -357,6 +361,68 @@ def test_k8_k10_check_every_staged_buffer(kernel, buf):
         bad[buf] = b[buf].double()
         with pytest.raises(ValueError, match=buf):
             check_staged(bad, params, CPU)
+
+
+@pytest.mark.parametrize("buf", ["vals", "bcols", "offsets", "runs",
+                                 "splits"])
+def test_k6_checks_every_staged_buffer(buf):
+    # K6's BCSR arrays and its plan (runs, cut block rows) are all in its
+    # check: one of another size or type is refused by name
+    (name, b, fn, check_staged, params), = [
+        x for x in _bcsr_binds() if x[0] == "K6"]
+    assert sorted(b) == ["bcols", "offsets", "runs", "splits", "vals"]
+    check_staged(b, params, CPU)
+    bad = dict(b)
+    bad[buf] = b[buf].reshape(-1)[:-1]
+    assert fn.staged_on(bad) is None
+    with pytest.raises(ValueError, match=buf):
+        check_staged(bad, params, CPU)
+    bad[buf] = b[buf].double()
+    with pytest.raises(ValueError, match=buf):
+        check_staged(bad, params, CPU)
+
+
+class _PosingAsCuda(torch.Tensor):
+    """A CPU tensor that a wrapper's ``x.is_cuda`` takes for a card's."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("out", ["none", "good", "short", "double",
+                                 "matrix", "device"])
+def test_k6_launch_takes_a_checked_out(fake_card, out):
+    # K6 writes y into a torch.empty or a checked out= of rows float32
+    # values, and passes its buffers, plan sizes and x's alignment to its
+    # entry point; the staged buffers checked at bind are not read again
+    csr = generate.sized_csr([2] * 16 + [300] * 8 + [0] * 9, 1500, seed=24)
+    b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, 8, 128), device=CPU,
+                                run_blocks=4)
+    p = fn.params
+    assert p["nsplit"] >= 1 and p["nruns"] == b["runs"].shape[1] - 1
+    x = torch.ones(1500).as_subclass(_PosingAsCuda)
+    given = {"none": None, "good": torch.full((33,), float("nan")),
+             "short": torch.zeros(32),
+             "double": torch.zeros(33, dtype=torch.float64),
+             "matrix": torch.zeros(33, 1),
+             "device": torch.zeros(33, device="meta")}[out]
+    before = _build.LAUNCHES["bcsr_spmv"]
+    if out in ("short", "double", "matrix", "device"):
+        with pytest.raises(ValueError, match="out"):
+            spmv_bcsr.bcsr_spmv_cuda(b, x, csr.shape, CPU, given, p)
+        assert _build.LAUNCHES["bcsr_spmv"] == before
+        return
+    y = spmv_bcsr.bcsr_spmv_cuda(b, x, csr.shape, CPU, given, p)
+    assert y.shape == (33,) and (y is given) == (out == "good")
+    assert _build.LAUNCHES["bcsr_spmv"] == before + 1
+    args = _build._FNS["loops_bcsr_spmv_f32"].calls[-1]
+    ptrs = [b[k].data_ptr() for k in ("offsets", "bcols", "runs", "splits",
+                                      "vals")]
+    assert list(args[:5]) == ptrs and args[5] == x.data_ptr()
+    assert args[6] == y.data_ptr() and args[7] != y.data_ptr()  # seam
+    assert args[8:14] == (p["nruns"], p["nsplit"], 8, 33, 1500, 1)
+    assert args[14] == 4242
 
 
 @pytest.mark.parametrize("buf", ["perm", "seg"])

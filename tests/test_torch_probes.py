@@ -19,9 +19,11 @@ on the same seeded inputs:
   plain versions are held to the kernels' outputs and to the scripts' own
   numpy checks (``np.take_along_axis``, ``sl[i0]``, ``win0[idx[0]]``).
 - Numpy mirrors of the CUDA kernels' thread-to-data maps: the warp scan
-  of ``csrc/seg_scan.cuh`` with its warp fold and carry, the
-  ``mma.sync`` / ``ldmatrix`` fragment layouts of the one-hot expand and
-  the bf16 block dot, the f32 block dot's 8 x 8 register tiles over
+  of ``csrc/seg_scan.cuh`` with its warp fold and carry, the row gather
+  that G2 and the one-hot expand (G3) share (warp and lane of every
+  output value, the index row each reads, shared memory or L2 by size),
+  the ``mma.sync`` / ``ldmatrix`` fragment layouts of the bf16 block dot,
+  the f32 block dot's 8 x 8 register tiles over
   k-slices (and the one-row tile at M = 8), and the L2 scatter's plan
   and segment walk, bit for bit against a sequential loop.
 """
@@ -582,13 +584,6 @@ def test_warp_scan_mirror(scan_probe, shape, sub, integer):
         np.testing.assert_allclose(got, ref, atol=mosaic.SCAN_ATOL, rtol=0)
 
 
-def _bf16_pair(word):
-    """The two bf16 of a 32-bit register, low half first, as floats."""
-    lo = np.array([(word & 0xFFFF) << 16], np.uint32).view(np.float32)[0]
-    hi = np.array([word & 0xFFFF0000], np.uint32).view(np.float32)[0]
-    return lo, hi
-
-
 def _ldmatrix(smem, lane_rows, lane_cols, n_mats, trans):
     """``ldmatrix.m8n8.x{n_mats}[.trans]``: matrix m's row r at the address
     lane 8m + r gives; lane t receives, per matrix, (row t/4, columns 2(t%4)
@@ -625,46 +620,82 @@ def _mma_m16n8k16(a, b):
     return d
 
 
-def _onehot_pair(i, c):
-    return (0x3F80 if i == c else 0) | (0x3F800000 if i == c + 1 else 0)
+def _row_gather_mirror(table, idx, K, rep, blocks, smem, element_size):
+    """``row_gather_kernel``'s materialize path (G2 at ``rep`` 1, G3 at
+    ``rep`` 8) in numpy: CTA c, warp w of 8 is global warp c*8 + w; it
+    takes rows b..b+31 from b = 32 * (global warp) in steps of 32 * (all
+    warps), its lanes load the index of row b + lane from
+    ``idx[o + (o // K) * (rep - 1) * K]`` and pass it by shuffle, and lane
+    l copies columns 4l..4l+3 of the row, widened to f32. Returns the
+    output, filled with NaN where no lane wrote, and the write count of
+    every value. ``table`` holds the values as f32; ``element_size`` is
+    the bytes of one in the kernel's table (2 for G3's bf16 window)."""
+    n = idx.size // rep
+    flat = idx.reshape(-1)
+    if smem:  # the CTA stages the table whole, in 16-byte pieces
+        staged = table.shape[0] * 128 * element_size
+        assert staged % 16 == 0 and staged <= gather.SMEM_BYTES
+    out = np.full((n, 128), np.nan, np.float32)
+    writes = np.zeros((n, 128), np.int64)
+    warps = blocks * 8
+    for gw in range(warps):
+        for b in range(gw * 32, n, warps * 32):
+            mine = [int(flat[o + (o // K) * (rep - 1) * K]) if o < n else 0
+                    for o in range(b, b + 32)]
+            for q in range(min(32, n - b)):
+                r = mine[q]                       # __shfl_sync(mine, q)
+                for lane in range(32):
+                    c = 4 * lane
+                    out[b + q, c:c + 4] = table[r, c:c + 4]
+                    writes[b + q, c:c + 4] += 1
+    return out, writes
 
 
-@pytest.mark.parametrize("W", [64, 128])
-def test_onehot_fragment_mirror(W):
-    """``onehot_expand_kernel``'s warp 0 of CTA 0 (16 rows x 128 columns):
-    the one-hot built in registers, the window through shared memory in
-    steps of 64 rows and ldmatrix.trans, the epilogue's rows and columns;
-    the result is the bf16-rounded window rows."""
-    win, idx = gather.onehot_inputs(W, 1024, 1024)
+@pytest.mark.parametrize("W", [64, 128, 512, 2048])
+def test_onehot_row_gather_mirror(W):
+    """G3 as ``row_gather_kernel`` runs it: the residency and grid
+    ``rows_grid`` gives (shared memory up to W = 512, L2 at 2048), every
+    output value written once by its warp and lane from the first of its
+    block's 8 idx rows, bit for bit ``bf16(win)[rows]`` and the plain
+    version. Kc = 100 leaves a block's rows across warps' steps of 32."""
+    Kc, nblocks = 100, 3
+    win, idx = gather.onehot_inputs(W, Kc, nblocks * Kc)
+    assert idx.shape == (nblocks * gather.G3_REP, Kc)
+    where, blocks = gather.rows_grid(W, 2, sms=1)
+    assert where == ("smem" if W <= 512 else "l2")
+    assert blocks == (min(8, gather.SMEM_BYTES // (W * 256))
+                      if where == "smem" else 8)
     wb = torch.from_numpy(win).to(torch.bfloat16).float().numpy()
-    i_rows = idx[0, :16]
-    out = np.zeros((16, 128))
-    acc = np.zeros((16, 32, 4))
-    for w0 in range(0, W, 64):
-        ws = np.zeros((64, 136), np.float32)
-        ws[:, :128] = wb[w0:w0 + 64]
-        for k in range(0, 64, 16):
-            a = np.zeros((32, 4, 2), np.float32)
-            for t in range(32):
-                g, q = t // 4, t % 4
-                c = w0 + k + 2 * q
-                words = (_onehot_pair(i_rows[g], c),
-                         _onehot_pair(i_rows[g + 8], c),
-                         _onehot_pair(i_rows[g], c + 8),
-                         _onehot_pair(i_rows[g + 8], c + 8))
-                a[t] = [_bf16_pair(wd) for wd in words]
-            for j in range(16):
-                lanes = np.arange(32)
-                b = _ldmatrix(ws, k + (lanes & 15), np.full(32, j * 8), 2,
-                              trans=True)
-                acc[j] += _mma_m16n8k16(a, b)
-    for j in range(16):
-        for t in range(32):
-            g, q = t // 4, t % 4
-            for h in range(2):
-                out[g + 8 * h, j * 8 + 2 * q:j * 8 + 2 * q + 2] = \
-                    acc[j, t, 2 * h:2 * h + 2]
-    np.testing.assert_array_equal(out, wb[i_rows])
+    out, writes = _row_gather_mirror(wb, idx, Kc, gather.G3_REP, blocks,
+                                     where == "smem", 2)
+    assert (writes == 1).all()
+    rows = idx[::gather.G3_REP].reshape(-1)
+    np.testing.assert_array_equal(out, wb[rows])
+    np.testing.assert_array_equal(
+        out, gather.onehot_expand(_t(win), _t(idx)).numpy())
+
+
+def test_g2_row_gather_mirror():
+    """G2 through the same walk at ``rep`` 1: ``out[r] = slab[idx[r]]``."""
+    slab, idx = gather.row_gather_inputs(256, 64, 640)
+    where, blocks = gather.rows_grid(256, 4, sms=1)
+    assert (where, blocks) == ("smem", 1)
+    out, writes = _row_gather_mirror(slab, idx, 64, 1, blocks, True, 4)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(
+        out, gather.row_gather(_t(slab), _t(idx), 64, True).numpy())
+
+
+@pytest.mark.parametrize("W", [128, 2048])
+def test_probe_onehot_records_the_functions_bytes(W):
+    """G3's bound is what the function moves: the bf16 window once, one
+    idx row per block and the f32 rows; no operations."""
+    n = 2 * gather.G3_KC
+    rec = gather.probe_onehot(W, CPU, lambda s: None, False, n)
+    assert rec["flops"] == 0 and rec["max_abs_err"] == 0.0
+    assert rec["nbytes"] == 2 * W * 128 + 4 * n + 4 * n * 128
+    assert rec["nbytes"] == gather.onehot_bytes(W, 2, gather.G3_KC)
+    assert rec["ms"] is None
 
 
 def test_block_dot_bf16_fragment_mirror():
