@@ -72,7 +72,6 @@ namespace {
 // torch.empty.
 constexpr int kRowGroup = 8;
 constexpr int kK6Threads = 128;
-constexpr int kK6Depth = 4;  // blocks whose loads a warp issues at once
 constexpr int kSeamThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -161,23 +160,21 @@ bcsr_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ bcols,
     auto close_before = [&](int t) {
       while (__shfl_sync(kFull, myend, cur - bb) <= t) flush();
     };
-    // kK6Depth blocks' loads a step, issued before the rows they close
-    // are summed, whatever rows they belong to
-    for (int t = t0; t < t1; t += kK6Depth) {
-      K6Slice s[kK6Depth];
-#pragma unroll
-      for (int d = 0; d < kK6Depth; ++d) {
-        if (t + d < t1) {
-          k6_load(s[d], vals, x, t + d, __shfl_sync(kFull, mycol, t + d - t0), R, r0, lane,
-                  cols, vec);
-        }
+    // two blocks' loads a step, issued before the rows they close are
+    // summed, whatever rows the two belong to
+    for (int t = t0; t < t1; t += 2) {
+      const bool two = t + 1 < t1;
+      K6Slice a, b;
+      k6_load(a, vals, x, t, __shfl_sync(kFull, mycol, t - t0), R, r0, lane, cols, vec);
+      if (two) {
+        k6_load(b, vals, x, t + 1, __shfl_sync(kFull, mycol, t + 1 - t0), R, r0, lane, cols,
+                vec);
       }
-#pragma unroll
-      for (int d = 0; d < kK6Depth; ++d) {
-        if (t + d < t1) {
-          close_before(t + d);
-          k6_add(acc, s[d]);
-        }
+      close_before(t);
+      k6_add(acc, a);
+      if (two) {
+        close_before(t + 1);
+        k6_add(acc, b);
       }
     }
     while (cur < b1) flush();  // the last row with blocks, then empty ones
