@@ -181,18 +181,25 @@ def bcsr_spmv_plain(b: dict, x: torch.Tensor, shape) -> torch.Tensor:
     return yb.reshape(-1)[:rows]
 
 
-def bcsr_spmv(bcsr, device="cuda", run_blocks: int = RUN_BLOCKS):
-    """Build ``(bufs, fn(bufs, x, out=None))`` for BCSR @ vector through
-    K6; ``fn`` runs K6 on a CUDA tensor and the plain version on a CPU
-    tensor. The buffers hold the BCSR arrays and K6's plan
-    (``plan_runs``), checked once here on a card."""
-    device = ensure_platform(device)
-    check_blocks(bcsr)
-    shape = bcsr.shape
+def stage_runs(bcsr, device, run_blocks: int = RUN_BLOCKS) -> dict:
+    """K6's staged buffers: the BCSR arrays (``stage``) and its plan
+    (``plan_runs``: ``runs``, ``splits``) as tensors on ``device``."""
     bufs = stage(bcsr, device)
     runs, splits = plan_runs(bcsr.block_offsets, run_blocks)
     bufs["runs"] = torch.from_numpy(runs).to(device)
     bufs["splits"] = torch.from_numpy(splits).to(device)
+    return bufs
+
+
+def bcsr_spmv(bcsr, device="cuda"):
+    """Build ``(bufs, fn(bufs, x, out=None))`` for BCSR @ vector through
+    K6; ``fn`` runs K6 on a CUDA tensor and the plain version on a CPU
+    tensor. The buffers (``stage_runs``) are checked once here on a
+    card."""
+    device = ensure_platform(device)
+    check_blocks(bcsr)
+    shape = bcsr.shape
+    bufs = stage_runs(bcsr, device)
     params = plan_params(bufs, shape)
     staged_on = _build.staged_guard(bufs, params, check_staged)
 
@@ -203,6 +210,6 @@ def bcsr_spmv(bcsr, device="cuda", run_blocks: int = RUN_BLOCKS):
     fn.params = params
     fn.staged_on = staged_on
     fn.meta = dict(num_blocks=bcsr.num_blocks, block_shape=bcsr.block_shape,
-                   run_blocks=int(run_blocks), runs=params["nruns"],
+                   run_blocks=RUN_BLOCKS, runs=params["nruns"],
                    cut_block_rows=params["nsplit"])
     return bufs, fn

@@ -4,7 +4,7 @@
 (phases 6, 10, 13, 17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-        [--cells spmv,flat,csr,bcsr,bcsrmv,gather] [--k6-runs 4,8,16]
+        [--cells spmv,flat,csr,bcsr,bcsrmv,gather]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -52,9 +52,7 @@ needs no script of its own:
   (one apply from an empty L2, the regime of its byte bound: its 64 MB of
   blocks are 1.3 times the 50 MB L2, so a warm apply finds part of them
   there); with ``--library`` cuSPARSE's ``torch.mv`` on the CSR form and
-  on ``torch.sparse_bsr_tensor``, timed the same three ways; with
-  ``--k6-runs`` also K6 built at each of those ``run_blocks`` (the blocks a
-  warp takes at most; a tree whose K6 has no such plan skips them);
+  on ``torch.sparse_bsr_tensor``, timed the same three ways;
 - K15 G3 ``onehot_expand`` at W = 128, 512 and 2048 and G1
   ``row_gather`` (sums, K = 128 f32) from shared memory (S = 256) and
   from L2 (S = 4096), at ``probes/gather.py``'s sizes (N = 2,097,152
@@ -97,7 +95,6 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--cells", default="spmv,csr")
-    ap.add_argument("--k6-runs", default="")
     args = ap.parse_args(argv)
     cells = set(args.cells.split(","))
     import torch
@@ -128,9 +125,7 @@ def main(argv=None) -> int:
     if "bcsr" in cells:
         res.update(bcsr_cells(dev, args.library))
     if "bcsrmv" in cells:
-        res.update(bcsr_spmv_cells(
-            dev, args.library,
-            [int(v) for v in args.k6_runs.split(",") if v]))
+        res.update(bcsr_spmv_cells(dev, args.library))
     if "gather" in cells:
         res.update(gather_cells(dev, args.library))
     print(smi)
@@ -380,14 +375,10 @@ def bcsr_cells(dev, library: bool) -> dict:
     return res
 
 
-def bcsr_spmv_cells(dev, library: bool, run_blocks=()) -> dict:
+def bcsr_spmv_cells(dev, library: bool) -> dict:
     """K6 on bcsr_spmv_32768 (``chip_smoke.py`` phase 13): apply, the
-    card's time alone, and one apply from an empty L2; the same for K6
-    built at each of ``run_blocks``."""
-    import inspect
-
+    card's time alone, and one apply from an empty L2."""
     import torch
-    from loops_tpu_torch.ops.kernels import spmv_bcsr
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.utils import generate
 
@@ -395,10 +386,6 @@ def bcsr_spmv_cells(dev, library: bool, run_blocks=()) -> dict:
     csr, bcsr = generate.build_block_sparse(32768, 8, 128, 0.015, 0)
     xd = torch.from_numpy(generate.make_input_vector(32768)).to(dev)
     calls = {"K6": SpMVOperator(bcsr, impl="pallas", device=dev)}
-    if "run_blocks" in inspect.signature(spmv_bcsr.bcsr_spmv).parameters:
-        for L in run_blocks:
-            b, fn = spmv_bcsr.bcsr_spmv(bcsr, device=dev, run_blocks=L)
-            calls[f"K6 run_blocks={L}"] = functools.partial(fn, b)
     if library:
         for name, A in (
                 ("cuSPARSE csrmv", torch.sparse_csr_tensor(

@@ -234,27 +234,27 @@ def test_spmv_kernel_equals_its_mirror(cuda_device, name, block,
                                        run_blocks):
     # bit for bit, into a NaN-filled out= (every row written once)
     csr = {**generate.BCSR_CASES, **K6_CASES}[name]()
-    b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, *block),
-                                device=cuda_device, run_blocks=run_blocks)
+    b = spmv_bcsr.stage_runs(BCSR.from_csr(csr, *block), cuda_device,
+                             run_blocks)
     x = np.random.default_rng(4).normal(size=csr.shape[1]).astype(
         np.float32)
     xd = torch.from_numpy(x).to(cuda_device)
     out = torch.full((csr.shape[0],), float("nan"), device=cuda_device)
-    assert fn(b, xd, out=out) is out
+    assert spmv_bcsr.bcsr_spmv_cuda(b, xd, csr.shape, out=out) is out
     mirror, writes = k6_mirror(b, x, csr.shape)
     assert (writes == 1).all()
     np.testing.assert_array_equal(out.cpu().numpy(), mirror)
     # an x off 16-byte alignment takes the scalar loads: the same sums
     xs = torch.empty(csr.shape[1] + 1, device=cuda_device)[1:]
     xs.copy_(xd)
-    assert torch.equal(fn(b, xs), out)
+    assert torch.equal(spmv_bcsr.bcsr_spmv_cuda(b, xs, csr.shape), out)
 
 
 @pytest.mark.cuda
 def test_spmv_kernel_checks_staged_buffers_and_out(cuda_device):
-    csr = K6_CASES["long_row"]()
+    csr = K6_CASES["long_row"]()  # a block row of 40 blocks: cut
     b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, 8, 128),
-                                device=cuda_device, run_blocks=4)
+                                device=cuda_device)
     assert fn.meta["cut_block_rows"] > 0
     xd = torch.ones(csr.shape[1], device=cuda_device)
     y = fn(b, xd)

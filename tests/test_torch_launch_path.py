@@ -397,9 +397,8 @@ def test_k6_launch_takes_a_checked_out(fake_card, out):
     # values, and passes its buffers, plan sizes and x's alignment to its
     # entry point; the staged buffers checked at bind are not read again
     csr = generate.sized_csr([2] * 16 + [300] * 8 + [0] * 9, 1500, seed=24)
-    b, fn = spmv_bcsr.bcsr_spmv(BCSR.from_csr(csr, 8, 128), device=CPU,
-                                run_blocks=4)
-    p = fn.params
+    b = spmv_bcsr.stage_runs(BCSR.from_csr(csr, 8, 128), CPU, 4)
+    p = spmv_bcsr.plan_params(b, csr.shape)
     assert p["nsplit"] >= 1 and p["nruns"] == b["runs"].shape[1] - 1
     x = torch.ones(1500).as_subclass(_PosingAsCuda)
     given = {"none": None, "good": torch.full((33,), float("nan")),
