@@ -77,6 +77,7 @@ TRACE_NAMES = {
     "l2_scatter": ("scatter_l2_kernel",),
     **{f"row_gather_{m}_{w}": ("row_gather_kernel",)
        for m in ("sum", "mat") for w in ("smem", "l2", "hbm")},
+    "onehot_expand": ("row_gather_kernel",),
 }
 
 
