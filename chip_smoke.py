@@ -2018,7 +2018,9 @@ def main() -> int:
         kernels.append(
             {"name": k, "route": "cuda", "source": BCSR_SOURCE,
              "replaces": rep_at, "launches": bcsr_launches[k],
-             "max_abs_err": bcsr_err[k], **bcsr_times[k, None]})
+             "max_abs_err": bcsr_err[k],
+             **{f: bcsr_times[k, None][f] for f in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     for k, label in (("sddmm_flat", "bench_65536 F=128"),
                      ("sddmm_bcsr", "bcsr_16384 F=512")):
         kernels.append(
