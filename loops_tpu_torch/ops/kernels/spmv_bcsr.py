@@ -10,7 +10,7 @@ from device memory (2 flops per 4-byte value): 64 MB at the bench's
 32768^2 regime, past the 50 MB L2. One warp a block row, the first
 design, kept one 4 KB block in flight a warp and waited, in the Poisson
 tail of long block rows, on one load after another: 45.5% of its byte
-bound from an empty L2 (PERF.md §6, PR 12).
+bound from an empty L2 (PERF.md §6).
 
 The CUDA kernel (``csrc/bcsr.cu`` ``bcsr_spmv_kernel``) balances the work
 over the stored blocks instead. ``plan_runs`` packs whole block rows in
