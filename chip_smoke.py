@@ -134,10 +134,15 @@ Phases, one line each with its time:
    of their float64 reference, ``l2_scatter`` on the script's normal
    values bit for bit against the sequential (pass, chunk, slab) order
    computed on the CPU (1 and 3 passes); two launches bitwise equal.
+   G1 (``row_gather_sum_*``) is held bit for bit on the script's normal
+   slab as well as on its integer one.
    Then it times each by slope (launches or passes; the scatters by one
    pass from an empty L2, as their byte bounds assume) beside its plain
    version and its library call, prints ``onehot_expand`` at W = 128, 512
-   and 2048 against ``index_select`` and its byte bound, and the two
+   and 2048 against ``index_select`` and its byte bound, G1 (K = 128 f32)
+   at each residency against ``embedding_bag`` and its byte bound, with
+   its rate of row reads beside K11's at 64 MiB, ``gather_axis0`` at each
+   S against ``take_along_dim`` and its byte bound, and the two
    kernels redesigned last (``onehot_expand`` at W = 512 against
    ``index_select``; ``bcsr_spmv`` from an empty L2 against cuSPARSE's
    CSR SpMV and ``torch.sparse_bsr_tensor``). The launch counters are set
@@ -1407,16 +1412,16 @@ def sddmm_phases(device, smi, adj, rate):
     return err, launches, times, bounds
 
 
-def probe_phases(device, smi, rate, k6):
+def probe_phases(device, smi, rate, k6, rate64):
     """Phases 18-19 (K12-K15); ``rate`` is K11's measured read rate in
-    bytes/s, ``k6`` K6's times from phase 13 (the line of the two kernels
-    redesigned last names it). Returns the max |kernel - plain| per
+    bytes/s at 1 GiB and ``rate64`` at 64 MiB, ``k6`` K6's times from
+    phase 13 (the line of the two kernels redesigned last names it). Returns the max |kernel - plain| per
     kernel, the main path's launch counts and each kernel's timed
     record."""
     import torch
 
     from loops_tpu_torch.ops.kernels import _build, saxpy
-    from loops_tpu_torch.probes import common, mosaic, r2
+    from loops_tpu_torch.probes import common, gather, mosaic, r2
     from loops_tpu_torch.utils import generate
     from loops_tpu_torch.utils.profile_spmv import profile_applies
 
@@ -1551,6 +1556,25 @@ def probe_phases(device, smi, rate, k6):
                   f"({rec['library_ms'] / rec['ms']:.2f}x); bound "
                   f"{b_ms:.4f} ms ({b_by}), {b_ms / rec['ms']:.1%} of it; "
                   f"exact  [{smi}]")
+    # G1 at each residency (K = 128 f32) against embedding_bag, its rate
+    # of row reads beside K11's at 64 MiB; P1 at each S against
+    # take_along_dim; each beside its byte bound (both held bit for bit
+    # above, G1 on normal and on integer slabs)
+    for rec in recs:
+        g1 = rec["name"].startswith("row_gather_sum_") \
+            and rec["label"].endswith("K=128 f32")
+        if not (g1 or rec["name"] == "gather_axis0"):
+            continue
+        b_ms, b_by = bound(rec["nbytes"], rec["flops"])
+        row_gbps = gather.N_ROWS * gather.LANES * 4 / rec["ms"] / 1e6
+        reads = (f"; row reads {row_gbps:.1f} GB/s (K11 at 64 MiB "
+                 f"{rate64 / 1e9:.1f})" if g1 else "")
+        print(f"  {rec['name']} ({rec['label']}): {rec['ms']:.4f} ms, "
+              f"{'embedding_bag' if g1 else 'take_along_dim'} "
+              f"{rec['library_ms']:.4f} ms "
+              f"({rec['library_ms'] / rec['ms']:.2f}x); bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / rec['ms']:.1%} of it{reads}; exact  "
+              f"[{smi}]")
     g3 = entries["onehot_expand"]
     print(f"  the two kernels redesigned last: onehot_expand "
           f"({g3['label']}) {g3['ms']:.4f} ms per launch, index_select "
@@ -1978,7 +2002,8 @@ def main() -> int:
     sddmm_err, sddmm_launches, sddmm_times, sddmm_bounds = sddmm_phases(
         device, smi, adj, rate)
     probe_err, probe_launches, probe_recs = probe_phases(
-        device, smi, rate, bcsr_times["bcsr_spmv", None])
+        device, smi, rate, bcsr_times["bcsr_spmv", None],
+        stream_res["64 MiB"]["gbps"] * 1e9)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []

@@ -4,34 +4,49 @@
 //
 // gather_axis0_kernel  replaces scripts/tpu_r3_gather_probe.py probe_axis0:
 //   out[i, j] = src[idx[i, j], j], src [S, 128] f32, idx [n, 128] int32.
-//   src is staged in shared memory when it fits (S <= 256: 128 KB) and
-//   read through the read-only path (__ldg, from L2) when it does not
-//   (S = 1024, 512 KB). A thread takes 4 neighbouring j: one int4 of idx,
-//   one float4 out.
+//   An item is 4 neighbouring j of one row: one int4 of idx, one float4
+//   out. A thread keeps 4 items in flight: their index loads are issued
+//   before any table read (the first step's before the table is staged).
+//   At S <= 256 (128 KB) a CTA of 1024 threads stages src in shared
+//   memory with row r's column j at r*128 + (j & 3)*32 + (j >> 2): lane l
+//   reads component c at word c*32 + l of its row, so a warp's loads hit
+//   32 banks (unpermuted, lanes l, l+8, l+16, l+24 shared one). S = 1024
+//   (512 KB) is read through __ldg from L2 by CTAs of 256.
 // gather_axis1_kernel  replaces tpu_r3_gather_probe.py probe_axis1:
 //   out[i, j] = src[i, idx[i, j]]. A warp holds row i in registers (a
 //   float4 a lane) and gathers inside the row by __shfl_sync.
-// row_gather_kernel  replaces scripts/tpu_r4_gather_probe.py _dynload_run
-//   and g3_onehot_expand:
-//   rows of a [S, 128] slab (f32 or bf16) gathered by idx, either summed
-//   in groups of 8 (G1: out[g*8 + j] = sum_k0 slab[idx[g*K + k0 + j]], f32
-//   sums in k0 order) or materialized (G2: out[r] = slab[idx[r]]; G3:
-//   out[g*K + k] = f32(win[idx[(g*rep)*K + k]]), the first of the rep = 8
-//   repeated idx rows of each block of K output rows, each bf16 value
-//   widened to f32). A warp takes one output row, a lane 4 of its 128
-//   values; a warp's indices are loaded 32 at a time and passed by
-//   __shfl_sync. The grid is persistent (a few CTAs an SM, a grid-stride
-//   loop), so each CTA stages the slab once. The slab sits in shared
-//   memory when a CTA can hold it (G1/G2: S = 256; G3: W <= 512, 128 KB of
-//   bf16) or is read through __ldg: from L2 at the TPU's S and at G3's
-//   W = 2048 and, for the most part, at the 169,343-row arxiv table (86.7
-//   MB, whose rows recur); from device memory at a 2,097,152-row table,
-//   over 10 times the 50 MB L2.
-//   G3 was a one-hot product on the TPU's MXU only because the TPU has no
-//   general gather; here it is the gather it computes, bit for bit.
+// row_gather_sum_kernel  replaces scripts/tpu_r4_gather_probe.py
+//   _dynload_run, sum (G1): rows of a [S, 128] slab (f32 or bf16) gathered
+//   by idx and summed in groups of 8, out[g*8 + j] = sum_k0 slab[idx[g*K +
+//   k0*8 + j]], f32 sums in k0 order from +0 (bit for bit the plain
+//   version on any values). A warp takes one output row, a lane 4 of its
+//   128 sums; the row's indices come 32 at a time by __shfl_sync, the next
+//   32 loaded ahead, and 8 gathered rows are loaded before any is added.
+//   With the slab in shared memory (S = 256) a CTA of 1024 threads (32
+//   warps on one 128 KB f32 table) has it staged by one thread's bulk
+//   copy (cp.async.bulk onto an mbarrier) while the first indices load;
+//   from L2 or device memory CTAs of 256 read it through __ldg.
+// row_gather_kernel  replaces _dynload_run, materialize (G2: out[r] =
+//   slab[idx[r]]) and g3_onehot_expand (G3: out[g*K + k] =
+//   f32(win[idx[(g*rep)*K + k]]), the first of the rep = 8 repeated idx
+//   rows of each block of K output rows, each bf16 value widened to f32).
+//   A warp takes one output row, a lane 4 of its 128 values; a warp's
+//   indices are loaded 32 at a time and passed by __shfl_sync.
+// Every grid is persistent (a grid-stride loop, cut to the CTAs the SMs
+// hold at once), so each CTA stages its table once. The slab sits in
+// shared memory when a CTA can hold it (G1/G2: S = 256; G3: W <= 512,
+// 128 KB of bf16) or is read through __ldg: from L2 at the TPU's S and at
+// G3's W = 2048 and, for the most part, at the 169,343-row arxiv table
+// (86.7 MB, whose rows recur); from device memory at a 2,097,152-row
+// table, over 10 times the 50 MB L2. G3 was a one-hot product on the
+// TPU's MXU only because the TPU has no general gather; here it is the
+// gather it computes, bit for bit.
 //
 // What bounds them: bytes, what each index and output moves, plus the
-// table once (G3: the window, one idx row per block, the f32 rows).
+// table once (G3: the window, one idx row per block, the f32 rows). G1
+// also reads N rows of 512 B that the bound does not count: from shared
+// memory at 128 B a clock an SM they cost about 0.032-0.036 ms at N =
+// 2,097,152, against the 0.0226 ms byte bound.
 //
 // C entry points return cudaGetLastError().
 #include <cstdint>
@@ -49,33 +64,70 @@ constexpr int kGatherThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------------------------------ P1
-template <bool kSmem>
-__global__ void __launch_bounds__(kGatherThreads)
+// Items (one int4 of idx, one float4 out) a thread keeps in flight, and
+// the CTA of the shared-memory kernel: one staged table for 32 warps.
+constexpr int kAxis0Items = 4;
+constexpr int kAxis0SmemThreads = 1024;
+
+// Load the indices of a thread's kU items of the step at e0 (items
+// e0 + u * kThreads; those past n4 are not loaded).
+template <int kThreads, int kU>
+__device__ __forceinline__ void axis0_indices(int4 (&i)[kU], const int4* __restrict__ idx,
+                                              long long e0, long long n4) {
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const long long e = e0 + static_cast<long long>(u) * kThreads;
+    if (e < n4) i[u] = idx[e];
+  }
+}
+
+// Item e covers out[e / 32, 4l .. 4l + 3], l = e mod 32, and every
+// multiple of 32 that e steps by keeps l the thread's lane. In shared
+// memory row r's column j sits at r * 128 + (j & 3) * 32 + (j >> 2):
+// component c of lane l reads word c * 32 + l of its row, bank l, so a
+// warp's 32 loads of one component hit 32 banks.
+template <bool kSmem, int kThreads, int kU>
+__global__ void __launch_bounds__(kThreads)
 gather_axis0_kernel(const float* __restrict__ src, const int4* __restrict__ idx,
                     float4* __restrict__ out, int S, long long n4) {
   extern __shared__ float tab[];
-  const float* from = src;
+  const int lane = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads * kU;
+  long long e0 = static_cast<long long>(blockIdx.x) * kThreads * kU + threadIdx.x;
+  int4 i[kU];
+  axis0_indices<kThreads, kU>(i, idx, e0, n4);  // in flight while the table is staged
   if (kSmem) {
-    for (int e = threadIdx.x; e < S * kLanes / 4; e += kGatherThreads) {
-      reinterpret_cast<float4*>(tab)[e] = reinterpret_cast<const float4*>(src)[e];
+    for (int e = threadIdx.x; e < S * kLanes / 4; e += kThreads) {
+      const float4 v = reinterpret_cast<const float4*>(src)[e];
+      float* t = tab + (e >> 5) * kLanes + lane;  // e mod 32 == lane
+      t[0] = v.x;
+      t[32] = v.y;
+      t[64] = v.z;
+      t[96] = v.w;
     }
     __syncthreads();
-    from = tab;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * kGatherThreads;
-  for (long long e = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
-       e < n4; e += stride) {
-    const int j = static_cast<int>(e % (kLanes / 4)) * 4;
-    const int4 i = idx[e];
-    float4 v;
-    if (kSmem) {
-      v = make_float4(from[i.x * kLanes + j], from[i.y * kLanes + j + 1],
-                      from[i.z * kLanes + j + 2], from[i.w * kLanes + j + 3]);
-    } else {
-      v = make_float4(__ldg(from + i.x * kLanes + j), __ldg(from + i.y * kLanes + j + 1),
-                      __ldg(from + i.z * kLanes + j + 2), __ldg(from + i.w * kLanes + j + 3));
+  for (; e0 < n4; e0 += step) {
+    float4 v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (e0 + static_cast<long long>(u) * kThreads >= n4) continue;
+      if (kSmem) {
+        const float* t = tab + lane;
+        v[u] = make_float4(t[i[u].x * kLanes], t[i[u].y * kLanes + 32],
+                           t[i[u].z * kLanes + 64], t[i[u].w * kLanes + 96]);
+      } else {
+        const float* f = src + 4 * lane;
+        v[u] = make_float4(__ldg(f + i[u].x * kLanes), __ldg(f + i[u].y * kLanes + 1),
+                           __ldg(f + i[u].z * kLanes + 2), __ldg(f + i[u].w * kLanes + 3));
+      }
     }
-    out[e] = v;
+    axis0_indices<kThreads, kU>(i, idx, e0 + step, n4);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const long long e = e0 + static_cast<long long>(u) * kThreads;
+      if (e < n4) out[e] = v[u];
+    }
   }
 }
 
@@ -129,11 +181,196 @@ __device__ __forceinline__ void copy4(float* o, const __nv_bfloat16* p, bool ldg
   *reinterpret_cast<float4*>(o) = load4(p, ldg);
 }
 
-// O: the materialized rows' type (T, or f32 for G3; G1 writes f32 sums)
-template <typename T, typename O, bool kSmem, bool kSum>
+// ------------------------------------------------------------------ G1
+// Rows a warp loads before it adds any of them, and the CTA that shares
+// one staged table.
+constexpr int kSumRows = 4;
+constexpr int kSumSmemThreads = 1024;
+constexpr unsigned kBulkPiece = 64 * 1024;  // bytes of one bulk copy
+
+__device__ __forceinline__ void bar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(unsigned bar) {  // phase 0 done
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(0)
+        : "memory");
+  }
+}
+// One thread copies `bytes` (a multiple of 16) from global to shared by
+// the copy engine; the barrier's phase completes when all have landed.
+__device__ __forceinline__ void bulk_stage(void* dst, const void* src, unsigned bytes,
+                                           unsigned bar) {
+  bar_expect(bar, bytes);
+  for (unsigned at = 0; at < bytes; at += kBulkPiece) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(loops_tc::smem_addr(static_cast<char*>(dst) + at)),
+        "l"(static_cast<const char*>(src) + at), "r"(min(kBulkPiece, bytes - at)), "r"(bar)
+        : "memory");
+  }
+}
+
+// Output row o = g * 8 + j sums rows idx[g*K + k0*8 + j], k0 = 0 .. K/8 - 1,
+// in k0 order from +0: a warp takes one output row at a time, a lane 4
+// of its 128 sums. The row's indices come 32 at a time, one a lane. At
+// kR == 1 they pass by __shfl_sync and each row is added as it lands; at
+// kR > 1 (a multiple of 4) the warp writes them to its 32 ints of shared
+// memory and reads them back 4 a load, and a chunk's rows go kR at a
+// time: all kR loads are issued, then added in k0 order. kAhead loads
+// the next 32 indices (of this row or the warp's next) before this
+// chunk's rows.
+template <typename T, bool kSmem, int kThreads, int kR, bool kAhead, int kMinBlocks = 1>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
+                      float* __restrict__ out, int S, int K, int n) {
+  static_assert(kR == 1 || kR % 4 == 0, "rows in flight: 1 or a multiple of 4");
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  __shared__ __align__(8) unsigned long long staged;  // the table's mbarrier
+  constexpr int kWarps = kThreads / 32;
+  __shared__ __align__(16) int ibuf[kR > 1 ? kWarps : 1][32];
+  const int lane = threadIdx.x & 31, col = 4 * lane;
+  const int warps = gridDim.x * kWarps;
+  const int per = K / 8, outs = n / K * 8;
+  const T* from = slab;
+  const unsigned bar = loops_tc::smem_addr(&staged);
+  if (kSmem) {
+    if (threadIdx.x == 0) {
+      bar_init(bar);
+      bulk_stage(gsmem, slab, S * kLanes * static_cast<unsigned>(sizeof(T)), bar);
+    }
+    from = reinterpret_cast<const T*>(gsmem);
+  }
+  // the chunk (o, b): indices b .. b + 31 of output row o
+  auto index = [&](int o, int b) {
+    return o < outs && b + lane < per
+               ? idx[static_cast<size_t>(o >> 3) * K + (o & 7) + (b + lane) * 8]
+               : 0;
+  };
+  int* wbuf = ibuf[kR > 1 ? threadIdx.x >> 5 : 0];
+  int o = blockIdx.x * kWarps + (threadIdx.x >> 5), b = 0;
+  int mine = kAhead ? index(o, b) : 0;  // in flight while the table is copied
+  if (kSmem) {
+    __syncthreads();  // the barrier is initialized
+    bar_wait(bar);
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  while (o < outs) {  // the same trip count for the whole warp
+    int o2 = o, b2 = b + 32;
+    if (b2 >= per) {
+      o2 = o + warps;
+      b2 = 0;
+    }
+    if (!kAhead) mine = index(o, b);
+    const int next = kAhead ? index(o2, b2) : 0;
+    const int m = min(32, per - b);
+    if constexpr (kR == 1) {
+      for (int q = 0; q < m; ++q) {
+        const int r = __shfl_sync(kFull, mine, q);
+        const float4 v = load4(from + static_cast<size_t>(r) * kLanes + col, !kSmem);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    } else {
+      __syncwarp();
+      wbuf[lane] = mine;
+      __syncwarp();
+      for (int q = 0; q < m; q += kR) {
+        int r[kR];
+#pragma unroll
+        for (int u = 0; u < kR; u += 4) {
+          const int4 t = *reinterpret_cast<const int4*>(wbuf + ((q + u) & 31));
+          r[u] = t.x;
+          r[u + 1] = t.y;
+          r[u + 2] = t.z;
+          r[u + 3] = t.w;
+        }
+        float4 v[kR];
+#pragma unroll
+        for (int u = 0; u < kR; ++u) {
+          if (q + u < m) v[u] = load4(from + static_cast<size_t>(r[u]) * kLanes + col, !kSmem);
+        }
+#pragma unroll
+        for (int u = 0; u < kR; ++u) {
+          if (q + u < m) {
+            acc.x += v[u].x;
+            acc.y += v[u].y;
+            acc.z += v[u].z;
+            acc.w += v[u].w;
+          }
+        }
+      }
+    }
+    if (b2 == 0) {
+      reinterpret_cast<float4*>(out + static_cast<size_t>(o) * kLanes)[lane] = acc;
+      acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    o = o2;
+    b = b2;
+    if (kAhead) mine = next;
+  }
+}
+
+// the sum path as it was: one row in flight a warp
+template <typename T, bool kSmem, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+row_gather_sum_one_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
+                          float* __restrict__ out, int S, int K, int n) {
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  const T* from = slab;
+  if (kSmem) {
+    T* tab = reinterpret_cast<T*>(gsmem);
+    const int pieces = S * kLanes * static_cast<int>(sizeof(T)) / 16;
+    for (int e = threadIdx.x; e < pieces; e += kThreads) {
+      reinterpret_cast<uint4*>(tab)[e] = reinterpret_cast<const uint4*>(slab)[e];
+    }
+    __syncthreads();
+    from = tab;
+  }
+  const int lane = threadIdx.x & 31, col = 4 * lane;
+  const int warps = gridDim.x * (kThreads / 32);
+  const int w0 = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int per = K / 8, outs = n / K * 8;
+  for (int o = w0; o < outs; o += warps) {
+    const int g = o >> 3, j = o & 7;
+    const int* ib = idx + static_cast<size_t>(g) * K + j;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = 0; b < per; b += 32) {
+      const int mine = b + lane < per ? ib[(b + lane) * 8] : 0;
+      const int m = min(32, per - b);
+      for (int q = 0; q < m; ++q) {
+        const int r = __shfl_sync(kFull, mine, q);
+        const float4 v = load4(from + static_cast<size_t>(r) * kLanes + col, !kSmem);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    }
+    reinterpret_cast<float4*>(out + static_cast<size_t>(o) * kLanes)[lane] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- G2, G3
+// O: the materialized rows' type (T, or f32 for G3)
+template <typename T, typename O, bool kSmem>
 __global__ void __launch_bounds__(kGatherThreads)
 row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
-                  void* __restrict__ out_, int S, int K, int n, int rep) {
+                  O* __restrict__ out, int S, int K, int n, int rep) {
   extern __shared__ __align__(16) unsigned char gsmem[];
   const T* from = slab;
   if (kSmem) {
@@ -148,43 +385,17 @@ row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   const int lane = threadIdx.x & 31, col = 4 * lane;
   const int warps = gridDim.x * (kGatherThreads / 32);
   const int w0 = blockIdx.x * (kGatherThreads / 32) + (threadIdx.x >> 5);
-  if (kSum) {
-    // output row o = g * 8 + j sums rows idx[g*K + k0 + j], k0 = 0, 8, ...
-    float* out = static_cast<float*>(out_);
-    const int per = K / 8, outs = n / K * 8;
-    for (int o = w0; o < outs; o += warps) {
-      const int g = o >> 3, j = o & 7;
-      const int* ib = idx + static_cast<size_t>(g) * K + j;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int b = 0; b < per; b += 32) {
-        const int mine = b + lane < per ? ib[(b + lane) * 8] : 0;
-        const int m = min(32, per - b);
-        for (int q = 0; q < m; ++q) {
-          const int r = __shfl_sync(kFull, mine, q);
-          const float4 v = load4(from + static_cast<size_t>(r) * kLanes + col, !kSmem);
-          acc.x += v.x;
-          acc.y += v.y;
-          acc.z += v.z;
-          acc.w += v.w;
-        }
-      }
-      reinterpret_cast<float4*>(out + static_cast<size_t>(o) * kLanes)[lane] = acc;
-    }
-  } else {
-    // output row o reads idx[o + (o / K) * (rep - 1) * K]: the first of
-    // the rep idx rows of its block of K (G2: rep = 1, idx[o])
-    O* out = static_cast<O*>(out_);
-    for (int b = w0 * 32; b < n; b += warps * 32) {  // 32 rows a warp a step
-      const int o = b + lane;
-      const int mine =
-          o < n ? idx[static_cast<size_t>(o) + static_cast<size_t>(o / K) * (rep - 1) * K]
-                : 0;
-      const int m = min(32, n - b);
-      for (int q = 0; q < m; ++q) {
-        const int r = __shfl_sync(kFull, mine, q);
-        copy4(out + static_cast<size_t>(b + q) * kLanes + col,
-              from + static_cast<size_t>(r) * kLanes + col, !kSmem);
-      }
+  // output row o reads idx[o + (o / K) * (rep - 1) * K]: the first of
+  // the rep idx rows of its block of K (G2: rep = 1, idx[o])
+  for (int b = w0 * 32; b < n; b += warps * 32) {  // 32 rows a warp a step
+    const int o = b + lane;
+    const int mine =
+        o < n ? idx[static_cast<size_t>(o) + static_cast<size_t>(o / K) * (rep - 1) * K] : 0;
+    const int m = min(32, n - b);
+    for (int q = 0; q < m; ++q) {
+      const int r = __shfl_sync(kFull, mine, q);
+      copy4(out + static_cast<size_t>(b + q) * kLanes + col,
+            from + static_cast<size_t>(r) * kLanes + col, !kSmem);
     }
   }
 }
@@ -192,24 +403,76 @@ row_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
 // The grid is persistent: at most `blocks` CTAs, and no more than the SMs
 // hold at once, so that no CTA waits for a second wave with its share of
 // the rows.
-template <typename T, typename O, bool kSum>
-int launch_rows(const void* slab, const void* idx, void* out, int S, int K,
-                int n, int rep, int smem, int blocks, cudaStream_t s) {
-  const int bytes = smem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
-  auto k = smem ? row_gather_kernel<T, O, true, kSum> : row_gather_kernel<T, O, false, kSum>;
+template <typename K>
+int launch_one_wave(K k, int threads, int bytes, int& blocks) {
   if (const int e = set_smem(k, bytes)) return e;
   int dev = 0, sms = 0, fit = 0;
   if (const cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
   if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) {
     return static_cast<int>(e);
   }
-  if (const cudaError_t e =
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, k, kGatherThreads, bytes)) {
+  if (const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, k, threads, bytes)) {
     return static_cast<int>(e);
   }
   blocks = min(blocks, max(fit, 1) * sms);
+  return 0;
+}
+
+template <typename T, typename O>
+int launch_rows(const void* slab, const void* idx, void* out, int S, int K, int n, int rep,
+                int smem, int blocks, cudaStream_t s) {
+  const int bytes = smem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
+  auto k = smem ? row_gather_kernel<T, O, true> : row_gather_kernel<T, O, false>;
+  if (const int e = launch_one_wave(k, kGatherThreads, bytes, blocks)) return e;
   k<<<blocks, kGatherThreads, bytes, s>>>(static_cast<const T*>(slab),
-                                          static_cast<const int*>(idx), out, S, K, n, rep);
+                                          static_cast<const int*>(idx), static_cast<O*>(out), S,
+                                          K, n, rep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSmem, int kThreads, int kR, bool kAhead, int kMin = 1>
+int launch_sum_as(const void* slab, const void* idx, void* out, int S, int K, int n, int blocks,
+               cudaStream_t s) {
+  const int bytes = kSmem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
+  auto k = row_gather_sum_kernel<T, kSmem, kThreads, kR, kAhead, kMin>;
+  if (const int e = launch_one_wave(k, kThreads, bytes, blocks)) return e;
+  k<<<blocks, kThreads, bytes, s>>>(static_cast<const T*>(slab), static_cast<const int*>(idx),
+                                    static_cast<float*>(out), S, K, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSmem, int kThreads>
+int launch_sum_one(const void* slab, const void* idx, void* out, int S, int K, int n, int blocks,
+                   cudaStream_t s) {
+  const int bytes = kSmem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
+  auto k = row_gather_sum_one_kernel<T, kSmem, kThreads>;
+  if (const int e = launch_one_wave(k, kThreads, bytes, blocks)) return e;
+  k<<<blocks, kThreads, bytes, s>>>(static_cast<const T*>(slab), static_cast<const int*>(idx),
+                                    static_cast<float*>(out), S, K, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 rows 4 in flight a warp (the f32 table leaves one CTA an SM); bf16
+// one, at the 32 registers that let 2048 threads run an SM
+template <typename T>
+int launch_sum(const void* slab, const void* idx, void* out, int S, int K, int n, int smem,
+               int blocks, cudaStream_t s) {
+  constexpr int kR = sizeof(T) == 4 ? kSumRows : 1;
+  return smem ? launch_sum_as<T, true, kSumSmemThreads, kR, true>(slab, idx, out, S, K, n, blocks,
+                                                                  s)
+              : launch_sum_as<T, false, kGatherThreads, kR, true>(slab, idx, out, S, K, n, blocks,
+                                                                  s);
+}
+
+template <bool kSmem, int kThreads, int kU>
+int launch_axis0(const void* src, const void* idx, void* out, int S, int n4, int blocks,
+                 cudaStream_t s) {
+  const int bytes = kSmem ? S * kLanes * 4 : 0;
+  auto k = gather_axis0_kernel<kSmem, kThreads, kU>;
+  if (const int e = launch_one_wave(k, kThreads, bytes, blocks)) return e;
+  k<<<blocks, kThreads, bytes, s>>>(static_cast<const float*>(src),
+                                    static_cast<const int4*>(idx), static_cast<float4*>(out), S,
+                                    n4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -221,18 +484,8 @@ int loops_gather_axis0(const void* src, const void* idx, void* out, int S,
                        int n4, int smem, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 0 || n4 < 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem) {
-    const int bytes = S * kLanes * 4;
-    if (const int e = set_smem(gather_axis0_kernel<true>, bytes)) return e;
-    gather_axis0_kernel<true><<<blocks, kGatherThreads, bytes, s>>>(
-        static_cast<const float*>(src), static_cast<const int4*>(idx),
-        static_cast<float4*>(out), S, n4);
-  } else {
-    gather_axis0_kernel<false><<<blocks, kGatherThreads, 0, s>>>(
-        static_cast<const float*>(src), static_cast<const int4*>(idx),
-        static_cast<float4*>(out), S, n4);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return smem ? launch_axis0<true, kAxis0SmemThreads, kAxis0Items>(src, idx, out, S, n4, blocks, s)
+              : launch_axis0<false, kGatherThreads, 1>(src, idx, out, S, n4, blocks, s);
 }
 
 int loops_gather_axis1(const void* src, const void* idx, void* out, int rows,
@@ -253,11 +506,67 @@ int loops_row_gather(const void* slab, const void* idx, void* out, int S, int K,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   if (sum) {
-    return bf16 ? launch_rows<bf, float, true>(slab, idx, out, S, K, n, 1, smem, blocks, s)
-                : launch_rows<float, float, true>(slab, idx, out, S, K, n, 1, smem, blocks, s);
+    return bf16 ? launch_sum<bf>(slab, idx, out, S, K, n, smem, blocks, s)
+                : launch_sum<float>(slab, idx, out, S, K, n, smem, blocks, s);
   }
-  return bf16 ? launch_rows<bf, bf, false>(slab, idx, out, S, K, n, 1, smem, blocks, s)
-              : launch_rows<float, float, false>(slab, idx, out, S, K, n, 1, smem, blocks, s);
+  return bf16 ? launch_rows<bf, bf>(slab, idx, out, S, K, n, 1, smem, blocks, s)
+              : launch_rows<float, float>(slab, idx, out, S, K, n, 1, smem, blocks, s);
+}
+
+// Shapes for a sweep: G1's sums with `threads` a CTA and `rows` in flight
+// a warp, P1 with `threads` and `items` a thread.
+int loops_row_gather_sum_shape(const void* slab, const void* idx, void* out, int S, int K,
+                               int n, int bf16, int smem, int blocks, int threads, int rows,
+                               int mode, void* stream) {
+  if (S <= 0 || K <= 0 || K % 8 || n % K || blocks <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  // mode: 1 loads the next indices ahead, 2 also asks for 2048 threads an
+  // SM (32 registers a thread), 4 is the kernel as it was
+#define LOOPS_SUM(T, SM, TH, R, M)                                                   \
+  if (bool(smem) == SM && threads == TH && rows == R && mode == M)                  \
+    return launch_sum_as<T, SM, TH, R, (M & 1) != 0, (M & 2) ? 2048 / TH : 1>(       \
+        slab, idx, out, S, K, n, blocks, s);
+#define LOOPS_ONE(T, SM, TH)                                                         \
+  if (bool(smem) == SM && threads == TH && mode == 4)                               \
+    return launch_sum_one<T, SM, TH>(slab, idx, out, S, K, n, blocks, s);
+#define LOOPS_SUMS(T)                                                                \
+  LOOPS_SUM(T, true, 1024, 1, 0) LOOPS_SUM(T, true, 1024, 1, 1)                      \
+  LOOPS_SUM(T, true, 1024, 4, 0) LOOPS_SUM(T, true, 1024, 4, 1)                      \
+  LOOPS_SUM(T, true, 1024, 4, 3) LOOPS_SUM(T, true, 1024, 8, 1)                      \
+  LOOPS_SUM(T, false, 256, 1, 0) LOOPS_SUM(T, false, 256, 1, 1)                      \
+  LOOPS_SUM(T, false, 256, 4, 0) LOOPS_SUM(T, false, 256, 4, 1)                      \
+  LOOPS_ONE(T, true, 256) LOOPS_ONE(T, true, 1024) LOOPS_ONE(T, false, 256)
+  if (bf16) {
+    LOOPS_SUMS(bf)
+  } else {
+    LOOPS_SUMS(float)
+  }
+#undef LOOPS_SUMS
+#undef LOOPS_ONE
+#undef LOOPS_SUM
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int loops_gather_axis0_shape(const void* src, const void* idx, void* out, int S, int n4,
+                             int smem, int blocks, int threads, int items, void* stream) {
+  if (S <= 0 || n4 < 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LOOPS_AX0(SM, TH, U)                                  \
+  if (bool(smem) == SM && threads == TH && items == U)        \
+    return launch_axis0<SM, TH, U>(src, idx, out, S, n4, blocks, s);
+  LOOPS_AX0(true, 1024, 1)
+  LOOPS_AX0(true, 1024, 2)
+  LOOPS_AX0(true, 1024, 4)
+  LOOPS_AX0(true, 512, 4)
+  LOOPS_AX0(true, 256, 1)
+  LOOPS_AX0(false, 256, 1)
+  LOOPS_AX0(false, 256, 2)
+  LOOPS_AX0(false, 256, 4)
+#undef LOOPS_AX0
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // G3: win [W, 128] bf16, idx [rows / Kc * 8, Kc] int32, out [rows, 128] f32
@@ -266,8 +575,8 @@ int loops_onehot_expand(const void* win, const void* idx, void* out, int W,
   if (W <= 0 || Kc <= 0 || rows % Kc || blocks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_rows<__nv_bfloat16, float, false>(win, idx, out, W, Kc, rows, 8, smem,
-                                                  blocks, static_cast<cudaStream_t>(stream));
+  return launch_rows<__nv_bfloat16, float>(win, idx, out, W, Kc, rows, 8, smem, blocks,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -19,8 +19,13 @@ pay this per nonzero.
   and bf16. The TPU's slabs (512 KB, 2 MB) do not fit shared memory, so
   three residencies run: shared memory (S = 256), L2 (the TPU's S) and
   device memory (the 169,343-row arxiv table, 86.7 MB in f32; 43.3 MB in
-  bf16, which the 50 MB L2 may partly hold). G2 is exact; G1 runs on
-  integer-valued slabs, where its f32 sums are exact.
+  bf16, which the 50 MB L2 may partly hold). G2 is exact; G1 adds its f32
+  sums in k0 order from +0, as the plain version does, so it is bit for
+  bit on normal slabs as on the integer-valued ones it is timed on. A
+  warp takes an output row and, in f32, loads 4 of its rows before it
+  adds them; in shared memory a CTA of 1024 threads shares one table,
+  staged by one bulk copy (``cp.async.bulk``) while the first indices
+  load.
 - **G3** ``onehot_expand`` (``r4:121``): ``OH[Kc, W] @ win[W, 128]`` with a
   bf16 one-hot, W in {128, 512, 2048}, Kc = 1024, N = 2,097,152 rows. The
   TPU ran it on the MXU because it has no general gather; what it computes
@@ -35,7 +40,9 @@ pay this per nonzero.
 Library calls (timed only): ``torch.take_along_dim`` (P1),
 ``torch.gather`` (P2), ``torch.nn.functional.embedding_bag(mode="sum")``
 over ``idx`` reordered into bags of K/8 outside the timing (G1),
-``torch.index_select`` (G2, G3).
+``torch.index_select`` (G2, G3). P1 is timed by one call from an empty
+L2 (``utils/bench.cold_ms``): its idx and out (33.6 MB) fit the 50 MB L2,
+which back-to-back calls would find warm; the rest by slope.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 
 from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.probes.common import hold, launch_ms, launch_twice, record
+from loops_tpu_torch.utils.bench import cold_ms
 from loops_tpu_torch.utils.platform import ensure_platform
 
 LANES = 128
@@ -60,6 +68,16 @@ G3_W, G3_KC = (128, 512, 2048), 1024
 G3_REP = 8                    # idx rows per block of Kc output rows
 SMEM_BYTES = 227 * 1024       # a CTA's shared memory on an H100
 L2_BYTES = 50 * 2**20         # the H100's L2
+SM_THREADS = 2048             # threads an SM holds at once
+# csrc/probes_gather.cu: the CTA of G2, G3, P2 and of G1 and P1 outside
+# shared memory; G1's and P1's shared-memory CTA; G1's rows in flight a
+# warp by element size (f32 4, bf16 1: 32 registers, 2048 threads an
+# SM); P1's items in flight a thread, in shared memory (from L2: 1)
+GATHER_THREADS = 256
+SUM_SMEM_THREADS = 1024
+SUM_ROWS = {4: 4, 2: 1}
+AXIS0_SMEM_THREADS = 1024
+AXIS0_ITEMS = 4
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -77,15 +95,26 @@ def residency(rows: int, element_size: int) -> str:
     return "l2" if nbytes <= 4 * L2_BYTES else "hbm"
 
 
-def rows_grid(rows: int, element_size: int, sms: int) -> tuple[str, int]:
-    """``row_gather_kernel``'s launch over a [rows, 128] table: its
-    residency and the CTAs of its persistent grid, as many an SM as the
-    staged table leaves room for (at most 8) in shared memory, else 8
-    (the launch cuts them to what the SMs hold at once)."""
+def row_threads(where: str, summed: bool) -> int:
+    """The CTA of ``row_gather_kernel`` (G2, G3) or, ``summed``, of
+    ``row_gather_sum_kernel`` (G1): 1024 threads share one staged table,
+    256 read from L2 or device memory."""
+    return SUM_SMEM_THREADS if summed and where == "smem" else GATHER_THREADS
+
+
+def rows_grid(rows: int, element_size: int, sms: int,
+              summed: bool = False) -> tuple[str, int]:
+    """The launch over a [rows, 128] table of ``row_gather_kernel`` or,
+    ``summed``, of ``row_gather_sum_kernel``: its residency and the CTAs
+    of its persistent grid, as many an SM as the staged table and the
+    SM's 2048 threads leave room for (at most 8 of 256 threads; 2 of
+    G1's 1024) in shared memory, else 8 (the launch cuts them to what
+    the SMs hold at once)."""
     where = residency(rows, element_size)
     per_sm = 8
     if where == "smem":
-        per_sm = max(1, min(8, SMEM_BYTES // (rows * LANES * element_size)))
+        per_sm = max(1, min(SM_THREADS // row_threads(where, summed),
+                            SMEM_BYTES // (rows * LANES * element_size)))
     return where, per_sm * sms
 
 
@@ -100,7 +129,29 @@ def axis0_inputs(S: int, n: int = N_ELEMS):
     return src, idx
 
 
+def axis0_grid(S: int, sms: int) -> tuple[bool, int, int, int]:
+    """``gather_axis0_kernel``'s launch over src [S, 128]: whether src is
+    staged in shared memory, the CTA's threads (1024 in shared memory,
+    256 reading L2), the items a thread keeps in flight (4; 1 from L2,
+    where more were slower) and the CTAs of its persistent grid (as many
+    an SM as the table and the SM's 2048 threads leave room for; 8 from
+    L2; the launch cuts them to what the SMs hold at once)."""
+    if residency(S, 4) != "smem":
+        return False, GATHER_THREADS, 1, 8 * sms
+    per_sm = max(1, min(SM_THREADS // AXIS0_SMEM_THREADS,
+                        SMEM_BYTES // (S * LANES * 4)))
+    return True, AXIS0_SMEM_THREADS, AXIS0_ITEMS, per_sm * sms
+
+
 def gather_axis0_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """P1 on the card: ``out[i, j] = src[idx[i, j], j]``, src [S, 128] f32,
+    idx [n, 128] int32. An item is 4 neighbouring j (one int4 of idx, one
+    float4 out). At S <= 256 a CTA of 1024 threads stages src in shared
+    memory with each row's column j at ``(j & 3) * 32 + (j >> 2)``, so
+    that a warp's loads hit 32 banks, and a thread keeps 4 items in
+    flight; from L2 (S = 1024) CTAs of 256 threads take one item at a
+    time (``csrc/probes_gather.cu`` ``gather_axis0_kernel``,
+    ``axis0_grid``)."""
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"gather_axis0_cuda needs a CUDA tensor, got {dev}")
@@ -111,10 +162,9 @@ def gather_axis0_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _build.check(src, "src", torch.float32, dev)
     _build.check(idx, "idx", torch.int32, dev)
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
-    smem = residency(S, 4) == "smem"
-    per_sm = max(1, SMEM_BYTES // (S * LANES * 4)) if smem else 8
+    smem, _, _, blocks = axis0_grid(S, _sms(dev))
     _build.launch("loops_gather_axis0", "gather_axis0", dev, src, idx, out, S,
-                  idx.numel() // 4, int(smem), min(8, per_sm) * _sms(dev))
+                  idx.numel() // 4, int(smem), blocks)
     return out
 
 
@@ -196,7 +246,15 @@ def row_gather_tensors(S: int, K: int, n: int, integer: bool, device):
 def row_gather_cuda(slab: torch.Tensor, idx: torch.Tensor, K: int,
                     materialize: bool) -> torch.Tensor:
     """G1 (sums, [n/K*8, 128] f32) or G2 (rows, [n, 128] in the slab's
-    type); slab f32 or bf16 [S, 128], idx int32 [n], n % K == 0."""
+    type); slab f32 or bf16 [S, 128], idx int32 [n], n % K == 0.
+
+    G1 runs ``row_gather_sum_kernel``: a warp an output row, the sums in
+    k0 order from +0; f32 rows 4 in flight a warp (loaded before any is
+    added, their indices read 4 at a time from the warp's slice of shared
+    memory), bf16 rows one at a time; CTAs of 1024 threads on a table
+    staged in shared memory by one bulk copy, of 256 on one read from L2
+    or device memory (``rows_grid(..., summed=True)``). G2 runs
+    ``row_gather_kernel``."""
     dev = slab.device
     if dev.type != "cuda":
         raise ValueError(f"row_gather_cuda needs a CUDA tensor, got {dev}")
@@ -209,7 +267,8 @@ def row_gather_cuda(slab: torch.Tensor, idx: torch.Tensor, K: int,
                          f"== 0, got {tuple(slab.shape)}, K={K}, n={n}")
     _build.check(slab, "slab", slab.dtype, dev)
     _build.check(idx, "idx", torch.int32, dev)
-    where, blocks = rows_grid(S, slab.element_size(), _sms(dev))
+    where, blocks = rows_grid(S, slab.element_size(), _sms(dev),
+                              summed=not materialize)
     if materialize:
         out = torch.empty(n, LANES, dtype=slab.dtype, device=dev)
     else:
@@ -307,10 +366,15 @@ def onehot_expand(win, idx):
 # Each probe holds its kernel to the plain version (two launches bitwise
 # equal) and, when ``timed``, times the kernel, the plain version and the
 # library call by slope.
-def _times(kernel, plain, library, device, timed):
+def _times(kernel, plain, library, device, timed, cold=False):
+    """ms per call of each function (None where it is None): by slope, or
+    with ``cold`` one call from an empty L2 (``utils/bench.cold_ms``), as
+    a byte bound assumes of inputs that the L2 would hold warm."""
     if not timed:
         return None, None, None
-    return tuple(None if fn is None else launch_ms(fn, device)
+    how = (lambda fn: cold_ms(fn, device)) if cold \
+        else (lambda fn: launch_ms(fn, device))
+    return tuple(None if fn is None else how(fn)
                  for fn in (kernel, plain, library))
 
 
@@ -320,12 +384,15 @@ def probe_axis0(S, device, out=print, timed=True, n=N_ELEMS) -> dict:
     err = hold(f"P1 S={S}", got, gather_axis0_plain(src, idx))
     N = idx.numel()
     il = idx.long()
+    # idx and out (33.6 MB) fit the L2, which back-to-back calls find
+    # warm: one call from an empty L2, as the byte bound assumes
     ms, plain_ms, lib_ms = _times(
         lambda: gather_axis0(src, idx), lambda: gather_axis0_plain(src, idx),
-        lambda: torch.take_along_dim(src, il, dim=0), device, timed)
+        lambda: torch.take_along_dim(src, il, dim=0), device, timed,
+        cold=True)
     where = residency(S, 4)
     line = (f"P1 axis0 S={S:5d} ({where}) N={N / 1e6:.2f}M: "
-            + (f"{ms:7.3f} ms = {ms * 1e6 / N:6.3f} ns/elem  " if timed
+            + (f"{ms:7.3f} ms cold = {ms * 1e6 / N:6.3f} ns/elem  " if timed
                else "") + "exact=True")
     out(line)
     return record("gather_axis0", f"S={S}", ms, plain_ms, lib_ms,
@@ -351,12 +418,19 @@ def probe_axis1(S, device, out=print, timed=True, n=N_ELEMS) -> dict:
 
 def probe_rows(S, K, dtype, materialize, device, out=print, timed=True,
                n=N_ROWS) -> dict:
-    slab, idx = row_gather_tensors(S, K, n, not materialize, device)
-    slab = slab.to(DTYPES[dtype])
+    """G2 on the script's normal slab; G1 on its integer one (timed) and
+    on the normal one: its sums, in k0 order from +0, are bit for bit the
+    plain version's on both."""
+    normal, idx = row_gather_tensors(S, K, n, False, device)
     tag = "G2 dyn-mat" if materialize else "G1 dyn-sum"
-    got = launch_twice(lambda: row_gather(slab, idx, K, materialize))
-    err = hold(f"{tag} S={S} K={K} {dtype}", got,
-               row_gather_plain(slab, idx, K, materialize))
+    slabs = [normal] if materialize else [normal, torch.round(normal * 3)]
+    err = 0.0
+    for s in slabs:  # the last is timed
+        slab = s.to(DTYPES[dtype])
+        got = launch_twice(lambda: row_gather(slab, idx, K, materialize))
+        err = max(err, hold(f"{tag} S={S} K={K} {dtype}", got,
+                            row_gather_plain(slab, idx, K, materialize)))
+    del normal, slabs, s
     N = idx.numel()
     il = idx.long()
     bags = None if materialize else row_gather_bags(idx, K)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K1–K10, K12 and K15's G1 and G3 of one checkout of
+"""Time K1–K10, K12 and K15's P1, G1 and G3 of one checkout of
 ``loops_tpu_torch`` on the card, at the cells ``chip_smoke.py`` times them
 (phases 6, 10, 13, 17 and 19), and print one JSON line.
 
@@ -53,12 +53,18 @@ needs no script of its own:
   blocks are 1.3 times the 50 MB L2, so a warm apply finds part of them
   there); with ``--library`` cuSPARSE's ``torch.mv`` on the CSR form and
   on ``torch.sparse_bsr_tensor``, timed the same three ways;
-- K15 G3 ``onehot_expand`` at W = 128, 512 and 2048 and G1
-  ``row_gather`` (sums, K = 128 f32) from shared memory (S = 256) and
-  from L2 (S = 4096), at ``probes/gather.py``'s sizes (N = 2,097,152
-  rows): ms per launch by the slope of 20 launches over 4
-  (``probes/common.launch_ms``); with ``--library``
-  ``torch.index_select`` (G3) and ``embedding_bag`` (G1).
+- K15 G3 ``onehot_expand`` at W = 128, 512 and 2048, G1 ``row_gather``
+  (sums, K = 128 f32) from shared memory (S = 256), from L2 (S = 4096)
+  and from device memory (S = 2,097,152, a control), G2 (materialized
+  rows, K = 64 f32, S = 256 and 4096, a control), P1 ``gather_axis0``
+  at S = 256 (shared memory) and 1024 (L2) and P2 ``gather_axis1`` at S
+  = 256 (a control), at
+  ``probes/gather.py``'s sizes (N = 2,097,152 rows, 4,194,304
+  elements): ms per launch by the slope of 20 launches over 4
+  (``probes/common.launch_ms``), P1 and P2 also by one launch from an
+  empty L2 (``cold_ms``: their idx and out fit the L2); with
+  ``--library`` ``torch.index_select`` (G3), ``embedding_bag`` (G1) and
+  ``torch.take_along_dim`` (P1).
 
 Kernels are timed with ``utils.bench.apply_ms`` (CUDA events, median per
 apply), steps with ``utils.timer.time_fn`` (median of 30); the K1 and K12
@@ -68,7 +74,7 @@ adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
-``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1);
+``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1, P1);
 ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
@@ -412,7 +418,9 @@ def bcsr_spmv_cells(dev, library: bool) -> dict:
 
 def gather_cells(dev, library: bool) -> dict:
     """K15 G3 at W = 128, 512 and 2048, G1 (K = 128 f32) from shared
-    memory and from L2: ms per launch by slope."""
+    memory, L2 and device memory, G2 (K = 64 f32) from shared memory and
+    L2, P1 at S = 256 and 1024, P2 at S = 256: ms per launch by slope,
+    P1's and P2's also from an empty L2."""
     import torch
     from loops_tpu_torch.probes import gather as G
     from loops_tpu_torch.probes.common import launch_ms
@@ -426,7 +434,7 @@ def gather_cells(dev, library: bool) -> dict:
             rl = G.onehot_rows(idx).long()
             res[f"index_select G3 W={W}"] = launch_ms(
                 lambda: torch.index_select(wr, 0, rl), dev)
-    for S in (G.SMEM_ROWS, 4096):
+    for S in (G.SMEM_ROWS, 4096, G.HBM_ROWS):
         slab, idx = G.row_gather_tensors(S, 128, G.N_ROWS, True, dev)
         res[f"G1 S={S} K=128 f32"] = launch_ms(
             lambda: G.row_gather(slab, idx, 128, False), dev)
@@ -435,6 +443,29 @@ def gather_cells(dev, library: bool) -> dict:
             res[f"embedding_bag G1 S={S}"] = launch_ms(
                 lambda: torch.nn.functional.embedding_bag(bags, slab,
                                                           mode="sum"), dev)
+        del slab, idx
+    for S in (G.SMEM_ROWS, 4096):  # G2, a control
+        slab, idx = G.row_gather_tensors(S, 64, G.N_ROWS, False, dev)
+        res[f"G2 S={S} K=64 f32"] = launch_ms(
+            lambda: G.row_gather(slab, idx, 64, True), dev)
+    # P1's and P2's idx and out (33.6 MB) fit the L2, which back-to-back
+    # launches find warm: one launch from an empty L2 too, as their byte
+    # bounds assume
+    bench = _timing()
+
+    def both(name, fn):
+        res[name] = launch_ms(fn, dev)
+        res[f"{name} cold"] = bench.cold_ms(fn, dev)
+    for S in (256, 1024):
+        src, idx = (torch.from_numpy(a).to(dev) for a in G.axis0_inputs(S))
+        both(f"P1 S={S}", lambda: G.gather_axis0(src, idx))
+        if library:
+            il = idx.long()
+            both(f"take_along_dim P1 S={S}",
+                 lambda: torch.take_along_dim(src, il, dim=0))
+    src, idx = (torch.from_numpy(a).to(dev) for a in G.axis1_inputs(256))
+    both("P2 S=256", lambda: G.gather_axis1(src, idx))
+    torch.cuda.empty_cache()
     return res
 
 

@@ -11,8 +11,9 @@ imports neither JAX nor ``loops_tpu``; run it on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_probes.py
 
 Exact: saxpy, the scan on integer values, the constructs but ``dot0``, the
-gathers, the scatter, the one-hot expand, the dots on integer values; the
-L2 scatter also on normal values, bit for bit against the sequential
+gathers (G1's sums also on normal values: k0 order from +0, as the plain
+version adds them), the scatter, the one-hot expand, the dots on integer
+values; the L2 scatter also on normal values, bit for bit against the sequential
 (pass, chunk, slab) order computed on the CPU (``r2.scatter_sequential``). The
 scan on normal values at ``atol 1e-4`` and ``dot0`` at ``1e-5`` (the
 scripts' own); the dots on normal values within ``r2.DOT_C`` units of
@@ -242,6 +243,23 @@ def test_gather_axis0(cuda_device, S, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", gather.P1_S)
+@pytest.mark.parametrize("rows", [1, 777, 4097])
+def test_gather_axis0_partial_step(cuda_device, S, rows):
+    """idx rows that leave the last step of 4 items a thread partial (and
+    one row, less than one step of one CTA): bit for bit, two launches
+    equal, into every element."""
+    rng = np.random.default_rng(rows)
+    src = torch.from_numpy(rng.normal(size=(S, 128)).astype(
+        np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, S, size=(rows, 128)).astype(
+        np.int32)).to(cuda_device)
+    got = _counted("gather_axis0", 2, lambda: gather.launch_twice(
+        lambda: gather.gather_axis0(src, idx)))
+    assert torch.equal(got, gather.gather_axis0_plain(src, idx))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [*gather.P2_S, 3])
 @pytest.mark.parametrize("n", [4096, gather.N_ELEMS])
 def test_gather_axis1(cuda_device, S, n):
@@ -253,9 +271,11 @@ def test_gather_axis1(cuda_device, S, n):
 @pytest.mark.parametrize("dtype", list(gather.DTYPES))
 @pytest.mark.parametrize("S", [gather.SMEM_ROWS, 4096, gather.ARXIV_ROWS,
                                gather.HBM_ROWS])
-@pytest.mark.parametrize("K,mat", [(32, False), (128, False), (512, False),
-                                   (64, True), (8, True)])
+@pytest.mark.parametrize("K,mat", [(8, False), (32, False), (128, False),
+                                   (512, False), (64, True), (8, True)])
 def test_row_gather(cuda_device, dtype, S, K, mat):
+    # G1 bit for bit on the normal slab and on the integer one (probe_rows
+    # holds both): its f32 sums run in k0 order from +0
     for n in (K * 3, gather.N_ROWS // 8):
         rec = gather.probe_rows(S, K, dtype, mat, cuda_device,
                                 lambda s: None, False, n)

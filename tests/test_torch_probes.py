@@ -24,8 +24,11 @@ on the same seeded inputs:
   output value, the index row each reads, shared memory or L2 by size),
   the ``mma.sync`` / ``ldmatrix`` fragment layouts of the bf16 block dot,
   the f32 block dot's 8 x 8 register tiles over
-  k-slices (and the one-row tile at M = 8), and the L2 scatter's plan
-  and segment walk, bit for bit against a sequential loop.
+  k-slices (and the one-row tile at M = 8), the L2 scatter's plan
+  and segment walk, bit for bit against a sequential loop, G1's sum walk
+  (8 rows loaded a warp, then added in k0 order; bit for bit on normal
+  values) and P1's column-permuted table (every lane of a warp on its own
+  bank).
 """
 import ast
 import importlib.util
@@ -684,6 +687,172 @@ def test_g2_row_gather_mirror():
     assert (writes == 1).all()
     np.testing.assert_array_equal(
         out, gather.row_gather(_t(slab), _t(idx), 64, True).numpy())
+
+
+def _row_gather_sum_mirror(table, idx, K, blocks, threads, R):
+    """``row_gather_sum_kernel`` (G1) in numpy: CTA c, warp w of
+    ``threads / 32`` is global warp c * (threads / 32) + w; it takes
+    output rows o = g * 8 + j from its global warp in steps of all warps.
+    A row's indices ``idx[g*K + k0*8 + j]`` come 32 at a time, one a lane
+    (``mine``). At R = 1 each passes by shuffle and its row (lane l
+    columns 4l..4l+3, widened to f32) is added as it lands; at R = 4 the
+    warp writes them to its 32 ints of shared memory and reads them back
+    4 at a time, and a chunk's rows go R at a time, all R loaded before
+    any is added. The adds run in k0 order into an f32 sum started at +0.
+    Returns the output (NaN where no warp wrote), the write count of
+    every value and the k0 order each row's adds took."""
+    per, outs = K // 8, idx.size // K * 8
+    out = np.full((outs, 128), np.nan, np.float32)
+    writes = np.zeros((outs, 128), np.int64)
+    order = {}
+    warps = blocks * (threads // 32)
+    for gw in range(warps):
+        for o in range(gw, outs, warps):
+            g, j = o >> 3, o & 7
+            acc = np.zeros(128, np.float32)
+            seen = order.setdefault(o, [])
+            for b in range(0, per, 32):
+                mine = [int(idx[g * K + j + (b + lane) * 8])
+                        if b + lane < per else 0 for lane in range(32)]
+                m = min(32, per - b)
+                for q in range(0, m, R):
+                    if R == 1:
+                        r = [mine[q]]                       # __shfl_sync
+                    else:                                   # int4 reads
+                        r = [x for u in range(0, R, 4)
+                             for x in mine[(q + u) % 32:(q + u) % 32 + 4]]
+                    live = [u for u in range(R) if q + u < m]
+                    v = [table[r[u]] for u in live]         # R loads
+                    for u, row in zip(live, v):             # then R adds
+                        acc += row
+                        seen.append(b + q + u)
+            for lane in range(32):
+                out[o, 4 * lane:4 * lane + 4] = acc[4 * lane:4 * lane + 4]
+                writes[o, 4 * lane:4 * lane + 4] += 1
+    return out, writes, order
+
+
+@pytest.mark.parametrize("S,dtype", [(gather.SMEM_ROWS, torch.float32),
+                                     (gather.SMEM_ROWS, torch.bfloat16),
+                                     (4096, torch.float32),
+                                     (4096, torch.bfloat16)])
+@pytest.mark.parametrize("K,n", [(8, 200 * 8), (32, 3 * 32), (72, 5 * 72),
+                                 (128, 3 * 128), (512, 3 * 512)])
+def test_row_gather_sum_mirror(S, dtype, K, n):
+    """G1 as ``row_gather_sum_kernel`` runs it, on the normal-valued slab:
+    the CTA and grid ``rows_grid(..., summed=True)`` gives (1024 threads
+    on a staged table, 256 from L2), the rows in flight a warp
+    ``SUM_ROWS`` gives (f32 4, bf16 1), bit for bit ``row_gather_plain``,
+    every output written once, each row's adds in k0 order. K/8 = 1 and
+    9 leave the last batch of 4 rows short; K = 512 takes two chunks of
+    32 indices; K = 8 at 1600 rows gives a warp several output rows."""
+    slab, idx = gather.row_gather_inputs(S, K, n)
+    table = torch.from_numpy(slab).to(dtype)
+    es = table.element_size()
+    where, blocks = gather.rows_grid(S, es, sms=1, summed=True)
+    threads = gather.row_threads(where, summed=True)
+    assert (where, threads) == (("smem", 1024) if S == gather.SMEM_ROWS
+                                else ("l2", 256))
+    assert blocks == ((2 if es == 2 else 1) if where == "smem" else 8)
+    R = gather.SUM_ROWS[es]
+    assert R == (4 if es == 4 else 1)
+    out, writes, order = _row_gather_sum_mirror(
+        table.float().numpy(), idx, K, blocks, threads, R)
+    assert (writes == 1).all()
+    assert all(seen == list(range(K // 8)) for seen in order.values())
+    want = gather.row_gather_plain(table, _t(idx), K, False).numpy()
+    np.testing.assert_array_equal(out, want)
+    # the values are not integers: the order of the f32 adds shows
+    assert not np.array_equal(slab, np.rint(slab))
+
+
+def test_row_gather_sum_order_shows_on_normal_values():
+    """On normal values another order of the same f32 adds gives other
+    bits, so the mirror's equality above holds the order itself."""
+    K = 512
+    slab, idx = gather.row_gather_inputs(gather.SMEM_ROWS, K, K)
+    rows = slab[idx].reshape(1, K // 8, 8, 128)
+    fwd = np.zeros((8, 128), np.float32)
+    rev = np.zeros((8, 128), np.float32)
+    for k in range(K // 8):
+        fwd += rows[0, k]
+        rev += rows[0, K // 8 - 1 - k]
+    np.testing.assert_array_equal(
+        fwd, gather.row_gather_plain(_t(slab), _t(idx), K, False).numpy())
+    assert not np.array_equal(fwd, rev)
+
+
+def _axis0_mirror(src, idx, smem, threads, blocks, U):
+    """``gather_axis0_kernel`` (P1) in numpy: thread t of CTA c takes the
+    items e = s * step + c * threads * U + u * threads + t (step = all
+    CTAs' threads * U; u < U; e < n4), item e being out[e // 32, 4l ..
+    4l + 3] with l = e mod 32, the thread's lane. In shared memory row r's
+    column j sits at word r * 128 + (j & 3) * 32 + (j >> 2). Returns the
+    output (NaN where no thread wrote), the write count of every value,
+    and for every warp, step, item and component the banks of the 32
+    lanes' shared loads (rows of 32; empty from L2)."""
+    n4 = idx.size // 4
+    flat_idx = idx.reshape(-1, 4)
+    if smem:
+        tab = np.empty(src.shape[0] * 128, np.float32)
+        j = np.arange(128)
+        for r in range(src.shape[0]):
+            tab[r * 128 + (j & 3) * 32 + (j >> 2)] = src[r]
+    out = np.full(n4 * 4, np.nan, np.float32)
+    writes = np.zeros(n4 * 4, np.int64)
+    banks = []
+    step = blocks * threads * U
+    t = np.arange(threads)
+    lane = t & 31
+    for s0 in range(0, n4, step):
+        for c in range(blocks):
+            for u in range(U):
+                e = s0 + c * threads * U + u * threads + t
+                live = e < n4
+                assert (e % 32 == lane).all()
+                i = flat_idx[e[live]]
+                ln = lane[live]
+                if smem:
+                    words = i * 128 + np.arange(4) * 32 + ln[:, None]
+                    v = tab[words]
+                    for w0 in range(0, threads, 32):
+                        sel = (t[live] >= w0) & (t[live] < w0 + 32)
+                        if sel.any():
+                            banks.append((words[sel] % 32).T)
+                else:
+                    v = src[i, 4 * ln[:, None] + np.arange(4)]
+                out[(4 * e[live])[:, None] + np.arange(4)] = v
+                writes[(4 * e[live])[:, None] + np.arange(4)] += 1
+    return out.reshape(idx.shape), writes.reshape(idx.shape), banks
+
+
+@pytest.mark.parametrize("S", [*gather.P1_S])
+@pytest.mark.parametrize("rows", [777, 64])
+def test_axis0_permuted_table_mirror(S, rows):
+    """P1 as ``gather_axis0_kernel`` runs it, at the CTA, items in flight
+    and grid ``axis0_grid`` gives: every output written once, equal to the plain
+    version and to ``np.take_along_axis`` (the TPU probe's check); in
+    shared memory the permuted columns put a warp's 32 loads of one
+    component on 32 banks. 777 rows of idx leave a partial last step."""
+    rng = np.random.default_rng(S + rows)
+    src = rng.normal(size=(S, 128)).astype(np.float32)
+    idx = rng.integers(0, S, size=(rows, 128)).astype(np.int32)
+    smem, threads, U, blocks = gather.axis0_grid(S, sms=1)
+    assert (smem, threads, U) == ((True, 1024, 4) if S <= 256
+                                  else (False, 256, 1))
+    assert blocks == ((2 if S <= 64 else 1) if smem else 8)
+    out, writes, banks = _axis0_mirror(src, idx, smem, threads, blocks, U)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, np.take_along_axis(src, idx, axis=0))
+    np.testing.assert_array_equal(
+        out, gather.gather_axis0_plain(_t(src), _t(idx)).numpy())
+    assert bool(banks) == smem
+    for b in banks:  # [component, lanes of one warp]
+        assert all(len(set(row)) == len(row) for row in b.tolist())
+    # the staged layout without the permutation: lanes l and l + 8 meet
+    if smem:
+        words = idx[0, ::4][:32] * 128 + 4 * np.arange(32)
+        assert len(set((words % 32).tolist())) == 8
 
 
 @pytest.mark.parametrize("W", [128, 2048])
