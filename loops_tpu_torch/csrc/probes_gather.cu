@@ -5,13 +5,13 @@
 // gather_axis0_kernel  replaces scripts/tpu_r3_gather_probe.py probe_axis0:
 //   out[i, j] = src[idx[i, j], j], src [S, 128] f32, idx [n, 128] int32.
 //   An item is 4 neighbouring j of one row: one int4 of idx, one float4
-//   out. A thread keeps 4 items in flight: their index loads are issued
-//   before any table read (the first step's before the table is staged).
-//   At S <= 256 (128 KB) a CTA of 1024 threads stages src in shared
+//   out. At S <= 256 (128 KB) a CTA of 1024 threads stages src in shared
 //   memory with row r's column j at r*128 + (j & 3)*32 + (j >> 2): lane l
 //   reads component c at word c*32 + l of its row, so a warp's loads hit
-//   32 banks (unpermuted, lanes l, l+8, l+16, l+24 shared one). S = 1024
-//   (512 KB) is read through __ldg from L2 by CTAs of 256.
+//   32 banks (unpermuted, lanes l, l+8, l+16, l+24 shared one); a thread
+//   keeps 4 items in flight, their index loads issued before any table
+//   read (the first step's before the table is staged). S = 1024 (512
+//   KB) is read through __ldg from L2 by CTAs of 256, an item at a time.
 // gather_axis1_kernel  replaces tpu_r3_gather_probe.py probe_axis1:
 //   out[i, j] = src[i, idx[i, j]]. A warp holds row i in registers (a
 //   float4 a lane) and gathers inside the row by __shfl_sync.
@@ -20,12 +20,15 @@
 //   by idx and summed in groups of 8, out[g*8 + j] = sum_k0 slab[idx[g*K +
 //   k0*8 + j]], f32 sums in k0 order from +0 (bit for bit the plain
 //   version on any values). A warp takes one output row, a lane 4 of its
-//   128 sums; the row's indices come 32 at a time by __shfl_sync, the next
-//   32 loaded ahead, and 8 gathered rows are loaded before any is added.
-//   With the slab in shared memory (S = 256) a CTA of 1024 threads (32
-//   warps on one 128 KB f32 table) has it staged by one thread's bulk
-//   copy (cp.async.bulk onto an mbarrier) while the first indices load;
-//   from L2 or device memory CTAs of 256 read it through __ldg.
+//   128 sums; the row's indices come 32 at a time, the next 32 loaded
+//   ahead. f32 rows go 4 at a time, loaded before any is added, their
+//   indices read 4 a load from the warp's slice of shared memory; bf16
+//   rows one at a time by __shfl_sync, at 32 registers, so that 2048
+//   threads run an SM. With the slab in shared memory (S = 256) a CTA of
+//   1024 threads (32 warps on one 128 KB f32 table, or two CTAs on the
+//   64 KB bf16 one) has it staged by one thread's bulk copy
+//   (cp.async.bulk onto an mbarrier) while the first indices load; from
+//   L2 or device memory CTAs of 256 read it through __ldg.
 // row_gather_kernel  replaces _dynload_run, materialize (G2: out[r] =
 //   slab[idx[r]]) and g3_onehot_expand (G3: out[g*K + k] =
 //   f32(win[idx[(g*rep)*K + k]]), the first of the rep = 8 repeated idx
@@ -66,6 +69,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // ------------------------------------------------------------------ P1
 // Items (one int4 of idx, one float4 out) a thread keeps in flight, and
 // the CTA of the shared-memory kernel: one staged table for 32 warps.
+// From L2 one item at a time: more were slower (their random 4-byte
+// reads run at the L2's rate, not its latency).
 constexpr int kAxis0Items = 4;
 constexpr int kAxis0SmemThreads = 1024;
 
@@ -182,8 +187,8 @@ __device__ __forceinline__ void copy4(float* o, const __nv_bfloat16* p, bool ldg
 }
 
 // ------------------------------------------------------------------ G1
-// Rows a warp loads before it adds any of them, and the CTA that shares
-// one staged table.
+// f32 rows a warp loads before it adds any of them, and the CTA that
+// shares one staged table.
 constexpr int kSumRows = 4;
 constexpr int kSumSmemThreads = 1024;
 constexpr unsigned kBulkPiece = 64 * 1024;  // bytes of one bulk copy
@@ -225,15 +230,15 @@ __device__ __forceinline__ void bulk_stage(void* dst, const void* src, unsigned 
 
 // Output row o = g * 8 + j sums rows idx[g*K + k0*8 + j], k0 = 0 .. K/8 - 1,
 // in k0 order from +0: a warp takes one output row at a time, a lane 4
-// of its 128 sums. The row's indices come 32 at a time, one a lane. At
-// kR == 1 they pass by __shfl_sync and each row is added as it lands; at
-// kR > 1 (a multiple of 4) the warp writes them to its 32 ints of shared
-// memory and reads them back 4 a load, and a chunk's rows go kR at a
-// time: all kR loads are issued, then added in k0 order. kAhead loads
-// the next 32 indices (of this row or the warp's next) before this
-// chunk's rows.
-template <typename T, bool kSmem, int kThreads, int kR, bool kAhead, int kMinBlocks = 1>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// of its 128 sums. The row's indices come 32 at a time, one a lane, the
+// next 32 (of this row or the warp's next) loaded before this chunk's
+// rows. At kR == 1 they pass by __shfl_sync and each row is added as it
+// lands. At kR > 1 (a multiple of 4) the warp writes them to its 32 ints
+// of shared memory and reads them back 4 a load (one broadcast in place
+// of 4 shuffles), and a chunk's rows go kR at a time: all kR loads are
+// issued, then added in k0 order.
+template <typename T, bool kSmem, int kThreads, int kR>
+__global__ void __launch_bounds__(kThreads)
 row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
                       float* __restrict__ out, int S, int K, int n) {
   static_assert(kR == 1 || kR % 4 == 0, "rows in flight: 1 or a multiple of 4");
@@ -261,7 +266,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   };
   int* wbuf = ibuf[kR > 1 ? threadIdx.x >> 5 : 0];
   int o = blockIdx.x * kWarps + (threadIdx.x >> 5), b = 0;
-  int mine = kAhead ? index(o, b) : 0;  // in flight while the table is copied
+  int mine = index(o, b);  // in flight while the table is copied
   if (kSmem) {
     __syncthreads();  // the barrier is initialized
     bar_wait(bar);
@@ -273,8 +278,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
       o2 = o + warps;
       b2 = 0;
     }
-    if (!kAhead) mine = index(o, b);
-    const int next = kAhead ? index(o2, b2) : 0;
+    const int next = index(o2, b2);
     const int m = min(32, per - b);
     if constexpr (kR == 1) {
       for (int q = 0; q < m; ++q) {
@@ -321,47 +325,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
     }
     o = o2;
     b = b2;
-    if (kAhead) mine = next;
-  }
-}
-
-// the sum path as it was: one row in flight a warp
-template <typename T, bool kSmem, int kThreads>
-__global__ void __launch_bounds__(kThreads)
-row_gather_sum_one_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
-                          float* __restrict__ out, int S, int K, int n) {
-  extern __shared__ __align__(16) unsigned char gsmem[];
-  const T* from = slab;
-  if (kSmem) {
-    T* tab = reinterpret_cast<T*>(gsmem);
-    const int pieces = S * kLanes * static_cast<int>(sizeof(T)) / 16;
-    for (int e = threadIdx.x; e < pieces; e += kThreads) {
-      reinterpret_cast<uint4*>(tab)[e] = reinterpret_cast<const uint4*>(slab)[e];
-    }
-    __syncthreads();
-    from = tab;
-  }
-  const int lane = threadIdx.x & 31, col = 4 * lane;
-  const int warps = gridDim.x * (kThreads / 32);
-  const int w0 = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int per = K / 8, outs = n / K * 8;
-  for (int o = w0; o < outs; o += warps) {
-    const int g = o >> 3, j = o & 7;
-    const int* ib = idx + static_cast<size_t>(g) * K + j;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int b = 0; b < per; b += 32) {
-      const int mine = b + lane < per ? ib[(b + lane) * 8] : 0;
-      const int m = min(32, per - b);
-      for (int q = 0; q < m; ++q) {
-        const int r = __shfl_sync(kFull, mine, q);
-        const float4 v = load4(from + static_cast<size_t>(r) * kLanes + col, !kSmem);
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
-    }
-    reinterpret_cast<float4*>(out + static_cast<size_t>(o) * kLanes)[lane] = acc;
+    mine = next;
   }
 }
 
@@ -430,22 +394,11 @@ int launch_rows(const void* slab, const void* idx, void* out, int S, int K, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kSmem, int kThreads, int kR, bool kAhead, int kMin = 1>
+template <typename T, bool kSmem, int kThreads, int kR>
 int launch_sum_as(const void* slab, const void* idx, void* out, int S, int K, int n, int blocks,
-               cudaStream_t s) {
+                  cudaStream_t s) {
   const int bytes = kSmem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
-  auto k = row_gather_sum_kernel<T, kSmem, kThreads, kR, kAhead, kMin>;
-  if (const int e = launch_one_wave(k, kThreads, bytes, blocks)) return e;
-  k<<<blocks, kThreads, bytes, s>>>(static_cast<const T*>(slab), static_cast<const int*>(idx),
-                                    static_cast<float*>(out), S, K, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool kSmem, int kThreads>
-int launch_sum_one(const void* slab, const void* idx, void* out, int S, int K, int n, int blocks,
-                   cudaStream_t s) {
-  const int bytes = kSmem ? S * kLanes * static_cast<int>(sizeof(T)) : 0;
-  auto k = row_gather_sum_one_kernel<T, kSmem, kThreads>;
+  auto k = row_gather_sum_kernel<T, kSmem, kThreads, kR>;
   if (const int e = launch_one_wave(k, kThreads, bytes, blocks)) return e;
   k<<<blocks, kThreads, bytes, s>>>(static_cast<const T*>(slab), static_cast<const int*>(idx),
                                     static_cast<float*>(out), S, K, n);
@@ -458,10 +411,8 @@ template <typename T>
 int launch_sum(const void* slab, const void* idx, void* out, int S, int K, int n, int smem,
                int blocks, cudaStream_t s) {
   constexpr int kR = sizeof(T) == 4 ? kSumRows : 1;
-  return smem ? launch_sum_as<T, true, kSumSmemThreads, kR, true>(slab, idx, out, S, K, n, blocks,
-                                                                  s)
-              : launch_sum_as<T, false, kGatherThreads, kR, true>(slab, idx, out, S, K, n, blocks,
-                                                                  s);
+  return smem ? launch_sum_as<T, true, kSumSmemThreads, kR>(slab, idx, out, S, K, n, blocks, s)
+              : launch_sum_as<T, false, kGatherThreads, kR>(slab, idx, out, S, K, n, blocks, s);
 }
 
 template <bool kSmem, int kThreads, int kU>
@@ -511,62 +462,6 @@ int loops_row_gather(const void* slab, const void* idx, void* out, int S, int K,
   }
   return bf16 ? launch_rows<bf, bf>(slab, idx, out, S, K, n, 1, smem, blocks, s)
               : launch_rows<float, float>(slab, idx, out, S, K, n, 1, smem, blocks, s);
-}
-
-// Shapes for a sweep: G1's sums with `threads` a CTA and `rows` in flight
-// a warp, P1 with `threads` and `items` a thread.
-int loops_row_gather_sum_shape(const void* slab, const void* idx, void* out, int S, int K,
-                               int n, int bf16, int smem, int blocks, int threads, int rows,
-                               int mode, void* stream) {
-  if (S <= 0 || K <= 0 || K % 8 || n % K || blocks <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  // mode: 1 loads the next indices ahead, 2 also asks for 2048 threads an
-  // SM (32 registers a thread), 4 is the kernel as it was
-#define LOOPS_SUM(T, SM, TH, R, M)                                                   \
-  if (bool(smem) == SM && threads == TH && rows == R && mode == M)                  \
-    return launch_sum_as<T, SM, TH, R, (M & 1) != 0, (M & 2) ? 2048 / TH : 1>(       \
-        slab, idx, out, S, K, n, blocks, s);
-#define LOOPS_ONE(T, SM, TH)                                                         \
-  if (bool(smem) == SM && threads == TH && mode == 4)                               \
-    return launch_sum_one<T, SM, TH>(slab, idx, out, S, K, n, blocks, s);
-#define LOOPS_SUMS(T)                                                                \
-  LOOPS_SUM(T, true, 1024, 1, 0) LOOPS_SUM(T, true, 1024, 1, 1)                      \
-  LOOPS_SUM(T, true, 1024, 4, 0) LOOPS_SUM(T, true, 1024, 4, 1)                      \
-  LOOPS_SUM(T, true, 1024, 4, 3) LOOPS_SUM(T, true, 1024, 8, 1)                      \
-  LOOPS_SUM(T, false, 256, 1, 0) LOOPS_SUM(T, false, 256, 1, 1)                      \
-  LOOPS_SUM(T, false, 256, 4, 0) LOOPS_SUM(T, false, 256, 4, 1)                      \
-  LOOPS_ONE(T, true, 256) LOOPS_ONE(T, true, 1024) LOOPS_ONE(T, false, 256)
-  if (bf16) {
-    LOOPS_SUMS(bf)
-  } else {
-    LOOPS_SUMS(float)
-  }
-#undef LOOPS_SUMS
-#undef LOOPS_ONE
-#undef LOOPS_SUM
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int loops_gather_axis0_shape(const void* src, const void* idx, void* out, int S, int n4,
-                             int smem, int blocks, int threads, int items, void* stream) {
-  if (S <= 0 || n4 < 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LOOPS_AX0(SM, TH, U)                                  \
-  if (bool(smem) == SM && threads == TH && items == U)        \
-    return launch_axis0<SM, TH, U>(src, idx, out, S, n4, blocks, s);
-  LOOPS_AX0(true, 1024, 1)
-  LOOPS_AX0(true, 1024, 2)
-  LOOPS_AX0(true, 1024, 4)
-  LOOPS_AX0(true, 512, 4)
-  LOOPS_AX0(true, 256, 1)
-  LOOPS_AX0(false, 256, 1)
-  LOOPS_AX0(false, 256, 2)
-  LOOPS_AX0(false, 256, 4)
-#undef LOOPS_AX0
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // G3: win [W, 128] bf16, idx [rows / Kc * 8, Kc] int32, out [rows, 128] f32

@@ -76,8 +76,6 @@ _SIGNATURES = {
     "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],
     "loops_row_gather": [_P] * 3 + [_I] * 7 + [_P],
     "loops_onehot_expand": [_P] * 3 + [_I] * 5 + [_P],
-    "loops_row_gather_sum_shape": [_P] * 3 + [_I] * 9 + [_P],
-    "loops_gather_axis0_shape": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -26,9 +26,9 @@ on the same seeded inputs:
   the f32 block dot's 8 x 8 register tiles over
   k-slices (and the one-row tile at M = 8), the L2 scatter's plan
   and segment walk, bit for bit against a sequential loop, G1's sum walk
-  (8 rows loaded a warp, then added in k0 order; bit for bit on normal
-  values) and P1's column-permuted table (every lane of a warp on its own
-  bank).
+  (f32 rows 4 a warp loaded, then added in k0 order; bf16 one at a time;
+  bit for bit on normal values) and P1's column-permuted table (every
+  lane of a warp on its own bank).
 """
 import ast
 import importlib.util
