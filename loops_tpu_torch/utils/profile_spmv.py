@@ -75,8 +75,10 @@ TRACE_NAMES = {
     "block_dot_f32": ("block_dot_f32_kernel", "block_dot_f32_rows_kernel"),
     "smem_scatter": ("scatter_smem_kernel",),
     "l2_scatter": ("scatter_l2_kernel",),
-    **{f"row_gather_{m}_{w}": ("row_gather_kernel",)
-       for m in ("sum", "mat") for w in ("smem", "l2", "hbm")},
+    **{f"row_gather_{m}_{w}": (k,)
+       for m, k in (("sum", "row_gather_sum_kernel"),
+                    ("mat", "row_gather_kernel"))
+       for w in ("smem", "l2", "hbm")},
     "onehot_expand": ("row_gather_kernel",),
 }
 

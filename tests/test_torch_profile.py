@@ -77,10 +77,23 @@ def test_kernel_names_match_as_whole_identifiers():
 
 def test_counters_that_share_a_kernel_are_summed():
     rows = "void (anonymous namespace)::row_gather_kernel<float, true>(...)"
-    counted = _counted(row_gather_sum_l2=APPLIES, row_gather_mat_hbm=APPLIES)
+    counted = _counted(onehot_expand=APPLIES, row_gather_mat_hbm=APPLIES)
     assert trace_gaps(counted, {rows: 2 * APPLIES}, APPLIES) == []
     assert trace_gaps(counted, {rows: APPLIES}, APPLIES) == [
         "10 of 20 launches of row_gather_kernel"]
+
+
+@pytest.mark.parametrize("where", ["smem", "l2", "hbm"])
+def test_g1_launches_are_read_under_the_sum_kernel(where):
+    """G1's launches carry ``row_gather_sum_kernel``, G2's
+    ``row_gather_kernel``: one name is not counted for the other."""
+    sums = ("void (anonymous namespace)::row_gather_sum_kernel<float, true,"
+            " 1024, 4>(...)")
+    counted = _counted(**{f"row_gather_sum_{where}": APPLIES})
+    assert trace_gaps(counted, {sums: APPLIES}, APPLIES) == []
+    rows = "void (anonymous namespace)::row_gather_kernel<float, true>(...)"
+    assert trace_gaps(counted, {rows: APPLIES}, APPLIES) == [
+        "0 of 10 launches of row_gather_sum_kernel"]
 
 
 def test_every_counter_names_a_kernel_of_the_sources():
