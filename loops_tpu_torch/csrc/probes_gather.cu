@@ -52,7 +52,6 @@
 // 2,097,152, against the 0.0226 ms byte bound.
 //
 // C entry points return cudaGetLastError().
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -238,10 +237,7 @@ __device__ __forceinline__ void bulk_stage(void* dst, const void* src, unsigned 
 // of shared memory and reads them back 4 a load (one broadcast in place
 // of 4 shuffles), and a chunk's rows go kR at a time: all kR loads are
 // issued, then added in k0 order.
-// kCluster > 0: the table is cut into kCluster slices of S / kCluster
-// rows, one staged in each CTA of a thread-block cluster, and row r is read
-// from the shared memory of CTA r / (S / kCluster) of the warp's cluster.
-template <typename T, bool kSmem, int kThreads, int kR, int kCluster = 0>
+template <typename T, bool kSmem, int kThreads, int kR>
 __global__ void __launch_bounds__(kThreads)
 row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
                       float* __restrict__ out, int S, int K, int n) {
@@ -255,27 +251,13 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   const int per = K / 8, outs = n / K * 8;
   const T* from = slab;
   const unsigned bar = loops_tc::smem_addr(&staged);
-  const int slice = kCluster ? S / kCluster : S;
-  if (kSmem || kCluster) {
+  if (kSmem) {
     if (threadIdx.x == 0) {
-      unsigned rank = 0;
-      if constexpr (kCluster > 0) rank = cooperative_groups::this_cluster().block_rank();
       bar_init(bar);
-      bulk_stage(gsmem, slab + static_cast<size_t>(rank) * slice * kLanes,
-                 slice * kLanes * static_cast<unsigned>(sizeof(T)), bar);
+      bulk_stage(gsmem, slab, S * kLanes * static_cast<unsigned>(sizeof(T)), bar);
     }
     from = reinterpret_cast<const T*>(gsmem);
   }
-  // row r's 4 values of this lane
-  auto row = [&](int r) -> const T* {
-    if constexpr (kCluster > 0) {
-      T* local = reinterpret_cast<T*>(gsmem);
-      return cooperative_groups::this_cluster().map_shared_rank(local, r / slice) +
-             static_cast<size_t>(r % slice) * kLanes + col;
-    } else {
-      return from + static_cast<size_t>(r) * kLanes + col;
-    }
-  };
   // the chunk (o, b): indices b .. b + 31 of output row o
   auto index = [&](int o, int b) {
     return o < outs && b + lane < per
@@ -285,11 +267,10 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   int* wbuf = ibuf[kR > 1 ? threadIdx.x >> 5 : 0];
   int o = blockIdx.x * kWarps + (threadIdx.x >> 5), b = 0;
   int mine = index(o, b);  // in flight while the table is copied
-  if (kSmem || kCluster) {
+  if (kSmem) {
     __syncthreads();  // the barrier is initialized
     bar_wait(bar);
   }
-  if constexpr (kCluster > 0) cooperative_groups::this_cluster().sync();  // every slice landed
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   while (o < outs) {  // the same trip count for the whole warp
     int o2 = o, b2 = b + 32;
@@ -302,7 +283,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
     if constexpr (kR == 1) {
       for (int q = 0; q < m; ++q) {
         const int r = __shfl_sync(kFull, mine, q);
-        const float4 v = load4(row(r), !kSmem && !kCluster);
+        const float4 v = load4(from + static_cast<size_t>(r) * kLanes + col, !kSmem);
         acc.x += v.x;
         acc.y += v.y;
         acc.z += v.z;
@@ -325,7 +306,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
         float4 v[kR];
 #pragma unroll
         for (int u = 0; u < kR; ++u) {
-          if (q + u < m) v[u] = load4(row(r[u]), !kSmem && !kCluster);
+          if (q + u < m) v[u] = load4(from + static_cast<size_t>(r[u]) * kLanes + col, !kSmem);
         }
 #pragma unroll
         for (int u = 0; u < kR; ++u) {
@@ -346,8 +327,6 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
     b = b2;
     mine = next;
   }
-  // no CTA leaves while its cluster may read its slice
-  if constexpr (kCluster > 0) cooperative_groups::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------- G2, G3
@@ -426,58 +405,14 @@ int launch_sum_as(const void* slab, const void* idx, void* out, int S, int K, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// A table that fits kSumCluster CTAs' shared memory in equal slices is
-// read from the cluster's distributed shared memory, with as many clusters
-// as the card holds at once.
-constexpr int kSumCluster = 16;
-
-template <typename T, int kR>
-int launch_sum_cluster(const void* slab, const void* idx, void* out, int S, int K, int n,
-                       cudaStream_t s) {
-  const int bytes = S / kSumCluster * kLanes * static_cast<int>(sizeof(T));
-  auto k = row_gather_sum_kernel<T, false, kSumSmemThreads, kR, kSumCluster>;
-  if (const int e = set_smem(k, bytes)) return e;
-  if (const cudaError_t e =
-          cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) {
-    return static_cast<int>(e);
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kSumCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSumCluster);
-  cfg.blockDim = dim3(kSumSmemThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg)) {
-    return static_cast<int>(e);
-  }
-  if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cfg.gridDim = dim3(clusters * kSumCluster);
-  if (const cudaError_t e = cudaLaunchKernelEx(&cfg, k, static_cast<const T*>(slab),
-                                               static_cast<const int*>(idx),
-                                               static_cast<float*>(out), S, K, n)) {
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // f32 rows 4 in flight a warp (the f32 table leaves one CTA an SM); bf16
 // one, at the 32 registers that let 2048 threads run an SM
 template <typename T>
 int launch_sum(const void* slab, const void* idx, void* out, int S, int K, int n, int smem,
                int blocks, cudaStream_t s) {
   constexpr int kR = sizeof(T) == 4 ? kSumRows : 1;
-  if (smem) return launch_sum_as<T, true, kSumSmemThreads, kR>(slab, idx, out, S, K, n, blocks, s);
-  if (S % kSumCluster == 0 && S / kSumCluster * kLanes * sizeof(T) <= 227 * 1024) {
-    return launch_sum_cluster<T, kR>(slab, idx, out, S, K, n, s);
-  }
-  return launch_sum_as<T, false, kGatherThreads, kR>(slab, idx, out, S, K, n, blocks, s);
+  return smem ? launch_sum_as<T, true, kSumSmemThreads, kR>(slab, idx, out, S, K, n, blocks, s)
+              : launch_sum_as<T, false, kGatherThreads, kR>(slab, idx, out, S, K, n, blocks, s);
 }
 
 template <bool kSmem, int kThreads, int kU>
