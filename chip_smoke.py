@@ -136,8 +136,9 @@ Phases, one line each with its time:
    computed on the CPU (1 and 3 passes); two launches bitwise equal.
    G1 (``row_gather_sum_*``) is held bit for bit on the script's normal
    slab as well as on its integer one.
-   Then it times each by slope (launches or passes; the scatters by one
-   pass from an empty L2, as their byte bounds assume) beside its plain
+   Then it times each by slope (launches or passes; the scatters and
+   ``gather_axis0`` by one call from an empty L2, as their byte bounds
+   assume) beside its plain
    version and its library call, prints ``onehot_expand`` at W = 128, 512
    and 2048 against ``index_select`` and its byte bound, G1 (K = 128 f32)
    at each residency against ``embedding_bag`` and its byte bound, with
@@ -1415,7 +1416,8 @@ def sddmm_phases(device, smi, adj, rate):
 def probe_phases(device, smi, rate, k6, rate64):
     """Phases 18-19 (K12-K15); ``rate`` is K11's measured read rate in
     bytes/s at 1 GiB and ``rate64`` at 64 MiB, ``k6`` K6's times from
-    phase 13 (the line of the two kernels redesigned last names it). Returns the max |kernel - plain| per
+    phase 13 (the line of the two kernels redesigned last names it).
+    Returns the max |kernel - plain| per
     kernel, the main path's launch counts and each kernel's timed
     record."""
     import torch

@@ -191,16 +191,10 @@ __device__ __forceinline__ void copy4(float* o, const __nv_bfloat16* p, bool ldg
 // shares one staged table.
 constexpr int kSumRows = 4;
 constexpr int kSumSmemThreads = 1024;
-constexpr unsigned kBulkPiece = 64 * 1024;  // bytes of one bulk copy
 
 __device__ __forceinline__ void bar_init(unsigned bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(1) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
 }
 __device__ __forceinline__ void bar_wait(unsigned bar) {  // phase 0 done
   unsigned done = 0;
@@ -214,18 +208,18 @@ __device__ __forceinline__ void bar_wait(unsigned bar) {  // phase 0 done
         : "memory");
   }
 }
-// One thread copies `bytes` (a multiple of 16) from global to shared by
-// the copy engine; the barrier's phase completes when all have landed.
+// One thread has `bytes` (a multiple of 16) copied from global to shared
+// memory by one bulk copy; the barrier's phase completes when they land.
 __device__ __forceinline__ void bulk_stage(void* dst, const void* src, unsigned bytes,
                                            unsigned bar) {
-  bar_expect(bar, bytes);
-  for (unsigned at = 0; at < bytes; at += kBulkPiece) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(loops_tc::smem_addr(static_cast<char*>(dst) + at)),
-        "l"(static_cast<const char*>(src) + at), "r"(min(kBulkPiece, bytes - at)), "r"(bar)
-        : "memory");
-  }
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(loops_tc::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Output row o = g * 8 + j sums rows idx[g*K + k0*8 + j], k0 = 0 .. K/8 - 1,
