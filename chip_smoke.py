@@ -133,13 +133,23 @@ Phases, one line each with its time:
    normal values within ``r2.DOT_C`` units of ``u32 sqrt(sum (a b)^2)``
    of their float64 reference, ``l2_scatter`` on the script's normal
    values bit for bit against the sequential (pass, chunk, slab) order
-   computed on the CPU (1 and 3 passes); two launches bitwise equal.
+   computed on the CPU and ``smem_scatter`` against its group order
+   (``r2.scatter_smem_order``; 1 and 3 passes); K13's bound forms
+   (``seg_scan_bind``, ``construct_bind``) bitwise equal to the unbound
+   calls; ``launch_floor`` (one CTA of 32 threads writing one word)
+   exact; two launches bitwise equal.
    G1 (``row_gather_sum_*``) is held bit for bit on the script's normal
    slab as well as on its integer one.
    Then it times each by slope (launches or passes; the scatters and
    ``gather_axis0`` by one call from an empty L2, as their byte bounds
    assume) beside its plain
-   version and its library call, prints ``onehot_expand`` at W = 128, 512
+   version and its library call, prints the launch floor by
+   ``torch.profiler`` (median over 400 launches) and by CUDA events over
+   400 launches queued back to back, K13's calls unbound and bound (into
+   ``out=``) with each kernel's device time against the floor and each
+   construct's library call (``clone``, ``torch.matmul``, else none), the
+   smem scatter from an empty L2 against its byte bound and
+   ``index_add_`` with its clusters, ``onehot_expand`` at W = 128, 512
    and 2048 against ``index_select`` and its byte bound, G1 (K = 128 f32)
    at each residency against ``embedding_bag`` and its byte bound, with
    its rate of row reads beside K11's at 64 MiB, ``gather_axis0`` at each
@@ -151,7 +161,11 @@ Phases, one line each with its time:
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
-SXM's peak for its type (67 TFLOP/s f32 on the CUDA cores, 989 bf16).
+SXM's peak for its type (67 TFLOP/s f32 on the CUDA cores, 989 bf16)
+(``bound_ms`` in the kernels line), and of the launch floor measured in
+phase 19 (``launch_floor_ms`` beside it): the check below and the printed
+shares take the larger. Every time compared with it is per call or per
+pass, never under the device time of one launch.
 
 The kernel-vs-plain tolerance is twice the Wilkinson bound the validator
 uses (``2 * 4 * nnz_row * u * sum|a*x|``, floor 1e-6): both results lie
@@ -257,6 +271,10 @@ PROBE_KERNELS = {
                        "scripts/tpu_mosaic_probe2.py:23"),
     "construct_probe": ("loops_tpu_torch/csrc/probes.cu",
                         "scripts/tpu_mosaic_probe.py:24"),
+    # the launch K13's kernels are bound by; the TPU scripts timed it as
+    # dispatch_probe
+    "launch_floor": ("loops_tpu_torch/csrc/probes.cu",
+                     "scripts/tpu_r2_probe.py:200"),
     **{k: ("loops_tpu_torch/csrc/probes_r2.cu", "scripts/tpu_r2_probe.py:90")
        for k in ("block_dot_f32", "block_dot_bf16")},
     **{k: ("loops_tpu_torch/csrc/probes_r2.cu", "scripts/tpu_r2_probe.py:148")
@@ -274,6 +292,7 @@ PROBE_KERNELS = {
 # the case of each probe kernel that stands for it in the kernels line:
 # the block dots with B streamed, where every chunk's product is needed
 PROBE_ENTRIES = {"seg_scan_probe": "seg_scan", "construct_probe": "constructs",
+                 "launch_floor": "one word",
                  "block_dot_f32": "M=128 streamB",
                  "block_dot_bf16": "M=128 streamB",
                  "smem_scatter": "smem 256x64", "l2_scatter": "L2 4096x512",
@@ -520,13 +539,16 @@ def backward_vs_plain(graph, rows, F, dtype, device):
                       plain.cpu().numpy(), dtype)
 
 
-def bound(nbytes, flops, dtype=None, rate=HBM_BYTES_PER_S):
-    """``(ms, "bytes" or "operations")``: the least time the card could
-    take to move ``nbytes`` at ``rate`` bytes/s (the nominal 3.35 TB/s, or
-    K11's measured rate) and do ``flops``."""
+def bound(nbytes, flops, dtype=None, rate=HBM_BYTES_PER_S, floor=0.0):
+    """``(ms, "bytes", "operations" or "launch")``: the least time the card
+    could take to move ``nbytes`` at ``rate`` bytes/s (the nominal 3.35
+    TB/s, or K11's measured rate), do ``flops`` and launch a kernel
+    (``floor`` ms, the launch floor of phase 19; 0 before it is
+    measured)."""
     t_bytes = nbytes / rate * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return max((t_bytes, "bytes"), (t_ops, "operations"), (floor, "launch"),
+               key=lambda b: b[0])
 
 
 def csr_spmv_bound(csr, rate=HBM_BYTES_PER_S):
@@ -1486,9 +1508,9 @@ def probe_phases(device, smi, rate, k6, rate64):
     status, recs = mod.main(["--device", "cuda"],
                             out=lambda ln: print(f"  h100_probes: {ln}"))
     require(status == 0, "scripts/h100_probes.py failed")
-    require(any(r["name"] == "l2_scatter" and r.get("order_checked")
-                for r in recs),
-            "l2_scatter was not held to the sequential order")
+    for k in ("smem_scatter", "l2_scatter"):
+        require(any(r["name"] == k and r.get("order_checked") for r in recs),
+                f"{k} was not held to the order it keeps")
     launches = dict(_build.LAUNCHES)
     for k in PROBE_KERNELS:
         require(launches[k] > 0, f"{k} never launched on the tier's path")
@@ -1515,31 +1537,72 @@ def probe_phases(device, smi, rate, k6, rate64):
           f"{big_ms:.4f} ms = {12 * xl.numel() / big_ms / 1e6:.1f} GB/s "
           f"(torch.add {add_ms:.4f} ms)  [{smi}]")
     del xl, yl
-    # at these sizes a call is the host's launch path: the device time of
+    # at this size a call is the host's launch path: the device time of
     # one launch, from the profiler, beside the wall time of one call
-    v, keep = (torch.from_numpy(a).to(device) for a in mosaic.scan_inputs())
-    mat = torch.from_numpy(mosaic.construct_inputs()["shift_lane"][0]).to(
-        device)
-    for k, fn in (("saxpy", lambda _: saxpy.saxpy_cuda(2.5, x, y)),
-                  ("seg_scan_probe", lambda _: mosaic.seg_scan_cuda(v, keep)),
-                  ("construct_probe (shift_lane)",
-                   lambda _: mosaic.construct_cuda("shift_lane", mat))):
-        r = profile_applies(fn, x, applies=20, warmup=3)
-        wall = f"wall {r['wall_ms'] * 1e3:.2f} us per call"
-        if r["not_measured"]:
-            print(f"  {k}: {profile_text(r, 0)}  [{smi}]")
-            continue
+    r = profile_applies(lambda _: saxpy.saxpy_cuda(2.5, x, y), x, applies=20,
+                        warmup=3)
+    if r["not_measured"]:
+        print(f"  saxpy: {profile_text(r, 0)}  [{smi}]")
+    else:
         kname, n, ms = r["kernels"][0]
-        print(f"  {k}: device {ms / n * 1e3:.2f} us per launch of "
-              f"{kname[:40]} (torch.profiler), {wall}, idle "
-              f"{r['idle_share']:.1%}  [{smi}]")
+        print(f"  saxpy: device {ms / n * 1e3:.2f} us per launch of "
+              f"{kname[:40]} (torch.profiler), wall {r['wall_ms'] * 1e3:.2f} "
+              f"us per call, idle {r['idle_share']:.1%}  [{smi}]")
+    # the launch floor, two ways, and K13 against it: a kernel whose device
+    # time is at most twice the floor reaches half its bound
+    fl = entries["launch_floor"]
+    floor = fl["floor_ms"]
+    require(floor is not None and floor > 0, "the launch floor was not "
+            "measured")
+    print("  launch floor (launch_floor_kernel, one CTA of 32 threads): "
+          + (f"{fl['profiler_us']:.3f} us (torch.profiler median of "
+             f"{fl['profiler_n']} launches)" if fl["profiler_us"] is not None
+             else "torch.profiler recorded no launch")
+          + f", {fl['events_us']:.3f} us (CUDA events, "
+          f"{mosaic.FLOOR_LAUNCHES} launches queued back to back); "
+          f"{fl['ms'] * 1e3:.3f} us a call; the bound of a kernel whose bytes "
+          f"and operations take less: {floor * 1e3:.3f} us  [{smi}]")
+    sc, cn = entries["seg_scan_probe"], entries["construct_probe"]
+    for k, c in {"seg_scan": sc, **cn["cases"]}.items():
+        us = c["device_us"]
+        verdict = ("device not measured (no launch in the trace)"
+                   if us is None else
+                   f"device {us:.3f} us, {us / (floor * 1e3):.2f}x the floor: "
+                   + ("within 2x, half its bound or better" if us <= 2e3 * floor
+                      else "past 2x"))
+        lib = c.get("library_ms")
+        print(f"  K13 {k}: {c['unbound_ms'] * 1e3:.3f} us a call unbound, "
+              f"{c['ms'] * 1e3:.3f} us bound into out=; {verdict}"
+              + ("" if k == "seg_scan" else "; library " + (
+                  "none" if lib is None else f"{lib * 1e3:.3f} us"))
+              + f"  [{smi}]")
+    print(f"  K13 means: seg_scan {sc['unbound_ms'] * 1e3:.3f} -> "
+          f"{sc['ms'] * 1e3:.3f} us a call, constructs "
+          f"{cn['unbound_ms'] * 1e3:.3f} -> {cn['ms'] * 1e3:.3f} us (unbound "
+          f"-> bound)  [{smi}]")
+    # the smem scatter from an empty L2 against its bound and index_add_,
+    # held bit for bit to its group order above
+    sm = entries["smem_scatter"]
+    b_ms, b_by = bound(sm["nbytes"], sm["flops"])
+    print(f"  smem_scatter ({sm['label']}): {sm['ms']:.4f} ms one pass from "
+          f"an empty L2, {b_ms / sm['ms']:.1%} of its {b_ms:.4f} ms bound "
+          f"({b_by}); index_add_ {sm['library_ms']:.4f} ms "
+          f"({sm['library_ms'] / sm['ms']:.2f}x); {r2.SMEM_GROUPS} groups a "
+          f"tile in clusters of {r2.SMEM_CLUSTER} "
+          f"({r2.smem_clusters(device=device)} such clusters run at once; "
+          f"{r2.N // r2.SMEM_FT * r2.SMEM_GROUPS // r2.SMEM_CLUSTER} "
+          f"needed), {r2.SMEM_STAGES} stages; the group order bit for bit on "
+          f"normal slabs, 1 and 3 passes  [{smi}]")
     require(set(entries) == set(PROBE_KERNELS),
             f"no timed record for {set(PROBE_KERNELS) - set(entries)}")
     for k, rec in entries.items():
         dt = "bfloat16" if rec["peak"] == "bf16" else None
-        b_ms, b_by = bound(rec["nbytes"], rec["flops"], dt)
-        m_ms, m_by = bound(rec["nbytes"], rec["flops"], dt, rate)
-        rec.update(bound_ms=b_ms, bound_by=b_by)
+        # the kernels line keeps the bound of bytes and operations; the
+        # floor stands beside it
+        rec.update(zip(("bound_ms", "bound_by"),
+                       bound(rec["nbytes"], rec["flops"], dt)))
+        b_ms, b_by = bound(rec["nbytes"], rec["flops"], dt, floor=floor)
+        m_ms, m_by = bound(rec["nbytes"], rec["flops"], dt, rate, floor)
         print(f"  {k} ({rec['label']}): kernel {rec['ms']:.4f} ms, plain "
               + (f"{rec['plain_ms']:.4f}" if rec["plain_ms"] is not None
                  else "-") + " ms, library "
@@ -1598,7 +1661,7 @@ def probe_phases(device, smi, rate, k6, rate64):
           + ", ".join(f"{k} {v:.3e}" for k, v in err.items() if v)
           + " (the dots against float64); main-path launches "
           + json.dumps({k: launches[k] for k in PROBE_KERNELS}) + " ")
-    return err, launches, entries
+    return err, launches, entries, floor
 
 
 def main() -> int:
@@ -2003,7 +2066,7 @@ def main() -> int:
     rate = stream_res["1 GiB"]["gbps"] * 1e9
     sddmm_err, sddmm_launches, sddmm_times, sddmm_bounds = sddmm_phases(
         device, smi, adj, rate)
-    probe_err, probe_launches, probe_recs = probe_phases(
+    probe_err, probe_launches, probe_recs, floor = probe_phases(
         device, smi, rate, bcsr_times["bcsr_spmv", None],
         stream_res["64 MiB"]["gbps"] * 1e9)
 
@@ -2074,10 +2137,16 @@ def main() -> int:
              "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(f"measured stream (K11, 1 GiB): {rate / 1e9:.1f} GB/s; each "
           "kernel's bound at the nominal 3.35 TB/s and at the measured "
-          f"rate  [{smi}]")
+          f"rate, and no less than the launch floor, {floor * 1e3:.3f} us  "
+          f"[{smi}]")
     for entry in kernels:
-        nom, by = bounds[entry["name"]](HBM_BYTES_PER_S)
-        meas, mby = bounds[entry["name"]](rate)
+        # bound_ms stays the bound of bytes and operations; the floor
+        # stands beside it, and the check takes the larger
+        entry["launch_floor_ms"] = floor
+        nom, by = max(bounds[entry["name"]](HBM_BYTES_PER_S),
+                      (floor, "launch"), key=lambda b: b[0])
+        meas, mby = max(bounds[entry["name"]](rate), (floor, "launch"),
+                        key=lambda b: b[0])
         print(f"  {entry['name']}: {entry['ms']:.4f} ms; bound {nom:.4f} ms "
               f"({by}) nominal, {meas:.4f} ms ({mby}) measured; "
               f"{meas / entry['ms']:.1%} of the measured bound")

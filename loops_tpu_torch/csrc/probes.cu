@@ -14,8 +14,12 @@
 //   inside a warp, rows and last lanes across warps through shared memory,
 //   and a runtime base into a shared-memory window (as K3 writes its rows).
 //
+// launch_floor_kernel: one CTA of 32 threads that writes one word, the
+//   least a launch costs the card; the K13 kernels' bound.
+//
 // What bounds them: the launch. The inputs are a few KB; these kernels
-// check lowering and order, and their time is the card's launch latency.
+// check lowering and order, and their time is the card's launch latency
+// (launch_floor_kernel measures it).
 //
 // C entry points return cudaGetLastError().
 #include <cuda_runtime.h>
@@ -124,9 +128,20 @@ construct_probe_kernel(int which, const float* __restrict__ a,
   }
 }
 
+__global__ void __launch_bounds__(32) launch_floor_kernel(int* __restrict__ out, int v) {
+  if (threadIdx.x == 0) *out = v;
+}
+
 }  // namespace
 
 extern "C" {
+
+// out [1] int32: set to v
+int loops_launch_floor(void* out, int v, void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(out), v);
+  return static_cast<int>(cudaGetLastError());
+}
 
 int loops_seg_scan_probe(const void* v, const void* keep, void* out,
                          int n_blocks, int L, void* stream) {

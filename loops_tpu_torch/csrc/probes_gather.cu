@@ -192,36 +192,6 @@ __device__ __forceinline__ void copy4(float* o, const __nv_bfloat16* p, bool ldg
 constexpr int kSumRows = 4;
 constexpr int kSumSmemThreads = 1024;
 
-__device__ __forceinline__ void bar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(1) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_wait(unsigned bar) {  // phase 0 done
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(0)
-        : "memory");
-  }
-}
-// One thread has `bytes` (a multiple of 16) copied from global to shared
-// memory by one bulk copy; the barrier's phase completes when they land.
-__device__ __forceinline__ void bulk_stage(void* dst, const void* src, unsigned bytes,
-                                           unsigned bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(loops_tc::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Output row o = g * 8 + j sums rows idx[g*K + k0*8 + j], k0 = 0 .. K/8 - 1,
 // in k0 order from +0: a warp takes one output row at a time, a lane 4
 // of its 128 sums. The row's indices come 32 at a time, one a lane, the
@@ -247,8 +217,10 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   const unsigned bar = loops_tc::smem_addr(&staged);
   if (kSmem) {
     if (threadIdx.x == 0) {
-      bar_init(bar);
-      bulk_stage(gsmem, slab, S * kLanes * static_cast<unsigned>(sizeof(T)), bar);
+      const unsigned bytes = S * kLanes * static_cast<unsigned>(sizeof(T));
+      loops_tc::mbar_init(bar, 1);
+      loops_tc::mbar_expect_tx(bar, bytes);
+      loops_tc::bulk_copy(gsmem, slab, bytes, bar);
     }
     from = reinterpret_cast<const T*>(gsmem);
   }
@@ -263,7 +235,7 @@ row_gather_sum_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
   int mine = index(o, b);  // in flight while the table is copied
   if (kSmem) {
     __syncthreads();  // the barrier is initialized
-    bar_wait(bar);
+    loops_tc::mbar_wait(bar, 0);
   }
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   while (o < outs) {  // the same trip count for the whole warp

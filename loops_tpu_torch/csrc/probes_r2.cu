@@ -40,14 +40,24 @@
 // scatter_smem_kernel / scatter_l2_kernel  replace tpu_r2_probe.py
 //   scatter_probe: per chunk, KCH = 8 accumulates of an (R = 8, F) slab
 //   into a resident accumulator at offsets that are random multiples of R.
-//   No float atomics: each output element is one thread's sum, in the
-//   order (pass, chunk, slab) of a sequential loop.
+//   No float atomics: each output's terms are added in a fixed order.
 //   * smem: the accumulator a CTA can hold, K7's 256 rows x 64 features
-//     (64 KB of shared memory); one thread owns each (row-in-block j,
-//     feature f) and adds every slab row j into acc[off * R + j][f]; the
-//     512 features run as 8 CTA column tiles, and the chunks are shared
-//     over `groups` CTAs per tile, each with its own accumulator, summed
-//     by the wrapper.
+//     (64 KB of shared memory); the 512 features run as 8 tiles, and a
+//     tile's chunks are shared over `groups` CTAs (16), one a cluster
+//     rank. Bound: the 67 MB of slabs from device memory (one pass from
+//     an empty L2). So the slabs come by bulk copy, not by thread loads:
+//     a producer warp keeps a ring of up to 4 stages (a chunk's 64 rows x
+//     64 features, 16 KB, as 64 row copies of 256 B by cp.async.bulk,
+//     each stage on an mbarrier) in flight, 64 KB an SM, while one
+//     consumer thread per (row-in-block j, feature f) adds each slab row
+//     j into acc[off * R + j][f], slab after slab, and its warp frees
+//     the slot on an "empty" mbarrier (no CTA barrier a step). The groups
+//     of a tile are summed in the same launch, from distributed shared
+//     memory: rank r of a cluster adds its share of the rows over the
+//     ranks in rank order (clusters, where a tile has more than one, in
+//     cluster order through a ticket), so no partials are summed by a
+//     second kernel and the order is fixed (probes/r2.py
+//     scatter_smem_order).
 //   * l2: the TPU's [4096, 512] f32 accumulator in device memory, as a
 //     segment sum over a plan staged on the host (probes/r2.py
 //     scatter_plan): the slabs sorted stably by destination block (perm)
@@ -57,12 +67,15 @@
 //     registers over the block's slabs, 16-byte loads with 8 slabs in
 //     flight, and writes it once a pass (zeros for a block no slab hits).
 //     The stable sort keeps each output's terms in (pass, chunk, slab)
-//     order. Bound: reading the 67 MB of slabs from device memory, which
+//     order, that of a sequential loop. Bound: reading the 67 MB of
+//     slabs from device memory, which
 //     is what one pass does when the L2 holds none of them (the probe
 //     times it so, the L2 emptied first); every SM streams them, 2048
 //     threads an SM with 8 loads in flight each.
 //
-// C entry points return cudaGetLastError().
+// C entry points return cudaGetLastError() (loops_scatter_smem_clusters a
+// count).
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -417,33 +430,196 @@ int launch_dot(int bf16, const void* A, const void* B, void* partial, int nch,
 }
 
 // ------------------------------------------------------------- scatter
-constexpr int kScatterFT = 64;  // features per CTA of the smem accumulator
+// The smem accumulator's shapes: KCH slabs of R rows a chunk, a CTA's
+// 64-feature tile of a chunk (64 x 64 f32, 16 KB) one stage of its ring.
+constexpr int kScatterFT = 64;
+constexpr int kScatterKch = 8, kScatterR = 8;
+constexpr int kChunkRows = kScatterKch * kScatterR;
+constexpr int kStageFloats = kChunkRows * kScatterFT;
+constexpr int kScatterConsumers = kScatterR * kScatterFT;  // one per (j, f)
+constexpr int kScatterThreads = kScatterConsumers + 32;    // + the producer
+constexpr int kScatterMaxStages = 4;
 
-// thread (j, f) of a CTA: j = threadIdx.x / 64, f = threadIdx.x % 64
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ float4 add4(float4 a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+  return a;
+}
+
+// CTA (g, tile) of a cluster of C along g: group g of `groups` takes the
+// chunks g, g + groups, ... (passes times over) and adds them into its
+// accumulator acc [acc_rows][64] in shared memory. Warp 16 is the
+// producer: lane 0 waits for a free slot and arms its barrier with the
+// stage's bytes, and the 32 lanes copy the chunk's 64 rows of 256 B into
+// it by cp.async.bulk. Consumer thread (j, f) owns column f of every
+// accumulator row r with r % R == j: for each slab i it adds the stage's
+// row i*R + j into row off[i]*R + j, slab after slab, then its warp frees
+// the slot. After the last chunk, rank r of the cluster sums its share of
+// the accumulator rows over ranks 0..C-1, in rank order, read from their
+// shared memory, and writes them: to out when the tile's groups are one
+// cluster, else to cpart [groups / C][acc_rows][F], and the cluster that
+// takes a share's ticket last sums that share over the clusters in
+// order into out (no float atomics).
+template <int C>
+__global__ void __launch_bounds__(kScatterThreads, 1)
 scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
-                    float* __restrict__ partial, int nch, int kch, int rr,
-                    int F, int acc_rows, int passes) {
-  extern __shared__ float acc[];  // [acc_rows][kScatterFT]
-  const int j = threadIdx.x / kScatterFT, f = threadIdx.x % kScatterFT;
-  const int f0 = blockIdx.x * kScatterFT;
-  const int g = blockIdx.y, groups = gridDim.y;
-  // this thread owns rows r with r % rr == j, column f
-  for (int r = j; r < acc_rows; r += rr) acc[r * kScatterFT + f] = 0.f;
-  const size_t slab = static_cast<size_t>(kch) * rr * F;
-  for (int p = 0; p < passes; ++p) {
-    for (int c = g; c < nch; c += groups) {
-      const float* ac = a + c * slab + static_cast<size_t>(j) * F + f0 + f;
-      for (int i = 0; i < kch; ++i) {
-        const int row = offs[c * kch + i] * rr + j;
-        acc[row * kScatterFT + f] += ac[static_cast<size_t>(i) * rr * F];
-      }
+                    float* __restrict__ out, float* __restrict__ cpart,
+                    int* __restrict__ tickets, int nch, int F, int acc_rows,
+                    int passes, int stages) {
+  extern __shared__ __align__(128) float ssm[];
+  float* acc = ssm;                               // [acc_rows][64]
+  float* ring = ssm + acc_rows * kScatterFT;      // [stages][64][64]
+  __shared__ __align__(8) unsigned long long full[kScatterMaxStages];
+  __shared__ __align__(8) unsigned long long empty[kScatterMaxStages];
+  __shared__ int last;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = blockIdx.x, groups = gridDim.x, tile = blockIdx.y;
+  const int f0 = tile * kScatterFT;
+  const int mine = g < nch ? (nch - g + groups - 1) / groups : 0;
+  const int items = passes * mine;
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      loops_tc::mbar_init(loops_tc::smem_addr(&full[s]), 1);
+      loops_tc::mbar_init(loops_tc::smem_addr(&empty[s]), kScatterConsumers / 32);
     }
   }
-  for (int r = j; r < acc_rows; r += rr) {
-    partial[(static_cast<size_t>(g) * acc_rows + r) * F + f0 + f] =
-        acc[r * kScatterFT + f];
+  for (int e = t; e < acc_rows * kScatterFT / 4; e += kScatterThreads) {
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  __syncthreads();
+  if (t >= kScatterConsumers) {  // the producer warp
+    for (int it = 0; it < items; ++it) {
+      const int s = it % stages;
+      const unsigned use = it / stages;
+      const unsigned fb = loops_tc::smem_addr(&full[s]);
+      if (lane == 0) {
+        loops_tc::mbar_wait(loops_tc::smem_addr(&empty[s]), (use & 1) ^ 1);
+        loops_tc::mbar_expect_tx(fb, kStageFloats * 4);
+      }
+      __syncwarp();
+      const int c = g + groups * (it % mine);
+      const float* src = a + static_cast<size_t>(c) * kChunkRows * F + f0;
+      float* dst = ring + s * kStageFloats;
+      for (int r = lane; r < kChunkRows; r += 32) {
+        loops_tc::bulk_copy(dst + r * kScatterFT, src + static_cast<size_t>(r) * F,
+                            kScatterFT * 4, fb);
+      }
+    }
+  } else {
+    const int j = t / kScatterFT, f = t % kScatterFT;
+    float* col = acc + j * kScatterFT + f;  // row j of block 0, column f
+    for (int it = 0; it < items; ++it) {
+      const int s = it % stages;
+      const unsigned use = it / stages;
+      const int c = g + groups * (it % mine);
+      const int4* o4 = reinterpret_cast<const int4*>(offs + c * kScatterKch);
+      const int4 oa = __ldg(o4), ob = __ldg(o4 + 1);
+      const int off[kScatterKch] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
+      loops_tc::mbar_wait(loops_tc::smem_addr(&full[s]), use & 1);
+      const float* st = ring + s * kStageFloats + j * kScatterFT + f;
+#pragma unroll
+      for (int i = 0; i < kScatterKch; ++i) {
+        col[off[i] * (kScatterR * kScatterFT)] += st[i * kScatterR * kScatterFT];
+      }
+      __syncwarp();
+      if (lane == 0) loops_tc::mbar_arrive(loops_tc::smem_addr(&empty[s]));
+    }
+  }
+  cluster.sync();  // every accumulator of the cluster is complete
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int share = (acc_rows + C - 1) / C;
+  const int r0 = min(acc_rows, rank * share), r1 = min(acc_rows, r0 + share);
+  const int n4 = (r1 - r0) * kScatterFT / 4;
+  const int k = g / C, clusters = groups / C;
+  float* dst = clusters == 1 ? out : cpart + static_cast<size_t>(k) * acc_rows * F;
+  for (int e = t; e < n4; e += kScatterThreads) {
+    float4 v[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      v[q] = cluster.map_shared_rank(reinterpret_cast<float4*>(acc + r0 * kScatterFT), q)[e];
+    }
+    float4 sum = v[0];
+#pragma unroll
+    for (int q = 1; q < C; ++q) sum = add4(sum, v[q]);
+    const int row = r0 + e / (kScatterFT / 4), c4 = e % (kScatterFT / 4);
+    reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * F + f0)[c4] = sum;
+  }
+  cluster.sync();  // no CTA leaves while another reads its accumulator
+  if (clusters == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    int* ticket = tickets + tile * C + rank;
+    last = atomicAdd(ticket, 1) == clusters - 1;
+    if (last) *ticket = 0;  // every cluster has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = t; e < n4; e += kScatterThreads) {
+    const int row = r0 + e / (kScatterFT / 4), c4 = e % (kScatterFT / 4);
+    const size_t at = static_cast<size_t>(row) * F + f0 + 4 * c4;
+    float4 sum = __ldcg(reinterpret_cast<const float4*>(cpart + at));
+    for (int q = 1; q < clusters; ++q) {
+      sum = add4(sum, __ldcg(reinterpret_cast<const float4*>(
+                          cpart + static_cast<size_t>(q) * acc_rows * F + at)));
+    }
+    reinterpret_cast<float4*>(out + at)[0] = sum;
+  }
+}
+
+template <int C>
+cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, int stages,
+                                       cudaStream_t s, cudaLaunchAttribute* attr,
+                                       int* err) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups, tiles);
+  cfg.blockDim = dim3(kScatterThreads);
+  cfg.dynamicSmemBytes = (acc_rows + stages * kChunkRows) * kScatterFT * 4;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto k = scatter_smem_kernel<C>;
+  *err = set_smem(k, static_cast<int>(cfg.dynamicSmemBytes));
+  if (!*err && C > 8) {
+    *err = static_cast<int>(
+        cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  }
+  return cfg;
+}
+
+template <int C>
+int launch_scatter_smem(const int* offs, const float* a, float* out, float* cpart,
+                        int* tickets, int nch, int F, int acc_rows, int passes,
+                        int groups, int stages, cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  int err = 0;
+  cudaLaunchConfig_t cfg =
+      scatter_smem_config<C>(groups, F / kScatterFT, acc_rows, stages, s, attr, &err);
+  if (err) return err;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, scatter_smem_kernel<C>, offs, a,
+                                             out, cpart, tickets, nch, F, acc_rows,
+                                             passes, stages));
+}
+
+template <int C>
+int scatter_smem_clusters(int acc_rows, int stages) {
+  cudaLaunchAttribute attr[1];
+  int err = 0;
+  cudaLaunchConfig_t cfg = scatter_smem_config<C>(C, 1, acc_rows, stages, nullptr, attr, &err);
+  int n = 0;
+  if (!err) {
+    err = static_cast<int>(cudaOccupancyMaxActiveClusters(&n, scatter_smem_kernel<C>, &cfg));
+  }
+  return err ? -err : n;
 }
 
 // A persistent grid over the items (destination block, feature tile),
@@ -534,22 +710,51 @@ int loops_block_dot(const void* A, const void* B, void* partial, int nch,
   }
 }
 
-// offs [nch * kch] block offsets, a [nch, kch * rr, F], partial
-// [groups, acc_rows, F]
-int loops_scatter_smem(const void* offs, const void* a, void* partial, int nch,
-                       int kch, int rr, int F, int acc_rows, int passes,
-                       int groups, void* stream) {
-  const int bytes = acc_rows * kScatterFT * 4;
-  if (nch <= 0 || kch <= 0 || rr <= 0 || passes < 0 || acc_rows % rr ||
-      F % kScatterFT || rr * kScatterFT > 1024 || groups <= 0) {
+// offs [nch * 8] block offsets, a [nch, 64, F] (8 slabs of 8 rows a
+// chunk), out [acc_rows, F] (every element written); groups CTAs a
+// 64-feature tile in clusters of `cluster` (8 or 16) dividing groups;
+// cpart [groups / cluster, acc_rows, F] and tickets [F / 64 * cluster]
+// (zeros; left zero) when groups > cluster, else unused
+int loops_scatter_smem(const void* offs, const void* a, void* out, void* cpart,
+                       void* tickets, int nch, int F, int acc_rows, int passes,
+                       int groups, int cluster, int stages, void* stream) {
+  const size_t bytes = (static_cast<size_t>(acc_rows) + stages * kChunkRows) *
+                       kScatterFT * 4;
+  if (nch <= 0 || passes < 0 || acc_rows <= 0 || acc_rows % kScatterR ||
+      F <= 0 || F % kScatterFT || stages < 1 || stages > kScatterMaxStages ||
+      bytes > 227 * 1024 || groups <= 0 || groups % cluster ||
+      (groups > cluster && (!cpart || !tickets))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (const int e = set_smem(scatter_smem_kernel, bytes)) return e;
-  scatter_smem_kernel<<<dim3(F / kScatterFT, groups), rr * kScatterFT, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(offs), static_cast<const float*>(a),
-      static_cast<float*>(partial), nch, kch, rr, F, acc_rows, passes);
-  return static_cast<int>(cudaGetLastError());
+  const int* o = static_cast<const int*>(offs);
+  const float* af = static_cast<const float*>(a);
+  float* of = static_cast<float*>(out);
+  float* cp = static_cast<float*>(cpart);
+  int* tk = static_cast<int*>(tickets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cluster) {
+    case 8:
+      return launch_scatter_smem<8>(o, af, of, cp, tk, nch, F, acc_rows, passes,
+                                    groups, stages, s);
+    case 16:
+      return launch_scatter_smem<16>(o, af, of, cp, tk, nch, F, acc_rows, passes,
+                                     groups, stages, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the clusters of `cluster` CTAs of the smem scatter that the card runs
+// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+int loops_scatter_smem_clusters(int cluster, int acc_rows, int stages) {
+  if (acc_rows <= 0 || stages < 1 || stages > kScatterMaxStages) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (cluster) {
+    case 8: return scatter_smem_clusters<8>(acc_rows, stages);
+    case 16: return scatter_smem_clusters<16>(acc_rows, stages);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // perm [nslabs] slab indices sorted stably by destination block, seg

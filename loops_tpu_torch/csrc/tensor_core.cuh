@@ -1,7 +1,8 @@
 // Hopper helpers shared by the probe kernels (csrc/probes_r2.cu,
 // csrc/probes_gather.cu), K7/K8 (csrc/bcsr.cu) and K10 (csrc/sddmm.cu):
-// the dynamic shared-memory opt-in, 16-byte cp.async copies, ldmatrix and
-// mma.sync m16n8k16 with bf16 inputs and f32 sums.
+// the dynamic shared-memory opt-in, 16-byte cp.async copies, mbarriers
+// and bulk copies (cp.async.bulk) onto them, ldmatrix and mma.sync
+// m16n8k16 with bf16 inputs and f32 sums.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * gid + tig):
 //   A (16 x 16): a[0] = (row gid, cols 2tig, 2tig+1), a[1] = row gid + 8,
@@ -48,6 +49,47 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 // wait for every committed group
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// An mbarrier in shared memory (its shared-space address `bar`) that
+// completes a phase when `count` threads have arrived and every byte it
+// was told to expect has landed.
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// wait until the phase of parity `parity` has completed (parity 1 passes
+// at once on a new barrier: a ring's producer starts with its slots free)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive, and have the phase also wait for `bytes` more to land
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory by one bulk copy, counted on `bar` as they land
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {

@@ -41,7 +41,8 @@ LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
             "flat_spmm": 0, "bcsr_spmv": 0, "bcsr_spmm": 0,
             "bcsr_spmm_v2": 0, "bcsr_spmm_v3": 0, "sddmm_flat": 0,
             "sddmm_bcsr": 0, "stream_read": 0, "saxpy": 0,
-            "seg_scan_probe": 0, "construct_probe": 0, "block_dot_f32": 0,
+            "seg_scan_probe": 0, "construct_probe": 0, "launch_floor": 0,
+            "block_dot_f32": 0,
             "block_dot_bf16": 0, "smem_scatter": 0, "l2_scatter": 0,
             "gather_axis0": 0, "gather_axis1": 0, "row_gather_sum_smem": 0,
             "row_gather_sum_l2": 0, "row_gather_sum_hbm": 0,
@@ -69,8 +70,10 @@ _SIGNATURES = {
     "loops_saxpy_f32": [ctypes.c_float] + [_P] * 3 + [_I, _I, _P],
     "loops_seg_scan_probe": [_P] * 3 + [_I, _I, _P],
     "loops_construct_probe": [_I] + [_P] * 4 + [_I, _P],
+    "loops_launch_floor": [_P, _I, _P],
     "loops_block_dot": [_P] * 3 + [_I] * 6 + [_P],
-    "loops_scatter_smem": [_P] * 3 + [_I] * 7 + [_P],
+    "loops_scatter_smem": [_P] * 5 + [_I] * 7 + [_P],
+    "loops_scatter_smem_clusters": [_I] * 3,
     "loops_scatter_l2": [_P] * 4 + [_I] * 5 + [_P],
     "loops_gather_axis0": [_P] * 3 + [_I] * 4 + [_P],
     "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],

@@ -15,25 +15,32 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
 - **scatter** (``scatter_probe``, ``:148``): KCH = 8 accumulates of an
   (R = 8, 512) slab per chunk into a resident accumulator at random
   multiples of R, no atomics. The TPU held [4096, 512] f32 in VMEM; a CTA
-  holds K7's 256 x 64 in shared memory (``smem=True``, 512 features as 8
-  column tiles, one thread per (row in block, feature)), and the TPU's
-  [4096, 512] runs in device memory as a segment sum (``smem=False``):
-  ``scatter_plan`` sorts the slabs stably by destination block once, on
-  the host, and the kernel sums each block's slabs in that order, so each
-  output's terms keep the (pass, chunk, slab) order of a sequential loop
-  (``scatter_sequential``), bit for bit on any input. Both accumulators
-  are timed by one pass with the L2 emptied first (``utils/bench.
-  cold_ms``): their bound charges all 67 MB of slabs at device memory's
-  rate, and a later pass of a run finds part of them still in the 50 MB
-  L2 (the slope over passes is printed beside, as the warm time).
+  holds K7's 256 x 64 in shared memory (``smem_scatter``, 512 features
+  as 8 column tiles, one thread per (row in block, feature)), and the
+  TPU's [4096, 512] runs in device memory as a segment sum
+  (``l2_scatter``): ``scatter_plan`` sorts the slabs stably by
+  destination block once, on the host, and the kernel sums each block's
+  slabs in that order, so each output's terms keep the (pass, chunk,
+  slab) order of a sequential loop (``scatter_sequential``), bit for bit
+  on any input. The smem kernel shares a tile's chunks over
+  ``SMEM_GROUPS`` CTAs, the slabs brought by bulk copies into a ring of
+  ``SMEM_STAGES`` stages, and sums the groups' accumulators in the same
+  launch from a cluster's distributed shared memory, in group (then
+  cluster) order (``scatter_smem_order``), bit for bit. Both are bound
+  once at their block offsets, the offsets (or the plan) staged and
+  checked there. Both accumulators are timed by one pass with the L2
+  emptied first (``utils/bench.cold_ms``): their bound charges all 67 MB
+  of slabs at device memory's rate, and a later pass of a run finds part
+  of them still in the 50 MB L2 (the slope over passes is printed
+  beside, as the warm time).
 - **dispatch** (``dispatch_probe``, ``:200``): the host microseconds of one
   launch of K12 on [8, 128] through ``_build.launch`` (ctypes), beside
   ``torch.add`` on the same tensors.
 
 Checks: integer-valued inputs give exact sums in any order, so the dots
-and the scatter are held to their plain versions exactly on them; the L2
-scatter is also held bit for bit to ``scatter_sequential`` on the
-script's normal inputs. On those the dots are held to the plain version
+and the scatters are held to their plain versions exactly on them; on
+the script's normal inputs the L2 scatter is also held bit for bit to
+``scatter_sequential`` and the smem one to ``scatter_smem_order``. On those the dots are held to the plain version
 computed in float64 (``dot_reference``), per output within ``DOT_C``
 units of ``u32 sqrt(sum (a b)^2)`` (``sqrt(n) u32 rms|a b|`` over the n
 = 128 NCH terms; bf16 products are exact in f32). That is a statistical
@@ -71,6 +78,9 @@ MODES = ("f32", "bf16")
 KCH, RR, FT, NCH_SCATTER = 8, 8, 512, 512
 SMEM_ROWS, L2_ROWS = 256, 4096
 SMEM_FT = 64
+# the smem scatter's launch (csrc/probes_r2.cu): CTAs a 64-feature tile,
+# CTAs a cluster (8 or 16, dividing the groups), and stages of its ring
+SMEM_GROUPS, SMEM_CLUSTER, SMEM_STAGES = 16, 16, 4
 # the L2 scatter's feature tile (csrc/probes_r2.cu) and CTAs an SM
 L2_FT, L2_CTAS_PER_SM = 128, 8
 U32 = 2.0 ** -24
@@ -291,13 +301,11 @@ def scatter_inputs(acc_rows: int, nch: int = NCH_SCATTER, kch: int = KCH,
     return offs, a.astype(np.float32)
 
 
-def scatter_plan(offs, acc_rows: int, rr: int = RR
-                 ) -> tuple[np.ndarray, np.ndarray]:
-    """The L2 scatter's plan from the slabs' block offsets (in (chunk,
-    slab) order): ``perm``, the slab indices sorted stably by destination
-    block, and ``seg``, where each block's run starts in ``perm``
-    (``acc_rows / rr + 1`` entries), both int32. Raises ``ValueError`` on
-    an offset past the accumulator."""
+def _block_offsets(offs, acc_rows: int, rr: int = RR) -> np.ndarray:
+    """The slabs' block offsets as int32 on the host; ``ValueError`` on
+    an accumulator of part blocks or an offset past it."""
+    if isinstance(offs, torch.Tensor):
+        offs = offs.cpu().numpy()
     off = np.asarray(offs).astype(np.int64).reshape(-1)
     if acc_rows % rr:
         raise ValueError(f"{acc_rows} rows are not whole blocks of R={rr}")
@@ -305,8 +313,19 @@ def scatter_plan(offs, acc_rows: int, rr: int = RR
     if off.size and (off.min() < 0 or off.max() >= blocks):
         raise ValueError(f"block offsets must lie in [0, {blocks}), got "
                          f"[{off.min()}, {off.max()}]")
+    return off.astype(np.int32)
+
+
+def scatter_plan(offs, acc_rows: int, rr: int = RR
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The L2 scatter's plan from the slabs' block offsets (in (chunk,
+    slab) order): ``perm``, the slab indices sorted stably by destination
+    block, and ``seg``, where each block's run starts in ``perm``
+    (``acc_rows / rr + 1`` entries), both int32. Raises ``ValueError`` on
+    an offset past the accumulator."""
+    off = _block_offsets(offs, acc_rows, rr)
     perm = np.argsort(off, kind="stable")
-    seg = np.searchsorted(off[perm], np.arange(blocks + 1))
+    seg = np.searchsorted(off[perm], np.arange(acc_rows // rr + 1))
     return perm.astype(np.int32), seg.astype(np.int32)
 
 
@@ -353,13 +372,13 @@ def l2_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
     ``fn`` runs the kernel on CUDA tensors and ``scatter_plain`` on CPU
     ones."""
     device = ensure_platform(device)
-    off = offs.cpu().numpy() if isinstance(offs, torch.Tensor) else offs
+    off = _block_offsets(offs, acc_rows, rr)
     perm, seg = scatter_plan(off, acc_rows, rr)
     bufs = {"perm": torch.from_numpy(perm).to(device),
             "seg": torch.from_numpy(seg).to(device)}
     t = dict(slabs=len(perm), blocks=acc_rows // rr, rr=rr)
     staged_on = _build.staged_guard(bufs, t, check_plan)
-    off_cpu = torch.from_numpy(np.asarray(off, np.int32))
+    off_cpu = torch.from_numpy(off)
 
     def fn(b, a, passes=1, out=None):
         if a.device.type == "cpu":
@@ -370,28 +389,126 @@ def l2_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
     return bufs, fn
 
 
-def scatter_cuda(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
-                 passes: int = 1, rr: int = RR) -> torch.Tensor:
-    """Launch the shared-memory scatter: the accumulator [acc_rows, F]
-    after ``passes`` sweeps, the sum of the CTAs' own."""
-    dev = a.device
-    if dev.type != "cuda":
-        raise ValueError(f"scatter_cuda needs a CUDA tensor, got {dev}")
-    nch, rows, F = a.shape
-    kch = rows // rr
-    if rows % rr or acc_rows % rr or F % SMEM_FT or rr * SMEM_FT > 1024:
-        raise ValueError(f"scatter: slabs [{nch}, {rows}, {F}] with R={rr}, "
-                         f"{acc_rows} rows")
-    if acc_rows * SMEM_FT * 4 > 227 * 1024:
-        raise ValueError(f"{acc_rows} x {SMEM_FT} f32 is past a CTA's 227 KB "
-                         "of shared memory")
+def _smem_shapes(a: torch.Tensor, acc_rows: int, rr: int = RR
+                 ) -> tuple[int, int]:
+    """``(chunks, F)`` of the slabs ``a`` [nch, KCH * R, F]; raises
+    ``ValueError`` on what the smem kernel does not take: other than KCH
+    slabs of R rows a chunk, F not a multiple of ``SMEM_FT``, rows not
+    whole blocks, or an accumulator and ring past a CTA's 227 KB."""
+    if a.dim() != 3 or rr != RR or a.shape[1] != KCH * RR or \
+            a.shape[2] % SMEM_FT or acc_rows <= 0 or acc_rows % rr:
+        raise ValueError(f"scatter: slabs {tuple(a.shape)} with R={rr}, "
+                         f"{acc_rows} rows; the smem kernel takes chunks of "
+                         f"{KCH} slabs of R={RR} rows, F a multiple of "
+                         f"{SMEM_FT}")
+    if (acc_rows + SMEM_STAGES * KCH * RR) * SMEM_FT * 4 > 227 * 1024:
+        raise ValueError(f"{acc_rows} x {SMEM_FT} f32 and a ring of "
+                         f"{SMEM_STAGES} stages are past a CTA's 227 KB of "
+                         "shared memory")
+    return a.shape[0], a.shape[2]
+
+
+def check_offs(b: dict, t: dict, device) -> None:
+    """Raise ``ValueError`` unless the staged offsets ``b`` are what the
+    smem scatter reads: a contiguous, 16-byte aligned int32 tensor on
+    ``device``, one offset a slab."""
+    _build.check(b["offs"], "offs", torch.int32, device, t["slabs"])
+    if b["offs"].data_ptr() % 16:
+        raise ValueError("offs must be 16-byte aligned")
+
+
+def _cluster_workspace(ws: dict, t: dict, F: int, device):
+    """The smem scatter's cluster rows and tickets at width ``F`` (made
+    once into ``ws``, the tickets zeros that the kernel leaves zero), or
+    ``(None, None)`` when a tile's groups are one cluster."""
+    clusters = t["groups"] // t["cluster"]
+    if clusters == 1:
+        return None, None
+    key = (F, device)
+    if key not in ws:
+        ws[key] = (torch.empty(clusters, t["acc_rows"], F, device=device),
+                   torch.zeros(F // SMEM_FT * t["cluster"], dtype=torch.int32,
+                               device=device))
+    return ws[key]
+
+
+def scatter_smem_cuda(b: dict, a: torch.Tensor, t: dict, staged_on=None,
+                      passes: int = 1, out=None, ws=None) -> torch.Tensor:
+    """Launch the smem scatter on the staged offsets ``b``: the
+    accumulator [acc_rows, F] after ``passes`` sweeps, into ``out`` when
+    given (every element written), in the order ``scatter_smem_order``
+    gives. ``staged_on``: the device on which ``check_offs`` has accepted
+    ``b`` (at bind); ``ws``: where the cluster rows are kept between
+    calls."""
+    if not a.is_cuda:
+        raise ValueError(f"scatter_smem_cuda needs a CUDA tensor, got "
+                         f"{a.device}")
+    dev = a.device if staged_on is None else staged_on
+    nch, F = _smem_shapes(a, t["acc_rows"], t["rr"])
+    if nch * KCH != t["slabs"]:
+        raise ValueError(f"scatter: {nch} chunks of slabs for {t['slabs']} "
+                         "offsets")
     _build.check(a, "a", torch.float32, dev)
-    _build.check(offs, "offs", torch.int32, dev, nch * kch)
-    groups = min(nch, max(1, 3 * _sms(dev) // (F // SMEM_FT)))
-    part = torch.empty(groups, acc_rows, F, dtype=torch.float32, device=dev)
-    _build.launch("loops_scatter_smem", "smem_scatter", dev, offs, a, part,
-                  nch, kch, rr, F, acc_rows, passes, groups)
-    return part.sum(0)
+    if a.data_ptr() % 16:
+        raise ValueError("a must be 16-byte aligned")
+    if staged_on is None:
+        check_offs(b, t, dev)
+    o = _build.output(out, (t["acc_rows"], F), dev)
+    cpart, tickets = _cluster_workspace({} if ws is None else ws, t, F, dev)
+    _build.launch("loops_scatter_smem", "smem_scatter", dev, b["offs"], a, o,
+                  cpart, tickets, nch, F, t["acc_rows"], passes, t["groups"],
+                  t["cluster"], t["stages"])
+    return o
+
+
+def smem_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
+    """Build ``(bufs, fn(bufs, a, passes=1, out=None))`` for the smem
+    scatter at the block offsets ``offs`` (checked on the host to lie in
+    the accumulator): the offsets staged on ``device`` and checked there
+    once (``_build.staged_guard``); ``fn`` runs the kernel on CUDA tensors
+    and ``scatter_plain`` on CPU ones. ``fn.meta`` holds the launch:
+    ``groups``, ``cluster``, ``stages``."""
+    device = ensure_platform(device)
+    off = _block_offsets(offs, acc_rows, rr)
+    bufs = {"offs": torch.from_numpy(off).to(device)}
+    t = dict(slabs=len(off), acc_rows=acc_rows, rr=rr, groups=SMEM_GROUPS,
+             cluster=SMEM_CLUSTER, stages=SMEM_STAGES)
+    staged_on = _build.staged_guard(bufs, t, check_offs)
+    off_cpu = torch.from_numpy(off)
+    ws = {}
+
+    def fn(b, a, passes=1, out=None):
+        if a.device.type == "cpu":
+            return scatter_plain(off_cpu, a, acc_rows, passes, rr)
+        return scatter_smem_cuda(b, a, t, staged_on(b), passes, out, ws)
+    fn.staged_on = staged_on
+    fn.meta = dict(t)
+    return bufs, fn
+
+
+def smem_clusters(cluster: int = SMEM_CLUSTER, acc_rows: int = SMEM_ROWS,
+                  device="cuda") -> int:
+    """How many clusters of ``cluster`` smem-scatter CTAs the card runs at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    device = ensure_platform(device)
+    with torch.cuda.device(device):
+        n = _build._function("loops_scatter_smem_clusters")(
+            cluster, acc_rows, SMEM_STAGES)
+    if n < 0:
+        raise RuntimeError(f"loops_scatter_smem_clusters: CUDA error {-n}")
+    return n
+
+
+def scatter_cuda(offs, a: torch.Tensor, acc_rows: int, passes: int = 1,
+                 rr: int = RR) -> torch.Tensor:
+    """One call of the smem scatter (bound for this call through
+    ``smem_scatter``): the accumulator [acc_rows, F] after ``passes``
+    sweeps."""
+    if a.device.type != "cuda":
+        raise ValueError(f"scatter_cuda needs a CUDA tensor, got {a.device}")
+    _smem_shapes(a, acc_rows, rr)
+    bufs, fn = smem_scatter(offs, acc_rows, rr, a.device)
+    return fn(bufs, a, passes)
 
 
 def scatter_plain(offs: torch.Tensor, a: torch.Tensor, acc_rows: int,
@@ -422,47 +539,80 @@ def scatter_sequential(offs, a, acc_rows: int, passes: int = 1,
     return acc
 
 
+def scatter_smem_order(offs, a, acc_rows: int, passes: int = 1,
+                       groups: int = SMEM_GROUPS, cluster: int = SMEM_CLUSTER,
+                       rr: int = RR) -> np.ndarray:
+    """The order the smem scatter keeps, in numpy f32: group g's
+    accumulator is the sequential loop (``scatter_sequential``) over its
+    chunks g, g + groups, ...; a cluster's sum is its groups'
+    accumulators added in rank order from the first, and the result the
+    clusters' sums added in cluster order. The kernel's result equals
+    this bit for bit."""
+    a = np.asarray(a, np.float32)
+    per = np.asarray(offs).reshape(a.shape[0], -1)
+    accs = [scatter_sequential(per[g::groups], a[g::groups], acc_rows,
+                               passes, rr) for g in range(groups)]
+    sums = []
+    for k in range(0, groups, cluster):
+        s = accs[k]
+        for q in range(k + 1, k + cluster):
+            s = s + accs[q]
+        sums.append(s)
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out
+
+
 def scatter(offs, a, acc_rows, smem=True, passes=1) -> torch.Tensor:
-    """One call of either accumulator (the L2 one through ``l2_scatter``,
-    its plan staged for this call); the plain version on CPU tensors."""
+    """One call of either accumulator (bound for this call through
+    ``smem_scatter`` or ``l2_scatter``); the plain version on CPU
+    tensors."""
     if a.device.type == "cpu":
         return scatter_plain(offs, a, acc_rows, passes)
-    if smem:
-        return scatter_cuda(offs, a, acc_rows, passes)
-    bufs, fn = l2_scatter(offs, acc_rows, device=a.device)
+    bufs, fn = (smem_scatter if smem else l2_scatter)(offs, acc_rows,
+                                                      device=a.device)
     return fn(bufs, a, passes)
 
 
 def probe_scatter(smem: bool, device, out=print, timed=True,
                   nch: int = NCH_SCATTER) -> dict:
-    """Check one accumulator (exact on integer slabs; the L2 one also bit
-    for bit against ``scatter_sequential`` on the script's normal slabs,
-    over 1 and 3 passes, and its record then has ``order_checked``), then
-    time one pass with the L2 emptied first (``cold_ms``) beside its plain
-    version and the library call (``index_add_`` into a zeroed
-    accumulator), and the slope over passes 2 and 10 (warm: part of the
-    slabs still in the L2 from the pass before)."""
+    """Check one accumulator: exact on integer slabs, and bit for bit on
+    the script's normal slabs over 1 and 3 passes against the order it
+    keeps (the L2 one ``scatter_sequential``, the smem one
+    ``scatter_smem_order``; on the CPU the plain version runs, and is held
+    to the sequential loop it computes); the record then has
+    ``order_checked``. Then time one pass with the L2 emptied first
+    (``cold_ms``) beside its plain version and the library call
+    (``index_add_`` into a zeroed accumulator), and the slope over passes
+    2 and 10 (warm: part of the slabs still in the L2 from the pass
+    before)."""
     acc_rows = SMEM_ROWS if smem else L2_ROWS
     offs, a = (torch.from_numpy(v).to(device)
                for v in scatter_inputs(acc_rows, nch))
-    plan, fn = (None, None) if smem else l2_scatter(offs, acc_rows,
-                                                     device=device)
+    plan, fn = (smem_scatter if smem else l2_scatter)(offs, acc_rows,
+                                                      device=device)
 
     def run(n):
-        return scatter(offs, a, acc_rows, True, n) if smem else fn(plan, a, n)
+        return fn(plan, a, n)
     name = "smem_scatter" if smem else "l2_scatter"
     err = hold(name, launch_twice(lambda: run(1)),
                scatter_plain(offs, a, acc_rows))
-    order = ""
-    if not smem:
-        offs_n, a_n = scatter_inputs(acc_rows, nch, normal=True)
-        an = torch.from_numpy(a_n).to(device)
-        for passes in (1, 3):
+    offs_n, a_n = scatter_inputs(acc_rows, nch, normal=True)
+    an = torch.from_numpy(a_n).to(device)
+    on_card = an.is_cuda
+    for passes in (1, 3):
+        if smem and on_card:
+            want = scatter_smem_order(offs_n, a_n, acc_rows, passes,
+                                      fn.meta["groups"], fn.meta["cluster"])
+        else:
             want = scatter_sequential(offs_n, a_n, acc_rows, passes)
-            hold(f"{name} normal, {passes} passes", fn(plan, an, passes),
-                 torch.from_numpy(want).to(device))
-        del an
-        order = "  sequential order bit for bit (normal, 1 and 3 passes)"
+        hold(f"{name} normal, {passes} passes", fn(plan, an, passes),
+             torch.from_numpy(want).to(device))
+    del an
+    order = ("  group order bit for bit (normal, 1 and 3 passes)"
+             if smem and on_card else
+             "  sequential order bit for bit (normal, 1 and 3 passes)")
     ms = plain_ms = lib_ms = warm = None
     if timed:
         ms = cold_ms(lambda: run(1), device)
@@ -486,8 +636,7 @@ def probe_scatter(smem: bool, device, out=print, timed=True,
     nbytes = 4 * (a.numel() + offs.numel() + acc_rows * FT)
     rec = record(name, "smem 256x64" if smem else "L2 4096x512", ms,
                  plain_ms, lib_ms, nbytes, a.numel(), "f32", err, line)
-    if not smem:
-        rec["order_checked"] = True
+    rec["order_checked"] = True
     return rec
 
 
