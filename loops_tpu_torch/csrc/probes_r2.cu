@@ -43,12 +43,12 @@
 //   No float atomics: each output's terms are added in a fixed order.
 //   * smem: the accumulator a CTA can hold, K7's 256 rows x 64 features
 //     (64 KB of shared memory); the 512 features run as 8 tiles, and a
-//     tile's chunks are shared over `groups` CTAs (16), one a cluster
-//     rank. Bound: the 67 MB of slabs from device memory (one pass from
+//     tile's chunks are shared over `groups` CTAs (12, in clusters of 4:
+//     one wave). Bound: the 67 MB of slabs from device memory (one pass from
 //     an empty L2). So the slabs come by bulk copy, not by thread loads:
-//     a producer warp keeps a ring of up to 4 stages (a chunk's 64 rows x
-//     64 features, 16 KB, as 64 row copies of 256 B by cp.async.bulk,
-//     each stage on an mbarrier) in flight, 64 KB an SM, while one
+//     a producer thread keeps a ring of up to 4 stages (a chunk's 64 rows
+//     x 64 features, 16 KB, by one 2-D TMA copy, each stage on an
+//     mbarrier) in flight, 64 KB an SM, while one
 //     consumer thread per (row-in-block j, feature f) adds each slab row
 //     j into acc[off * R + j][f], slab after slab, and its warp frees
 //     the slot on an "empty" mbarrier (no CTA barrier a step). The groups
@@ -77,6 +77,7 @@
 // count).
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -439,6 +440,7 @@ constexpr int kStageFloats = kChunkRows * kScatterFT;
 constexpr int kScatterConsumers = kScatterR * kScatterFT;  // one per (j, f)
 constexpr int kScatterThreads = kScatterConsumers + 32;    // + the producer
 constexpr int kScatterMaxStages = 4;
+constexpr int kScatterMaxClusters = 8;  // clusters a tile
 
 __device__ __forceinline__ float4 add4(float4 a, const float4& b) {
   a.x += b.x;
@@ -450,29 +452,32 @@ __device__ __forceinline__ float4 add4(float4 a, const float4& b) {
 
 // CTA (g, tile) of a cluster of C along g: group g of `groups` takes the
 // chunks g, g + groups, ... (passes times over) and adds them into its
-// accumulator acc [acc_rows][64] in shared memory. Warp 16 is the
-// producer: lane 0 waits for a free slot and arms its barrier with the
-// stage's bytes, and the 32 lanes copy the chunk's 64 rows of 256 B into
-// it by cp.async.bulk. Consumer thread (j, f) owns column f of every
-// accumulator row r with r % R == j: for each slab i it adds the stage's
-// row i*R + j into row off[i]*R + j, slab after slab, then its warp frees
-// the slot. After the last chunk, rank r of the cluster sums its share of
-// the accumulator rows over ranks 0..C-1, in rank order, read from their
-// shared memory, and writes them: to out when the tile's groups are one
-// cluster, else to cpart [groups / C][acc_rows][F], and the cluster that
-// takes a share's ticket last sums that share over the clusters in
-// order into out (no float atomics).
+// accumulator acc [acc_rows][64] in shared memory. Thread 512 is the
+// producer: it waits for a free slot, arms its barrier with the stage's
+// bytes and copies the chunk's [64 rows x 64 features] tile into it by
+// one 2-D TMA copy (tmap: a as [nch * 64, F]), and the chunk's 8 block
+// offsets beside it by a bulk copy. Consumer thread (j, f) owns column f
+// of every accumulator row r with r % R == j: for each slab i it adds the
+// stage's row i*R + j into row off[i]*R + j, slab after slab (a stage's
+// loads issued together, the slabs of one block summed in registers),
+// and its warp frees the slot. After the last chunk, rank r of the
+// cluster sums its share of the accumulator rows over ranks 0..C-1, in
+// rank order, read from their shared memory, and writes them: to out
+// when the tile's groups are one cluster, else to cpart [groups / C]
+// [acc_rows][F], and the cluster that takes a share's ticket last sums
+// that share over the clusters in order into out (no float atomics).
 template <int C>
 __global__ void __launch_bounds__(kScatterThreads, 1)
-scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
-                    float* __restrict__ out, float* __restrict__ cpart,
-                    int* __restrict__ tickets, int nch, int F, int acc_rows,
-                    int passes, int stages) {
-  extern __shared__ __align__(128) float ssm[];
-  float* acc = ssm;                               // [acc_rows][64]
-  float* ring = ssm + acc_rows * kScatterFT;      // [stages][64][64]
+scatter_smem_kernel(const __grid_constant__ CUtensorMap tmap,
+                    const int* __restrict__ offs, float* __restrict__ out,
+                    float* __restrict__ cpart, int* __restrict__ tickets,
+                    int nch, int F, int acc_rows, int passes, int stages) {
+  extern __shared__ __align__(1024) float ssm[];
+  float* ring = ssm;                                 // [stages][64][64]
+  float* acc = ssm + stages * kStageFloats;          // [acc_rows][64]
   __shared__ __align__(8) unsigned long long full[kScatterMaxStages];
   __shared__ __align__(8) unsigned long long empty[kScatterMaxStages];
+  __shared__ int4 soffs[kScatterMaxStages][2];  // each stage's 8 block offsets
   __shared__ int last;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -491,42 +496,46 @@ scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
     reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
-  if (t >= kScatterConsumers) {  // the producer warp
+  if (t == kScatterConsumers) {  // the producer: lane 0 of the last warp
     for (int it = 0; it < items; ++it) {
       const int s = it % stages;
       const unsigned use = it / stages;
       const unsigned fb = loops_tc::smem_addr(&full[s]);
-      if (lane == 0) {
-        loops_tc::mbar_wait(loops_tc::smem_addr(&empty[s]), (use & 1) ^ 1);
-        loops_tc::mbar_expect_tx(fb, kStageFloats * 4);
-      }
-      __syncwarp();
+      loops_tc::mbar_wait(loops_tc::smem_addr(&empty[s]), (use & 1) ^ 1);
+      loops_tc::mbar_expect_tx(fb, kStageFloats * 4 + sizeof(soffs[s]));
       const int c = g + groups * (it % mine);
-      const float* src = a + static_cast<size_t>(c) * kChunkRows * F + f0;
-      float* dst = ring + s * kStageFloats;
-      for (int r = lane; r < kChunkRows; r += 32) {
-        loops_tc::bulk_copy(dst + r * kScatterFT, src + static_cast<size_t>(r) * F,
-                            kScatterFT * 4, fb);
-      }
+      loops_tc::bulk_copy(soffs[s], offs + c * kScatterKch, sizeof(soffs[s]), fb);
+      loops_tc::tma_load_2d(ring + s * kStageFloats, &tmap, f0, c * kChunkRows, fb);
     }
-  } else {
+  } else if (t < kScatterConsumers) {
     const int j = t / kScatterFT, f = t % kScatterFT;
     float* col = acc + j * kScatterFT + f;  // row j of block 0, column f
     for (int it = 0; it < items; ++it) {
       const int s = it % stages;
-      const unsigned use = it / stages;
-      const int c = g + groups * (it % mine);
-      const int4* o4 = reinterpret_cast<const int4*>(offs + c * kScatterKch);
-      const int4 oa = __ldg(o4), ob = __ldg(o4 + 1);
+      loops_tc::mbar_wait(loops_tc::smem_addr(&full[s]), (it / stages) & 1);
+      const int4 oa = soffs[s][0], ob = soffs[s][1];
       const int off[kScatterKch] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
-      loops_tc::mbar_wait(loops_tc::smem_addr(&full[s]), use & 1);
       const float* st = ring + s * kStageFloats + j * kScatterFT + f;
+      // all 8 loads of the stage and of the accumulator rows first; a
+      // slab whose block an earlier slab of the chunk also hits takes
+      // that one's sum, so each row still adds its slabs in slab order
+      float x[kScatterKch], v[kScatterKch];
 #pragma unroll
       for (int i = 0; i < kScatterKch; ++i) {
-        col[off[i] * (kScatterR * kScatterFT)] += st[i * kScatterR * kScatterFT];
+        x[i] = st[i * kScatterR * kScatterFT];
+        v[i] = col[off[i] * (kScatterR * kScatterFT)];
+      }
+#pragma unroll
+      for (int i = 0; i < kScatterKch; ++i) {
+#pragma unroll
+        for (int k = 0; k < i; ++k) v[i] = off[k] == off[i] ? v[k] : v[i];
+        v[i] += x[i];
       }
       __syncwarp();
       if (lane == 0) loops_tc::mbar_arrive(loops_tc::smem_addr(&empty[s]));
+      // in slab order: the last store to a row holds all its slabs
+#pragma unroll
+      for (int i = 0; i < kScatterKch; ++i) col[off[i] * (kScatterR * kScatterFT)] = v[i];
     }
   }
   cluster.sync();  // every accumulator of the cluster is complete
@@ -563,10 +572,18 @@ scatter_smem_kernel(const int* __restrict__ offs, const float* __restrict__ a,
   for (int e = t; e < n4; e += kScatterThreads) {
     const int row = r0 + e / (kScatterFT / 4), c4 = e % (kScatterFT / 4);
     const size_t at = static_cast<size_t>(row) * F + f0 + 4 * c4;
-    float4 sum = __ldcg(reinterpret_cast<const float4*>(cpart + at));
-    for (int q = 1; q < clusters; ++q) {
-      sum = add4(sum, __ldcg(reinterpret_cast<const float4*>(
-                          cpart + static_cast<size_t>(q) * acc_rows * F + at)));
+    float4 p[kScatterMaxClusters];  // every cluster's rows loaded, then added
+#pragma unroll
+    for (int q = 0; q < kScatterMaxClusters; ++q) {
+      if (q < clusters) {
+        p[q] = __ldcg(reinterpret_cast<const float4*>(
+            cpart + static_cast<size_t>(q) * acc_rows * F + at));
+      }
+    }
+    float4 sum = p[0];
+#pragma unroll
+    for (int q = 1; q < kScatterMaxClusters; ++q) {
+      if (q < clusters) sum = add4(sum, p[q]);
     }
     reinterpret_cast<float4*>(out + at)[0] = sum;
   }
@@ -579,7 +596,7 @@ cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, int 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups, tiles);
   cfg.blockDim = dim3(kScatterThreads);
-  cfg.dynamicSmemBytes = (acc_rows + stages * kChunkRows) * kScatterFT * 4;
+  cfg.dynamicSmemBytes = (stages * kChunkRows + acc_rows) * kScatterFT * 4;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
@@ -596,6 +613,45 @@ cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, int 
   return cfg;
 }
 
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [rows, F] f32 seen by the TMA in boxes of [64 rows x 64 features]
+int slab_map(CUtensorMap* m, const float* a, int rows, int F) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(F) * 4};
+  const cuuint32_t box[2] = {kScatterFT, kChunkRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int C>
 int launch_scatter_smem(const int* offs, const float* a, float* out, float* cpart,
                         int* tickets, int nch, int F, int acc_rows, int passes,
@@ -605,9 +661,11 @@ int launch_scatter_smem(const int* offs, const float* a, float* out, float* cpar
   cudaLaunchConfig_t cfg =
       scatter_smem_config<C>(groups, F / kScatterFT, acc_rows, stages, s, attr, &err);
   if (err) return err;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, scatter_smem_kernel<C>, offs, a,
-                                             out, cpart, tickets, nch, F, acc_rows,
-                                             passes, stages));
+  CUtensorMap tmap;
+  if (const int e = slab_map(&tmap, a, nch * kChunkRows, F)) return e;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, scatter_smem_kernel<C>, tmap, offs, out,
+                                             cpart, tickets, nch, F, acc_rows, passes,
+                                             stages));
 }
 
 template <int C>
@@ -711,8 +769,9 @@ int loops_block_dot(const void* A, const void* B, void* partial, int nch,
 }
 
 // offs [nch * 8] block offsets, a [nch, 64, F] (8 slabs of 8 rows a
-// chunk), out [acc_rows, F] (every element written); groups CTAs a
-// 64-feature tile in clusters of `cluster` (8 or 16) dividing groups;
+// chunk; 16-byte aligned), out [acc_rows, F] (every element written);
+// groups CTAs a 64-feature tile in clusters of `cluster` (2, 4, 8 or 16)
+// dividing groups, at most 8 clusters a tile;
 // cpart [groups / cluster, acc_rows, F] and tickets [F / 64 * cluster]
 // (zeros; left zero) when groups > cluster, else unused
 int loops_scatter_smem(const void* offs, const void* a, void* out, void* cpart,
@@ -723,6 +782,7 @@ int loops_scatter_smem(const void* offs, const void* a, void* out, void* cpart,
   if (nch <= 0 || passes < 0 || acc_rows <= 0 || acc_rows % kScatterR ||
       F <= 0 || F % kScatterFT || stages < 1 || stages > kScatterMaxStages ||
       bytes > 227 * 1024 || groups <= 0 || groups % cluster ||
+      groups > kScatterMaxClusters * cluster ||
       (groups > cluster && (!cpart || !tickets))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -733,6 +793,12 @@ int loops_scatter_smem(const void* offs, const void* a, void* out, void* cpart,
   int* tk = static_cast<int*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cluster) {
+    case 2:
+      return launch_scatter_smem<2>(o, af, of, cp, tk, nch, F, acc_rows, passes,
+                                    groups, stages, s);
+    case 4:
+      return launch_scatter_smem<4>(o, af, of, cp, tk, nch, F, acc_rows, passes,
+                                    groups, stages, s);
     case 8:
       return launch_scatter_smem<8>(o, af, of, cp, tk, nch, F, acc_rows, passes,
                                     groups, stages, s);
@@ -751,6 +817,8 @@ int loops_scatter_smem_clusters(int cluster, int acc_rows, int stages) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
   switch (cluster) {
+    case 2: return scatter_smem_clusters<2>(acc_rows, stages);
+    case 4: return scatter_smem_clusters<4>(acc_rows, stages);
     case 8: return scatter_smem_clusters<8>(acc_rows, stages);
     case 16: return scatter_smem_clusters<16>(acc_rows, stages);
     default: return -static_cast<int>(cudaErrorInvalidValue);

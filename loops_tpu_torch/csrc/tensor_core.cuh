@@ -92,6 +92,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// the box of a 2-D tensor map at (x, y) (x the inner coordinate) from
+// global to shared memory (128-byte aligned) by one TMA copy, counted on
+// `bar` as it lands
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int x, int y,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(tmap)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

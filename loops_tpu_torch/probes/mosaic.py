@@ -129,6 +129,7 @@ def seg_scan_bind(v, keep, sub: int = SUB, device="cuda"):
             check_scan(b, t, dev)
         return _launch_scan(b, sub, dev, out)
     fn.staged_on = staged_on
+    fn.meta = dict(t)
     return bufs, fn
 
 
@@ -180,8 +181,7 @@ IN_SHAPES = {"reshape_s1": [(8, S)], "out_reshape": [(1, R)],
 def check_construct(b: dict, t: dict, device) -> None:
     """Raise ``ValueError`` unless ``b``'s tensors are the inputs of
     construct ``t["name"]``: its shapes (``IN_SHAPES``), int32 for
-    ``reshape_s1`` and float32 else, contiguous on ``device``; and
-    ``dynbase``'s base inside its window."""
+    ``reshape_s1`` and float32 else, contiguous on ``device``."""
     name = t["name"]
     for x, shape in zip(b.values(), IN_SHAPES.get(name, [(GS, LANES)])):
         if tuple(x.shape) != shape:
@@ -189,20 +189,21 @@ def check_construct(b: dict, t: dict, device) -> None:
                              f"expected {shape}")
         _build.check(x, name, torch.int32 if name == "reshape_s1"
                      else torch.float32, device)
-    if not 0 <= t["base"] <= Y_ROWS - 4:
-        raise ValueError(f"dynbase: base {t['base']} outside [0, "
-                         f"{Y_ROWS - 4}]")
 
 
 def _construct_parts(name: str, args) -> tuple[dict, dict]:
     """A construct's tensors (``a``, and ``b`` for ``dot0``) and its
-    parameters (``name``, ``which``, ``base``) from its arguments."""
+    parameters (``name``, ``which``, ``base``) from its arguments;
+    ``ValueError`` on another name or ``dynbase``'s base outside its
+    window."""
     if name not in CONSTRUCTS:
         raise ValueError(f"construct {name!r}: one of {CONSTRUCTS}")
     b = {"a": args[0]}
     if name == "dot0":
         b["b"] = args[1]
     base = int(args[1]) if name == "dynbase" else 0
+    if not 0 <= base <= Y_ROWS - 4:
+        raise ValueError(f"dynbase: base {base} outside [0, {Y_ROWS - 4}]")
     return b, {"name": name, "which": CONSTRUCTS.index(name), "base": base}
 
 
@@ -247,6 +248,7 @@ def construct_bind(name: str, *args, device="cuda"):
             check_construct(b, t, dev)
         return _launch_construct(b, t, dev, out)
     fn.staged_on = staged_on
+    fn.meta = dict(t)
     return bufs, fn
 
 

@@ -79,8 +79,9 @@ KCH, RR, FT, NCH_SCATTER = 8, 8, 512, 512
 SMEM_ROWS, L2_ROWS = 256, 4096
 SMEM_FT = 64
 # the smem scatter's launch (csrc/probes_r2.cu): CTAs a 64-feature tile,
-# CTAs a cluster (8 or 16, dividing the groups), and stages of its ring
-SMEM_GROUPS, SMEM_CLUSTER, SMEM_STAGES = 16, 16, 4
+# CTAs a cluster (2, 4, 8 or 16, dividing the groups), and stages of its
+# ring
+SMEM_GROUPS, SMEM_CLUSTER, SMEM_STAGES = 12, 4, 4
 # the L2 scatter's feature tile (csrc/probes_r2.cu) and CTAs an SM
 L2_FT, L2_CTAS_PER_SM = 128, 8
 U32 = 2.0 ** -24

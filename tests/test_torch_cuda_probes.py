@@ -14,7 +14,10 @@ Exact: saxpy, the scan on integer values, the constructs but ``dot0``, the
 gathers (G1's sums also on normal values: k0 order from +0, as the plain
 version adds them), the scatter, the one-hot expand, the dots on integer
 values; the L2 scatter also on normal values, bit for bit against the sequential
-(pass, chunk, slab) order computed on the CPU (``r2.scatter_sequential``). The
+(pass, chunk, slab) order computed on the CPU (``r2.scatter_sequential``),
+and the smem scatter against its group order (``r2.scatter_smem_order``).
+K13's bound forms equal the unbound calls bit for bit; the launch floor
+kernel launches and counts. The
 scan on normal values at ``atol 1e-4`` and ``dot0`` at ``1e-5`` (the
 scripts' own); the dots on normal values within ``r2.DOT_C`` units of
 their float64 reference (``r2.hold_dot``), which a TF32 product fails.
@@ -131,10 +134,51 @@ def test_seg_scan_matches_plain(cuda_device, shape, sub):
 def test_k13_probes_at_the_scripts_sizes(cuda_device):
     before = dict(_build.LAUNCHES)
     recs = mosaic.run(cuda_device, timed=False, out=lambda s: None)
-    assert [r["name"] for r in recs] == ["seg_scan_probe", "construct_probe"]
+    assert [r["name"] for r in recs] == ["seg_scan_probe", "construct_probe",
+                                         "launch_floor"]
+    # two unbound launches and one bound launch a construct
     assert _build.LAUNCHES["construct_probe"] == \
-        before["construct_probe"] + 2 * len(mosaic.CONSTRUCTS)
+        before["construct_probe"] + 3 * len(mosaic.CONSTRUCTS)
     assert recs[1]["max_abs_err"] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["seg_scan", *mosaic.CONSTRUCTS])
+def test_k13_bind_forms_equal_the_unbound_calls(cuda_device, kind):
+    """Bound once (inputs staged and checked at bind), a call launches into
+    a NaN-filled ``out=`` and equals the unbound call bit for bit."""
+    if kind == "seg_scan":
+        v, keep = (torch.from_numpy(a).to(cuda_device)
+                   for a in mosaic.scan_inputs())
+        bufs, fn = mosaic.seg_scan_bind(v, keep, device=cuda_device)
+        want = mosaic.seg_scan_cuda(v, keep)
+        counter = "seg_scan_probe"
+    else:
+        args = mosaic._on(mosaic.construct_inputs()[kind], cuda_device)
+        bufs, fn = mosaic.construct_bind(kind, *args, device=cuda_device)
+        want = mosaic.construct_cuda(kind, *args)
+        counter = "construct_probe"
+    assert fn.staged_on(bufs) == want.device
+    out = torch.full_like(want, float("nan"))
+    got = _counted(counter, 1, lambda: fn(bufs, out=out))
+    assert got is out and torch.equal(out, want)
+    with pytest.raises(ValueError, match="out"):
+        fn(bufs, out=torch.zeros(3, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_launch_floor_launches_and_counts(cuda_device):
+    buf = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = _counted("launch_floor", 1, lambda: mosaic.launch_floor(buf, 9))
+    assert got is buf and int(buf.item()) == 9
+    with pytest.raises(ValueError, match="elements"):
+        mosaic.launch_floor_cuda(torch.zeros(2, dtype=torch.int32,
+                                             device=cuda_device))
+    us, n = mosaic.profiled_us(lambda: mosaic.launch_floor_cuda(buf),
+                               "launch_floor_kernel", launches=50)
+    assert n == 0 or 0 < us < 100
+    rec = mosaic.probe_floor(cuda_device, out=lambda s: None)
+    assert 0 < rec["floor_ms"] < rec["ms"] and rec["events_us"] > 0
 
 
 @pytest.mark.cuda
@@ -185,6 +229,68 @@ def test_scatter(cuda_device, smem, nch):
         assert got is out
         assert torch.equal(got.cpu(), torch.from_numpy(
             r2.scatter_sequential(offs_n, a_n, rows, passes)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [3, 16, r2.NCH_SCATTER])
+@pytest.mark.parametrize("launch", [(r2.SMEM_GROUPS, r2.SMEM_CLUSTER,
+                                     r2.SMEM_STAGES), (8, 8, 4), (16, 2, 4),
+                                    (16, 16, 2)])
+def test_smem_scatter_order_into_out(cuda_device, monkeypatch, launch, nch):
+    """On the script's normal slabs the smem scatter equals its group
+    order (``r2.scatter_smem_order``) bit for bit, into a NaN-filled
+    ``out=`` it writes in full, over 0, 1 and 3 passes: at the wrappers'
+    launch, at one cluster a tile (8 and 16 CTAs) and at 8 clusters a
+    tile; with fewer chunks than groups too."""
+    groups, cluster, stages = launch
+    for k, v in zip(("SMEM_GROUPS", "SMEM_CLUSTER", "SMEM_STAGES"), launch):
+        monkeypatch.setattr(r2, k, v)
+    offs, a = r2.scatter_inputs(r2.SMEM_ROWS, nch, normal=True)
+    b, fn = r2.smem_scatter(offs, r2.SMEM_ROWS, device=cuda_device)
+    assert (fn.meta["groups"], fn.meta["cluster"]) == (groups, cluster)
+    ad = torch.from_numpy(a).to(cuda_device)
+    for passes in (0, 1, 3):
+        out = torch.full((r2.SMEM_ROWS, r2.FT), float("nan"),
+                         device=cuda_device)
+        got = _counted("smem_scatter", 1, lambda: fn(b, ad, passes, out=out))
+        assert got is out
+        assert torch.equal(got.cpu(), torch.from_numpy(r2.scatter_smem_order(
+            offs, a, r2.SMEM_ROWS, passes, groups, cluster)))
+    # the tickets are left at zero: a second launch gives the same bits
+    assert torch.equal(fn(b, ad, 3), out)
+
+
+@pytest.mark.cuda
+def test_smem_scatter_refusals(cuda_device):
+    dev = cuda_device
+    offs = torch.zeros(16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        r2.scatter_cuda(offs.cpu(), torch.zeros(2, 64, 512), 256)
+    for shape, rows, match in (((2, 64, 96), 256, "multiple of 64"),
+                               ((2, 32, 512), 256, "slabs of"),
+                               ((2, 64, 512), 260, "R=8"),
+                               ((2, 64, 512), 1024, "227 KB")):
+        with pytest.raises(ValueError, match=match):
+            r2.scatter_cuda(offs, torch.zeros(shape, device=dev), rows)
+    b, fn = r2.smem_scatter(offs, 256, device=dev)
+    with pytest.raises(ValueError, match="chunks"):
+        fn(b, torch.zeros(3, 64, 512, device=dev))
+    flat = torch.zeros(2 * 64 * 512 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fn(b, flat[1:].view(2, 64, 512))
+    with pytest.raises(ValueError, match="offsets"):
+        r2.smem_scatter(offs + 32, 256, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        r2.scatter_smem_cuda({"offs": offs.float()}, torch.zeros(
+            2, 64, 512, device=dev), fn.meta)
+
+
+@pytest.mark.cuda
+def test_smem_scatter_clusters_fit_one_wave(cuda_device):
+    # the wrappers' launch needs F / 64 * groups / cluster clusters at once
+    need = r2.FT // r2.SMEM_FT * r2.SMEM_GROUPS // r2.SMEM_CLUSTER
+    assert r2.smem_clusters(device=cuda_device) >= need
+    assert r2.smem_clusters(2, device=cuda_device) > 0
 
 
 @pytest.mark.cuda

@@ -216,6 +216,15 @@ NO_DEVICE_CALLS = {
     "saxpy": lambda: _entry("ops.kernels.saxpy", "saxpy")(
         2.5, np.ones(8, np.float32), np.ones(8, np.float32)),
     "probes.mosaic.run": lambda: _entry("probes.mosaic", "run")(),
+    "probes.mosaic.seg_scan_bind": lambda: _entry(
+        "probes.mosaic", "seg_scan_bind")(np.zeros((4, 8), np.float32),
+                                          np.ones((4, 8), np.float32)),
+    "probes.mosaic.construct_bind": lambda: _entry(
+        "probes.mosaic", "construct_bind")("shift_sub",
+                                           np.zeros((32, 128), np.float32)),
+    "probes.r2.smem_scatter": lambda: _entry("probes.r2", "smem_scatter")(
+        np.zeros(8, np.int32), 256),
+    "probes.r2.smem_clusters": lambda: _entry("probes.r2", "smem_clusters")(),
     "probes.r2.run": lambda: _entry("probes.r2", "run")(quick=True),
     "probes.gather.run": lambda: _entry("probes.gather", "run")(quick=True),
     "examples/saxpy_torch.py": lambda: _script_main(

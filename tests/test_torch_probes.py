@@ -176,6 +176,87 @@ def scan_probe():
     return ns
 
 
+def _k13_bind(kind):
+    """A K13 bind on the CPU: (bufs, fn, its check of the staged inputs,
+    the plain result)."""
+    if kind == "seg_scan":
+        v, keep = mosaic.scan_inputs()
+        bufs, fn = mosaic.seg_scan_bind(v, keep, device=CPU)
+        return bufs, fn, mosaic.check_scan, mosaic.seg_scan_plain(_t(v),
+                                                                  _t(keep))
+    args = mosaic.construct_inputs()[kind]
+    bufs, fn = mosaic.construct_bind(kind, *args, device=CPU)
+    want = mosaic.construct_plain(kind, *(_t(x) if isinstance(x, np.ndarray)
+                                          else x for x in args))
+    return bufs, fn, mosaic.check_construct, want
+
+
+@pytest.mark.parametrize("kind", ["seg_scan", *mosaic.CONSTRUCTS])
+def test_k13_bind_forms_stage_once_and_equal_the_plain_versions(kind):
+    bufs, fn, check, want = _k13_bind(kind)
+    assert fn.staged_on(bufs) == CPU
+    check(bufs, fn.meta, CPU)
+    assert torch.equal(fn(bufs), want)
+    assert all(x.is_contiguous() for x in bufs.values())
+
+
+@pytest.mark.parametrize("change", ["none", "resize", "set", "dtype",
+                                    "replaced"])
+@pytest.mark.parametrize("kind", ["seg_scan", "reshape_s1", "dot0",
+                                  "dynbase"])
+def test_k13_binds_check_staged_inputs_changed_again(kind, change):
+    # the inputs are checked once at bind; a call skips the check only for
+    # the very tensors checked then, none changed in place since, and the
+    # full check then refuses what changed
+    bufs, fn, check, _ = _k13_bind(kind)
+    b = dict(bufs)
+    key = "v" if kind == "seg_scan" else "a"
+    if change == "resize":
+        b[key].resize_(b[key].shape[0] - 1, b[key].shape[1])
+    elif change == "set":
+        b[key].set_(torch.zeros(2, 3, dtype=b[key].dtype))
+    elif change == "dtype":
+        b[key] = b[key].double()
+    elif change == "replaced":
+        b[key] = b[key].clone()
+    assert fn.staged_on(b) == (CPU if change == "none" else None)
+    if change in ("resize", "set", "dtype"):
+        with pytest.raises(ValueError):
+            check(b, fn.meta, CPU)
+    else:
+        check(b, fn.meta, CPU)
+
+
+def test_k13_binds_refuse_what_their_kernels_do_not_take():
+    with pytest.raises(ValueError, match="base"):
+        mosaic.construct_bind("dynbase", np.zeros((4, 128), np.float32), 13,
+                              device=CPU)
+    with pytest.raises(ValueError, match="one of"):
+        mosaic.construct_bind("no_such", np.zeros((4, 128), np.float32),
+                              device=CPU)
+    bufs, fn = mosaic.construct_bind(
+        "shift_sub", np.zeros((16, 128), np.float32), device=CPU)
+    with pytest.raises(ValueError, match="expected"):
+        mosaic.check_construct(bufs, fn.meta, CPU)
+    bufs, fn = mosaic.seg_scan_bind(np.zeros((30, 128), np.float32),
+                                    np.zeros((30, 128), np.float32),
+                                    device=CPU)
+    with pytest.raises(ValueError, match="rows"):
+        mosaic.check_scan(bufs, fn.meta, CPU)
+
+
+def test_launch_floor_plain_and_its_probe_on_the_cpu():
+    buf = torch.zeros(1, dtype=torch.int32)
+    assert mosaic.launch_floor(buf, 5) is buf and int(buf) == 5
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mosaic.launch_floor_cuda(buf)
+    lines = []
+    rec = mosaic.probe_floor(CPU, out=lines.append)
+    assert rec["name"] == "launch_floor" and rec["name"] in _build.LAUNCHES
+    assert rec["floor_ms"] is None and rec["nbytes"] == 4
+    assert rec["ms"] > 0 and "exact=True" in lines[0]
+
+
 @pytest.mark.parametrize("integer", [False, True])
 def test_seg_scan_plain_matches_the_script(scan_probe, integer):
     """The port's scan is the script's ``np_reference``. The script's
@@ -548,21 +629,42 @@ def _mirror_block_seg_scan(v, f, carry, warps):
     return out.reshape(-1), pre
 
 
+def _mirror_block_seg_scan_before(v, f, carry, warps):
+    """``_mirror_block_seg_scan`` and, per lane, the value before it: the
+    lane before's inclusive value (lane 0 of a warp: the fold of the
+    warps before, which is the last lane's inclusive value of the warp
+    before; of the first warp, the carry)."""
+    inc, new_carry = _mirror_block_seg_scan(v, f, carry, warps)
+    before = np.concatenate([[np.float32(carry)], inc[:-1]]).astype(
+        np.float32)
+    return inc, before, new_carry
+
+
 def _mirror_seg_scan_probe(v, keep, sub, threads=256):
-    """``seg_scan_probe_kernel``: one CTA per block of ``sub`` rows,
-    chunks of 256 linked by the carry."""
+    """``seg_scan_probe_kernel``: one CTA per block of ``sub`` rows, two
+    elements a thread folded into one pair (the second's value if it
+    starts a segment, else the sum), the pairs scanned, then each thread's
+    elements added in order from the value before them; chunks of 512
+    linked by the carry."""
     L = sub * v.shape[1]
     vb, kb = v.reshape(-1, L), keep.reshape(-1, L)
     out = np.zeros_like(vb)
     for b in range(vb.shape[0]):
         carry = np.float32(0)
-        for c0 in range(0, L, threads):
-            n = min(threads, L - c0)
-            x = np.zeros(threads, np.float32)
-            f = np.ones(threads, np.int32)
+        for c0 in range(0, L, 2 * threads):
+            n = min(2 * threads, L - c0)
+            x = np.zeros(2 * threads, np.float32)
+            f = np.ones(2 * threads, np.int32)
             x[:n] = vb[b, c0:c0 + n]
             f[:n] = kb[b, c0:c0 + n] == 0
-            y, carry = _mirror_block_seg_scan(x, f, carry, threads // 32)
+            x0, x1, f0, f1 = x[0::2], x[1::2], f[0::2], f[1::2]
+            pv = np.where(f1 == 1, x1, x0 + x1).astype(np.float32)
+            _, before, carry = _mirror_block_seg_scan_before(
+                pv, f0 | f1, carry, threads // 32)
+            y0 = np.where(f0 == 1, x0, before + x0).astype(np.float32)
+            y1 = np.where(f1 == 1, x1, y0 + x1).astype(np.float32)
+            y = np.empty(2 * threads, np.float32)
+            y[0::2], y[1::2] = y0, y1
             out[b, c0:c0 + n] = y[:n]
     return out.reshape(v.shape)
 
@@ -1074,12 +1176,162 @@ def test_l2_scatter_binds_on_the_cpu():
         r2.scatter_l2_cuda(bufs, _t(a), fn.meta)
 
 
+def _scatter_smem_mirror(offs, a, acc_rows, passes=1, groups=r2.SMEM_GROUPS,
+                         cluster=r2.SMEM_CLUSTER, stages=r2.SMEM_STAGES):
+    """``scatter_smem_kernel`` in numpy f32, every CTA (group g, 64-feature
+    tile) walked as the kernel walks it: the producer fills ring slot
+    ``it % stages`` with chunk ``g + groups * (it % mine)`` (its 64 rows
+    of the tile and its 8 offsets); consumer thread (j, f) loads the 8
+    slab rows and the 8 accumulator rows, takes an earlier slab's sum for
+    a block the chunk hit before, adds, and stores in slab order, each
+    store by the thread that owns the row (row % R == j). Then rank r of
+    each cluster sums its share of rows over the ranks in rank order, and
+    the last cluster those shares over the clusters in cluster order,
+    each output written once into an ``out`` started at NaN."""
+    nch, rows, F = a.shape
+    rr, kch, ft = r2.RR, r2.KCH, r2.SMEM_FT
+    off = np.asarray(offs).reshape(nch, kch)
+    out = np.full((acc_rows, F), np.nan, np.float32)
+    written = np.zeros((acc_rows, F), int)
+    t = np.arange(rr * ft)
+    j, f = t // ft, t % ft                                   # thread (j, f)
+    share = -(-acc_rows // cluster)
+    for tile in range(F // ft):
+        cols = tile * ft + f
+        accs = []
+        for g in range(groups):
+            acc = np.zeros((acc_rows, F), np.float32)[:, :ft].copy()
+            owner = np.full((acc_rows, ft), -1)
+            ring = np.full((stages, kch * rr, ft), np.nan, np.float32)
+            soffs = np.zeros((stages, kch), int)
+            mine = len(range(g, nch, groups))
+            for it in range(passes * mine):
+                s, c = it % stages, g + groups * (it % mine)
+                ring[s] = a[c][:, tile * ft:(tile + 1) * ft]   # the TMA box
+                soffs[s] = off[c]
+                o = soffs[s]
+                x = [ring[s][i * rr + j, f] for i in range(kch)]  # loads
+                v = [acc[o[i] * rr + j, f] for i in range(kch)]
+                for i in range(kch):
+                    for k in range(i):
+                        if o[k] == o[i]:
+                            v[i] = v[k]
+                    v[i] = v[i] + x[i]
+                for i in range(kch):                              # stores
+                    r = o[i] * rr + j
+                    assert ((owner[r, f] == -1) | (owner[r, f] == t)).all()
+                    owner[r, f] = t
+                    acc[r, f] = v[i]
+                ring[s] = np.nan                                  # freed
+            accs.append(acc)
+        sums = []
+        for k in range(0, groups, cluster):
+            part = np.empty((acc_rows, ft), np.float32)
+            for rank in range(cluster):
+                r0 = min(acc_rows, rank * share)
+                r1 = min(acc_rows, r0 + share)
+                v = accs[k][r0:r1]
+                for q in range(1, cluster):
+                    v = v + accs[k + q][r0:r1]
+                part[r0:r1] = v
+            sums.append(part)
+        res = sums[0]
+        for p in sums[1:]:
+            res = res + p
+        out[:, tile * ft:(tile + 1) * ft] = res
+        written[:, tile * ft:(tile + 1) * ft] += 1
+    assert (written == 1).all()
+    return out
+
+
+def _scatter_smem_cases():
+    # the quick and the full size; a block hit by many slabs; fewer chunks
+    # than groups (groups with no chunk)
+    yield "quick", r2.scatter_inputs(r2.SMEM_ROWS, r2.NCH_SCATTER // 32,
+                                     normal=True)
+    yield "full", r2.scatter_inputs(r2.SMEM_ROWS, normal=True)
+    rng = np.random.default_rng(6)
+    offs = rng.choice([0, 5, 31], size=32, p=[0.7, 0.2, 0.1]).astype(np.int32)
+    yield "crowded", (offs, rng.normal(size=(4, 64, 128)).astype(np.float32))
+    yield "empty_groups", r2.scatter_inputs(r2.SMEM_ROWS, 3, ft=64,
+                                            normal=True)
+
+
+SMEM_LAUNCH = (r2.SMEM_GROUPS, r2.SMEM_CLUSTER, r2.SMEM_STAGES)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("case,launch", [
+    ("quick", SMEM_LAUNCH), ("full", SMEM_LAUNCH), ("crowded", SMEM_LAUNCH),
+    ("empty_groups", SMEM_LAUNCH), ("quick", (16, 16, 4)),
+    ("crowded", (16, 16, 4)), ("empty_groups", (8, 4, 2)),
+    ("crowded", (8, 4, 2))])
+def test_scatter_smem_order_mirror(case, launch, passes):
+    """The kernel's walk (ring stages, one owner per accumulator element,
+    the loads of a stage together, cluster ranks and clusters) equals the
+    order it keeps, ``r2.scatter_smem_order``, bit for bit on normal
+    slabs, and the plain version exactly on integer ones; at the
+    wrappers' launch and at one cluster a tile and clusters of 4."""
+    groups, cluster, stages = launch
+    offs, a = dict(_scatter_smem_cases())[case]
+    acc_rows = r2.SMEM_ROWS
+    if case == "crowded":
+        assert np.bincount(offs).max() > 16
+    if case == "empty_groups":
+        assert a.shape[0] < groups
+    want = r2.scatter_smem_order(offs, a, acc_rows, passes, groups, cluster)
+    got = _scatter_smem_mirror(offs, a, acc_rows, passes, groups, cluster,
+                               stages)
+    np.testing.assert_array_equal(got, want)
+    # the order shows on normal values: it is not the sequential loop's
+    if case in ("quick", "full"):
+        assert (want != r2.scatter_sequential(offs, a, acc_rows,
+                                              passes)).any()
+    ai = np.rint(a * 4).astype(np.float32)
+    np.testing.assert_array_equal(
+        _scatter_smem_mirror(offs, ai, acc_rows, passes, groups, cluster,
+                             stages),
+        r2.scatter_plain(_t(offs), _t(ai), acc_rows, passes).numpy())
+
+
+def test_smem_scatter_binds_on_the_cpu():
+    offs, a = r2.scatter_inputs(r2.SMEM_ROWS, 4, normal=True)
+    bufs, fn = r2.smem_scatter(offs, r2.SMEM_ROWS, device=CPU)
+    assert sorted(bufs) == ["offs"] and bufs["offs"].dtype == torch.int32
+    assert fn.meta == dict(slabs=32, acc_rows=r2.SMEM_ROWS, rr=r2.RR,
+                           groups=r2.SMEM_GROUPS, cluster=r2.SMEM_CLUSTER,
+                           stages=r2.SMEM_STAGES)
+    assert fn.staged_on(bufs) == CPU
+    got = fn(bufs, _t(a), 2)
+    np.testing.assert_array_equal(got.numpy(), r2.scatter_sequential(
+        offs, a, r2.SMEM_ROWS, 2))
+    r2.check_offs(bufs, fn.meta, CPU)
+    with pytest.raises(ValueError, match="offs"):
+        r2.check_offs({"offs": bufs["offs"][:-1]}, fn.meta, CPU)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        r2.scatter_smem_cuda(bufs, _t(a), fn.meta)
+    for bad in (np.array([0, 32], np.int32), np.array([-1], np.int32)):
+        with pytest.raises(ValueError, match="offsets"):
+            r2.smem_scatter(bad, r2.SMEM_ROWS, device=CPU)
+
+
+@pytest.mark.parametrize("shape,rows,match", [
+    ((2, 64, 96), 256, "multiple of 64"), ((2, 32, 128), 256, "slabs of"),
+    ((2, 64, 128), 260, "R=8"), ((2, 64, 128), 4096, "227 KB"),
+    ((64, 128), 256, "slabs")])
+def test_smem_scatter_refuses_what_its_kernel_does_not_take(shape, rows,
+                                                            match):
+    with pytest.raises(ValueError, match=match):
+        r2._smem_shapes(torch.zeros(shape), rows)
+    assert r2._smem_shapes(torch.zeros(3, 64, 128), 256) == (3, 128)
+
+
 @pytest.mark.parametrize("smem", [True, False])
 def test_probe_scatter_times_one_cold_pass_and_records_the_order_check(smem):
     lines = []
     rec = r2.probe_scatter(smem, CPU, out=lines.append, nch=16)
     assert rec["name"] == ("smem_scatter" if smem else "l2_scatter")
-    assert rec.get("order_checked", False) is not smem
+    assert rec["order_checked"] is True
     assert all(np.isfinite(rec[k]) and rec[k] > 0
                for k in ("ms", "plain_ms", "library_ms"))
     assert "one pass from an empty L2" in lines[0] and "warm" in lines[0]
@@ -1134,6 +1386,8 @@ def test_h100_probes_cli_on_the_cpu():
     lines = []
     status, recs = mod.main(["--device", "cpu", "--quick", "--probe",
                              "mosaic"], out=lines.append)
-    assert status == 0 and len(recs) == 2
+    assert status == 0 and len(recs) == 3
+    assert [r["name"] for r in recs] == ["seg_scan_probe", "construct_probe",
+                                         "launch_floor"]
     assert lines[0].startswith("device: cpu")
     assert any(ln.startswith("seg_scan [32x128] SUB=4") for ln in lines)
