@@ -4,7 +4,7 @@
 (phases 6, 10, 13, 17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-        [--cells spmv,flat,csr,bcsr,bcsrmv,gather]
+        [--cells spmv,flat,csr,bcsr,bcsrmv,gather,scatter]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -74,7 +74,8 @@ adds the library calls, timed only: cuSPARSE's ``torch.mv`` (apply and
 slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
-``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1, P1);
+``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1, P1),
+``scatter`` (K14's scatters, the block dots, G1 at S = 256, K13);
 ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
@@ -134,6 +135,8 @@ def main(argv=None) -> int:
         res.update(bcsr_spmv_cells(dev, args.library))
     if "gather" in cells:
         res.update(gather_cells(dev, args.library))
+    if "scatter" in cells:
+        res.update(scatter_cells(dev, args.library))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -466,6 +469,103 @@ def gather_cells(dev, library: bool) -> dict:
     src, idx = (torch.from_numpy(a).to(dev) for a in G.axis1_inputs(256))
     both("P2 S=256", lambda: G.gather_axis1(src, idx))
     torch.cuda.empty_cache()
+    return res
+
+
+def _device_us(fn, kernel: str, launches: int = 400):
+    """The median duration ``torch.profiler`` records for ``kernel`` over
+    ``launches`` calls of ``fn()`` (None when the trace holds none)."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return statistics.median(us) if us else None
+
+
+def scatter_cells(dev, library: bool) -> dict:
+    """K14's smem scatter, one pass from an empty L2 (``cold_ms``) and the
+    warm slope over passes, through its bind form where the tree has one;
+    as controls the L2 scatter (cold), the block dots (M = 128, B
+    streamed; slope over passes) and G1 (S = 256, K = 128 f32; slope);
+    K13's calls by slope (the scan, and the constructs' mean), unbound
+    and, where the tree has them, bound into ``out=``, each kernel's
+    device time (``torch.profiler`` median) beside them."""
+    import torch
+    from loops_tpu_torch.probes import gather as G
+    from loops_tpu_torch.probes import mosaic, r2
+    from loops_tpu_torch.probes.common import launch_ms
+
+    bench = _timing()
+    res = {}
+    for smem in (True, False):
+        rows = r2.SMEM_ROWS if smem else r2.L2_ROWS
+        offs, a = (torch.from_numpy(v).to(dev)
+                   for v in r2.scatter_inputs(rows))
+        if smem and not hasattr(r2, "smem_scatter"):
+            def run(n):
+                return r2.scatter_cuda(offs, a, rows, n)
+        else:
+            b, fn = (r2.smem_scatter if smem else r2.l2_scatter)(
+                offs, rows, device=dev)
+
+            def run(n):
+                return fn(b, a, n)
+        name = "smem_scatter 256x64" if smem else "l2_scatter 4096x512"
+        res[name] = dict(cold_ms=bench.cold_ms(lambda: run(1), dev),
+                         warm_ms=bench.run_slope_ms(run, 2, 10, 3))
+        if library:
+            idx = (offs.long()[:, None] * r2.RR + torch.arange(
+                r2.RR, device=dev)).reshape(-1)
+            acc = a.new_zeros(rows, a.shape[2])
+            flat = a.reshape(-1, a.shape[2])
+            res[f"index_add_ {name.split()[1]}"] = dict(
+                cold_ms=bench.cold_ms(lambda: acc.index_add_(0, idx, flat),
+                                      dev))
+            del acc, idx
+        del offs, a, run
+        torch.cuda.empty_cache()
+    for mode in r2.MODES:
+        A, B = r2._dot_tensors(128, True, mode, dev)
+        res[f"block_dot_{mode} M=128 streamB"] = bench.run_slope_ms(
+            lambda n: r2.block_dot(A, B, mode, n), 2, 10, 3)
+        del A, B
+    slab, idx = G.row_gather_tensors(G.SMEM_ROWS, 128, G.N_ROWS, True, dev)
+    res["G1 S=256 K=128 f32"] = launch_ms(
+        lambda: G.row_gather(slab, idx, 128, False), dev)
+    del slab, idx
+    v, keep = (torch.from_numpy(x).to(dev) for x in mosaic.scan_inputs())
+    args = {k: mosaic._on(x, dev) for k, x in
+            mosaic.construct_inputs().items()}
+    calls = {"seg_scan": lambda: mosaic.seg_scan_cuda(v, keep),
+             **{k: (lambda k=k: mosaic.construct_cuda(k, *args[k]))
+                for k in mosaic.CONSTRUCTS}}
+    bound = {}
+    if hasattr(mosaic, "seg_scan_bind"):
+        b, fn = mosaic.seg_scan_bind(v, keep, device=dev)
+        o = torch.empty_like(v)
+        bound["seg_scan"] = lambda: fn(b, out=o)
+        for k in mosaic.CONSTRUCTS:
+            bk, fk = mosaic.construct_bind(k, *args[k], device=dev)
+            ok = torch.empty_like(calls[k]())
+            bound[k] = lambda bk=bk, fk=fk, ok=ok: fk(bk, out=ok)
+    for k, call in calls.items():
+        kernel = "seg_scan_probe_kernel" if k == "seg_scan" \
+            else "construct_probe_kernel"
+        res[f"K13 {k}"] = dict(
+            unbound_ms=launch_ms(call, dev),
+            bound_ms=launch_ms(bound[k], dev) if k in bound else None,
+            device_us=_device_us(call, kernel))
     return res
 
 
