@@ -17,8 +17,7 @@
 //   inside a warp, the lanes and rows from other warps read from global
 //   memory, and a runtime base into a shared-memory window (as K3 writes
 //   its rows). The [32, 128] cases and dot0 run one output a thread over
-//   16 and 64 CTAs (staged in one CTA's shared memory they took 1.6-2.7
-//   and 9.2 times the launch floor of an H100).
+//   16 and 64 CTAs, so that no case takes twice the launch floor.
 //
 // launch_floor_kernel: one CTA of 32 threads that writes one word, the
 //   least a launch costs the card; the K13 kernels' bound.

@@ -44,9 +44,9 @@
 //   * smem: the accumulator a CTA can hold, K7's 256 rows x 64 features
 //     (64 KB of shared memory); the 512 features run as 8 tiles, and a
 //     tile's chunks are shared over `groups` CTAs (12, in clusters of 4:
-//     one wave). Bound: the 67 MB of slabs from device memory (one pass from
+//     24 clusters, one wave; the card runs 15 of 8 and 7 of 16 at once). Bound: the 67 MB of slabs from device memory (one pass from
 //     an empty L2). So the slabs come by bulk copy, not by thread loads:
-//     a producer thread keeps a ring of up to 4 stages (a chunk's 64 rows
+//     a producer thread keeps a ring of 4 stages (a chunk's 64 rows
 //     x 64 features, 16 KB, by one 2-D TMA copy, each stage on an
 //     mbarrier) in flight, 64 KB an SM, while one
 //     consumer thread per (row-in-block j, feature f) adds each slab row
@@ -439,7 +439,8 @@ constexpr int kChunkRows = kScatterKch * kScatterR;
 constexpr int kStageFloats = kChunkRows * kScatterFT;
 constexpr int kScatterConsumers = kScatterR * kScatterFT;  // one per (j, f)
 constexpr int kScatterThreads = kScatterConsumers + 32;    // + the producer
-constexpr int kScatterMaxStages = 4;
+constexpr int kScatterStages = 4;       // the ring
+constexpr int kScatterCluster = 4;      // CTAs a cluster
 constexpr int kScatterMaxClusters = 8;  // clusters a tile
 
 __device__ __forceinline__ float4 add4(float4 a, const float4& b) {
@@ -450,7 +451,7 @@ __device__ __forceinline__ float4 add4(float4 a, const float4& b) {
   return a;
 }
 
-// CTA (g, tile) of a cluster of C along g: group g of `groups` takes the
+// CTA (g, tile) of a cluster of C = 4 along g: group g of `groups` takes the
 // chunks g, g + groups, ... (passes times over) and adds them into its
 // accumulator acc [acc_rows][64] in shared memory. Thread 512 is the
 // producer: it waits for a free slot, arms its barrier with the stage's
@@ -462,22 +463,21 @@ __device__ __forceinline__ float4 add4(float4 a, const float4& b) {
 // loads issued together, the slabs of one block summed in registers),
 // and its warp frees the slot. After the last chunk, rank r of the
 // cluster sums its share of the accumulator rows over ranks 0..C-1, in
-// rank order, read from their shared memory, and writes them: to out
-// when the tile's groups are one cluster, else to cpart [groups / C]
-// [acc_rows][F], and the cluster that takes a share's ticket last sums
-// that share over the clusters in order into out (no float atomics).
-template <int C>
+// rank order, read from their shared memory, and writes them to cpart
+// [groups / C][acc_rows][F]; the cluster that takes a share's ticket last
+// sums that share over the clusters in order into out (no float atomics).
 __global__ void __launch_bounds__(kScatterThreads, 1)
 scatter_smem_kernel(const __grid_constant__ CUtensorMap tmap,
                     const int* __restrict__ offs, float* __restrict__ out,
                     float* __restrict__ cpart, int* __restrict__ tickets,
-                    int nch, int F, int acc_rows, int passes, int stages) {
+                    int nch, int F, int acc_rows, int passes) {
+  constexpr int C = kScatterCluster, stages = kScatterStages;
   extern __shared__ __align__(1024) float ssm[];
   float* ring = ssm;                                 // [stages][64][64]
   float* acc = ssm + stages * kStageFloats;          // [acc_rows][64]
-  __shared__ __align__(8) unsigned long long full[kScatterMaxStages];
-  __shared__ __align__(8) unsigned long long empty[kScatterMaxStages];
-  __shared__ int4 soffs[kScatterMaxStages][2];  // each stage's 8 block offsets
+  __shared__ __align__(8) unsigned long long full[stages];
+  __shared__ __align__(8) unsigned long long empty[stages];
+  __shared__ int4 soffs[stages][2];  // each stage's 8 block offsets
   __shared__ int last;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -543,8 +543,8 @@ scatter_smem_kernel(const __grid_constant__ CUtensorMap tmap,
   const int share = (acc_rows + C - 1) / C;
   const int r0 = min(acc_rows, rank * share), r1 = min(acc_rows, r0 + share);
   const int n4 = (r1 - r0) * kScatterFT / 4;
-  const int k = g / C, clusters = groups / C;
-  float* dst = clusters == 1 ? out : cpart + static_cast<size_t>(k) * acc_rows * F;
+  const int clusters = groups / C;
+  float* dst = cpart + static_cast<size_t>(g / C) * acc_rows * F;
   for (int e = t; e < n4; e += kScatterThreads) {
     float4 v[C];
 #pragma unroll
@@ -558,7 +558,6 @@ scatter_smem_kernel(const __grid_constant__ CUtensorMap tmap,
     reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * F + f0)[c4] = sum;
   }
   cluster.sync();  // no CTA leaves while another reads its accumulator
-  if (clusters == 1) return;
   __threadfence();
   __syncthreads();
   if (t == 0) {
@@ -589,27 +588,22 @@ scatter_smem_kernel(const __grid_constant__ CUtensorMap tmap,
   }
 }
 
-template <int C>
-cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, int stages,
-                                       cudaStream_t s, cudaLaunchAttribute* attr,
-                                       int* err) {
+constexpr int kScatterSmem = (kScatterStages * kChunkRows) * kScatterFT * 4;
+
+cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, cudaStream_t s,
+                                       cudaLaunchAttribute* attr, int* err) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups, tiles);
   cfg.blockDim = dim3(kScatterThreads);
-  cfg.dynamicSmemBytes = (stages * kChunkRows + acc_rows) * kScatterFT * 4;
+  cfg.dynamicSmemBytes = kScatterSmem + acc_rows * kScatterFT * 4;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.x = kScatterCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  auto k = scatter_smem_kernel<C>;
-  *err = set_smem(k, static_cast<int>(cfg.dynamicSmemBytes));
-  if (!*err && C > 8) {
-    *err = static_cast<int>(
-        cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-  }
+  *err = set_smem(scatter_smem_kernel, static_cast<int>(cfg.dynamicSmemBytes));
   return cfg;
 }
 
@@ -650,34 +644,6 @@ int slab_map(CUtensorMap* m, const float* a, int rows, int F) {
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int C>
-int launch_scatter_smem(const int* offs, const float* a, float* out, float* cpart,
-                        int* tickets, int nch, int F, int acc_rows, int passes,
-                        int groups, int stages, cudaStream_t s) {
-  cudaLaunchAttribute attr[1];
-  int err = 0;
-  cudaLaunchConfig_t cfg =
-      scatter_smem_config<C>(groups, F / kScatterFT, acc_rows, stages, s, attr, &err);
-  if (err) return err;
-  CUtensorMap tmap;
-  if (const int e = slab_map(&tmap, a, nch * kChunkRows, F)) return e;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, scatter_smem_kernel<C>, tmap, offs, out,
-                                             cpart, tickets, nch, F, acc_rows, passes,
-                                             stages));
-}
-
-template <int C>
-int scatter_smem_clusters(int acc_rows, int stages) {
-  cudaLaunchAttribute attr[1];
-  int err = 0;
-  cudaLaunchConfig_t cfg = scatter_smem_config<C>(C, 1, acc_rows, stages, nullptr, attr, &err);
-  int n = 0;
-  if (!err) {
-    err = static_cast<int>(cudaOccupancyMaxActiveClusters(&n, scatter_smem_kernel<C>, &cfg));
-  }
-  return err ? -err : n;
 }
 
 // A persistent grid over the items (destination block, feature tile),
@@ -770,59 +736,43 @@ int loops_block_dot(const void* A, const void* B, void* partial, int nch,
 
 // offs [nch * 8] block offsets, a [nch, 64, F] (8 slabs of 8 rows a
 // chunk; 16-byte aligned), out [acc_rows, F] (every element written);
-// groups CTAs a 64-feature tile in clusters of `cluster` (2, 4, 8 or 16)
-// dividing groups, at most 8 clusters a tile;
-// cpart [groups / cluster, acc_rows, F] and tickets [F / 64 * cluster]
-// (zeros; left zero) when groups > cluster, else unused
+// groups CTAs a 64-feature tile, a multiple of 4 up to 32; cpart
+// [groups / 4, acc_rows, F] and tickets [F / 64 * 4] (zeros; left zero)
 int loops_scatter_smem(const void* offs, const void* a, void* out, void* cpart,
                        void* tickets, int nch, int F, int acc_rows, int passes,
-                       int groups, int cluster, int stages, void* stream) {
-  const size_t bytes = (static_cast<size_t>(acc_rows) + stages * kChunkRows) *
-                       kScatterFT * 4;
-  if (nch <= 0 || passes < 0 || acc_rows <= 0 || acc_rows % kScatterR ||
-      F <= 0 || F % kScatterFT || stages < 1 || stages > kScatterMaxStages ||
-      bytes > 227 * 1024 || groups <= 0 || groups % cluster ||
-      groups > kScatterMaxClusters * cluster ||
-      (groups > cluster && (!cpart || !tickets))) {
+                       int groups, void* stream) {
+  if (nch <= 0 || passes < 0 || acc_rows <= 0 || acc_rows % kScatterR || F <= 0 ||
+      F % kScatterFT || kScatterSmem + acc_rows * kScatterFT * 4 > 227 * 1024 ||
+      groups <= 0 || groups % kScatterCluster ||
+      groups > kScatterMaxClusters * kScatterCluster || !cpart || !tickets) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int* o = static_cast<const int*>(offs);
+  cudaLaunchAttribute attr[1];
+  int err = 0;
+  cudaLaunchConfig_t cfg = scatter_smem_config(groups, F / kScatterFT, acc_rows,
+                                               static_cast<cudaStream_t>(stream), attr, &err);
+  if (err) return err;
   const float* af = static_cast<const float*>(a);
-  float* of = static_cast<float*>(out);
-  float* cp = static_cast<float*>(cpart);
-  int* tk = static_cast<int*>(tickets);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cluster) {
-    case 2:
-      return launch_scatter_smem<2>(o, af, of, cp, tk, nch, F, acc_rows, passes,
-                                    groups, stages, s);
-    case 4:
-      return launch_scatter_smem<4>(o, af, of, cp, tk, nch, F, acc_rows, passes,
-                                    groups, stages, s);
-    case 8:
-      return launch_scatter_smem<8>(o, af, of, cp, tk, nch, F, acc_rows, passes,
-                                    groups, stages, s);
-    case 16:
-      return launch_scatter_smem<16>(o, af, of, cp, tk, nch, F, acc_rows, passes,
-                                     groups, stages, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  CUtensorMap tmap;
+  if (const int e = slab_map(&tmap, af, nch * kChunkRows, F)) return e;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, scatter_smem_kernel, tmap, static_cast<const int*>(offs), static_cast<float*>(out),
+      static_cast<float*>(cpart), static_cast<int*>(tickets), nch, F, acc_rows, passes));
 }
 
-// the clusters of `cluster` CTAs of the smem scatter that the card runs
-// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error
-int loops_scatter_smem_clusters(int cluster, int acc_rows, int stages) {
-  if (acc_rows <= 0 || stages < 1 || stages > kScatterMaxStages) {
-    return -static_cast<int>(cudaErrorInvalidValue);
+// the clusters of the smem scatter (4 CTAs each, an accumulator of
+// acc_rows rows) that the card runs at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+int loops_scatter_smem_clusters(int acc_rows) {
+  if (acc_rows <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  int err = 0;
+  cudaLaunchConfig_t cfg = scatter_smem_config(kScatterCluster, 1, acc_rows, nullptr, attr, &err);
+  int n = 0;
+  if (!err) {
+    err = static_cast<int>(cudaOccupancyMaxActiveClusters(&n, scatter_smem_kernel, &cfg));
   }
-  switch (cluster) {
-    case 2: return scatter_smem_clusters<2>(acc_rows, stages);
-    case 4: return scatter_smem_clusters<4>(acc_rows, stages);
-    case 8: return scatter_smem_clusters<8>(acc_rows, stages);
-    case 16: return scatter_smem_clusters<16>(acc_rows, stages);
-    default: return -static_cast<int>(cudaErrorInvalidValue);
-  }
+  return err ? -err : n;
 }
 
 // perm [nslabs] slab indices sorted stably by destination block, seg

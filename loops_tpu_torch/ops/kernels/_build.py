@@ -72,8 +72,8 @@ _SIGNATURES = {
     "loops_construct_probe": [_I] + [_P] * 4 + [_I, _P],
     "loops_launch_floor": [_P, _I, _P],
     "loops_block_dot": [_P] * 3 + [_I] * 6 + [_P],
-    "loops_scatter_smem": [_P] * 5 + [_I] * 7 + [_P],
-    "loops_scatter_smem_clusters": [_I] * 3,
+    "loops_scatter_smem": [_P] * 5 + [_I] * 5 + [_P],
+    "loops_scatter_smem_clusters": [_I],
     "loops_scatter_l2": [_P] * 4 + [_I] * 5 + [_P],
     "loops_gather_axis0": [_P] * 3 + [_I] * 4 + [_P],
     "loops_gather_axis1": [_P] * 3 + [_I] * 2 + [_P],

@@ -291,8 +291,8 @@ def _staged(x, device) -> torch.Tensor:
 
 
 def _on(args, device):
-    return tuple(torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
-                 else a for a in args)
+    return tuple(_staged(a, device) if isinstance(a, np.ndarray) else a
+                 for a in args)
 
 
 # ------------------------------------------------------------- the floor

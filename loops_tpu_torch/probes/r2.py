@@ -78,10 +78,11 @@ MODES = ("f32", "bf16")
 KCH, RR, FT, NCH_SCATTER = 8, 8, 512, 512
 SMEM_ROWS, L2_ROWS = 256, 4096
 SMEM_FT = 64
-# the smem scatter's launch (csrc/probes_r2.cu): CTAs a 64-feature tile,
-# CTAs a cluster (2, 4, 8 or 16, dividing the groups), and stages of its
-# ring
-SMEM_GROUPS, SMEM_CLUSTER, SMEM_STAGES = 12, 4, 4
+# the smem scatter's launch (csrc/probes_r2.cu): CTAs a 64-feature tile
+# (a multiple of the cluster, up to 8 clusters); its kernel's CTAs a
+# cluster and stages of its ring
+SMEM_GROUPS = 12
+SMEM_CLUSTER, SMEM_STAGES = 4, 4
 # the L2 scatter's feature tile (csrc/probes_r2.cu) and CTAs an SM
 L2_FT, L2_CTAS_PER_SM = 128, 8
 U32 = 2.0 ** -24
@@ -419,15 +420,12 @@ def check_offs(b: dict, t: dict, device) -> None:
 
 
 def _cluster_workspace(ws: dict, t: dict, F: int, device):
-    """The smem scatter's cluster rows and tickets at width ``F`` (made
-    once into ``ws``, the tickets zeros that the kernel leaves zero), or
-    ``(None, None)`` when a tile's groups are one cluster."""
-    clusters = t["groups"] // t["cluster"]
-    if clusters == 1:
-        return None, None
+    """The smem scatter's cluster rows and tickets at width ``F``, made
+    once into ``ws`` (the tickets zeros, which the kernel leaves zero)."""
     key = (F, device)
     if key not in ws:
-        ws[key] = (torch.empty(clusters, t["acc_rows"], F, device=device),
+        ws[key] = (torch.empty(t["groups"] // t["cluster"], t["acc_rows"], F,
+                               device=device),
                    torch.zeros(F // SMEM_FT * t["cluster"], dtype=torch.int32,
                                device=device))
     return ws[key]
@@ -457,8 +455,7 @@ def scatter_smem_cuda(b: dict, a: torch.Tensor, t: dict, staged_on=None,
     o = _build.output(out, (t["acc_rows"], F), dev)
     cpart, tickets = _cluster_workspace({} if ws is None else ws, t, F, dev)
     _build.launch("loops_scatter_smem", "smem_scatter", dev, b["offs"], a, o,
-                  cpart, tickets, nch, F, t["acc_rows"], passes, t["groups"],
-                  t["cluster"], t["stages"])
+                  cpart, tickets, nch, F, t["acc_rows"], passes, t["groups"])
     return o
 
 
@@ -468,12 +465,12 @@ def smem_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
     the accumulator): the offsets staged on ``device`` and checked there
     once (``_build.staged_guard``); ``fn`` runs the kernel on CUDA tensors
     and ``scatter_plain`` on CPU ones. ``fn.meta`` holds the launch:
-    ``groups``, ``cluster``, ``stages``."""
+    ``groups`` and ``cluster``."""
     device = ensure_platform(device)
     off = _block_offsets(offs, acc_rows, rr)
     bufs = {"offs": torch.from_numpy(off).to(device)}
     t = dict(slabs=len(off), acc_rows=acc_rows, rr=rr, groups=SMEM_GROUPS,
-             cluster=SMEM_CLUSTER, stages=SMEM_STAGES)
+             cluster=SMEM_CLUSTER)
     staged_on = _build.staged_guard(bufs, t, check_offs)
     off_cpu = torch.from_numpy(off)
     ws = {}
@@ -487,14 +484,12 @@ def smem_scatter(offs, acc_rows: int, rr: int = RR, device="cuda"):
     return bufs, fn
 
 
-def smem_clusters(cluster: int = SMEM_CLUSTER, acc_rows: int = SMEM_ROWS,
-                  device="cuda") -> int:
-    """How many clusters of ``cluster`` smem-scatter CTAs the card runs at
-    once (``cudaOccupancyMaxActiveClusters``)."""
+def smem_clusters(acc_rows: int = SMEM_ROWS, device="cuda") -> int:
+    """How many clusters of the smem scatter (``SMEM_CLUSTER`` CTAs each)
+    the card runs at once (``cudaOccupancyMaxActiveClusters``)."""
     device = ensure_platform(device)
     with torch.cuda.device(device):
-        n = _build._function("loops_scatter_smem_clusters")(
-            cluster, acc_rows, SMEM_STAGES)
+        n = _build._function("loops_scatter_smem_clusters")(acc_rows)
     if n < 0:
         raise RuntimeError(f"loops_scatter_smem_clusters: CUDA error {-n}")
     return n
