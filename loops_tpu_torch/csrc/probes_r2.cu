@@ -607,8 +607,8 @@ cudaLaunchConfig_t scatter_smem_config(int groups, int tiles, int acc_rows, cuda
   return cfg;
 }
 
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
-// library needs no -lcuda
+// cuTensorMapEncodeTiled looked up at run time through the CUDA runtime,
+// so the library needs no -lcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,

@@ -23,8 +23,8 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
   slabs in that order, so each output's terms keep the (pass, chunk,
   slab) order of a sequential loop (``scatter_sequential``), bit for bit
   on any input. The smem kernel shares a tile's chunks over
-  ``SMEM_GROUPS`` CTAs, the slabs brought by bulk copies into a ring of
-  ``SMEM_STAGES`` stages, and sums the groups' accumulators in the same
+  ``SMEM_GROUPS`` CTAs, the slabs brought by 2-D TMA copies into a ring
+  of ``SMEM_STAGES`` stages, and sums the groups' accumulators in the same
   launch from a cluster's distributed shared memory, in group (then
   cluster) order (``scatter_smem_order``), bit for bit. Both are bound
   once at their block offsets, the offsets (or the plan) staged and
@@ -40,7 +40,8 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
 Checks: integer-valued inputs give exact sums in any order, so the dots
 and the scatters are held to their plain versions exactly on them; on
 the script's normal inputs the L2 scatter is also held bit for bit to
-``scatter_sequential`` and the smem one to ``scatter_smem_order``. On those the dots are held to the plain version
+``scatter_sequential`` and the smem one to ``scatter_smem_order``. On
+those the dots are held to the plain version
 computed in float64 (``dot_reference``), per output within ``DOT_C``
 units of ``u32 sqrt(sum (a b)^2)`` (``sqrt(n) u32 rms|a b|`` over the n
 = 128 NCH terms; bf16 products are exact in f32). That is a statistical
