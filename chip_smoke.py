@@ -157,7 +157,31 @@ Phases, one line each with its time:
    kernels redesigned last (``onehot_expand`` at W = 512 against
    ``index_select``; ``bcsr_spmv`` from an empty L2 against cuSPARSE's
    CSR SpMV and ``torch.sparse_bsr_tensor``). The launch counters are set
-   to 0 before and read after: every K12-K15 kernel must have launched.
+   to 0 before and read after: every K12-K15 kernel must have launched;
+20. GraphSAGE at full width (``models/sage.py``, ``models/sampling.py``;
+   torch ops with K4 under them). First K4 through the models' own
+   operators at the widths this phase gives it, against its plain version
+   bit for bit (the arxiv stand-in's mean-normalized A and Aᵀ at F = 128,
+   f32 and bf16; the products stand-in's A at F = 100 and 256, the plain
+   version 10 columns at a time), 256 sampled rows each within the
+   Wilkinson bound. Then, with the launch counters set to 0: full-graph
+   SAGE on the arxiv stand-in of phase 7 (dims [128, 128, 128, 40]) in f32
+   and bf16, on ``auto`` (group_mapped) and on ``merge_path``/``pallas``
+   (K4): the routes' logits within 1e-4 of the largest in f32 and one bf16
+   ulp of it (2**-7) in bf16, A hx and the backward Aᵀ ct of both routes
+   within twice the Wilkinson bound (in bf16 plus one rounding of each
+   product: group_mapped's hub rows are f32), 3 Adam steps run twice from
+   one state bitwise equal, the step and ``evaluate`` medians; then
+   sampled SAGE on the ``ogbn-products`` stand-in at the real 2,449,029
+   nodes (synthetic; ~114.8M directed edges; dims [100, 256, 256, 47],
+   fanouts [15, 10, 5], batch 1024, the OGB GraphSAGE-on-products
+   settings), the host time of building it printed: 5 steps run twice
+   from one generator state bitwise equal, every sampled id checked
+   against the CSR on the host, the loss falling over 20 steps, the step
+   median, sampled edges a second, the full-graph ``evaluate`` on K4,
+   the peak memory, a ``torch.profiler`` breakdown of a step and its card
+   time by ``utils/bench.device_ms``. K4 must have launched; its launches
+   join phase 9's in the kernels line.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -219,6 +243,14 @@ SPMM_FS = (5, 40, 128)
 SPMM_BLOCKS = (8, 512)
 DTYPES = (None, "bfloat16")
 GCN_HIDDEN = 128
+# phase 20: the OGB GraphSAGE-on-products settings (widths, fanouts,
+# batch) on the ogbn-products stand-in at the real graph's node count
+# (200,000 nodes at scale 1, io/ogb.py)
+SAGE_STEPS = 3
+SAMPLED_HIDDEN, SAMPLED_FANOUTS, SAMPLED_BATCH = 256, [15, 10, 5], 1024
+SAMPLED_STEPS, SAMPLED_DESCENT_STEPS = 5, 20
+PRODUCTS_NODES = 2_449_029
+PRODUCTS_SCALE = (PRODUCTS_NODES + 0.5) / 200_000
 BCSR_SOURCE = "loops_tpu_torch/csrc/bcsr.cu"
 BCSR_KERNELS = {
     # name -> (TPU kernel it replaces, operator impl, modes)
@@ -434,6 +466,24 @@ def spmm_pair_tolerance(csr, B, dtype):
     nnz_r = csr.row_sizes().astype(np.float64)[:, None]
     u = reference.unit_roundoff(np.float32)
     return np.maximum(1e-6, 2 * reference.DEFAULT_WILKINSON_K * nnz_r * u * l1)
+
+
+def spmm_routes_tolerance(csr, B, dtype):
+    """K4 against the group_mapped planes on the same input: in f32
+    ``spmm_pair_tolerance``; in bf16 one bf16 rounding of each product
+    more (``2**-8 * sum |p|``), because group_mapped's hub-dense rows
+    multiply in f32, as ``tests/test_torch_spmm_bf16.py`` allows for the
+    torch paths."""
+    from loops_tpu_torch.formats import CSR
+    from loops_tpu_torch.utils import reference
+
+    tol = spmm_pair_tolerance(csr, B, dtype)
+    if dtype is None:
+        return tol
+    rounded = CSR(csr.shape, csr.offsets, csr.indices,
+                  reference.bf16_round(csr.vals))
+    return tol + 2.0 ** -8 * (1 + 2.0 ** -8) * reference.spmm_l1_products(
+        rounded, reference.bf16_round(B))
 
 
 def spmm_verdict(csr, B, C, dtype):
@@ -1664,6 +1714,297 @@ def probe_phases(device, smi, rate, k6, rate64):
     return err, launches, entries, floor
 
 
+def _steps_twice(model, make_step, n):
+    """``n`` steps of ``make_step(model)``'s step from the model's state
+    now, twice (the state restored, a fresh optimizer and generator made
+    between): the two runs' losses and parameters must be bitwise equal.
+    The state is restored after. Returns the first run's losses and,
+    where the step samples, each of its steps' frontiers on the host."""
+    import torch
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    losses, params, frontiers = [], [], []
+    for _ in range(2):
+        model.load_state_dict(start)
+        step = make_step(model)
+        run = []
+        for _ in range(n):
+            run.append(step())
+            if getattr(step, "frontiers", None) is not None \
+                    and len(frontiers) < n:
+                frontiers.append([f.cpu().numpy() for f in step.frontiers])
+        losses.append(torch.stack(run))
+        params.append({k: v.clone() for k, v in model.state_dict().items()})
+    require(bool(torch.isfinite(losses[0]).all()),
+            f"losses {losses[0].tolist()}")
+    require(torch.equal(losses[0], losses[1]), "two runs' losses differ: "
+            f"{losses[0].tolist()} vs {losses[1].tolist()}")
+    for k in start:
+        require(torch.equal(params[0][k], params[1][k]),
+                f"two runs' {k} differ")
+    model.load_state_dict(start)
+    return losses[0].tolist(), frontiers
+
+
+def check_frontiers(graph, runs, fanouts):
+    """Every sampled id is a CSR neighbour of its parent, or the parent
+    itself where it has none, checked on the host against the CSR's keys
+    ``row * n + col`` (sorted: CSR order). ``runs`` holds each step's
+    frontiers. Returns the number of ids checked."""
+    adj = graph.adj
+    n = graph.num_nodes
+    keys = adj.row_ids().astype(np.int64) * n + adj.indices
+    require(bool(np.all(keys[1:] > keys[:-1])), "CSR keys out of order")
+    deg = adj.row_sizes()
+    checked = 0
+    for frontiers in runs:
+        for d, k in enumerate(fanouts):
+            parent = np.repeat(frontiers[d].astype(np.int64), k)
+            child = frontiers[d + 1].astype(np.int64)
+            require(len(child) == len(parent), f"hop {d}: {len(child)} ids "
+                    f"for {len(parent)} draws")
+            q = parent * n + child
+            pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+            ok = np.where(deg[parent] > 0, keys[pos] == q, child == parent)
+            require(bool(ok.all()), f"hop {d}: {int((~ok).sum())} sampled "
+                    "ids are not neighbours of their parents")
+            checked += len(child)
+    return checked
+
+
+def k4_op_vs_plain(label, op, F, device, chunk=None):
+    """K4 through a model's operator ``op`` (its staged buffers, at a
+    width the main path gives it) against its plain version on the same
+    input: bit for bit, two applies bitwise equal, 256 sampled rows
+    within the f32 Wilkinson bound of their f64 sums. The plain version
+    runs ``chunk`` columns at a time where its [nnz, F] products would not
+    fit the card (a column's sums do not depend on the others). Returns
+    0.0, the max |kernel - plain|."""
+    import torch
+
+    from loops_tpu_torch.ops.kernels import spmm_flat
+    from loops_tpu_torch.utils import reference
+
+    require(op.impl_used == "flat_spmm", f"{label}: took {op.impl_used}")
+    rng = np.random.default_rng(F)
+    B = rng.normal(size=(op.cols, F)).astype(np.float32)
+    Bd = torch.from_numpy(B).to(device)
+    C1, C2 = op(Bd), op(Bd)
+    require(tuple(C1.shape) == (op.rows, F) and bool(C1.isfinite().all()),
+            f"{label}: bad output")
+    require(torch.equal(C1, C2), f"{label}: two applies differ")
+    step = chunk or F
+    for j in range(0, F, step):
+        plain = spmm_flat.flat_spmm_plain(op._bufs, Bd[:, j:j + step],
+                                          op.mat.shape, op.dtype)
+        require(torch.equal(C1[:, j:j + step], plain),
+                f"{label}: K4 and its plain version differ in columns "
+                f"{j}..{j + step}")
+        del plain
+    rep = reference.validate_sampled_rows(
+        op.mat, B, C1, bf16_products=op.dtype is not None)
+    require(rep.overruns == 0, f"{label}: {rep}")
+    return 0.0
+
+
+def sage_phase(device, smi, ds):
+    """Phase 20: GraphSAGE at full width, full graph on the arxiv stand-in
+    (``ds``, built in phase 7) on both routes in f32 and bf16, and the
+    sampled minibatch on the ogbn-products stand-in at its real node
+    count. Returns the launch counts of its main path and K4's max
+    |kernel - plain| at its shapes."""
+    import torch
+
+    from loops_tpu_torch.io import ogb
+    from loops_tpu_torch.models import GraphSAGE, make_sampled_train_step
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+    from loops_tpu_torch.utils.timer import time_fn
+
+    def median_ms(fn, iters):
+        return time_fn(fn, device=device, warmup=1, iters=iters,
+                       reduction=statistics.median)
+
+    def adam(m):
+        return torch.optim.Adam(m.parameters(), lr=1e-2)
+
+    t0 = time.perf_counter()
+    graph = ds.graph
+    feats, labels, train_mask, test_mask = (
+        torch.from_numpy(a).to(device) for a in (
+            ds.features, ds.labels, ds.train_mask, ds.test_mask))
+    dims = [ds.features.shape[1], GCN_HIDDEN, GCN_HIDDEN, ds.num_classes]
+    routes = {"auto": {}, "K4": {"schedule": "merge_path", "impl": "pallas"}}
+    models, build_s = {}, {}
+    for dtype in DTYPES:
+        for route, kw in routes.items():
+            th = time.perf_counter()
+            models[route, dtype] = GraphSAGE(
+                graph, dims, dtype=dtype, device=device,
+                generator=torch.Generator().manual_seed(0), **kw)
+            build_s[route, dtype] = time.perf_counter() - th
+    th = time.perf_counter()
+    prod = ogb.load("ogbn-products", scale=PRODUCTS_SCALE)
+    prod_s = time.perf_counter() - th
+    pg = prod.graph
+    require(pg.num_nodes == PRODUCTS_NODES,
+            f"the ogbn-products stand-in has {pg.num_nodes} nodes")
+    sdims = [prod.features.shape[1], SAMPLED_HIDDEN, SAMPLED_HIDDEN,
+             prod.num_classes]
+    th = time.perf_counter()
+    sm = GraphSAGE(pg, sdims, schedule="merge_path", impl="pallas",
+                   device=device, generator=torch.Generator().manual_seed(0))
+    sm_build_s = time.perf_counter() - th
+    print(f"  ogbn-products stand-in (synthetic, {pg.num_nodes} nodes, "
+          f"{pg.num_edges} directed edges, {prod.features.shape[1]} "
+          f"features, {prod.num_classes} classes): built on the host in "
+          f"{prod_s:.2f} s; its GraphSAGE (K4 forward and over Aᵀ) in "
+          f"{sm_build_s:.2f} s; arxiv GraphSAGE builds "
+          + ", ".join(f"{r} {d or 'f32'} {s:.2f} s"
+                      for (r, d), s in build_s.items()), flush=True)
+
+    # K4 through the models' own operators at the main path's widths,
+    # before the counters are set to 0: these launches are checks
+    err = 0.0
+    for dtype in DTYPES:
+        fwd, bwd = models["K4", dtype].operators()
+        for label, op in (("A_mean", fwd), ("A_meanᵀ", bwd)):
+            err = max(err, k4_op_vs_plain(
+                f"arxiv {label} F={GCN_HIDDEN} {dtype or 'f32'}", op,
+                GCN_HIDDEN, device))
+    for F in (sdims[0], SAMPLED_HIDDEN):
+        err = max(err, k4_op_vs_plain(f"products A_mean F={F}", sm.aggregate,
+                                      F, device, chunk=10))
+    torch.cuda.synchronize()
+    print(f"  K4 vs plain at phase 20's shapes (arxiv A_mean and A_meanᵀ "
+          f"F={GCN_HIDDEN} f32 and bf16; products A_mean F={sdims[0]} and "
+          f"{SAMPLED_HIDDEN}): bit for bit, 256 sampled rows each within "
+          f"the Wilkinson bound", flush=True)
+
+    # ---- the main path
+    _build.reset_launches()
+    for dtype in DTYPES:
+        name = dtype or "f32"
+        la, agg, at_ct = {}, {}, {}
+        gen = torch.Generator(device).manual_seed(5)
+        hx = torch.rand(feats.shape, generator=gen, device=device)
+        ct = torch.randn(feats.shape, generator=gen, device=device)
+        for route in routes:
+            m = models[route, dtype]
+            m.eval()
+            with torch.no_grad():
+                la[route] = m(feats)
+                agg[route] = m.aggregate(hx)
+            x = hx.clone().requires_grad_(True)
+            (m.aggregate._fn(x) * ct).sum().backward()
+            at_ct[route] = x.grad
+        lg, lk = la["auto"], la["K4"]
+        require(tuple(lk.shape) == (graph.num_nodes, ds.num_classes)
+                and bool(lk.isfinite().all()), f"SAGE {name}: bad logits")
+        scale = float(lg.abs().max())
+        diff = float((lk - lg).abs().max())
+        # f32: 1e-4 of the largest logit. bf16: one bf16 ulp of it, as
+        # tests/test_torch_gcn.py holds bf16 logits: the routes' f32 sums
+        # differ in order, so a layer's input can round to a neighbouring
+        # bf16 value, and that propagates
+        rel = 1e-4 if dtype is None else 2.0 ** -7
+        require(diff <= rel * max(scale, 1.0),
+                f"SAGE {name}: the routes' logits differ by {diff:.3e}")
+        # A hx and Aᵀ ct by both routes on the same input: within twice
+        # the Wilkinson bound over the products the mode forms (in bf16,
+        # and one rounding of each: group_mapped's hub rows are f32)
+        for label, op, got, v in (
+                ("A hx", models["K4", dtype].aggregate, agg, hx),
+                ("Aᵀ ct", models["K4", dtype].aggregate._vjp_op, at_ct, ct)):
+            gdiff = (got["K4"] - got["auto"]).abs().cpu().numpy()
+            tol = spmm_routes_tolerance(op.mat, v.cpu().numpy(), dtype)
+            require(np.all(gdiff <= tol),
+                    f"SAGE {name}: K4's {label} differs from group_mapped's "
+                    f"by {gdiff.max():.3e}")
+            print(f"  GraphSAGE {name} (arxiv): {label} by K4 and by "
+                  f"group_mapped, max |diff| {gdiff.max():.3e}, at most "
+                  f"{(gdiff / tol).max():.3f} of its bound")
+        print(f"  GraphSAGE {name} (arxiv, dims {dims}): auto "
+              f"({models['auto', dtype].aggregate.impl_used}) vs K4 "
+              f"logits max |diff| {diff:.3e} (max |logit| {scale:.3e}, "
+              f"limit {rel:g} of it)", flush=True)
+        for route in routes:
+            m = models[route, dtype]
+
+            def full_step(model):
+                return T.make_train_step(model, adam(model), feats, labels,
+                                         train_mask)
+            losses, _ = _steps_twice(m, full_step, SAGE_STEPS)
+            step = full_step(m)
+            ms_step = median_ms(step, 5)
+            ms_eval = median_ms(
+                lambda: T.evaluate(m, feats, labels, test_mask), 5)
+            print(f"  GraphSAGE {name} {route}: {SAGE_STEPS} Adam steps "
+                  f"twice, bitwise equal, losses {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}; step {ms_step:.3f} ms, evaluate "
+                  f"{ms_eval:.3f} ms (CUDA events, median of 5); "
+                  f"{graph.num_edges / ms_step / 1e3:.2f}M edges/s a step; "
+                  f"K4 launches {m.launches()}  [{smi}]", flush=True)
+    del models, hx, ct, agg, at_ct, la, x
+    torch.cuda.empty_cache()
+
+    # ---- sampled GraphSAGE on ogbn-products
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device) / 2**30
+    p_feats, p_labels, p_test = (torch.from_numpy(a).to(device) for a in (
+        prod.features, prod.labels, prod.test_mask))
+
+    def sampled_step(model, seed=1):
+        return make_sampled_train_step(
+            model, adam(model), p_feats, p_labels, SAMPLED_FANOUTS,
+            SAMPLED_BATCH, generator=torch.Generator(device).manual_seed(seed))
+    losses, frontiers = _steps_twice(sm, sampled_step, SAMPLED_STEPS)
+    th = time.perf_counter()
+    checked = check_frontiers(pg, frontiers, SAMPLED_FANOUTS)
+    check_s = time.perf_counter() - th
+    per_step = sum(len(f) for f in frontiers[0][1:])
+    require(per_step == SAMPLED_BATCH * (15 + 150 + 750),
+            f"{per_step} sampled ids a step")
+    step = sampled_step(sm, seed=2)
+    descent = [float(step()) for _ in range(SAMPLED_DESCENT_STEPS)]
+    first, last = np.mean(descent[:5]), np.mean(descent[-5:])
+    require(np.all(np.isfinite(descent)) and last < first,
+            f"sampled loss does not fall over {SAMPLED_DESCENT_STEPS} "
+            f"steps: {descent}")
+    ms_step = median_ms(step, 10)
+    ms_eval = median_ms(lambda: T.evaluate(sm, p_feats, p_labels, p_test), 3)
+    acc = T.evaluate(sm, p_feats, p_labels, p_test)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    prof = profile_applies(lambda _: step(), p_feats, applies=5, warmup=1)
+    card = card_text(lambda _: step(), p_feats)
+    print(f"  sampled GraphSAGE (ogbn-products stand-in, synthetic: "
+          f"{pg.num_nodes} nodes, {pg.num_edges} edges; dims {sdims}, "
+          f"fanouts {SAMPLED_FANOUTS}, batch {SAMPLED_BATCH}): "
+          f"{SAMPLED_STEPS} steps twice, bitwise equal, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {SAMPLED_DESCENT_STEPS} "
+          f"steps: mean loss of the first 5 {first:.4f}, of the last 5 "
+          f"{last:.4f}; {checked} sampled ids checked against the CSR in "
+          f"{check_s:.2f} s; step {ms_step:.3f} ms (CUDA events, median of "
+          f"10), {per_step} sampled edges a step, "
+          f"{per_step / ms_step / 1e3:.2f}M sampled edges/s; full-graph "
+          f"evaluate on K4 {ms_eval:.3f} ms, test acc {acc:.4f}; "
+          f"max_memory_allocated {peak:.2f} GiB ({base:.2f} held before "
+          f"the features)  [{smi}]", flush=True)
+    print(f"    profile of a sampled step: {profile_text(prof, 8, width=48)}")
+    print(f"    sampled step: {card}  [{smi}]")
+    launches = dict(_build.LAUNCHES)
+    require(launches["flat_spmm"] > 0, "K4 never launched in phase 20")
+    require(sm.aggregate.launches > 0,
+            "the products evaluate did not launch K4")
+    del sm, p_feats, p_labels, p_test, prod, step
+    torch.cuda.empty_cache()
+    phase(20, "GraphSAGE at full width", t0,
+          "main-path launches " + json.dumps(
+              {k: v for k, v in launches.items() if v}) + " ")
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2069,6 +2410,7 @@ def main() -> int:
     probe_err, probe_launches, probe_recs, floor = probe_phases(
         device, smi, rate, bcsr_times["bcsr_spmv", None],
         stream_res["64 MiB"]["gbps"] * 1e9)
+    sage_launches, sage_err = sage_phase(device, smi, ds)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -2100,8 +2442,10 @@ def main() -> int:
     b_ms, b_by = csr_spmm_bound(adj, 128)
     kernels.append(
         {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
-         "replaces": SPMM_REPLACES, "launches": gcn_launches["flat_spmm"],
-         "max_abs_err": spmm_err, "ms": spmm_times["f32"]["ms"],
+         "replaces": SPMM_REPLACES,
+         "launches": gcn_launches["flat_spmm"] + sage_launches["flat_spmm"],
+         "max_abs_err": max(spmm_err, sage_err),
+         "ms": spmm_times["f32"]["ms"],
          "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,
          "bound_by": b_by, "library_ms": spmm_times["f32"]["library_ms"]})
     for k, (rep_at, _, _) in BCSR_KERNELS.items():

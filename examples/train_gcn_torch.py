@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Train a 3-layer GCN on an OGB-style node-classification dataset with
-the PyTorch + CUDA port — the counterpart of ``examples/train_gcn.py``
-for ``loops_tpu_torch``.
+"""Train a 3-layer GCN or GraphSAGE on an OGB-style node-classification
+dataset with the PyTorch + CUDA port — the counterpart of
+``examples/train_gcn.py`` for ``loops_tpu_torch``.
 
 Uses a local OGB copy under ``datasets/`` when present, otherwise a
 size-matched synthetic power-law graph (the same one ``loops_tpu``
@@ -14,8 +14,10 @@ path (``impl_used``) and the kernel launches go to stderr.
 
 ``--device cuda`` (the default) fails when no card is visible; it never
 falls back to the CPU. On the card the GCN aggregation runs kernel K4,
-forward and backward. ``--model sage|gat`` exits non-zero: those models
-are not ported yet.
+forward and backward. ``--model sage`` trains full-graph GraphSAGE (dims
+[F, hidden, hidden, classes], mean aggregation on the group_mapped planes,
+as ``schedule="auto"`` routes it; no dropout). ``--model gat`` exits 2:
+GAT is not ported yet.
 """
 from __future__ import annotations
 
@@ -57,16 +59,20 @@ def main(argv=None):
           f"feat={ds.features.shape[1]} classes={ds.num_classes}")
 
     dims = [ds.features.shape[1], args.hidden, args.hidden, ds.num_classes]
+    init = torch.Generator().manual_seed(args.seed)
     try:
         if args.model == "gat":
             GAT(ds.graph, dims, heads=4)
-        elif args.model == "sage":
-            GraphSAGE(ds.graph, dims)
     except NotImplementedError as e:
         print(f"train_gcn_torch: {e}", file=sys.stderr)
         return 2
-    model = GCN(ds.graph, dims, dropout=args.dropout, device=device,
-                generator=torch.Generator().manual_seed(args.seed))
+    if args.model == "sage":
+        model = GraphSAGE(ds.graph, dims, device=device, generator=init)
+        route = model.aggregate
+    else:
+        model = GCN(ds.graph, dims, dropout=args.dropout, device=device,
+                    generator=init)
+        route = model.propagate
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
     spc = (max(args.epochs // 10, 1) if args.steps_per_call is None
            else args.steps_per_call)
@@ -89,8 +95,8 @@ def main(argv=None):
     eps = ds.graph.num_edges * args.epochs / dt
     print(f"test_accuracy: {test:.4f}")
     print(f"train_time_s: {dt:.1f}  edges_per_s: {eps:,.0f}")
-    print(f"impl_used: {model.propagate.impl_used} launches: "
-          f"{model.launches()}", file=sys.stderr)
+    print(f"impl_used: {route.impl_used} launches: {model.launches()}",
+          file=sys.stderr)
     return 0
 
 

@@ -45,7 +45,8 @@ class COO:
         key = self.rows.astype(np.int64) * max(self.shape[1], 1) + self.cols
         if key.size < 2 or bool((key[1:] >= key[:-1]).all()):
             return None
-        return np.lexsort((self.cols, self.rows))
+        return convert.lexsort2(self.cols, self.rows, self.shape[1],
+                                self.shape[0])
 
     def sort_by_row(self) -> "COO":
         """Stable (row, col) lexicographic sort."""
@@ -55,7 +56,9 @@ class COO:
         return COO(self.shape, self.rows[perm], self.cols[perm], self.vals[perm])
 
     def sort_by_column(self) -> "COO":
-        perm = np.lexsort((self.rows, self.cols))
+        """Stable (col, row) lexicographic sort."""
+        perm = convert.lexsort2(self.rows, self.cols, self.shape[0],
+                                self.shape[1])
         return COO(self.shape, self.rows[perm], self.cols[perm], self.vals[perm])
 
     def remove_duplicates(self, op: str = "first") -> "COO":

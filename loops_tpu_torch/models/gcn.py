@@ -5,7 +5,9 @@ weight ``[in, out]`` and one bias ``[out]`` per layer, state-dict names
 ``layers.{i}.w`` / ``layers.{i}.b`` that map one to one onto
 ``loops_tpu``'s ``[{"w", "b"}, ...]`` (``params_from_jax`` carries them
 over). Each layer is ``A_hat @ (H W) + b``: the propagation is one SpMM
-(K4 on a card, ``models/message_passing.py``).
+(K4 on a card, ``models/message_passing.py``). The parameter helpers
+here (``init_layers``, ``_Layer``, ``load_params``, ``params_from_jax``)
+carry any layer dict's keys, and GraphSAGE uses them too.
 
 ``H @ W`` is ``torch.matmul`` in float32. The module leaves TF32 off for
 it, which is PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``
@@ -37,24 +39,39 @@ def _glorot(generator: torch.Generator, fan_in: int, fan_out: int):
     return u * (2 * lim) - lim
 
 
+def init_layers(generator: torch.Generator, shapes) -> list:
+    """Per-layer ``{name: tensor}`` dicts of CPU tensors for ``shapes``
+    (``[{name: shape}, ...]``): a zero bias for ``b``, and a
+    Glorot-uniform draw from ``generator`` for every other name, in
+    order. The parameter initialisation every model of the port shares."""
+    return [{k: (torch.zeros(shape, dtype=torch.float32) if k == "b"
+                 else _glorot(generator, *shape))
+             for k, shape in layer.items()} for layer in shapes]
+
+
+def _gcn_shapes(dims):
+    return [{"w": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+            for i in range(len(dims) - 1)]
+
+
 def init_gcn(generator: torch.Generator, dims):
     """dims = [in, hidden..., out]; returns ``[{"w", "b"}, ...]`` of CPU
     tensors: Glorot-uniform weights drawn from ``generator``, zero
     biases."""
-    return [{"w": _glorot(generator, dims[i], dims[i + 1]),
-             "b": torch.zeros(dims[i + 1], dtype=torch.float32)}
-            for i in range(len(dims) - 1)]
+    return init_layers(generator, _gcn_shapes(dims))
 
 
 def params_from_jax(params) -> dict:
-    """A state dict for :class:`GCN` from ``loops_tpu``'s GCN parameters
-    (a list of ``{"w": array, "b": array}``), so both packages compute
-    with the same weights."""
+    """A model's state dict from ``loops_tpu``'s parameters of the same
+    model (a list of per-layer dicts of arrays: ``{"w", "b"}`` for GCN,
+    ``{"w_self", "w_neigh", "b"}`` for GraphSAGE), so both packages
+    compute with the same weights: every key of layer i becomes
+    ``layers.{i}.{key}``."""
     state = {}
     for i, layer in enumerate(params):
-        for name in ("w", "b"):
+        for name, value in layer.items():
             state[f"layers.{i}.{name}"] = torch.from_numpy(
-                np.array(layer[name], dtype=np.float32))
+                np.array(value, dtype=np.float32))
     return state
 
 
@@ -69,10 +86,21 @@ def dropout(h: torch.Tensor, p: float,
 
 
 class _Layer(nn.Module):
-    def __init__(self, fan_in: int, fan_out: int):
+    """One layer's named parameters (``name=shape``), zeros until
+    ``load_params`` or ``load_state_dict`` fills them."""
+
+    def __init__(self, **shapes):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros(fan_in, fan_out))
-        self.b = nn.Parameter(torch.zeros(fan_out))
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
+
+
+def load_params(layers: nn.ModuleList, params) -> None:
+    """Copy per-layer ``{name: tensor}`` dicts into ``layers``."""
+    with torch.no_grad():
+        for layer, p in zip(layers, params):
+            for name, value in p.items():
+                getattr(layer, name).copy_(value)
 
 
 class GCN(nn.Module):
@@ -101,8 +129,7 @@ class GCN(nn.Module):
         self.remat = remat
         self.precompute_first = precompute_first
         self.layers = nn.ModuleList(
-            _Layer(self.dims[i], self.dims[i + 1])
-            for i in range(len(self.dims) - 1))
+            _Layer(**shapes) for shapes in _gcn_shapes(self.dims))
         self.propagate = aggregate_operator(graph, op="gcn",
                                             schedule=schedule, impl=impl,
                                             dtype=dtype, device=self.device)
@@ -121,10 +148,7 @@ class GCN(nn.Module):
 
     def init(self, generator: torch.Generator) -> "GCN":
         """Reset the parameters: Glorot weights from ``generator``."""
-        with torch.no_grad():
-            for layer, p in zip(self.layers, init_gcn(generator, self.dims)):
-                layer.w.copy_(p["w"])
-                layer.b.copy_(p["b"])
+        load_params(self.layers, init_gcn(generator, self.dims))
         return self
 
     def operators(self) -> list:

@@ -4,15 +4,19 @@ Wraps a CSR adjacency with the preprocessing GNNs need (self-loops,
 symmetric GCN normalization, degree vectors). Host numpy, as in
 ``loops_tpu/models/graph.py``: the same arrays from the same edges. The
 adjacency is a loops container, so every SpMM schedule and kernel in
-``ops/`` applies to message passing unchanged.
+``ops/`` applies to message passing unchanged. ``csr_on`` stages the
+CSR's offsets and indices on a device once per graph, for the models
+that read the structure itself (neighbour sampling).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from loops_tpu_torch.formats import COO, CSR
+from loops_tpu_torch.utils.platform import resolve_device
 
 
 @dataclass
@@ -20,6 +24,19 @@ class Graph:
     """num_nodes nodes; adjacency in CSR (row = destination, columns =
     sources, so SpMM aggregates *incoming* messages)."""
     adj: CSR
+    # device -> (offsets, indices), staged by csr_on
+    _on_device: dict = field(default_factory=dict, repr=False,
+                             compare=False)
+
+    def csr_on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The CSR's offsets and indices as int64 tensors on ``device``,
+        staged on the first call and kept with the graph."""
+        key = resolve_device(device)
+        if key not in self._on_device:
+            self._on_device[key] = tuple(
+                torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                for a in (self.adj.offsets, self.adj.indices))
+        return self._on_device[key]
 
     @property
     def num_nodes(self) -> int:

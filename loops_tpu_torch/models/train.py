@@ -28,10 +28,21 @@ def accuracy(logits, labels, mask=None):
     return hit.mean()
 
 
-def _tensor(a, device, dtype=None):
+def as_tensor(a, device, dtype=None):
+    """``a`` (a tensor or an array) on ``device``, in ``dtype`` where
+    given."""
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.asarray(a))
     return a.to(device, dtype) if dtype is not None else a.to(device)
+
+
+def _prepared(model, features) -> torch.Tensor:
+    """The features the model's forward takes: ``prepare_features``'s
+    where the model has one, else float32 on the model's device."""
+    prep = getattr(model, "prepare_features", None)
+    if prep is not None:
+        return prep(features)
+    return as_tensor(features, model.device, torch.float32)
 
 
 def make_train_step(model, optimizer, features, labels, train_mask,
@@ -40,20 +51,27 @@ def make_train_step(model, optimizer, features, labels, train_mask,
     """Full-graph training step: ``step() -> loss`` (a detached 0-d
     tensor), updating ``model``'s parameters through ``optimizer``.
 
-    Features are prepared once (``model.prepare_features``: GCN's
-    ``precompute_first`` hoists ``A @ X`` out of every step). A model with
-    ``loss_rows`` propagates its last layer only to those rows, which
-    must be the train mask's. Dropout draws from ``generator`` (one on
-    the model's device; by default seeded with 0).
+    Features are prepared once where the model has
+    ``prepare_features`` (GCN's ``precompute_first`` hoists ``A @ X`` out
+    of every step). A model with ``loss_rows`` propagates its last layer
+    only to those rows, which must be the train mask's. A model with
+    ``dropout`` draws it from ``generator`` (one on the model's device; by
+    default seeded with 0); a model without (GraphSAGE) is called without
+    one. ``weight_decay`` adds the squared sum of each layer's ``w``, and
+    raises ``ValueError`` for a model whose layers have none.
     """
     device = model.device
-    prep = getattr(model, "prepare_features", None)
-    features = (prep(features) if prep is not None
-                else _tensor(features, device, torch.float32))
-    labels = _tensor(labels, device).long()
-    train_mask = _tensor(train_mask, device, torch.float32)
-    if generator is None:
-        generator = torch.Generator(device).manual_seed(0)
+    if weight_decay and not all(hasattr(layer, "w")
+                                for layer in model.layers):
+        raise ValueError(f"weight_decay reads each layer's w, and "
+                         f"{type(model).__name__}'s layers have none")
+    features = _prepared(model, features)
+    labels = as_tensor(labels, device).long()
+    train_mask = as_tensor(train_mask, device, torch.float32)
+    kw = {}
+    if hasattr(model, "dropout"):
+        kw["generator"] = (torch.Generator(device).manual_seed(0)
+                           if generator is None else generator)
 
     # the masked cross-entropy over full logits equals the plain mean over
     # the compacted rows exactly
@@ -69,11 +87,10 @@ def make_train_step(model, optimizer, features, labels, train_mask,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if use_masked:
-            logits_m = model(features, masked_output=True,
-                             generator=generator)
+            logits_m = model(features, masked_output=True, **kw)
             loss = cross_entropy(logits_m, labels_m)
         else:
-            logits = model(features, generator=generator)
+            logits = model(features, **kw)
             loss = cross_entropy(logits, labels, train_mask)
         if weight_decay:
             l2 = sum((layer.w ** 2).sum() for layer in model.layers)
@@ -111,8 +128,8 @@ def evaluate(model, features, labels, mask) -> float:
     model.eval()
     try:
         with torch.no_grad():
-            logits = model(model.prepare_features(features))
-            return float(accuracy(logits, _tensor(labels, device).long(),
-                                  _tensor(mask, device, torch.float32)))
+            logits = model(_prepared(model, features))
+            return float(accuracy(logits, as_tensor(labels, device).long(),
+                                  as_tensor(mask, device, torch.float32)))
     finally:
         model.train(was_training)

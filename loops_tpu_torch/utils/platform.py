@@ -26,3 +26,14 @@ def ensure_platform(device="cuda"):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}; 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_device(device):
+    """``torch.device(device)`` with a bare ``cuda`` resolved to the
+    current card's index, so two names of one device compare equal."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

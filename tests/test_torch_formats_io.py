@@ -137,3 +137,30 @@ def test_unported_conversions_raise(target):
     tb, jb = t.to_bcsr(2, 2), jgen.random_csr(10, 8, 0.3, seed=2).to_bcsr(2, 2)
     for name in ("block_offsets", "block_cols", "vals"):
         np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name))
+
+
+SORT_CASES = {
+    "empty": (0, 5), "one": (1, 5), "duplicates": (300, 4),
+    "wide": (5000, 100_000), "keys_past_bound": (200, 50),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_packed_sorts_equal_numpy_stable_sorts(case):
+    # the COO/CSC sorts' packed stable passes give np.lexsort's
+    # permutation, duplicates in their given order
+    m, n = SORT_CASES[case]
+    rng = np.random.default_rng(m)
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+    bound = 10 if case == "keys_past_bound" else n
+    np.testing.assert_array_equal(tf.convert.lexsort2(cols, rows, bound,
+                                                      bound),
+                                  np.lexsort((cols, rows)))
+    np.testing.assert_array_equal(tf.convert.stable_argsort(cols, bound),
+                                  np.argsort(cols, kind="stable"))
+    coo = tf.COO((n, n), rows, cols, np.arange(m, dtype=np.float32))
+    jcoo = jf.COO((n, n), rows, cols, np.arange(m, dtype=np.float32))
+    for sort in ("sort_by_row", "sort_by_column"):
+        a, b = getattr(coo, sort)(), getattr(jcoo, sort)()
+        for name in ("rows", "cols", "vals"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))

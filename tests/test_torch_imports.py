@@ -60,6 +60,9 @@ SLICE_MODULES = [
     "loops_tpu_torch.models.gcn",
     "loops_tpu_torch.models.train",
     "loops_tpu_torch.models.checkpoint",
+    "loops_tpu_torch.models.sampling",
+    "loops_tpu_torch.models.sage",
+    "loops_tpu_torch.ops.segment",
     "loops_tpu_torch.utils.math",
     "loops_tpu_torch.utils.sample",
     "loops_tpu_torch.layout.partition",
@@ -178,6 +181,12 @@ NO_DEVICE_CALLS = {
     "SpMMOperator_bcsr": lambda: _entry("ops.spmm", "SpMMOperator")(
         _tiny_bcsr(), impl="pallas3"),
     "GCN": lambda: _entry("models.gcn", "GCN")(_tiny_graph(), [3, 2]),
+    "GraphSAGE": lambda: _entry("models.sage", "GraphSAGE")(_tiny_graph(),
+                                                            [3, 2]),
+    "sample_neighbors": lambda: _entry("models.sampling", "sample_neighbors")(
+        _tiny_graph(), np.arange(4), 2, torch.Generator()),
+    "sampled_block": lambda: _entry("models.sampling", "sampled_block")(
+        _tiny_graph(), np.arange(4), [2], torch.Generator()),
     "aggregate_operator": lambda: _entry(
         "models.message_passing", "aggregate_operator")(_tiny_graph()),
     "masked_aggregate_operator": lambda: _entry(
