@@ -182,6 +182,24 @@ Phases, one line each with its time:
    the peak memory, a ``torch.profiler`` breakdown of a step and its card
    time by ``utils/bench.device_ms``. K4 must have launched; its launches
    join phase 9's in the kernels line.
+21. GAT and GATv2 at full width (``ops/attention.py``, ``models/gat.py``,
+   ``models/gatv2.py``; torch ops, no kernel: the launch counters must
+   stay at 0). The arxiv stand-in of phase 7 with self-loops (2,465,171
+   edges; its forward and transposed plans built once, their host times
+   printed), dims [128, 64, 40] at 4 heads, the JAX package's full-scale
+   GAT shape (``scripts/tpu_gat_bench.py:41-46, 64``). GAT on three
+   routes (fused with the transposed-plan backward, fused through
+   autograd, textbook) and GATv2 on two (fused, textbook), f32 and, on
+   the fused routes, bf16: the routes' logits within 1e-4 of the largest
+   and their parameter gradients within ``1e-4 + 1e-4 |g|`` (the CPU
+   tests' ``rtol = atol``) of the fused route's; layer 0's aggregation on
+   4,096 sampled rows with the hub row within ``1e-4 + 1e-4 |ref|`` of
+   the f64 oracle; bf16 within ``0.05 + 0.05 |f32|`` of f32 on the same
+   inputs (the JAX package's own bound); 3 Adam steps run twice from one
+   state bitwise equal; the step and ``evaluate`` medians, edges a second
+   (with self-loops), the peak memory, the bytes a pass reading each
+   edge's row once would move, and a ``torch.profiler`` breakdown and
+   ``device_ms`` of the fused GAT step.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -249,6 +267,10 @@ GCN_HIDDEN = 128
 SAGE_STEPS = 3
 SAMPLED_HIDDEN, SAMPLED_FANOUTS, SAMPLED_BATCH = 256, [15, 10, 5], 1024
 SAMPLED_STEPS, SAMPLED_DESCENT_STEPS = 5, 20
+# phase 21: the JAX package's full-scale GAT shape, dims [128, 64, 40] at 4
+# heads (scripts/tpu_gat_bench.py:41-46, 64; bench.py:541)
+GAT_HIDDEN, GAT_HEADS, GAT_STEPS = 64, 4, 3
+GAT_ROWS = 4096
 PRODUCTS_NODES = 2_449_029
 PRODUCTS_SCALE = (PRODUCTS_NODES + 0.5) / 200_000
 BCSR_SOURCE = "loops_tpu_torch/csrc/bcsr.cu"
@@ -2005,6 +2027,218 @@ def sage_phase(device, smi, ds):
     return launches, err
 
 
+def v2_reference(adj, u, v, a, rows, slope=0.2):
+    """GATv2's per-edge oracle in float64 on the destination rows
+    ``rows``: the softmax over each row's edges of ``a . leaky_relu(u_j +
+    v_i)`` and the weighted sum of ``u_j``. [len(rows), H, D]."""
+    src = adj.indices
+    out = np.zeros((len(rows),) + u.shape[1:])
+    for k, r in enumerate(rows):
+        uj = u[src[adj.offsets[r]:adj.offsets[r + 1]]].astype(np.float64)
+        pre = uj + v[r].astype(np.float64)
+        e = (np.where(pre >= 0, pre, slope * pre) * a).sum(axis=-1)
+        z = np.exp(e - e.max(axis=0))
+        out[k] = np.einsum("ph,phd->hd", z / z.sum(axis=0), uj)
+    return out
+
+
+def within(got, want, tol):
+    """The largest ``|got - want|`` and whether every entry lies within
+    ``tol + tol * |want|`` (``np.allclose`` with ``rtol = atol = tol``)."""
+    d = np.abs(got - want)
+    return float(d.max()), bool(np.all(d <= tol + tol * np.abs(want)))
+
+
+def gat_phase(device, smi, ds):
+    """Phase 21: GAT on three routes and GATv2 on two at the JAX
+    package's full-scale GAT shape on the arxiv stand-in (``ds``, built in
+    phase 7), f32 and bf16. No kernel lies on this path: the launch
+    counters must stay at 0."""
+    import torch
+
+    from loops_tpu_torch.models import GAT, GATv2
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.models.gat import with_self_loops
+    from loops_tpu_torch.ops.attention import (
+        GroupedAttentionAggregate,
+        reference_attention_aggregate,
+    )
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.utils.profile_spmv import profile_applies
+    from loops_tpu_torch.utils.timer import time_fn
+
+    def median_ms(fn, iters):
+        return time_fn(fn, device=device, warmup=1, iters=iters,
+                       reduction=statistics.median)
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    feats, labels, train_mask, test_mask = (
+        torch.from_numpy(a).to(device) for a in (
+            ds.features, ds.labels, ds.train_mask, ds.test_mask))
+    dims = [ds.features.shape[1], GAT_HIDDEN, ds.num_classes]
+    th = time.perf_counter()
+    graph = with_self_loops(ds.graph)
+    loops_s = time.perf_counter() - th
+    adj, n, E = graph.adj, graph.num_nodes, graph.num_edges
+    th = time.perf_counter()
+    op = GroupedAttentionAggregate(adj, grad=False, device=device)
+    fwd_s = time.perf_counter() - th
+    th = time.perf_counter()
+    GroupedAttentionAggregate(adj, device=device)
+    bwd_s = time.perf_counter() - th
+    sizes = adj.row_sizes()
+    hub = int(sizes.argmax())
+    slots = op.planes.slots
+    print(f"  arxiv stand-in with self-loops (synthetic): {n} nodes, {E} "
+          f"edges, hub row {hub} of {int(sizes[hub])}; self-loops "
+          f"{loops_s:.2f} s, forward plan {fwd_s:.2f} s, transposed plan "
+          f"{bwd_s:.2f} s on the host, once for every model below; "
+          f"{len(slots)} buckets, {sum(slots)} padded plane slots "
+          f"({sum(slots) / E:.2f}x the edges), the largest bucket "
+          f"{max(slots)}", flush=True)
+    rng = np.random.default_rng(21)
+    rows = np.unique(np.concatenate([[hub], rng.choice(n, GAT_ROWS - 1,
+                                                        replace=False)]))
+    row_bytes = GAT_HEADS * GAT_HIDDEN * 4
+    one_pass = E * row_bytes
+    # forward and backward each read an edge's row of either layer once
+    step_bytes = 2 * E * GAT_HEADS * 4 * (GAT_HIDDEN + ds.num_classes)
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  yardstick: one pass reading each edge's layer-0 row once, "
+          f"{E} x {row_bytes} B = {one_pass / 1e9:.2f} GB, "
+          f"{one_pass / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s (f32); a "
+          f"step's forward and backward over both layers "
+          f"{step_bytes / 1e9:.2f} GB, {step_bound_ms:.3f} ms", flush=True)
+
+    kinds = {
+        "GAT": (GAT, {"fused": {}, "autograd": {"vjp": False},
+                      "textbook": {"fused": False}}),
+        "GATv2": (GATv2, {"fused": {}, "textbook": {"fused": False}}),
+    }
+    fused_ms = None
+    for kind, (cls, routes) in kinds.items():
+        models = {}
+        for route, kw in routes.items():
+            for dtype in DTYPES if route != "textbook" else (None,):
+                models[route, dtype] = cls(
+                    ds.graph, dims, heads=GAT_HEADS, dtype=dtype,
+                    device=device, generator=torch.Generator().manual_seed(0),
+                    **kw)
+        # the routes from one state: logits and parameter gradients
+        logits, grads = {}, {}
+        for key, m in models.items():
+            m.eval()
+            with torch.no_grad():
+                logits[key] = m(feats)
+            m.zero_grad(set_to_none=True)
+            T.cross_entropy(m(feats), labels, train_mask).backward()
+            grads[key] = {k: p.grad.cpu().numpy()
+                          for k, p in m.named_parameters()
+                          if p.grad is not None}
+        ref = ("fused", None)
+        lf = logits[ref]
+        require(tuple(lf.shape) == (n, ds.num_classes)
+                and bool(lf.isfinite().all()), f"{kind}: bad logits")
+        scale = float(lf.abs().max())
+        for key in models:
+            if key[1] is not None or key == ref:
+                continue
+            diff = float((logits[key] - lf).abs().max())
+            require(diff <= 1e-4 * max(scale, 1.0), f"{kind} {key[0]}: "
+                    f"logits differ from the fused route's by {diff:.3e}")
+            require(grads[key].keys() == grads[ref].keys(),
+                    f"{kind} {key[0]}: other parameters have gradients")
+            gd = []
+            for k, g in grads[ref].items():
+                d, ok = within(grads[key][k], g, 1e-4)
+                require(ok, f"{kind} {key[0]}: {k}'s gradient differs by "
+                        f"{d:.3e}")
+                gd.append(d)
+            print(f"  {kind} {key[0]} vs fused (f32): logits max |diff| "
+                  f"{diff:.3e} (max |logit| {scale:.3e}, limit 1e-4 of "
+                  f"it), parameter gradients max |diff| {max(gd):.3e} "
+                  f"(limit 1e-4 + 1e-4 |g|, the CPU tests' rtol = atol)")
+        for dtype in (d for d in DTYPES if d is not None):
+            bdiff = float((logits["fused", dtype] - lf).abs().max())
+            print(f"  {kind} fused {dtype} logits vs f32: max |diff| "
+                  f"{bdiff:.3e}")
+        # layer 0's aggregation against the f64 oracle, and bf16 against
+        # f32 on the same inputs (the JAX package's own bound, 0.05)
+        m32, mbf = models["fused", None], models["fused", "bfloat16"]
+        with torch.no_grad():
+            xs = m32.transform(0, feats)
+            if kind == "GAT":
+                args = xs
+                got = m32.attention(*args)
+                host = [x.cpu().numpy() for x in xs]
+                want = reference_attention_aggregate(adj, *host,
+                                                     rows=rows)[rows]
+            else:
+                u, v = xs
+                a = m32.layers[0].a
+                args = (u, v, a, u)
+                got = m32.attention(*args)
+                want = v2_reference(adj, u.cpu().numpy(), v.cpu().numpy(),
+                                    a.cpu().numpy().astype(np.float64), rows)
+            got_bf = mbf.attention(*args)
+        d_ref, ok = within(got[torch.from_numpy(rows).to(device)]
+                           .cpu().numpy(), want, 1e-4)
+        require(ok, f"{kind}: layer 0's aggregation differs from the f64 "
+                f"oracle by {d_ref:.3e}")
+        d_bf, ok = within(got_bf.cpu().numpy(), got.cpu().numpy(), 0.05)
+        require(ok, f"{kind}: bf16 aggregation differs from f32 by "
+                f"{d_bf:.3e}")
+        print(f"  {kind} layer 0 (fused, f32) on {len(rows)} sampled rows "
+              f"(hub row {hub} among them) vs the f64 oracle: max |diff| "
+              f"{d_ref:.3e} (limit 1e-4 + 1e-4 |ref|); bf16 vs f32 on all "
+              f"rows: max |diff| {d_bf:.3e} (limit 0.05 + 0.05 |f32|)",
+              flush=True)
+        del logits, grads, got, got_bf, xs, args
+
+        for (route, dtype), m in models.items():
+            name = f"{kind} {route} {dtype or 'f32'}"
+
+            def full_step(model):
+                return T.make_train_step(
+                    model, torch.optim.Adam(model.parameters(), lr=1e-2),
+                    feats, labels, train_mask)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device) / 2**30
+            losses, _ = _steps_twice(m, full_step, GAT_STEPS)
+            step = full_step(m)
+            ms_step = median_ms(step, 5)
+            ms_eval = median_ms(
+                lambda: T.evaluate(m, feats, labels, test_mask), 3)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            print(f"  {name}: {GAT_STEPS} Adam steps twice, bitwise equal, "
+                  f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+                  f"{ms_step:.3f} ms, evaluate {ms_eval:.3f} ms (CUDA "
+                  f"events, median of 5 and 3); {E / ms_step / 1e3:.2f}M "
+                  f"edges/s a step (edges with self-loops); step / one-pass "
+                  f"bound {ms_step / step_bound_ms:.1f}x; "
+                  f"max_memory_allocated {peak:.2f} GiB ({base:.2f} held "
+                  f"before)  [{smi}]",
+                  flush=True)
+            if (kind, route, dtype) == ("GAT", "fused", None):
+                fused_ms = ms_step
+                prof = profile_applies(lambda _: step(), feats, applies=3,
+                                       warmup=1)
+                print(f"    profile of the fused GAT step: "
+                      f"{profile_text(prof, 10, width=56)}")
+                card = card_text(lambda _: step(), feats)
+                print(f"    fused GAT step: {card}  [{smi}]", flush=True)
+            del step
+        del models, m
+        torch.cuda.empty_cache()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(not launches, f"phase 21 launched kernels: {launches}")
+    del feats, labels, train_mask, test_mask
+    torch.cuda.empty_cache()
+    phase(21, "GAT and GATv2 at full width", t0, "no kernel on this path; "
+          f"fused GAT f32 step {fused_ms:.3f} ms ")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2411,6 +2645,7 @@ def main() -> int:
         device, smi, rate, bcsr_times["bcsr_spmv", None],
         stream_res["64 MiB"]["gbps"] * 1e9)
     sage_launches, sage_err = sage_phase(device, smi, ds)
+    gat_phase(device, smi, ds)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []

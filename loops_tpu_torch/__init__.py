@@ -15,9 +15,11 @@ path:
   merge_path, and ``choose_schedule`` for ``auto``.
 - **ops**: CSR and BCSR SpMV and SpMM, and SDDMM over CSR, COO and BCSR,
   on top of the planners; plain torch executors plus hand-written CUDA
-  kernels (``ops/kernels``, sources in ``csrc/``).
+  kernels (``ops/kernels``, sources in ``csrc/``); the segment ops and
+  the fused attention aggregations.
 - **models**: the GNN tier so far: graph container, message passing with
-  its SpMM gradient, GCN, training, checkpoints.
+  its SpMM gradient, GCN, GraphSAGE with neighbour sampling, GAT, GATv2,
+  training, checkpoints.
 - **tuning**: the launch box keyed by the card's name.
 - **utils**: host reference engines, the Wilkinson validator, matrix
   generators, CUDA-event and slope timing, the measured read stream (K11).

@@ -1,10 +1,8 @@
 """GNN models: graph container, message passing, GCN, GraphSAGE with
-neighbour sampling, training, checkpoints.
-
-GAT and GATv2 are not ported yet: their names raise
-``NotImplementedError`` naming ROADMAP A9.
-"""
+neighbour sampling, GAT and GATv2, training, checkpoints."""
 from loops_tpu_torch.models import checkpoint, train  # noqa: F401
+from loops_tpu_torch.models.gat import GAT, init_gat  # noqa: F401
+from loops_tpu_torch.models.gatv2 import GATv2, init_gatv2  # noqa: F401
 from loops_tpu_torch.models.gcn import GCN, init_gcn, params_from_jax  # noqa: F401
 from loops_tpu_torch.models.graph import Graph  # noqa: F401
 from loops_tpu_torch.models.message_passing import (  # noqa: F401
@@ -22,17 +20,3 @@ from loops_tpu_torch.models.sampling import (  # noqa: F401
     sampled_block,
 )
 
-
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported to loops_tpu_torch yet (ROADMAP A9: "
-            "the GNN models after GCN)")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
-GAT = _not_ported("GAT")
-init_gat = _not_ported("init_gat")
-GATv2 = _not_ported("GATv2")
-init_gatv2 = _not_ported("init_gatv2")

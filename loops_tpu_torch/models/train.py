@@ -56,9 +56,10 @@ def make_train_step(model, optimizer, features, labels, train_mask,
     of every step). A model with ``loss_rows`` propagates its last layer
     only to those rows, which must be the train mask's. A model with
     ``dropout`` draws it from ``generator`` (one on the model's device; by
-    default seeded with 0); a model without (GraphSAGE) is called without
-    one. ``weight_decay`` adds the squared sum of each layer's ``w``, and
-    raises ``ValueError`` for a model whose layers have none.
+    default seeded with 0); a model without (GraphSAGE, GAT, GATv2) is
+    called without one. ``weight_decay`` adds the squared sum of each
+    layer's ``w``, and raises ``ValueError`` for a model whose layers have
+    none.
     """
     device = model.device
     if weight_decay and not all(hasattr(layer, "w")

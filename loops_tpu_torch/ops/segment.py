@@ -13,6 +13,8 @@ on the card. Autograd's own backward of a gather is an atomic
 scatter-add there, so the two gathers that carry a gradient have their
 own: the permutation into id order and back (the inverse permutation)
 and the softmax's ``denom[segment_ids]`` (a sorted segment sum).
+``Gather`` gives any gather by fixed ids that sorted backward (the
+attention ops and GAT's per-edge path use it).
 
 As ``jax.ops.segment_*`` give, an empty segment gives 0 for sum and
 mean and -inf for max (``torch.segment_reduce``'s own mean would give
@@ -27,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["segment_sum", "segment_max", "segment_mean", "segment_softmax"]
+__all__ = ["segment_sum", "segment_max", "segment_mean", "segment_softmax",
+           "Gather"]
 
 
 class _Permute(torch.autograd.Function):
@@ -45,17 +48,47 @@ class _Permute(torch.autograd.Function):
 
 
 class _SegmentGather(torch.autograd.Function):
-    """``table[ids]`` for sorted ``ids`` with ``lengths`` entries of each
-    row; the gradient is the sorted segment sum of ``g`` over ``ids``."""
+    """``table[ids]``; the gradient is the sorted segment sum of ``g`` over
+    ``ids``, with ``lengths`` entries of each row of ``table``. ``order``
+    (None where ``ids`` are sorted) lists the entries that carry a
+    gradient in id order: a stable argsort of ``ids``, or of the entries
+    kept. A half-precision ``g`` is summed in float32."""
 
     @staticmethod
-    def forward(ctx, table, ids, lengths):
-        ctx.lengths = lengths
+    def forward(ctx, table, ids, lengths, order=None):
+        ctx.lengths, ctx.order = lengths, order
         return table.index_select(0, ids)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g.contiguous(), "sum", ctx.lengths), None, None
+        if ctx.order is not None:
+            g = g.index_select(0, ctx.order)
+        if g.dtype in (torch.float16, torch.bfloat16):
+            g = g.float()
+        return _reduce(g.contiguous(), "sum", ctx.lengths), None, None, None
+
+
+class Gather:
+    """``table[ids]`` for ``ids`` fixed when it is built, staged on
+    ``device``, with a deterministic backward: the sorted segment sum of
+    the gradient over ``ids`` (autograd's own backward of a gather is an
+    atomic scatter-add on the card). Only the entries where ``keep`` is
+    true (default: all) pass a gradient back: the others must receive a
+    zero one."""
+
+    def __init__(self, ids, num_rows: int, device, keep=None):
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        kept = (np.arange(len(ids)) if keep is None
+                else np.flatnonzero(np.asarray(keep).reshape(-1)))
+        order = kept[np.argsort(ids[kept], kind="stable")]
+        self.ids = torch.from_numpy(ids).to(device)
+        self.lengths = torch.from_numpy(
+            np.bincount(ids[kept], minlength=num_rows)).to(device)
+        self.order = (None if np.array_equal(order, np.arange(len(ids)))
+                      else torch.from_numpy(order).to(device))
+
+    def __call__(self, table: torch.Tensor) -> torch.Tensor:
+        return _SegmentGather.apply(table, self.ids, self.lengths, self.order)
 
 
 def _reduce(data, how, lengths):

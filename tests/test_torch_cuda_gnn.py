@@ -1,9 +1,11 @@
-"""The segment ops, neighbour sampling and GraphSAGE (full graph on both
-routes, and the sampled minibatch) on the card: two runs bitwise equal,
-forward and backward (no float atomics on these paths), K4's counters
-rising on SAGE's ``merge_path``/``pallas`` route, sampled ids that are
-CSR neighbours, the device refusals, and the card against the CPU at a
-small size.
+"""The segment ops, neighbour sampling, GraphSAGE (full graph on both
+routes, and the sampled minibatch), GAT (fused with the transposed-plan
+backward, fused through autograd, textbook) and GATv2 (fused, textbook)
+on the card: two runs bitwise equal, forward and backward (no float
+atomics on these paths), no scatter node in GAT's and GATv2's autograd
+graphs, K4's counters rising on SAGE's ``merge_path``/``pallas`` route,
+sampled ids that are CSR neighbours, the device refusals, and the card
+against the CPU at a small size.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor ``loops_tpu``; run it on the card with
@@ -13,7 +15,8 @@ imports neither JAX nor ``loops_tpu``; run it on the card with
 Card against CPU: segment ops ``rtol=atol=1e-6`` (values) and ``1e-5``
 (gradients), logits ``rtol=atol=1e-4``, parameter gradients
 ``rtol=atol=1e-3`` (the card's matmuls and reductions sum in other
-orders).
+orders); GAT and GATv2 in bf16 one bf16 ulp (2**-7) of the largest
+logit and of each parameter's largest gradient entry.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,8 @@ import torch
 
 from loops_tpu_torch.io import ogb
 from loops_tpu_torch.models import (
+    GAT,
+    GATv2,
     GraphSAGE,
     make_sampled_train_step,
     sample_neighbors,
@@ -98,8 +103,10 @@ def _grads(model, x):
     model.zero_grad(set_to_none=True)
     y = model(x)
     (y ** 2).mean().backward()
+    # GAT's hidden layers' b is never read: it gets no gradient
     return y.detach(), {k: p.grad.detach().clone()
-                        for k, p in model.named_parameters()}
+                        for k, p in model.named_parameters()
+                        if p.grad is not None}
 
 
 @pytest.mark.cuda
@@ -133,6 +140,14 @@ def test_sage_card_matches_cpu(cuda_device, name):
     host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     yc, gc = _grads(card, torch.from_numpy(ds.features).to(cuda_device))
     yh, gh = _grads(host, torch.from_numpy(ds.features))
+    assert gc.keys() == gh.keys()
+    if name.endswith("bf16"):
+        # an f32 sum in another order can round a feature to the
+        # neighbouring bf16 value: one bf16 ulp of the largest entry
+        for a, b in [(yc, yh)] + [(gc[k], gh[k]) for k in gh]:
+            tol = 2.0 ** -7 * max(float(b.abs().max()), 1e-3)
+            assert float((a.cpu() - b).abs().max()) <= tol
+        return
     np.testing.assert_allclose(yc.cpu().numpy(), yh.numpy(), rtol=1e-4,
                                atol=1e-4)
     for k in gh:
@@ -199,3 +214,78 @@ def test_sampling_on_the_card_maps_as_on_the_cpu(cuda_device):
     with pytest.raises(ValueError, match="sampling moves nothing"):
         sample_neighbors(ds.graph, torch.from_numpy(seeds), 2,
                          torch.Generator(cuda_device), device=cuda_device)
+
+
+GAT_DIMS = [32, 16, 8]
+ATTENTION = {
+    "gat": lambda ds, dev: GAT(ds.graph, GAT_DIMS, device=dev),
+    "gat_autograd": lambda ds, dev: GAT(ds.graph, GAT_DIMS, vjp=False,
+                                        device=dev),
+    "gat_textbook": lambda ds, dev: GAT(ds.graph, GAT_DIMS, fused=False,
+                                        device=dev),
+    "gat_bf16": lambda ds, dev: GAT(ds.graph, GAT_DIMS, dtype="bfloat16",
+                                    device=dev),
+    "gatv2": lambda ds, dev: GATv2(ds.graph, GAT_DIMS, device=dev),
+    "gatv2_textbook": lambda ds, dev: GATv2(ds.graph, GAT_DIMS, fused=False,
+                                            device=dev),
+    "gatv2_bf16": lambda ds, dev: GATv2(ds.graph, GAT_DIMS,
+                                        dtype="bfloat16", device=dev),
+}
+
+
+def grad_fn_names(t):
+    """The names of every node of ``t``'s autograd graph."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return {type(fn).__name__ for fn in seen}
+
+
+def scatter_nodes(names):
+    """Nodes whose backward is a scatter (``index_put_``, ``index_add_``,
+    ``scatter_add_``: atomic on the card) or that index a tensor."""
+    return [n for n in names
+            if n.startswith(("Index", "Gather", "Scatter", "Put"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ATTENTION))
+def test_attention_backward_repeats_bitwise(cuda_device, name):
+    ds = _data()
+    model = ATTENTION[name](ds, cuda_device)
+    x = torch.from_numpy(ds.features).to(cuda_device)
+    y1, g1 = _grads(model, x)
+    y2, g2 = _grads(model, x)
+    assert torch.equal(y1, y2)
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k
+    names = grad_fn_names(model(x))
+    assert not scatter_nodes(names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ATTENTION))
+def test_attention_card_matches_cpu(cuda_device, name):
+    ds = _data()
+    card = ATTENTION[name](ds, cuda_device)
+    host = ATTENTION[name](ds, CPU)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    yc, gc = _grads(card, torch.from_numpy(ds.features).to(cuda_device))
+    yh, gh = _grads(host, torch.from_numpy(ds.features))
+    assert gc.keys() == gh.keys()
+    if name.endswith("bf16"):
+        # an f32 sum in another order can round a feature to the
+        # neighbouring bf16 value: one bf16 ulp of the largest entry
+        for a, b in [(yc, yh)] + [(gc[k], gh[k]) for k in gh]:
+            tol = 2.0 ** -7 * max(float(b.abs().max()), 1e-3)
+            assert float((a.cpu() - b).abs().max()) <= tol
+        return
+    np.testing.assert_allclose(yc.cpu().numpy(), yh.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for k in gh:
+        np.testing.assert_allclose(gc[k].cpu().numpy(), gh[k].numpy(),
+                                   rtol=1e-3, atol=1e-3, err_msg=k)

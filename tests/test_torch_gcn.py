@@ -37,7 +37,6 @@ from loops_tpu.models.message_passing import (
     edge_aggregate as jax_edge_aggregate,
     masked_aggregate_operator as jax_masked,
 )
-from loops_tpu_torch import models
 from loops_tpu_torch.io import ogb
 from loops_tpu_torch.models import GCN, checkpoint, params_from_jax
 from loops_tpu_torch.models.gcn import dropout
@@ -359,13 +358,6 @@ def test_edge_aggregate_matches(op):
         edge_aggregate(t, torch.from_numpy(h), op="prod")
 
 
-def test_unported_models_raise():
-    # GraphSAGE and sampling are ported (tests/test_torch_sage.py)
-    for name in ("GAT", "init_gat", "GATv2", "init_gatv2"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            getattr(models, name)()
-
-
 def test_example_cli_on_cpu():
     r = subprocess.run(
         [sys.executable, "examples/train_gcn_torch.py", "--dataset", "tiny",
@@ -390,6 +382,9 @@ def test_example_cli_on_cpu():
     assert "impl_used: torch launches: 0" in r.stderr
     r = subprocess.run(
         [sys.executable, "examples/train_gcn_torch.py", "--dataset", "tiny",
-         "--model", "gat", "--device", "cpu"],
+         "--model", "gat", "--epochs", "4", "--device", "cpu"],
         capture_output=True, text=True, timeout=180, cwd=REPO)
-    assert r.returncode == 2 and "ROADMAP A9" in r.stderr
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert any(ln.startswith("test_accuracy: ")
+               for ln in r.stdout.splitlines()), r.stdout
+    assert "impl_used: fused launches: 0" in r.stderr

@@ -63,6 +63,9 @@ SLICE_MODULES = [
     "loops_tpu_torch.models.sampling",
     "loops_tpu_torch.models.sage",
     "loops_tpu_torch.ops.segment",
+    "loops_tpu_torch.ops.attention",
+    "loops_tpu_torch.models.gat",
+    "loops_tpu_torch.models.gatv2",
     "loops_tpu_torch.utils.math",
     "loops_tpu_torch.utils.sample",
     "loops_tpu_torch.layout.partition",
@@ -183,6 +186,12 @@ NO_DEVICE_CALLS = {
     "GCN": lambda: _entry("models.gcn", "GCN")(_tiny_graph(), [3, 2]),
     "GraphSAGE": lambda: _entry("models.sage", "GraphSAGE")(_tiny_graph(),
                                                             [3, 2]),
+    "GAT": lambda: _entry("models.gat", "GAT")(_tiny_graph(), [3, 2]),
+    "GATv2": lambda: _entry("models.gatv2", "GATv2")(_tiny_graph(), [3, 2]),
+    "GroupedAttentionAggregate": lambda: _entry(
+        "ops.attention", "GroupedAttentionAggregate")(_tiny_csr()),
+    "GroupedAttentionV2": lambda: _entry(
+        "ops.attention", "GroupedAttentionV2")(_tiny_csr()),
     "sample_neighbors": lambda: _entry("models.sampling", "sample_neighbors")(
         _tiny_graph(), np.arange(4), 2, torch.Generator()),
     "sampled_block": lambda: _entry("models.sampling", "sampled_block")(
