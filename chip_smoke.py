@@ -191,10 +191,11 @@ Phases, one line each with its time:
    routes (fused with the transposed-plan backward, fused through
    autograd, textbook) and GATv2 on two (fused, textbook), f32 and, on
    the fused routes, bf16: the routes' logits within 1e-4 of the largest
-   and their parameter gradients within ``1e-4 + 1e-4 |g|`` (the CPU
-   tests' ``rtol = atol``) of the fused route's; layer 0's aggregation on
-   4,096 sampled rows with the hub row within ``1e-4 + 1e-4 |ref|`` of
-   the f64 oracle; bf16 within ``0.05 + 0.05 |f32|`` of f32 on the same
+   and their parameter gradients those of the fused route within
+   ``1e-4 + 1e-4 |g|`` (the CPU tests' ``rtol = atol``) and within 1e-2
+   of the parameter's largest entry, printed beside each difference;
+   layer 0's aggregation on 4,096 sampled rows with the hub row within
+   ``1e-4 + 1e-4 |ref|`` of the f64 oracle; bf16 within ``0.05 + 0.05 |f32|`` of f32 on the same
    inputs (the JAX package's own bound); 3 Adam steps run twice from one
    state bitwise equal; the step and ``evaluate`` medians, edges a second
    (with self-loops), the peak memory, the bytes a pass reading each
@@ -2058,7 +2059,6 @@ def gat_phase(device, smi, ds):
 
     from loops_tpu_torch.models import GAT, GATv2
     from loops_tpu_torch.models import train as T
-    from loops_tpu_torch.models.gat import with_self_loops
     from loops_tpu_torch.ops.attention import (
         GroupedAttentionAggregate,
         reference_attention_aggregate,
@@ -2078,7 +2078,7 @@ def gat_phase(device, smi, ds):
             ds.features, ds.labels, ds.train_mask, ds.test_mask))
     dims = [ds.features.shape[1], GAT_HIDDEN, ds.num_classes]
     th = time.perf_counter()
-    graph = with_self_loops(ds.graph)
+    graph = ds.graph.with_self_loops()
     loops_s = time.perf_counter() - th
     adj, n, E = graph.adj, graph.num_nodes, graph.num_edges
     th = time.perf_counter()
@@ -2149,16 +2149,25 @@ def gat_phase(device, smi, ds):
                     f"logits differ from the fused route's by {diff:.3e}")
             require(grads[key].keys() == grads[ref].keys(),
                     f"{kind} {key[0]}: other parameters have gradients")
-            gd = []
+            # each parameter's max |diff| beside its max |g|, and besides
+            # the CPU tests' bound a limit of 1e-2 max |g|: a wrong
+            # backward term moves a gradient by the order of max |g|,
+            # while the routes' other f32 summation orders, where a small
+            # gradient cancels over many edges, stay near 1e-3 of it
+            gd, bad = [], []
             for k, g in grads[ref].items():
                 d, ok = within(grads[key][k], g, 1e-4)
-                require(ok, f"{kind} {key[0]}: {k}'s gradient differs by "
-                        f"{d:.3e}")
-                gd.append(d)
+                gmax = float(np.abs(g).max())
+                gd.append(f"{k} {d:.3e} of {gmax:.3e}")
+                if not (ok and d <= 1e-2 * gmax):
+                    bad.append(k)
             print(f"  {kind} {key[0]} vs fused (f32): logits max |diff| "
                   f"{diff:.3e} (max |logit| {scale:.3e}, limit 1e-4 of "
-                  f"it), parameter gradients max |diff| {max(gd):.3e} "
-                  f"(limit 1e-4 + 1e-4 |g|, the CPU tests' rtol = atol)")
+                  f"it); parameter gradients, max |diff| of max |g| "
+                  f"(limit 1e-4 + 1e-4 |g|, the CPU tests' rtol = atol, "
+                  f"and 1e-2 max |g|): {', '.join(gd)}")
+            require(not bad, f"{kind} {key[0]}: the gradients of {bad} "
+                    f"differ from the fused route's")
         for dtype in (d for d in DTYPES if d is not None):
             bdiff = float((logits["fused", dtype] - lf).abs().max())
             print(f"  {kind} fused {dtype} logits vs f32: max |diff| "

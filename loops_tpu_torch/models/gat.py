@@ -33,7 +33,6 @@ from loops_tpu_torch.models.gcn import _Layer, init_layers, load_params
 from loops_tpu_torch.models.graph import Graph
 from loops_tpu_torch.ops.attention import GroupedAttentionAggregate, leaky_relu
 from loops_tpu_torch.ops.segment import Gather, segment_softmax, segment_sum
-from loops_tpu_torch.ops.spmv import op_cache
 from loops_tpu_torch.utils.platform import ensure_platform
 
 
@@ -51,15 +50,6 @@ def init_gat(generator: torch.Generator, dims, heads: int = 4):
     return init_layers(generator, _gat_shapes(dims, heads))
 
 
-def with_self_loops(graph: Graph) -> Graph:
-    """``graph.add_self_loops()``, made once and kept with ``graph``, so
-    that every attention model of one graph shares its staged plans."""
-    cache = op_cache(graph, "_attention_graphs")
-    if "self_loops" not in cache:
-        cache["self_loops"] = graph.add_self_loops()
-    return cache["self_loops"]
-
-
 class GraphAttention(nn.Module):
     """What GAT and GATv2 share: the self-looped graph, the per-layer
     parameters, the textbook path's gathers by source and destination, and
@@ -70,7 +60,7 @@ class GraphAttention(nn.Module):
                  generator: torch.Generator | None):
         super().__init__()
         self.device = ensure_platform(device)
-        self.graph = with_self_loops(graph)
+        self.graph = graph.with_self_loops()
         self.dims = list(dims)
         self.heads = heads
         self.negative_slope = float(negative_slope)

@@ -6,7 +6,9 @@ symmetric GCN normalization, degree vectors). Host numpy, as in
 adjacency is a loops container, so every SpMM schedule and kernel in
 ``ops/`` applies to message passing unchanged. ``csr_on`` stages the
 CSR's offsets and indices on a device once per graph, for the models
-that read the structure itself (neighbour sampling).
+that read the structure itself (neighbour sampling); ``with_self_loops``
+makes the self-looped graph once, so that the attention models of one
+graph share it and its staged plans.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ class Graph:
     # device -> (offsets, indices), staged by csr_on
     _on_device: dict = field(default_factory=dict, repr=False,
                              compare=False)
+    # the graph with self-loops, made by with_self_loops
+    _self_loops: "Graph | None" = field(default=None, repr=False,
+                                        compare=False)
 
     def csr_on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """The CSR's offsets and indices as int64 tensors on ``device``,
@@ -70,6 +75,13 @@ class Graph:
         vals = np.concatenate(
             [coo.vals, np.full(len(missing), weight, np.float32)])
         return Graph(COO(self.adj.shape, rows, cols, vals).to_csr())
+
+    def with_self_loops(self) -> "Graph":
+        """``add_self_loops()``, made on the first call and kept with the
+        graph."""
+        if self._self_loops is None:
+            self._self_loops = self.add_self_loops()
+        return self._self_loops
 
     def in_degrees(self) -> np.ndarray:
         return self.adj.row_sizes()

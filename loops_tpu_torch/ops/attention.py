@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.formats import CSR
+from loops_tpu_torch.formats.convert import stable_argsort
 from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.ops.segment import Gather
 from loops_tpu_torch.ops.spmv import op_cache
@@ -169,7 +170,7 @@ class _Transposed:
     def __init__(self, csr: CSR, fwd: _Planes, device):
         n_rows, n_cols = csr.shape
         src = csr.indices.astype(np.int64)
-        perm = np.argsort(src, kind="stable")
+        perm = stable_argsort(src, n_cols)
         offsets_t = np.zeros(n_cols + 1, np.int64)
         np.cumsum(np.bincount(src, minlength=n_cols), out=offsets_t[1:])
         adj_t = CSR((n_cols, n_rows), offsets_t, csr.row_ids()[perm],

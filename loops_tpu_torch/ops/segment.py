@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from loops_tpu_torch.formats.convert import stable_argsort
+
 __all__ = ["segment_sum", "segment_max", "segment_mean", "segment_softmax",
            "Gather"]
 
@@ -80,7 +82,7 @@ class Gather:
         ids = np.asarray(ids, np.int64).reshape(-1)
         kept = (np.arange(len(ids)) if keep is None
                 else np.flatnonzero(np.asarray(keep).reshape(-1)))
-        order = kept[np.argsort(ids[kept], kind="stable")]
+        order = kept[stable_argsort(ids[kept], num_rows)]
         self.ids = torch.from_numpy(ids).to(device)
         self.lengths = torch.from_numpy(
             np.bincount(ids[kept], minlength=num_rows)).to(device)

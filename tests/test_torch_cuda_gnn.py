@@ -16,7 +16,8 @@ Card against CPU: segment ops ``rtol=atol=1e-6`` (values) and ``1e-5``
 (gradients), logits ``rtol=atol=1e-4``, parameter gradients
 ``rtol=atol=1e-3`` (the card's matmuls and reductions sum in other
 orders); GAT and GATv2 in bf16 one bf16 ulp (2**-7) of the largest
-logit and of each parameter's largest gradient entry.
+logit and of each parameter's largest gradient entry (``h W`` can round
+to the neighbouring bf16 value).
 """
 import numpy as np
 import pytest
@@ -141,13 +142,6 @@ def test_sage_card_matches_cpu(cuda_device, name):
     yc, gc = _grads(card, torch.from_numpy(ds.features).to(cuda_device))
     yh, gh = _grads(host, torch.from_numpy(ds.features))
     assert gc.keys() == gh.keys()
-    if name.endswith("bf16"):
-        # an f32 sum in another order can round a feature to the
-        # neighbouring bf16 value: one bf16 ulp of the largest entry
-        for a, b in [(yc, yh)] + [(gc[k], gh[k]) for k in gh]:
-            tol = 2.0 ** -7 * max(float(b.abs().max()), 1e-3)
-            assert float((a.cpu() - b).abs().max()) <= tol
-        return
     np.testing.assert_allclose(yc.cpu().numpy(), yh.numpy(), rtol=1e-4,
                                atol=1e-4)
     for k in gh:
@@ -278,10 +272,11 @@ def test_attention_card_matches_cpu(cuda_device, name):
     yh, gh = _grads(host, torch.from_numpy(ds.features))
     assert gc.keys() == gh.keys()
     if name.endswith("bf16"):
-        # an f32 sum in another order can round a feature to the
-        # neighbouring bf16 value: one bf16 ulp of the largest entry
+        # h W is summed in another order on the card and can round to
+        # the neighbouring bf16 value before the attention reads it: one
+        # bf16 ulp of the largest entry
         for a, b in [(yc, yh)] + [(gc[k], gh[k]) for k in gh]:
-            tol = 2.0 ** -7 * max(float(b.abs().max()), 1e-3)
+            tol = 2.0 ** -7 * float(b.abs().max())
             assert float((a.cpu() - b).abs().max()) <= tol
         return
     np.testing.assert_allclose(yc.cpu().numpy(), yh.numpy(), rtol=1e-4,

@@ -201,7 +201,10 @@ def test_models_of_one_graph_share_their_plans():
     g, _ = graphs()
     a = GAT(g, DIMS, heads=HEADS, device=CPU)
     b = GATv2(g, DIMS, heads=HEADS, dtype="bfloat16", device=CPU)
-    assert a.graph is b.graph
+    assert a.graph is b.graph is g.with_self_loops()
+    fresh = g.add_self_loops().adj
+    assert np.array_equal(a.graph.adj.offsets, fresh.offsets)
+    assert np.array_equal(a.graph.adj.indices, fresh.indices)
     assert a.attention.planes is b.attention.planes
     # self-loops on every node, the isolated ones included
     assert np.all(a.graph.adj.row_sizes() >= 1)
