@@ -200,7 +200,28 @@ Phases, one line each with its time:
    state bitwise equal; the step and ``evaluate`` medians, edges a second
    (with self-loops), the peak memory, the bytes a pass reading each
    edge's row once would move, and a ``torch.profiler`` breakdown and
-   ``device_ms`` of the fused GAT step.
+   ``device_ms`` of the fused GAT step;
+22. formats at full width (``formats/{ell,dia,advisor}.py``,
+   ``layout/reorder.py``; torch ops, and K1, K2, K4 and K6 where a route
+   reaches them). big_2097152: COO (row_mapped, merge_path), CSC, ELL
+   (row_mapped, merge_path; pitch the largest row), ``flat_partitioned_spmv``
+   and ``reorder='degree'`` under ``auto`` (K1) and ``merge_path``/
+   ``pallas2`` (K2), beside K1; band_2097152_b4 (9 diagonals): DIA, ELL
+   and K1; bcsr_spmv_32768: K6 and K1; the arxiv stand-in:
+   ``reorder='bfs'`` under ``auto`` beside K1, COO SpMM at F = 128 beside
+   K4; bench_32768: ELL SpMM at F = 128 beside K4; ``--format auto``
+   through ``examples/spmv_torch.py`` on big_2097152, band_2097152_b4 and
+   bcsr_spmv_32768. Each route: no mismatch against the CPU reference,
+   256 sampled rows within the Wilkinson bound, two applies bitwise equal
+   on the deterministic routes (COO/CSC row_mapped, ELL's plane, DIA, the
+   flat partitioner, COO and ELL SpMM), SpMM within twice the Wilkinson
+   bound of K4; then its ms per apply beside K1's (or K4's) on the same
+   matrix, its one-pass byte bound (its values and indices, padding
+   included, and x/y), host staging ms and peak memory. The advisor's
+   pick against the fastest format measured, and the advisor's cost row
+   made from these times. The launch counters are set to 0 before the
+   routes and read before the timing; K1's, K2's, K4's and K6's launches
+   join their rows of the kernels line.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -272,6 +293,10 @@ SAMPLED_STEPS, SAMPLED_DESCENT_STEPS = 5, 20
 # heads (scripts/tpu_gat_bench.py:41-46, 64; bench.py:541)
 GAT_HIDDEN, GAT_HEADS, GAT_STEPS = 64, 4, 3
 GAT_ROWS = 4096
+# phase 22: SpMM's width beside K4, and the matrices the CLI's
+# --format auto runs on (utils/generate.SCALE_MATRICES)
+FORMAT_F = 128
+ADVISOR_MATRICES = ("big_2097152", "band_2097152_b4", "bcsr_spmv_32768")
 PRODUCTS_NODES = 2_449_029
 PRODUCTS_SCALE = (PRODUCTS_NODES + 0.5) / 200_000
 BCSR_SOURCE = "loops_tpu_torch/csrc/bcsr.cu"
@@ -2248,6 +2273,341 @@ def gat_phase(device, smi, ds):
           f"fused GAT f32 step {fused_ms:.3f} ms ")
 
 
+def format_bytes(mat, F=None):
+    """One pass over ``mat``'s own arrays: its values and indices, padding
+    included, ``x`` (or ``B``, F wide) read and ``y`` (or ``C``) written,
+    4 bytes each."""
+    from loops_tpu_torch.formats import BCSR, COO, CSC, CSR, DIA, ELL
+
+    rows, cols = mat.shape
+    xy = 4 * (rows + cols) * (F or 1)
+    if isinstance(mat, CSR):
+        return 4 * (rows + 1) + 8 * mat.nnz + xy
+    if isinstance(mat, CSC):
+        return 4 * (cols + 1) + 8 * mat.nnz + xy
+    if isinstance(mat, COO):
+        return 12 * mat.nnz + xy
+    if isinstance(mat, ELL):
+        return 8 * rows * mat.pitch + xy
+    if isinstance(mat, DIA):
+        return 4 * mat.num_diagonals * (rows + 1) + xy
+    if isinstance(mat, BCSR):
+        return (4 * (mat.num_blocks + mat.num_block_rows + 1) + 4 * mat.nnz
+                + xy)
+    raise TypeError(type(mat).__name__)
+
+
+class FormatCase:
+    """One route of phase 22: its operator (a callable of a staged x or
+    B), the bytes of its one pass, its host staging and peak memory, and,
+    once timed, its ms per apply."""
+
+    def __init__(self, matrix, label, fmt, nbytes, run, staging_ms, peak,
+                 held):
+        self.matrix, self.label, self.fmt = matrix, label, fmt
+        self.nbytes, self.run = nbytes, run
+        self.staging_ms, self.peak, self.held = staging_ms, peak, held
+        self.ms = None
+
+
+def build_case(matrix, label, fmt, nbytes, make, v, csr, ref, device,
+               deterministic, impl_used=None):
+    """Build a route (its host staging timed), apply it once with the
+    card's peak memory read, and check it: finite values of the right
+    shape, no mismatch against the CPU reference ``ref``, sampled rows
+    within the Wilkinson bound, two applies bitwise equal on the
+    deterministic routes, and the path ``impl_used`` names. Returns the
+    case and its output."""
+    import torch
+
+    from loops_tpu_torch.utils import reference
+    from loops_tpu_torch.utils.equal import count_mismatches
+
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    th = time.perf_counter()
+    run = make()
+    staging_ms = (time.perf_counter() - th) * 1e3
+    out = run(v)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    tag = f"{matrix} {label}"
+    if impl_used is not None:
+        require(run.impl_used == impl_used,
+                f"{tag}: took {run.impl_used}, not {impl_used}")
+    require(tuple(out.shape) == ref.shape and bool(torch.isfinite(out).all()),
+            f"{tag}: bad output {tuple(out.shape)}")
+    errors = count_mismatches(out.cpu().numpy(), ref)
+    two_d = out.dim() == 2
+    rep = reference.validate_sampled_rows(
+        csr, v.cpu().numpy() if two_d else v.cpu().numpy()[:, None],
+        out if two_d else out[:, None])
+    require(errors == 0 and rep.overruns == 0,
+            f"{tag}: {errors} errors, {rep}")
+    if deterministic:
+        require(torch.equal(out, run(v)),
+                f"{tag}: two applies are not bitwise equal")
+    print(f"  {tag}: Errors 0, {rep.rows} sampled rows within the Wilkinson "
+          f"bound (rel err {rep.rel_error:.2e})"
+          + (", twice bitwise equal" if deterministic else "")
+          + (f", {run.impl_used}" if impl_used else "")
+          + f"; host staging {staging_ms:.1f} ms, peak "
+          f"{(peak - held) / 2**30:.3f} GiB above {held / 2**30:.2f} held",
+          flush=True)
+    return FormatCase(matrix, label, fmt, nbytes, run, staging_ms, peak,
+                      held), out
+
+
+def formats_phase(device, smi, big, x_big, bench, adj, rate):
+    """Phase 22: every format at full width. COO, CSC and ELL, the flat
+    partitioner and ``reorder='degree'`` on K1 and K2 on big_2097152; DIA,
+    ELL and K1 on band_2097152_b4; K6 and K1 on bcsr_spmv_32768;
+    ``reorder='bfs'`` on the arxiv stand-in's adjacency (``adj``); COO
+    SpMM there and ELL SpMM on bench_32768 at F = 128, each beside K4;
+    ``--format auto`` through ``examples/spmv_torch.py`` on three
+    matrices. The launch counters are set to 0 before the routes run and
+    read after them, before the timing. Returns the main path's launches
+    and the advisor's cost row made from this run's times."""
+    import torch
+
+    from loops_tpu_torch.formats import BCSR, ELL, FormatCosts
+    from loops_tpu_torch.formats.advisor import VALUE_BYTES
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.ops.spmv import SpMVOperator, flat_partitioned_spmv
+    from loops_tpu_torch.utils import generate, reference
+    from loops_tpu_torch.utils.bench import apply_ms
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    cases, host, inputs, parts, last = [], {}, {}, {}, [t0]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - last[0], 1)
+        last[0] = now
+
+    def op_maker(mat, schedule="row_mapped", impl="xla", **kw):
+        return lambda: SpMVOperator(mat, schedule, block=BENCH_BLOCK,
+                                    impl=impl, device=device, **kw)
+
+    def converted(name, fn):
+        th = time.perf_counter()
+        mat = fn()
+        host[name] = round((time.perf_counter() - th) * 1e3, 1)
+        return mat
+
+    def add(matrix, label, mat_or_bytes, make, det, impl_used=None):
+        nbytes = (mat_or_bytes if isinstance(mat_or_bytes, int)
+                  else format_bytes(mat_or_bytes))
+        csr, v, ref = inputs[matrix]
+        case, out = build_case(matrix, label, label.split()[0], nbytes, make,
+                               v, csr, ref, device, det, impl_used)
+        cases.append(case)
+        return case, out
+
+    def spmv_inputs(name, csr):
+        x = generate.make_input_vector(csr.shape[1])
+        inputs[name] = (csr, torch.from_numpy(x).to(device),
+                        reference.spmv(csr, x))
+
+    # ---- big_2097152: COO, CSC, ELL, the flat partitioner, reorder
+    spmv_inputs("big_2097152", big)
+    coo = converted("coo", big.to_coo)
+    csc = converted("csc", big.to_csc)
+    pitch = ELL.max_nnz_per_row(big)
+    ell = converted("ell", lambda: big.to_ell(max_pitch=pitch))
+    print(f"  big_2097152: {big.nnz} nnz; host conversions (ms) "
+          + json.dumps(host) + f"; ELL pitch {pitch}, planes "
+          f"{8 * big.shape[0] * pitch / 1e9:.3f} GB", flush=True)
+    for label, mat, det in (("coo row_mapped", coo, True),
+                            ("coo merge_path", coo, False),
+                            ("csc row_mapped", csc, True),
+                            ("ell row_mapped", ell, True),
+                            ("ell merge_path", ell, False)):
+        add("big_2097152", label, mat, op_maker(mat, label.split()[1]), det)
+    del coo, csc, ell
+
+    def flat_partitioned():
+        def run(v):
+            return flat_partitioned_spmv(big, v, device=device)
+        run(inputs["big_2097152"][1])
+        return run
+    add("big_2097152", "csr flat_partitioned_spmv", big, flat_partitioned,
+        True)
+    perm_bytes = 8 * big.shape[0]  # perm and its inverse, read once each
+    for label, sched, impl, kname in (
+            ("csr reorder=degree auto", "auto", "xla", "sorted_spmv"),
+            ("csr reorder=degree merge_path pallas2", "merge_path",
+             "pallas2", "flat_spmv_v2")):
+        case, _ = add("big_2097152", label, format_bytes(big) + perm_bytes,
+                      op_maker(big, sched, impl, reorder="degree"), False,
+                      kname)
+        print(f"    host degree_order + permute_csr "
+              f"{case.run.meta['reorder_ms']:.1f} ms of the staging",
+              flush=True)
+    add("big_2097152", "csr K1", big, op_maker(big, "sorted_flat"), False,
+        "sorted_spmv")
+
+    part("big_2097152")
+
+    # ---- band_2097152_b4: DIA, ELL and K1
+    band = converted("band", generate.SCALE_MATRICES["band_2097152_b4"])
+    spmv_inputs("band_2097152_b4", band)
+    dia = converted("band dia", band.to_dia)
+    ell = converted("band ell", band.to_ell)
+    print(f"  band_2097152_b4: {band.nnz} nnz, {dia.num_diagonals} "
+          f"diagonals, ELL pitch {ell.pitch}; host (ms) built "
+          f"{host['band']}, DIA {host['band dia']}, ELL {host['band ell']}",
+          flush=True)
+    add("band_2097152_b4", "dia row_mapped", dia, op_maker(dia), True)
+    add("band_2097152_b4", "ell row_mapped", ell, op_maker(ell), True)
+    add("band_2097152_b4", "csr K1", band, op_maker(band, "sorted_flat"),
+        False, "sorted_spmv")
+    ndiag = dia.num_diagonals
+    del dia, ell
+
+    part("band_2097152_b4")
+
+    # ---- bcsr_spmv_32768: K6 and K1
+    blk = converted("bcsr csr", generate.SCALE_MATRICES["bcsr_spmv_32768"])
+    blk_b = converted("bcsr", lambda: BCSR.from_csr(blk, 8, 128))
+    spmv_inputs("bcsr_spmv_32768", blk)
+    add("bcsr_spmv_32768", "bcsr K6", blk_b,
+        op_maker(blk_b, impl="pallas"), False, "bcsr_spmv")
+    add("bcsr_spmv_32768", "csr K1", blk, op_maker(blk, "sorted_flat"),
+        False, "sorted_spmv")
+
+    part("bcsr_spmv_32768")
+
+    # ---- the arxiv stand-in: reorder='bfs'; COO SpMM beside K4
+    spmv_inputs("arxiv_gcn", adj)
+    case, _ = add("arxiv_gcn", "csr reorder=bfs auto",
+                  format_bytes(adj) + 8 * adj.shape[0],
+                  op_maker(adj, "auto", reorder="bfs"), False)
+    print(f"    host bfs_order + permute_csr "
+          f"{case.run.meta['reorder_ms']:.1f} ms ({adj.shape[0]} nodes); "
+          f"auto took {case.run.schedule!r}, {case.run.impl_used}",
+          flush=True)
+    add("arxiv_gcn", "csr K1", adj, op_maker(adj, "sorted_flat"), False,
+        "sorted_spmv")
+    for mname, csr, fmt in (("arxiv_gcn", adj, "coo"),
+                            ("bench_32768", bench, "ell")):
+        B = np.random.default_rng(8).normal(
+            size=(csr.shape[1], FORMAT_F)).astype(np.float32)
+        key = f"{mname} F={FORMAT_F}"
+        inputs[key] = (csr, torch.from_numpy(B).to(device),
+                       reference.spmm(csr, B))
+        mat = converted(f"{mname} {fmt}", getattr(csr, f"to_{fmt}"))
+        _, C4 = add(key, "csr K4 SpMM", format_bytes(csr, FORMAT_F),
+                    lambda csr=csr: SpMMOperator(csr, "merge_path", "pallas",
+                                                 device=device),
+                    False, "flat_spmm")
+        _, C = add(key, f"{fmt} SpMM", format_bytes(mat, FORMAT_F),
+                   lambda mat=mat: SpMMOperator(mat, device=device), True)
+        diff = (C - C4).abs().cpu().numpy().astype(np.float64)
+        require(np.all(diff <= spmm_pair_tolerance(csr, B, None)),
+                f"{key} {fmt} SpMM and K4 differ by {diff.max()}")
+        print(f"    {key} {fmt} SpMM against K4: max |diff| "
+              f"{diff.max():.3e}", flush=True)
+        del mat, C, C4
+
+    part("arxiv_gcn, bench_32768 SpMM")
+
+    # ---- --format auto through the CLI
+    picks = {}
+    for mname in ADVISOR_MATRICES:
+        status, out, err = run_example("spmv_torch.py", [
+            "--matrix", mname, "--format", "auto", "--schedule", "auto",
+            "--impl", "pallas", "--validate", "--rigorous", "--device",
+            "cuda"])
+        csv = [ln for ln in out.splitlines() if f",{mname}," in ln]
+        adv = [ln for ln in err.splitlines() if ln.startswith("Advisor:")]
+        print(f"  spmv_torch --matrix {mname} --format auto: "
+              f"{csv[0] if csv else '?'} | {' | '.join(err.splitlines())}",
+              flush=True)
+        require(status == 0 and "Errors: 0" in out
+                and "Verdict: NOT_A_BUG" in out and adv,
+                f"spmv_torch --format auto on {mname}: exit status "
+                f"{status}\n{out}{err}")
+        picks[mname] = adv[0].split()[1]
+        want = {"csr": "sorted_spmv", "bcsr": "bcsr_spmv"}.get(
+            picks[mname], "torch")
+        require(f"impl_used: {want}" in err, f"{mname}: the advisor picked "
+                f"{picks[mname]}, the CLI took {err}")
+    launches = dict(_build.LAUNCHES)
+    for k in ("sorted_spmv", "flat_spmv_v2", "bcsr_spmv"):
+        require(launches[k] > 0, f"{k} never launched in phase 22")
+
+    part("the CLI")
+
+    # ---- timing, each route beside K1 on its matrix
+    for case in cases:
+        case.ms = apply_ms(case.run, inputs[case.matrix][1])
+    k1 = {c.matrix: c.ms for c in cases if c.label in ("csr K1",
+                                                       "csr K4 SpMM")}
+    for case in cases:
+        nom = case.nbytes / HBM_BYTES_PER_S * 1e3
+        meas = case.nbytes / rate * 1e3
+        beside = ("" if case.matrix not in k1 or case.ms == k1[case.matrix]
+                  else f" ({'K4' if 'F=' in case.matrix else 'K1'} "
+                  f"{k1[case.matrix]:.4f} ms)")
+        print(f"  {case.matrix} {case.label}: {case.ms:.4f} ms per apply"
+              f"{beside}; one pass {case.nbytes / 1e6:.1f} MB, bound "
+              f"{nom:.4f} ms at 3.35 TB/s, {meas:.4f} ms at the measured "
+              f"{rate / 1e9:.0f} GB/s ({meas / case.ms:.1%} of it); host "
+              f"staging {case.staging_ms:.1f} ms; peak "
+              f"{(case.peak - case.held) / 2**30:.3f} GiB above "
+              f"{case.held / 2**30:.2f} held  [{smi}]", flush=True)
+        require(nom <= case.ms, f"{case.matrix} {case.label}: "
+                f"{case.ms:.4f} ms is under its bound {nom:.4f} ms")
+
+    part("timing")
+
+    # ---- the advisor's cost row from these times; picks vs measured
+    def ms_of(matrix, label):
+        return next(c.ms for c in cases
+                    if (c.matrix, c.label) == (matrix, label))
+    k6_ms = ms_of("bcsr_spmv_32768", "bcsr K6")
+    row = FormatCosts(
+        csr_ns_per_nnz=ms_of("big_2097152", "csr K1") * 1e6 / big.nnz,
+        ell_ns_per_cell=ms_of("big_2097152", "ell row_mapped") * 1e6
+        / (big.shape[0] * pitch),
+        dia_ns_per_cell=ms_of("band_2097152_b4", "dia row_mapped") * 1e6
+        / (band.shape[0] * ndiag),
+        bcsr_ns_per_block=max(k6_ms * 1e6 / blk_b.num_blocks
+                              - 8 * 128 * VALUE_BYTES / (rate / 1e9), 0.0),
+        stream_gbps=rate / 1e9, provenance=f"chip_smoke.py phase 22, {smi}")
+    print(f"  advisor cost row from these times: {row}; K1 "
+          f"{ms_of('big_2097152', 'csr K1'):.4f} ms over {big.nnz} nnz, ELL "
+          f"{ms_of('big_2097152', 'ell row_mapped'):.4f} ms over "
+          f"{big.shape[0] * pitch} cells, DIA "
+          f"{ms_of('band_2097152_b4', 'dia row_mapped'):.4f} ms over "
+          f"{band.shape[0] * ndiag} cells, K6 {k6_ms:.4f} ms over "
+          f"{blk_b.num_blocks} blocks, the stream {rate / 1e9:.1f} GB/s",
+          flush=True)
+    for mname in ADVISOR_MATRICES:
+        measured = {}
+        for c in cases:
+            if c.matrix == mname and "reorder" not in c.label \
+                    and "flat" not in c.label:
+                measured[c.fmt] = min(c.ms, measured.get(c.fmt, c.ms))
+        fastest = min(measured, key=measured.get)
+        print(f"  advisor on {mname}: picked {picks[mname]} (the card's "
+              f"row); measured fastest {fastest} ("
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in measured.items())
+              + f"): {'agree' if picks[mname] == fastest else 'differ'}  "
+              f"[{smi}]", flush=True)
+    del cases, inputs
+    torch.cuda.empty_cache()
+    part("advisor")
+    print("  phase 22 by part (s): " + json.dumps(parts), flush=True)
+    phase(22, "formats at full width", t0, "main-path launches "
+          + json.dumps({k: v for k, v in launches.items() if v}) + " ")
+    return launches, row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2655,6 +3015,8 @@ def main() -> int:
         stream_res["64 MiB"]["gbps"] * 1e9)
     sage_launches, sage_err = sage_phase(device, smi, ds)
     gat_phase(device, smi, ds)
+    fmt_launches, _ = formats_phase(device, smi, mats["big_2097152"][0],
+                                    x_big, bench, adj, rate)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -2678,7 +3040,8 @@ def main() -> int:
         b_ms, b_by = csr_spmv_bound(big)
         kernels.append(
             {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
-             "launches": launches[k], "max_abs_err": max_err[k],
+             "launches": launches[k] + fmt_launches[k],
+             "max_abs_err": max_err[k],
              "ms": times["big_2097152", k]["ms"],
              "plain_ms": times["big_2097152", k]["plain_ms"],
              "bound_ms": b_ms, "bound_by": b_by,
@@ -2687,7 +3050,8 @@ def main() -> int:
     kernels.append(
         {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES,
-         "launches": gcn_launches["flat_spmm"] + sage_launches["flat_spmm"],
+         "launches": (gcn_launches["flat_spmm"] + sage_launches["flat_spmm"]
+                      + fmt_launches["flat_spmm"]),
          "max_abs_err": max(spmm_err, sage_err),
          "ms": spmm_times["f32"]["ms"],
          "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,
@@ -2695,7 +3059,8 @@ def main() -> int:
     for k, (rep_at, _, _) in BCSR_KERNELS.items():
         kernels.append(
             {"name": k, "route": "cuda", "source": BCSR_SOURCE,
-             "replaces": rep_at, "launches": bcsr_launches[k],
+             "replaces": rep_at,
+             "launches": bcsr_launches[k] + fmt_launches[k],
              "max_abs_err": bcsr_err[k],
              **{f: bcsr_times[k, None][f] for f in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})

@@ -7,13 +7,16 @@ schedule* as the JAX package beside it. The module tree and names follow
 ``loops_tpu`` so that each part has its counterpart at the same relative
 path:
 
-- **formats**: host-side numpy sparse containers (COO, CSR, CSC, BCSR)
-  with ``to_device`` staging into torch tensors.
+- **formats**: host-side numpy sparse containers (COO, CSR, CSC, ELL,
+  BCSR, DIA) with ``to_device`` staging into torch tensors, and the
+  format advisor.
 - **io**: the Matrix Market loader and OGB-style node datasets.
-- **layout**: the tile/atom layout contract and the merge-path partitioner.
+- **layout**: the tile/atom layout contract, the merge-path partitioner
+  and the plan-time reorderings.
 - **schedule**: host planners: row_mapped, group_mapped, work_oriented,
   merge_path, and ``choose_schedule`` for ``auto``.
-- **ops**: CSR and BCSR SpMV and SpMM, and SDDMM over CSR, COO and BCSR,
+- **ops**: SpMV over every format, SpMM over CSR, BCSR, COO and ELL,
+  and SDDMM over CSR, COO and BCSR,
   on top of the planners; plain torch executors plus hand-written CUDA
   kernels (``ops/kernels``, sources in ``csrc/``); the segment ops and
   the fused attention aggregations.

@@ -18,12 +18,6 @@ from loops_tpu_torch.formats.base import (
 )
 
 
-def _not_ported(target: str):
-    raise NotImplementedError(
-        f"CSR -> {target} is not ported to loops_tpu_torch yet "
-        "(ROADMAP A6: the other SpMV formats)")
-
-
 @dataclass
 class CSR:
     shape: tuple
@@ -80,14 +74,16 @@ class CSR:
         return CSC.from_csr(self)
 
     def to_ell(self, max_pitch: int | None = None):
-        _not_ported("ELL")
+        from loops_tpu_torch.formats.ell import ELL
+        return ELL.from_csr(self, max_pitch=max_pitch)
 
     def to_bcsr(self, block_rows: int, block_cols: int):
         from loops_tpu_torch.formats.bcsr import BCSR
         return BCSR.from_csr(self, block_rows, block_cols)
 
     def to_dia(self, max_diagonals: int | None = None):
-        _not_ported("DIA")
+        from loops_tpu_torch.formats.dia import DIA
+        return DIA.from_csr(self, max_diagonals=max_diagonals)
 
     @classmethod
     def from_dense(cls, dense: np.ndarray) -> "CSR":

@@ -1,4 +1,4 @@
-"""Matrix Market (.mtx) loader.
+"""Matrix Market (.mtx) loader and writer.
 
 Functional parity with the reference loader (reference:
 include/loops/container/market.hxx:100-289 + detail/mtx_parser.hxx):
@@ -123,3 +123,28 @@ def load(path_or_bytes, dtype=np.float32) -> COO:
 
 def load_csr(path, dtype=np.float32):
     return load(path, dtype=dtype).to_csr()
+
+
+def save(path, mat, comment: str | None = None) -> None:
+    """Write ``mat`` (any container with ``to_coo``, or a COO) as a
+    1-indexed ``coordinate real general`` Matrix Market file, byte for
+    byte what ``loops_tpu.io.market.save`` writes for the same COO.
+
+    The reference is loader-only (market.hxx writes nothing); the writer
+    exists so sweeps and tests can stage synthetic matrices in the
+    interchange format the loader consumes. Output is vectorized (one
+    formatted block, not a per-record Python loop).
+    """
+    coo = mat.to_coo() if hasattr(mat, "to_coo") else mat
+    rows, cols = coo.shape
+    r = np.asarray(coo.rows, dtype=np.int64) + 1
+    c = np.asarray(coo.cols, dtype=np.int64) + 1
+    v = np.asarray(coo.vals)
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"% {line}\n")
+        f.write(f"{rows} {cols} {len(v)}\n")
+        np.savetxt(f, np.column_stack([r, c, v.astype(np.float64)]),
+                   fmt="%d %d %.9g")

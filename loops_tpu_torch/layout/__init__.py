@@ -1,6 +1,7 @@
 """Layout views + the partitioners: the tile/atom contract, its views,
-the flat re-binning and the merge-path partitioner (reference:
-include/loops/container/layout.hxx + partitioning.hxx)."""
+the flat re-binning, the merge-path partitioner (reference:
+include/loops/container/layout.hxx + partitioning.hxx) and the plan-time
+reorderings (``layout/reorder.py``)."""
 from loops_tpu_torch.layout.contract import (  # noqa: F401
     Layout,
     check_layout_invariants,
@@ -14,6 +15,7 @@ from loops_tpu_torch.layout.partition import FlatRebinLayout  # noqa: F401
 from loops_tpu_torch.layout.views import (  # noqa: F401
     BcsrLayout,
     CooLayout,
+    CscLayout,
     CsrLayout,
     DiaLayout,
     EllLayout,

@@ -1,12 +1,10 @@
 """Layout views (reference: include/loops/container/layout.hxx:87-496).
-The ELL and DIA formats are not ported yet (ROADMAP A6): their views
-exist, built from a row count and a pitch, and ``from_ell`` / ``from_dia``
-raise until the formats come.
 
 ============  ==================  ==========================  ================
 view          tile                atom                        tile_offsets
 ============  ==================  ==========================  ================
 CsrLayout     row                 nonzero                     row offsets
+CscLayout     column              nonzero                     column offsets
 BcsrLayout    block-row           stored RxC block            block offsets
 CooLayout     nonzero (==atom)    nonzero                     arange (closed)
 EllLayout     row                 plane slot (incl. padding)  t*pitch (closed)
@@ -37,6 +35,14 @@ class CsrLayout(OffsetsLayout):
     @classmethod
     def from_csr(cls, csr):
         return cls(csr.offsets)
+
+
+class CscLayout(OffsetsLayout):
+    """CSR-shaped with tile = column semantics (layout.hxx:312-359)."""
+
+    @classmethod
+    def from_csc(cls, csc):
+        return cls(csc.offsets)
 
 
 class BcsrLayout(OffsetsLayout):
@@ -72,20 +78,13 @@ class UniformLayout(Layout):
         return (np.asarray(a) // max(self.pitch, 1)).astype(INDEX_DTYPE)
 
 
-def _not_ported(fmt: str):
-    raise NotImplementedError(
-        f"the {fmt} format is not ported to loops_tpu_torch yet (ROADMAP "
-        f"A6: the other SpMV formats); build the view from its row count "
-        "and pitch")
-
-
 class EllLayout(UniformLayout):
     """Tiles are rows; each row holds ``pitch`` plane slots, padding
     included."""
 
     @classmethod
     def from_ell(cls, ell):
-        _not_ported("ELL")
+        return cls(ell.shape[0], ell.pitch)
 
 
 class DiaLayout(UniformLayout):
@@ -94,7 +93,7 @@ class DiaLayout(UniformLayout):
 
     @classmethod
     def from_dia(cls, dia):
-        _not_ported("DIA")
+        return cls(dia.shape[0], dia.num_diagonals)
 
 
 class CooLayout(Layout):

@@ -1,8 +1,7 @@
-"""SpMM — sparse matrix x dense matrix, CSR and BCSR: the GNN aggregation
-primitive and the block-sparse product.
+"""SpMM — sparse matrix x dense matrix: the GNN aggregation primitive and
+the block-sparse product.
 
-The port of ``loops_tpu/ops/spmm.py`` for CSR and BCSR. CSR, schedule ->
-execution:
+The port of ``loops_tpu/ops/spmm.py``. CSR, schedule -> execution:
 
 * ``row_mapped`` (and ``merge_path``/``work_oriented`` with
   ``impl='xla'``, which ``loops_tpu`` lowers to the same path) —
@@ -38,13 +37,26 @@ BCSR ``dtype="bfloat16"`` takes ``pallas2``/``pallas3`` only: A and B
 rounded to bf16, products and sums in f32 (``loops_tpu`` computes f32
 without a word for ``xla`` and ``pallas``; here they raise).
 
+COO and ELL take ``schedule='row_mapped'`` (or ``'auto'``) with
+``impl='xla'`` only, as in ``loops_tpu``:
+
+* COO — a stable sort of the nonzeros into row order at bind, then the
+  sorted segment sum of ``vals * B[cols]`` (no scatter, bitwise
+  repeatable on the card);
+* ELL — ``B[idx]`` materialized as the [rows, pitch, F] plane, times the
+  value plane, summed over the pitch. On a CUDA device planes larger
+  than the card's free memory raise ``MemoryError`` before the gather
+  (``ell_plane_guard``); nothing falls back.
+
+``dtype='bfloat16'`` rounds vals, B and each product to bf16 and sums in
+f32 on these too, as CSR does.
+
 A kernel runs when the operator lives on a CUDA device; on the CPU its
 wrapper takes the plain PyTorch version. float64 values with a kernel
 impl raise ``ValueError`` on a CUDA device (the kernels stage f32) and,
 on the CPU, warn and take the torch path, as ``loops_tpu`` does.
 ``impl_used`` names the path the build took and ``launches`` counts this
-operator's kernel launches. COO and ELL raise ``NotImplementedError``
-naming their ROADMAP item.
+operator's kernel launches.
 """
 from __future__ import annotations
 
@@ -54,7 +66,7 @@ import warnings
 import numpy as np
 import torch
 
-from loops_tpu_torch.formats import BCSR, CSR
+from loops_tpu_torch.formats import BCSR, COO, CSR, ELL
 from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.ops.kernels import (
     _build,
@@ -72,7 +84,6 @@ from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["spmm", "SpMMOperator"]
 
-_NOT_PORTED = {"COO": "A8", "ELL": "A8"}
 BCSR_KERNELS = {"pallas": "bcsr_spmm", "pallas2": "bcsr_spmm_v2",
                 "pallas3": "bcsr_spmm_v3"}
 
@@ -84,8 +95,41 @@ def _dtype_mode(dtype):
     return dtype
 
 
+def ell_plane_bytes(rows: int, pitch: int, F: int, vals_dtype,
+                    dtype=None) -> int:
+    """Peak bytes that ELL SpMM's [rows, pitch, F] planes hold at once:
+    the gather ``B[idx]`` and its product with the values (two planes of
+    the value type); in bf16 mode the two bf16 planes and the product's
+    float32 copy, counted together (2 + 2 + 4 bytes a cell)."""
+    cell = 8 if dtype == BF16 else 2 * torch.finfo(vals_dtype).bits // 8
+    return rows * pitch * F * cell
+
+
+def ell_plane_guard(rows: int, pitch: int, F: int, vals_dtype, dtype,
+                    device) -> None:
+    """Raise ``MemoryError`` where ELL SpMM's planes (``ell_plane_bytes``)
+    would not fit the card's free memory: the ``max_pitch`` probe at the
+    width ``F`` of this call. Free memory is what the caching allocator
+    holds unused, and only where that falls short, CUDA's free
+    memory besides. No guard on the CPU."""
+    if device.type != "cuda":
+        return
+    need = ell_plane_bytes(rows, pitch, F, vals_dtype, dtype)
+    free = (torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    if need <= free:
+        return
+    free += torch.cuda.mem_get_info(device)[0]
+    if need > free:
+        max_pitch = pitch * free // need
+        raise MemoryError(
+            f"ELL SpMM holds {need / 2**30:.2f} GiB of [{rows}, {pitch}, "
+            f"{F}] planes; at F = {F} the card's {free / 2**30:.2f} GiB "
+            f"free fit a pitch of {max_pitch} (max_pitch)")
+
+
 class SpMMOperator:
-    """An SpMM bound to one CSR or BCSR matrix on one device:
+    """An SpMM bound to one CSR, BCSR, COO or ELL matrix on one device:
     ``op(B) -> C``.
 
     Plan once on the host, execute many times; ``C`` is float32 for f32
@@ -96,11 +140,9 @@ class SpMMOperator:
                  impl: str = "xla", block_f: int | None = None, dtype=None,
                  hub_dense_min: int | None = None, block: int = 512,
                  device="cuda"):
-        if not isinstance(mat, (CSR, BCSR)):
-            name = type(mat).__name__
-            raise NotImplementedError(
-                f"{name} SpMM is not ported to loops_tpu_torch yet (ROADMAP "
-                f"{_NOT_PORTED.get(name, 'A6/A8')})")
+        if not isinstance(mat, (CSR, BCSR, COO, ELL)):
+            raise TypeError(f"SpMM takes a CSR, BCSR, COO or ELL matrix, "
+                            f"got {type(mat).__name__}")
         if schedule not in SCHEDULES + ("auto",):
             raise ValueError(f"unknown schedule {schedule!r}; expected one "
                              f"of {SCHEDULES + ('auto',)}")
@@ -119,7 +161,7 @@ class SpMMOperator:
         self.impl_used = "torch"
         self.launches = 0
         self.meta = {}
-        build = self._build_csr if isinstance(mat, CSR) else self._build_bcsr
+        build = getattr(self, f"_build_{type(mat).__name__.lower()}")
         self._bufs, self._raw = build(mat, schedule, impl)
         self._kernel = (self.impl_used if self.impl_used in _build.LAUNCHES
                         else None)
@@ -188,12 +230,14 @@ class SpMMOperator:
             self.impl_used = "flat_spmm"
             return spmm_flat.flat_spmm(csr, plan, block_f=self.block_f,
                                        dtype=self.dtype, device=self.device)
-        return self._row_segments(csr)
+        return self._row_segments(csr.offsets.astype(np.int64), csr.indices,
+                                  csr.vals)
 
-    def _row_segments(self, csr: CSR):
-        """Gather-multiply-segment: one sorted segment sum per row."""
-        bufs = dict(vals=self._to(csr.vals), cols=self._to(csr.indices).long(),
-                    offsets=self._to(csr.offsets.astype(np.int64)))
+    def _row_segments(self, offsets, cols, vals):
+        """Gather-multiply-segment: one sorted segment sum per row over
+        row-ordered nonzeros and their int64 row ``offsets``."""
+        bufs = dict(vals=self._to(vals), cols=self._to(cols).long(),
+                    offsets=self._to(offsets))
         dtype = self.dtype
 
         def fn(b, B):
@@ -231,6 +275,37 @@ class SpMMOperator:
                  else spmm_bcsr_v3.bcsr_spmm_v3)
         return build(bcsr, block_f=self.block_f, dtype=self.dtype,
                      device=self.device)
+
+    # ------------------------------------------------------ COO and ELL
+    @staticmethod
+    def _xla_row_mapped_only(fmt: str, schedule, impl):
+        if schedule not in ("row_mapped", "auto") or impl != "xla":
+            raise ValueError(
+                f"{fmt} SpMM implements schedule='row_mapped' with "
+                f"impl='xla' only, got schedule={schedule!r}, "
+                f"impl={impl!r}")
+
+    def _build_coo(self, coo: COO, schedule, impl):
+        self._xla_row_mapped_only("coo", schedule, impl)
+        self.schedule = "row_mapped"
+        csr = coo.to_csr()  # a stable sort into row order
+        return self._row_segments(csr.offsets.astype(np.int64), csr.indices,
+                                  csr.vals)
+
+    def _build_ell(self, ell: ELL, schedule, impl):
+        self._xla_row_mapped_only("ell", schedule, impl)
+        self.schedule = "row_mapped"
+        idx, val = ell.to_device(self.device)
+        rows, pitch = ell.shape[0], ell.pitch
+        dtype = self.dtype
+
+        def fn(b, B):
+            ell_plane_guard(rows, pitch, B.shape[1], B.dtype, dtype,
+                            B.device)
+            s = products(b["val"].reshape(-1), B, b["idx"].reshape(-1).long(),
+                         dtype)
+            return s.reshape(rows, pitch, -1).sum(dim=1)
+        return dict(idx=idx, val=val), fn
 
     def _group_mapped(self, csr: CSR):
         """Degree-class planes with the hub-dense split."""

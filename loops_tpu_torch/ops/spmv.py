@@ -1,9 +1,8 @@
-"""SpMV — sparse matrix x dense vector: CSR (every schedule) and BCSR.
+"""SpMV — sparse matrix x dense vector across all formats and schedules.
 
-The port of ``loops_tpu/ops/spmv.py`` for CSR and BCSR. Every schedule's
-*plan* is host precompute (``loops_tpu_torch.schedule.plans``); the
-device runs either plain torch ops or one of the hand-written CUDA
-kernels.
+The port of ``loops_tpu/ops/spmv.py``. Every schedule's *plan* is host
+precompute (``loops_tpu_torch.schedule.plans``); the device runs either
+plain torch ops or one of the hand-written CUDA kernels.
 
 Schedule -> execution (CSR):
 
@@ -24,11 +23,34 @@ Schedule -> execution (CSR):
   request: on float64 values it warns and takes the torch ``merge_path``
   executor on every device, as the reference does.
 
+The other formats take ``impl='xla'`` only, as in the reference, and run
+torch ops; the deterministic ones sum each output row in a fixed order:
+
+* COO ``row_mapped``/``group_mapped`` (``auto`` resolves to row_mapped)
+  and CSC ``row_mapped`` — the matrix converted to CSR at bind (a stable
+  sort of the nonzeros into row order), then CSR's row_mapped each apply
+  (the reference scatter-adds into the output rows; no ``index_add_``
+  here, so two applies on the card are bitwise equal). COO's
+  ``work_oriented``/``merge_path`` go through ``_flat_xla`` over the
+  degenerate COO layout, combined through the matrix's row ids.
+* ELL ``row_mapped``/``group_mapped``/``auto`` — a masked reduction over
+  the rows of the [rows, pitch] plane (sentinel slots staged as column
+  0, value 0); ``work_oriented``/``merge_path`` — ``_flat_xla`` over the
+  closed-form ELL layout.
+* DIA ``row_mapped`` (``auto`` resolves to it) — the sweep over
+  diagonals: ``vals * x[cols]`` over a clamped and masked [D, rows]
+  column plane, summed over D.
+
 BCSR has one execution shape, ``row_mapped`` (``auto`` resolves to it):
 atoms are stored blocks and the reduction is block-row-local.
 ``impl='xla'`` is a batched einsum over each block's x segment, then a
 sorted segment sum over the block rows; ``impl='pallas'`` is kernel K6
 (``ops/kernels/spmv_bcsr.py``).
+
+``reorder='degree'|'bfs'`` (CSR, square) permutes the matrix at plan
+time (``layout/reorder.py``) and runs the permuted CSR under whatever
+schedule and impl was asked for; ``x[perm]`` in and ``y[inv]`` out run
+on the device.
 
 A kernel runs when the operator lives on a CUDA device; on the CPU each
 kernel wrapper takes its plain PyTorch version. A kernel impl the kernels
@@ -37,9 +59,8 @@ CUDA device and, on the CPU, warns and takes the torch executor.
 ``impl_used`` names the path the build took and ``launches`` counts this
 operator's kernel launches.
 
-COO, CSC, ELL and DIA matrices, ``reorder=``, ``plan_cache=`` and
-``bucketed=`` are not ported yet and raise ``NotImplementedError`` naming
-the ROADMAP item.
+``plan_cache=`` (ROADMAP A10) and ``bucketed=`` (A12) are not ported and
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -49,8 +70,12 @@ import warnings
 import numpy as np
 import torch
 
-from loops_tpu_torch.formats import BCSR, CSR
-from loops_tpu_torch.layout import CsrLayout
+from loops_tpu_torch.formats import BCSR, COO, CSC, CSR, DIA, ELL
+from loops_tpu_torch.layout import (
+    CooLayout,
+    CsrLayout,
+    EllLayout,
+)
 from loops_tpu_torch.ops.gather import gather1d
 from loops_tpu_torch.ops.kernels import (
     _build,
@@ -63,7 +88,10 @@ from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils.platform import ensure_platform
 
-__all__ = ["spmv", "SpMVOperator", "SCHEDULES"]
+__all__ = ["spmv", "SpMVOperator", "SCHEDULES", "flat_partitioned_spmv"]
+
+# rows past the last that the flat executor's padding slots are spread over
+DROPPED_ROWS = 1024
 
 # K3 takes plans whose 128-aligned row window is at most this many rows;
 # a work_oriented plan over long runs of empty rows can be wider.
@@ -118,6 +146,29 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to loops_tpu_torch yet (ROADMAP {item})")
 
 
+def _reordered(mat, reorder: str):
+    """``(permuted CSR, perm, inverse)`` for ``reorder=`` (reference:
+    loops_tpu/ops/spmv.py:147-172): a symmetric permutation of a square
+    CSR, ``perm`` mapping new index -> old."""
+    from loops_tpu_torch.layout.reorder import (
+        bfs_order,
+        degree_order,
+        inverse_permutation,
+        permute_csr,
+    )
+    if not isinstance(mat, CSR):
+        raise ValueError("reorder= implements CSR only")
+    if mat.shape[0] != mat.shape[1]:
+        raise ValueError("reorder= is a symmetric (square) permutation")
+    if reorder == "degree":
+        perm = degree_order(mat)
+    elif reorder == "bfs":
+        perm = bfs_order(mat)
+    else:
+        raise ValueError(f"unknown reorder {reorder!r}; 'degree' or 'bfs'")
+    return permute_csr(mat, perm), perm, inverse_permutation(perm)
+
+
 class SpMVOperator:
     """An SpMV bound to one matrix on one device: plan once, execute many.
 
@@ -131,10 +182,9 @@ class SpMVOperator:
                  bucketed: bool = False, reorder: str | None = None,
                  class_step: float | None = None,
                  plan_cache: str | None = None, device="cuda"):
-        if not isinstance(mat, (CSR, BCSR)):
-            _not_ported(f"{type(mat).__name__} SpMV", "A6")
-        if reorder is not None:
-            _not_ported("reorder=", "A4 (layout/reorder.py)")
+        if not isinstance(mat, (CSR, BCSR, COO, CSC, ELL, DIA)):
+            raise TypeError(f"SpMV takes a CSR, BCSR, COO, CSC, ELL or DIA "
+                            f"matrix, got {type(mat).__name__}")
         if plan_cache is not None:
             _not_ported("plan_cache=", "A10 (io/plan_cache.py)")
         if bucketed:
@@ -148,7 +198,13 @@ class SpMVOperator:
             raise ValueError(
                 f"unknown schedule {schedule!r}; expected one of "
                 f"{SCHEDULES + ('sorted_flat', 'auto')}")
+        perm = None
+        if reorder is not None:
+            t0 = time.perf_counter()
+            mat, perm, inv = _reordered(mat, reorder)
+            reorder_ms = (time.perf_counter() - t0) * 1e3
         self.mat = mat
+        self.reorder = reorder
         self.schedule = schedule
         self.impl = impl
         self.block = block
@@ -158,8 +214,11 @@ class SpMVOperator:
         # "torch" for the torch-op executors, else the kernel's name
         self.impl_used = "torch"
         self.launches = 0
-        build = self._build_csr if isinstance(mat, CSR) else self._build_bcsr
+        build = getattr(self, f"_build_{type(mat).__name__.lower()}")
         self._bufs, self._raw = build(mat, schedule, block, impl)
+        if perm is not None:
+            self._bufs, self._raw = self._permuted(self._bufs, self._raw,
+                                                   perm, inv)
         self._kernel = (self.impl_used if self.impl_used in _build.LAUNCHES
                         else None)
         # the device as a staged tensor's reads (with its index): an x
@@ -168,6 +227,8 @@ class SpMVOperator:
         # kernel-reported plan metadata (e.g. K1's plan_ms) survives on
         # the operator
         self.meta = dict(getattr(self._raw, "meta", {}) or {})
+        if perm is not None:
+            self.meta["reorder_ms"] = reorder_ms  # host ordering + permute
 
     def stage(self, x) -> torch.Tensor:
         """``x`` as a contiguous tensor of the matrix's value type on the
@@ -190,6 +251,25 @@ class SpMVOperator:
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _permuted(self, bufs, inner, perm, inv):
+        """``inner`` on the permuted matrix, as a function of the original
+        ``x``: ``y[i] = y_perm[inv[i]]`` with ``x_perm[i] = x[perm[i]]``."""
+        bufs = dict(inner=bufs, perm=self._to(perm), inv=self._to(inv))
+
+        def fn(b, x):
+            return gather1d(inner(b["inner"], gather1d(x, b["perm"])),
+                            b["inv"])
+        fn.meta = getattr(inner, "meta", None)
+        return bufs, fn
+
+    def _row_mapped(self, csr: CSR):
+        """Per-row sums of ``vals * x[cols]`` in storage order: the sorted
+        segment sum over the CSR offsets (each row summed in a fixed
+        order: no atomics)."""
+        bufs = dict(vals=self._to(csr.vals), cols=self._to(csr.indices),
+                    offsets=self._to(csr.offsets.astype(np.int64)))
+        return bufs, _row_sums
 
     # ------------------------------------------------------------- CSR
     def _build_csr(self, csr: CSR, schedule, block, impl):
@@ -214,14 +294,7 @@ class SpMVOperator:
 
         if schedule == "row_mapped":
             _require("csr", schedule, impl, SCHEDULES, ("xla",))
-            bufs = dict(vals=self._to(csr.vals), cols=self._to(csr.indices),
-                        offsets=self._to(csr.offsets.astype(np.int64)))
-
-            def fn(b, x):
-                return torch.segment_reduce(
-                    b["vals"] * gather1d(x, b["cols"]), "sum",
-                    offsets=b["offsets"], unsafe=True)
-            return bufs, fn
+            return self._row_mapped(csr)
 
         if schedule == "group_mapped":
             _require("csr", schedule, impl, SCHEDULES, ("xla",))
@@ -252,10 +325,7 @@ class SpMVOperator:
             self.impl_used = "sorted_spmv"
             return spmv_sorted.sorted_spmv(csr, device=self.device)
         t0 = time.perf_counter()
-        plan = make_plan(layout, schedule,
-                         **({"block_atoms": block}
-                            if schedule == "work_oriented"
-                            else {"block_work": block}))
+        plan = make_plan(layout, schedule, **_flat_kw(schedule, block))
         plan_ms = (time.perf_counter() - t0) * 1e3
         impl = _kernel_refusal(impl, csr.vals.dtype, self.device, plan)
         if impl in ("pallas", "pallas2"):
@@ -285,17 +355,88 @@ class SpMVOperator:
             return spmv_bcsr.bcsr_spmv_plain(b, x, shape)
         return spmv_bcsr.stage(bcsr, self.device), fn
 
+    # ------------------------------------------------------------- COO
+    def _build_coo(self, coo: COO, schedule, block, impl):
+        if schedule == "auto":
+            schedule = self.schedule = "row_mapped"
+        _require("coo", schedule, impl, SCHEDULES, ("xla",))
+        if schedule in ("row_mapped", "group_mapped"):
+            # tile == atom == nonzero: both collapse to the row reduction
+            # (reference: spmv/coo_thread_mapped.cuh:37-89), run as CSR's
+            # after a stable sort into row order at bind
+            return self._row_mapped(coo.to_csr())
+        # flat schedules over the degenerate COO layout: per-block partial
+        # products, combined through the *matrix* row ids
+        plan = make_plan(CooLayout.from_coo(coo), schedule,
+                         **_flat_kw(schedule, block))
+        return self._flat_xla(plan, vals=plan.gather(coo.vals),
+                              gather_cols=plan.gather(coo.cols),
+                              out_of_tile=coo.rows)
+
+    # ------------------------------------------------------------- CSC
+    def _build_csc(self, csc: CSC, schedule, block, impl):
+        if schedule == "auto":
+            schedule = self.schedule = "row_mapped"
+        # tile = column; atoms land in arbitrary output rows, so there is
+        # one execution shape, as the reference's single csc kernel
+        # (spmv/csc_thread_mapped.cuh:37-87)
+        _require("csc", schedule, impl, ("row_mapped",), ("xla",))
+        return self._row_mapped(csc.to_csr())
+
+    # ------------------------------------------------------------- ELL
+    def _build_ell(self, ell: ELL, schedule, block, impl):
+        _require("ell", schedule, impl, SCHEDULES + ("auto",), ("xla",))
+        if schedule in ("row_mapped", "group_mapped", "auto"):
+            # the plane is one uniform group: a dense masked row reduction
+            # (reference: spmv/ell_thread_mapped.cuh:28-76, whose sentinel
+            # skips become multiplies by zero)
+            idx, val = ell.to_device(self.device)
+
+            def fn(b, x):
+                return (b["val"] * gather1d(x, b["idx"])).sum(dim=1)
+            return dict(idx=idx, val=val), fn
+        # flat schedules over the closed-form uniform layout (reference:
+        # spmv/ell_merge_path.cuh:32-126)
+        plan = make_plan(EllLayout.from_ell(ell), schedule,
+                         **_flat_kw(schedule, block))
+        idx, val = ell.safe_planes()
+        return self._flat_xla(plan, vals=plan.gather(val.ravel()),
+                              gather_cols=plan.gather(idx.ravel()))
+
+    # ------------------------------------------------------------- DIA
+    def _build_dia(self, dia: DIA, schedule, block, impl):
+        if schedule == "auto":
+            schedule = self.schedule = "row_mapped"
+        # one execution shape: the dense diagonal sweep (the reference
+        # likewise ships only dia_thread_mapped, spmv/dia_thread_mapped.cuh:
+        # 36-96)
+        _require("dia", schedule, impl, ("row_mapped",), ("xla",))
+        col, val = dia.column_plane()
+
+        def fn(b, x):
+            return (b["val"] * gather1d(x, b["col"])).sum(dim=0)
+        return dict(col=self._to(col), val=self._to(val)), fn
+
     # ------------------------------------------------ flat torch executor
-    def _flat_xla(self, plan, vals, gather_cols):
+    def _flat_xla(self, plan, vals, gather_cols, out_of_tile=None):
         """Two-phase blocked reduction for the flat schedules.
 
         Phase 1: per-block products (fixed [num_blocks, K]).
-        Phase 2: combine by output row, from the plan's
-        tile_starts + rel_tile (padding slots go to a dropped row).
+        Phase 2: combine by output row. Where the layout's tiles *are*
+        the output rows (CSR, ELL) the ids come from the plan's
+        tile_starts + rel_tile; COO routes through the matrix row ids
+        (``out_of_tile``). Padding slots go to ``DROPPED_ROWS`` rows past
+        the last, spread over them: a COO plan is half padding, and
+        ``index_add_``'s atomics all on one dropped row would serialize.
         """
         rows = self.rows
-        ids = plan.tile_starts[:-1, None].astype(np.int64) + plan.rel_tile
-        ids = np.where(plan.valid, np.minimum(ids, rows), rows)
+        if out_of_tile is None:
+            ids = plan.tile_starts[:-1, None].astype(np.int64) + plan.rel_tile
+            ids = np.minimum(ids, rows)
+        else:
+            ids = plan.gather(out_of_tile).astype(np.int64)
+        dropped = rows + np.arange(ids.size).reshape(ids.shape) % DROPPED_ROWS
+        ids = np.where(plan.valid, ids, dropped)
         bufs = dict(v=self._to(vals), gc=self._to(gather_cols),
                     ids=self._to(ids.reshape(-1)))
         empty = plan.num_atoms == 0
@@ -305,9 +446,23 @@ class SpMVOperator:
                 # no nonzeros (and perhaps no column to gather): zeros
                 return torch.zeros(rows, dtype=x.dtype, device=x.device)
             products = b["v"] * gather1d(x, b["gc"])       # [B, K]
-            y = torch.zeros(rows + 1, dtype=x.dtype, device=x.device)
+            y = torch.zeros(rows + DROPPED_ROWS, dtype=x.dtype,
+                            device=x.device)
             return y.index_add_(0, b["ids"], products.reshape(-1))[:rows]
         return bufs, fn
+
+
+def _row_sums(b, x):
+    """Per-row sums of ``vals * x[cols]`` over row-ordered nonzeros, each
+    row summed in storage order (``torch.segment_reduce`` over the int64
+    ``offsets``)."""
+    return torch.segment_reduce(b["vals"] * gather1d(x, b["cols"]), "sum",
+                                offsets=b["offsets"], unsafe=True)
+
+
+def _flat_kw(schedule: str, block: int) -> dict:
+    return ({"block_atoms": block} if schedule == "work_oriented"
+            else {"block_work": block})
 
 
 def op_cache(mat, attr: str) -> dict:
@@ -329,3 +484,18 @@ def spmv(mat, x, schedule: str = "row_mapped", block: int | None = None,
     if key not in cache:
         cache[key] = SpMVOperator(mat, schedule, block, impl, device=device)
     return cache[key](x)
+
+
+def flat_partitioned_spmv(csr: CSR, x, atoms_per_tile: int = 8,
+                          device="cuda"):
+    """SpMV through the flat re-binning partitioner (reference:
+    spmv/flat_partitioned.cuh:46-106): K-atom windows processed
+    tile-agnostically, each atom's output addressed through its base tile
+    (``base().tile_of``). Over a CSR base layout an atom's base tile is its
+    row, so the windows' sums are the per-row sums of ``row_mapped`` and the
+    window width changes no sum: this is ``spmv(csr, x, 'row_mapped')``
+    (``atoms_per_tile`` is checked, as the reference's layout checks it,
+    and otherwise unused)."""
+    if atoms_per_tile <= 0:
+        raise ValueError("atoms_per_tile must be positive")
+    return spmv(csr, x, "row_mapped", impl="xla", device=device)

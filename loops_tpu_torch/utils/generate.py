@@ -211,6 +211,21 @@ SPMV_EDGE_CASES = {
 }
 
 
+# Named matrices at the card's scale (``examples/spmv_torch.py --matrix``):
+# the JAX bench's SpMV matrix (~4.39M nnz, L2-resident), one past L2 and
+# past the JAX package's single-chip caps (~33.5M nnz), the battery's
+# ``band_n*_b4`` family at that scale (9 diagonals, ~18.87M nnz) and the
+# block-sparse matrix of the BCSR SpMV regime (8 x 128 blocks at 1.5%).
+SCALE_MATRICES = {
+    "bench_32768": lambda: random_csr(32768, 32768, 4e-6 * 1024, seed=3),
+    "big_2097152": lambda: random_csr(2_097_152, 2_097_152, 16 / 2_097_152,
+                                      seed=5),
+    "band_2097152_b4": lambda: banded_csr(2_097_152, 2_097_152, band=4,
+                                          seed=4),
+    "bcsr_spmv_32768": lambda: build_block_sparse(32768, 8, 128, 0.015)[0],
+}
+
+
 def ladder_csr(steps: int = 100, gap: int = 897) -> CSR:
     """One nonzero every ``gap`` rows, ``steps`` times: a block of K1 that
     holds several of them spans more rows than its plan's span split

@@ -46,12 +46,8 @@ from loops_tpu_torch.utils.bench import apply_ms
 
 # the bench SpMV matrix of the JAX package (~4.39M nnz, L2-resident) and
 # one past L2 and past its single-chip caps (~33.5M nnz)
-MATRICES = {
-    "bench_32768": lambda: generate.random_csr(32768, 32768, 4e-6 * 1024,
-                                               seed=3),
-    "big_2097152": lambda: generate.random_csr(2_097_152, 2_097_152,
-                                               16 / 2_097_152, seed=5),
-}
+MATRICES = {k: generate.SCALE_MATRICES[k]
+            for k in ("bench_32768", "big_2097152")}
 PATHS = {
     # label -> (SpMVOperator schedule, impl)
     "sorted_spmv": ("sorted_flat", "xla"),

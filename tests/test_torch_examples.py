@@ -120,10 +120,61 @@ def test_uniform_views_match_loops_tpu(cls, tiles, pitch):
 
 
 def test_ell_and_dia_views_wait_for_their_formats():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tl.EllLayout.from_ell(None)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tl.DiaLayout.from_dia(None)
+    # the formats are ported: the views come from the containers, as in
+    # loops_tpu
+    import loops_tpu.formats as jf
+
+    t = generate.random_csr(12, 10, 0.3, seed=3)
+    j = jf.CSR(t.shape, t.offsets, t.indices, t.vals)
+    for a, b in ((tl.EllLayout.from_ell(t.to_ell()),
+                  jl.EllLayout.from_ell(j.to_ell())),
+                 (tl.DiaLayout.from_dia(t.to_dia()),
+                  jl.DiaLayout.from_dia(j.to_dia()))):
+        assert (a.num_tiles, a.pitch) == (b.num_tiles, b.pitch)
+        np.testing.assert_array_equal(a.tile_offsets(), b.tile_offsets())
+
+
+SPMV_FORMATS = ["csr", "csc", "coo", "ell", "bcsr", "dia", "auto"]
+
+
+@pytest.mark.parametrize("fmt", SPMV_FORMATS)
+def test_spmv_example_takes_every_format(fmt, capsys):
+    argv = ["--rows", "300", "--cols", "200", "--sparsity", "0.02",
+            "--format", fmt, "--validate", "--rigorous"]
+    status, lines = _run("spmv_torch", ["--device", "cpu", *argv])
+    err = capsys.readouterr().err
+    jstatus, jlines = _run("spmv", argv)
+    assert status == jstatus == 0
+    csv = [ln for ln in lines if ",random," in ln]
+    jcsv = [ln for ln in jlines if ",random," in ln]
+    # kernel,dataset,rows,cols,nnzs as the JAX CLI prints them; elapsed
+    # is each package's own time
+    assert len(csv) == len(jcsv) == 1
+    assert csv[0].rsplit(",", 1)[0] == jcsv[0].rsplit(",", 1)[0]
+    assert float(csv[0].rsplit(",", 1)[1]) > 0
+    # the Errors and Wilkinson blocks, line for line but the error sizes
+    keep = ("Matrix:", "Dimensions:", "Errors:", "WilkinsonK:",
+            "NaiveMismatches:", "F32BaselineOverruns:", "GPUOverruns:",
+            "Verdict:")
+    assert [ln for ln in lines if ln.startswith(keep)] == \
+        [ln for ln in jlines if ln.startswith(keep)]
+    assert "Errors: 0" in lines and "Verdict: NOT_A_BUG" in lines
+    if fmt == "auto":
+        assert "Advisor: csr" in err
+    if fmt in ("csc", "dia", "bcsr"):
+        assert f"note: {fmt} implements row_mapped only" in err
+
+
+def test_spmv_example_names_a_scale_matrix(monkeypatch):
+    # --matrix NAME runs one of generate.SCALE_MATRICES (here shrunk)
+    monkeypatch.setitem(generate.SCALE_MATRICES, "band_2097152_b4",
+                        lambda: generate.banded_csr(500, 500, band=4, seed=4))
+    status, lines = _run("spmv_torch", ["--device", "cpu", "--matrix",
+                                        "band_2097152_b4", "--format", "dia",
+                                        "--validate"])
+    assert status == 0 and "Errors: 0" in lines
+    assert any(ln.startswith("dia_row_mapped,band_2097152_b4,500,500,")
+               for ln in lines)
 
 
 def test_custom_layout_reduction_is_deterministic():

@@ -30,6 +30,9 @@ SLICE_MODULES = [
     "loops_tpu_torch.formats.csr",
     "loops_tpu_torch.formats.csc",
     "loops_tpu_torch.formats.bcsr",
+    "loops_tpu_torch.formats.ell",
+    "loops_tpu_torch.formats.dia",
+    "loops_tpu_torch.formats.advisor",
     "loops_tpu_torch.io.filepath",
     "loops_tpu_torch.io.market",
     "loops_tpu_torch.io.ogb",
@@ -69,6 +72,7 @@ SLICE_MODULES = [
     "loops_tpu_torch.utils.math",
     "loops_tpu_torch.utils.sample",
     "loops_tpu_torch.layout.partition",
+    "loops_tpu_torch.layout.reorder",
     "loops_tpu_torch.ops.kernels.saxpy",
     "loops_tpu_torch.probes",
     "loops_tpu_torch.probes.common",
@@ -176,6 +180,18 @@ NO_DEVICE_CALLS = {
     "ensure_platform": lambda: _entry("utils.platform", "ensure_platform")(),
     "SpMVOperator": lambda: _entry("ops.spmv", "SpMVOperator")(_tiny_csr()),
     "spmv": lambda: _entry("ops.spmv", "spmv")(_tiny_csr(), np.ones(4)),
+    "SpMVOperator_coo": lambda: _entry("ops.spmv", "SpMVOperator")(
+        _tiny_csr().to_coo()),
+    "SpMVOperator_reorder": lambda: _entry("ops.spmv", "SpMVOperator")(
+        _tiny_csr(), reorder="bfs"),
+    "flat_partitioned_spmv": lambda: _entry(
+        "ops.spmv", "flat_partitioned_spmv")(_tiny_csr(), np.ones(4)),
+    "SpMMOperator_ell": lambda: _entry("ops.spmm", "SpMMOperator")(
+        _tiny_csr().to_ell()),
+    "advise": lambda: _entry("formats.advisor", "advise")(_tiny_csr()),
+    "choose_format": lambda: _entry("formats.advisor", "choose_format")(
+        _tiny_csr()),
+    "format_costs": lambda: _entry("formats.advisor", "format_costs")(),
     "SpMVOperator_bcsr": lambda: _entry("ops.spmv", "SpMVOperator")(
         _tiny_bcsr(), impl="pallas"),
     "SpMMOperator": lambda: _entry("ops.spmm", "SpMMOperator")(_tiny_csr()),

@@ -343,8 +343,12 @@ def test_refusals():
         SpMMOperator(t, "row_mapped", dtype="float16", device=CPU)
     with pytest.raises(ValueError, match="shape"):
         SpMMOperator(t, "row_mapped", device=CPU)(np.ones((3, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="A8"):
-        SpMMOperator(t.to_coo(), "row_mapped", device=CPU)
+    # COO and ELL are ported, schedule row_mapped with impl 'xla' only
+    for mat in (t.to_coo(), t.to_ell()):
+        with pytest.raises(ValueError, match="row_mapped"):
+            SpMMOperator(mat, "merge_path", device=CPU)
+        with pytest.raises(ValueError, match="impl='xla'"):
+            SpMMOperator(mat, "row_mapped", impl="pallas", device=CPU)
     plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=8)
     with pytest.raises(NotImplementedError, match="A10"):
         spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
