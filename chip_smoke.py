@@ -166,7 +166,7 @@ Phases, one line each with its time:
    version 10 columns at a time), 256 sampled rows each within the
    Wilkinson bound. Then, with the launch counters set to 0: full-graph
    SAGE on the arxiv stand-in of phase 7 (dims [128, 128, 128, 40]) in f32
-   and bf16, on ``auto`` (group_mapped) and on ``merge_path``/``pallas``
+   and bf16, on ``group_mapped`` and on ``merge_path``/``pallas``
    (K4): the routes' logits within 1e-4 of the largest in f32 and one bf16
    ulp of it (2**-7) in bf16, A hx and the backward Aᵀ ct of both routes
    within twice the Wilkinson bound (in bf16 plus one rounding of each
@@ -222,6 +222,23 @@ Phases, one line each with its time:
    made from these times. The launch counters are set to 0 before the
    routes and read before the timing; K1's, K2's, K4's and K6's launches
    join their rows of the kernels line.
+23. the sweep and the refits (``utils/battery.py``, ``utils/statmatch.py``,
+   ``tuning/{sweep,fit,autotune}.py``; K1, K2 and cuSPARSE under the
+   sweep, K2, K3 and K4 under the autotuner): the sweep in-process over
+   one matrix of each synthetic family, the smallest stat-matched replica
+   of each family and ``xl_uniform_16777216`` (16.8M nonzeros), the five
+   schedules and the vendor, each held to the Wilkinson bound and timed
+   (``apply_ms`` and ``device_ms``), no pair refused or wrong; the fitter
+   over the committed ``plots/data/h100`` logs, from their
+   ``features.csv``, equal to the card's rows in ``schedule/plans.py``
+   (``CARD_THRESHOLDS``, ``CARD_SPMM_ROUTES``); ``schedule="auto"`` on a
+   matrix of each branch of the card's row taking that branch with the
+   impl the sweep timed it with (and SpMM's on the arxiv stand-in);
+   ``auto`` on the arxiv stand-in beside K1 and group_mapped (and with
+   ``reorder='bfs'``, as phase 22 runs it); ``autotune`` into a temporary
+   cache.
+   The launch counters are set to 0 before and read after: K1, K2, K3 and
+   K4 must have launched; their launches join the kernels line.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -1883,7 +1900,10 @@ def sage_phase(device, smi, ds):
         torch.from_numpy(a).to(device) for a in (
             ds.features, ds.labels, ds.train_mask, ds.test_mask))
     dims = [ds.features.shape[1], GCN_HIDDEN, GCN_HIDDEN, ds.num_classes]
-    routes = {"auto": {}, "K4": {"schedule": "merge_path", "impl": "pallas"}}
+    # the planes and K4, named: schedule="auto" follows the card's fitted
+    # SpMM route, which may be either
+    routes = {"group_mapped": {"schedule": "group_mapped"},
+              "K4": {"schedule": "merge_path", "impl": "pallas"}}
     models, build_s = {}, {}
     for dtype in DTYPES:
         for route, kw in routes.items():
@@ -1947,7 +1967,7 @@ def sage_phase(device, smi, ds):
             x = hx.clone().requires_grad_(True)
             (m.aggregate._fn(x) * ct).sum().backward()
             at_ct[route] = x.grad
-        lg, lk = la["auto"], la["K4"]
+        lg, lk = la["group_mapped"], la["K4"]
         require(tuple(lk.shape) == (graph.num_nodes, ds.num_classes)
                 and bool(lk.isfinite().all()), f"SAGE {name}: bad logits")
         scale = float(lg.abs().max())
@@ -1965,7 +1985,7 @@ def sage_phase(device, smi, ds):
         for label, op, got, v in (
                 ("A hx", models["K4", dtype].aggregate, agg, hx),
                 ("Aᵀ ct", models["K4", dtype].aggregate._vjp_op, at_ct, ct)):
-            gdiff = (got["K4"] - got["auto"]).abs().cpu().numpy()
+            gdiff = (got["K4"] - got["group_mapped"]).abs().cpu().numpy()
             tol = spmm_routes_tolerance(op.mat, v.cpu().numpy(), dtype)
             require(np.all(gdiff <= tol),
                     f"SAGE {name}: K4's {label} differs from group_mapped's "
@@ -1973,8 +1993,8 @@ def sage_phase(device, smi, ds):
             print(f"  GraphSAGE {name} (arxiv): {label} by K4 and by "
                   f"group_mapped, max |diff| {gdiff.max():.3e}, at most "
                   f"{(gdiff / tol).max():.3f} of its bound")
-        print(f"  GraphSAGE {name} (arxiv, dims {dims}): auto "
-              f"({models['auto', dtype].aggregate.impl_used}) vs K4 "
+        print(f"  GraphSAGE {name} (arxiv, dims {dims}): group_mapped "
+              f"({models['group_mapped', dtype].aggregate.impl_used}) vs K4 "
               f"logits max |diff| {diff:.3e} (max |logit| {scale:.3e}, "
               f"limit {rel:g} of it)", flush=True)
         for route in routes:
@@ -2437,8 +2457,11 @@ def formats_phase(device, smi, big, x_big, bench, adj, rate):
     add("big_2097152", "csr flat_partitioned_spmv", big, flat_partitioned,
         True)
     perm_bytes = 8 * big.shape[0]  # perm and its inverse, read once each
+    # auto on the permuted matrix: the degree multiset, so the pick, is
+    # big's own
     for label, sched, impl, kname in (
-            ("csr reorder=degree auto", "auto", "xla", "sorted_spmv"),
+            ("csr reorder=degree auto", "auto", "xla",
+             auto_kernel(big, device)[1]),
             ("csr reorder=degree merge_path pallas2", "merge_path",
              "pallas2", "flat_spmv_v2")):
         case, _ = add("big_2097152", label, format_bytes(big) + perm_bytes,
@@ -2532,8 +2555,10 @@ def formats_phase(device, smi, big, x_big, bench, adj, rate):
                 f"spmv_torch --format auto on {mname}: exit status "
                 f"{status}\n{out}{err}")
         picks[mname] = adv[0].split()[1]
-        want = {"csr": "sorted_spmv", "bcsr": "bcsr_spmv"}.get(
-            picks[mname], "torch")
+        built = {"big_2097152": big, "band_2097152_b4": band,
+                 "bcsr_spmv_32768": blk}[mname]
+        want = {"csr": auto_kernel(built, device)[1],
+                "bcsr": "bcsr_spmv"}.get(picks[mname], "torch")
         require(f"impl_used: {want}" in err, f"{mname}: the advisor picked "
                 f"{picks[mname]}, the CLI took {err}")
     launches = dict(_build.LAUNCHES)
@@ -2606,6 +2631,188 @@ def formats_phase(device, smi, big, x_big, bench, adj, rate):
     phase(22, "formats at full width", t0, "main-path launches "
           + json.dumps({k: v for k, v in launches.items() if v}) + " ")
     return launches, row
+
+
+def auto_kernel(csr, device):
+    """``(schedule, impl_used)`` that ``SpMVOperator(csr, "auto")`` takes
+    on ``device``: the card row's pick, run by the impl the sweep timed it
+    with (``tuning/sweep.IMPL_USED``)."""
+    from loops_tpu_torch.layout import CsrLayout
+    from loops_tpu_torch.schedule.plans import choose_schedule, thresholds_for
+    from loops_tpu_torch.tuning.sweep import IMPL_USED
+
+    row = thresholds_for(device)
+    s = choose_schedule(CsrLayout.from_csr(csr), row)
+    impl = row.get("impl", {}).get(s, "pallas3" if s == "sorted_flat"
+                                   else "xla")
+    return s, IMPL_USED[impl]
+
+
+def first_of_each(names, key):
+    """The first name of each group ``key(name)``, in order."""
+    seen = {}
+    for n in names:
+        seen.setdefault(key(n), n)
+    return list(seen.values())
+
+
+def sweep_phase(device, smi, adj):
+    """Phase 23: the sweep and the refits, through the package. Returns
+    the launches of its main path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from loops_tpu_torch.layout import CsrLayout
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.schedule import plans
+    from loops_tpu_torch.tuning import autotune, fit, sweep
+    from loops_tpu_torch.utils import generate, reference, statmatch
+    from loops_tpu_torch.utils.bench import apply_ms
+
+    t0 = time.perf_counter()
+    parts, last = {}, [t0]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - last[0], 1)
+        last[0] = now
+
+    _build.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        # ---- the sweep over a fixed slice: the five schedules and the
+        # vendor, each held to the Wilkinson bound
+        synth = first_of_each(sweep.population("synthetic")[1],
+                              lambda n: n.split("_")[0])
+        pop = statmatch.load_population()
+        replicas = [f"sm_{m.name}" for m in first_of_each(
+            sorted(pop, key=lambda m: m.nnz), lambda m: m.family)]
+        xl = [f"xl_uniform_{statmatch.XL_NNZ[0]}"]
+        columns = sweep.SCHEDULES + (sweep.VENDOR,)
+        for pname, names in (("synthetic", synth), ("statmatched", replicas),
+                             ("xl", xl)):
+            out = os.path.join(tmp, pname)
+            wrong = sweep.sweep(pname, names, out, columns, device,
+                                log=lambda line: None)
+            require(wrong == 0, f"sweep {pname}: {sweep.wrong_rows(out)}")
+            runs = sweep.load_logs(out)
+            require(sorted(runs) == sorted(names)
+                    and all(len(r) == len(columns) for r in runs.values()),
+                    f"sweep {pname}: a pair was refused or not timed: "
+                    f"{ {k: sorted(v) for k, v in runs.items()} }")
+            dev = sweep.load_logs(out, sweep.DEVICE_COL)
+            for n in names:
+                best = min(runs[n], key=runs[n].get)
+                print(f"  sweep {n}: fastest {best} {runs[n][best]:.4f} ms "
+                      "apply; " + ", ".join(
+                          f"{c} {runs[n][c]:.4f}/"
+                          f"{dev.get(n, {}).get(c, float('nan')):.4f}"
+                          for c in columns) + " ms (apply/card)  "
+                      f"[{smi}]", flush=True)
+            part(f"sweep {pname}")
+
+        # ---- the fitter over the committed logs, from their features
+        logs = os.path.join(REPO, "plots", "data", "h100")
+        copy = os.path.join(tmp, "committed")
+        shutil.copytree(logs, copy)
+        cap, best = fit.fit_spmv(os.path.join(copy, "statmatched"))
+        row = dict(plans.CARD_THRESHOLDS)["H100"]
+        want = {k: v for k, v in row.items() if k != "provenance"}
+        require(fit.as_table(best) == want,
+                f"refit {fit.as_table(best)} != the card row {want}")
+        spmm_dirs = [os.path.join(copy, "spmm", d)
+                     for d in sorted(os.listdir(os.path.join(copy, "spmm")))]
+        scap, sbest = fit.fit_spmm(spmm_dirs)
+        route = dict(plans.CARD_SPMM_ROUTES)["H100"]
+        swant = {k: v for k, v in route.items() if k != "provenance"}
+        require(fit.as_table(sbest, sweep.SPMM_IMPL) == swant,
+                f"SpMM refit {sbest} != the card route {swant}")
+        print(f"  refit from the committed logs' features.csv: "
+              f"{fit.describe(best)} (capture {cap:.1%}), SpMM route "
+              f"{fit.describe(sbest)} (capture {scap:.1%}): equal to the "
+              "card's rows", flush=True)
+        part("refit")
+
+        # ---- auto runs the swept impl on each branch of the card's row
+        on_card = plans.thresholds_for(device)
+        require(on_card is row, "thresholds_for gave another row")
+        feats = {**fit.read_features(os.path.join(copy, "synthetic")),
+                 **fit.read_features(os.path.join(copy, "statmatched"))}
+        branches = {}
+        for n in sorted(feats, key=lambda n: feats[n]["nnz"]):
+            s = fit.pick(feats[n], *fit.as_tuple(row))
+            branches.setdefault(s, n)
+        for s, n in sorted(branches.items()):
+            csr = fit.rebuild(n)
+            op = SpMVOperator(csr, "auto", device=device)
+            want_used = sweep.IMPL_USED[row["impl"][s]]
+            require(op.schedule == s and op.impl_used == want_used,
+                    f"auto on {n}: {op.schedule}/{op.impl_used}, the row "
+                    f"says {s}/{want_used}")
+            x = generate.make_input_vector(csr.shape[1])
+            rep = reference.rigorously_validate_spmv(csr, x,
+                                                     op(x).cpu().numpy())
+            require(rep.verdict == "NOT_A_BUG", f"auto on {n}: {rep}")
+            print(f"  auto on {n}: {s} -> {op.impl_used} (swept impl "
+                  f"{row['impl'][s]}), {rep.verdict}", flush=True)
+        s = plans.choose_schedule(CsrLayout.from_csr(adj), route)
+        sop = SpMMOperator(adj, "auto", device=device)
+        require(sop.schedule == s and sop.impl_used
+                == sweep.SPMM_IMPL_USED[route["impl"][s]],
+                f"SpMM auto on arxiv: {sop.schedule}/{sop.impl_used}")
+        print(f"  SpMM auto on the arxiv stand-in: {s} -> "
+              f"{sop.impl_used}", flush=True)
+        del sop
+        part("auto branches")
+
+        # ---- auto on the arxiv stand-in against K1 and group_mapped
+        x = generate.make_input_vector(adj.shape[1])
+        xd = torch.from_numpy(x).to(device)
+        judge = reference.spmv_judge(adj, x)
+        times = {}
+        for label, kw in (("auto", {}), ("auto reorder=bfs",
+                                         {"reorder": "bfs"}),
+                          ("K1", {"schedule": "sorted_flat"}),
+                          ("group_mapped", {"schedule": "group_mapped"})):
+            op = SpMVOperator(adj, kw.pop("schedule", "auto"),
+                              device=device, **kw)
+            rep = judge(op(xd).cpu().numpy())
+            require(rep.verdict == "NOT_A_BUG", f"arxiv {label}: {rep}")
+            times[label] = (apply_ms(op, xd), op.schedule, op.impl_used)
+        print("  arxiv stand-in SpMV (ms per apply): " + ", ".join(
+            f"{k} {ms:.4f} ({sched}, {used})"
+            for k, (ms, sched, used) in times.items()) + f"  [{smi}]",
+            flush=True)
+        part("arxiv auto")
+
+        # ---- autotune into a temporary cache, never the user's
+        old = os.environ.get("LOOPS_TUNE_CACHE")
+        os.environ["LOOPS_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+        try:
+            tuned = autotune.autotune(device, verbose=False)
+        finally:
+            if old is None:
+                del os.environ["LOOPS_TUNE_CACHE"]
+            else:
+                os.environ["LOOPS_TUNE_CACHE"] = old
+        print(f"  autotune: spmv_block {tuned['spmv_block']}, spmm_block_f "
+              f"{tuned['spmm_block_f']} ({tuned['timing']}; "
+              f"{json.dumps(tuned['spmv_ms'])}; "
+              f"{json.dumps(tuned['spmm_ms'])})  [{smi}]", flush=True)
+        part("autotune")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(_build.LAUNCHES)
+    for k in ("sorted_spmv", "flat_spmv_v2", "flat_spmv", "flat_spmm"):
+        require(launches[k] > 0, f"{k} never launched in phase 23")
+    print("  phase 23 by part (s): " + json.dumps(parts), flush=True)
+    phase(23, "sweep and refits", t0, "main-path launches "
+          + json.dumps({k: v for k, v in launches.items() if v}) + " ")
+    return launches
 
 
 def main() -> int:
@@ -2691,6 +2898,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.reset_launches()
     mtx = os.path.join(REPO, "datasets", "chesapeake.mtx")
+    from loops_tpu_torch.io import market
+    chesapeake = market.load_csr(mtx)
     for case in CLI_CASES:
         status, out, err = run_example(
             "spmv_torch.py", ["-m", mtx, "--validate", "--rigorous",
@@ -2704,8 +2913,9 @@ def main() -> int:
         require("Errors: 0" in out, f"spmv_torch {label}: {out}")
         require("Verdict: NOT_A_BUG" in out, f"spmv_torch {label}: {out}")
         if "auto" in case:
-            require("impl_used: sorted_spmv" in err,
-                    f"auto did not take K1: {err}")
+            want = auto_kernel(chesapeake, device)[1]
+            require(f"impl_used: {want}" in err,
+                    f"auto did not take {want}, the card row's: {err}")
     phase(4, "main path (examples/spmv_torch.py)", t0,
           f"{len(CLI_CASES)} cases ")
 
@@ -3017,6 +3227,7 @@ def main() -> int:
     gat_phase(device, smi, ds)
     fmt_launches, _ = formats_phase(device, smi, mats["big_2097152"][0],
                                     x_big, bench, adj, rate)
+    sweep_launches = sweep_phase(device, smi, adj)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -3040,7 +3251,7 @@ def main() -> int:
         b_ms, b_by = csr_spmv_bound(big)
         kernels.append(
             {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
-             "launches": launches[k] + fmt_launches[k],
+             "launches": launches[k] + fmt_launches[k] + sweep_launches[k],
              "max_abs_err": max_err[k],
              "ms": times["big_2097152", k]["ms"],
              "plain_ms": times["big_2097152", k]["plain_ms"],
@@ -3051,7 +3262,8 @@ def main() -> int:
         {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES,
          "launches": (gcn_launches["flat_spmm"] + sage_launches["flat_spmm"]
-                      + fmt_launches["flat_spmm"]),
+                      + fmt_launches["flat_spmm"]
+                      + sweep_launches["flat_spmm"]),
          "max_abs_err": max(spmm_err, sage_err),
          "ms": spmm_times["f32"]["ms"],
          "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,

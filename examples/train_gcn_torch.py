@@ -15,8 +15,9 @@ path (``impl_used``) and the kernel launches go to stderr.
 ``--device cuda`` (the default) fails when no card is visible; it never
 falls back to the CPU. On the card the GCN aggregation runs kernel K4,
 forward and backward. ``--model sage`` trains full-graph GraphSAGE (dims
-[F, hidden, hidden, classes], mean aggregation on the group_mapped planes,
-as ``schedule="auto"`` routes it; no dropout). ``--model gat`` trains
+[F, hidden, hidden, classes], mean aggregation as ``schedule="auto"``
+routes it: K4 on the H100, the group_mapped planes on the CPU; no
+dropout). ``--model gat`` trains
 full-graph GAT (the same dims, 4 heads, the fused attention with its
 transposed-plan backward; no dropout; the launches printed are every
 kernel counter's, which stay 0 on this path), as ``examples/train_gcn.py``

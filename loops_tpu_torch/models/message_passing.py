@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from loops_tpu_torch.formats import CSC, CSR
+from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.models.graph import Graph
 from loops_tpu_torch.ops.spmm import SpMMOperator
+from loops_tpu_torch.schedule.plans import choose_schedule, spmm_route_for
 from loops_tpu_torch.utils.platform import ensure_platform
 
 
@@ -32,17 +34,22 @@ def _route_aggregation(adj, dtype, op: str = "gcn",
                        device="cuda") -> tuple[str, str]:
     """Resolve ``schedule="auto"`` to ``(schedule, impl)``.
 
-    On a CUDA device a CSR sum or GCN aggregation goes to K4
-    (``merge_path``/``pallas``) in f32 and in bf16 alike. ``loops_tpu``
-    sent only bf16 there, because the TPU kernel's exact f32 mode costs
-    three MXU passes (its bf16 split); the card multiplies f32 directly.
-    Mean aggregation and every CPU case take the ``group_mapped`` planes,
-    as in ``loops_tpu``. The rule is not fitted on the H100 yet (ROADMAP
-    A7): PERF.md holds K4 against ``group_mapped`` in both dtypes.
+    On a card with a fitted SpMM route (``schedule/plans.py``
+    ``CARD_SPMM_ROUTES``, from the sweep's SpMM logs: K4 against the
+    planes and the row segments, f32 and bf16, sum/gcn and mean), a CSR
+    aggregation takes the route's pick. On another card a sum or GCN
+    aggregation goes to K4 (``merge_path``/``pallas``) and a mean one to
+    the ``group_mapped`` planes. Every CPU case takes the planes, as in
+    ``loops_tpu``.
     """
-    if (ensure_platform(device).type == "cuda" and isinstance(adj, CSR)
-            and op != "mean"):
-        return "merge_path", "pallas"
+    dev = ensure_platform(device)
+    if dev.type == "cuda" and isinstance(adj, CSR):
+        route = spmm_route_for(dev)
+        if route is not None:
+            schedule = choose_schedule(CsrLayout.from_csr(adj), route)
+            return schedule, route["impl"][schedule]
+        if op != "mean":
+            return "merge_path", "pallas"
     return "group_mapped", "xla"
 
 

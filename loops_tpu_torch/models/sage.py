@@ -4,7 +4,8 @@ The port of ``loops_tpu/models/sage.py``. Layer:
 ``h' = relu(h W_self + mean_{j in N(i)} h_j W_neigh + b)``, with no relu
 after the last. The full-graph form aggregates with one SpMM over the
 row-normalized adjacency (``aggregate_operator(op="mean")``): under
-``schedule="auto"`` the group_mapped planes, as both packages route mean
+``schedule="auto"`` the card's fitted route (K4 on the H100) and the
+group_mapped planes on the CPU, as ``loops_tpu`` routes mean
 aggregation; with ``schedule="merge_path", impl="pallas"`` kernel K4,
 forward and, for the gradient, over the mean-normalized Aᵀ (which is not
 symmetric). The minibatch form takes the fixed-shape [b, k] samples of

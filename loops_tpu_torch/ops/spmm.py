@@ -16,9 +16,11 @@ The port of ``loops_tpu/ops/spmm.py``. CSR, schedule -> execution:
   with B (in f32; PyTorch leaves TF32 off for it by default).
 * ``merge_path`` with ``impl='pallas'`` — kernel K4
   (``ops/kernels/spmm_flat.py``, ``csrc/spmm.cu``).
-* ``auto`` — ``choose_schedule``'s pick, mapped as ``loops_tpu`` maps it:
-  the skew and sorted picks to ``group_mapped``, the rest to
-  ``row_mapped``.
+* ``auto`` — on a card with a fitted route (``schedule/plans.py``
+  ``CARD_SPMM_ROUTES``) the route's pick and impl (K4, the planes or the
+  row segments); elsewhere ``choose_schedule``'s pick, mapped as
+  ``loops_tpu`` maps it: the skew and sorted picks to ``group_mapped``,
+  the rest to ``row_mapped``.
 
 CSR ``dtype="bfloat16"`` on every path: vals and B rounded to bf16, each
 product rounded to bf16, sums in f32, output f32; the hub-dense product
@@ -78,7 +80,12 @@ from loops_tpu_torch.ops.kernels import (
 )
 from loops_tpu_torch.ops.kernels.spmm_flat import BF16, products
 from loops_tpu_torch.ops.spmv import op_cache
-from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
+from loops_tpu_torch.schedule.plans import (
+    SCHEDULES,
+    choose_schedule,
+    make_plan,
+    spmm_route_for,
+)
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils.platform import ensure_platform
 
@@ -206,12 +213,23 @@ class SpMMOperator:
     # ------------------------------------------------------------- CSR
     def _build_csr(self, csr: CSR, schedule, impl):
         if schedule == "auto":
-            pick = choose_schedule(CsrLayout.from_csr(csr))
-            # SpMM has no sorted_flat analog; the skew/sorted picks map to
-            # the degree-class planes, the rest to the gather-segment path
-            schedule = self.schedule = (
-                "group_mapped" if pick in ("group_mapped", "sorted_flat")
-                else "row_mapped")
+            route = spmm_route_for(self.device)
+            if route is None:
+                pick = choose_schedule(CsrLayout.from_csr(csr))
+                # SpMM has no sorted_flat analog; the skew/sorted picks map
+                # to the degree-class planes, the rest to the
+                # gather-segment path
+                schedule = ("group_mapped"
+                            if pick in ("group_mapped", "sorted_flat")
+                            else "row_mapped")
+            else:
+                # the card's fitted route, with the impl it was timed on;
+                # float64 values take the torch path (the kernels stage
+                # f32, and auto is not a kernel request)
+                schedule = choose_schedule(CsrLayout.from_csr(csr), route)
+                impl = ("xla" if np.dtype(csr.vals.dtype) == np.float64
+                        else route["impl"][schedule])
+            self.schedule = schedule
         if impl not in ("xla", "pallas"):
             raise ValueError(f"csr SpMM implements impl 'xla' or 'pallas', "
                              f"got {impl!r}")

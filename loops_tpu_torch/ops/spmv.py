@@ -18,10 +18,14 @@ Schedule -> execution (CSR):
 * ``merge_path`` with ``impl='pallas2'`` — kernel K2
   (``ops/kernels/spmv_flat_v2.py``); with ``impl='pallas'`` — kernel K3
   (``ops/kernels/spmv_flat.py``).
-* ``sorted_flat`` (and ``auto`` where ``choose_schedule`` picks it) —
-  kernel K1 (``ops/kernels/spmv_sorted.py``). ``auto`` is not a kernel
-  request: on float64 values it warns and takes the torch ``merge_path``
-  executor on every device, as the reference does.
+* ``sorted_flat`` — kernel K1 (``ops/kernels/spmv_sorted.py``).
+* ``auto`` — ``choose_schedule``'s pick under ``thresholds_for(device)``:
+  on a card with a fitted row (``schedule/plans.py``
+  ``CARD_THRESHOLDS``) run by the impl the sweep timed that schedule with
+  (K1 for ``sorted_flat``, K2 for the flat schedules); elsewhere
+  ``loops_tpu``'s table, whose ``sorted_flat`` runs on K1. ``auto`` is
+  not a kernel request: on float64 values a kernel pick warns and takes
+  the torch executor on every device, as the reference does.
 
 The other formats take ``impl='xla'`` only, as in the reference, and run
 torch ops; the deterministic ones sum each output row in a fixed order:
@@ -84,7 +88,12 @@ from loops_tpu_torch.ops.kernels import (
     spmv_flat_v2,
     spmv_sorted,
 )
-from loops_tpu_torch.schedule.plans import SCHEDULES, choose_schedule, make_plan
+from loops_tpu_torch.schedule.plans import (
+    SCHEDULES,
+    choose_schedule,
+    make_plan,
+    thresholds_for,
+)
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils.platform import ensure_platform
 
@@ -278,16 +287,23 @@ class SpMVOperator:
         advice = "impl='xla'"
         f64 = np.dtype(csr.vals.dtype) == np.float64
         if schedule == "auto":
-            schedule = self.schedule = choose_schedule(layout)
-            if schedule == "sorted_flat" and f64:
+            table = thresholds_for(self.device)
+            schedule = self.schedule = choose_schedule(layout, table)
+            # a card's row runs each schedule with the impl it was timed on
+            row_impl = table.get("impl", {}).get(schedule)
+            impl = impl if row_impl is None else row_impl
+            if f64 and (schedule == "sorted_flat"
+                        or row_impl not in (None, "xla")):
                 # auto is not a kernel request: as the reference does
                 # (loops_tpu/ops/spmv.py:267-271), warn and take the
-                # merge-path torch executor on every device
+                # torch executor on every device
                 warnings.warn(
-                    "schedule='auto' chose sorted_flat, whose kernel K1 "
-                    "stages float32; taking the torch merge-path executor "
-                    "for float64 values", stacklevel=3)
-                schedule = "merge_path"
+                    f"schedule='auto' chose {schedule}, whose kernel stages "
+                    "float32; taking the torch executor for float64 values",
+                    stacklevel=3)
+                if schedule == "sorted_flat":
+                    schedule = "merge_path"
+                impl = "xla"
         if schedule == "sorted_flat":
             schedule, impl = "merge_path", "pallas3"
             advice = "schedule='merge_path'"

@@ -231,11 +231,10 @@ class FlatBlockPlan:
 # choose_schedule decision thresholds: the table ``loops_tpu`` fitted on a
 # TPU v5e (scripts/fit_heuristic.py over the stat-matched SuiteSparse
 # sweep): the sorted-gather schedule for every matrix, and the
-# degree-class planes for extreme degree skew (cv > 4). It is used on
-# every device here: loops_tpu kept a second table off the TPU only
-# because interpret-mode Pallas is slow on the CPU, and the port's plain
-# versions are not. It is NOT yet refit on the H100 (ROADMAP A7): the
-# crossovers of the CUDA kernels are unmeasured.
+# degree-class planes for extreme degree skew (cv > 4). It is the table
+# of the CPU (loops_tpu kept a second one off the TPU only because
+# interpret-mode Pallas is slow on the CPU, and the port's plain versions
+# are not) and of every card without a row in CARD_THRESHOLDS.
 HEURISTIC_THRESHOLDS = {
     "ratio": float("inf"),
     "cv": 4.0,      # coefficient of variation above which skew branch
@@ -243,6 +242,70 @@ HEURISTIC_THRESHOLDS = {
     "flat": "sorted_flat",    # uniform/mild tiles
     "group": "group_mapped",  # extreme-skew tiles
 }
+
+
+# choose_schedule's rows for the cards the sweep has run on, keyed by a
+# substring of torch.cuda.get_device_name() (first match wins): each row
+# is tuning/fit.py's fit over that card's sweep logs (provenance names
+# them). "impl" maps each schedule the row can choose to the
+# implementation the sweep timed it with (tuning/sweep.SCHED_IMPL), which
+# is the one ``schedule="auto"`` then runs.
+CARD_THRESHOLDS = (
+    # K1 (sorted_flat) for every matrix: the first grid point of the
+    # highest capture of the stat-matched population's oracle by apply_ms
+    # (86.4%; loops_tpu's table 81.3%: its cv > 4 planes run 2-20x
+    # slower here)
+    ("H100", {
+        "ratio": 1.25, "cv": 0.125, "small": 0.0,
+        "flat": "sorted_flat", "group": "sorted_flat",
+        "impl": {"row_mapped": "xla", "sorted_flat": "pallas3"},
+        "provenance": (
+            "tuning/fit.py over plots/data/h100/statmatched (250 "
+            "stat-matched replicas, scripts/sweep_battery_torch.py, "
+            "apply_ms) on NVIDIA H100 80GB HBM3, 700.00 W"),
+    }),
+)
+
+# the SpMM (GCN aggregation) route of ``schedule="auto"`` on a card, fitted
+# the same way over the sweep's SpMM logs (tuning/sweep.SPMM_IMPL): K4 is
+# merge_path with impl "pallas"
+CARD_SPMM_ROUTES = (
+    # K4 for every matrix: it was the fastest on all 300 cases (f32 and
+    # bf16, as is and mean-normalized), 13-20x the planes' geomean
+    ("H100", {
+        "ratio": 1e18, "cv": 1e18, "small": 0.0,
+        "flat": "merge_path", "group": "merge_path",
+        "impl": {"merge_path": "pallas", "row_mapped": "xla"},
+        "provenance": (
+            "tuning/fit.py --op spmm over plots/data/h100/spmm/{f32,bf16,"
+            "f32_mean,bf16_mean} (the pl_, rmat_, lgn_ recipes and the "
+            "ogbn-arxiv stand-in at F = 128, scripts/sweep_battery_torch.py "
+            "--op spmm, apply_ms) on NVIDIA H100 80GB HBM3, 700.00 W"),
+    }),
+)
+
+
+def _card_row(table, device):
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(dev)
+    return next((row for key, row in table if key in name), None)
+
+
+def thresholds_for(device) -> dict:
+    """``choose_schedule``'s table on ``device``: the card's row of
+    ``CARD_THRESHOLDS``, else ``HEURISTIC_THRESHOLDS`` (the CPU, and a
+    card the sweep has not run on)."""
+    return _card_row(CARD_THRESHOLDS, device) or HEURISTIC_THRESHOLDS
+
+
+def spmm_route_for(device) -> dict | None:
+    """The SpMM route's row of ``CARD_SPMM_ROUTES`` for ``device``, or
+    None (the CPU, and a card the sweep has not run on)."""
+    return _card_row(CARD_SPMM_ROUTES, device)
 
 
 def choose_schedule(layout: Layout, thresholds: dict | None = None) -> str:

@@ -112,7 +112,15 @@ def rigorously_validate_spmv(csr, x, y_kernel,
                              ) -> RigorousReport:
     """Wilkinson per-row validation against the f64 reference
     (reference.hxx:226-337)."""
-    y_kernel = np.asarray(y_kernel, np.float64)
+    return spmv_judge(csr, x, k, atol_floor)(y_kernel)
+
+
+def spmv_judge(csr, x, k: float = DEFAULT_WILKINSON_K,
+               atol_floor: float = DEFAULT_ATOL_FLOOR):
+    """``rigorously_validate_spmv`` with its host references (the f64 and
+    naive f32 products, the per-row bound) computed once: returns
+    ``judge(y_kernel) -> RigorousReport``, for many results on one
+    ``(csr, x)``."""
     y64 = spmv_f64(csr, x)
     y32 = spmv(csr, x, dtype=np.float32).astype(np.float64)
     nnz_r = csr.row_sizes().astype(np.float64)
@@ -120,7 +128,9 @@ def rigorously_validate_spmv(csr, x, y_kernel,
     u = unit_roundoff(np.float32)
     bound = np.maximum(atol_floor, k * nnz_r * u * l1)
 
-    return _report(k, y_kernel, y64, y32, bound)
+    def judge(y_kernel) -> RigorousReport:
+        return _report(k, np.asarray(y_kernel, np.float64), y64, y32, bound)
+    return judge
 
 
 def spmm_l1_products(csr, B) -> np.ndarray:
@@ -226,6 +236,43 @@ def validate_sampled_rows(csr, B, C, n: int = 256, seed: int = 7,
     operands (pass the rounded vals and B); ``bf16_products`` judges the
     SpMM bf16 mode, which rounds vals, B and each product to bf16, over
     those rounded products (as ``rigorously_validate_spmm_bf16``)."""
+    return sampled_rows_judge(csr, B, n, seed, k, atol_floor,
+                              bf16_products)(C)
+
+
+def sampled_rows_judge(csr, B, n: int = 256, seed: int = 7,
+                       k: float = DEFAULT_WILKINSON_K,
+                       atol_floor: float = DEFAULT_ATOL_FLOOR,
+                       bf16_products: bool = False):
+    """``validate_sampled_rows`` with its host sums computed once: returns
+    ``judge(C, slack=0.0) -> SampledRowsReport`` for many results on one
+    ``(csr, B)``. ``slack`` widens the bound by ``slack * sum |p|`` (one
+    more rounding of each product, for a route that forms some products
+    in another precision)."""
+    chk, ref, l1 = sampled_rows_reference(csr, B, n, seed, bf16_products)
+    nnz_r = csr.row_sizes()[chk].astype(np.float64)[:, None]
+    bound = np.maximum(atol_floor, k * nnz_r * unit_roundoff(np.float32)
+                       * l1)
+
+    def judge(C, slack: float = 0.0) -> SampledRowsReport:
+        if hasattr(C, "cpu"):
+            import torch
+            C = C[torch.from_numpy(chk).to(C.device)].cpu().numpy()
+        else:
+            C = np.asarray(C)[chk]
+        err = np.abs(np.asarray(C, np.float64) - ref)
+        return SampledRowsReport(
+            rows=len(chk),
+            rel_error=float(err.max(initial=0.0)
+                            / max(np.abs(ref).max(initial=0.0), 1e-9)),
+            overruns=int((err > bound + slack * l1).sum()))
+    return judge
+
+
+def sampled_rows_reference(csr, B, n: int = 256, seed: int = 7,
+                           bf16_products: bool = False):
+    """``(rows, sums, l1)`` of ``validate_sampled_rows``: the ``n`` rows
+    drawn from ``seed``, their f64 sums and ``sum |p|`` per entry."""
     rng = np.random.default_rng(seed)
     chk = np.sort(rng.choice(csr.shape[0], min(n, csr.shape[0]),
                              replace=False))
@@ -245,20 +292,7 @@ def validate_sampled_rows(csr, B, C, n: int = 256, seed: int = 7,
                  * B[csr.indices[a0:a1]])
         ref[i] = p.sum(0)
         l1[i] = np.abs(p).sum(0)
-    if hasattr(C, "cpu"):
-        import torch
-        C = C[torch.from_numpy(chk).to(C.device)].cpu().numpy()
-    else:
-        C = np.asarray(C)[chk]
-    err = np.abs(np.asarray(C, np.float64) - ref)
-    nnz_r = csr.row_sizes()[chk].astype(np.float64)[:, None]
-    bound = np.maximum(atol_floor, k * nnz_r * unit_roundoff(np.float32)
-                       * l1)
-    return SampledRowsReport(
-        rows=len(chk),
-        rel_error=float(err.max(initial=0.0)
-                        / max(np.abs(ref).max(initial=0.0), 1e-9)),
-        overruns=int((err > bound).sum()))
+    return chk, ref, l1
 
 
 def sddmm(csr, A, B) -> np.ndarray:

@@ -88,8 +88,11 @@ def test_segment_ops_on_the_card(cuda_device, op, sorted_ids):
 
 
 MODELS = {
-    "sage": lambda ds, dev: GraphSAGE(ds.graph, DIMS, device=dev),
+    # the planes, named (schedule="auto" follows the card's fitted route)
+    "sage": lambda ds, dev: GraphSAGE(ds.graph, DIMS, schedule="group_mapped",
+                                      device=dev),
     "sage_bf16": lambda ds, dev: GraphSAGE(ds.graph, DIMS, dtype="bfloat16",
+                                           schedule="group_mapped",
                                            device=dev),
     "sage_k4": lambda ds, dev: GraphSAGE(ds.graph, DIMS,
                                          schedule="merge_path",

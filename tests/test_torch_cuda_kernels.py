@@ -12,6 +12,8 @@ The tolerance against the plain version is ``rtol=1e-5, atol=1e-6``: the
 kernels sum each row in f32 in another order (lane-strided partials and
 shuffle trees, warp scans) than the plain versions.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,12 @@ import torch
 from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.ops.kernels import _build, spmv_flat, spmv_flat_v2, spmv_sorted
 from loops_tpu_torch.ops.spmv import SpMVOperator
-from loops_tpu_torch.schedule.plans import make_plan
+from loops_tpu_torch.schedule.plans import (
+    choose_schedule,
+    make_plan,
+    thresholds_for,
+)
+from loops_tpu_torch.tuning.sweep import IMPL_USED
 from loops_tpu_torch.utils import generate, reference
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -88,11 +95,18 @@ def test_kernels_match_plain(cuda_device, name, block):
     ("merge_path", "pallas", "flat_spmv"),
     ("merge_path", "pallas2", "flat_spmv_v2"),
     ("sorted_flat", "xla", "sorted_spmv"),
-    ("auto", "xla", "sorted_spmv")])
+    ("auto", "xla", None)])
 def test_operator_launches_kernel(cuda_device, schedule, impl, kname):
     csr = generate.random_csr(3000, 2500, 0.004, seed=7)
     x = generate.make_input_vector(2500)
     op = SpMVOperator(csr, schedule, impl=impl, device=cuda_device)
+    if kname is None:  # auto: the card row's pick, run by its swept impl
+        row = thresholds_for(cuda_device)
+        pick = choose_schedule(CsrLayout.from_csr(csr), row)
+        assert op.schedule == pick
+        kname = IMPL_USED[row.get("impl", {}).get(pick, "pallas3")]
+        if kname == "torch":
+            pytest.skip(f"the card's row runs {pick} with torch ops here")
     assert op.impl_used == kname
     y = op(x).cpu().numpy()
     assert op.launches == 1
@@ -285,9 +299,15 @@ def test_auto_on_f64_runs_torch_and_sorted_flat_raises(cuda_device):
     # asks for K1, and its refusal names schedule='merge_path'
     f64 = generate.random_csr(20, 18, 0.25, seed=13, dtype=np.float64)
     x = generate.make_input_vector(18, dtype=np.float64)
-    with pytest.warns(UserWarning, match="float64"):
+    row = thresholds_for(cuda_device)
+    pick = choose_schedule(CsrLayout.from_csr(f64), row)
+    # a pick the card's row runs by a kernel warns and takes torch ops
+    kernel = (pick == "sorted_flat"
+              or row.get("impl", {}).get(pick, "xla") != "xla")
+    with (pytest.warns(UserWarning, match="float64") if kernel
+          else contextlib.nullcontext()):
         op = SpMVOperator(f64, "auto", block=8, device=cuda_device)
-    assert op.schedule == "sorted_flat" and op.impl_used == "torch"
+    assert op.schedule == pick and op.impl_used == "torch"
     before = dict(_build.LAUNCHES)
     y = op(x)
     torch.cuda.synchronize()

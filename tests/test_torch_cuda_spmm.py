@@ -26,6 +26,7 @@ from loops_tpu_torch.layout import CsrLayout
 from loops_tpu_torch.models import GCN, train
 from loops_tpu_torch.models.graph import Graph
 from loops_tpu_torch.models.message_passing import (
+    _route_aggregation,
     aggregate_operator,
     masked_aggregate_operator,
 )
@@ -182,10 +183,12 @@ def test_aggregation_routes_k4_and_trains(cuda_device, dtype):
     n = 300
     g = Graph.from_edges(rng.integers(0, n, 1500), rng.integers(0, n, 1500),
                          n, make_undirected=True)
-    assert aggregate_operator(g, "gcn", dtype=dtype,
-                              device=cuda_device).impl_used == "flat_spmm"
-    assert aggregate_operator(g, "mean", dtype=dtype,
-                              device=cuda_device).impl_used == "torch"
+    # auto takes the card's route (K4 or the planes, by the fitted rule)
+    for op in ("gcn", "mean"):
+        agg = aggregate_operator(g, op, dtype=dtype, device=cuda_device)
+        sched, impl = _route_aggregation(agg.mat, dtype, op, cuda_device)
+        assert (agg.schedule, agg.impl_used) == (
+            sched, "flat_spmm" if impl == "pallas" else "torch")
     feats = _dense(n, 16, seed=6)
     labels = rng.integers(0, 4, n)
     mask = (rng.random(n) < 0.6).astype(np.float32)

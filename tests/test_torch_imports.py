@@ -79,6 +79,11 @@ SLICE_MODULES = [
     "loops_tpu_torch.probes.mosaic",
     "loops_tpu_torch.probes.r2",
     "loops_tpu_torch.probes.gather",
+    "loops_tpu_torch.utils.battery",
+    "loops_tpu_torch.utils.statmatch",
+    "loops_tpu_torch.tuning.sweep",
+    "loops_tpu_torch.tuning.fit",
+    "loops_tpu_torch.tuning.autotune",
 ]
 
 
@@ -87,6 +92,17 @@ def _package_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
+
+
+def _port_sources():
+    """The package, and every file of the port outside it: the
+    ``*_torch.py`` scripts and examples, and ``chip_smoke.py``."""
+    yield from _package_sources()
+    for d in ("scripts", "examples"):
+        for f in sorted(os.listdir(os.path.join(REPO, d))):
+            if f.endswith("_torch.py"):
+                yield os.path.join(REPO, d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
 
 
 def test_slice_imports_with_jax_blocked():
@@ -115,14 +131,19 @@ def test_no_jax_import_in_package():
                      r"|from\s+loops_tpu\b|from\s+loops_tpu\.|"
                      r"import\s+loops_tpu\.)", re.M)
     offenders = []
-    for path in _package_sources():
+    for path in _port_sources():
         with open(path) as f:
             src = f.read()
         offenders += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
                       for m in pat.finditer(src)]
     assert not offenders, offenders
-    # the scan does see the package (guards against a wrong path)
+    # the scan does see the package, the scripts and the examples (guards
+    # against a wrong path)
     assert sum(1 for _ in _package_sources()) >= len(SLICE_MODULES) - 1
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"chip_smoke.py", "scripts/sweep_battery_torch.py",
+            "scripts/fit_heuristic_torch.py",
+            "examples/spmv_torch.py"} <= names
 
 
 def test_lazy_submodules():
@@ -268,6 +289,11 @@ NO_DEVICE_CALLS = {
     "scripts/h100_probes.py": lambda: _script_main(
         "scripts/h100_probes.py")(["--quick"]),
     "launch_params": lambda: _entry("tuning.launch_box", "launch_params")(),
+    "autotune": lambda: _entry("tuning.autotune", "autotune")(),
+    "sweep": lambda: _entry("tuning.sweep", "sweep")("synthetic", [],
+                                                     "/nonexistent"),
+    "scripts/sweep_battery_torch.py": lambda: _script_main(
+        "scripts/sweep_battery_torch.py")(["/nonexistent", "--limit", "1"]),
     "Timer": lambda: _entry("utils.timer", "Timer")(),
     "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),
 }
@@ -323,8 +349,11 @@ def test_device_properties_without_card(monkeypatch):
         device.clear_cache()
 
 
-def test_launch_box_rows(monkeypatch):
+def test_launch_box_rows(monkeypatch, tmp_path):
     from loops_tpu_torch.tuning import launch_box
+
+    # no autotune cache: the committed rows alone
+    monkeypatch.setenv("LOOPS_TUNE_CACHE", str(tmp_path / "none.json"))
 
     assert launch_box.launch_params(CPU).spmv_block == 64
     # a card that is visible, as far as the resolver can tell
@@ -333,9 +362,9 @@ def test_launch_box_rows(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     h100 = launch_box.launch_params(torch.device("cuda", 0))
-    assert h100.spmv_block == 1024 and h100.spmm_block_f == 256
+    assert h100 == dict(launch_box._TABLE)["H100"]
     assert h100.bcsr_block == (8, 128)
-    assert "unmeasured on H100" in h100.provenance
+    assert "NVIDIA H100 80GB HBM3" in h100.provenance
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Other")
     assert launch_box.launch_params("cuda").provenance == "fallback"
 
