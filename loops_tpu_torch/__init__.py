@@ -10,7 +10,11 @@ path:
 - **formats**: host-side numpy sparse containers (COO, CSR, CSC, ELL,
   BCSR, DIA) with ``to_device`` staging into torch tensors, and the
   format advisor.
-- **io**: the Matrix Market loader and OGB-style node datasets.
+- **io**: the Matrix Market loader, OGB-style node datasets, the binary
+  CSR cache, edge lists, the plan cache and the out-of-core tier (row
+  shards on disk streamed through one card).
+- **native**: the C++ host tier (tokenizer, COO -> CSR, shard remap),
+  built with g++ at first use.
 - **layout**: the tile/atom layout contract, the merge-path partitioner
   and the plan-time reorderings.
 - **schedule**: host planners: row_mapped, group_mapped, work_oriented,
@@ -40,7 +44,7 @@ __version__ = "0.1.0"
 from loops_tpu_torch.formats import COO, CSR  # noqa: F401
 
 _SUBMODULES = ("formats", "io", "layout", "schedule", "ops", "models",
-               "tuning", "utils", "probes")
+               "tuning", "utils", "probes", "native")
 
 
 def __getattr__(name):

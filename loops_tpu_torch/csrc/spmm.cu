@@ -19,9 +19,12 @@
 // plain PyTorch version, which sums the same runs in the same order,
 // gives the same bits.
 // What does not cross over: the [K, R] one-hot MXU contraction, the 3-way
-// bf16 split of the f32 mode (the card multiplies f32 exactly), the
-// 4096-row VMEM output stripes with their re-cut and GROUP padding, and
-// pad_groups/pad_R (the out-of-core tier).
+// bf16 split of the f32 mode (the card multiplies f32 exactly), and the
+// 4096-row VMEM output stripes with their re-cut and GROUP padding.
+// pad_groups (one staged shape for many out-of-core shards) stages empty
+// blocks past the plan's: atom_starts repeated, row range [rows, rows),
+// row_first/row_last -1. Such a block leaves at once and the seam pass
+// skips it, so C is the unpadded C bit for bit.
 //
 // What bounds K4 on an H100: bytes of the B gather, F * 4 B (f32) or
 // F * 2 B (bf16) per nonzero, mostly from L2; at 2 flops per gathered

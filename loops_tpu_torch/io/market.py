@@ -6,12 +6,15 @@ banner/typecode parsing, comment tolerance, 1-indexed coordinate records,
 symmetric expansion, index/offset overflow guards, and fail-fast
 rejection of complex/hermitian/skew-symmetric/dense-array files.
 
-The body is tokenized with numpy (``bytes.split`` + one float64
-conversion). A native C++ tokenizer, as ``loops_tpu.native`` has, is
-ROADMAP A2.
+A file is mapped (``mmap``) and its body handed without a copy to the
+native tokenizer (``native/src/mtx_parser.cpp``, ``std::from_chars``
+over the buffer), as ``loops_tpu/io/market.py`` does; without the
+library, or where it refuses the body, numpy tokenizes it
+(``bytes.split`` + one float64 conversion).
 """
 from __future__ import annotations
 
+import mmap
 import os
 
 import numpy as np
@@ -47,14 +50,20 @@ def _parse_banner(line: bytes):
     return field, sym
 
 
-def _parse_body(body: bytes, nnz: int, has_values: bool):
-    """Parse whitespace-separated records. Returns (r, c, v) 0-indexed."""
-    flat = np.array(body.split(), dtype=np.float64)
-    per = flat.size // nnz if nnz else (3 if has_values else 2)
-    if nnz and per < 2:
-        raise MatrixMarketError(
-            f"expected {nnz} records, found {flat.size} numbers")
-    arr = flat[: nnz * per].reshape(nnz, per)
+def _parse_body(body, nnz: int, has_values: bool):
+    """Parse whitespace-separated records from bytes or a memoryview.
+    Returns (r, c, v) 0-indexed."""
+    from loops_tpu_torch.native import mtx_parse
+
+    arr = mtx_parse(body, nnz, 3 if has_values else 2)
+    if arr is None:
+        data = body.tobytes() if isinstance(body, memoryview) else body
+        flat = np.array(data.split(), dtype=np.float64)
+        per = flat.size // nnz if nnz else (3 if has_values else 2)
+        if nnz and per < 2:
+            raise MatrixMarketError(
+                f"expected {nnz} records, found {flat.size} numbers")
+        arr = flat[: nnz * per].reshape(nnz, per)
     r = arr[:, 0].astype(np.int64) - 1
     c = arr[:, 1].astype(np.int64) - 1
     if has_values and arr.shape[1] >= 3:
@@ -74,12 +83,26 @@ def load(path_or_bytes, dtype=np.float32) -> COO:
     Matches the reference flow (market.hxx:100-177): banner -> comments ->
     dims -> overflow guard -> body parse -> symmetric mirror.
     """
+    mm = None
     if isinstance(path_or_bytes, (str, os.PathLike)):
+        # the mapped file (the reference's mapped_file_t,
+        # detail/mapped_file.hxx:78-192): its body below is a view
         with open(path_or_bytes, "rb") as f:
-            data = f.read()
+            try:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                data = mm
+            except ValueError:  # an empty file cannot be mapped
+                data = f.read()
     else:
         data = bytes(path_or_bytes)
+    try:
+        return _load(data, mm, dtype)
+    finally:
+        if mm is not None:
+            mm.close()
 
+
+def _load(data, mm, dtype) -> COO:
     nl = data.find(b"\n")
     if nl < 0:
         raise MatrixMarketError("empty file")
@@ -105,8 +128,12 @@ def load(path_or_bytes, dtype=np.float32) -> COO:
             f"dimensions {rows}x{cols} exceed int32 index range "
             "(reference parity: market.hxx:143-149)")
 
-    r, c, v = _parse_body(data[eol + 1:], nnz,
-                          has_values=(field != "pattern"))
+    body = memoryview(data)[eol + 1:] if mm is not None else data[eol + 1:]
+    try:
+        r, c, v = _parse_body(body, nnz, has_values=(field != "pattern"))
+    finally:
+        if mm is not None:
+            body.release()  # the map closes only with no view left
     if nnz and (r.max(initial=0) >= rows or c.max(initial=0) >= cols):
         raise MatrixMarketError("coordinate out of declared bounds")
 

@@ -7,9 +7,9 @@ library with a plain C interface, ``libloops_kernels_<hash>.so`` under
 ``loops_tpu_torch/_build/`` and keyed by a hash of the sources (the
 ``*.cu`` files and the ``*.cuh`` headers they include) and flags,
 then loads it with ctypes — the same lazy-build pattern as
-``loops_tpu/native/build.py``. It runs at the first kernel launch (or
-when called directly), never at import: the CPU tests import every
-module on machines without nvcc or a card.
+``loops_tpu/native/build.py``, by ``utils/libbuild.py``. It runs at the
+first kernel launch (or when called directly), never at import: the CPU
+tests import every module on machines without nvcc or a card.
 
 Each kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -18,7 +18,6 @@ main path went through.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import operator
 import os
 import shutil
@@ -27,6 +26,8 @@ import threading
 import time
 
 import torch
+
+from loops_tpu_torch.utils import libbuild
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -129,16 +130,10 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         files = _sources()
-        h = hashlib.sha256()
-        for f in files:
-            with open(f, "rb") as fh:
-                h.update(fh.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        so_path = os.path.join(BUILD_DIR,
-                               f"libloops_kernels_{h.hexdigest()[:16]}.so")
+        so_path = libbuild.library_path(BUILD_DIR, "loops_kernels", files,
+                                        NVCC_FLAGS)
         t0 = time.perf_counter()
         if not os.path.exists(so_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
             _build([f for f in files if f.endswith(".cu")], so_path)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():
@@ -180,19 +175,19 @@ def _build(files, so_path: str) -> None:
     library is renamed into place, atomically when processes build at
     once."""
     nvcc = _nvcc()
-    tag = f"tmp{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(f)}.{tag}.o")
-            for f in files]
-    tmp = f"{so_path}.{tag}"
-    try:
-        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, f])
-              for f, o in zip(files, objs)])
-        _run([_start([nvcc, "-shared", "-o", tmp, *objs])])
-        os.replace(tmp, so_path)
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
+
+    def make(tmp, tag):
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(f)}.{tag}.o")
+                for f in files]
+        try:
+            _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, f])
+                  for f, o in zip(files, objs)])
+            _run([_start([nvcc, "-shared", "-o", tmp, *objs])])
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+    libbuild.publish(so_path, make)
 
 
 def check(t, name: str, dtype, device, numel: int | None = None):

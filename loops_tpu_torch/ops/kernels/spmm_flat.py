@@ -25,9 +25,20 @@ the kernel rounds vals on load.
 
 Dropped with the TPU mechanism: the [K, R] one-hot MXU contraction, the
 f32 mode's 3-way bf16 split, the 4096-row output stripes, their re-cut
-(``cut_at_rows``) and GROUP padding. ``pad_groups``/``pad_R`` let several
-out-of-core shards share one compiled Pallas function; they belong to
-ROADMAP A10 and raise here.
+(``cut_at_rows``) and GROUP padding.
+
+``pad_groups``/``pad_R`` keep the TPU kernel's contract
+(``loops_tpu/ops/kernels/spmm_flat.py:48-57``): several CSRs of one
+padded shape get staged buffers of identical shapes, so a stream of
+out-of-core shards (``io/shards.py``) reuses one set of device buffers.
+The port has no GROUP of 8 blocks and no row window, so ``pad_groups``
+pads the staged block count ``nb`` with empty blocks (no atoms,
+``row_first``/``row_last`` -1, the row range empty at ``rows``), which
+the kernel leaves at once and the seam pass skips; C is the unpadded C
+bit for bit. ``pad_R`` raises the recorded ``R``, the most rows any
+block spans, and has no other effect: the kernel holds no window of
+``R`` rows. ``fn.meta`` records both as ``groups`` (the staged block
+count) and ``R``.
 
 What bounds K4 on an H100: the bytes of the ``B[col, :]`` gather, F * 4 B
 (f32) or F * 2 B (bf16) per nonzero; the feature tile is 32 * FPL columns
@@ -174,17 +185,24 @@ def flat_spmm_plain(b: dict, B: torch.Tensor, shape, dtype=None
         axis=0, unsafe=True)
 
 
+def flat_spmm_apply(b: dict, B: torch.Tensor, shape, dtype=None,
+                    block_f: int = 256) -> torch.Tensor:
+    """C = A @ B over K4's staged buffers ``b``: K4 on a CUDA tensor, its
+    plain version on a CPU tensor."""
+    if B.device.type == "cpu":
+        return flat_spmm_plain(b, B, shape, dtype)
+    return flat_spmm_cuda(b, B, shape, dtype, block_f)
+
+
 def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
               pad_groups: int | None = None, pad_R: int | None = None):
     """Build ``(bufs, fn(bufs, B))`` for CSR @ dense over a merge-path
     FlatBlockPlan. ``fn`` runs K4 on a CUDA tensor and the plain version
-    on a CPU tensor."""
+    on a CPU tensor. ``pad_groups``/``pad_R``: stage at least this many
+    blocks (empty ones past the plan's) and record at least this ``R``
+    (module docstring); ``fn.meta`` has the realized ``groups`` and
+    ``R``."""
     device = ensure_platform(device)
-    if pad_groups is not None or pad_R is not None:
-        raise NotImplementedError(
-            "pad_groups/pad_R (several shards sharing one compiled kernel) "
-            "belong to the out-of-core tier, not ported to loops_tpu_torch "
-            "yet (ROADMAP A10)")
     if dtype not in (None, BF16):
         raise ValueError(f"dtype={dtype!r}: K4 takes None (f32) or "
                          f"{BF16!r}")
@@ -201,15 +219,21 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
     row_starts[0], row_starts[-1] = 0, rows
     slot_rows = np.where(plan.valid, plan.tile_starts[:-1, None].astype(
         np.int64) + plan.rel_tile, 0)
+    groups = max(plan.num_blocks, int(pad_groups or 0))
+    R = max(plan.max_rel_span, int(pad_R or 0))
+    pad = groups - plan.num_blocks
+    # padding blocks: no atoms (atom_starts repeated), no seam rows, an
+    # empty row range at `rows`, zero slots
     arrays = dict(
-        vals=plan.gather(csr.vals).astype(np.float32),
-        cols=plan.gather(csr.indices).astype(np.int32),
-        rows=slot_rows.astype(np.int32),
+        vals=_pad(plan.gather(csr.vals).astype(np.float32), pad, 0),
+        cols=_pad(plan.gather(csr.indices).astype(np.int32), pad, 0),
+        rows=_pad(slot_rows.astype(np.int32), pad, 0),
         offsets=csr.offsets.astype(np.int32),
-        atom_starts=plan.atom_starts.astype(np.int32),
-        row_starts=row_starts.astype(np.int32),
-        row_first=row_first,
-        row_last=row_last,
+        atom_starts=_pad(plan.atom_starts.astype(np.int32), pad,
+                         plan.atom_starts[-1]),
+        row_starts=_pad(row_starts.astype(np.int32), pad, rows),
+        row_first=_pad(row_first, pad, -1),
+        row_last=_pad(row_last, pad, -1),
     )
     bufs = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     empty = plan.num_atoms == 0
@@ -219,9 +243,14 @@ def flat_spmm(csr, plan, block_f: int = 256, dtype=None, device="cuda",
             # no nonzeros: C is zeros, and there is nothing to launch
             return torch.zeros(rows, B.shape[1], dtype=torch.float32,
                                device=B.device)
-        if B.device.type == "cpu":
-            return flat_spmm_plain(b, B, shape, dtype)
-        return flat_spmm_cuda(b, B, shape, dtype, block_f)
+        return flat_spmm_apply(b, B, shape, dtype, block_f)
     fn.meta = dict(num_blocks=plan.num_blocks, block_atoms=plan.block_atoms,
-                   block_f=block_f)
+                   block_f=block_f, groups=groups, R=R)
     return bufs, fn
+
+
+def _pad(a: np.ndarray, pad: int, value) -> np.ndarray:
+    """``a`` with ``pad`` rows (entries of a 1-D ``a``) of ``value`` below."""
+    if pad == 0:
+        return a
+    return np.concatenate([a, np.full((pad, *a.shape[1:]), value, a.dtype)])

@@ -70,6 +70,21 @@ def lanes_for(mean: float) -> int:
     return int(min(32, 1 << max(int(np.ceil(np.log2(max(mean, 1.0)))), 0)))
 
 
+# the arrays of a K1 plan that the plan derives (cached by io/plan_cache);
+# the rest are the matrix's own (matrix_arrays)
+PLAN_ARRAYS = ("cuts", "row_first", "row_last")
+# what they derive from, besides the shape: the key of a cached K1 plan
+PLAN_KEY_ARRAYS = ("offsets",)
+
+
+def matrix_arrays(csr) -> dict:
+    """The CSR's arrays as K1 stages them: int32 offsets and columns,
+    f32 values."""
+    return dict(offsets=csr.offsets.astype(np.int32),
+                cols=csr.indices.astype(np.int32),
+                vals=csr.vals.astype(np.float32))
+
+
 def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
     """Host planning: returns ``(arrays, params)`` — pure numpy."""
     t0 = time.perf_counter()
@@ -108,9 +123,7 @@ def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
 
     lanes = lanes_for(N / max(int(np.count_nonzero(np.diff(offsets))), 1))
     arrays = dict(
-        offsets=csr.offsets.astype(np.int32),
-        cols=csr.indices.astype(np.int32),
-        vals=csr.vals.astype(np.float32),
+        **matrix_arrays(csr),
         cuts=cuts.astype(np.int32),
         row_first=rid[cuts[:-1]].astype(np.int32),
         row_last=rid[cuts[1:] - 1].astype(np.int32),
@@ -197,13 +210,46 @@ def sorted_spmv_bind(arrays, params, device):
                    lanes_per_row=params.get("lanes_per_row"),
                    # host planning cost, excluding the device upload —
                    # the reference's preprocess-vs-kernel separation
-                   # (merge_path_flat.cuh:97-138)
-                   plan_ms=params["plan_ms"])
+                   # (merge_path_flat.cuh:97-138); for a plan from the
+                   # cache, the load time, with the build's beside it
+                   plan_ms=params["plan_ms"],
+                   plan_source=params.get("plan_source", "built"),
+                   built_plan_ms=params.get("built_plan_ms",
+                                            params["plan_ms"]),
+                   # hashing the shape and offsets into the cache's key
+                   key_ms=params.get("key_ms"))
     return bufs, fn
 
 
-def sorted_spmv(csr, *, block_atoms: int = BLOCK_ATOMS, device="cuda"):
-    """Build ``(bufs, fn)`` for CSR @ vector through K1."""
+def sorted_spmv(csr, *, block_atoms: int = BLOCK_ATOMS, device="cuda",
+                cache_dir=None):
+    """Build ``(bufs, fn)`` for CSR @ vector through K1.
+
+    ``cache_dir``: a directory of the plan cache (``io/plan_cache.py``),
+    keyed by the matrix's shape and row offsets, from which the plan
+    derives, and ``block_atoms``. On a hit the host plan is loaded, not
+    built, and ``fn.meta`` has ``plan_source`` 'cache' and ``plan_ms``
+    the load time; on a miss the plan is built and saved (``plan_source``
+    'built'). The cache holds the arrays the plan derives
+    (``PLAN_ARRAYS``) and its parameters; the matrix's own arrays are the
+    caller's CSR at every bind."""
     device = ensure_platform(device)
-    arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)
+    if cache_dir is None:
+        arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)
+        return sorted_spmv_bind(arrays, params, device)
+    from loops_tpu_torch.io.plan_cache import plan_cache_get_or_build
+
+    built = {}
+
+    def build():
+        arrays, params = sorted_spmv_plan(csr, block_atoms=block_atoms)
+        built.update(arrays)
+        return {k: arrays[k] for k in PLAN_ARRAYS if k in arrays}, params
+    arrays, params = plan_cache_get_or_build(
+        cache_dir, csr, dict(block_atoms=int(block_atoms)), build,
+        arrays=PLAN_KEY_ARRAYS)
+    if built:
+        arrays = built
+    elif not params.get("empty"):
+        arrays = {**matrix_arrays(csr), **arrays}
     return sorted_spmv_bind(arrays, params, device)

@@ -63,8 +63,10 @@ CUDA device and, on the CPU, warns and takes the torch executor.
 ``impl_used`` names the path the build took and ``launches`` counts this
 operator's kernel launches.
 
-``plan_cache=`` (ROADMAP A10) and ``bucketed=`` (A12) are not ported and
-raise ``NotImplementedError`` naming the ROADMAP item.
+``plan_cache=dir`` keeps K1's host plan on disk (``io/plan_cache.py``):
+a later operator on a matrix of the same shape and row offsets loads
+it (``meta['plan_source']`` 'cache'). ``bucketed=`` (ROADMAP A12) is not ported and raises
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -194,8 +196,6 @@ class SpMVOperator:
         if not isinstance(mat, (CSR, BCSR, COO, CSC, ELL, DIA)):
             raise TypeError(f"SpMV takes a CSR, BCSR, COO, CSC, ELL or DIA "
                             f"matrix, got {type(mat).__name__}")
-        if plan_cache is not None:
-            _not_ported("plan_cache=", "A10 (io/plan_cache.py)")
         if bucketed:
             _not_ported("bucketed=", "A12")
         self.device = ensure_platform(device)
@@ -218,6 +218,10 @@ class SpMVOperator:
         self.impl = impl
         self.block = block
         self.class_step = class_step
+        # a directory of the plan cache (io/plan_cache.py): K1's host plan
+        # is built once per matrix, not once per process; no other
+        # route has a plan to cache, and leaves it unused
+        self.plan_cache = plan_cache
         self.rows, self.cols = mat.shape
         self._dtype = torch.from_numpy(mat.vals[:0]).dtype
         # "torch" for the torch-op executors, else the kernel's name
@@ -339,7 +343,8 @@ class SpMVOperator:
                                advice=advice)
         if impl == "pallas3":
             self.impl_used = "sorted_spmv"
-            return spmv_sorted.sorted_spmv(csr, device=self.device)
+            return spmv_sorted.sorted_spmv(csr, device=self.device,
+                                           cache_dir=self.plan_cache)
         t0 = time.perf_counter()
         plan = make_plan(layout, schedule, **_flat_kw(schedule, block))
         plan_ms = (time.perf_counter() - t0) * 1e3

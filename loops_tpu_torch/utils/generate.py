@@ -231,3 +231,47 @@ def ladder_csr(steps: int = 100, gap: int = 897) -> CSR:
     holds several of them spans more rows than its plan's span split
     takes apart in 64 passes, once no stripe cuts it first."""
     return sized_csr(([1] + [0] * (gap - 1)) * steps, 30, seed=28)
+
+
+def powerlaw_csr(n: int, avg_deg: int, seed: int = 0) -> CSR:
+    """Adjacency-only zipf-flavoured digraph of ``n`` nodes and about ``n
+    * avg_deg`` edges, built in O(E) memory: ``scripts/bench_outofcore.py``
+    ``powerlaw_csr`` array for array, the out-of-core bench's graph.
+
+    From ``n = 2**22`` the billion-edge path: closed-form inverse-CDF zipf
+    draws (``n**u`` in place of an alias table over n probabilities) and
+    the native counting-sort COO -> CSR (``native/src/coo_to_csr.cpp``)
+    with no dedup pass: a duplicate edge acts as a weight-2 edge, and peak
+    memory stays at ~3 copies of the edge list. Below it, an alias draw
+    with duplicates summed.
+    """
+    rng = np.random.default_rng(seed)
+    m = n * avg_deg
+    if n >= 1 << 22:
+        # P(rank <= k) ~ ln(k)/ln(n) for zipf(1)  =>  rank = n**u;
+        # chunked so the f64 temporaries stay ~1 GB
+        src = np.empty(m, np.int32)
+        step = 1 << 27
+        for i in range(0, m, step):
+            u = rng.random(min(step, m - i))
+            src[i:i + len(u)] = np.minimum(
+                (n ** u).astype(np.int64) - 1, n - 1).astype(np.int32)
+        dst = rng.integers(0, n, size=m, dtype=np.int32)
+        from loops_tpu_torch.native.convert import coo_to_csr
+        nat = coo_to_csr(dst, src, np.ones(m, np.float32), n)
+        if nat is not None:
+            offsets, cols, vals = nat
+            return CSR((n, n), offsets.astype(np.int64), cols, vals)
+        order = np.argsort(dst, kind="stable")
+        dst, src = dst[order], src[order]
+        offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int64)
+        return CSR((n, n), offsets, src.astype(np.int32),
+                   np.ones(m, np.float32))
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.log(n + 1)  # ~zipf normalizer
+    probs /= probs.sum()
+    src = rng.choice(n, size=m, p=probs).astype(np.int32)
+    dst = rng.integers(0, n, size=m, dtype=np.int32)
+    coo = COO((n, n), dst, src, np.ones(m, np.float32))
+    coo = coo.sort_by_row().remove_duplicates(op="sum")
+    return CSR.from_coo(coo)

@@ -146,8 +146,13 @@ def test_k4_wrapper_checks_inputs(cuda_device):
     with pytest.raises(ValueError, match="block_f"):
         spmm_flat.flat_spmm_cuda(b, torch.zeros(cols, 4, device=cuda_device),
                                  csr.shape, block_f=48)
-    with pytest.raises(NotImplementedError, match="A10"):
-        spmm_flat.flat_spmm(csr, plan, device=cuda_device, pad_groups=2)
+    # pad_groups is ported with the out-of-core tier: empty blocks past
+    # the plan's, C unchanged
+    b2, fn2 = spmm_flat.flat_spmm(csr, plan, device=cuda_device,
+                                  pad_groups=plan.num_blocks + 2)
+    assert fn2.meta["groups"] == plan.num_blocks + 2
+    B = torch.ones(cols, 4, device=cuda_device)
+    assert torch.equal(fn2(b2, B), spmm_flat.flat_spmm_cuda(b, B, csr.shape))
 
 
 @pytest.mark.cuda

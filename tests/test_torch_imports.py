@@ -84,6 +84,17 @@ SLICE_MODULES = [
     "loops_tpu_torch.tuning.sweep",
     "loops_tpu_torch.tuning.fit",
     "loops_tpu_torch.tuning.autotune",
+    "loops_tpu_torch.native",
+    "loops_tpu_torch.native.build",
+    "loops_tpu_torch.native.convert",
+    "loops_tpu_torch.native.mtx",
+    "loops_tpu_torch.io",
+    "loops_tpu_torch.io.binary",
+    "loops_tpu_torch.io.edges",
+    "loops_tpu_torch.io.plan_cache",
+    "loops_tpu_torch.io.shards",
+    "loops_tpu_torch.utils.outofcore",
+    "loops_tpu_torch.utils.libbuild",
 ]
 
 
@@ -142,6 +153,7 @@ def test_no_jax_import_in_package():
     assert sum(1 for _ in _package_sources()) >= len(SLICE_MODULES) - 1
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"chip_smoke.py", "scripts/sweep_battery_torch.py",
+            "scripts/bench_outofcore_torch.py",
             "scripts/fit_heuristic_torch.py",
             "examples/spmv_torch.py"} <= names
 
@@ -177,6 +189,13 @@ def _tiny_graph():
 def _tiny_bcsr():
     from loops_tpu_torch.formats import BCSR
     return BCSR.from_csr(_tiny_csr(), 8, 128)
+
+
+def _tiny_store():
+    # a store's metadata alone: the device is refused before any file
+    from loops_tpu_torch.io.shards import ShardedCSR
+    return ShardedCSR("/nonexistent", dict(num_shards=1, shape=[4, 4],
+                                           row_starts=[0, 4], nnzs=[4]))
 
 
 def _entry(module, name):
@@ -294,6 +313,14 @@ NO_DEVICE_CALLS = {
                                                      "/nonexistent"),
     "scripts/sweep_battery_torch.py": lambda: _script_main(
         "scripts/sweep_battery_torch.py")(["/nonexistent", "--limit", "1"]),
+    "SpMVOperator_plan_cache": lambda: _entry("ops.spmv", "SpMVOperator")(
+        _tiny_csr(), "sorted_flat", plan_cache="/nonexistent"),
+    "StreamedSpMM": lambda: _entry("io.shards", "StreamedSpMM")(
+        _tiny_store()),
+    "StreamedSpMM_merge_path": lambda: _entry("io.shards", "StreamedSpMM")(
+        _tiny_store(), "merge_path"),
+    "scripts/bench_outofcore_torch.py": lambda: _script_main(
+        "scripts/bench_outofcore_torch.py")(["--nodes", "100"]),
     "Timer": lambda: _entry("utils.timer", "Timer")(),
     "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),
 }

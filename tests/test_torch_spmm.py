@@ -350,8 +350,9 @@ def test_refusals():
         with pytest.raises(ValueError, match="impl='xla'"):
             SpMMOperator(mat, "row_mapped", impl="pallas", device=CPU)
     plan = make_plan(CsrLayout.from_csr(t), "merge_path", block_work=8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
+    # pad_R is ported with the out-of-core tier: it raises the recorded R
+    _, fn = spmm_flat.flat_spmm(t, plan, pad_R=16, device=CPU)
+    assert fn.meta["R"] == 16 and fn.meta["groups"] == plan.num_blocks
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_flat.flat_spmm_cuda({}, torch.zeros(3, 2), t.shape)
 

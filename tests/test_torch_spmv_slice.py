@@ -174,16 +174,20 @@ def test_empty_matrix_gives_zeros(shape, schedule, impl):
     assert op.launches == 0
 
 
-def test_unported_knobs_raise():
-    # plan_cache= (A10) and bucketed= (A12) still raise naming their item;
-    # reorder= and the COO, CSC, ELL and DIA formats are ported
+def test_unported_knobs_raise(tmp_path):
+    # bucketed= (A12) still raises naming its item; plan_cache= (ported
+    # with the out-of-core tier), reorder= and the COO, CSC, ELL and DIA
+    # formats are ported
     csr = generate.random_csr(10, 10, 0.3, seed=1)
-    for kw, item in ((dict(plan_cache="/nonexistent"), "A10"),
-                     (dict(bucketed=True), "A12")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            SpMVOperator(csr, "merge_path", **kw, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        SpMVOperator(csr, "merge_path", bucketed=True, device=CPU)
+    cached = SpMVOperator(csr, "sorted_flat", plan_cache=str(tmp_path),
+                          device=CPU)
+    assert cached.meta["plan_source"] == "built"
     x = generate.make_input_vector(10)
     want = csr.to_dense() @ x
+    np.testing.assert_allclose(cached(x).numpy(), want, rtol=1e-5,
+                               atol=1e-6)
     for mat, kw in ((csr, dict(reorder="degree")), (csr.to_coo(), {}),
                     (csr.to_csc(), {}), (csr.to_ell(), {}),
                     (csr.to_dia(), {})):
