@@ -268,6 +268,23 @@ Phases, one line each with its time:
    (c). Its files live in a temporary directory (~13 GB
    at the peak of (c)), removed at the end. Launches of the checks are
    not counted; K1's and K4's main-path launches join the kernels line.
+25. the multi-device tier at full width (``parallel/``; K4 in each
+   rank's local reduction): a one-rank NCCL group through a file store
+   (``parallel/launch.single_rank``) and its meshes, ``(1,)`` over
+   ``graph`` and ``(1, 1)`` over ``("host", "chip")``; DistGCN on phase
+   7's arxiv stand-in at phase 8's dims [128, 128, 128, 40], f32,
+   through the overlapped halo, the all-gather and the hierarchical
+   exchange, from the parameters of a single-device GCN (dropout 0):
+   logits within ``1e-4 * max(|logit|, 1)`` of that GCN's and 10 Adam
+   steps' losses within 1e-3 relative of its own; a one-shard
+   ``ShardedCSR`` of the adjacency through ``EdgePartition.from_shards``
+   and DistSpMMHier at F = 128 within twice the Wilkinson bound of
+   ``SpMMOperator`` (printed: whether bit for bit); DistSpMMHalo's apply
+   and DistGCN's train step beside ``SpMMOperator``'s and GCN's, with
+   card times. The group is destroyed; then ``dryrun_multichip(8)``: 8
+   gloo ranks on the host's CPU (not the card: one card holds one NCCL
+   rank). K4 must have launched; its main-path launches join the
+   kernels line.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
@@ -475,11 +492,16 @@ def card_text(fn, x):
     queued behind a sleep kernel) beside the ms per call of the same calls
     queued back to back (``apply_ms``), and the share of the latter in
     which the card waits for the host: a device time that no dropped
-    trace event can shorten. A negative share shows the pair disagrees."""
-    from loops_tpu_torch.utils.bench import apply_ms, device_ms
+    trace event can shorten. Where every hold ended before the calls were
+    queued (``HoldExpired``), the card time is "not measured"."""
+    from loops_tpu_torch.utils.bench import HoldExpired, apply_ms, device_ms
 
-    card = device_ms(fn, x, applies=10)
     queued = apply_ms(fn, x, iters=10)
+    try:
+        card = device_ms(fn, x, applies=10)
+    except HoldExpired as e:
+        return (f"card time not measured ({e}), queued {queued:.4f} ms "
+                "(apply_ms)")
     return (f"card {card:.4f} ms (device_ms), queued {queued:.4f} ms "
             f"(apply_ms), card waits {1 - card / queued:.1%}")
 
@@ -3193,6 +3215,170 @@ def outofcore_phase(device, smi, big, x_big):
     return main
 
 
+def multidevice_phase(device, smi, ds, adj):
+    """Phase 25: the multi-device tier at full width, as one NCCL rank,
+    then its 8-rank protocols over gloo on the host's CPU. Returns the
+    launches of its main path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from loops_tpu_torch.io.shards import ShardedCSR
+    from loops_tpu_torch.models import GCN
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.parallel import (
+        DistGCN,
+        DistSpMMHalo,
+        DistSpMMHier,
+        EdgePartition,
+        HaloPlan,
+        HierHaloPlan,
+        launch,
+        make_mesh,
+        make_mesh_hier,
+    )
+    from loops_tpu_torch.utils.bench import HoldExpired, apply_ms, device_ms
+
+    t0 = time.perf_counter()
+    graph, n = ds.graph, ds.graph.num_nodes
+    dims = [ds.features.shape[1], GCN_HIDDEN, GCN_HIDDEN, ds.num_classes]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        with launch.single_rank("nccl"):
+            require(torch.distributed.get_backend() == "nccl",
+                    "the group is not NCCL's")
+            flat = make_mesh(device="cuda")
+            hier = make_mesh_hier(1, 1, device="cuda")
+            print(f"  one NCCL rank: meshes {tuple(flat.mesh.shape)} "
+                  f"{flat.mesh_dim_names}, {tuple(hier.mesh.shape)} "
+                  f"{hier.mesh_dim_names}", flush=True)
+            # the references run before the count starts: their K4
+            # launches are not the tier's
+            single = GCN(graph, dims, dropout=0.0, device=device,
+                         generator=torch.Generator().manual_seed(25))
+            state = {k: v.clone() for k, v in single.state_dict().items()}
+            single.eval()
+            with torch.no_grad():
+                want = single(single.prepare_features(ds.features))
+            scale = max(float(want.abs().max()), 1.0)
+            sstep = T.make_train_step(
+                single, torch.optim.Adam(single.parameters(), lr=1e-2),
+                ds.features, ds.labels, ds.train_mask)
+            ref_losses = [float(sstep()) for _ in range(10)]
+            B = np.random.default_rng(25).normal(
+                size=(adj.shape[0], GCN_HIDDEN)).astype(np.float32)
+            k4 = SpMMOperator(adj, "merge_path", "pallas", device=device)
+            Bd = torch.from_numpy(B).to(device)
+            with torch.no_grad():
+                ref = k4(Bd).cpu().numpy()
+
+            before = dict(_build.LAUNCHES)
+            steps, tier = {}, {}
+            for exchange, mesh in (("halo", flat), ("all_gather", flat),
+                                   ("hier", hier)):
+                th = time.perf_counter()
+                model = DistGCN(graph, dims, mesh, exchange=exchange)
+                build_s = time.perf_counter() - th
+                model.load_state_dict(state)
+                require(all(op.impl_used == "flat_spmm"
+                            for op in model.operators()),
+                        f"DistGCN {exchange} took "
+                        f"{[op.impl_used for op in model.operators()]}")
+                model.eval()
+                with torch.no_grad():
+                    got = model(model.local_features(ds.features))
+                require(tuple(got.shape) == (model.plan.rows_per_dev,
+                                             ds.num_classes)
+                        and bool(torch.isfinite(got).all()),
+                        f"DistGCN {exchange}: bad logits")
+                diff = float((got[:n] - want).abs().max())
+                require(diff <= 1e-4 * scale,
+                        f"DistGCN {exchange}: logits differ from GCN's by "
+                        f"{diff:.3e} (max |logit| {scale:.3e})")
+                step = model.make_train_step(
+                    torch.optim.Adam(model.parameters(), lr=1e-2),
+                    ds.features, ds.labels, ds.train_mask)
+                losses = [float(step()) for _ in range(10)]
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(losses, ref_losses))
+                require(rel <= 1e-3, f"DistGCN {exchange}: losses {losses} "
+                        f"against GCN's {ref_losses}")
+                steps[exchange] = step
+                tier[exchange] = model.launches()
+                require(tier[exchange] > 0,
+                        f"K4 never launched in DistGCN {exchange}")
+                print(f"  DistGCN {exchange} (overlap "
+                      f"{getattr(model.propagate, 'overlap', False)}): "
+                      f"logits within {diff:.3e} of GCN's (max |logit| "
+                      f"{scale:.3e}); 10 Adam steps {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}, max rel. diff {rel:.2e} from "
+                      f"GCN's; K4 launches {model.launches()}; built in "
+                      f"{build_s:.2f} s", flush=True)
+
+            # from_shards on the card: one shard, one chip
+            store = ShardedCSR.build(adj, 1, os.path.join(tmp, "store"))
+            part = EdgePartition.from_shards(store, chips_per_shard=1)
+            hop = DistSpMMHier(HierHaloPlan.build(part, 1, 1), hier)
+            hin = torch.from_numpy(part.local_features(B, 0)).to(device)
+            with torch.no_grad():
+                got = hop(hin)[:n].cpu().numpy()
+            tier["from_shards"] = sum(op.launches for op in hop.operators)
+            require(tier["from_shards"] > 0,
+                    "K4 never launched in DistSpMMHier")
+            diff = np.abs(got.astype(np.float64) - ref)
+            require(np.all(diff <= spmm_pair_tolerance(adj, B, None)),
+                    f"from_shards DistSpMMHier differs from SpMMOperator by "
+                    f"{diff.max():.3e}")
+            print(f"  from_shards (1 shard x 1 chip) -> DistSpMMHier at F = "
+                  f"{GCN_HIDDEN}: max |diff| from SpMMOperator (K4) "
+                  f"{diff.max():.3e}, bit for bit {bool((diff == 0).all())}",
+                  flush=True)
+            main = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+            require(main["flat_spmm"] == sum(tier.values()),
+                    f"K4 launched {main['flat_spmm']} times during the "
+                    f"count, the tier's operators {tier}")
+            print(f"  K4 launches of the tier's operators: {tier}",
+                  flush=True)
+
+            # the distributed wrapper's own cost at one rank, F = 128
+            halo = DistSpMMHalo(HaloPlan.build(EdgePartition.build(adj, 1)),
+                                flat, overlap=True)
+
+            def card(fn, x):
+                try:
+                    return f"{device_ms(fn, x):.4f}"
+                except HoldExpired:
+                    return "not measured"
+            with torch.no_grad():
+                ms_halo, ms_k4 = apply_ms(halo, hin), apply_ms(k4, Bd)
+                card_halo, card_k4 = card(halo, hin), card(k4, Bd)
+            ms_dstep = apply_ms(lambda _: steps["halo"](), Bd, iters=10)
+            ms_sstep = apply_ms(lambda _: sstep(), Bd, iters=10)
+            print(f"  F = {GCN_HIDDEN}, one rank: DistSpMMHalo (overlap) "
+                  f"{ms_halo:.4f} ms an apply (card {card_halo}) against "
+                  f"SpMMOperator's {ms_k4:.4f} (card {card_k4}); DistGCN "
+                  f"(halo) train step {ms_dstep:.3f} ms against GCN's "
+                  f"{ms_sstep:.3f}  [{smi}]", flush=True)
+        require(not torch.distributed.is_initialized(),
+                "the NCCL group outlived the phase")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the 8-rank protocols, on the host's CPU over gloo
+    th = time.perf_counter()
+    r = launch.dryrun_multichip(8)
+    print(f"  (the line above: 8 gloo ranks on this machine's host CPU, "
+          f"{os.cpu_count()} cores, in {time.perf_counter() - th:.1f} s; "
+          f"not the card)", flush=True)
+    require(r["hier_loss"] is not None, "the dry run ran no hier step")
+    phase(25, "multi-device tier at full width", t0, "main-path launches "
+          + json.dumps({k: v for k, v in main.items() if v}) + " ")
+    return main
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3607,6 +3793,7 @@ def main() -> int:
                                     x_big, bench, adj, rate)
     sweep_launches = sweep_phase(device, smi, adj)
     ooc_launches = outofcore_phase(device, smi, mats["big_2097152"][0], x_big)
+    md_launches = multidevice_phase(device, smi, ds, adj)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
@@ -3644,7 +3831,8 @@ def main() -> int:
          "launches": (gcn_launches["flat_spmm"] + sage_launches["flat_spmm"]
                       + fmt_launches["flat_spmm"]
                       + sweep_launches["flat_spmm"]
-                      + ooc_launches["flat_spmm"]),
+                      + ooc_launches["flat_spmm"]
+                      + md_launches["flat_spmm"]),
          "max_abs_err": max(spmm_err, sage_err),
          "ms": spmm_times["f32"]["ms"],
          "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,

@@ -27,6 +27,9 @@ path:
 - **models**: the GNN tier so far: graph container, message passing with
   its SpMM gradient, GCN, GraphSAGE with neighbour sampling, GAT, GATv2,
   training, checkpoints.
+- **parallel**: the multi-device tier over ``torch.distributed``: meshes,
+  the edge-balanced partition, the flat and hierarchical halo exchanges,
+  distributed SpMM, GCN and GraphSAGE, and the launcher of local ranks.
 - **tuning**: the launch box keyed by the card's name.
 - **utils**: host reference engines, the Wilkinson validator, matrix
   generators, CUDA-event and slope timing, the measured read stream (K11).
@@ -44,7 +47,7 @@ __version__ = "0.1.0"
 from loops_tpu_torch.formats import COO, CSR  # noqa: F401
 
 _SUBMODULES = ("formats", "io", "layout", "schedule", "ops", "models",
-               "tuning", "utils", "probes", "native")
+               "tuning", "utils", "probes", "native", "parallel")
 
 
 def __getattr__(name):

@@ -100,10 +100,19 @@ def aggregate_operator(graph: Graph, op: str = "sum",
     adj = _adjacency(graph, op, "aggregate_operator")
     if schedule == "auto":
         schedule, impl = _route_aggregation(adj, dtype, op, device)
+    if not custom_vjp:
+        return SpMMOperator(adj, schedule=schedule, impl=impl, dtype=dtype,
+                            device=device)
+    return propagate_operator(adj, schedule, impl, dtype, device)
+
+
+def propagate_operator(adj: CSR, schedule: str, impl: str, dtype=None,
+                       device="cuda") -> SpMMOperator:
+    """The SpMM operator ``h -> adj @ h`` with the differentiable
+    ``._fn``: its backward is the same schedule's SpMM over ``adjᵀ``, or
+    the forward operator itself where ``adj`` is symmetric."""
     fwd_op = SpMMOperator(adj, schedule=schedule, impl=impl, dtype=dtype,
                           device=device)
-    if not custom_vjp:
-        return fwd_op
     adj_t = _transpose_csr(adj)
     symmetric = (
         adj.nnz == adj_t.nnz

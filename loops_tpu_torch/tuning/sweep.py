@@ -17,7 +17,8 @@ result and times it, and appends one row per (matrix, column) to
 - ``device_ms``: the card's own ms per apply (``utils/bench.device_ms``).
   Small matrices are host-bound on the card (a K1 ``op(x)`` costs ~36 µs
   of launch path), so it differs from ``apply_ms``. It is empty on the
-  CPU, where no device time exists.
+  CPU, where no device time exists, and where ``device_ms`` refused
+  every hold (``HoldExpired``).
 
 Every result is checked before it is timed: SpMV against the Wilkinson
 bound (``utils/reference.rigorously_validate_spmv``), SpMM on 256 sampled
@@ -39,6 +40,7 @@ battery's GNN-shaped families (``pl_``, ``rmat_``, ``lgn_``) and the
 ogbn-arxiv stand-in.
 
     python scripts/sweep_battery_torch.py OUT [--population P] [--op spmm]
+        [--names A,B] [--columns group_mapped]
 """
 from __future__ import annotations
 
@@ -244,7 +246,7 @@ def sweep(pop: str, names, out: str, columns=SCHEDULES + (VENDOR,),
 
     from loops_tpu_torch.tuning.fit import append_features
     from loops_tpu_torch.utils import reference
-    from loops_tpu_torch.utils.bench import apply_ms, device_ms
+    from loops_tpu_torch.utils.bench import HoldExpired, apply_ms, device_ms
     from loops_tpu_torch.utils.generate import make_input_vector
     from loops_tpu_torch.utils.platform import ensure_platform
 
@@ -317,7 +319,12 @@ def sweep(pop: str, names, out: str, columns=SCHEDULES + (VENDOR,),
                     log(f"{tag}: WRONG {detail}")
                     continue
                 ms = apply_ms(fn, x)
-                dev = f"{device_ms(fn, x):.5f}" if cuda else ""
+                dev = ""
+                if cuda:
+                    try:
+                        dev = f"{device_ms(fn, x):.5f}"
+                    except HoldExpired as e:  # not measured: left empty
+                        log(f"{tag}: card time not measured ({e})")
                 logs[c].write(f"{c},{name},{dims},{ms:.5f},{plan_ms:.2f},"
                               f"{dev}\n")
                 logs[c].flush()
@@ -365,6 +372,11 @@ def parser(columns_help: str) -> argparse.ArgumentParser:
     ap.add_argument("--workers", type=int, default=0,
                     help="host processes building the next matrices ahead "
                          "(0: build each in turn)")
+    ap.add_argument("--names", default="",
+                    help="comma-separated matrices of the population to run "
+                         "(default: all)")
+    ap.add_argument("--columns", default="",
+                    help="comma-separated columns to run (default: all)")
     return ap
 
 
@@ -372,6 +384,18 @@ def run(args, op: str, columns, dtype=None, feat: int = 128,
         norm: str = "none") -> int:
     pop = args.population or ("gnn" if op == "spmm" else "synthetic")
     _, names, info = population(pop, args.max_rows)
+    if args.names:
+        wanted = args.names.split(",")
+        unknown = sorted(set(wanted) - set(names))
+        if unknown:
+            raise SystemExit(f"not in {pop}: {', '.join(unknown)}")
+        names = [n for n in names if n in wanted]
+    if args.columns:
+        wanted = args.columns.split(",")
+        unknown = sorted(set(wanted) - set(columns))
+        if unknown:
+            raise SystemExit(f"columns not swept here: {', '.join(unknown)}")
+        columns = tuple(c for c in columns if c in wanted)
     if args.limit:
         names = names[: args.limit]
     write_info(args.out, info)

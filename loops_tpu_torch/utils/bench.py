@@ -18,7 +18,19 @@ host and card: when the host's launch path is the slower, ``apply_ms``
 and ``slope_ms`` both read it. ``device_ms`` reads the card alone: a
 sleep kernel holds the card while the host queues the applies, so they
 run with no gap between them. ``1 - device_ms / apply_ms`` is then the
-share of an apply in which the card waits for the host. ``host_us`` times
+share of an apply in which the card waits for the host. That holds only
+while the sleep outlasts the queueing, so every sample checks it: the
+event that marks the sleep's end is queried before each apply is queued
+and once all are, and a sample whose sleep had already ended is void.
+The host can queue only so far ahead of the card: a torch route that
+launches hundreds of kernels an apply fills CUDA's queue of pending work
+within a few applies, and the host then waits for the card whatever the
+sleep's length. So a void sample is taken again with half the applies
+that were queued before the sleep ended; where not even two were, with
+one apply behind a sleep twice as long, up to ``HOLD_CAP_CYCLES``. Past
+that ``device_ms`` raises ``HoldExpired`` and returns no number (an
+apply that waits for the card itself, by a host sync, can never be
+held). ``host_us`` times
 the host's side of a call the same way, with the card held so that it
 never makes the host wait.
 
@@ -103,26 +115,67 @@ def slope_ms(fn, x, lo: int = 4, hi: int = 20, repeats: int = 3) -> float:
 
 
 # clock cycles the card sleeps while the host queues work (~25 ms at the
-# H100's 1.98 GHz), longer than the host takes to queue a timing's calls
+# H100's 1.98 GHz); a single apply that cannot be queued within the sleep
+# is re-timed behind a sleep twice as long, up to HOLD_CAP_CYCLES (~1.6 s)
 HOLD_CYCLES = 50_000_000
+HOLD_CAP_CYCLES = 64 * HOLD_CYCLES
+
+
+class HoldExpired(RuntimeError):
+    """The card's sleep ended before the host had queued one apply, even
+    at the longest hold: the card's own time was not measured."""
+
+
+def held_sample(fn, x, applies: int, hold: int):
+    """``(ms, queued)``: the card's ms per ``fn(x)`` over ``applies``
+    applies queued behind a sleep of ``hold`` clock cycles, and
+    ``applies``; or ``(None, queued)`` where the sleep had ended when
+    only ``queued`` applies were queued (the card may then have waited
+    for the host within the timed span, which is then not the card's
+    alone)."""
+    torch.cuda.synchronize(x.device)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold)
+    t0.record()  # completes when the sleep ends
+    queued = 0
+    while queued < applies and not t0.query():
+        fn(x)
+        queued += 1
+    t1.record()
+    expired = queued < applies or t0.query()
+    t1.synchronize()
+    if expired:
+        return None, queued - (queued == applies)
+    return t0.elapsed_time(t1) / applies, applies
 
 
 def device_ms(fn, x, applies: int = 50, repeats: int = 3) -> float:
-    """Median over ``repeats`` of the card's milliseconds per ``fn(x)``,
-    ``applies`` applies queued behind a sleep kernel (CUDA tensors)."""
+    """Median over ``repeats`` held samples of the card's milliseconds per
+    ``fn(x)`` (CUDA tensors). A void sample (``held_sample``) is taken
+    again with half the applies queued before its sleep ended, or, where
+    fewer than two were, with one apply, and a void sample of one apply
+    behind a sleep twice as long; the later samples keep the smaller
+    count and the longer sleep. At ``HOLD_CAP_CYCLES`` a void sample of
+    one apply raises ``HoldExpired``."""
     fn(x)
+    hold = HOLD_CYCLES
     samples = []
-    for _ in range(repeats):
-        torch.cuda.synchronize(x.device)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
-        t0.record()
-        for _ in range(applies):
-            fn(x)
-        t1.record()
-        t1.synchronize()
-        samples.append(t0.elapsed_time(t1) / applies)
+    while len(samples) < repeats:
+        ms, queued = held_sample(fn, x, applies, hold)
+        if ms is not None:
+            samples.append(ms)
+        elif queued >= 2:
+            applies = queued // 2
+        elif applies > 1:
+            applies = 1
+        elif hold < HOLD_CAP_CYCLES:
+            hold = min(2 * hold, HOLD_CAP_CYCLES)
+        else:
+            raise HoldExpired(
+                f"the card's sleep of {hold} cycles ended before the host "
+                "had queued one apply: the card's own time per apply was "
+                "not measured")
     return float(statistics.median(samples))
 
 

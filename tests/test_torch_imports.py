@@ -95,6 +95,14 @@ SLICE_MODULES = [
     "loops_tpu_torch.io.shards",
     "loops_tpu_torch.utils.outofcore",
     "loops_tpu_torch.utils.libbuild",
+    "loops_tpu_torch.parallel",
+    "loops_tpu_torch.parallel.mesh",
+    "loops_tpu_torch.parallel.graph_partition",
+    "loops_tpu_torch.parallel.halo",
+    "loops_tpu_torch.parallel.hier",
+    "loops_tpu_torch.parallel.dist_ops",
+    "loops_tpu_torch.parallel.launch",
+    "loops_tpu_torch.parallel.workers",
 ]
 
 
@@ -155,6 +163,9 @@ def test_no_jax_import_in_package():
     assert {"chip_smoke.py", "scripts/sweep_battery_torch.py",
             "scripts/bench_outofcore_torch.py",
             "scripts/fit_heuristic_torch.py",
+            "scripts/bench_scaling_torch.py",
+            "scripts/outofcore_mesh_train_torch.py",
+            "examples/dist_train_torch.py",
             "examples/spmv_torch.py"} <= names
 
 
@@ -214,8 +225,8 @@ def _script_main(path):
     return mod.main
 
 
-# every public entry point of the port that takes ``device=``, called
-# without one: each defaults to the card
+# every public entry point of the port that takes ``device=`` (or
+# ``backend=``), called without one: each defaults to the card
 NO_DEVICE_CALLS = {
     "ensure_platform": lambda: _entry("utils.platform", "ensure_platform")(),
     "SpMVOperator": lambda: _entry("ops.spmv", "SpMVOperator")(_tiny_csr()),
@@ -321,6 +332,31 @@ NO_DEVICE_CALLS = {
         _tiny_store(), "merge_path"),
     "scripts/bench_outofcore_torch.py": lambda: _script_main(
         "scripts/bench_outofcore_torch.py")(["--nodes", "100"]),
+    "make_mesh": lambda: _entry("parallel.mesh", "make_mesh")(),
+    "make_mesh_2d": lambda: _entry("parallel.mesh", "make_mesh_2d")(1, 1),
+    "make_mesh_hier": lambda: _entry("parallel.mesh", "make_mesh_hier")(1,
+                                                                          1),
+    "launch.run": lambda: _entry("parallel.launch", "run")(print, 1),
+    "launch.run_ranks": lambda: _entry("parallel.launch", "run_ranks")(
+        print, 1),
+    "workers.mesh_for": lambda: _entry("parallel.workers", "mesh_for")(
+        "flat"),
+    "workers.run_cases": lambda: _entry("parallel.workers", "run_cases")(
+        0, 1, [("spmm", "flat", {})]),
+    "workers.scaling_rank": lambda: _entry(
+        "parallel.workers", "scaling_rank")(
+            0, 1, _tiny_csr(), np.ones((4, 2), np.float32), ["halo"], 1),
+    "workers.store_train_rank": lambda: _entry(
+        "parallel.workers", "store_train_rank")(0, 1, "/nonexistent", 1,
+                                                [2, 2], 1),
+    "launch.single_rank": lambda: _entry(
+        "parallel.launch", "single_rank")().__enter__(),
+    "examples/dist_train_torch.py": lambda: _script_main(
+        "examples/dist_train_torch.py")(["--epochs", "1"]),
+    "scripts/bench_scaling_torch.py": lambda: _script_main(
+        "scripts/bench_scaling_torch.py")(["--nodes", "100"]),
+    "scripts/outofcore_mesh_train_torch.py": lambda: _script_main(
+        "scripts/outofcore_mesh_train_torch.py")(["--nodes", "100"]),
     "Timer": lambda: _entry("utils.timer", "Timer")(),
     "time_fn": lambda: _entry("utils.timer", "time_fn")(lambda: None),
 }

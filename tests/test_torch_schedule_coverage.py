@@ -7,14 +7,16 @@ visits per atom and asserts each equals 1, including empty tiles and
 over-subscribed grids). The port's planners materialize the visit map on
 the host, so the check is exact array arithmetic: the staged
 (atom_gather, valid) pairs must cover [0, num_atoms) exactly once;
-group_mapped buckets likewise. The ``ell`` case builds
-``EllLayout(rows, pitch)`` from ``loops_tpu``'s ``ELL.from_csr(...)``:
-the port has no ELL format yet (ROADMAP A6).
+group_mapped buckets likewise. The ``ell`` case builds its layout with
+the port's ``ELL.from_csr`` and ``EllLayout.from_ell``; ``ell_loops_tpu``
+builds ``EllLayout(rows, pitch)`` from ``loops_tpu``'s ``ELL.from_csr`` of
+the same matrix, and ``test_ell_layouts_agree`` holds the two alike.
 """
 import numpy as np
 import pytest
 
-from loops_tpu.formats import ELL
+from loops_tpu.formats import ELL as JaxELL
+from loops_tpu_torch.formats import ELL
 from loops_tpu_torch.layout import (
     CooLayout,
     CsrLayout,
@@ -26,7 +28,12 @@ from loops_tpu_torch.utils import generate
 
 
 def _ell():
-    ell = ELL.from_csr(generate.random_csr(7, 9, 0.3, seed=2))
+    return EllLayout.from_ell(ELL.from_csr(
+        generate.random_csr(7, 9, 0.3, seed=2)))
+
+
+def _ell_loops_tpu():
+    ell = JaxELL.from_csr(generate.random_csr(7, 9, 0.3, seed=2))
     return EllLayout(ell.shape[0], ell.pitch)
 
 
@@ -41,6 +48,7 @@ LAYOUTS = {
         generate.empty_row_csr(4, 4, every=1)),
     "coo": lambda: CooLayout(13),
     "ell": _ell,
+    "ell_loops_tpu": _ell_loops_tpu,
     "flat_rebin": lambda: FlatRebinLayout(
         CsrLayout.from_csr(generate.random_csr(10, 10, 0.3, seed=7)), 4),
 }
@@ -101,3 +109,9 @@ def test_row_mapped_segment_ids_cover():
     assert len(ids) == layout.num_atoms
     sizes = np.bincount(ids, minlength=layout.num_tiles)
     np.testing.assert_array_equal(sizes, layout.tile_sizes())
+
+
+def test_ell_layouts_agree():
+    a, b = _ell(), _ell_loops_tpu()
+    assert (a.num_tiles, a.num_atoms) == (b.num_tiles, b.num_atoms)
+    np.testing.assert_array_equal(a.tile_offsets(), b.tile_offsets())

@@ -116,6 +116,22 @@ def test_vendor_sweep_alone(tmp_path):
         "features.csv", "vendor.csv"]
 
 
+def test_sweep_names_and_columns(tmp_path):
+    """``--names`` and ``--columns`` re-time chosen rows alone (the nine
+    rows re-timed after ``device_ms``'s repair); unknown ones exit."""
+    names = ["pl_n4096_d4_a1.2", "pl_n8192_d4_a1.2"]
+    assert _cpu_sweep(tmp_path, "--op", "spmm", "--population", "gnn",
+                      "--feat", "8", "--names", ",".join(names),
+                      "--columns", "group_mapped") == 0
+    assert sorted(p.name for p in tmp_path.glob("*.csv")) == [
+        "features.csv", "group_mapped.csv"]
+    assert [r[1] for r in _rows(tmp_path / "group_mapped.csv")] == names
+    with pytest.raises(SystemExit, match="not in gnn: no_such"):
+        _cpu_sweep(tmp_path, "--op", "spmm", "--names", "no_such")
+    with pytest.raises(SystemExit, match="not swept here: sorted_flat"):
+        _cpu_sweep(tmp_path, "--op", "spmm", "--columns", "sorted_flat")
+
+
 @pytest.mark.parametrize("d", [ts.LOG_DIR, ts.REP_LOG_DIR])
 def test_load_logs_equals_summarize_sweep(d):
     assert sweep.load_logs(d) == jsum.load_logs(d)
