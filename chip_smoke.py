@@ -285,13 +285,34 @@ Phases, one line each with its time:
    gloo ranks on the host's CPU (not the card: one card holds one NCCL
    rank). K4 must have launched; its main-path launches join the
    kernels line.
+26. tooling and the training record at full width
+   (``scripts/train_record_torch.py``, ``utils/trace.py``,
+   ``utils/counters.py``, ``scripts/run_torch.sh``; K4, and K1 under the
+   counters and the sweep script): the accuracy-matched training record
+   (``run_one``) on phase 7's arxiv stand-in, GCN and GraphSAGE, each on
+   the exact path (``group_mapped``/``xla``: no launch) and the
+   throughput path (``auto``, bf16: K4 launched), ``RECORD_EPOCHS``
+   epochs, its table printed, the two paths' test accuracies within
+   ``RECORD_ACC_GAP`` for each model; five throughput GCN steps in
+   ``trace.profile``, each in ``annotate``: the port's kernel record
+   holding every K4 launch the counters saw, its device ms under the
+   window's wall time, both files written, the Chrome trace holding every
+   step's range, and whether ``torch.profiler``'s own list was whole;
+   ``compiled_counters`` and ``achieved`` on one such step, on K1 at
+   big_2097152 and on K4 at arxiv F = 128 (f32 and bf16) with this
+   phase's timings: bytes and flops equal to the kernels line's, every
+   utilization at most 1.05; ``scripts/run_torch.sh`` over ``datasets/``
+   on the card: five CSVs of one row each. The record's and the traced
+   steps' K4 launches join the kernels line.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its flops over the H100
 SXM's peak for its type (67 TFLOP/s f32 on the CUDA cores, 989 bf16)
 (``bound_ms`` in the kernels line), and of the launch floor measured in
 phase 19 (``launch_floor_ms`` beside it): the check below and the printed
-shares take the larger. Every time compared with it is per call or per
+shares take the larger. The work formulas and the rates live in
+``loops_tpu_torch/utils/counters.py``, which ``compiled_counters`` reads
+too. Every time compared with it is per call or per
 pass, never under the device time of one launch.
 
 The kernel-vs-plain tolerance is twice the Wilkinson bound the validator
@@ -318,6 +339,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import astuple
 
 import numpy as np
 
@@ -366,6 +388,13 @@ ADVISOR_MATRICES = ("big_2097152", "band_2097152_b4", "bcsr_spmv_32768")
 OOC_NODES, OOC_AVG_DEG, OOC_SHARDS, OOC_FEAT = 10_000_000, 15, 16, 128
 OOC_SMALL_NODES = 2_000_000
 OOC_NATIVE_NNZ = 10_000_000
+# phase 26: scripts/train_record.py's defaults (100 epochs, lr 1e-2, seed
+# 0) on the arxiv stand-in; the largest test-accuracy gap between the
+# exact and the throughput path; the GCN steps traced; run.sh's schedules
+RECORD_EPOCHS, RECORD_LR, RECORD_ACC_GAP = 100, 1e-2, 0.01
+TRACE_STEPS = 5
+RUN_SH_SCHEDULES = ("row_mapped", "group_mapped", "work_oriented",
+                    "merge_path", "sorted_flat")
 PRODUCTS_NODES = 2_449_029
 PRODUCTS_SCALE = (PRODUCTS_NODES + 0.5) / 200_000
 BCSR_SOURCE = "loops_tpu_torch/csrc/bcsr.cu"
@@ -454,9 +483,6 @@ PROBE_ENTRIES = {"seg_scan_probe": "seg_scan", "construct_probe": "constructs",
                  "row_gather_mat_hbm": "S=2097152 K=64 f32",
                  "onehot_expand": "W=512"}
 SAXPY_SHAPE = (8, 8192)  # examples/saxpy.py: n = 1 << 16 as [8, n / 8]
-# H100 SXM at 700 W (NVIDIA's data sheet)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {None: 67e12, "bfloat16": 989e12}
 
 
 class PhaseFailed(RuntimeError):
@@ -711,63 +737,10 @@ def backward_vs_plain(graph, rows, F, dtype, device):
                       plain.cpu().numpy(), dtype)
 
 
-def bound(nbytes, flops, dtype=None, rate=HBM_BYTES_PER_S, floor=0.0):
-    """``(ms, "bytes", "operations" or "launch")``: the least time the card
-    could take to move ``nbytes`` at ``rate`` bytes/s (the nominal 3.35
-    TB/s, or K11's measured rate), do ``flops`` and launch a kernel
-    (``floor`` ms, the launch floor of phase 19; 0 before it is
-    measured)."""
-    t_bytes = nbytes / rate * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max((t_bytes, "bytes"), (t_ops, "operations"), (floor, "launch"),
-               key=lambda b: b[0])
-
-
-def csr_spmv_bound(csr, rate=HBM_BYTES_PER_S):
-    """y = A x over CSR: offsets, cols, vals and x read, y written."""
-    rows, cols = csr.shape
-    nbytes = 4 * (rows + 1) + 8 * csr.nnz + 4 * cols + 4 * rows
-    return bound(nbytes, 2 * csr.nnz, rate=rate)
-
-
-def csr_spmm_bound(csr, F, rate=HBM_BYTES_PER_S):
-    return csr_spmm_bound_of(csr.shape[0], csr.shape[1], csr.nnz, F, rate)
-
-
-def csr_spmm_bound_of(rows, cols, nnz, F, rate=HBM_BYTES_PER_S):
-    """C = A B over CSR: offsets, cols, vals and B read, C written."""
-    nbytes = 4 * (rows + 1) + 8 * nnz + 4 * F * (cols + rows)
-    return bound(nbytes, 2 * nnz * F, rate=rate)
-
-
-def bcsr_bound(bcsr, F=None, dtype=None, rate=HBM_BYTES_PER_S):
-    """BCSR SpMV (``F`` None) or SpMM: the stored blocks, block columns
-    and offsets, x or B read (in the stream type), y or C (f32) written;
-    2 flops per stored value and feature."""
-    rows, cols = bcsr.shape
-    es = 2 if dtype else 4
-    index = 4 * (bcsr.num_blocks + bcsr.num_block_rows + 1)
-    if F is None:
-        return bound(index + 4 * bcsr.nnz + 4 * (cols + rows), 2 * bcsr.nnz,
-                     rate=rate)
-    return bound(index + es * (bcsr.nnz + F * cols) + 4 * F * rows,
-                 2 * bcsr.nnz * F, dtype, rate)
-
-
-def sddmm_flat_bound(csr, F, rate=HBM_BYTES_PER_S):
-    """K5: offsets, cols, vals, A and B (f32, rounded in registers) read,
-    out written; 2 flops per nonzero and feature."""
-    rows, cols = csr.shape
-    nbytes = 4 * (rows + 1) + 12 * csr.nnz + 4 * F * (rows + cols)
-    return bound(nbytes, 2 * csr.nnz * F, rate=rate)
-
-
-def sddmm_bcsr_bound(bcsr, F, rate=HBM_BYTES_PER_S):
-    """K10: block rows and columns, vals, A and B read, out written; 2
-    flops per stored value and feature."""
-    rows, cols = bcsr.shape
-    nbytes = 8 * bcsr.num_blocks + 8 * bcsr.nnz + 4 * F * (rows + cols)
-    return bound(nbytes, 2 * bcsr.nnz * F, rate=rate)
+def bcsr_shape(bcsr):
+    """A BCSR's shapes as the formulas take them: rows, cols, stored
+    blocks, block rows, stored values."""
+    return (*bcsr.shape, bcsr.num_blocks, bcsr.num_block_rows, bcsr.nnz)
 
 
 def bcsr_plain(kname, op):
@@ -1015,6 +988,7 @@ def bcsr_phases(device, smi):
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmm import SpMMOperator
     from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import generate, reference
     from loops_tpu_torch.utils.bench import apply_ms, cold_ms, device_ms
     from loops_tpu_torch.utils.equal import count_mismatches
@@ -1191,7 +1165,8 @@ def bcsr_phases(device, smi):
         k2 = apply_ms(op, v)
         p2 = apply_ms(plain, v)
         F = None if kname == "bcsr_spmv" else SPMM_F
-        b_ms, b_by = bcsr_bound(mat, F, dtype)
+        b_ms, b_by = counters.bound_of(counters.bcsr_work(*bcsr_shape(mat),
+                                                          F, dtype))
         ms = (k1 + k2) / 2
         work = 2 * csr.nnz * (F or 1)
         lib_csr = lib[mat.shape, "csr_bf16" if dtype else "csr"]
@@ -1243,6 +1218,7 @@ def stream_phase(device, smi):
     import torch
 
     from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import stream
     from loops_tpu_torch.utils.bench import apply_ms
 
@@ -1268,12 +1244,13 @@ def stream_phase(device, smi):
                 f"stream {label}: K11 {total}, plain {plain}, exact {exact}")
         ms = stream.pass_ms(x)
         plain_ms = apply_ms(lambda v: v.sum(), x, iters=10)
-        nbytes = x.numel() * 4
+        nbytes = counters.stream_read_work(x.numel() * 4).nbytes
         gbps = nbytes / ms / 1e6
         res[label] = dict(ms=ms, plain_ms=plain_ms, gbps=gbps, err=err,
                           nbytes=nbytes)
         print(f"  stream {label}: K11 {ms:.4f} ms per pass = {gbps:.1f} "
-              f"GB/s ({gbps * 1e9 / HBM_BYTES_PER_S:.1%} of the nominal "
+              f"GB/s ({gbps * 1e9 / counters.HBM_BYTES_PER_S:.1%} of the "
+              f"nominal "
               f"3.35 TB/s); torch.sum {plain_ms:.4f} ms = "
               f"{nbytes / plain_ms / 1e6:.1f} GB/s; |K11 - plain| "
               f"{err:.3e}  [{smi}]")
@@ -1374,6 +1351,7 @@ def sddmm_phases(device, smi, adj, rate):
     from loops_tpu_torch.formats import BCSR
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.sddmm import SDDMMOperator, sddmm
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import generate, reference
     from loops_tpu_torch.utils.bench import apply_ms
     from loops_tpu_torch.utils.profile_spmv import profile_applies
@@ -1583,10 +1561,11 @@ def sddmm_phases(device, smi, adj, rate):
         lib_ms, lib_dt = cusparse_ms(
             mat if kname == "sddmm_flat" else pattern, A, B)
         F = A.shape[1]
-        bmake = sddmm_flat_bound if kname == "sddmm_flat" else \
-            sddmm_bcsr_bound
-        b_ms, b_by = bmake(mat, F)
-        m_ms, m_by = bmake(mat, F, rate=rate)
+        work = (counters.sddmm_flat_work(*mat.shape, mat.nnz, F)
+                if kname == "sddmm_flat" else counters.sddmm_bcsr_work(
+                    *mat.shape, mat.num_blocks, mat.nnz, F))
+        b_ms, b_by = counters.bound_of(work)
+        m_ms, m_by = counters.bound_of(work, rate)
         ms = (k1 + k2) / 2
         times[label] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms)
@@ -1606,8 +1585,12 @@ def sddmm_phases(device, smi, adj, rate):
         del Ad, Bd
         torch.cuda.empty_cache()
     phase(17, "SDDMM timing (CUDA events, median per apply)", t0)
-    bounds = {"sddmm_flat": lambda r: sddmm_flat_bound(bench, SDDMM_F, r),
-              "sddmm_bcsr": lambda r: sddmm_bcsr_bound(bcsr, SPMM_F, r)}
+    works = {"sddmm_flat": counters.sddmm_flat_work(*bench.shape, bench.nnz,
+                                                    SDDMM_F),
+             "sddmm_bcsr": counters.sddmm_bcsr_work(
+                 *bcsr.shape, bcsr.num_blocks, bcsr.nnz, SPMM_F)}
+    bounds = {k: (lambda r, w=w: counters.bound_of(w, r))
+              for k, w in works.items()}
     return err, launches, times, bounds
 
 
@@ -1622,6 +1605,7 @@ def probe_phases(device, smi, rate, k6, rate64):
 
     from loops_tpu_torch.ops.kernels import _build, saxpy
     from loops_tpu_torch.probes import common, gather, mosaic, r2
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import generate
     from loops_tpu_torch.utils.profile_spmv import profile_applies
 
@@ -1703,14 +1687,16 @@ def probe_phases(device, smi, rate, k6, rate64):
             2.5, x, y), device),
         common.launch_ms(lambda: saxpy.saxpy_plain(2.5, x, y), device),
         common.launch_ms(lambda: torch.add(y, x, alpha=2.5), device),
-        12 * x.numel(), 2 * x.numel(), "f32", err["saxpy"], "")
+        *astuple(counters.saxpy_work(x.numel()))[:2], "f32", err["saxpy"],
+        "")
     xl, yl = (torch.randn(1 << 26, device=device) for _ in range(2))
     big_ms = common.launch_ms(lambda: saxpy.saxpy_cuda(2.5, xl, yl), device)
     add_ms = common.launch_ms(lambda: torch.add(yl, xl, alpha=2.5), device)
+    big_bytes = counters.saxpy_work(xl.numel()).nbytes
     print(f"  saxpy [8, 8192]: {entries['saxpy']['ms']:.4f} ms (plain "
           f"{entries['saxpy']['plain_ms']:.4f}, torch.add "
           f"{entries['saxpy']['library_ms']:.4f}); 2^26 elements: "
-          f"{big_ms:.4f} ms = {12 * xl.numel() / big_ms / 1e6:.1f} GB/s "
+          f"{big_ms:.4f} ms = {big_bytes / big_ms / 1e6:.1f} GB/s "
           f"(torch.add {add_ms:.4f} ms)  [{smi}]")
     del xl, yl
     # at this size a call is the host's launch path: the device time of
@@ -1759,7 +1745,7 @@ def probe_phases(device, smi, rate, k6, rate64):
     # the smem scatter from an empty L2 against its bound and index_add_,
     # held bit for bit to its group order above
     sm = entries["smem_scatter"]
-    b_ms, b_by = bound(sm["nbytes"], sm["flops"])
+    b_ms, b_by = counters.bound(sm["nbytes"], sm["flops"])
     print(f"  smem_scatter ({sm['label']}): {sm['ms']:.4f} ms one pass from "
           f"an empty L2, {b_ms / sm['ms']:.1%} of its {b_ms:.4f} ms bound "
           f"({b_by}); index_add_ {sm['library_ms']:.4f} ms "
@@ -1776,9 +1762,11 @@ def probe_phases(device, smi, rate, k6, rate64):
         # the kernels line keeps the bound of bytes and operations; the
         # floor stands beside it
         rec.update(zip(("bound_ms", "bound_by"),
-                       bound(rec["nbytes"], rec["flops"], dt)))
-        b_ms, b_by = bound(rec["nbytes"], rec["flops"], dt, floor=floor)
-        m_ms, m_by = bound(rec["nbytes"], rec["flops"], dt, rate, floor)
+                       counters.bound(rec["nbytes"], rec["flops"], dt)))
+        b_ms, b_by = counters.bound(rec["nbytes"], rec["flops"], dt,
+                                    floor=floor)
+        m_ms, m_by = counters.bound(rec["nbytes"], rec["flops"], dt, rate,
+                                    floor)
         print(f"  {k} ({rec['label']}): kernel {rec['ms']:.4f} ms, plain "
               + (f"{rec['plain_ms']:.4f}" if rec["plain_ms"] is not None
                  else "-") + " ms, library "
@@ -1791,7 +1779,8 @@ def probe_phases(device, smi, rate, k6, rate64):
     # index_select and the bytes the function moves
     for rec in recs:
         if rec["name"] == "onehot_expand":
-            b_ms, b_by = bound(rec["nbytes"], rec["flops"], "bfloat16")
+            b_ms, b_by = counters.bound(rec["nbytes"], rec["flops"],
+                                        "bfloat16")
             print(f"  onehot_expand ({rec['label']}): {rec['ms']:.4f} ms, "
                   f"index_select {rec['library_ms']:.4f} ms "
                   f"({rec['library_ms'] / rec['ms']:.2f}x); bound "
@@ -1806,7 +1795,7 @@ def probe_phases(device, smi, rate, k6, rate64):
             and rec["label"].endswith("K=128 f32")
         if not (g1 or rec["name"] == "gather_axis0"):
             continue
-        b_ms, b_by = bound(rec["nbytes"], rec["flops"])
+        b_ms, b_by = counters.bound(rec["nbytes"], rec["flops"])
         row_gbps = gather.N_ROWS * gather.LANES * 4 / rec["ms"] / 1e6
         reads = (f"; row reads {row_gbps:.1f} GB/s (K11 at 64 MiB "
                  f"{rate64 / 1e9:.1f})" if g1 else "")
@@ -2170,6 +2159,7 @@ def gat_phase(device, smi, ds):
         reference_attention_aggregate,
     )
     from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils.profile_spmv import profile_applies
     from loops_tpu_torch.utils.timer import time_fn
 
@@ -2207,13 +2197,15 @@ def gat_phase(device, smi, ds):
     rows = np.unique(np.concatenate([[hub], rng.choice(n, GAT_ROWS - 1,
                                                         replace=False)]))
     row_bytes = GAT_HEADS * GAT_HIDDEN * 4
-    one_pass = E * row_bytes
+    one_pass = counters.edge_rows_work(E, GAT_HEADS * GAT_HIDDEN)
     # forward and backward each read an edge's row of either layer once
-    step_bytes = 2 * E * GAT_HEADS * 4 * (GAT_HIDDEN + ds.num_classes)
-    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    step = counters.edge_rows_work(
+        E, GAT_HEADS * (GAT_HIDDEN + ds.num_classes), passes=2)
+    step_bytes = step.nbytes
+    step_bound_ms = counters.bound_of(step)[0]
     print(f"  yardstick: one pass reading each edge's layer-0 row once, "
-          f"{E} x {row_bytes} B = {one_pass / 1e9:.2f} GB, "
-          f"{one_pass / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s (f32); a "
+          f"{E} x {row_bytes} B = {one_pass.nbytes / 1e9:.2f} GB, "
+          f"{counters.bound_of(one_pass)[0]:.3f} ms at 3.35 TB/s (f32); a "
           f"step's forward and backward over both layers "
           f"{step_bytes / 1e9:.2f} GB, {step_bound_ms:.3f} ms", flush=True)
 
@@ -2457,6 +2449,7 @@ def formats_phase(device, smi, big, x_big, bench, adj, rate):
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmm import SpMMOperator
     from loops_tpu_torch.ops.spmv import SpMVOperator, flat_partitioned_spmv
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import generate, reference
     from loops_tpu_torch.utils.bench import apply_ms
 
@@ -2634,8 +2627,8 @@ def formats_phase(device, smi, big, x_big, bench, adj, rate):
     k1 = {c.matrix: c.ms for c in cases if c.label in ("csr K1",
                                                        "csr K4 SpMM")}
     for case in cases:
-        nom = case.nbytes / HBM_BYTES_PER_S * 1e3
-        meas = case.nbytes / rate * 1e3
+        nom = counters.bound(case.nbytes, 0)[0]
+        meas = counters.bound(case.nbytes, 0, rate=rate)[0]
         beside = ("" if case.matrix not in k1 or case.ms == k1[case.matrix]
                   else f" ({'K4' if 'F=' in case.matrix else 'K1'} "
                   f"{k1[case.matrix]:.4f} ms)")
@@ -3034,6 +3027,7 @@ def outofcore_phase(device, smi, big, x_big):
     from loops_tpu_torch import native
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import outofcore, reference
 
     t0 = time.perf_counter()
@@ -3148,8 +3142,8 @@ def outofcore_phase(device, smi, big, x_big):
               + f"  [{smi}]", flush=True)
         for p in range(OOC_SHARDS):
             s = sharded.shard(p)
-            b_ms, b_by = csr_spmm_bound_of(s["rows"], len(s["gather"]),
-                                           len(s["indices"]), OOC_FEAT)
+            b_ms, b_by = counters.bound_of(counters.csr_spmm_work(
+                s["rows"], len(s["gather"]), len(s["indices"]), OOC_FEAT))
             print(f"    shard {p}: {s['rows']:,} rows {len(s['indices']):,} "
                   f"nnz {len(s['gather']):,} gathered; " + ", ".join(
                       f"{k} {op.times[k][p] * 1e3:.2f}" for k in op.times)
@@ -3379,6 +3373,197 @@ def multidevice_phase(device, smi, ds, adj):
     return main
 
 
+def load_script(name):
+    """``scripts/<name>`` as a module of this process."""
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".py", "_script"), os.path.join(REPO, "scripts", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tooling_phase(device, smi, ds, adj, big, x_big):
+    """Phase 26: the training record at full width, the trace and the
+    counters on the card, and ``scripts/run_torch.sh``. Returns the
+    launches of its main path (the record and the traced steps)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from loops_tpu_torch.models import GCN
+    from loops_tpu_torch.models import train as T
+    from loops_tpu_torch.ops.kernels import _build
+    from loops_tpu_torch.ops.spmm import SpMMOperator
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters
+    from loops_tpu_torch.utils import trace
+    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.timer import time_fn
+
+    t0 = time.perf_counter()
+    rec_mod = load_script("train_record_torch.py")
+    main = {k: 0 for k in _build.LAUNCHES}
+
+    # ---- (a) the accuracy-matched training record, four rows
+    print(f"  train record: {rec_mod.dataset_line(ds)}; {RECORD_EPOCHS} "
+          f"epochs, hidden {GCN_HIDDEN}, lr {RECORD_LR}, seed 0  [{smi}]",
+          flush=True)
+    for ln in rec_mod.TABLE_HEAD:
+        print(f"  {ln}")
+    acc = {}
+    for model_name in ("gcn", "sage"):
+        for mode in rec_mod.MODES:
+            th = time.perf_counter()
+            a, ms, eps, launches = rec_mod.run_one(
+                ds, model_name, mode, RECORD_EPOCHS, RECORD_LR, GCN_HIDDEN,
+                0, device)
+            acc[model_name, mode] = a
+            for k, n in launches.items():
+                main[k] += n
+            print(f"  {rec_mod.table_row(model_name, mode, a, ms, eps)} "
+                  f"launches {json.dumps(launches)}, "
+                  f"{time.perf_counter() - th:.1f} s", flush=True)
+            if mode == "exact":
+                require(not launches, f"{model_name} exact launched "
+                        f"{launches}: the exact path runs torch ops only")
+            else:
+                require(launches.get("flat_spmm", 0) > 0, f"{model_name} "
+                        f"throughput launched no K4 ({launches})")
+    for model_name in ("gcn", "sage"):
+        gap = abs(acc[model_name, "throughput"] - acc[model_name, "exact"])
+        require(gap <= RECORD_ACC_GAP, f"{model_name}: throughput test "
+                f"accuracy {acc[model_name, 'throughput']:.4f} is "
+                f"{gap:.4f} from exact's {acc[model_name, 'exact']:.4f}")
+    print("  accuracy gap, throughput against exact: " + ", ".join(
+        f"{m} {abs(acc[m, 'throughput'] - acc[m, 'exact']):.4f}"
+        for m in ("gcn", "sage")) + f" (limit {RECORD_ACC_GAP})", flush=True)
+
+    # ---- (b) five throughput GCN steps in trace.profile, each annotated
+    dims = [ds.features.shape[1], GCN_HIDDEN, GCN_HIDDEN, ds.num_classes]
+    model = GCN(ds.graph, dims, dropout=0.5, device=device,
+                generator=torch.Generator().manual_seed(0),
+                **rec_mod.model_kwargs("gcn", "throughput"))
+    step = T.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=RECORD_LR),
+        ds.features, ds.labels, ds.train_mask,
+        generator=torch.Generator(device).manual_seed(1))
+    step()
+    torch.cuda.synchronize(device)
+    names = [f"gcn_step_{i}" for i in range(TRACE_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        before = dict(_build.LAUNCHES)
+        # raises on leaving where its record lacks a counted launch
+        with trace.profile(tmp):
+            for name in names:
+                with trace.annotate(name):
+                    step()
+        counted = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                   if n != before[k]}
+        for k, n in counted.items():
+            main[k] += n
+        rec = trace.read_record(tmp)
+        require(counted.get("flat_spmm", 0) > 0 and rec["counted"] == counted,
+                f"trace: counted {counted}, record {rec['counted']}")
+        k4 = [x for x in rec["launches"] if x["counter"] == "flat_spmm"]
+        require(len(k4) == counted["flat_spmm"], f"trace: {len(k4)} K4 "
+                f"launches recorded of {counted['flat_spmm']}")
+        require(0 < rec["device_ms"] < rec["wall_ms"], f"trace: the "
+                f"record's {rec['device_ms']:.3f} device ms against a "
+                f"window of {rec['wall_ms']:.3f} ms")
+        path = os.path.join(tmp, trace.TRACE_FILE)
+        require(os.path.getsize(path) > 0 and os.path.exists(
+            os.path.join(tmp, trace.KERNELS_FILE)), "trace: a file is missing")
+        with open(path) as f:
+            text = f.read()
+        missing = [n for n in names if n not in text]
+        require(not missing, f"trace: {missing} not in the Chrome trace")
+        per_step = [sum(1 for x in k4 if x["range"] == n) for n in names]
+        print(f"  trace: {TRACE_STEPS} throughput GCN steps, K4 launches per "
+              f"step {per_step}, all {len(k4)} in the record, K4 device "
+              f"{sum(x['device_ms'] for x in k4):.3f} ms of a "
+              f"{rec['wall_ms']:.3f} ms window (CUDA events around each "
+              f"launch); Chrome trace {os.path.getsize(path) / 1e6:.1f} MB "
+              "with every step's range; torch.profiler's own kernel list "
+              + ("whole" if rec["profiler_list_whole"] else
+                 "not whole (" + "; ".join(rec["profiler_gaps"][:3]) + ")")
+              + f"  [{smi}]", flush=True)
+        # a whole step by the generic count: K4 by its formula, the rest
+        # by the torch ops it issues
+        sc = counters.compiled_counters(step)
+        step_ms = time_fn(step, device=device, warmup=1, iters=5,
+                          reduction=statistics.median)
+        su = counters.achieved(sc, step_ms)
+        print(f"  counters of one throughput GCN step: {sc['flops'] / 1e9:.3f}"
+              f" GFLOP, {sc['bytes accessed'] / 1e9:.3f} GB; at "
+              f"{step_ms:.3f} ms a step: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in su.items()) + f"  [{smi}]",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, step
+
+    # ---- (c) the counters on K1 and K4, with this phase's timings
+    xd = torch.from_numpy(x_big).to(device)
+    op = SpMVOperator(big, "sorted_flat", device=device)
+    require(op.impl_used == "sorted_spmv", f"K1 expected, got {op.impl_used}")
+    B = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(adj.shape[1], 128)).astype(np.float32)).to(device)
+    cells = [("K1 big_2097152", op, xd,
+              counters.csr_spmv_work(*big.shape, big.nnz))]
+    for dtype in DTYPES:
+        cells.append((f"K4 arxiv_gcn F=128 {dtype or 'f32'}",
+                      SpMMOperator(adj, "merge_path", "pallas", dtype=dtype,
+                                   device=device), B,
+                      counters.csr_spmm_work(*adj.shape, adj.nnz, 128)))
+    for label, fn, x, line_work in cells:
+        cnt = counters.compiled_counters(fn, x)
+        require(cnt["bytes accessed"] == line_work.nbytes
+                and cnt["flops"] == line_work.flops, f"{label}: counters "
+                f"{cnt} against the kernels line's {line_work}")
+        ms = apply_ms(fn, x)
+        ach = counters.achieved(cnt, ms)
+        worst = max(v for k, v in ach.items() if k.endswith("utilization"))
+        require(worst <= 1.05, f"{label}: utilization {ach} past 1.05")
+        print(f"  counters {label}: {cnt['bytes accessed'] / 1e6:.1f} MB "
+              f"(= the kernels line's), {cnt['flops'] / 1e9:.3f} GFLOP "
+              f"{cnt['dtype']}; {ms:.4f} ms an apply: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ach.items())
+              + f"  [{smi}]", flush=True)
+    del cells, op, xd, B
+    torch.cuda.empty_cache()
+
+    # ---- (d) scripts/run_torch.sh over datasets/ (chesapeake.mtx)
+    out = tempfile.mkdtemp(prefix="chip_smoke_run_sh_")
+    try:
+        th = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", os.path.join(REPO, "scripts", "run_torch.sh"),
+             os.path.join(REPO, "datasets"), out], capture_output=True,
+            text=True, timeout=900)
+        require(proc.returncode == 0, f"run_torch.sh: exit "
+                f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        files = sorted(os.listdir(out))
+        require(files == sorted(f"{s}.csv" for s in RUN_SH_SCHEDULES),
+                f"run_torch.sh wrote {files}")
+        for sched in RUN_SH_SCHEDULES:
+            with open(os.path.join(out, f"{sched}.csv")) as f:
+                rows = f.read().splitlines()
+            require(len(rows) == 1 and rows[0].split(",")[1:5]
+                    == ["chesapeake", "39", "39", "340"],
+                    f"run_torch.sh {sched}.csv: {rows}")
+            print(f"  run_torch.sh {sched}.csv: {rows[0]}")
+        print(f"  run_torch.sh: 5 CSVs of one row in "
+              f"{time.perf_counter() - th:.1f} s  [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    phase(26, "tooling and the training record at full width", t0,
+          "main-path launches "
+          + json.dumps({k: v for k, v in main.items() if v}) + " ")
+    return main
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3390,6 +3575,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import generate, reference
     from loops_tpu_torch.utils import launch_cost
     from loops_tpu_torch.utils.bench import apply_ms, device_ms
@@ -3794,27 +3980,33 @@ def main() -> int:
     sweep_launches = sweep_phase(device, smi, adj)
     ooc_launches = outofcore_phase(device, smi, mats["big_2097152"][0], x_big)
     md_launches = multidevice_phase(device, smi, ds, adj)
+    tool_launches = tooling_phase(device, smi, ds, adj,
+                                  mats["big_2097152"][0], x_big)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     kernels = []
     big = mats["big_2097152"][0]
     spmv_mat, spmm_mat = bcsr_mats
+    big_work = counters.csr_spmv_work(*big.shape, big.nnz)
+    adj_work = counters.csr_spmm_work(*adj.shape, adj.nnz, 128)
     bounds = {
-        **{k: (lambda r: csr_spmv_bound(big, r)) for k in KERNELS},
-        "flat_spmm": lambda r: csr_spmm_bound(adj, 128, r),
-        "bcsr_spmv": lambda r: bcsr_bound(spmv_mat, rate=r),
-        **{k: (lambda r: bcsr_bound(spmm_mat, SPMM_F, rate=r))
+        **{k: (lambda r: counters.bound_of(big_work, r)) for k in KERNELS},
+        "flat_spmm": lambda r: counters.bound_of(adj_work, r),
+        "bcsr_spmv": lambda r: counters.bound_of(
+            counters.bcsr_work(*bcsr_shape(spmv_mat)), r),
+        **{k: (lambda r: counters.bound_of(counters.bcsr_work(
+            *bcsr_shape(spmm_mat), SPMM_F), r))
            for k in BCSR_KERNELS if k != "bcsr_spmv"},
         **sddmm_bounds,
-        "stream_read": lambda r: bound(stream_res["1 GiB"]["nbytes"], 0,
-                                       rate=r),
-        **{k: (lambda r, rec=rec: bound(
+        "stream_read": lambda r: counters.bound(
+            stream_res["1 GiB"]["nbytes"], 0, rate=r),
+        **{k: (lambda r, rec=rec: counters.bound(
             rec["nbytes"], rec["flops"],
             "bfloat16" if rec["peak"] == "bf16" else None, r))
            for k, rec in probe_recs.items()},
     }
     for k, (rep_at, _, _) in KERNELS.items():
-        b_ms, b_by = csr_spmv_bound(big)
+        b_ms, b_by = counters.bound_of(big_work)
         kernels.append(
             {"name": k, "route": "cuda", "source": SOURCE, "replaces": rep_at,
              "launches": (launches[k] + fmt_launches[k] + sweep_launches[k]
@@ -3824,7 +4016,7 @@ def main() -> int:
              "plain_ms": times["big_2097152", k]["plain_ms"],
              "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": times["big_2097152", k]["cusparse_ms"]})
-    b_ms, b_by = csr_spmm_bound(adj, 128)
+    b_ms, b_by = counters.bound_of(adj_work)
     kernels.append(
         {"name": "flat_spmm", "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES,
@@ -3832,7 +4024,8 @@ def main() -> int:
                       + fmt_launches["flat_spmm"]
                       + sweep_launches["flat_spmm"]
                       + ooc_launches["flat_spmm"]
-                      + md_launches["flat_spmm"]),
+                      + md_launches["flat_spmm"]
+                      + tool_launches["flat_spmm"]),
          "max_abs_err": max(spmm_err, sage_err),
          "ms": spmm_times["f32"]["ms"],
          "plain_ms": spmm_times["f32"]["plain_ms"], "bound_ms": b_ms,
@@ -3854,7 +4047,7 @@ def main() -> int:
     # at 1 GiB, where no pass fits the L2, so the byte bound holds;
     # torch.sum is both the plain version and the one library call
     s1g = stream_res["1 GiB"]
-    b_ms, b_by = bounds["stream_read"](HBM_BYTES_PER_S)
+    b_ms, b_by = bounds["stream_read"](None)
     kernels.append(
         {"name": "stream_read", "route": "cuda", "source": STREAM_SOURCE,
          "replaces": STREAM_REPLACES,
@@ -3877,7 +4070,7 @@ def main() -> int:
         # bound_ms stays the bound of bytes and operations; the floor
         # stands beside it, and the check takes the larger
         entry["launch_floor_ms"] = floor
-        nom, by = max(bounds[entry["name"]](HBM_BYTES_PER_S),
+        nom, by = max(bounds[entry["name"]](None),
                       (floor, "launch"), key=lambda b: b[0])
         meas, mby = max(bounds[entry["name"]](rate), (floor, "launch"),
                         key=lambda b: b[0])

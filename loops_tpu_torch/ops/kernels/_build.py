@@ -92,6 +92,10 @@ _SMS: dict = {}
 # the current stream's handle without building a torch.cuda.Stream (the
 # call PyTorch's own generated launchers make); absent from CPU builds
 _CURRENT_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+# set by utils/trace.profile while its window is open: each launch then
+# goes through it, ``RECORDER(counter, fn, c_args, index) -> err``, which
+# brackets the kernel with a CUDA event pair; None outside a window
+RECORDER = None
 
 
 def reset_launches() -> None:
@@ -292,8 +296,9 @@ def launch(fn_name: str, counter: str, device, *args) -> None:
 
     The path is kept short, since at small sizes an apply costs what it
     takes the host to launch: the function is resolved once at load,
-    tensors pass as plain ints, and the device is made current only when
-    it is not already."""
+    tensors pass as plain ints, the device is made current only when it
+    is not already, and outside a ``trace.profile`` window the kernel
+    record costs one test of ``RECORDER``."""
     if counter not in LAUNCHES:
         raise KeyError(f"{counter!r} is not a launch counter of _build")
     fn = _function(fn_name)
@@ -302,10 +307,12 @@ def launch(fn_name: str, counter: str, device, *args) -> None:
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     if index == current:
-        err = fn(*c_args, _raw_stream(index))
+        err = (fn(*c_args, _raw_stream(index)) if RECORDER is None
+               else RECORDER(counter, fn, c_args, index))
     else:
         with torch.cuda.device(index):
-            err = fn(*c_args, _raw_stream(index))
+            err = (fn(*c_args, _raw_stream(index)) if RECORDER is None
+                   else RECORDER(counter, fn, c_args, index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
     LAUNCHES[counter] += 1

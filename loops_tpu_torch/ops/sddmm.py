@@ -37,6 +37,7 @@ import torch
 from loops_tpu_torch.formats import BCSR, COO, CSR
 from loops_tpu_torch.ops.kernels import _build, sddmm_bcsr, sddmm_flat
 from loops_tpu_torch.ops.spmv import op_cache
+from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["sddmm", "SDDMMOperator"]
@@ -148,6 +149,8 @@ class SDDMMOperator:
                 B.to(self.device, dt).contiguous())
 
     def __call__(self, A, B):
+        if counters.HOOK is not None:
+            return counters.HOOK(self.work, self, A, B)
         A, B = self.stage(A, B)
         if self._kernel is None:
             return self._raw(self._bufs, A, B)
@@ -155,6 +158,15 @@ class SDDMMOperator:
         out = self._raw(self._bufs, A, B)
         self.launches += _build.LAUNCHES[self._kernel] - before
         return out
+
+    def work(self, A, B) -> counters.Work:
+        """One call's work on [rows, F] ``A`` (``utils/counters``): K10's
+        formula for a BCSR, K5's for the nonzeros of any other format."""
+        m, F = self.mat, int(A.shape[1])
+        if isinstance(m, BCSR):
+            return counters.sddmm_bcsr_work(self.rows, self.cols,
+                                            m.num_blocks, m.nnz, F)
+        return counters.sddmm_flat_work(self.rows, self.cols, m.nnz, F)
 
 
 def sddmm(mat, A, B, impl: str = "xla", block_f: int = 512, dtype=None,

@@ -87,6 +87,7 @@ from loops_tpu_torch.schedule.plans import (
     spmm_route_for,
 )
 from loops_tpu_torch.tuning.launch_box import launch_params
+from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["spmm", "SpMMOperator"]
@@ -185,6 +186,8 @@ class SpMMOperator:
         return B.to(self.device, self._vals_dtype).contiguous()
 
     def __call__(self, B):
+        if counters.HOOK is not None:
+            return counters.HOOK(self.work, self, B)
         B = self.stage(B)
         if self._kernel is None:
             return self._raw(self._bufs, B)
@@ -192,6 +195,17 @@ class SpMMOperator:
         C = self._raw(self._bufs, B)
         self.launches += _build.LAUNCHES[self._kernel] - before
         return C
+
+    def work(self, B) -> counters.Work:
+        """One apply's work on a [cols, F] ``B`` (``utils/counters``): a
+        BCSR by its stored blocks, any other format as the CSR of its
+        nonzeros, in the operator's type mode."""
+        m, F = self.mat, int(B.shape[1])
+        if isinstance(m, BCSR):
+            return counters.bcsr_work(self.rows, self.cols, m.num_blocks,
+                                      m.num_block_rows, m.nnz, F, self.dtype)
+        return counters.csr_spmm_work(self.rows, self.cols, m.nnz, F,
+                                      self.dtype)
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

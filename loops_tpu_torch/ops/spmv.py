@@ -97,6 +97,7 @@ from loops_tpu_torch.schedule.plans import (
     thresholds_for,
 )
 from loops_tpu_torch.tuning.launch_box import launch_params
+from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
 
 __all__ = ["spmv", "SpMVOperator", "SCHEDULES", "flat_partitioned_spmv"]
@@ -254,6 +255,8 @@ class SpMVOperator:
         return x.to(self.device, self._dtype).contiguous()
 
     def __call__(self, x):
+        if counters.HOOK is not None:
+            return counters.HOOK(self.work, self, x)
         x = self.stage(x)
         if self._kernel is None:
             return self._raw(self._bufs, x)
@@ -261,6 +264,16 @@ class SpMVOperator:
         y = self._raw(self._bufs, x)
         self.launches += _build.LAUNCHES[self._kernel] - before
         return y
+
+    def work(self, x=None) -> counters.Work:
+        """One apply's work (``utils/counters``): a BCSR by its stored
+        blocks, any other format as the CSR of its nonzeros, whatever
+        schedule or kernel runs it."""
+        m = self.mat
+        if isinstance(m, BCSR):
+            return counters.bcsr_work(self.rows, self.cols, m.num_blocks,
+                                      m.num_block_rows, m.nnz)
+        return counters.csr_spmv_work(self.rows, self.cols, m.nnz)
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

@@ -18,7 +18,9 @@ wrappers run now:
   the arguments as plain ints, ``current_device()``, the raw stream query
   and the C call itself;
 * K12: its checks, ``torch.empty_like``, the cached SM count, its C call
-  and, in ``saxpy()``, ``ensure_platform``.
+  and, in ``saxpy()``, the device asked once and the test that the
+  operands are staged (beside ``ensure_platform``, which it asked on
+  every call before).
 
 The whole calls (``op(x)``, ``saxpy_cuda``, ``saxpy``, ``torch.add``) are
 timed the same way beside the parts. Needs an NVIDIA card.
@@ -107,7 +109,9 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
                                               sy.data_ptr(),
                                               sout.data_ptr(), sx.numel(),
                                               sax_blocks, stream),
-        "K12 saxpy(): ensure_platform('cuda')":
+        "K12 saxpy(): the device asked once, operands staged":
+            lambda: saxpy._staged(sx, sy, saxpy._device("cuda")),
+        "ensure_platform('cuda') (saxpy() before)":
             lambda: ensure_platform("cuda"),
     }
     whole = {

@@ -103,6 +103,8 @@ SLICE_MODULES = [
     "loops_tpu_torch.parallel.dist_ops",
     "loops_tpu_torch.parallel.launch",
     "loops_tpu_torch.parallel.workers",
+    "loops_tpu_torch.utils.trace",
+    "loops_tpu_torch.utils.counters",
 ]
 
 
@@ -166,7 +168,8 @@ def test_no_jax_import_in_package():
             "scripts/bench_scaling_torch.py",
             "scripts/outofcore_mesh_train_torch.py",
             "examples/dist_train_torch.py",
-            "examples/spmv_torch.py"} <= names
+            "examples/spmv_torch.py",
+            "scripts/train_record_torch.py"} <= names
 
 
 def test_lazy_submodules():

@@ -450,3 +450,38 @@ def test_l2_scatter_checks_its_plan_once(change, buf):
             r2.check_plan(b, fn.meta, CPU)
     else:
         r2.check_plan(b, fn.meta, CPU)
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta"])
+def test_k12_keeps_every_refusal(case):
+    # saxpy() passes staged operands to saxpy_cuda as they are; its
+    # refusals stand, before any launch
+    from loops_tpu_torch.ops.kernels import saxpy
+
+    x = torch.ones(8, device=case)
+    before = _build.LAUNCHES["saxpy"]
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        saxpy.saxpy_cuda(2.0, x, x)
+    assert _build.LAUNCHES["saxpy"] == before
+
+
+def test_k12_device_is_checked_once_per_value(monkeypatch):
+    from loops_tpu_torch.ops.kernels import saxpy
+
+    asked = []
+
+    def ensure(device):
+        asked.append(device)
+        return torch.device(device)
+    monkeypatch.setattr(saxpy, "ensure_platform", ensure)
+    monkeypatch.setattr(saxpy, "_DEVICES", {})
+    x, y = torch.arange(6.0), torch.ones(6)
+    for _ in range(3):
+        assert torch.equal(saxpy.saxpy(2.5, x, y, "cpu"),
+                           saxpy.saxpy_plain(2.5, x, y))
+    saxpy.saxpy(2.5, x.numpy(), y.numpy(), CPU)
+    assert asked == ["cpu", CPU]
+    # operands already staged on a card go to saxpy_cuda as they are;
+    # anything else (CPU tensors, arrays, other types) is converted first
+    assert not saxpy._staged(x, y, CUDA0)
+    assert not saxpy._staged(x.numpy(), y, CUDA0)
