@@ -17,20 +17,26 @@ Phases, one line each with its time:
    64) and, for K2 and K3, on one work_oriented block over a 40064-row
    window: agreement, the Wilkinson verdict, two runs bitwise equal, the
    launch counter, and each kernel once more into a y filled with NaN
-   (each writes every row of a ``torch.empty`` y);
+   (each writes every row of a ``torch.empty`` y); K1, under 200,000
+   nonzeros, also bit for bit against its numpy mirror
+   (``spmv_sorted.sorted_spmv_mirror``: its CTA ranges, pieces and seams);
 4. main path: ``examples/spmv_torch.py`` on ``datasets/chesapeake.mtx`` with
    ``--validate --rigorous`` for every schedule and kernel impl;
 5. at scale: ``SpMVOperator`` with each kernel on the bench matrix and on
-   2097152^2 with ~33.5M nnz, each result validated. The launch counters are
-   set to 0 before phase 4 and read after phase 5: every kernel must have
-   launched on the main path;
+   2097152^2 with ~33.5M nnz, and K1 on the xl tier's
+   ``xl_banded_67108864`` and ``xl_uniform_67108864`` (4194304^2, 67.1M
+   nnz; built in two spawned processes from the start of the run), each
+   result validated. The launch counters are set to 0 before phase 4 and
+   read after phase 5: every kernel must have launched on the main path;
 6. timing: per apply, the median of CUDA-event timings, of each kernel, its
    plain version and cuSPARSE's CSR SpMV (the paper's opponent, timed only),
    with the host plan time; each kernel's time on the card alone
    (``utils/bench.device_ms``: the applies queued behind a sleep kernel)
-   and its host share ``1 - device / apply``; and the host launch path
-   taken apart (``utils/launch_cost.py``: host microseconds per call of
-   each part and of the whole calls of K1, K12 and ``torch.add``);
+   and its host share ``1 - device / apply``; K1 on the two xl matrices
+   beside cuSPARSE, both by apply and by card time, with the byte bound
+   of ``utils/counters``; and the host launch path taken apart
+   (``utils/launch_cost.py``: host microseconds per call of each part and
+   of the whole calls of K1, K12 and ``torch.add``);
 7. K4 vs plain: K4 (``flat_spmm``) against its plain PyTorch version on the
    battery, the merge-path edge cases (``generate.SPMM_EDGE_CASES``: a row
    over several warps and blocks, a run of empty rows past a block's work,
@@ -362,6 +368,13 @@ CLI_CASES = [
     ["--schedule", "sorted_flat"], ["--schedule", "auto"],
 ]
 BENCH_BLOCK = 1024
+# phases 5 and 6: K1 on the xl tier's two 64M-nonzero matrices, the one
+# whose gathers are local and the one whose gathers are random
+# (utils/statmatch.xl_battery; built in spawned host processes from the
+# start of the run), and the largest matrix K1's mirror is held to in
+# phase 3
+XL_MATRICES = ("xl_banded_67108864", "xl_uniform_67108864")
+MIRROR_NNZ = 200_000
 SPMM_SOURCE = "loops_tpu_torch/csrc/spmm.cu"
 SPMM_REPLACES = "loops_tpu/ops/kernels/spmm_flat.py:48"
 SPMM_FS = (5, 40, 128)
@@ -587,6 +600,15 @@ def kernel_vs_plain(kname, csr, x, block, device, schedule="merge_path"):
     require(y3.data_ptr() == nan.data_ptr() and torch.equal(y1, y3),
             f"{kname}: the apply into NaN-filled memory differs")
     y = y1.cpu().numpy()
+    if kname == "sorted_spmv" and csr.nnz <= MIRROR_NNZ:
+        # bit for bit the kernel's numpy mirror at the bound launch shape
+        a = {k: v.cpu().numpy() for k, v in b.items()}
+        shape = fn.launch.shape
+        want = spmv_sorted.sorted_spmv_mirror(a, fn.params, x,
+                                              shape["grid"], shape["piece"])
+        require(np.array_equal(y.view(np.uint32), want.view(np.uint32)),
+                f"{kname}: kernel and mirror differ at grid "
+                f"{shape['grid']}, piece {shape['piece']}")
     yp = plain(xd).cpu().numpy()
     diff = np.abs(y.astype(np.float64) - yp)
     require(np.all(np.isfinite(y)), f"{kname}: non-finite output")
@@ -3565,7 +3587,6 @@ def tooling_phase(device, smi, ds, adj, big, x_big):
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3573,6 +3594,30 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from loops_tpu_torch.tuning.sweep import build_matrix
+
+    # the xl matrices take a host core a minute each: built beside the
+    # first phases, in processes that import no torch.cuda
+    with ProcessPoolExecutor(len(XL_MATRICES), multiprocessing.get_context(
+            "spawn")) as pool:
+        xl_builds = {n: pool.submit(build_matrix, "xl", n)
+                     for n in XL_MATRICES}
+        try:
+            return run_phases(xl_builds)
+        finally:
+            for f in xl_builds.values():
+                f.cancel()
+
+
+def run_phases(xl_builds) -> int:
+    """Phases 1-26; ``xl_builds``: name -> future of ``(csr, seconds)``
+    of each of ``XL_MATRICES``."""
+    t_start = time.perf_counter()
+    import torch
+
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.utils import counters
@@ -3697,6 +3742,31 @@ def main() -> int:
             require(errors == 0 and rep.verdict == "NOT_A_BUG",
                     f"{mname}/{kname}: {errors} errors, {rep}")
             ops[mname, kname] = op
+    th = time.perf_counter()
+    xl = {n: f.result()[0] for n, f in xl_builds.items()}
+    print(f"  xl matrices built in spawned processes, waited "
+          f"{time.perf_counter() - th:.1f} s for them")
+    xl_ops = {}
+    for mname, csr in xl.items():
+        x = generate.make_input_vector(csr.shape[1])
+        th = time.perf_counter()
+        op = SpMVOperator(csr, "sorted_flat", device=device)
+        build_s = time.perf_counter() - th
+        require(op.impl_used == "sorted_spmv", f"{mname}: {op.impl_used}")
+        y = op(x).cpu().numpy()
+        require(op.launches == 1, f"{mname}: {op.launches} launches")
+        require(y.shape == (csr.shape[0],) and np.all(np.isfinite(y)),
+                f"{mname}: bad output")
+        errors = count_mismatches(y, reference.spmv(csr, x))
+        rep = reference.rigorously_validate_spmv(csr, x, y)
+        print(f"  {mname} ({csr.shape[0]}x{csr.shape[1]}, {csr.nnz} nnz) "
+              f"sorted_spmv: Errors {errors}, Verdict {rep.verdict}, "
+              f"launch shape {op._raw.launch.shape}, plan_ms "
+              f"{op.meta['plan_ms']:.1f}, operator build {build_s:.2f} s")
+        require(errors == 0 and rep.verdict == "NOT_A_BUG",
+                f"{mname}/sorted_spmv: {errors} errors, {rep}")
+        xl_ops[mname] = (op, csr, x)
+    del xl, y
     launches = dict(_build.LAUNCHES)
     for kname in KERNELS:
         require(launches[kname] > 0,
@@ -3757,6 +3827,44 @@ def main() -> int:
                   f"{k_card:.4f} ms, host share "
                   f"{1 - k_card / k_apply:.3f}  [{smi}]")
         del A
+    # K1 on the xl matrices: kernel, plain, cuSPARSE, the card alone,
+    # and the byte bound of utils/counters
+    for mname, (op, csr, x) in xl_ops.items():
+        xd = torch.from_numpy(x).to(device)
+        A = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.offsets).to(device),
+            torch.from_numpy(csr.indices).to(device),
+            torch.from_numpy(csr.vals).to(device), size=csr.shape)
+        plain = plains["sorted_spmv"](op)
+        diff = np.abs(op(xd).cpu().numpy().astype(np.float64)
+                      - plain(xd).cpu().numpy())
+        require(np.all(diff <= pair_tolerance(csr, x)),
+                f"{mname}: kernel and plain differ by {diff.max()}")
+        max_err["sorted_spmv"] = max(max_err["sorted_spmv"],
+                                     float(diff.max(initial=0.0)))
+        require(bool(torch.isfinite(torch.mv(A, xd)).all()),
+                f"{mname}: cuSPARSE: bad output")
+        p1 = apply_ms(plain, xd)
+        k1 = apply_ms(op, xd)
+        k2 = apply_ms(op, xd)
+        p2 = apply_ms(plain, xd)
+        cs = apply_ms(lambda v: torch.mv(A, v), xd)
+        card = device_ms(op, xd)
+        cs_card = device_ms(lambda v: torch.mv(A, v), xd)
+        b_ms, b_by = counters.bound_of(
+            counters.csr_spmv_work(*csr.shape, csr.nnz))
+        times[mname, "sorted_spmv"] = dict(
+            ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, cusparse_ms=cs,
+            card_ms=card, cusparse_card_ms=cs_card, bound_ms=b_ms)
+        print(f"  {mname} sorted_spmv: kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, cuSPARSE {cs:.4f} ms; card K1 "
+              f"{card:.4f} ms ({b_ms / card:.1%} of the bound), cuSPARSE "
+              f"{cs_card:.4f} ms ({b_ms / cs_card:.1%}), K1/cuSPARSE "
+              f"{card / cs_card:.3f}; bound {b_ms:.4f} ms ({b_by}); host "
+              f"plan {op.meta['plan_ms']:.1f} ms  [{smi}]")
+        del A
+    del xl_ops
+    torch.cuda.empty_cache()
     parts = launch_cost.launch_path_parts(device)
     print(f"  launch path, host us per call (less {parts['empty_us']:.3f} "
           f"us of an empty call), {smi}:")

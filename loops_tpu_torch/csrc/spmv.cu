@@ -1,17 +1,20 @@
 // CSR SpMV kernels for Hopper (sm_90a): y = A * x in float32.
 //
-// Three kernels, one per TPU kernel of loops_tpu's SpMV main path, plus
-// the seam pass they share. All three keep the TPU kernels' contract:
+// Three kernels, one per TPU kernel of loops_tpu's SpMV main path, and
+// the seam pass K2 and K3 share. All three keep the TPU kernels' contract:
 //   * each row's atoms inside one plan block are summed in f32;
 //   * a row split across block seams is combined deterministically: the
 //     per-block partials are added in block order by one thread, so two
 //     runs give bitwise-equal y;
 //   * no float atomics anywhere.
 // On the TPU the Pallas grid runs in order on one core and carries y
-// across grid steps in VMEM. CUDA blocks run in no order, so each block
-// writes the rows that lie wholly inside it straight to y and the partial
-// sums of its first and last row to seam[2*b], seam[2*b+1];
-// seam_kernel then adds those partials into y in block order.
+// across grid steps in VMEM. CUDA blocks run in no order: K2 and K3
+// write the rows that lie wholly inside a block straight to y and the
+// partial sums of its first and last row to seam[2*b], seam[2*b+1], and
+// seam_kernel then adds those partials into y in block order; K1 walks a
+// contiguous range of blocks per CTA, carries the partials from block to
+// block itself, and its last CTA adds the few seams between ranges (one
+// launch).
 //
 // What bounds them on an H100: bytes. Per nonzero a kernel reads its
 // value (4 B) and column (4 B) and gathers x[col] (4 B, a 32-byte sector
@@ -23,12 +26,25 @@
 // C entry points take device pointers and the CUDA stream as void*,
 // launch on that stream, never synchronize, and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "seg_scan.cuh"
+#include "tensor_core.cuh"
 
 namespace {
+
+using loops_tc::bulk_copy_hint;
+using loops_tc::cp_async4;
+using loops_tc::cp_async_arrive;
+using loops_tc::fence_proxy_async;
+using loops_tc::l2_evict_first;
+using loops_tc::mbar_arrive;
+using loops_tc::mbar_expect_tx;
+using loops_tc::mbar_init;
+using loops_tc::mbar_wait;
+using loops_tc::smem_addr;
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
@@ -90,137 +106,643 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 // general gather; Hopper gathers x[col] natively, so each block reads its
 // atoms in CSR order straight from the CSR arrays.
 //
-// What bounds it on an H100 is the x[col] gather: one random 32-byte
-// sector per nonzero, from L2 (or L1 for an x that fits there). A lane
-// that walks one row at a time keeps one gather in flight and waits on
-// its latency; measured on the card, once a thread keeps four or more in
-// flight the time no longer moves with the count (1, 2, 4 quads), so
-// what is left is the rate at which the card serves random sectors.
-// The block works in two phases that do not look at rows until the
-// second:
-//   1. products: the block streams its atom range [cuts[b], cuts[b+1])
-//      as 16-byte quads of vals and cols (cache-streaming loads, so the
-//      stream of a matrix past L2 does not push x out), each
-//      thread holding kK1Quads quads, that is 4 * kK1Quads gathers, in
-//      flight, and writes vals[i] * x[cols[i]] to shared memory, aligned
-//      so that a quad is one 16-byte store;
-//   2. rows: each row of the block is summed from shared memory by a
-//      group of `lanes_per_row` lanes (a power of two <= 32, picked on
-//      the host from the mean row length), lane-strided partials then an
-//      xor-shuffle tree: a fixed order, so two runs are bitwise equal.
-// Interior rows go straight to y, the first and last row to the seam
-// pass; the block also zero-writes the empty rows between its last row
-// and the next block's first (block 0 those before its first), so every
-// row of y is written and the wrapper allocates y with torch.empty.
+// What bounds it on an H100: the bytes of vals and cols (8 per nonzero,
+// read once) and the work of summing rows when x's gathers are local,
+// the x[col] gather (one random L2 sector per nonzero) when they are
+// not. The stream wants loads in flight all the time: ~25 KB an SM to
+// keep the HBM rate. So K1 is one persistent launch:
+//   * grid: min(nb, CTAs_an_SM * SMs) CTAs; CTA k walks the plan blocks
+//     [k * nb / grid, (k + 1) * nb / grid) in block order, each block in
+//     pieces of at most `piece` atoms (one piece for blocks of <= 1024);
+//   * a producer warp stages each coming piece's vals and cols, and its
+//     block's row offsets, into a ring of kK1Stages shared-memory stages:
+//     the 16-byte aligned middle of each range by one cp.async.bulk, the
+//     few 4-byte ends by cp.async, all counted on the stage's mbarrier;
+//     it waits only for a free stage, so the stream never stops for the
+//     row sums;
+//   * 8 consumer warps form each piece's products vals * x[cols] in place
+//     (the gathers of the next piece are issued before the row sums of
+//     the current one, so their latency hides behind them), then sum
+//     each row of the piece from shared memory in the order the
+//     two-phase kernel before it did: `lanes_per_row` lane partials (a
+//     power of two <= 32, picked on the host from the mean row length),
+//     lane-strided, then the xor tree. A piece of short rows is summed
+//     one row a thread, any other four lanes a thread (k1_rows); a
+//     lane's partial of a row cut by a piece boundary is carried to the
+//     next piece, so the sum's order does not depend on the pieces;
+//   * the seams: the value of a row cut by a block boundary is the
+//     partials of its blocks added in block order, the first partial
+//     first (walk_row's order). Inside a CTA the fold is carried in
+//     shared memory from block to block. A row cut by a CTA boundary
+//     leaves the prefix its first CTA folded in seam_tail[k] and each
+//     later block's partial in seam_part[b]; the last CTA to finish
+//     (an integer ticket, which it resets for the next launch) adds them
+//     in block order. So an apply is one launch, and y is written once
+//     per row, empty rows included (y comes from torch.empty).
 // The products are rounded to f32 before they are summed, as in the plain
-// version (vals * x[cols], then segment sums).
-constexpr int kK1Threads = 256;
-constexpr int kK1Quads = 2;      // 16-byte quads in flight per thread
-constexpr int kK1MinBlocks = 4;  // CTAs an SM: 64 registers a thread
-// row offsets of a block held in shared memory; a block whose span is
-// wider (the host's span split gave up) reads them from device memory
-constexpr int kK1RowWindow = 1024;
+// version (vals * x[cols], then segment sums); the order of every f32
+// addition is fixed, so two runs are bitwise equal and equal the
+// two-kernel K1 of earlier versions bit for bit. No float atomics.
+constexpr int kK1ConsumerWarps = 8;
+constexpr int kK1Consumers = 32 * kK1ConsumerWarps;
+constexpr int kK1Threads = kK1Consumers + 32;  // + the producer warp
+constexpr int kK1Stages = 4;
+constexpr int kK1MinBlocks = 3;  // CTAs an SM: 72 registers a thread
+// a piece's atoms and a stage's row offsets at most (the host's `piece`
+// and `window` are multiples of 4 up to these); a block with more rows
+// reads its offsets from device memory
+constexpr int kK1PieceMax = 1024;
+constexpr int kK1WindowMax = 1024;
+constexpr int kK1MetaWords = 12;
+// the largest stage: vals, cols (4 words of slack each, for the quad
+// alignment), offsets and the piece's description, in 4-byte words
+constexpr int kK1MaxStageWords =
+    2 * (kK1PieceMax + 4) + kK1WindowMax + 4 + kK1MetaWords;
+constexpr int kK1MaxSmem = kK1Stages * kK1MaxStageWords * 4;
+// Meta flags
+constexpr int kK1Cin = 1;      // the block's first row goes on from block b - 1
+constexpr int kK1Cout = 2;     // its last row goes on into block b + 1
+constexpr int kK1Window = 4;   // its row offsets are staged
+constexpr int kK1Named = 1;    // the consumers' named barrier
 
-__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
-sorted_spmv_kernel(const int* __restrict__ offsets, const int* __restrict__ cols,
-                   const float* __restrict__ vals, const int* __restrict__ cuts,
-                   const int* __restrict__ row_first,
-                   const int* __restrict__ row_last, const float* __restrict__ x,
-                   float* __restrict__ y, float* __restrict__ seam, int rows,
-                   int nb, int lanes_per_row, int vec) {
-  extern __shared__ float4 prod4[];  // products of atoms [base, a1)
-  __shared__ int offs[kK1RowWindow + 1];
-  float* prod = reinterpret_cast<float*>(prod4);
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int a0 = cuts[b], a1 = cuts[b + 1];
-  const int r0 = row_first[b], r1 = row_last[b];
-  const int nrows = r1 - r0 + 1;
-  const int base = a0 & ~3;  // prod[i - base] holds atom i's product
-  const bool offs_shared = nrows < kK1RowWindow;
-  if (offs_shared) {
-    for (int j = tid; j <= nrows; j += kK1Threads) offs[j] = offsets[r0 + j];
-  }
-  // empty rows up to the next block's first row (and, in block 0, before
-  // this one's): nobody else writes them
-  const int next = b + 1 < nb ? row_first[b + 1] : rows;
-  for (int r = r1 + 1 + tid; r < next; r += kK1Threads) y[r] = 0.f;
-  if (b == 0) {
-    for (int r = tid; r < r0; r += kK1Threads) y[r] = 0.f;
-  }
+// The plan as the host packs it once at bind (spmv_sorted._SortedPlan
+// mirrors it field for field).
+struct SortedPlan {
+  const int* offsets;
+  const int* cols;
+  const float* vals;
+  const int* cuts;
+  const int* row_first;
+  const int* row_last;
+  int rows, nb, lanes_per_row, grid, piece, window;
+};
 
-  // ---- 1. products into shared memory: whole quads [q0, q1) inside
-  // [a0, a1), then the head [a0, head_end) and tail [tail_begin, a1) one
-  // atom at a time (every atom when the arrays are not 16-byte aligned)
-  int head_end = a1, tail_begin = a1;
-  if (vec) {
-    const int q0 = (a0 + 3) >> 2;
-    const int q1 = max(q0, a1 >> 2);
-    head_end = min(4 * q0, a1);
-    tail_begin = max(4 * q1, head_end);
-    const int4* c4 = reinterpret_cast<const int4*>(cols);
-    const float4* v4 = reinterpret_cast<const float4*>(vals);
-    for (int q = q0 + tid; q < q1; q += kK1Threads * kK1Quads) {
-      int4 c[kK1Quads];
-      float4 v[kK1Quads];
-#pragma unroll
-      for (int u = 0; u < kK1Quads; ++u) {
-        const int qu = q + u * kK1Threads;
-        if (qu < q1) {
-          c[u] = __ldcs(c4 + qu);
-          v[u] = __ldcs(v4 + qu);
+__device__ __forceinline__ int k1_range_start(int k, int nb, int grid) {
+  return static_cast<int>(static_cast<long long>(k) * nb / grid);
+}
+
+// The ring: stage s holds vals [piece + 4], cols [piece + 4], offsets
+// [window + 4] and the piece's description, atom i at [i - (p0 & ~3)]
+// and row offset r at [r - (r0 & ~3)], so aligned quads stay aligned.
+struct K1Ring {
+  int* base;
+  int cap_p, cap_w, stride;
+  __device__ float* vals(int s) const {
+    return reinterpret_cast<float*>(base + s * stride);
+  }
+  __device__ int* cols(int s) const { return base + s * stride + cap_p; }
+  __device__ int* offs(int s) const { return base + s * stride + 2 * cap_p; }
+  __device__ int* meta(int s) const {
+    return base + s * stride + 2 * cap_p + cap_w;
+  }
+};
+
+// The description of a staged piece: atoms [p0, p1) of block b, whose
+// atoms are [a0, a1) and rows [r0, r1]; `next` is the next block's first
+// row (rows after the last block).
+struct K1Piece {
+  int b, p0, p1, a0, a1, r0, r1, next, flags;
+};
+
+__device__ __forceinline__ K1Piece k1_read_meta(const int* m) {
+  const int4 u = reinterpret_cast<const int4*>(m)[0];
+  const int4 v = reinterpret_cast<const int4*>(m)[1];
+  return K1Piece{u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, m[8]};
+}
+
+// Elements [i0, i1) of a 4-byte array go to dst[i - (i0 & ~3)]: the
+// 16-byte aligned middle [m0, m1) (empty unless `aligned`) by one bulk
+// copy, the rest 4 bytes a lane (k1_copy_ends).
+__device__ __forceinline__ void k1_split(int i0, int i1, bool aligned, int& m0,
+                                         int& m1) {
+  m0 = i1;
+  m1 = i1;
+  if (aligned) {
+    m0 = min((i0 + 3) & ~3, i1);
+    m1 = max(m0, i1 & ~3);
+  }
+}
+
+__device__ __forceinline__ void k1_copy_ends(int* dst, const int* src, int i0,
+                                             int i1, int m0, int m1,
+                                             int lane) {
+  const int base = i0 & ~3;
+  for (int i = i0 + lane; i < m0; i += 32) cp_async4(dst + (i - base), src + i);
+  for (int i = m1 + lane; i < i1; i += 32) cp_async4(dst + (i - base), src + i);
+}
+
+// The producer warp: every piece of blocks [B0, B1) in order into the
+// ring, each once its stage is free.
+__device__ void k1_produce(const SortedPlan& p, const K1Ring& ring,
+                           unsigned long long* full, unsigned long long* empty,
+                           int B0, int B1, int lane) {
+  const bool vec = (reinterpret_cast<uintptr_t>(p.cols) |
+                    reinterpret_cast<uintptr_t>(p.vals)) % 16 == 0;
+  const bool ovec = reinterpret_cast<uintptr_t>(p.offsets) % 16 == 0;
+  // the stream is read once: it must not push x and y out of L2
+  const unsigned long long once = l2_evict_first();
+  int stage = 0;
+  unsigned phase = 0;
+  for (int base = B0; base < B1; base += 32) {
+    // 32 blocks' descriptions at a time, one a lane
+    const int bl = base + lane;
+    int a0 = 0, a1 = 0, r0 = 0, r1 = 0, nxt = 0, fl = 0;
+    if (bl < B1) {
+      a0 = __ldg(p.cuts + bl);
+      a1 = __ldg(p.cuts + bl + 1);
+      r0 = __ldg(p.row_first + bl);
+      r1 = __ldg(p.row_last + bl);
+      nxt = bl + 1 < p.nb ? __ldg(p.row_first + bl + 1) : p.rows;
+      const int prev = bl > 0 ? __ldg(p.row_last + bl - 1) : -1;
+      fl = (prev == r0 ? kK1Cin : 0) | (nxt == r1 ? kK1Cout : 0) |
+           (r1 - r0 + 2 <= p.window ? kK1Window : 0);
+    }
+    const int n = min(32, B1 - base);
+    for (int u = 0; u < n; ++u) {
+      const int A0 = __shfl_sync(kFull, a0, u), A1 = __shfl_sync(kFull, a1, u);
+      const int R0 = __shfl_sync(kFull, r0, u), R1 = __shfl_sync(kFull, r1, u);
+      const int NX = __shfl_sync(kFull, nxt, u), FL = __shfl_sync(kFull, fl, u);
+      for (int p0 = A0; p0 < A1; p0 += p.piece) {
+        const int p1 = min(A1, p0 + p.piece);
+        const unsigned fb = smem_addr(full + stage);
+        mbar_wait(smem_addr(empty + stage), phase ^ 1);
+        float* sv = ring.vals(stage);
+        int* sc = ring.cols(stage);
+        int* so = ring.offs(stage);
+        int q0, q1, o0, o1;
+        k1_split(p0, p1, vec, q0, q1);
+        const bool window = FL & kK1Window;
+        if (window) {
+          k1_split(R0, R1 + 2, ovec, o0, o1);
+        } else {
+          o0 = o1 = 0;
         }
-      }
-      float4 xv[kK1Quads];
-#pragma unroll
-      for (int u = 0; u < kK1Quads; ++u) {
-        if (q + u * kK1Threads < q1) {
-          xv[u] = make_float4(__ldg(x + c[u].x), __ldg(x + c[u].y),
-                              __ldg(x + c[u].z), __ldg(x + c[u].w));
+        if (lane == 0) {
+          int* m = ring.meta(stage);
+          reinterpret_cast<int4*>(m)[0] = make_int4(base + u, p0, p1, A0);
+          reinterpret_cast<int4*>(m)[1] = make_int4(A1, R0, R1, NX);
+          m[8] = FL;
+          mbar_expect_tx(fb, 8u * (q1 - q0) + 4u * (o1 - o0));
+          if (q1 > q0) {
+            const int at = q0 - (p0 & ~3);
+            bulk_copy_hint(sv + at, p.vals + q0, 4u * (q1 - q0), fb, once);
+            bulk_copy_hint(sc + at, p.cols + q0, 4u * (q1 - q0), fb, once);
+          }
+          if (o1 > o0) {
+            bulk_copy_hint(so + (o0 - (R0 & ~3)), p.offsets + o0,
+                           4u * (o1 - o0), fb, once);
+          }
         }
-      }
-#pragma unroll
-      for (int u = 0; u < kK1Quads; ++u) {
-        const int qu = q + u * kK1Threads;
-        if (qu < q1) {
-          prod4[qu - (base >> 2)] =
-              make_float4(__fmul_rn(v[u].x, xv[u].x), __fmul_rn(v[u].y, xv[u].y),
-                          __fmul_rn(v[u].z, xv[u].z), __fmul_rn(v[u].w, xv[u].w));
+        k1_copy_ends(reinterpret_cast<int*>(sv),
+                     reinterpret_cast<const int*>(p.vals), p0, p1, q0, q1, lane);
+        k1_copy_ends(sc, p.cols, p0, p1, q0, q1, lane);
+        if (window) k1_copy_ends(so, p.offsets, R0, R1 + 2, o0, o1, lane);
+        cp_async_arrive(fb);
+        if (++stage == kK1Stages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
   }
-  for (int i = a0 + tid; i < head_end; i += kK1Threads) {
-    prod[i - base] =
-        __fmul_rn(__ldcs(vals + i), __ldg(x + __ldcs(cols + i)));
+}
+
+// A consumer thread's quads of a piece, their values and gathered x,
+// loaded before the row sums of the piece before, multiplied after: the
+// piece's first kK1QuadSlots * kK1Consumers quads (1024 atoms); the few
+// past them (a piece of 1024 atoms not on a quad boundary spans 257)
+// are gathered and multiplied at once.
+constexpr int kK1QuadSlots = kK1PieceMax / 4 / kK1Consumers;
+struct K1Quads {
+  float4 v[kK1QuadSlots], xv[kK1QuadSlots];
+};
+
+// What only some pieces need (their ragged ends, rows cut by a piece,
+// the row search of a cut block) is called out of line, to keep the
+// consumers' loop over pieces short and its registers free.
+
+// x at the ragged quad of a piece whose atoms i = 4 q' ... start at i:
+// the atoms outside [p0, p1) gather nothing
+__device__ __noinline__ float4 k1_xquad_ragged(int i, int p0, int p1, int4 c,
+                                               const float* __restrict__ x) {
+  return make_float4(i >= p0 && i < p1 ? __ldg(x + c.x) : 0.f,
+                     i + 1 >= p0 && i + 1 < p1 ? __ldg(x + c.y) : 0.f,
+                     i + 2 >= p0 && i + 2 < p1 ? __ldg(x + c.z) : 0.f,
+                     i + 3 >= p0 && i + 3 < p1 ? __ldg(x + c.w) : 0.f);
+}
+
+// x at quad q of a piece (atoms 4 q ... of the stage, sb = p0 & ~3)
+__device__ __forceinline__ float4 k1_xquad(const K1Piece& m, int sb, int q,
+                                           int4 c, const float* __restrict__ x) {
+  const int i = sb + 4 * q;
+  if (i >= m.p0 && i + 4 <= m.p1) {
+    return make_float4(__ldg(x + c.x), __ldg(x + c.y), __ldg(x + c.z),
+                       __ldg(x + c.w));
   }
-  for (int i = tail_begin + tid; i < a1; i += kK1Threads) {
-    prod[i - base] =
-        __fmul_rn(__ldcs(vals + i), __ldg(x + __ldcs(cols + i)));
+  return k1_xquad_ragged(i, m.p0, m.p1, c, x);
+}
+
+__device__ __forceinline__ float4 k1_mul4(float4 v, float4 x) {
+  return make_float4(__fmul_rn(v.x, x.x), __fmul_rn(v.y, x.y),
+                     __fmul_rn(v.z, x.z), __fmul_rn(v.w, x.w));
+}
+
+__device__ __forceinline__ void k1_gather(const K1Ring& ring, int s,
+                                          const K1Piece& m,
+                                          const float* __restrict__ x,
+                                          int ctid, K1Quads& g) {
+  const int sb = m.p0 & ~3;
+  const int nq = (m.p1 - sb + 3) >> 2;
+  const float4* v4 = reinterpret_cast<const float4*>(ring.vals(s));
+  const int4* c4 = reinterpret_cast<const int4*>(ring.cols(s));
+#pragma unroll
+  for (int u = 0; u < kK1QuadSlots; ++u) {
+    const int q = ctid + u * kK1Consumers;
+    if (q < nq) {
+      g.v[u] = v4[q];
+      g.xv[u] = k1_xquad(m, sb, q, c4[q], x);
+    }
+  }
+}
+
+// Forms the piece's products; returns whether its rows are all short (a
+// whole block, its offsets staged, every row at most 2 g products), for
+// the AND over the consumers (k1_consumers_all).
+__device__ __forceinline__ bool k1_products(const K1Ring& ring, int s,
+                                            const K1Piece& m,
+                                            const float* __restrict__ x,
+                                            float* __restrict__ y, int ctid,
+                                            const K1Quads& g, int lanes_per_row) {
+  const int sb = m.p0 & ~3;
+  const int nq = (m.p1 - sb + 3) >> 2;
+  float4* v4 = reinterpret_cast<float4*>(ring.vals(s));
+#pragma unroll
+  for (int u = 0; u < kK1QuadSlots; ++u) {
+    const int q = ctid + u * kK1Consumers;
+    if (q < nq) v4[q] = k1_mul4(g.v[u], g.xv[u]);
+  }
+  for (int q = ctid + kK1QuadSlots * kK1Consumers; q < nq; q += kK1Consumers) {
+    const int4 c = reinterpret_cast<const int4*>(ring.cols(s))[q];
+    v4[q] = k1_mul4(v4[q], k1_xquad(m, sb, q, c, x));
+  }
+  // the products overwrite bytes a bulk copy will write again
+  fence_proxy_async();
+  if (m.p0 == m.a0) {
+    // the empty rows up to the next block's first (block 0: before its
+    // own first too): nobody else writes them
+    for (int r = m.r1 + 1 + ctid; r < m.next; r += kK1Consumers) y[r] = 0.f;
+    if (m.b == 0) {
+      for (int r = ctid; r < m.r0; r += kK1Consumers) y[r] = 0.f;
+    }
+  }
+  if (m.p0 != m.a0 || m.p1 != m.a1 || !(m.flags & kK1Window)) return false;
+  const int* ro = ring.offs(s) + (m.r0 & 3);
+  bool short_rows = true;
+  for (int j = ctid; j <= m.r1 - m.r0; j += kK1Consumers) {
+    short_rows &= min(ro[j + 1], m.a1) - max(ro[j], m.a0) <= 2 * lanes_per_row;
+  }
+  return short_rows;
+}
+
+// first m in [1, n] with ro[m] >= key (ro[n] >= key)
+__device__ __forceinline__ int k1_lower_bound(const int* ro, int n, int key) {
+  int lo = 1, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ro[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The rows [jf, jl] a piece of a cut block holds atoms of, and the empty
+// rows at its atoms (a whole block: all of them).
+__device__ __noinline__ int2 k1_piece_rows(const int* ro, int nrows, int p0,
+                                           int p1, int a0, int a1) {
+  int jf = 0, jl = nrows - 1;
+  if (p0 > a0) {
+    const int lb = k1_lower_bound(ro, nrows, p0);
+    jf = ro[lb] == p0 ? lb : lb - 1;
+  }
+  if (p1 < a1) jl = k1_lower_bound(ro, nrows, p1) - 1;
+  return make_int2(jf, jl);
+}
+
+struct K1Seams {
+  float* tail;   // [grid]: the prefix of the row a CTA's range ends inside
+  float* part;   // [nb]: a block's partial of a row that came from an
+                 // earlier CTA's range
+  float* row;    // shared [2]: the fold carried into block b, at b & 1
+  float* lanes;  // shared [2][32]: lane partials carried into a piece
+};
+
+// Row j of the piece, whose value in this block is v: to y, or folded
+// into the carry to the next block, or left in the seams.
+__device__ __forceinline__ void k1_finish(const K1Piece& m, int j, int nrows,
+                                          float v, int hc, int k, int B1,
+                                          float* __restrict__ y,
+                                          const K1Seams& seams) {
+  const int r = m.r0 + j;
+  if (r == hc) {
+    seams.part[m.b] = v;
+    return;
+  }
+  if (j == 0 && (m.flags & kK1Cin)) v = seams.row[m.b & 1] + v;
+  if (j == nrows - 1 && (m.flags & kK1Cout)) {
+    if (m.b + 1 < B1) {
+      seams.row[(m.b + 1) & 1] = v;
+    } else {
+      seams.tail[k] = v;
+    }
+  } else {
+    y[r] = v;
+  }
+}
+
+// Lane l's partial of a row that began in an earlier piece, from that
+// piece's carry a: a += prod[i - sb] for i = s0 + l, s0 + l + g, ... in
+// [lo, hi).
+__device__ __forceinline__ float k1_lane(const float* prod, int sb, int s0,
+                                         int lo, int hi, int l, int g,
+                                         float a) {
+  int i = s0 + l;
+  if (i < lo) i += (lo - i + g - 1) / g * g;
+  for (; i < hi; i += g) a += prod[i - sb];
+  return a;
+}
+
+// The four lanes (l0, l1, l2, l3; as many as g has) of a row that began
+// in an earlier piece, each from its carried partial.
+__device__ __noinline__ float4 k1_lanes_carried(const float* prod, int sb,
+                                                int s0, int p0, int hi,
+                                                int4 l, int g,
+                                                const float* carry) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  a.x = k1_lane(prod, sb, s0, p0, hi, l.x, g, carry[l.x]);
+  if (g >= 2) a.y = k1_lane(prod, sb, s0, p0, hi, l.y, g, carry[l.y]);
+  if (g >= 4) {
+    a.z = k1_lane(prod, sb, s0, p0, hi, l.z, g, carry[l.z]);
+    a.w = k1_lane(prod, sb, s0, p0, hi, l.w, g, carry[l.w]);
+  }
+  return a;
+}
+
+// A short row's value (at most 2 G products from p) summed by one thread
+// in the order the lane groups sum it: lane l's partial 0 + p[l] +
+// p[l + G], then lane 0 of the xor tree, F(0, 1) with F(l, o) = F(l, 2 o)
+// + F(l + o, 2 o) and F(l, G) lane l's partial (IEEE addition commutes,
+// so which lane's value comes first does not change a sum). All indices
+// are constants: no array, no local memory.
+template <int G, int O, int L>
+__device__ __forceinline__ float k1_tree(const float* p, int n) {
+  if constexpr (O == G) {
+    float a = 0.f;
+    if (L < n) a += p[L];
+    if (L + G < n) a += p[L + G];
+    return a;
+  } else {
+    return k1_tree<G, 2 * O, L>(p, n) + k1_tree<G, 2 * O, L + O>(p, n);
+  }
+}
+
+__device__ __forceinline__ float k1_row_value(const float* p, int n, int g) {
+  switch (g) {
+    case 1: return k1_tree<1, 1, 0>(p, n);
+    case 2: return k1_tree<2, 1, 0>(p, n);
+    case 4: return k1_tree<4, 1, 0>(p, n);
+    case 8: return k1_tree<8, 1, 0>(p, n);
+    case 16: return k1_tree<16, 1, 0>(p, n);
+    default: return k1_tree<32, 1, 0>(p, n);
+  }
+}
+
+// The row sums of one staged piece (its products formed), parity `par`
+// of the lane carry; `hc` is the row this CTA's range starts inside of
+// (-1 when it starts on a row boundary). A row's value is lanes_per_row
+// = g lane partials (lane l: products l, l + g, ... from the row's start)
+// reduced by the xor tree, lane 0's value. A thread holds four lanes,
+// tau + k T for T = g / 4 (g < 4: all g lanes, T = 1), and reduces them
+// to the tree's node F(tau, T) = (a0 + a2) + (a1 + a3); the T threads of
+// a row then finish the tree by xor shuffles: the same additions in the
+// same order as one lane a partial, with a quarter of the threads a row
+// and two fewer shuffle levels. A piece whose rows are all short (at
+// most 2 g products; `short_rows`, k1_products) is summed one row a
+// thread instead (k1_row_value): the fewest instructions per product,
+// which is what bounds the loop when the gathers are local (on an H100,
+// xl_banded_67108864: a thread a row 0.27 ms, four lanes a thread 0.33;
+// PERF.md section 6, PR 23).
+__device__ __forceinline__ void k1_rows(const SortedPlan& p, const K1Ring& ring,
+                                        int s, const K1Piece& m, int par, int hc,
+                                        int k, int B1, float* __restrict__ y,
+                                        const K1Seams& seams, int ctid,
+                                        bool short_rows) {
+  const float* prod = ring.vals(s);
+  const int sb = m.p0 & ~3;
+  const int nrows = m.r1 - m.r0 + 1;
+  if (short_rows) {
+    const int* ro = ring.offs(s) + (m.r0 & 3);
+    for (int j = ctid; j < nrows; j += kK1Consumers) {
+      const int s0 = max(ro[j], m.a0);
+      const float v = k1_row_value(prod + (s0 - sb),
+                                   min(ro[j + 1], m.a1) - s0, p.lanes_per_row);
+      k1_finish(m, j, nrows, v, hc, k, B1, y, seams);
+    }
+    return;
+  }
+  // staged, or (a block past the window) in device memory
+  const int* ro = (m.flags & kK1Window) ? ring.offs(s) + (m.r0 & 3)
+                                       : p.offsets + m.r0;
+  int jf = 0, jl = nrows - 1;
+  if (m.p0 > m.a0 || m.p1 < m.a1) {
+    const int2 r = k1_piece_rows(ro, nrows, m.p0, m.p1, m.a0, m.a1);
+    jf = r.x;
+    jl = r.y;
+  }
+  const int g = p.lanes_per_row;
+  const int T = g >= 4 ? g >> 2 : 1;
+  const int logT = __ffs(T) - 1;  // T is a power of two
+  const int tau = ctid & (T - 1);
+  const int group = ctid >> logT;
+  const int groups = kK1Consumers >> logT;
+  const int l1 = g >= 4 ? tau + T : 1, l2 = tau + 2 * T, l3 = tau + 3 * T;
+  // the same trip count for every thread keeps the shuffles convergent
+  const int trips = (jl - jf + groups) >> (__ffs(groups) - 1);
+  for (int t = 0; t < trips; ++t) {
+    const int j = jf + t * groups + group;
+    const bool valid = j <= jl;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    bool goes_on = false;
+    if (valid) {
+      const int s0 = max(ro[j], m.a0), e0 = min(ro[j + 1], m.a1);
+      const int hi = min(e0, m.p1);
+      if (s0 >= m.p0) {
+        // the row starts in this piece: the four lanes column by column,
+        // their loads independent
+        const float* q = prod + (s0 - sb);
+        const int n = hi - s0;
+        for (int c = 0; c < n; c += g) {
+          if (tau + c < n) a.x += q[tau + c];
+          if (g >= 2 && l1 + c < n) a.y += q[l1 + c];
+          if (g >= 4 && l2 + c < n) a.z += q[l2 + c];
+          if (g >= 4 && l3 + c < n) a.w += q[l3 + c];
+        }
+      } else {
+        a = k1_lanes_carried(prod, sb, s0, m.p0, hi, make_int4(tau, l1, l2, l3),
+                             g, seams.lanes + 32 * par);
+      }
+      goes_on = e0 > m.p1;
+    }
+    float v = g >= 4 ? (a.x + a.z) + (a.y + a.w) : g == 2 ? a.x + a.y : a.x;
+    for (int off = T >> 1; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(kFull, v, off);
+    }
+    if (!valid) continue;
+    if (goes_on) {
+      float* carry = seams.lanes + 32 * (par ^ 1);
+      carry[tau] = a.x;
+      if (g >= 2) carry[l1] = a.y;
+      if (g >= 4) {
+        carry[l2] = a.z;
+        carry[l3] = a.w;
+      }
+    } else if (tau == 0) {
+      k1_finish(m, j, nrows, v, hc, k, B1, y, seams);
+    }
+  }
+}
+
+// the consumers' barrier, and whether `b` holds for all of them
+__device__ __forceinline__ bool k1_consumers_all(bool b) {
+  unsigned all;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n"
+      " bar.red.and.pred q, %2, %3, p;\n selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(all)
+      : "r"(static_cast<unsigned>(b)), "r"(kK1Named), "r"(kK1Consumers)
+      : "memory");
+  return all != 0;
+}
+
+// The last CTA: the row that CTA k's range ends inside of, when it began
+// in that range, is its prefix plus each later block's partial, in block
+// order, while the blocks start inside it (walk_row's rule).
+__device__ __forceinline__ void k1_combine(const SortedPlan& p, int k,
+                                           const float* __restrict__ tail,
+                                           const float* __restrict__ part,
+                                           float* __restrict__ y) {
+  const int c0 = k1_range_start(k, p.nb, p.grid);
+  const int c1 = k1_range_start(k + 1, p.nb, p.grid);
+  if (c1 >= p.nb) return;
+  const int t = __ldg(p.row_last + c1 - 1);
+  if (__ldg(p.row_first + c1) != t) return;
+  // a row the range lies wholly inside of began in an earlier range
+  if (__ldg(p.row_first + c0) == t && c0 > 0 && __ldg(p.row_last + c0 - 1) == t) {
+    return;
+  }
+  float s = __ldcg(tail + k);
+  for (int c = c1; c < p.nb && __ldg(p.row_first + c) == t; ++c) {
+    s += __ldcg(part + c);
+    if (__ldg(p.row_last + c) != t) break;
+  }
+  y[t] = s;
+}
+
+// scratch: [0] the ticket (0 between launches), [4, 4 + grid) the range
+// prefixes, [4 + grid, 4 + grid + nb) the block partials (as floats)
+__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
+sorted_spmv_kernel(const SortedPlan p, const float* __restrict__ x,
+                   float* __restrict__ y, int* __restrict__ scratch) {
+  extern __shared__ int4 k1_ring[];
+  __shared__ __align__(8) unsigned long long full[kK1Stages], empty[kK1Stages];
+  __shared__ float carry_row[2];
+  __shared__ float carry_lanes[2 * 32];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int k = blockIdx.x;
+  const int B0 = k1_range_start(k, p.nb, p.grid);
+  const int B1 = k1_range_start(k + 1, p.nb, p.grid);
+  const int cap_p = p.piece + 4, cap_w = p.window + 4;
+  const K1Ring ring{reinterpret_cast<int*>(k1_ring), cap_p, cap_w,
+                    2 * cap_p + cap_w + kK1MetaWords};
+  float* tail = reinterpret_cast<float*>(scratch + 4);
+  float* part = tail + p.grid;
+  if (tid == 0) {
+    for (int s = 0; s < kK1Stages; ++s) {
+      mbar_init(smem_addr(full + s), 33);  // expect_tx + 32 cp.async lanes
+      mbar_init(smem_addr(empty + s), kK1ConsumerWarps);
+    }
   }
   __syncthreads();
-
-  // ---- 2. row sums from shared memory
-  const int* ro = offs_shared ? offs : offsets + r0;
-  const int g = lanes_per_row;
-  const int lane = tid & (g - 1);
-  const int group = tid / g;
-  const int groups = kK1Threads / g;
-  // the same trip count for every thread keeps the shuffles convergent
-  const int trips = (nrows + groups - 1) / groups;
-  for (int t = 0; t < trips; ++t) {
-    const int j = t * groups + group;
-    float acc = 0.f;
-    if (j < nrows) {
-      const int lo = max(ro[j], a0) - base;
-      const int hi = min(ro[j + 1], a1) - base;
-      for (int i = lo + lane; i < hi; i += g) acc += prod[i];
+  if (tid >= kK1Consumers) {
+    k1_produce(p, ring, full, empty, B0, B1, tid & 31);
+  } else {
+    const K1Seams seams{tail, part, carry_row, carry_lanes};
+    int stage = 0, par = 0;
+    unsigned phase = 0;
+    mbar_wait(smem_addr(full), 0);
+    K1Piece m = k1_read_meta(ring.meta(0));
+    // the row this range starts inside of: its partials go to the seams
+    const int hc = (m.flags & kK1Cin) ? m.r0 : -1;
+    K1Quads g;
+    k1_gather(ring, 0, m, x, tid, g);
+    bool short_rows = k1_products(ring, 0, m, x, y, tid, g, p.lanes_per_row);
+    for (;;) {
+      // the products of `stage` are formed
+      short_rows = k1_consumers_all(short_rows);
+      const bool more = m.b + 1 < B1 || m.p1 < m.a1;
+      const int next = stage + 1 == kK1Stages ? 0 : stage + 1;
+      const unsigned next_phase = next == 0 ? phase ^ 1 : phase;
+      K1Piece mn;
+      if (more) {
+        mbar_wait(smem_addr(full + next), next_phase);
+        mn = k1_read_meta(ring.meta(next));
+        k1_gather(ring, next, mn, x, tid, g);
+      }
+      k1_rows(p, ring, stage, m, par, hc, k, B1, y, seams, tid, short_rows);
+      if (more) {
+        short_rows = k1_products(ring, next, mn, x, y, tid, g, p.lanes_per_row);
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(smem_addr(empty + stage));
+      if (!more) break;
+      stage = next;
+      phase = next_phase;
+      par ^= 1;
+      m = mn;
     }
-    for (int off = g >> 1; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(kFull, acc, off);
-    }
-    if (lane == 0 && j < nrows) store_row(r0 + j, r0, r1, b, acc, y, seam);
   }
+  // every row and seam of this CTA is written: the last CTA adds the
+  // seams between ranges
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(scratch, 1) == p.grid - 1;
+    if (last) *scratch = 0;  // every CTA has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int c = tid; c < p.grid; c += kK1Threads) k1_combine(p, c, tail, part, y);
+}
+
+// the dynamic shared-memory opt-in, once per device and library load
+std::atomic<unsigned long long> k1_configured{0};
+
+int k1_configure() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (k1_configured.load(std::memory_order_relaxed) & bit) return 0;
+  e = cudaFuncSetAttribute(sorted_spmv_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kK1MaxSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k1_configured.fetch_or(bit, std::memory_order_relaxed);
+  return 0;
 }
 
 // The rows of y that block b writes although no run of its own lands
@@ -623,39 +1145,27 @@ int launch_seam(const int* row_first, const int* row_last, const float* seam,
 
 extern "C" {
 
-// max_atoms: the longest block's atom count, which sizes the products'
-// shared memory (opted in past the default 48 KB)
-int loops_sorted_spmv_f32(const void* offsets, const void* cols,
-                          const void* vals, const void* cuts,
-                          const void* row_first, const void* row_last,
-                          const void* x, void* y, void* seam, int rows, int nb,
-                          int lanes_per_row, int max_atoms, void* stream) {
-  if (nb <= 0 || max_atoms <= 0 || lanes_per_row <= 0 || lanes_per_row > 32 ||
-      (lanes_per_row & (lanes_per_row - 1))) {
+// plan: a SortedPlan the host packed at bind; scratch: 4 + grid + nb
+// 4-byte words, zero at the first launch on a stream (the last CTA resets
+// the ticket), one set per stream the kernel runs on
+int loops_sorted_spmv_f32(const void* plan, const void* x, void* y,
+                          void* scratch, void* stream) {
+  const SortedPlan& p = *static_cast<const SortedPlan*>(plan);
+  if (p.nb <= 0 || p.grid <= 0 || p.grid > p.nb || p.lanes_per_row <= 0 ||
+      p.lanes_per_row > 32 || (p.lanes_per_row & (p.lanes_per_row - 1)) ||
+      p.piece < 4 || p.piece > kK1PieceMax || p.piece % 4 || p.window < 4 ||
+      p.window > kK1WindowMax || p.window % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // room for the quad-aligned range [a0 & ~3, a1)
-  const int smem = (max_atoms + 4) * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sorted_spmv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int vec = (reinterpret_cast<uintptr_t>(cols) |
-                   reinterpret_cast<uintptr_t>(vals)) % 16 == 0;
-  sorted_spmv_kernel<<<nb, kK1Threads, smem, s>>>(
-      static_cast<const int*>(offsets), static_cast<const int*>(cols),
-      static_cast<const float*>(vals), static_cast<const int*>(cuts),
-      static_cast<const int*>(row_first), static_cast<const int*>(row_last),
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(seam), rows, nb, lanes_per_row, vec);
-  const int err = static_cast<int>(cudaGetLastError());
+  const int err = k1_configure();
   if (err) return err;
-  return launch_seam(static_cast<const int*>(row_first),
-                     static_cast<const int*>(row_last),
-                     static_cast<const float*>(seam), static_cast<float*>(y),
-                     nb, s);
+  const int smem =
+      kK1Stages * (2 * (p.piece + 4) + p.window + 4 + kK1MetaWords) * 4;
+  sorted_spmv_kernel<<<p.grid, kK1Threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int loops_flat_spmv_v2_f32(const void* vals, const void* cols,

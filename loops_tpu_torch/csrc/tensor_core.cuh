@@ -1,8 +1,8 @@
 // Hopper helpers shared by the probe kernels (csrc/probes_r2.cu,
-// csrc/probes_gather.cu), K7/K8 (csrc/bcsr.cu) and K10 (csrc/sddmm.cu):
-// the dynamic shared-memory opt-in, 16-byte cp.async copies, mbarriers
-// and bulk copies (cp.async.bulk) onto them, ldmatrix and mma.sync
-// m16n8k16 with bf16 inputs and f32 sums.
+// csrc/probes_gather.cu), K1 (csrc/spmv.cu), K7/K8 (csrc/bcsr.cu) and
+// K10 (csrc/sddmm.cu): the dynamic shared-memory opt-in, 16- and 4-byte
+// cp.async copies, mbarriers and bulk copies (cp.async.bulk) onto them,
+// ldmatrix and mma.sync m16n8k16 with bf16 inputs and f32 sums.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * gid + tig):
 //   A (16 x 16): a[0] = (row gid, cols 2tig, 2tig+1), a[1] = row gid + 8,
@@ -50,6 +50,13 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
+// 4 bytes global -> shared (any 4-byte aligned address), tracked by the
+// issuing thread's next cp_async_arrive
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
 
 // An mbarrier in shared memory (its shared-space address `bar`) that
 // completes a phase when `count` threads have arrived and every byte it
@@ -81,6 +88,17 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
                "r"(bytes)
                : "memory");
 }
+// one of the barrier's expected arrivals, made once every cp.async this
+// thread has issued so far has landed
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// order this thread's earlier generic-proxy shared-memory writes before
+// later async-proxy (bulk copy) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
 // shared memory by one bulk copy, counted on `bar` as they land
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
@@ -89,6 +107,25 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// an L2 policy that evicts first what it tags: for bytes streamed once,
+// so they do not push out what is read again (as __ldcs does for a load)
+__device__ __forceinline__ unsigned long long l2_evict_first() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+// bulk_copy under an L2 policy (l2_evict_first)
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
+                                               unsigned bytes, unsigned bar,
+                                               unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
       : "memory");
 }
 

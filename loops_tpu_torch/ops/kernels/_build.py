@@ -57,7 +57,8 @@ BUILD_INFO = {"seconds": None, "path": None}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "loops_sorted_spmv_f32": [_P] * 9 + [_I] * 4 + [_P],
+    # the packed plan (spmv_sorted._SortedPlan), x, y, the scratch
+    "loops_sorted_spmv_f32": [_P] * 4 + [_P],
     "loops_flat_spmv_v2_f32": [_P] * 11 + [_I] * 3 + [_P],
     "loops_flat_spmv_f32": [_P] * 10 + [_I] * 5 + [_P],
     "loops_flat_spmm": [_P] * 11 + [_I] * 6 + [_P],
@@ -207,19 +208,28 @@ def check(t, name: str, dtype, device, numel: int | None = None):
         raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
 
 
+_VERSION = operator.attrgetter("_version")
+
+
 def staged_fingerprint(b: dict) -> tuple:
-    """What a wrapper's check of its staged buffers reads of each one and
-    an in-place change (``resize_``, ``set_``, ``as_strided_``) can
-    alter: its address, its size, its type and whether it is
-    contiguous."""
-    return tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
-                 for t in b.values())
+    """What can change a staged buffer after a wrapper's check of it:
+    each tensor's version counter, which every in-place change bumps
+    (``resize_``, ``set_``, ``as_strided_``, a write), and its address,
+    which a change of its memory alone moves (``.data =``, a storage
+    resized). An inference tensor keeps no version counter: its address,
+    size, type and contiguity then."""
+    ts = tuple(b.values())
+    try:
+        return list(map(_VERSION, ts)), list(map(torch.Tensor.data_ptr, ts))
+    except RuntimeError:
+        return tuple((t.data_ptr(), t.numel(), t.dtype, t.is_contiguous())
+                     for t in ts)
 
 
 def staged_unchanged(b: dict, staged: tuple, fingerprint: tuple) -> bool:
-    """Whether ``b`` holds the very tensors ``staged``, none changed in
-    place since ``fingerprint`` was taken of them: a kernel whose buffers
-    were checked at bind need not check them again."""
+    """Whether ``b`` holds the very tensors ``staged``, none changed since
+    ``fingerprint`` was taken of them: a kernel whose buffers were checked
+    at bind need not check them again."""
     return (len(b) == len(staged)
             and all(map(operator.is_, b.values(), staged))
             and staged_fingerprint(b) == fingerprint)
@@ -304,14 +314,23 @@ def launch(fn_name: str, counter: str, device, *args) -> None:
     fn = _function(fn_name)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    if index == current:
-        err = (fn(*c_args, _raw_stream(index)) if RECORDER is None
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    call(fn, fn_name, counter, index, c_args, _raw_stream(index))
+
+
+def call(fn, fn_name: str, counter: str, index: int, c_args,
+         stream: int) -> None:
+    """``launch`` past its conversions, for a wrapper that keeps them
+    itself: ``fn`` resolved (``_function``), ``c_args`` plain ints,
+    ``stream`` the handle of device ``index``'s current stream, asked on
+    this call (``_raw_stream``); ``counter`` one of ``LAUNCHES``."""
+    if index == torch.cuda.current_device():
+        err = (fn(*c_args, stream) if RECORDER is None
                else RECORDER(counter, fn, c_args, index))
     else:
         with torch.cuda.device(index):
-            err = (fn(*c_args, _raw_stream(index)) if RECORDER is None
+            err = (fn(*c_args, stream) if RECORDER is None
                    else RECORDER(counter, fn, c_args, index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")

@@ -253,7 +253,8 @@ HEURISTIC_THRESHOLDS = {
 CARD_THRESHOLDS = (
     # K1 (sorted_flat) for every matrix: the first grid point of the
     # highest capture of the stat-matched population's oracle by apply_ms
-    # (86.4%; loops_tpu's table 81.3%: its cv > 4 planes run 2-20x
+    # (98.5% with the one-launch K1's column, 86.4% with the one before;
+    # loops_tpu's table 89.8%, 81.3% before: its cv > 4 planes run 2-20x
     # slower here)
     ("H100", {
         "ratio": 1.25, "cv": 0.125, "small": 0.0,

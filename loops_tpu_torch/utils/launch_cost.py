@@ -12,11 +12,13 @@ wrappers run now:
 
 * ``SpMVOperator.__call__``: ``stage(x)`` of a staged ``x`` and the
   launch-counter bookkeeping;
-* K1's wrapper: the test that its buffers are those checked at bind, the
-  check of ``x``, the ``torch.empty`` of y and of the seam buffer;
-* ``_build.launch``: the counter lookup, the function resolved at load,
-  the arguments as plain ints, ``current_device()``, the raw stream query
-  and the C call itself;
+* K1's bound function: the test that its buffers are those checked and
+  packed at bind (identity, version counters, addresses), and its
+  ``SortedLaunch``: the check of ``x``, the ``torch.empty`` of y, the
+  lookup of the current stream's scratch;
+* the launch (``_build.call``): ``current_device()``, the raw stream
+  query, the two tensor arguments as plain ints and the C call itself,
+  one kernel on the packed plan (four pointers and the stream);
 * K12: its checks, ``torch.empty_like``, the cached SM count, its C call
   and, in ``saxpy()``, the device asked once and the test that the
   operands are staged (beside ``ensure_platform``, which it asked on
@@ -48,20 +50,16 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
         device = torch.device(device.type, torch.cuda.current_device())
     csr = generate.random_csr(4096, 4096, 16 / 4096, seed=3)
     op = SpMVOperator(csr, "sorted_flat", device=device)
-    b, params = op._bufs, op._raw.params
+    b, params, k1 = op._bufs, op._raw.params, op._raw.launch
     xd = torch.from_numpy(generate.make_input_vector(csr.shape[1])).to(device)
-    nb, rows = params["num_blocks"], params["rows"]
+    rows = params["rows"]
     y = torch.empty(rows, device=device)
-    seam = torch.empty(2 * nb, device=device)
     k1_name = "loops_sorted_spmv_f32"
     k1_fn = _build._function(k1_name)
-    k1_args = [b["offsets"], b["cols"], b["vals"], b["cuts"], b["row_first"],
-               b["row_last"], xd, y, seam, rows, nb, params["lanes_per_row"],
-               params["max_atoms"]]
-    k1_ints = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-               for a in k1_args]
     idx = device.index
     stream = _build._raw_stream(idx)
+    k1(xd)  # the current stream's scratch
+    scratch = k1.scratch[stream][1]
     staged = tuple(b.values())
     fingerprint = spmv_sorted.staged_fingerprint(b)
     sx, sy = (torch.randn(8, 8192, device=device) for _ in range(2))
@@ -85,23 +83,20 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
     parts = {
         "SpMVOperator.stage(x), x staged": lambda: op.stage(xd),
         "SpMVOperator counter bookkeeping": bookkeeping,
-        "K1 staged buffers unchanged (identity, fingerprint)":
+        "K1 staged buffers unchanged (identity, versions, addresses)":
             lambda: spmv_sorted.staged_unchanged(b, staged, fingerprint),
         "K1 check of x": lambda: _build.check(xd, "x", f32, device,
                                               params["cols_n"]),
         "K1 torch.empty(rows) (y)": lambda: torch.empty(rows, device=device),
-        "K1 torch.empty(2 nb) (seam)":
-            lambda: torch.empty(2 * nb, device=device),
-        "launch: counter lookup": lambda: "sorted_spmv" in _build.LAUNCHES,
-        "launch: _build._function (resolved at load)":
-            lambda: _build._function(k1_name),
-        "launch: plain int arguments (K1)": lambda: [
-            a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in k1_args],
+        "K1 the stream's scratch (dict lookup)":
+            lambda: k1.scratch.get(stream),
         "launch: torch.cuda.current_device()": torch.cuda.current_device,
         "launch: raw stream query": lambda: _build._raw_stream(idx),
-        "launch: C call, K1 (kernel + seam pass)":
-            lambda: k1_fn(*k1_ints, stream),
+        "launch: plain int arguments (K1: x, y)": lambda: (
+            k1.plan_ptr, xd.data_ptr(), y.data_ptr(), scratch),
+        "launch: C call, K1 (one kernel, packed plan)":
+            lambda: k1_fn(k1.plan_ptr, xd.data_ptr(), y.data_ptr(), scratch,
+                          stream),
         "K12 two checks and the shape": saxpy_checks,
         "K12 torch.empty_like (out)": lambda: torch.empty_like(sx),
         "K12 _build.sm_count (cached)": lambda: _build.sm_count(device),
@@ -117,6 +112,7 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
     whole = {
         "K1 apply, SpMVOperator op(x)": lambda: op(xd),
         "K1 wrapper through the bound function": lambda: op._raw(b, xd),
+        "K1 SortedLaunch alone": lambda: k1(xd),
         "K12 saxpy_cuda": lambda: saxpy.saxpy_cuda(2.5, sx, sy),
         "K12 saxpy(..., device)": lambda: saxpy.saxpy(2.5, sx, sy, device),
         "torch.add(y, x, alpha=2.5)": lambda: torch.add(sy, sx, alpha=2.5),

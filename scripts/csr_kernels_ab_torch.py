@@ -4,7 +4,8 @@
 (phases 6, 10, 13, 17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-        [--cells spmv,flat,csr,bcsr,bcsrmv,gather,scatter]
+        [--cells spmv,flat,csr,bcsr,bcsrmv,gather,scatter,xl]
+        [--xl-dir DIR] [--y-dir DIR]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
 timed (default: this one). To compare two versions on one card, unpack the
@@ -25,6 +26,14 @@ needs no script of its own:
 - K3 and K2: ``SpMVOperator(csr, "merge_path", block=1024, impl=
   "pallas")`` and ``impl="pallas2"`` on the same two matrices, timed as K1
   and beside it;
+- K1 on the 8 matrices of the xl tier (``utils/statmatch.xl_battery``:
+  four families at 16.8M and 67.1M nonzeros), by ``apply_ms`` and
+  ``device_ms``, beside the byte bound of ``utils/counters`` and, with
+  ``--library``, cuSPARSE's ``torch.mv``; a matrix is built once (in
+  spawned processes, a minute of host core each) into ``--xl-dir``
+  (default: ``loops_xl_matrices`` under the temporary directory) and
+  loaded from there by every later run, so the turns of an A/B time the
+  same matrices;
 - K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
   by the slope of 450 back-to-back calls over 50 (``probes/common.
   launch_ms``) and by the host clock with the card held;
@@ -75,10 +84,15 @@ slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``torch.sparse.sampled_addmm`` times vals. ``--cells`` picks the groups:
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
 ``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1, P1),
-``scatter`` (K14's scatters, the block dots, G1 at S = 256, K13);
-``spmv,csr`` by default. The
+``scatter`` (K14's scatters, the block dots, G1 at S = 256, K13),
+``xl`` (K1 on the xl tier); ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
+
+``--y-dir DIR`` holds K1's output across trees: the first run saves its
+y of each ``spmv`` and ``xl`` matrix there (``K1_<matrix>.npy``), and
+every later run, with another ``--tree`` too, reports whether its y is
+bit for bit the saved one (``"K1 <matrix> y bitwise"``: true or false).
 """
 from __future__ import annotations
 
@@ -89,6 +103,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -102,6 +117,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--cells", default="spmv,csr")
+    ap.add_argument("--xl-dir", default=os.path.join(
+        tempfile.gettempdir(), "loops_xl_matrices"))
+    ap.add_argument("--y-dir", default=None)
     args = ap.parse_args(argv)
     cells = set(args.cells.split(","))
     import torch
@@ -123,7 +141,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     res = {"tree": os.path.relpath(tree, REPO), "card": smi}
     if "spmv" in cells:
-        res.update(spmv_cells(dev, args.library))
+        res.update(spmv_cells(dev, args.library, args.y_dir))
     if "flat" in cells:
         # K1 beside them, in the same call
         res.update(spmv_kernel_cells(dev, ("K3", "K2", "K1"), args.library))
@@ -137,6 +155,8 @@ def main(argv=None) -> int:
         res.update(gather_cells(dev, args.library))
     if "scatter" in cells:
         res.update(scatter_cells(dev, args.library))
+    if "xl" in cells:
+        res.update(xl_cells(dev, args.library, args.xl_dir, args.y_dir))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -161,10 +181,29 @@ SPMV_KERNELS = {"K1": ("sorted_flat", "xla"), "K3": ("merge_path", "pallas"),
 FLAT_BLOCK = 1024
 
 
-def spmv_kernel_cells(dev, kernels, library: bool) -> dict:
+def same_y(y_dir, cell: str, fn, xd) -> dict:
+    """K1's y on ``cell`` (``fn(xd)``) saved into ``y_dir`` by the first
+    run, or held bit for bit against what it saved; nothing without
+    ``y_dir``."""
+    if y_dir is None:
+        return {}
+    y = fn(xd).cpu().numpy()
+    path = os.path.join(y_dir, f"K1_{cell}.npy")
+    if not os.path.exists(path):
+        os.makedirs(y_dir, exist_ok=True)
+        np.save(path, y)
+        return {f"K1 {cell} y saved": path}
+    want = np.load(path)
+    return {f"K1 {cell} y bitwise": bool(
+        y.shape == want.shape
+        and np.array_equal(y.view(np.uint32), want.view(np.uint32)))}
+
+
+def spmv_kernel_cells(dev, kernels, library: bool, y_dir=None) -> dict:
     """``kernels`` (keys of ``SPMV_KERNELS``), and cuSPARSE's ``torch.mv``
     with ``library``, on bench_32768 and big_2097152: apply, slope, the
-    card's time alone and the host share."""
+    card's time alone and the host share; with ``y_dir``, K1's y held
+    across trees (``same_y``)."""
     import torch
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.utils import generate
@@ -195,12 +234,71 @@ def spmv_kernel_cells(dev, kernels, library: bool) -> dict:
             res[f"{name} {cell}"] = dict(
                 apply_ms=ap, slope_ms=bench.slope_ms(fn, xd), device_ms=card,
                 host_share=1 - card / ap)
+        if "K1" in calls:
+            res.update(same_y(y_dir, cell, calls["K1"], xd))
         del calls
         torch.cuda.empty_cache()
     return res
 
 
-def spmv_cells(dev, library: bool) -> dict:
+def xl_matrices(xl_dir: str, pop: str = "xl", names=None) -> dict:
+    """The xl tier's matrices (or ``names`` of population ``pop``), name
+    -> CSR: loaded from ``xl_dir``, or built (four spawned processes) and
+    saved there first."""
+    from loops_tpu_torch.formats import csr_from_arrays
+    from loops_tpu_torch.tuning import sweep
+
+    names = names or sweep.population(pop)[1]
+    path = {n: os.path.join(xl_dir, f"{n}.npz") for n in names}
+    todo = [n for n in names if not os.path.exists(path[n])]
+    if todo:
+        os.makedirs(xl_dir, exist_ok=True)
+        for n, csr, _ in sweep._matrices(pop, todo, 65536, "none", 4):
+            tmp = path[n] + ".tmp.npz"
+            np.savez(tmp, shape=np.array(csr.shape), offsets=csr.offsets,
+                     indices=csr.indices, vals=csr.vals)
+            os.replace(tmp, path[n])
+    mats = {}
+    for n in names:
+        with np.load(path[n]) as f:
+            mats[n] = csr_from_arrays(tuple(int(v) for v in f["shape"]),
+                                      f["offsets"], f["indices"], f["vals"])
+    return mats
+
+
+def xl_cells(dev, library: bool, xl_dir: str, y_dir=None) -> dict:
+    """K1, and cuSPARSE's ``torch.mv`` with ``library``, on the 8 xl
+    matrices: apply and card ms, and the byte bound (``utils/counters``,
+    3.35 TB/s); with ``y_dir``, K1's y held across trees (``same_y``)."""
+    import torch
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters, generate
+
+    bench = _timing()
+    res = {}
+    for name, csr in xl_matrices(xl_dir).items():
+        xd = torch.from_numpy(generate.make_input_vector(csr.shape[1])).to(
+            dev)
+        calls = {"K1": SpMVOperator(csr, "sorted_flat", device=dev)}
+        if library:
+            A = torch.sparse_csr_tensor(
+                *(torch.from_numpy(a).to(dev) for a in (csr.offsets,
+                                                        csr.indices,
+                                                        csr.vals)),
+                size=csr.shape)
+            calls["cuSPARSE mv"] = lambda v, A=A: torch.mv(A, v)
+        for label, fn in calls.items():
+            res[f"{label} {name}"] = dict(apply_ms=bench.apply_ms(fn, xd),
+                                          device_ms=bench.device_ms(fn, xd))
+        res[f"bound {name}"] = counters.bound_of(
+            counters.csr_spmv_work(*csr.shape, csr.nnz))[0]
+        res.update(same_y(y_dir, name, calls["K1"], xd))
+        del calls
+        torch.cuda.empty_cache()
+    return res
+
+
+def spmv_cells(dev, library: bool, y_dir=None) -> dict:
     """K1 on bench_32768 and big_2097152, K12 on [8, 8192]."""
     import torch
     from loops_tpu_torch.ops.kernels import saxpy
@@ -209,7 +307,7 @@ def spmv_cells(dev, library: bool) -> dict:
     from loops_tpu_torch.utils import generate
 
     bench = _timing()
-    res = spmv_kernel_cells(dev, ("K1",), library)
+    res = spmv_kernel_cells(dev, ("K1",), library, y_dir)
     # the host's launch path alone, with the card held (bench.host_us)
     small = generate.random_csr(4096, 4096, 16 / 4096, seed=3)
     op = SpMVOperator(small, "sorted_flat", device=dev)

@@ -404,3 +404,114 @@ def test_device_ms_sees_the_card_alone(cuda_device):
     xd = torch.from_numpy(generate.make_input_vector(2048)).to(cuda_device)
     card, wall = device_ms(op, xd), apply_ms(op, xd)
     assert 0 < card < wall
+
+
+def _k1_holds_mirror(csr, block, device, label):
+    """K1 at its launch shape into NaN-filled memory: bit for bit
+    ``sorted_spmv_mirror``, a second apply bitwise equal, one launch per
+    apply. Returns the bound function."""
+    x, xd, b, fn = _sorted_case(csr, block, device)
+    launch = fn.launch
+    before = _build.LAUNCHES["sorted_spmv"]
+    out = torch.full((fn.params["rows"],), float("nan"), device=device)
+    y1 = launch(xd, out)
+    y2 = launch(xd)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_spmv"] == before + 2, label
+    assert y1.data_ptr() == out.data_ptr()
+    assert torch.equal(y1, y2), f"{label}: two applies differ"
+    a = {k: v.cpu().numpy() for k, v in b.items()}
+    want = spmv_sorted.sorted_spmv_mirror(a, fn.params, x,
+                                          launch.shape["grid"],
+                                          launch.shape["piece"])
+    np.testing.assert_array_equal(y1.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32), err_msg=label)
+    return fn
+
+
+# the kernel's own launch shape, and (a card of 1 or 2 SMs, pieces of at
+# most 8 atoms) ranges of several blocks with rows cut across ranges and
+# across pieces: SMs, PIECE_MAX
+K1_SHAPES = {"own": (None, None), "3 CTAs": (1, None),
+             "6 CTAs pieces of 8": (2, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+@pytest.mark.parametrize("block", [8, 64])
+@pytest.mark.parametrize("name", sorted({**BATTERY,
+                                         **generate.SPMV_EDGE_CASES}))
+def test_sorted_equals_its_mirror(cuda_device, monkeypatch, name, block,
+                                  shape):
+    sms, piece = K1_SHAPES[shape]
+    if sms is not None:
+        monkeypatch.setitem(_build._SMS, torch.cuda.current_device(), sms)
+    if piece is not None:
+        monkeypatch.setattr(spmv_sorted, "PIECE_MAX", piece)
+    csr = {**BATTERY, **generate.SPMV_EDGE_CASES}[name]()
+    _k1_holds_mirror(csr, block, cuda_device, f"{name}/{block}/{shape}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "hub", "pieces"])
+def test_sorted_ranges_of_many_blocks(cuda_device, case):
+    # nb several times the grid (3 CTAs on each SM): each CTA carries rows
+    # from block to block, and the last one adds the seams between ranges
+    # (three 20000-atom rows over many ranges in "hub"); blocks of 4096 atoms
+    # are cut into pieces of 1024
+    csr, block = {
+        "random": (generate.random_csr(20000, 20000, 8 / 20000, seed=11), 64),
+        "hub": (generate.skewed_csr(3000, 20000, heavy_rows=3,
+                                    heavy_nnz=20000, seed=12), 64),
+        "pieces": (generate.random_csr(20000, 20000, 8 / 20000, seed=13),
+                   4096)}[case]
+    fn = _k1_holds_mirror(csr, block, cuda_device, case)
+    shape, nb = fn.launch.shape, fn.params["num_blocks"]
+    assert shape["grid"] == min(nb, 3 * _build.sm_count(cuda_device))
+    if case == "random":
+        assert nb >= 3 * shape["grid"]
+    elif case == "hub":  # each heavy row over 312 blocks, ~120 ranges
+        assert nb > 2 * shape["grid"] and csr.row_sizes().max() > 300 * 64
+    else:
+        assert shape["piece"] == 1024 < fn.params["max_atoms"]
+
+
+@pytest.mark.cuda
+def test_sorted_scratch_per_stream(cuda_device):
+    # one scratch set per stream K1 runs on, made at its first launch
+    # there; a side stream's applies equal the current stream's
+    csr = generate.random_csr(3000, 2500, 0.004, seed=7)
+    x, xd, b, fn = _sorted_case(csr, 64, cuda_device)
+    y0 = fn(b, xd)
+    y0b = fn(b, xd)
+    assert len(fn.launch.scratch) == 1
+    s = torch.cuda.Stream(cuda_device)
+    s.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(s):
+        y1 = fn(b, xd)
+        y2 = fn(b, xd)
+    s.synchronize()
+    assert len(fn.launch.scratch) == 2
+    assert s.cuda_stream in fn.launch.scratch
+    assert torch.equal(y0, y0b) and torch.equal(y0, y1)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+def test_sorted_one_kernel_per_apply_in_the_trace(cuda_device, tmp_path):
+    # the kernel record holds one K1 launch per apply, and the profiler's
+    # list has no seam pass beside it
+    from loops_tpu_torch.utils import trace
+
+    csr = generate.random_csr(3000, 2500, 0.004, seed=7)
+    x, xd, b, fn = _sorted_case(csr, 64, cuda_device)
+    fn(b, xd)
+    torch.cuda.synchronize()
+    with trace.profile(str(tmp_path)):
+        for _ in range(3):
+            fn(b, xd)
+    rec = trace.read_record(str(tmp_path))
+    assert rec["counted"] == {"sorted_spmv": 3}
+    assert [x["counter"] for x in rec["launches"]] == ["sorted_spmv"] * 3
+    with open(tmp_path / trace.TRACE_FILE) as f:
+        assert "seam_kernel" not in f.read()

@@ -485,3 +485,105 @@ def test_k12_device_is_checked_once_per_value(monkeypatch):
     # anything else (CPU tensors, arrays, other types) is converted first
     assert not saxpy._staged(x, y, CUDA0)
     assert not saxpy._staged(x.numpy(), y, CUDA0)
+
+
+def _k1_launch(monkeypatch):
+    """K1 planned and staged on the CPU, and its ``SortedLaunch`` made as
+    the bind makes it on a card (132 SMs)."""
+    monkeypatch.setitem(_build._SMS, 0, 132)
+    csr = generate.random_csr(300, 200, 0.05, seed=4)
+    b, fn = spmv_sorted.sorted_spmv(csr, block_atoms=64, device=CPU)
+    rows = spmv_sorted.max_block_rows(b["row_first"], b["row_last"])
+    return b, fn.params, spmv_sorted.SortedLaunch(b, fn.params, CPU, rows)
+
+
+def test_k1_packs_the_staged_pointers_once(fake_card, monkeypatch):
+    b, p, launch = _k1_launch(monkeypatch)
+    plan = launch.plan
+    assert [getattr(plan, k) for k in spmv_sorted.PLAN_POINTERS] == [
+        b[k].data_ptr() for k in spmv_sorted.PLAN_POINTERS]
+    nb = p["num_blocks"]
+    assert (plan.rows, plan.nb, plan.lanes_per_row) == (
+        300, nb, p["lanes_per_row"])
+    assert (plan.grid, plan.piece, plan.window) == (
+        min(nb, 3 * 132), launch.shape["piece"], launch.shape["window"])
+    assert plan.piece == 64 and plan.window % 4 == 0
+    assert launch.plan_ptr == ctypes.addressof(plan)
+    # the C struct: six pointers, then six ints
+    assert ctypes.sizeof(spmv_sorted._SortedPlan) == 6 * 8 + 6 * 4
+
+
+@pytest.mark.parametrize("out", ["none", "good", "short"])
+def test_k1_apply_is_one_c_call(fake_card, monkeypatch, out):
+    # an apply passes the packed plan, x, y and its stream's scratch, and
+    # checks only x (and out): four pointers and the stream
+    b, p, launch = _k1_launch(monkeypatch)
+    x = torch.ones(200).as_subclass(_PosingAsCuda)
+    given = {"none": None, "good": torch.full((300,), float("nan")),
+             "short": torch.zeros(299)}[out]
+    before = _build.LAUNCHES["sorted_spmv"]
+    if out == "short":
+        with pytest.raises(ValueError, match="out"):
+            launch(x, given)
+        assert _build._FNS["loops_sorted_spmv_f32"].calls == []
+        return
+    y = launch(x, given)
+    assert y.shape == (300,) and (y is given) == (out == "good")
+    (args,) = _build._FNS["loops_sorted_spmv_f32"].calls
+    scratch, _ = launch.scratch[4242]
+    assert args == (launch.plan_ptr, x.data_ptr(), y.data_ptr(),
+                    scratch.data_ptr(), 4242)
+    assert _build.LAUNCHES["sorted_spmv"] == before + 1
+    with pytest.raises(ValueError, match="x has 199"):
+        launch(torch.ones(199).as_subclass(_PosingAsCuda))
+    assert len(_build._FNS["loops_sorted_spmv_f32"].calls) == 1
+
+
+def test_k1_scratch_per_stream(fake_card, monkeypatch):
+    # one zeroed scratch set (the ticket, the range prefixes, the block
+    # partials) per stream, made at the first launch there, kept after
+    b, p, launch = _k1_launch(monkeypatch)
+    x = torch.ones(200).as_subclass(_PosingAsCuda)
+    for handle in (4242, 4242, 11, 4242, 11):
+        fake_card["streams"][0] = handle
+        launch(x)
+    assert sorted(launch.scratch) == [11, 4242]
+    calls = _build._FNS["loops_sorted_spmv_f32"].calls
+    want = {h: launch.scratch[h][0].data_ptr() for h in (11, 4242)}
+    assert [c[3] for c in calls] == [want[c[4]] for c in calls]
+    assert [c[4] for c in calls] == [4242, 4242, 11, 4242, 11]
+    for t, ptr in launch.scratch.values():
+        assert t.dtype == torch.int32 and not t.any()
+        assert t.numel() == 4 + launch.shape["grid"] + p["num_blocks"]
+        assert ptr == t.data_ptr()
+
+
+@pytest.mark.parametrize("change", ["none", "write", "data", "storage",
+                                    "inference"])
+def test_staged_guard_sees_memory_moved_or_written(change):
+    # the guard's fingerprint is each buffer's version counter and
+    # address: an in-place write, a tensor's memory replaced (.data =) or
+    # its storage resized all make the wrapper check the buffers again;
+    # inference tensors keep no version counter and are fingerprinted by
+    # address, size, type and contiguity
+    checked = []
+    if change == "inference":
+        with torch.inference_mode():
+            bufs = {"vals": torch.zeros(6),
+                    "cols": torch.zeros(6, dtype=torch.int32)}
+    else:
+        bufs = {"vals": torch.zeros(6),
+                "cols": torch.zeros(6, dtype=torch.int32)}
+    staged_on = _build.staged_guard(bufs, {},
+                                    lambda b, p, d: checked.append(d))
+    assert staged_on(bufs) == CPU
+    if change == "write":
+        bufs["vals"].add_(1)
+    elif change == "data":
+        bufs["cols"].data = torch.zeros(6, dtype=torch.int32)
+    elif change == "storage":
+        bufs["vals"].untyped_storage().resize_(0)
+    elif change == "inference":
+        with torch.inference_mode():
+            bufs["vals"].resize_(3)
+    assert staged_on(bufs) == (CPU if change == "none" else None)
