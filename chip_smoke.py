@@ -8,7 +8,9 @@ Phases, one line each with its time:
 1. card:   ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build:  nvcc builds the kernels from ``loops_tpu_torch/csrc`` (one nvcc
    per source, in parallel, then one link): K1–K3, K4, K6–K9, K5, K10
-   and K11;
+   and K11; g++ builds their launch binding (a CPython extension
+   generated from ``_build._SIGNATURES``, ``Python.h`` only), through
+   which every launch of the run goes;
 3. kernels vs plain: K1 (``sorted_spmv``), K2 (``flat_spmv_v2``) and K3
    (``flat_spmv``) against their plain PyTorch versions on the same staged
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
@@ -36,7 +38,9 @@ Phases, one line each with its time:
    beside cuSPARSE, both by apply and by card time, with the byte bound
    of ``utils/counters``; and the host launch path taken apart
    (``utils/launch_cost.py``: host microseconds per call of each part and
-   of the whole calls of K1, K12 and ``torch.add``);
+   of the whole calls of K1, K12 and ``torch.add``), with K1's and K12's C
+   call through the launch binding beside the same entry point through a
+   ctypes handle opened for the comparison;
 7. K4 vs plain: K4 (``flat_spmm``) against its plain PyTorch version on the
    battery, the merge-path edge cases (``generate.SPMM_EDGE_CASES``: a row
    over several warps and blocks, a run of empty rows past a block's work,
@@ -123,7 +127,10 @@ Phases, one line each with its time:
    beside ``apply_ms`` of the same calls queued, and the share in which
    the card waits;
 18. K12 and K2 vs plain: K12 (``saxpy``) bitwise against ``a * x + y``
-   at the example's [8, 8192], at odd sizes and on an unaligned view; K2
+   at the example's [8, 8192], at odd sizes and on an unaligned view, and
+   at each of ``SAXPY_OFFSET_SIZES`` (0 to 2^20 + 7 elements) with x and
+   y 0-3 floats past 16 bytes (NaN-filled buffers: the float4 body and
+   its tail at 0, the scalar loop else); K2
    against its plain version again, its scan now in
    ``csrc/seg_scan.cuh``; and ``torch.matmul`` with TF32 allowed, which
    the dots' check (below) must refuse;
@@ -496,6 +503,9 @@ PROBE_ENTRIES = {"seg_scan_probe": "seg_scan", "construct_probe": "constructs",
                  "row_gather_mat_hbm": "S=2097152 K=64 f32",
                  "onehot_expand": "W=512"}
 SAXPY_SHAPE = (8, 8192)  # examples/saxpy.py: n = 1 << 16 as [8, n / 8]
+# K12's sizes held at each offset 0-3 floats past 16 bytes (phase 18;
+# 2^26 in tests/test_torch_cuda_probes.py)
+SAXPY_OFFSET_SIZES = (0, 1, 3, 4, 5, 1023, 1024, 1025, 65536, (1 << 20) + 7)
 
 
 class PhaseFailed(RuntimeError):
@@ -1242,7 +1252,7 @@ def stream_phase(device, smi):
     from loops_tpu_torch.ops.kernels import _build
     from loops_tpu_torch.utils import counters
     from loops_tpu_torch.utils import stream
-    from loops_tpu_torch.utils.bench import apply_ms
+    from loops_tpu_torch.utils.bench import apply_ms, cold_ms
 
     t0 = time.perf_counter()
     res = {}
@@ -1270,10 +1280,19 @@ def stream_phase(device, smi):
         gbps = nbytes / ms / 1e6
         res[label] = dict(ms=ms, plain_ms=plain_ms, gbps=gbps, err=err,
                           nbytes=nbytes)
-        print(f"  stream {label}: K11 {ms:.4f} ms per pass = {gbps:.1f} "
+        # one pass from an empty L2 beside the warm slope over passes,
+        # which at 64 MiB (1.3x the 50 MB L2) reads partly from the L2
+        cold = cold_ms(lambda: stream.stream_read(x), device)
+        bound, _ = counters.bound_of(counters.stream_read_work(
+            x.numel() * 4))
+        res[label]["cold_ms"] = cold
+        print(f"  stream {label}: K11 {ms:.4f} ms per pass (warm, slope "
+              f"over passes) = {gbps:.1f} "
               f"GB/s ({gbps * 1e9 / counters.HBM_BYTES_PER_S:.1%} of the "
               f"nominal "
-              f"3.35 TB/s); torch.sum {plain_ms:.4f} ms = "
+              f"3.35 TB/s), {cold:.4f} ms one pass from an empty L2 "
+              f"({bound / cold:.1%} of its {bound:.4f} ms byte bound); "
+              f"torch.sum {plain_ms:.4f} ms = "
               f"{nbytes / plain_ms / 1e6:.1f} GB/s; |K11 - plain| "
               f"{err:.3e}  [{smi}]")
         del x, p1, p2
@@ -1647,6 +1666,24 @@ def probe_phases(device, smi, rate, k6, rate64):
         xb[1:] = x  # one float into its buffer: the unaligned path
         common.hold(f"saxpy unaligned n={n}", saxpy.saxpy_cuda(2.5, xb[1:], y),
                     saxpy.saxpy_plain(2.5, x, y))
+    # x and y off 16 bytes by the same floats (0-3), from NaN-filled
+    # buffers: the float4 body and its tail at 0, the scalar loop else
+    n_off = 0
+    g = torch.Generator(device=device).manual_seed(18)
+    for n in SAXPY_OFFSET_SIZES:
+        x, y = (torch.randn(n, device=device, generator=g) for _ in range(2))
+        want = saxpy.saxpy_plain(-0.75, x, y)
+        for off in range(4):
+            views = []
+            for v in (x, y):
+                b = torch.full((n + off,), float("nan"), device=device)
+                b[off:] = v
+                views.append(b[off:])
+            got = saxpy.saxpy_cuda(-0.75, *views)
+            common.hold(f"saxpy n={n} offset {off}", got, want)
+            n_off += 1
+        del x, y, want, views, b, got
+    torch.cuda.empty_cache()
     # a dot that quietly used TF32 must fail the dots' check
     tf32 = {}
     for case in ((128, True), (8, False)):
@@ -1664,7 +1701,8 @@ def probe_phases(device, smi, rate, k6, rate64):
                                              csr.shape[1]), block, device))
     torch.cuda.empty_cache()
     phase(18, "K12 and K2 vs plain", t0,
-          f"saxpy: 8 cases, exact; K2 after the scan moved into seg_scan.cuh: "
+          f"saxpy: {8 + n_off} cases, exact; K2 after the scan moved into "
+          f"seg_scan.cuh: "
           f"{2 * len(generate.BATTERY)} cases, max |kernel - plain| "
           f"{k2:.3e}; TF32 dots "
           + ", ".join(f"M={c[0]} {v:.0f}" for c, v in tf32.items())
@@ -1715,11 +1753,13 @@ def probe_phases(device, smi, rate, k6, rate64):
     big_ms = common.launch_ms(lambda: saxpy.saxpy_cuda(2.5, xl, yl), device)
     add_ms = common.launch_ms(lambda: torch.add(yl, xl, alpha=2.5), device)
     big_bytes = counters.saxpy_work(xl.numel()).nbytes
+    big_bound, _ = counters.bound_of(counters.saxpy_work(xl.numel()))
     print(f"  saxpy [8, 8192]: {entries['saxpy']['ms']:.4f} ms (plain "
           f"{entries['saxpy']['plain_ms']:.4f}, torch.add "
           f"{entries['saxpy']['library_ms']:.4f}); 2^26 elements: "
-          f"{big_ms:.4f} ms = {big_bytes / big_ms / 1e6:.1f} GB/s "
-          f"(torch.add {add_ms:.4f} ms)  [{smi}]")
+          f"{big_ms:.4f} ms = {big_bytes / big_ms / 1e6:.1f} GB/s, "
+          f"{big_bound / big_ms:.1%} of its {big_bound:.4f} ms byte bound "
+          f"(torch.add {add_ms:.4f} ms, {big_bound / add_ms:.1%})  [{smi}]")
     del xl, yl
     # at this size a call is the host's launch path: the device time of
     # one launch, from the profiler, beside the wall time of one call
@@ -3646,7 +3686,9 @@ def run_phases(xl_builds) -> int:
     phase(2, "build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)}, one per "
           f"source in parallel, then linked -> "
           f"{os.path.relpath(_build.BUILD_INFO['path'], REPO)} in "
-          f"{_build.BUILD_INFO['seconds']:.2f} s ")
+          f"{_build.BUILD_INFO['seconds']:.2f} s; launch binding -> "
+          f"{os.path.relpath(_build.BUILD_INFO['binding_path'], REPO)} in "
+          f"{_build.BUILD_INFO['binding_seconds']:.2f} s ")
 
     # ---- 3. kernels vs plain
     t0 = time.perf_counter()
@@ -3871,6 +3913,13 @@ def run_phases(xl_builds) -> int:
     for key in ("parts", "calls"):
         for label, us in parts[key].items():
             print(f"    {label}: {us:.2f}")
+    p = parts["parts"]
+    ct = ", through ctypes (comparison only)"
+    print(f"  the C call, launch binding / ctypes (comparison only), host "
+          f"us: K1 {p['launch: C call, K1 (one kernel, packed plan)']:.2f} "
+          f"/ {p['launch: C call, K1' + ct]:.2f}; K12 "
+          f"{p['launch: C call, K12']:.2f} / "
+          f"{p['launch: C call, K12' + ct]:.2f}  [{smi}]")
     phase(6, "timing (CUDA events, median per apply)", t0)
 
     # ---- 7. K4 vs plain, forward and backward

@@ -1,15 +1,28 @@
-"""Lazy nvcc build + ctypes load of the CUDA kernels, and their launch
-counters.
+"""Lazy nvcc build of the CUDA kernels, their launch binding, and their
+launch counters.
 
 ``load_library()`` compiles each ``loops_tpu_torch/csrc/*.cu`` with its
 own nvcc, all started together, and links the objects into one shared
 library with a plain C interface, ``libloops_kernels_<hash>.so`` under
 ``loops_tpu_torch/_build/`` and keyed by a hash of the sources (the
-``*.cu`` files and the ``*.cuh`` headers they include) and flags,
-then loads it with ctypes — the same lazy-build pattern as
-``loops_tpu/native/build.py``, by ``utils/libbuild.py``. It runs at the
-first kernel launch (or when called directly), never at import: the CPU
-tests import every module on machines without nvcc or a card.
+``*.cu`` files and the ``*.cuh`` headers they include) and flags — the
+same lazy-build pattern as ``loops_tpu/native/build.py``, by
+``utils/libbuild.py``. It runs at the first kernel launch (or when
+called directly), never at import: the CPU tests import every module on
+machines without nvcc or a card.
+
+Kernels are called through the launch binding, not ctypes: a CPython
+extension, ``libloops_launch_<hash>.so`` in the same directory, whose C
+source ``binding_source()`` generates from ``_SIGNATURES`` (one
+``METH_FASTCALL`` function per entry point, converting each argument
+with ``PyLong_AsVoidPtr``, ``PyLong_AsLong`` or ``PyFloat_AsDouble`` and
+calling the entry point through its address). The host compiler
+(``utils/libbuild.host_compiler``, g++, as the native tier) builds it
+against ``Python.h`` alone, in about a second, keyed by the hash of that
+source and its flags. The library is opened once, with ctypes, to read
+each entry point's address; ``_FNS`` then holds one binding callable per
+entry point, and a launch costs one C-API call. No binding, no launch:
+a failed build raises.
 
 Each kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -18,10 +31,12 @@ main path went through.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import operator
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 
@@ -33,10 +48,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# where the launch binding is built: the kernels' directory, fixed at
+# import (a build of the kernels elsewhere shares the binding)
+BIND_DIR = BUILD_DIR
 
 # per-source compile flags; the objects are then linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# the launch binding's host compiler flags (the Python headers' -I is
+# added at build time)
+BIND_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden")
 
 LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
             "flat_spmm": 0, "bcsr_spmv": 0, "bcsr_spmm": 0,
@@ -50,9 +71,10 @@ LAUNCHES = {"sorted_spmv": 0, "flat_spmv_v2": 0, "flat_spmv": 0,
             "row_gather_mat_smem": 0, "row_gather_mat_l2": 0,
             "row_gather_mat_hbm": 0, "onehot_expand": 0}
 
-# seconds the last build took in this process (0.0 when the library
-# came from an earlier build of the same sources)
-BUILD_INFO = {"seconds": None, "path": None}
+# seconds the last load took in this process (the builds included; small
+# when both came from an earlier build of the same sources)
+BUILD_INFO = {"seconds": None, "path": None, "binding_seconds": None,
+              "binding_path": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,10 +105,14 @@ _SIGNATURES = {
     "loops_onehot_expand": [_P] * 3 + [_I] * 5 + [_P],
 }
 
+# the C type of each ctypes type of _SIGNATURES, and its code in the
+# binding's SIGNATURES
+_C_TYPES = {_P: ("void*", "p"), _I: ("int", "i"),
+            ctypes.c_float: ("float", "f")}
+
 _lib = None
 _lock = threading.Lock()
-# C entry point -> its ctypes function, argtypes set; filled by
-# load_library()
+# C entry point -> its launch binding callable; filled by load_library()
 _FNS: dict = {}
 # device index -> SM count (sm_count)
 _SMS: dict = {}
@@ -126,8 +152,9 @@ def _nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library, and resolve
-    each C entry point of ``_SIGNATURES`` once into ``_FNS``."""
+    """Build (if needed) and load the kernels' shared library and the
+    launch binding, and bind each C entry point of ``_SIGNATURES`` once
+    into ``_FNS``. Raises when either cannot be built."""
     global _lib
     if _lib is not None:  # loaded: no lock on the launch path
         return _lib
@@ -140,15 +167,253 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         if not os.path.exists(so_path):
             _build([f for f in files if f.endswith(".cu")], so_path)
+        t1 = time.perf_counter()
+        binding = load_binding()
+        t2 = time.perf_counter()
         lib = ctypes.CDLL(so_path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _FNS[name] = fn
-        BUILD_INFO.update(seconds=time.perf_counter() - t0, path=so_path)
+        _FNS.update(bind(binding, lib))
+        BUILD_INFO.update(seconds=t1 - t0, path=so_path,
+                          binding_seconds=t2 - t1,
+                          binding_path=binding.__file__)
         _lib = lib
         return lib
+
+
+def bind(binding, lib: ctypes.CDLL) -> dict:
+    """``name -> callable`` for each entry point of ``_SIGNATURES``: the
+    launch binding's function of that name, called on the entry point's
+    address in ``lib`` (read here, once)."""
+    return {name: binding.bind(name, ctypes.cast(getattr(lib, name),
+                                                 ctypes.c_void_p).value)
+            for name in _SIGNATURES}
+
+
+def binding_source() -> str:
+    """The launch binding's C++ source, generated from ``_SIGNATURES``:
+    for each entry point a ``METH_FASTCALL`` function that checks the
+    count, converts each argument as ctypes' type of it would (a pointer:
+    an int, a numpy integer or None; an ``int``: an int or numpy integer
+    in range; a ``float``: any real number), raising ``TypeError`` on
+    anything else, and calls the entry point's address (held in the
+    callable's capsule) with the GIL held; ``bind(name, address)`` makes
+    the callable, ``SIGNATURES`` maps each name to its type codes."""
+    defs, funcs, sigs = [], [], []
+    for name, argtypes in _SIGNATURES.items():
+        ctys = [_C_TYPES[t][0] for t in argtypes]
+        codes = "".join(_C_TYPES[t][1] for t in argtypes)
+        n = len(argtypes)
+        conv = " ||\n      ".join(
+            f"arg_{c}(args[{k}], &a{k}, \"{name}\", {k})"
+            for k, c in enumerate(codes))
+        decl = "\n".join(f"  {c} a{k};" for k, c in enumerate(ctys))
+        call = ", ".join(f"a{k}" for k in range(n))
+        funcs.append(f"""
+typedef int (*t_{name})({", ".join(ctys)});
+static PyObject* w_{name}(PyObject* self, PyObject* const* args,
+                          Py_ssize_t nargs) {{
+  if (nargs != {n}) return wrong_count("{name}", {n}, nargs);
+{decl}
+  if ({conv}) return NULL;
+  void* fn = PyCapsule_GetPointer(self, CAPSULE);
+  if (fn == NULL) return NULL;
+  return PyLong_FromLong(((t_{name})fn)({call}));
+}}""")
+        defs.append(f'  {{"{name}", (PyCFunction)(void (*)(void))w_{name}, '
+                    f'METH_FASTCALL, "int {name}({", ".join(ctys)})"}},')
+        sigs.append(f'  {{"{name}", "{codes}"}},')
+    return _BINDING_TEMPLATE.format(funcs="".join(funcs),
+                                    defs="\n".join(defs),
+                                    sigs="\n".join(sigs))
+
+
+_BINDING_TEMPLATE = """\
+// The launch binding of loops_tpu_torch's kernels, generated from
+// _SIGNATURES by ops/kernels/_build.py binding_source(): one
+// METH_FASTCALL function per C entry point. Python.h only.
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <climits>
+#include <cstring>
+
+namespace {{
+
+const char* const CAPSULE = "loops_tpu_torch entry point";
+
+PyObject* wrong_count(const char* fn, Py_ssize_t want, Py_ssize_t got) {{
+  PyErr_Format(PyExc_TypeError, "%s() takes %zd arguments (%zd given)", fn,
+               want, got);
+  return NULL;
+}}
+
+int wrong_type(PyObject* o, const char* fn, int k, const char* want) {{
+  PyErr_Format(PyExc_TypeError, "%s() argument %d: expected %s, got %.100s",
+               fn, k, want, Py_TYPE(o)->tp_name);
+  return -1;
+}}
+
+// a conversion that raised TypeError (a float tensor's __index__):
+// raised again naming the argument
+int retyped(PyObject* o, const char* fn, int k, const char* want) {{
+  if (!PyErr_ExceptionMatches(PyExc_TypeError)) return -1;
+  PyErr_Clear();
+  return wrong_type(o, fn, k, want);
+}}
+
+// a pointer: an int, anything with __index__ (numpy integers), or None
+int arg_p(PyObject* o, void** out, const char* fn, int k) {{
+  if (PyLong_CheckExact(o)) {{
+    *out = PyLong_AsVoidPtr(o);
+    return (*out == NULL && PyErr_Occurred()) ? -1 : 0;
+  }}
+  if (o == Py_None) {{
+    *out = NULL;
+    return 0;
+  }}
+  const char* want = "an integer or None";
+  if (!PyIndex_Check(o)) return wrong_type(o, fn, k, want);
+  PyObject* i = PyNumber_Index(o);
+  if (i == NULL) return retyped(o, fn, k, want);
+  *out = PyLong_AsVoidPtr(i);
+  Py_DECREF(i);
+  return (*out == NULL && PyErr_Occurred()) ? -1 : 0;
+}}
+
+// an int: an int or anything with __index__, within a C int
+int arg_i(PyObject* o, int* out, const char* fn, int k) {{
+  const char* want = "an integer";
+  if (!PyLong_Check(o) && !PyIndex_Check(o)) return wrong_type(o, fn, k, want);
+  long v = PyLong_AsLong(o);
+  if (v == -1 && PyErr_Occurred()) return retyped(o, fn, k, want);
+  if (v < INT_MIN || v > INT_MAX) {{
+    PyErr_Format(PyExc_OverflowError, "%s() argument %d: %ld is past a C int",
+                 fn, k, v);
+    return -1;
+  }}
+  *out = static_cast<int>(v);
+  return 0;
+}}
+
+// a float: any real number (__float__ or __index__), rounded to float
+int arg_f(PyObject* o, float* out, const char* fn, int k) {{
+  double v = PyFloat_AsDouble(o);
+  if (v == -1.0 && PyErr_Occurred()) return retyped(o, fn, k, "a real number");
+  *out = static_cast<float>(v);
+  return 0;
+}}
+{funcs}
+
+PyMethodDef entries[] = {{
+{defs}
+  {{NULL, NULL, 0, NULL}}}};
+
+const char* const signatures[][2] = {{
+{sigs}
+  {{NULL, NULL}}}};
+
+// bind(name, address) -> the entry point's callable at ``address``
+PyObject* bind(PyObject*, PyObject* const* args, Py_ssize_t nargs) {{
+  if (nargs != 2) return wrong_count("bind", 2, nargs);
+  const char* name = PyUnicode_AsUTF8(args[0]);
+  if (name == NULL) return NULL;
+  void* addr = NULL;
+  if (arg_p(args[1], &addr, "bind", 1)) return NULL;
+  if (addr == NULL) {{
+    PyErr_SetString(PyExc_ValueError, "bind: a null address");
+    return NULL;
+  }}
+  for (PyMethodDef* d = entries; d->ml_name != NULL; ++d) {{
+    if (std::strcmp(d->ml_name, name) != 0) continue;
+    PyObject* cap = PyCapsule_New(addr, CAPSULE, NULL);
+    if (cap == NULL) return NULL;
+    PyObject* f = PyCFunction_NewEx(d, cap, NULL);
+    Py_DECREF(cap);
+    return f;
+  }}
+  PyErr_Format(PyExc_KeyError, "%s is not an entry point of the binding",
+               name);
+  return NULL;
+}}
+
+PyMethodDef methods[] = {{
+  {{"bind", (PyCFunction)(void (*)(void))bind, METH_FASTCALL,
+   "bind(name, address) -> the entry point's callable"}},
+  {{NULL, NULL, 0, NULL}}}};
+
+PyModuleDef module = {{PyModuleDef_HEAD_INIT, "loops_launch",
+                      "The launch binding of loops_tpu_torch's kernels.", -1,
+                      methods}};
+
+}}  // namespace
+
+PyMODINIT_FUNC PyInit_loops_launch(void) {{
+  PyObject* m = PyModule_Create(&module);
+  if (m == NULL) return NULL;
+  PyObject* sigs = PyDict_New();
+  if (sigs == NULL || PyModule_AddObject(m, "SIGNATURES", sigs) < 0) {{
+    Py_XDECREF(sigs);
+    Py_DECREF(m);
+    return NULL;
+  }}
+  for (int i = 0; signatures[i][0] != NULL; ++i) {{
+    PyObject* v = PyUnicode_FromString(signatures[i][1]);
+    if (v == NULL || PyDict_SetItemString(sigs, signatures[i][0], v) < 0) {{
+      Py_XDECREF(v);
+      Py_DECREF(m);
+      return NULL;
+    }}
+    Py_DECREF(v);
+  }}
+  return m;
+}}
+"""
+
+
+def _python_include() -> str:
+    """The directory of this interpreter's ``Python.h``; raises when it
+    is missing."""
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError(
+            f"Python.h not found under {inc}: the launch binding of "
+            "loops_tpu_torch's kernels is built from Python's headers")
+    return inc
+
+
+def load_binding():
+    """The launch binding module, built by the host compiler at first use
+    into ``BIND_DIR`` and keyed by the hash of its generated source and
+    flags; raises ``RuntimeError`` when it cannot be built."""
+    src = binding_source()
+    flags = BIND_FLAGS + (f"-I{_python_include()}",)
+    path = libbuild.library_path(BIND_DIR, "loops_launch", (), flags,
+                                 texts=(src,))
+    if not os.path.exists(path):
+        try:
+            cxx = libbuild.host_compiler()
+        except FileNotFoundError as e:
+            raise RuntimeError(f"the launch binding needs a host compiler: "
+                               f"{e}") from e
+
+        def make(tmp, tag):
+            cpp = f"{tmp}.cpp"
+            try:
+                with open(cpp, "w") as fh:
+                    fh.write(src)
+                proc = subprocess.run([cxx, *flags, "-o", tmp, cpp],
+                                      capture_output=True, text=True,
+                                      timeout=300)
+            finally:
+                if os.path.exists(cpp):
+                    os.remove(cpp)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the launch binding failed to build "
+                                   f"({proc.returncode}):\n"
+                                   f"{proc.stderr[-4000:]}")
+        libbuild.publish(path, make)
+    spec = importlib.util.spec_from_file_location("loops_launch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _start(cmd):
@@ -267,8 +532,9 @@ def output(out, shape, device) -> torch.Tensor:
 
 
 def _function(fn_name: str):
-    """The ctypes function of a C entry point of ``_SIGNATURES``, loading
-    the library on first use; ``KeyError`` for any other name."""
+    """The launch binding's callable of a C entry point of
+    ``_SIGNATURES``, loading the library on first use; ``KeyError`` for
+    any other name."""
     fn = _FNS.get(fn_name)
     if fn is None:
         load_library()

@@ -34,7 +34,8 @@ SpMM kernels (K7-K9) and their tensor-core redesign hang on.
   of them still in the 50 MB L2 (the slope over passes is printed
   beside, as the warm time).
 - **dispatch** (``dispatch_probe``, ``:200``): the host microseconds of one
-  launch of K12 on [8, 128] through ``_build.launch`` (ctypes), beside
+  launch of K12 on [8, 128] through ``saxpy_cuda`` (its checks, the
+  output's allocation and one call of the launch binding), beside
   ``torch.add`` on the same tensors.
 
 Checks: integer-valued inputs give exact sums in any order, so the dots
@@ -66,9 +67,10 @@ from loops_tpu_torch.probes.common import (
     record,
     sync,
 )
+from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.bench import cold_ms, run_slope_ms
 from loops_tpu_torch.utils.platform import ensure_platform
-from loops_tpu_torch.utils.stream import pass_ms, stream_input
+from loops_tpu_torch.utils.stream import pass_ms, stream_input, stream_read
 
 K, N = 128, 512
 NCH_ROWS = 32768
@@ -640,12 +642,13 @@ def probe_scatter(smem: bool, device, out=print, timed=True,
 # ------------------------------------------------------------- dispatch
 def probe_dispatch(device, out=print, launches: int = 200) -> dict:
     """Host microseconds per call of K12 on [8, 128] through
-    ``_build.launch``, and of ``torch.add`` on the same tensors: the
-    enqueue of ``launches`` calls in a row by the host clock, and the
-    least and median of 10 single calls each followed by a synchronize."""
+    ``saxpy_cuda`` (``_build.call``, the launch binding), and of
+    ``torch.add`` on the same tensors: the enqueue of ``launches`` calls
+    in a row by the host clock, and the least and median of 10 single
+    calls each followed by a synchronize."""
     x = torch.zeros(8, 128, device=device)
     y = torch.ones(8, 128, device=device)
-    calls = {"K12 _build.launch": (lambda: saxpy_cuda(1.0, x, y))
+    calls = {"K12 saxpy_cuda": (lambda: saxpy_cuda(1.0, x, y))
              if device.type == "cuda" else (lambda: saxpy_plain(1.0, x, y)),
              "torch.add": lambda: torch.add(y, x, alpha=1.0)}
     res = {}
@@ -671,12 +674,20 @@ def probe_dispatch(device, out=print, launches: int = 200) -> dict:
 
 
 def probe_stream(device, out=print, rows: int = 32768) -> float:
-    """K11 over the script's [32768, 512] f32 array (64 MiB)."""
+    """K11 over the script's [32768, 512] f32 array (64 MiB): the warm
+    slope over passes (partly read from the 50 MB L2) and one pass from an
+    empty L2 (``cold_ms``), beside the byte bound; returns the warm
+    rate."""
     x = stream_input(rows, 512, device)
     ms = pass_ms(x)
+    cold = cold_ms(lambda: stream_read(x), device)
+    work = counters.stream_read_work(x.numel() * 4)
+    bound, _ = counters.bound_of(work)
     gbps = x.numel() * 4 / ms / 1e6
-    out(f"stream_read (K11): {ms:.3f} ms per {x.numel() * 4 / 2**20:.0f}MB "
-        f"pass -> {gbps:.1f} GB/s achievable")
+    out(f"stream_read (K11): {ms:.4f} ms per {x.numel() * 4 / 2**20:.0f}MB "
+        f"pass warm (slope over passes) -> {gbps:.1f} GB/s achievable; "
+        f"{cold:.4f} ms one pass from an empty L2; byte bound "
+        f"{bound:.4f} ms")
     return gbps
 
 

@@ -36,7 +36,9 @@ needs no script of its own:
   same matrices;
 - K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
   by the slope of 450 back-to-back calls over 50 (``probes/common.
-  launch_ms``) and by the host clock with the card held;
+  launch_ms``) and by the host clock with the card held, and on 2^26
+  elements, ms per call by the slope of 20 calls over 4, beside the byte
+  bound of ``utils/counters``;
 - K5: ``SDDMMOperator(csr, impl="pallas", dtype="bfloat16")`` on the JAX
   bench's 65536^2 SDDMM regime (``bench.py:414-445``) and on the
   arxiv-shaped GCN adjacency, F = 128;
@@ -299,9 +301,10 @@ def xl_cells(dev, library: bool, xl_dir: str, y_dir=None) -> dict:
 
 
 def spmv_cells(dev, library: bool, y_dir=None) -> dict:
-    """K1 on bench_32768 and big_2097152, K12 on [8, 8192]."""
+    """K1 on bench_32768 and big_2097152, K12 on [8, 8192] and 2^26."""
     import torch
     from loops_tpu_torch.ops.kernels import saxpy
+    from loops_tpu_torch.utils import counters
     from loops_tpu_torch.ops.spmv import SpMVOperator
     from loops_tpu_torch.probes.common import launch_ms
     from loops_tpu_torch.utils import generate
@@ -323,6 +326,15 @@ def spmv_cells(dev, library: bool, y_dir=None) -> dict:
         res[f"{name} [8, 8192] us per call"] = 1e3 * launch_ms(
             fn, dev, *SAXPY_CALLS)
         res[f"{name} [8, 8192] host us per call"] = bench.host_us(fn)
+    g = torch.Generator(device=dev).manual_seed(26)
+    x, y = (torch.randn(1 << 26, device=dev, generator=g) for _ in range(2))
+    calls = {"K12 saxpy_cuda": lambda: saxpy.saxpy_cuda(2.5, x, y)}
+    if library:
+        calls["torch.add"] = lambda: torch.add(y, x, alpha=2.5)
+    for name, fn in calls.items():
+        res[f"{name} 2^26 ms per call"] = launch_ms(fn, dev)
+    res["K12 2^26 byte bound ms"] = counters.bound_of(
+        counters.saxpy_work(1 << 26))[0]
     return res
 
 

@@ -51,6 +51,19 @@ def _counted(name, n, fn):
 
 
 @pytest.mark.cuda
+def test_every_entry_point_is_bound_by_the_launch_binding(cuda_device):
+    import ctypes
+    import types
+
+    _build.load_library()
+    assert sorted(_build._FNS) == sorted(_build._SIGNATURES)
+    for name, fn in _build._FNS.items():
+        assert isinstance(fn, types.BuiltinFunctionType), name
+        assert not isinstance(fn, ctypes._CFuncPtr), name
+    assert os.path.exists(_build.BUILD_INFO["binding_path"])
+
+
+@pytest.mark.cuda
 def test_build_takes_the_header(cuda_device):
     _build.load_library()
     assert os.path.exists(_build.BUILD_INFO["path"])
@@ -94,6 +107,31 @@ def test_saxpy_matches_plain_bitwise(cuda_device, n):
     xb[1:] = x
     assert torch.equal(saxpy.saxpy_cuda(-0.75, xb[1:], y),
                        saxpy.saxpy_plain(-0.75, x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1024, 1025, 65536,
+                               (1 << 20) + 7, 1 << 26])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_saxpy_offsets_bitwise(cuda_device, n, offset):
+    # x and y 0-3 floats past 16 bytes, from NaN-filled buffers: the
+    # float4 body and its scalar tail at offset 0, the scalar loop else,
+    # each a * x + y bit for bit into a new tensor
+    g = torch.Generator(device=cuda_device).manual_seed(n + offset)
+    x, y = (torch.randn(n, device=cuda_device, generator=g)
+            for _ in range(2))
+    want = saxpy.saxpy_plain(-0.75, x, y)
+    views = []
+    for v in (x, y):
+        b = torch.full((n + offset,), float("nan"), device=cuda_device)
+        b[offset:] = v
+        views.append(b[offset:])
+    out = _counted("saxpy", 1 if n else 0,
+                   lambda: saxpy.saxpy_cuda(-0.75, *views))
+    assert out.data_ptr() % 16 == 0 and out.storage_offset() == 0
+    assert out.shape == (n,) and torch.equal(out, want)
+    # y on 16 bytes: x's offset alone
+    assert torch.equal(saxpy.saxpy_cuda(-0.75, views[0], y), want)
 
 
 @pytest.mark.cuda
@@ -332,7 +370,7 @@ def test_block_dot_into_out(cuda_device, case):
 @pytest.mark.cuda
 def test_r2_dispatch_and_stream_report(cuda_device):
     res = r2.probe_dispatch(cuda_device, out=lambda s: None, launches=20)
-    assert res["K12 _build.launch"]["enqueue_us"] > 0
+    assert res["K12 saxpy_cuda"]["enqueue_us"] > 0
     assert r2.probe_stream(cuda_device, out=lambda s: None, rows=1024) > 0
 
 

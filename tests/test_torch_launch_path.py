@@ -1,14 +1,16 @@
 """The host launch path of the port's kernels (``ops/kernels/_build.py``
-``launch``), on the CPU: no card and no library are needed.
+``launch``), on the CPU: no card and no CUDA library are needed.
 
-``launch`` resolves each C entry point once, at load, into ``_FNS``;
-passes tensors as plain integer pointers; asks for the current stream's
-handle on every call; and makes the device current only when it is not
-already. Here the library is a stand-in (``ctypes.CDLL`` patched), and
-``torch.cuda``'s device and stream queries answer as a one-card machine
-would, so each rule shows without a card. The card tests
-(``test_torch_cuda_kernels.py``) hold the same path on the H100: a launch
-under ``torch.cuda.stream(s)`` goes on ``s``.
+``launch`` resolves each C entry point once, at load, into ``_FNS`` (the
+launch binding's callables); passes tensors as plain integer pointers;
+asks for the current stream's handle on every call; and makes the device
+current only when it is not already. Here the kernels' library is the
+stand-in of ``tests/test_torch_binding.py`` (compiled here, each entry
+point recording its arguments), reached through the real launch
+binding, and ``torch.cuda``'s device and stream queries answer as a
+one-card machine would, so each rule shows without a card. The card
+tests (``test_torch_cuda_kernels.py``) hold the same path on the H100: a
+launch under ``torch.cuda.stream(s)`` goes on ``s``.
 """
 import ctypes
 import contextlib
@@ -29,47 +31,23 @@ from loops_tpu_torch.ops.kernels import (
 )
 from loops_tpu_torch.ops.spmv import SpMVOperator
 from loops_tpu_torch.utils import generate
+from test_torch_binding import StubRecord, linking, stub_so  # noqa: F401
 
 CPU = torch.device("cpu")
 CUDA0 = torch.device("cuda", 0)
 
 
-class _FakeFunction:
-    """A C entry point that records its calls and returns ``err``."""
-
-    def __init__(self, name, err=0):
-        self.name, self.err, self.calls = name, err, []
-        self.argtypes = self.restype = None
-
-    def __call__(self, *args):
-        self.calls.append(args)
-        return self.err
-
-
-class _FakeLibrary:
-    def __init__(self, path):
-        self.path = path
-
-    def __getattr__(self, name):
-        if name not in _build._SIGNATURES:
-            raise AttributeError(name)
-        fn = _FakeFunction(name)
-        setattr(self, name, fn)
-        return fn
-
-
 @pytest.fixture
-def fake_card(monkeypatch, tmp_path):
-    """A loaded stand-in library and a one-card ``torch.cuda``: current
-    device 0, stream handle 4242 (or what ``streams`` maps the device
-    to); device switches are recorded in ``switches``."""
+def fake_card(monkeypatch, tmp_path, stub_so):
+    """The stand-in library loaded through the launch binding, its
+    record in ``stub``, and a one-card ``torch.cuda``: current device 0,
+    stream handle 4242 (or what ``streams`` maps the device to); device
+    switches are recorded in ``switches``."""
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "_FNS", {})
     monkeypatch.setattr(_build, "_SMS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(_build, "_build",
-                        lambda files, so_path: open(so_path, "w").close())
-    monkeypatch.setattr(_build.ctypes, "CDLL", _FakeLibrary)
+    monkeypatch.setattr(_build, "_build", linking(stub_so))
     state = {"current": 0, "streams": {0: 4242, 1: 5353}, "switches": []}
     monkeypatch.setattr(torch.cuda, "current_device",
                         lambda: state["current"])
@@ -85,8 +63,9 @@ def fake_card(monkeypatch, tmp_path):
         finally:
             state["current"] = before
     monkeypatch.setattr(torch.cuda, "device", device)
-    _build.load_library()
+    state["stub"] = StubRecord(_build.load_library())
     yield state
+    state["stub"].reset()
 
 
 def test_unknown_counter_raises_before_any_launch(fake_card):
@@ -94,7 +73,7 @@ def test_unknown_counter_raises_before_any_launch(fake_card):
     with pytest.raises(KeyError, match="not a launch counter"):
         _build.launch("loops_saxpy_f32", "no_such_kernel", CUDA0, 1.0)
     assert _build.LAUNCHES == before
-    assert _build._FNS["loops_saxpy_f32"].calls == []
+    assert fake_card["stub"].calls() == []
 
 
 def test_unknown_entry_point_raises(fake_card):
@@ -103,10 +82,14 @@ def test_unknown_entry_point_raises(fake_card):
 
 
 def test_function_table_covers_every_signature(fake_card):
+    # one launch binding callable per entry point, of the table's types
     assert sorted(_build._FNS) == sorted(_build._SIGNATURES)
+    codes = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    binding = _build.load_binding()
     for name, fn in _build._FNS.items():
-        assert fn.argtypes == _build._SIGNATURES[name], name
-        assert fn.restype is ctypes.c_int
+        assert fn.__name__ == name and not isinstance(fn, ctypes._CFuncPtr)
+        assert binding.SIGNATURES[name] == "".join(
+            codes[t] for t in _build._SIGNATURES[name])
     # loaded: later calls take no lock and build nothing
     lib = _build._lib
     assert _build.load_library() is lib
@@ -119,7 +102,7 @@ def test_launch_passes_pointers_ints_and_the_current_stream(fake_card):
     before = _build.LAUNCHES["saxpy"]
     _build.launch("loops_saxpy_f32", "saxpy", CUDA0, 2.5, x, y, out,
                   np.int64(8), 1)
-    (args,) = _build._FNS["loops_saxpy_f32"].calls
+    (args,) = fake_card["stub"].calls("loops_saxpy_f32")
     assert args == (2.5, x.data_ptr(), y.data_ptr(), out.data_ptr(), 8, 1,
                     4242)
     assert _build.LAUNCHES["saxpy"] == before + 1
@@ -133,7 +116,7 @@ def test_launch_asks_for_the_stream_on_every_call(fake_card):
         fake_card["streams"][0] = handle
         _build.launch("loops_stream_read_f32", "stream_read", CUDA0, x, x,
                       1, 1, 1)
-    calls = _build._FNS["loops_stream_read_f32"].calls
+    calls = fake_card["stub"].calls("loops_stream_read_f32")
     assert [c[-1] for c in calls] == [11, 12]
 
 
@@ -144,7 +127,7 @@ def test_launch_switches_to_another_device_and_back(fake_card):
     assert fake_card["switches"] == [1]
     assert fake_card["current"] == 0
     # device 1's own stream
-    assert _build._FNS["loops_stream_read_f32"].calls[0][-1] == 5353
+    assert fake_card["stub"].calls("loops_stream_read_f32")[0][-1] == 5353
     # a device without an index is the current one
     _build.launch("loops_stream_read_f32", "stream_read",
                   torch.device("cuda"), x, x, 1, 1, 1)
@@ -152,7 +135,7 @@ def test_launch_switches_to_another_device_and_back(fake_card):
 
 
 def test_launch_raises_on_a_cuda_error_and_counts_nothing(fake_card):
-    _build._FNS["loops_saxpy_f32"].err = 9
+    fake_card["stub"].set_err("loops_saxpy_f32", 9)
     before = _build.LAUNCHES["saxpy"]
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         _build.launch("loops_saxpy_f32", "saxpy", CUDA0, 1.0, torch.zeros(1),
@@ -415,7 +398,7 @@ def test_k6_launch_takes_a_checked_out(fake_card, out):
     y = spmv_bcsr.bcsr_spmv_cuda(b, x, csr.shape, CPU, given, p)
     assert y.shape == (33,) and (y is given) == (out == "good")
     assert _build.LAUNCHES["bcsr_spmv"] == before + 1
-    args = _build._FNS["loops_bcsr_spmv_f32"].calls[-1]
+    args = fake_card["stub"].calls("loops_bcsr_spmv_f32")[-1]
     ptrs = [b[k].data_ptr() for k in ("offsets", "bcols", "runs", "splits",
                                       "vals")]
     assert list(args[:5]) == ptrs and args[5] == x.data_ptr()
@@ -487,6 +470,42 @@ def test_k12_device_is_checked_once_per_value(monkeypatch):
     assert not saxpy._staged(x.numpy(), y, CUDA0)
 
 
+class _PosingAsCuda0(torch.Tensor):
+    """A CPU tensor that ``saxpy_cuda`` takes for one on card 0."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def get_device(self):
+        return 0
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, "differ"])
+def test_k12_launch_is_one_c_call_of_plain_ints(fake_card, offset):
+    # a, the three addresses, n, the grid and the stream; out a new tensor
+    # of its own, on 16 bytes, whatever x's and y's offsets
+    from loops_tpu_torch.ops.kernels import saxpy
+
+    n = 5000
+    k = 1 if offset == "differ" else offset
+    xb, yb = torch.arange(n + 4.0), torch.ones(n + 4)
+    assert xb.data_ptr() % 16 == 0 and yb.data_ptr() % 16 == 0
+    x = xb[k:k + n].as_subclass(_PosingAsCuda0)
+    y = (yb[:n] if offset == "differ" else yb[k:k + n]).as_subclass(
+        _PosingAsCuda0)
+    before = _build.LAUNCHES["saxpy"]
+    out = saxpy.saxpy_cuda(2.5, x, y)
+    (args,) = fake_card["stub"].calls("loops_saxpy_f32")
+    assert args == (2.5, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                    saxpy.grid(n), 4242)
+    assert _build.LAUNCHES["saxpy"] == before + 1
+    assert out.shape == x.shape and out.data_ptr() not in (
+        x.data_ptr(), y.data_ptr())
+    assert out.data_ptr() % 16 == 0 and out.storage_offset() == 0
+    assert fake_card["switches"] == []
+
+
 def _k1_launch(monkeypatch):
     """K1 planned and staged on the CPU, and its ``SortedLaunch`` made as
     the bind makes it on a card (132 SMs)."""
@@ -525,18 +544,18 @@ def test_k1_apply_is_one_c_call(fake_card, monkeypatch, out):
     if out == "short":
         with pytest.raises(ValueError, match="out"):
             launch(x, given)
-        assert _build._FNS["loops_sorted_spmv_f32"].calls == []
+        assert fake_card["stub"].calls() == []
         return
     y = launch(x, given)
     assert y.shape == (300,) and (y is given) == (out == "good")
-    (args,) = _build._FNS["loops_sorted_spmv_f32"].calls
+    (args,) = fake_card["stub"].calls("loops_sorted_spmv_f32")
     scratch, _ = launch.scratch[4242]
     assert args == (launch.plan_ptr, x.data_ptr(), y.data_ptr(),
                     scratch.data_ptr(), 4242)
     assert _build.LAUNCHES["sorted_spmv"] == before + 1
     with pytest.raises(ValueError, match="x has 199"):
         launch(torch.ones(199).as_subclass(_PosingAsCuda))
-    assert len(_build._FNS["loops_sorted_spmv_f32"].calls) == 1
+    assert len(fake_card["stub"].calls()) == 1
 
 
 def test_k1_scratch_per_stream(fake_card, monkeypatch):
@@ -548,7 +567,7 @@ def test_k1_scratch_per_stream(fake_card, monkeypatch):
         fake_card["streams"][0] = handle
         launch(x)
     assert sorted(launch.scratch) == [11, 4242]
-    calls = _build._FNS["loops_sorted_spmv_f32"].calls
+    calls = fake_card["stub"].calls("loops_sorted_spmv_f32")
     want = {h: launch.scratch[h][0].data_ptr() for h in (11, 4242)}
     assert [c[3] for c in calls] == [want[c[4]] for c in calls]
     assert [c[4] for c in calls] == [4242, 4242, 11, 4242, 11]

@@ -33,6 +33,7 @@ on the same seeded inputs:
 import ast
 import importlib.util
 import os
+import re
 import time
 
 import jax
@@ -88,6 +89,24 @@ def test_saxpy_wrapper_refuses_cpu_tensors():
     x = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         saxpy.saxpy_cuda(1.0, x, x)
+
+
+def test_saxpy_grid_is_one_pass():
+    # one thread per float4 of x, whatever the card
+    per_cta = 4 * saxpy.BLOCK
+    assert saxpy.grid(0) == saxpy.grid(1) == 1
+    assert saxpy.grid(per_cta) == 1 and saxpy.grid(per_cta + 1) == 2
+    assert saxpy.grid(8 * 8192) == 64  # the example's [8, 8192]
+    assert saxpy.grid(1 << 26) == 65536
+    assert saxpy.grid(2**31 - 1) == 2**21
+
+
+def test_saxpy_block_is_the_kernels():
+    # the grid's CTA width is the one the C entry point launches
+    with open(os.path.join(REPO, "loops_tpu_torch", "csrc", "saxpy.cu")) as f:
+        src = f.read()
+    (threads,) = re.findall(r"constexpr int kSaxpyThreads = (\d+);", src)
+    assert int(threads) == saxpy.BLOCK
 
 
 # ------------------------------------------------------------------ K13
