@@ -1,0 +1,2 @@
+"""epoch_ms: the window's duration over the epochs completed in it."""
+from loopsbench.readings import unit_ms as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""epoch_p95_ms: the 95th percentile (nearest rank) of the time of every
+epoch of the window, each from its start to the host's read of
+its accuracy."""
+from loopsbench.readings import p95_ms as read  # noqa: F401

@@ -1,0 +1,6 @@
+"""k1_roofline: K1's share of its roofline over the traced window."""
+from loopsbench.readings import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "sorted_spmv")
