@@ -3541,7 +3541,9 @@ def tooling_phase(device, smi, ds, adj, big, x_big):
             text = f.read()
         missing = [n for n in names if n not in text]
         require(not missing, f"trace: {missing} not in the Chrome trace")
-        per_step = [sum(1 for x in k4 if x["range"] == n) for n in names]
+        # a launch's range is its span path, gcn_step_0/train.forward/spmm
+        per_step = [sum(1 for x in k4 if x["range"].split("/")[0] == n)
+                    for n in names]
         print(f"  trace: {TRACE_STEPS} throughput GCN steps, K4 launches per "
               f"step {per_step}, all {len(k4)} in the record, K4 device "
               f"{sum(x['device_ms'] for x in k4):.3f} ms of a "

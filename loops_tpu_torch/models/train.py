@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from loops_tpu_torch.utils.trace import annotate
+
 
 def cross_entropy(logits, labels, mask=None):
     logp = torch.log_softmax(logits, dim=1)
@@ -87,17 +89,20 @@ def make_train_step(model, optimizer, features, labels, train_mask,
     def step():
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        if use_masked:
-            logits_m = model(features, masked_output=True, **kw)
-            loss = cross_entropy(logits_m, labels_m)
-        else:
-            logits = model(features, **kw)
-            loss = cross_entropy(logits, labels, train_mask)
-        if weight_decay:
-            l2 = sum((layer.w ** 2).sum() for layer in model.layers)
-            loss = loss + weight_decay * l2
-        loss.backward()
-        optimizer.step()
+        with annotate("train.forward"):
+            if use_masked:
+                logits_m = model(features, masked_output=True, **kw)
+                loss = cross_entropy(logits_m, labels_m)
+            else:
+                logits = model(features, **kw)
+                loss = cross_entropy(logits, labels, train_mask)
+            if weight_decay:
+                l2 = sum((layer.w ** 2).sum() for layer in model.layers)
+                loss = loss + weight_decay * l2
+        with annotate("train.backward"):
+            loss.backward()
+        with annotate("train.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -129,8 +134,11 @@ def evaluate(model, features, labels, mask) -> float:
     model.eval()
     try:
         with torch.no_grad():
-            logits = model(_prepared(model, features))
-            return float(accuracy(logits, as_tensor(labels, device).long(),
-                                  as_tensor(mask, device, torch.float32)))
+            with annotate("eval.forward"):
+                logits = model(_prepared(model, features))
+                acc = accuracy(logits, as_tensor(labels, device).long(),
+                               as_tensor(mask, device, torch.float32))
+            with annotate("eval.read"):
+                return float(acc)
     finally:
         model.train(was_training)

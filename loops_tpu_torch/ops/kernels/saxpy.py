@@ -27,6 +27,7 @@ import torch
 from loops_tpu_torch.ops.kernels import _build
 from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
+from loops_tpu_torch.utils.trace import annotate
 
 BLOCK = 256  # csrc/saxpy.cu kSaxpyThreads
 F32 = torch.float32
@@ -128,10 +129,11 @@ def saxpy(a: float, x, y, device="cuda") -> torch.Tensor:
     the CPU."""
     if counters.HOOK is not None:
         return counters.HOOK(work, saxpy, a, x, y, device)
-    device = _device(device)
-    if device.type == "cuda" and _staged(x, y, device):
+    with annotate("saxpy"):
+        device = _device(device)
+        if device.type == "cuda" and _staged(x, y, device):
+            return saxpy_cuda(float(a), x, y)
+        x, y = _as_tensor(x, device), _as_tensor(y, device)
+        if device.type == "cpu":
+            return saxpy_plain(float(a), x, y)
         return saxpy_cuda(float(a), x, y)
-    x, y = _as_tensor(x, device), _as_tensor(y, device)
-    if device.type == "cpu":
-        return saxpy_plain(float(a), x, y)
-    return saxpy_cuda(float(a), x, y)

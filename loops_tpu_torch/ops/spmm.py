@@ -89,6 +89,7 @@ from loops_tpu_torch.schedule.plans import (
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
+from loops_tpu_torch.utils.trace import annotate
 
 __all__ = ["spmm", "SpMMOperator"]
 
@@ -188,13 +189,14 @@ class SpMMOperator:
     def __call__(self, B):
         if counters.HOOK is not None:
             return counters.HOOK(self.work, self, B)
-        B = self.stage(B)
-        if self._kernel is None:
-            return self._raw(self._bufs, B)
-        before = _build.LAUNCHES[self._kernel]
-        C = self._raw(self._bufs, B)
-        self.launches += _build.LAUNCHES[self._kernel] - before
-        return C
+        with annotate("spmm"):
+            B = self.stage(B)
+            if self._kernel is None:
+                return self._raw(self._bufs, B)
+            before = _build.LAUNCHES[self._kernel]
+            C = self._raw(self._bufs, B)
+            self.launches += _build.LAUNCHES[self._kernel] - before
+            return C
 
     def work(self, B) -> counters.Work:
         """One apply's work on a [cols, F] ``B`` (``utils/counters``): a

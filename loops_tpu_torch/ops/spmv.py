@@ -99,6 +99,7 @@ from loops_tpu_torch.schedule.plans import (
 from loops_tpu_torch.tuning.launch_box import launch_params
 from loops_tpu_torch.utils import counters
 from loops_tpu_torch.utils.platform import ensure_platform
+from loops_tpu_torch.utils.trace import annotate
 
 __all__ = ["spmv", "SpMVOperator", "SCHEDULES", "flat_partitioned_spmv"]
 
@@ -257,13 +258,14 @@ class SpMVOperator:
     def __call__(self, x):
         if counters.HOOK is not None:
             return counters.HOOK(self.work, self, x)
-        x = self.stage(x)
-        if self._kernel is None:
-            return self._raw(self._bufs, x)
-        before = _build.LAUNCHES[self._kernel]
-        y = self._raw(self._bufs, x)
-        self.launches += _build.LAUNCHES[self._kernel] - before
-        return y
+        with annotate("spmv"):
+            x = self.stage(x)
+            if self._kernel is None:
+                return self._raw(self._bufs, x)
+            before = _build.LAUNCHES[self._kernel]
+            y = self._raw(self._bufs, x)
+            self.launches += _build.LAUNCHES[self._kernel] - before
+            return y
 
     def work(self, x=None) -> counters.Work:
         """One apply's work (``utils/counters``): a BCSR by its stored

@@ -23,6 +23,8 @@ wrappers run now:
   a ctypes handle this module opens on the same library with the
   entry point's ``_SIGNATURES`` as argtypes (the launch path before the
   binding);
+* the program's span (``utils/trace.annotate``, as ``op(x)`` opens
+  ``spmv``) with no profiler collecting: its enter and exit;
 * K12: its one-pass check, the output's allocation three ways
   (``torch.empty_like``, ``torch.empty(shape, ...)``, ``x.new_empty``),
   the grid, its C call (binding and ctypes) and, in
@@ -52,6 +54,7 @@ from loops_tpu_torch.ops.kernels import _build, saxpy, spmv_sorted
 from loops_tpu_torch.utils import generate
 from loops_tpu_torch.utils.bench import host_us
 from loops_tpu_torch.utils.platform import ensure_platform
+from loops_tpu_torch.utils.trace import annotate
 
 
 def ctypes_handle(name: str):
@@ -116,6 +119,10 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
         before = _build.LAUNCHES["sorted_spmv"]
         counter["n"] += _build.LAUNCHES["sorted_spmv"] - before
 
+    def one_span():
+        with annotate("spmv"):
+            pass
+
     def saxpy_checks():
         if not sx.is_cuda:
             raise AssertionError
@@ -130,6 +137,7 @@ def launch_path_parts(device, calls: int = 100, repeats: int = 5) -> dict:
         "SpMVOperator counter bookkeeping": bookkeeping,
         "K1 staged buffers unchanged (identity, versions, addresses)":
             lambda: spmv_sorted.staged_unchanged(b, staged, fingerprint),
+        "annotate, no profiler: one span (enter, exit)": one_span,
         "K1 check of x": lambda: _build.check(xd, "x", f32, device,
                                               params["cols_n"]),
         "K1 torch.empty(rows) (y)": lambda: torch.empty(rows, device=device),

@@ -1,0 +1,7 @@
+"""fwd_ms.gcn: device ms an epoch under the program's ``train.forward``
+span: the model's forward and the loss."""
+from loopsbench.span_readings import device_ms_per_unit
+
+
+def read(run):
+    return device_ms_per_unit(run, "train.forward")

@@ -31,25 +31,29 @@ def test_csv_row_equals_jax(args, extra):
 
 
 def test_annotate_as_context_and_decorator():
-    with trace.annotate("outer") as a:
-        assert trace._RANGES == ["outer"]
-        with trace.annotate("inner"):
-            assert trace._RANGES == ["outer", "inner"]
-    assert isinstance(a, trace.annotate) and trace._RANGES == []
+    # annotate pushes its path only while a profiler collects
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with trace.annotate("outer") as a:
+            assert trace._RANGES == ["outer"]
+            with trace.annotate("inner"):
+                assert trace._RANGES == ["outer", "inner"]
+        assert isinstance(a, contextlib.ContextDecorator) and a.name == "outer"
+        assert trace._RANGES == []
 
-    seen = []
+        seen = []
 
-    @trace.annotate("deco")
-    def f(n):
-        seen.append(list(trace._RANGES))
-        return f(n - 1) if n else "done"
-    assert f(2) == "done"
-    assert seen == [["deco"], ["deco", "deco"], ["deco", "deco", "deco"]]
-    assert trace._RANGES == []
-    with pytest.raises(ValueError):
-        with trace.annotate("raises"):
-            raise ValueError("passes through")
-    assert trace._RANGES == []
+        @trace.annotate("deco")
+        def f(n):
+            seen.append(list(trace._RANGES))
+            return f(n - 1) if n else "done"
+        assert f(2) == "done"
+        assert seen == [["deco"], ["deco", "deco"], ["deco", "deco", "deco"]]
+        assert trace._RANGES == []
+        with pytest.raises(ValueError):
+            with trace.annotate("raises"):
+                raise ValueError("passes through")
+        assert trace._RANGES == []
 
 
 def test_profile_writes_trace_with_annotations(tmp_path):
