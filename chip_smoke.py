@@ -16,25 +16,30 @@ Phases, one line each with its time:
    buffers, on the 9-matrix battery (blocks 8 and 1024), on the bench
    matrix (32768^2, ~4.39M nnz), on ``generate.SPMV_EDGE_CASES`` (empty
    rows between blocks, before the first, after the last; blocks 8 and
-   64) and, for K2 and K3, on one work_oriented block over a 40064-row
-   window: agreement, the Wilkinson verdict, two runs bitwise equal, the
-   launch counter, and each kernel once more into a y filled with NaN
-   (each writes every row of a ``torch.empty`` y); K1, under 200,000
+   64), for K2 and K3, on one work_oriented block over a 40064-row
+   window, and, for K1's deep path, on ``generate.scattered_hubs_csr``
+   (hub rows at random ids; blocks 64 and 1024): agreement, the
+   Wilkinson verdict, two runs bitwise equal, the launch counter, and
+   each kernel once more into a y filled with NaN (each writes every row
+   of a ``torch.empty`` y); K1, under 200,000
    nonzeros, also bit for bit against its numpy mirror
    (``spmv_sorted.sorted_spmv_mirror``: its CTA ranges, pieces and seams);
 4. main path: ``examples/spmv_torch.py`` on ``datasets/chesapeake.mtx`` with
    ``--validate --rigorous`` for every schedule and kernel impl;
 5. at scale: ``SpMVOperator`` with each kernel on the bench matrix and on
    2097152^2 with ~33.5M nnz, and K1 on the xl tier's
-   ``xl_banded_67108864`` and ``xl_uniform_67108864`` (4194304^2, 67.1M
-   nnz; built in two spawned processes from the start of the run), each
-   result validated. The launch counters are set to 0 before phase 4 and
-   read after phase 5: every kernel must have launched on the main path;
+   ``xl_banded_67108864``, ``xl_uniform_67108864`` and
+   ``xl_lognormal_67108864`` (4194304^2, 67.1M nnz; built in three spawned
+   processes from the start of the run), each result validated; the
+   lognormal matrix's hub rows at random ids take K1's deep path, the
+   others its register path. The launch counters are set to 0 before
+   phase 4 and read after phase 5: every kernel must have launched on the
+   main path, K1's deep path too;
 6. timing: per apply, the median of CUDA-event timings, of each kernel, its
    plain version and cuSPARSE's CSR SpMV (the paper's opponent, timed only),
    with the host plan time; each kernel's time on the card alone
    (``utils/bench.device_ms``: the applies queued behind a sleep kernel)
-   and its host share ``1 - device / apply``; K1 on the two xl matrices
+   and its host share ``1 - device / apply``; K1 on the three xl matrices
    beside cuSPARSE, both by apply and by card time, with the byte bound
    of ``utils/counters``; and the host launch path taken apart
    (``utils/launch_cost.py``: host microseconds per call of each part and
@@ -375,12 +380,15 @@ CLI_CASES = [
     ["--schedule", "sorted_flat"], ["--schedule", "auto"],
 ]
 BENCH_BLOCK = 1024
-# phases 5 and 6: K1 on the xl tier's two 64M-nonzero matrices, the one
-# whose gathers are local and the one whose gathers are random
-# (utils/statmatch.xl_battery; built in spawned host processes from the
-# start of the run), and the largest matrix K1's mirror is held to in
-# phase 3
-XL_MATRICES = ("xl_banded_67108864", "xl_uniform_67108864")
+# phases 5 and 6: K1 on the xl tier's three 64M-nonzero matrices, the one
+# whose gathers are local, the one whose gathers are random over short
+# rows (both K1's register path) and the one with hub rows at random ids
+# (its deep path) (utils/statmatch.xl_battery; built in spawned host
+# processes from the start of the run), and the largest matrix K1's
+# mirror is held to in phase 3
+XL_MATRICES = ("xl_banded_67108864", "xl_uniform_67108864",
+               "xl_lognormal_67108864")
+XL_DEEP = ("xl_lognormal_67108864",)
 MIRROR_NNZ = 200_000
 SPMM_SOURCE = "loops_tpu_torch/csrc/spmm.cu"
 SPMM_REPLACES = "loops_tpu/ops/kernels/spmm_flat.py:48"
@@ -3729,6 +3737,18 @@ def run_phases(xl_builds) -> int:
             kname, wide, generate.make_input_vector(wide.shape[1]), 8,
             device, schedule="work_oriented"))
         n_cases += 1
+    # K1's deep path: hub rows at random ids, longer than a piece, cut
+    # across CTA ranges (blocks of 64) and whole (the default block); bit
+    # for bit its mirror
+    from loops_tpu_torch.ops.kernels import spmv_sorted
+    hubs = generate.scattered_hubs_csr(1 << 16, seed=5)
+    require(hubs.nnz <= MIRROR_NNZ and spmv_sorted.sorted_spmv_plan(
+        hubs)[1]["gather_depth"] > 0, "the hub matrix misses K1's deep path")
+    for block in (64, None):
+        max_err["sorted_spmv"] = max(max_err["sorted_spmv"], kernel_vs_plain(
+            "sorted_spmv", hubs, generate.make_input_vector(hubs.shape[1]),
+            block, device))
+        n_cases += 1
     phase(3, "kernels vs plain", t0,
           f"{n_cases} cases, max |kernel - plain| "
           + ", ".join(f"{k} {v:.3e}" for k, v in max_err.items()) + " ")
@@ -3791,14 +3811,20 @@ def run_phases(xl_builds) -> int:
     print(f"  xl matrices built in spawned processes, waited "
           f"{time.perf_counter() - th:.1f} s for them")
     xl_ops = {}
+    deep_launches = 0
     for mname, csr in xl.items():
         x = generate.make_input_vector(csr.shape[1])
         th = time.perf_counter()
         op = SpMVOperator(csr, "sorted_flat", device=device)
         build_s = time.perf_counter() - th
         require(op.impl_used == "sorted_spmv", f"{mname}: {op.impl_used}")
+        deep = op._raw.launch.plan.deep
+        require(deep == (mname in XL_DEEP), f"{mname}: K1's deep path "
+                f"{deep}, readings lines {op.meta['x_lines_per_atom']:.3f}"
+                f" long rows {op.meta['long_row_share']}")
         y = op(x).cpu().numpy()
         require(op.launches == 1, f"{mname}: {op.launches} launches")
+        deep_launches += deep * op.launches
         require(y.shape == (csr.shape[0],) and np.all(np.isfinite(y)),
                 f"{mname}: bad output")
         errors = count_mismatches(y, reference.spmv(csr, x))
@@ -3806,7 +3832,11 @@ def run_phases(xl_builds) -> int:
         print(f"  {mname} ({csr.shape[0]}x{csr.shape[1]}, {csr.nnz} nnz) "
               f"sorted_spmv: Errors {errors}, Verdict {rep.verdict}, "
               f"launch shape {op._raw.launch.shape}, plan_ms "
-              f"{op.meta['plan_ms']:.1f}, operator build {build_s:.2f} s")
+              f"{op.meta['plan_ms']:.1f} (its readings "
+              f"{op.meta['reading_ms']:.1f}: lines an atom "
+              f"{op.meta['x_lines_per_atom']:.3f}, atoms in long rows "
+              f"{op.meta['long_row_share']}), operator build "
+              f"{build_s:.2f} s")
         require(errors == 0 and rep.verdict == "NOT_A_BUG",
                 f"{mname}/sorted_spmv: {errors} errors, {rep}")
         xl_ops[mname] = (op, csr, x)
@@ -3815,8 +3845,11 @@ def run_phases(xl_builds) -> int:
     for kname in KERNELS:
         require(launches[kname] > 0,
                 f"{kname} never launched on the main path")
+    require(deep_launches > 0, "K1's deep path never launched on the main "
+            "path")
     phase(5, "at scale (SpMVOperator)", t0,
-          "main-path launches " + json.dumps(launches) + " ")
+          "main-path launches " + json.dumps(launches) + f", of K1's "
+          f"{deep_launches} on its deep path ")
 
     # ---- 6. timing: plain, kernel, kernel, plain; cuSPARSE once
     t0 = time.perf_counter()

@@ -43,6 +43,7 @@ using loops_tc::l2_evict_first;
 using loops_tc::mbar_arrive;
 using loops_tc::mbar_expect_tx;
 using loops_tc::mbar_init;
+using loops_tc::mbar_test;
 using loops_tc::mbar_wait;
 using loops_tc::smem_addr;
 
@@ -107,27 +108,50 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 // atoms in CSR order straight from the CSR arrays.
 //
 // What bounds it on an H100: the bytes of vals and cols (8 per nonzero,
-// read once) and the work of summing rows when x's gathers are local,
-// the x[col] gather (one random L2 sector per nonzero) when they are
-// not. The stream wants loads in flight all the time: ~25 KB an SM to
-// keep the HBM rate. So K1 is one persistent launch:
+// read once), the work of summing rows from shared memory, and, where
+// x's gathers are random, their rate: one L2 sector a nonzero, through
+// the same L1 and shared-memory pipeline the row sums use. Measured on
+// an H100 80GB HBM3 at 700 W (PERF.md section 5) on soc-LiveJournal1's
+// PageRank matrix (69.0M nonzeros, hub rows at random ids): 0.738 ms, and
+// 0.498 with every column replaced by its row's id, so the random gathers
+// cost a third and the rest is the stream and the row sums; road_usa's
+// grid 0.303 and 0.278.
+// K1 is one persistent launch:
 //   * grid: min(nb, CTAs_an_SM * SMs) CTAs; CTA k walks the plan blocks
 //     [k * nb / grid, (k + 1) * nb / grid) in block order, each block in
 //     pieces of at most `piece` atoms (one piece for blocks of <= 1024);
 //   * a producer warp stages each coming piece's vals and cols, and its
-//     block's row offsets, into a ring of kK1Stages shared-memory stages:
-//     the 16-byte aligned middle of each range by one cp.async.bulk, the
-//     few 4-byte ends by cp.async, all counted on the stage's mbarrier;
-//     it waits only for a free stage, so the stream never stops for the
-//     row sums;
-//   * 8 consumer warps form each piece's products vals * x[cols] in place
-//     (the gathers of the next piece are issued before the row sums of
-//     the current one, so their latency hides behind them), then sum
-//     each row of the piece from shared memory in the order the
-//     two-phase kernel before it did: `lanes_per_row` lane partials (a
-//     power of two <= 32, picked on the host from the mean row length),
-//     lane-strided, then the xor tree. A piece of short rows is summed
-//     one row a thread, any other four lanes a thread (k1_rows); a
+//     block's row offsets, into a ring of shared-memory stages: the
+//     16-byte aligned middle of each range by one cp.async.bulk, the few
+//     4-byte ends by cp.async, all counted on the stage's mbarrier; it
+//     waits only for a free stage, so the stream never stops for the row
+//     sums;
+//   * 8 consumer warps form each piece's products vals * x[cols] in
+//     place, by one of two paths (the plan's `deep` picks it):
+//       - the register path: each thread loads the next piece's
+//         vals and gathered x, a quad of each, into registers before the
+//         row sums of the current piece, and multiplies after them. One
+//         piece's gathers are in flight at a time; where they hit L1 (a
+//         banded matrix, a street grid) nothing else is needed, and the
+//         loop stays short;
+//       - the deep path: the consumers copy x[cols[i]] by cp.async into
+//         cols[i]'s own slot of the stage kK1Depth pieces ahead of the
+//         piece they sum, counted on the stage's gather mbarrier, and
+//         hold no registers for them. On soc-LiveJournal1's matrix every
+//         piece's x had landed before its consumers looked
+//         (k1.gathers_ready_share 1.0), yet K1 went 0.734 -> 0.71 ms only:
+//         the random gathers cost issue rate, not latency. Two pieces
+//         ahead in 4 stages, 3 CTAs an SM, did best; 5 and 6 stages leave
+//         less L1 for x, 2 CTAs fewer warps for the row sums, and a depth
+//         of stages - 1 waits for the stage just released (PERF.md
+//         section 6). On random matrices of short rows it ran
+//         1.5-6% slower than the register path, so the plan takes it only
+//         where a share of the atoms lie in rows longer than a piece;
+//     then they sum each row of the piece from shared memory in the order
+//     the two-phase kernel before it did: `lanes_per_row` lane partials
+//     (a power of two <= 32, picked on the host from the mean row
+//     length), lane-strided, then the xor tree. A piece of short rows is
+//     summed one row a thread, any other four lanes a thread (k1_rows); a
 //     lane's partial of a row cut by a piece boundary is carried to the
 //     next piece, so the sum's order does not depend on the pieces;
 //   * the seams: the value of a row cut by a block boundary is the
@@ -140,14 +164,21 @@ __device__ __forceinline__ void store_row(int row, int rf, int rl, int b,
 //     in block order. So an apply is one launch, and y is written once
 //     per row, empty rows included (y comes from torch.empty).
 // The products are rounded to f32 before they are summed, as in the plain
-// version (vals * x[cols], then segment sums); the order of every f32
-// addition is fixed, so two runs are bitwise equal and equal the
-// two-kernel K1 of earlier versions bit for bit. No float atomics.
+// version (vals * x[cols], then segment sums), on both paths; the order
+// of every f32 addition is fixed, so two runs are bitwise equal, both
+// paths give the same y, and it equals the two-kernel K1 of earlier
+// versions bit for bit. No float atomics.
 constexpr int kK1ConsumerWarps = 8;
 constexpr int kK1Consumers = 32 * kK1ConsumerWarps;
 constexpr int kK1Threads = kK1Consumers + 32;  // + the producer warp
+// ring stages, and CTAs an SM (72 registers a thread); the deep path's
+// gather depth, the pieces whose gathers are in flight ahead of the one
+// summed (ops/kernels/spmv_sorted.py GATHER_DEPTH)
 constexpr int kK1Stages = 4;
-constexpr int kK1MinBlocks = 3;  // CTAs an SM: 72 registers a thread
+constexpr int kK1MinBlocks = 3;
+constexpr int kK1Depth = 2;
+static_assert(kK1Depth >= 1 && kK1Depth < kK1Stages,
+              "the deep path gathers 1 to kK1Stages - 1 pieces ahead");
 // a piece's atoms and a stage's row offsets at most (the host's `piece`
 // and `window` are multiples of 4 up to these); a block with more rows
 // reads its offsets from device memory
@@ -174,7 +205,7 @@ struct SortedPlan {
   const int* cuts;
   const int* row_first;
   const int* row_last;
-  int rows, nb, lanes_per_row, grid, piece, window;
+  int rows, nb, lanes_per_row, grid, piece, window, deep;
 };
 
 __device__ __forceinline__ int k1_range_start(int k, int nb, int grid) {
@@ -232,7 +263,8 @@ __device__ __forceinline__ void k1_copy_ends(int* dst, const int* src, int i0,
 }
 
 // The producer warp: every piece of blocks [B0, B1) in order into the
-// ring, each once its stage is free.
+// ring of S stages, each once its stage is free.
+template <int S>
 __device__ void k1_produce(const SortedPlan& p, const K1Ring& ring,
                            unsigned long long* full, unsigned long long* empty,
                            int B0, int B1, int lane) {
@@ -298,7 +330,7 @@ __device__ void k1_produce(const SortedPlan& p, const K1Ring& ring,
         k1_copy_ends(sc, p.cols, p0, p1, q0, q1, lane);
         if (window) k1_copy_ends(so, p.offsets, R0, R1 + 2, o0, o1, lane);
         cp_async_arrive(fb);
-        if (++stage == kK1Stages) {
+        if (++stage == S) {
           stage = 0;
           phase ^= 1;
         }
@@ -365,26 +397,14 @@ __device__ __forceinline__ void k1_gather(const K1Ring& ring, int s,
   }
 }
 
-// Forms the piece's products; returns whether its rows are all short (a
-// whole block, its offsets staged, every row at most 2 g products), for
-// the AND over the consumers (k1_consumers_all).
-__device__ __forceinline__ bool k1_products(const K1Ring& ring, int s,
-                                            const K1Piece& m,
-                                            const float* __restrict__ x,
-                                            float* __restrict__ y, int ctid,
-                                            const K1Quads& g, int lanes_per_row) {
-  const int sb = m.p0 & ~3;
-  const int nq = (m.p1 - sb + 3) >> 2;
-  float4* v4 = reinterpret_cast<float4*>(ring.vals(s));
-#pragma unroll
-  for (int u = 0; u < kK1QuadSlots; ++u) {
-    const int q = ctid + u * kK1Consumers;
-    if (q < nq) v4[q] = k1_mul4(g.v[u], g.xv[u]);
-  }
-  for (int q = ctid + kK1QuadSlots * kK1Consumers; q < nq; q += kK1Consumers) {
-    const int4 c = reinterpret_cast<const int4*>(ring.cols(s))[q];
-    v4[q] = k1_mul4(v4[q], k1_xquad(m, sb, q, c, x));
-  }
+// Once the piece's products are formed: the empty rows that start with
+// its block are zeroed, and whether its rows are all short (a whole block,
+// its offsets staged, every row at most 2 g products) is returned, for the
+// AND over the consumers (k1_consumers_all).
+__device__ __forceinline__ bool k1_piece_formed(const K1Ring& ring, int s,
+                                                const K1Piece& m,
+                                                float* __restrict__ y,
+                                                int ctid, int lanes_per_row) {
   // the products overwrite bytes a bulk copy will write again
   fence_proxy_async();
   if (m.p0 == m.a0) {
@@ -402,6 +422,77 @@ __device__ __forceinline__ bool k1_products(const K1Ring& ring, int s,
     short_rows &= min(ro[j + 1], m.a1) - max(ro[j], m.a0) <= 2 * lanes_per_row;
   }
   return short_rows;
+}
+
+// The register path's products, from the quads k1_gather loaded
+__device__ __forceinline__ bool k1_products(const K1Ring& ring, int s,
+                                            const K1Piece& m,
+                                            const float* __restrict__ x,
+                                            float* __restrict__ y, int ctid,
+                                            const K1Quads& g, int lanes_per_row) {
+  const int sb = m.p0 & ~3;
+  const int nq = (m.p1 - sb + 3) >> 2;
+  float4* v4 = reinterpret_cast<float4*>(ring.vals(s));
+#pragma unroll
+  for (int u = 0; u < kK1QuadSlots; ++u) {
+    const int q = ctid + u * kK1Consumers;
+    if (q < nq) v4[q] = k1_mul4(g.v[u], g.xv[u]);
+  }
+  for (int q = ctid + kK1QuadSlots * kK1Consumers; q < nq; q += kK1Consumers) {
+    const int4 c = reinterpret_cast<const int4*>(ring.cols(s))[q];
+    v4[q] = k1_mul4(v4[q], k1_xquad(m, sb, q, c, x));
+  }
+  return k1_piece_formed(ring, s, m, y, ctid, lanes_per_row);
+}
+
+// The deep path's gathers of a piece: x[cols[i]] by cp.async into the
+// very slot of cols[i] (read into a register first; nothing reads the
+// column after), no registers held while they fly; then one arrival on
+// the stage's gather barrier, made once they have all landed. The atoms
+// of the ragged quads outside [p0, p1) gather nothing.
+__device__ __noinline__ void k1_gather_ragged(int* d, int i, int p0, int p1,
+                                              int4 c,
+                                              const float* __restrict__ x) {
+  if (i >= p0 && i < p1) cp_async4(d, x + c.x);
+  if (i + 1 >= p0 && i + 1 < p1) cp_async4(d + 1, x + c.y);
+  if (i + 2 >= p0 && i + 2 < p1) cp_async4(d + 2, x + c.z);
+  if (i + 3 >= p0 && i + 3 < p1) cp_async4(d + 3, x + c.w);
+}
+
+__device__ __forceinline__ void k1_gather_async(const K1Ring& ring, int s,
+                                                const K1Piece& m,
+                                                const float* __restrict__ x,
+                                                int ctid, unsigned bar) {
+  const int sb = m.p0 & ~3;
+  const int nq = (m.p1 - sb + 3) >> 2;
+  int* c = ring.cols(s);
+  for (int q = ctid; q < nq; q += kK1Consumers) {
+    const int4 cq = reinterpret_cast<const int4*>(c)[q];
+    const int i = sb + 4 * q;
+    int* d = c + 4 * q;
+    if (i >= m.p0 && i + 4 <= m.p1) {
+      cp_async4(d, x + cq.x);
+      cp_async4(d + 1, x + cq.y);
+      cp_async4(d + 2, x + cq.z);
+      cp_async4(d + 3, x + cq.w);
+    } else {
+      k1_gather_ragged(d, i, m.p0, m.p1, cq, x);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+// The deep path's products: x has landed in the column slots
+__device__ __forceinline__ bool k1_products_landed(const K1Ring& ring, int s,
+                                                   const K1Piece& m,
+                                                   float* __restrict__ y,
+                                                   int ctid,
+                                                   int lanes_per_row) {
+  const int nq = (m.p1 - (m.p0 & ~3) + 3) >> 2;
+  float4* v4 = reinterpret_cast<float4*>(ring.vals(s));
+  const float4* x4 = reinterpret_cast<const float4*>(ring.cols(s));
+  for (int q = ctid; q < nq; q += kK1Consumers) v4[q] = k1_mul4(v4[q], x4[q]);
+  return k1_piece_formed(ring, s, m, y, ctid, lanes_per_row);
 }
 
 // first m in [1, n] with ro[m] >= key (ro[n] >= key)
@@ -650,13 +741,114 @@ __device__ __forceinline__ void k1_combine(const SortedPlan& p, int k,
   y[t] = s;
 }
 
-// scratch: [0] the ticket (0 between launches), [4, 4 + grid) the range
-// prefixes, [4 + grid, 4 + grid + nb) the block partials (as floats)
+// The register path's consumers: the next piece's gathers are loaded
+// into registers before the row sums of the current one, multiplied
+// after them.
+template <int S>
+__device__ __forceinline__ void k1_consume_regs(
+    const SortedPlan& p, const K1Ring& ring, unsigned long long* full,
+    unsigned long long* empty, const float* __restrict__ x,
+    float* __restrict__ y, int k, int B1, const K1Seams& seams, int tid) {
+  int stage = 0, par = 0;
+  unsigned phase = 0;
+  mbar_wait(smem_addr(full), 0);
+  K1Piece m = k1_read_meta(ring.meta(0));
+  // the row this range starts inside of: its partials go to the seams
+  const int hc = (m.flags & kK1Cin) ? m.r0 : -1;
+  K1Quads g;
+  k1_gather(ring, 0, m, x, tid, g);
+  bool short_rows = k1_products(ring, 0, m, x, y, tid, g, p.lanes_per_row);
+  for (;;) {
+    // the products of `stage` are formed
+    short_rows = k1_consumers_all(short_rows);
+    const bool more = m.b + 1 < B1 || m.p1 < m.a1;
+    const int next = stage + 1 == S ? 0 : stage + 1;
+    const unsigned next_phase = next == 0 ? phase ^ 1 : phase;
+    K1Piece mn;
+    if (more) {
+      mbar_wait(smem_addr(full + next), next_phase);
+      mn = k1_read_meta(ring.meta(next));
+      k1_gather(ring, next, mn, x, tid, g);
+    }
+    k1_rows(p, ring, stage, m, par, hc, k, B1, y, seams, tid, short_rows);
+    if (more) {
+      short_rows = k1_products(ring, next, mn, x, y, tid, g, p.lanes_per_row);
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(smem_addr(empty + stage));
+    if (!more) break;
+    stage = next;
+    phase = next_phase;
+    par ^= 1;
+    m = mn;
+  }
+}
+
+// The deep path's consumers: the gathers of piece i + kK1Depth are
+// issued by cp.async before the wait for piece i's, so kK1Depth pieces'
+// gathers fly while a piece is multiplied and summed. `ready` counts the
+// pieces whose gathers had all landed when thread 0 first tested their
+// barrier.
+template <int S>
+__device__ __forceinline__ void k1_consume_deep(
+    const SortedPlan& p, const K1Ring& ring, unsigned long long* full,
+    unsigned long long* empty, unsigned long long* gathered,
+    const float* __restrict__ x, float* __restrict__ y, int k, int B1,
+    const K1Seams& seams, int tid, unsigned& pieces, unsigned& ready) {
+  // the next piece to gather: its stage, its full barrier's parity, and
+  // whether there is one
+  int gs = 0;
+  unsigned gphase = 0;
+  bool gmore = true;
+  auto gather_next = [&]() {
+    mbar_wait(smem_addr(full + gs), gphase);
+    const K1Piece g = k1_read_meta(ring.meta(gs));
+    k1_gather_async(ring, gs, g, x, tid, smem_addr(gathered + gs));
+    gmore = g.b + 1 < B1 || g.p1 < g.a1;
+    if (++gs == S) {
+      gs = 0;
+      gphase ^= 1;
+    }
+  };
+  for (int d = 0; d < kK1Depth && gmore; ++d) gather_next();
+  // the row this range starts inside of: its partials go to the seams
+  const K1Piece m0 = k1_read_meta(ring.meta(0));
+  const int hc = (m0.flags & kK1Cin) ? m0.r0 : -1;
+  int stage = 0, par = 0;
+  unsigned phase = 0;
+  for (;;) {
+    if (gmore) gather_next();
+    const K1Piece m = k1_read_meta(ring.meta(stage));
+    const unsigned gb = smem_addr(gathered + stage);
+    ++pieces;
+    if (tid == 0) ready += mbar_test(gb, phase);
+    mbar_wait(gb, phase);
+    const bool short_rows = k1_consumers_all(
+        k1_products_landed(ring, stage, m, y, tid, p.lanes_per_row));
+    k1_rows(p, ring, stage, m, par, hc, k, B1, y, seams, tid, short_rows);
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(smem_addr(empty + stage));
+    if (!(m.b + 1 < B1 || m.p1 < m.a1)) break;
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+    par ^= 1;
+  }
+}
+
+// scratch: [0] the ticket (0 between launches); on the deep path [1] the
+// pieces summed, [2] those found gathered and [3] the launches (unsigned,
+// summed over launches; utils/trace.profile reads them);
+// [4, 4 + grid) the range prefixes, [4 + grid, 4 + grid + nb) the block
+// partials (as floats)
+template <bool kDeep>
 __global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
 sorted_spmv_kernel(const SortedPlan p, const float* __restrict__ x,
                    float* __restrict__ y, int* __restrict__ scratch) {
+  constexpr int S = kK1Stages;
   extern __shared__ int4 k1_ring[];
-  __shared__ __align__(8) unsigned long long full[kK1Stages], empty[kK1Stages];
+  __shared__ __align__(8) unsigned long long full[S], empty[S], gathered[S];
   __shared__ float carry_row[2];
   __shared__ float carry_lanes[2 * 32];
   __shared__ int last;
@@ -670,48 +862,29 @@ sorted_spmv_kernel(const SortedPlan p, const float* __restrict__ x,
   float* tail = reinterpret_cast<float*>(scratch + 4);
   float* part = tail + p.grid;
   if (tid == 0) {
-    for (int s = 0; s < kK1Stages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(smem_addr(full + s), 33);  // expect_tx + 32 cp.async lanes
       mbar_init(smem_addr(empty + s), kK1ConsumerWarps);
+      // one cp.async arrival a consumer thread
+      if (kDeep) mbar_init(smem_addr(gathered + s), kK1Consumers);
     }
   }
   __syncthreads();
   if (tid >= kK1Consumers) {
-    k1_produce(p, ring, full, empty, B0, B1, tid & 31);
+    k1_produce<S>(p, ring, full, empty, B0, B1, tid & 31);
   } else {
     const K1Seams seams{tail, part, carry_row, carry_lanes};
-    int stage = 0, par = 0;
-    unsigned phase = 0;
-    mbar_wait(smem_addr(full), 0);
-    K1Piece m = k1_read_meta(ring.meta(0));
-    // the row this range starts inside of: its partials go to the seams
-    const int hc = (m.flags & kK1Cin) ? m.r0 : -1;
-    K1Quads g;
-    k1_gather(ring, 0, m, x, tid, g);
-    bool short_rows = k1_products(ring, 0, m, x, y, tid, g, p.lanes_per_row);
-    for (;;) {
-      // the products of `stage` are formed
-      short_rows = k1_consumers_all(short_rows);
-      const bool more = m.b + 1 < B1 || m.p1 < m.a1;
-      const int next = stage + 1 == kK1Stages ? 0 : stage + 1;
-      const unsigned next_phase = next == 0 ? phase ^ 1 : phase;
-      K1Piece mn;
-      if (more) {
-        mbar_wait(smem_addr(full + next), next_phase);
-        mn = k1_read_meta(ring.meta(next));
-        k1_gather(ring, next, mn, x, tid, g);
+    if constexpr (kDeep) {
+      // the pieces this CTA summed, and those found gathered
+      unsigned pieces = 0, ready = 0;
+      k1_consume_deep<S>(p, ring, full, empty, gathered, x, y, k, B1, seams,
+                         tid, pieces, ready);
+      if (tid == 0) {
+        atomicAdd(reinterpret_cast<unsigned*>(scratch) + 1, pieces);
+        atomicAdd(reinterpret_cast<unsigned*>(scratch) + 2, ready);
       }
-      k1_rows(p, ring, stage, m, par, hc, k, B1, y, seams, tid, short_rows);
-      if (more) {
-        short_rows = k1_products(ring, next, mn, x, y, tid, g, p.lanes_per_row);
-      }
-      __syncwarp();
-      if ((tid & 31) == 0) mbar_arrive(smem_addr(empty + stage));
-      if (!more) break;
-      stage = next;
-      phase = next_phase;
-      par ^= 1;
-      m = mn;
+    } else {
+      k1_consume_regs<S>(p, ring, full, empty, x, y, k, B1, seams, tid);
     }
   }
   // every row and seam of this CTA is written: the last CTA adds the
@@ -720,7 +893,10 @@ sorted_spmv_kernel(const SortedPlan p, const float* __restrict__ x,
   __syncthreads();
   if (tid == 0) {
     last = atomicAdd(scratch, 1) == p.grid - 1;
-    if (last) *scratch = 0;  // every CTA has arrived: ready for the next launch
+    if (last) {
+      *scratch = 0;  // every CTA has arrived: ready for the next launch
+      if (kDeep) ++reinterpret_cast<unsigned*>(scratch)[3];
+    }
   }
   __syncthreads();
   if (!last) return;
@@ -728,7 +904,8 @@ sorted_spmv_kernel(const SortedPlan p, const float* __restrict__ x,
   for (int c = tid; c < p.grid; c += kK1Threads) k1_combine(p, c, tail, part, y);
 }
 
-// the dynamic shared-memory opt-in, once per device and library load
+// the dynamic shared-memory opt-in of both paths, once per device and
+// library load
 std::atomic<unsigned long long> k1_configured{0};
 
 int k1_configure() {
@@ -737,7 +914,11 @@ int k1_configure() {
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (k1_configured.load(std::memory_order_relaxed) & bit) return 0;
-  e = cudaFuncSetAttribute(sorted_spmv_kernel,
+  e = cudaFuncSetAttribute(sorted_spmv_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kK1MaxSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(sorted_spmv_kernel<true>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kK1MaxSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1147,24 +1328,32 @@ extern "C" {
 
 // plan: a SortedPlan the host packed at bind; scratch: 4 + grid + nb
 // 4-byte words, zero at the first launch on a stream (the last CTA resets
-// the ticket), one set per stream the kernel runs on
+// the ticket), one set per stream the kernel runs on. plan.deep 0 takes
+// the register path, 1 the deep path.
 int loops_sorted_spmv_f32(const void* plan, const void* x, void* y,
                           void* scratch, void* stream) {
   const SortedPlan& p = *static_cast<const SortedPlan*>(plan);
   if (p.nb <= 0 || p.grid <= 0 || p.grid > p.nb || p.lanes_per_row <= 0 ||
       p.lanes_per_row > 32 || (p.lanes_per_row & (p.lanes_per_row - 1)) ||
       p.piece < 4 || p.piece > kK1PieceMax || p.piece % 4 || p.window < 4 ||
-      p.window > kK1WindowMax || p.window % 4) {
+      p.window > kK1WindowMax || p.window % 4 ||
+      (p.deep != 0 && p.deep != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int err = k1_configure();
   if (err) return err;
   const int smem =
       kK1Stages * (2 * (p.piece + 4) + p.window + 4 + kK1MetaWords) * 4;
-  sorted_spmv_kernel<<<p.grid, kK1Threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<int*>(scratch));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.deep) {
+    sorted_spmv_kernel<true><<<p.grid, kK1Threads, smem, s>>>(
+        p, static_cast<const float*>(x), static_cast<float*>(y),
+        static_cast<int*>(scratch));
+  } else {
+    sorted_spmv_kernel<false><<<p.grid, kK1Threads, smem, s>>>(
+        p, static_cast<const float*>(x), static_cast<float*>(y),
+        static_cast<int*>(scratch));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -79,6 +79,18 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
         : "memory");
   }
 }
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
 __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }

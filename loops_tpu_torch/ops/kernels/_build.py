@@ -123,6 +123,18 @@ _CURRENT_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 # goes through it, ``RECORDER(counter, fn, c_args, index) -> err``, which
 # brackets the kernel with a CUDA event pair; None outside a window
 RECORDER = None
+# what kernels count on the card for a trace.profile window, each an
+# object with start() and read() -> dict (window_counter)
+WINDOW_COUNTERS: list = []
+
+
+def window_counter(counter):
+    """Register ``counter`` with every ``utils/trace.profile`` window:
+    ``counter.start()`` runs before the window opens, and the dict
+    ``counter.read()`` returns goes into the window's record after it
+    closes. Returns ``counter``."""
+    WINDOW_COUNTERS.append(counter)
+    return counter
 
 
 def reset_launches() -> None:

@@ -32,7 +32,12 @@ into a ring of shared-memory stages while the consumer warps gather,
 multiply and sum rows; the partials of rows cut by blocks are carried
 inside a CTA, and the last CTA adds the few cut by CTA ranges. It writes
 every row of y (the empty rows between blocks too), so y is allocated
-with ``torch.empty``.
+with ``torch.empty``. Where the plan's blocks gather x at random
+(``x_lines_per_atom``) and a share of the atoms lie in rows longer than
+a piece (``long_row_share``), the consumers copy x into the ring by
+``cp.async`` ``GATHER_DEPTH`` pieces ahead of the piece they sum (the
+deep path, ``gather_depth``); elsewhere they load the next piece's x
+into registers (the register path). Both give the same y, bit for bit.
 
 The plan/bind split mirrors the reference's preprocess-vs-kernel
 separation (merge_path_flat.cuh:97-138): ``sorted_spmv_plan`` is pure
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -61,6 +67,22 @@ STRIPE_ROWS = 32768           # no block crosses a stripe, as in the reference
 # CTA's shared memory (227 KB on an H100); the kernel now takes a block in
 # pieces (PIECE_MAX), and the bound stays so that plans stay as they were
 MAX_BLOCK_ATOMS = 49152
+# K1's two paths (csrc/spmv.cu): each consumer thread loads the next
+# piece's x into registers while the current piece is summed (the
+# register path, depth 0), or x is copied by cp.async into shared memory
+# GATHER_DEPTH pieces ahead of the piece summed (the deep path; the
+# kernel's kK1Depth). The deep path is taken where a block's atoms gather
+# x at random, at least DEEP_LINES lines of x an atom (x_lines_per_atom,
+# read from LOCALITY_BLOCKS evenly spaced blocks), and at least
+# DEEP_LONG_SHARE of the atoms lie in rows longer than a piece
+# (long_row_share), whose pieces are one row each: on an H100 it ran 3%
+# faster than the register path on soc-LiveJournal1's matrix (3.6% of its
+# atoms in such rows), and 1.5-6% slower on random matrices of short
+# rows (PERF.md section 6).
+GATHER_DEPTH = 2
+DEEP_LINES = 0.25
+DEEP_LONG_SHARE = 0.01
+LOCALITY_BLOCKS = 512
 # the block K1 builds by default: on an H100, 1024 atoms ran faster than
 # 2048 up to 16384 on both bench_32768 and big_2097152 (a smaller
 # products buffer leaves more of the SM's 256 KB to L1, which holds the
@@ -130,7 +152,8 @@ def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
         cuts = np.unique(np.concatenate(
             [cuts, offsets[r0[bad] + ROW_SPAN]]))
 
-    lanes = lanes_for(N / max(int(np.count_nonzero(np.diff(offsets))), 1))
+    row_len = np.diff(offsets)
+    lanes = lanes_for(N / max(int(np.count_nonzero(row_len)), 1))
     arrays = dict(
         **matrix_arrays(csr),
         cuts=cuts.astype(np.int32),
@@ -139,9 +162,60 @@ def sorted_spmv_plan(csr, *, block_atoms: int = BLOCK_ATOMS):
     )
     params = dict(empty=False, rows=rows, cols_n=cols_n,
                   num_blocks=len(cuts) - 1, block_atoms=K, ST=ST,
-                  lanes_per_row=lanes, max_atoms=int(np.diff(cuts).max()),
-                  plan_ms=(time.perf_counter() - t0) * 1e3)
+                  lanes_per_row=lanes, max_atoms=int(np.diff(cuts).max()))
+    params.update(gather_reading(row_len, arrays["cols"], arrays["cuts"]))
+    params["plan_ms"] = (time.perf_counter() - t0) * 1e3
     return arrays, params
+
+
+def x_lines_per_atom(cols, cuts, blocks: int = LOCALITY_BLOCKS) -> float:
+    """The distinct 128-byte lines of x (32 columns each) that a block's
+    atoms touch, per atom, over ``blocks`` of the plan's blocks (cut at
+    ``cuts``) evenly spaced, or all where it has fewer: about 1 where the
+    columns lie at random, a small fraction where a block's columns lie
+    near each other. The same sample on every call, and no pass over
+    the other blocks' columns."""
+    nb = len(cuts) - 1
+    pick = np.unique(np.linspace(0, nb - 1, min(nb, blocks)).astype(np.int64))
+    a0 = cuts[pick].astype(np.int64)
+    n = cuts[pick + 1].astype(np.int64) - a0
+    atoms = int(n.sum())
+    if atoms == 0:
+        return 0.0
+    # the sampled atoms' indices, block after block
+    at = np.repeat(a0 - (np.cumsum(n) - n), n) + np.arange(atoms)
+    key = np.sort(np.repeat(np.arange(len(pick), dtype=np.int64), n) << 32
+                  | cols[at].astype(np.int64) >> 5)
+    # the distinct keys, counted on the sorted keys (np.unique took 50
+    # times a sort's time on random columns with numpy 2.3)
+    return (1 + int(np.count_nonzero(key[1:] != key[:-1]))) / atoms
+
+
+def long_row_share(row_len, atoms: int) -> float:
+    """The share of the ``atoms`` that lie in rows longer than a piece
+    (``PIECE_MAX``), from the row lengths alone."""
+    long_rows = np.flatnonzero(row_len > PIECE_MAX)
+    return float(row_len[long_rows].sum(dtype=np.int64) / max(atoms, 1))
+
+
+def gather_reading(row_len, cols, cuts) -> dict:
+    """The plan's readings from its row lengths, columns and block cuts
+    (``x_lines_per_atom``, ``long_row_share``), the gather depth K1 takes,
+    and what reading them cost (``reading_ms``).
+    The depth is ``GATHER_DEPTH``, the deep path, where the gathers are
+    spread (at least ``DEEP_LINES`` lines an atom) and at least
+    ``DEEP_LONG_SHARE`` of the atoms lie in rows longer than a piece, else
+    0, the register path. Where the gathers are local the long rows are
+    not read (``long_row_share`` None): a pass over every row, 30-40 ms for
+    road_usa's 23.9M on an H100's host, that would not change the path."""
+    t0 = time.perf_counter()
+    lines = x_lines_per_atom(cols, cuts)
+    long_share = (long_row_share(row_len, int(cuts[-1]))
+                  if lines >= DEEP_LINES else None)
+    deep = long_share is not None and long_share >= DEEP_LONG_SHARE
+    return dict(x_lines_per_atom=lines, long_row_share=long_share,
+                gather_depth=GATHER_DEPTH if deep else 0,
+                reading_ms=(time.perf_counter() - t0) * 1e3)
 
 
 def check_staged(b: dict, params: dict, device) -> None:
@@ -163,8 +237,10 @@ staged_fingerprint = _build.staged_fingerprint
 staged_unchanged = _build.staged_unchanged
 
 # the kernel's launch shape (csrc/spmv.cu): CTAs an SM it is built for
-# (__launch_bounds__), a piece's atoms and a stage's row offsets at most
+# (__launch_bounds__), its ring's stages, a piece's atoms and a stage's
+# row offsets at most
 CTAS_PER_SM = 3
+STAGES = 4
 PIECE_MAX = 1024
 WINDOW_MAX = 1024
 # the staged buffers whose addresses the packed plan carries, in order
@@ -175,19 +251,22 @@ class _SortedPlan(ctypes.Structure):
     """``csrc/spmv.cu`` ``SortedPlan``, field for field."""
     _fields_ = ([(k, ctypes.c_void_p) for k in PLAN_POINTERS]
                 + [(k, ctypes.c_int) for k in ("rows", "nb", "lanes_per_row",
-                                               "grid", "piece", "window")])
+                                               "grid", "piece", "window",
+                                               "deep")])
 
 
 def launch_shape(params: dict, max_rows: int, sms: int) -> dict:
     """K1's grid (at most ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs, one
     block each at least), its piece (the atoms a stage holds: the longest
-    block's, rounded up to a quad, at most ``PIECE_MAX``) and its window
-    (the row offsets a stage holds: ``max_rows``, the most rows of a
-    block, and one, rounded up to a quad, at most ``WINDOW_MAX``; a block
-    with more reads its offsets from device memory)."""
+    block's, rounded up to a quad, at most ``PIECE_MAX``), its window (the
+    row offsets a stage holds: ``max_rows``, the most rows of a block, and
+    one, rounded up to a quad, at most ``WINDOW_MAX``; a block with more
+    reads its offsets from device memory) and its path (``deep``: 1 where
+    the plan's ``gather_depth`` is above 0, else 0)."""
     return dict(grid=min(int(params["num_blocks"]), CTAS_PER_SM * sms),
                 piece=min(_round_up(int(params["max_atoms"]), 4), PIECE_MAX),
-                window=min(_round_up(int(max_rows) + 1, 4), WINDOW_MAX))
+                window=min(_round_up(int(max_rows) + 1, 4), WINDOW_MAX),
+                deep=int(int(params["gather_depth"]) > 0))
 
 
 def max_block_rows(row_first, row_last) -> int:
@@ -215,13 +294,15 @@ class SortedLaunch:
         self.plan = _SortedPlan(
             *(b[k].data_ptr() for k in PLAN_POINTERS), self.rows, nb,
             int(params["lanes_per_row"]), self.shape["grid"],
-            self.shape["piece"], self.shape["window"])
+            self.shape["piece"], self.shape["window"], self.shape["deep"])
         self.plan_ptr = ctypes.addressof(self.plan)
         # the tensors whose addresses the plan holds
         self.staged = tuple(b[k] for k in PLAN_POINTERS)
         self.scratch_words = 4 + self.shape["grid"] + nb
         self.scratch = {}  # raw stream handle -> (tensor, its address)
         self.fn = None
+        if self.shape["deep"]:
+            GATHERS.launches.add(self)
 
     def _new_scratch(self, stream: int) -> tuple:
         """``stream``'s scratch, zeroed on that stream (the current one) at
@@ -242,6 +323,56 @@ class SortedLaunch:
                     self.index, (self.plan_ptr, x.data_ptr(), y.data_ptr(),
                                  scratch), stream)
         return y
+
+
+class GatherCounter:
+    """What K1's deep path counts on the card, for a ``utils/trace.profile``
+    window (``GATHERS``, registered with ``_build.window_counter``). Each
+    deep launch adds, into words 1 to 3 of its scratch buffer, the pieces
+    its CTAs summed, those whose gathers had all landed when a CTA first
+    tested their barrier, and one launch; the register path counts
+    nothing. ``start`` zeroes those words of every live deep
+    ``SortedLaunch`` and notes K1's launches so far (``_build.LAUNCHES``);
+    ``read`` copies each buffer once after the window:
+    ``k1.gathers_ready_share``, the pieces found gathered over the pieces
+    (None where no deep launch ran), and ``k1.gather_depth``, the depth of
+    the launches that ran: ``GATHER_DEPTH`` for the deep ones, 0 for the
+    window's other K1 launches (a list where both ran, None where none
+    did). A deep launch made for one call (``sorted_spmv_cuda`` on
+    buffers no bind packed) takes its counts with it. The untraced path
+    reads nothing."""
+
+    def __init__(self):
+        self.launches = weakref.WeakSet()  # the live deep launches
+        self.before = 0
+
+    def _buffers(self) -> list:
+        bufs = [t for launch in list(self.launches)
+                for t, _ in list(launch.scratch.values())]
+        # every launch that wrote them has finished, on each card
+        for dev in {t.device for t in bufs if t.is_cuda}:
+            torch.cuda.synchronize(dev)
+        return bufs
+
+    def start(self) -> None:
+        for t in self._buffers():
+            t[1:4].zero_()
+        self._buffers()
+        self.before = _build.LAUNCHES["sorted_spmv"]
+
+    def read(self) -> dict:
+        counts = np.zeros(3, np.int64)
+        for t in self._buffers():
+            counts += t[1:4].cpu().numpy().view(np.uint32)
+        pieces, ready, deep = (int(c) for c in counts)
+        depths = ([0] if _build.LAUNCHES["sorted_spmv"] - self.before > deep
+                  else []) + ([GATHER_DEPTH] if deep else [])
+        return {"k1.gathers_ready_share": ready / pieces if pieces else None,
+                "k1.gather_depth": (depths[0] if len(depths) == 1
+                                    else depths or None)}
+
+
+GATHERS = _build.window_counter(GatherCounter())
 
 
 def sorted_spmv_cuda(b: dict, x: torch.Tensor, params: dict,
@@ -408,6 +539,12 @@ def sorted_spmv_bind(arrays, params, device):
     fn.meta = dict(num_blocks=params["num_blocks"],
                    block_atoms=params.get("block_atoms"),
                    lanes_per_row=params.get("lanes_per_row"),
+                   # K1's path: the plan's readings, the depth they gave
+                   # and what reading them cost (in plan_ms)
+                   x_lines_per_atom=params.get("x_lines_per_atom"),
+                   long_row_share=params.get("long_row_share"),
+                   gather_depth=params.get("gather_depth"),
+                   reading_ms=params.get("reading_ms"),
                    # host planning cost, excluding the device upload —
                    # the reference's preprocess-vs-kernel separation
                    # (merge_path_flat.cuh:97-138); for a plan from the
@@ -429,8 +566,9 @@ def sorted_spmv(csr, *, block_atoms: int = BLOCK_ATOMS, device="cuda",
     keyed by the matrix's shape and row offsets, from which the plan
     derives, and ``block_atoms``. On a hit the host plan is loaded, not
     built, and ``fn.meta`` has ``plan_source`` 'cache' and ``plan_ms``
-    the load time; on a miss the plan is built and saved (``plan_source``
-    'built'). The cache holds the arrays the plan derives
+    the load time and the path's readings (``reading_ms``), taken anew
+    from the caller's columns; on a miss the plan is built and saved
+    (``plan_source`` 'built'). The cache holds the arrays the plan derives
     (``PLAN_ARRAYS``) and its parameters; the matrix's own arrays are the
     caller's CSR at every bind."""
     device = ensure_platform(device)
@@ -452,4 +590,12 @@ def sorted_spmv(csr, *, block_atoms: int = BLOCK_ATOMS, device="cuda",
         arrays = built
     elif not params.get("empty"):
         arrays = {**matrix_arrays(csr), **arrays}
+        # the key holds the offsets, not the columns the reading reads,
+        # and a plan cached before the reading has none: read anew, its
+        # cost counted in the load's plan_ms
+        t0 = time.perf_counter()
+        params = {**params, **gather_reading(
+            np.diff(arrays["offsets"]), arrays["cols"], arrays["cuts"])}
+        params["reading_ms"] = (time.perf_counter() - t0) * 1e3
+        params["plan_ms"] += params["reading_ms"]
     return sorted_spmv_bind(arrays, params, device)

@@ -131,6 +131,22 @@ def sized_csr(sizes, cols: int, seed: int = 0, dtype=np.float32) -> CSR:
                rng.normal(size=len(indices)).astype(dtype))
 
 
+def scattered_hubs_csr(n: int, top: int = 3000, exponent: float = 0.9,
+                       seed: int = 0, dtype=np.float32) -> CSR:
+    """A square CSR whose row lengths are a power law of rank, ``top *
+    (k + 1) ** -exponent`` (many rows empty), the rows shuffled over the
+    ids and every column drawn at random: hub rows at random ids, each
+    gather of x on a line of its own, as a social graph's transition
+    matrix."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(
+        (top * (np.arange(n) + 1.0) ** -exponent).astype(np.int64), n)
+    offsets = np.concatenate([[0], np.cumsum(rng.permutation(lengths))])
+    nnz = int(offsets[-1])
+    return CSR((n, n), offsets, rng.integers(0, n, nnz),
+               rng.uniform(-1.0, 1.0, nnz).astype(dtype))
+
+
 def build_block_sparse(N: int = 4096, R: int = 8, C: int = 128,
                        block_density: float = 0.06, seed: int = 0):
     """The JAX bench's block-sparse matrix (``bench.py``

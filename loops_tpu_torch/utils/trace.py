@@ -10,7 +10,10 @@
   ``_build.launch`` brackets each kernel with a CUDA event pair on its
   stream, inside a ``launch.<counter>`` range; the record lists each
   launch with its counter, its device ms and the ``annotate`` path it
-  fell in. On leaving, the record is held against ``_build.LAUNCHES``: a
+  fell in, and what the kernels counted on the card in the window
+  (``_build.window_counter``: K1's ``k1.gathers_ready_share`` and
+  ``k1.gather_depth``). On leaving, the record is held against
+  ``_build.LAUNCHES``: a
   counter whose launches the record lacks raises, and nothing is written
   as if whole. The record file also says whether the profiler's own
   kernel list held every launch of the same window, and holds the
@@ -394,6 +397,8 @@ def profile(logdir: str | None = None):
                 torch.zeros(1, device="cuda")
                 torch.cuda.synchronize()
                 time.sleep(PRIME_S)
+        for counter in _build.WINDOW_COUNTERS:
+            counter.start()
         t0 = time.perf_counter()
         _build.RECORDER = rec
         try:
@@ -432,6 +437,8 @@ def profile(logdir: str | None = None):
         "profiler_list_whole": not gaps,
         "profiler_gaps": gaps,
     }
+    for counter in _build.WINDOW_COUNTERS:
+        record.update(counter.read())
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     record.update(span_table(events, set(_NAMES), launches, not gaps))

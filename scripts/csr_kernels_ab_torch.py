@@ -4,7 +4,7 @@
 (phases 6, 10, 13, 17 and 19), and print one JSON line.
 
     python scripts/csr_kernels_ab_torch.py [--tree DIR] [--library]
-        [--cells spmv,flat,csr,bcsr,bcsrmv,gather,scatter,xl]
+        [--cells spmv,flat,csr,bcsr,bcsrmv,gather,scatter,xl,graphs]
         [--xl-dir DIR] [--y-dir DIR]
 
 ``--tree`` names the checkout whose ``loops_tpu_torch`` is imported and
@@ -34,6 +34,12 @@ needs no script of its own:
   (default: ``loops_xl_matrices`` under the temporary directory) and
   loaded from there by every later run, so the turns of an A/B time the
   same matrices;
+- K1 on the PageRank cells' transition matrices (``graphs``): the
+  benchmark's soc-LiveJournal1 and road_usa graphs, made on the card by
+  ``loopsbench/gen`` as its PageRank driver makes them, by ``apply_ms``
+  and ``device_ms`` beside the byte bound; and the same rows with every
+  column replaced by the row's own id (``local``), so that each gather of
+  x hits the line of its row: what K1 costs without its random gathers;
 - K12: ``saxpy_cuda`` on the example's [8, 8192], microseconds per call
   by the slope of 450 back-to-back calls over 50 (``probes/common.
   launch_ms``) and by the host clock with the card held, and on 2^26
@@ -87,14 +93,16 @@ slope), ``torch.add(y, x, alpha=2.5)`` per call, ``torch.sparse.mm`` and
 ``spmv`` (K1, K12), ``flat`` (K3, K2), ``csr`` (K4, K5, the GCN step),
 ``bcsr`` (K7, K9, K8, K10), ``bcsrmv`` (K6), ``gather`` (G3, G1, P1),
 ``scatter`` (K14's scatters, the block dots, G1 at S = 256, K13),
-``xl`` (K1 on the xl tier); ``spmv,csr`` by default. The
+``xl`` (K1 on the xl tier), ``graphs`` (K1 on the PageRank cells'
+matrices); ``spmv,csr`` by default. The
 line before the JSON is the card's name and power limit from
 ``nvidia-smi``.
 
 ``--y-dir DIR`` holds K1's output across trees: the first run saves its
 y of each ``spmv`` and ``xl`` matrix there (``K1_<matrix>.npy``), and
 every later run, with another ``--tree`` too, reports whether its y is
-bit for bit the saved one (``"K1 <matrix> y bitwise"``: true or false).
+bit for bit the saved one (``"K1 <matrix> y bitwise"``: true or false);
+``graphs`` keeps the y of both PageRank matrices too.
 """
 from __future__ import annotations
 
@@ -159,6 +167,8 @@ def main(argv=None) -> int:
         res.update(scatter_cells(dev, args.library))
     if "xl" in cells:
         res.update(xl_cells(dev, args.library, args.xl_dir, args.y_dir))
+    if "graphs" in cells:
+        res.update(graph_cells(dev, args.y_dir))
     print(smi)
     print(json.dumps(res))
     return 0
@@ -297,6 +307,72 @@ def xl_cells(dev, library: bool, xl_dir: str, y_dir=None) -> dict:
         res.update(same_y(y_dir, name, calls["K1"], xd))
         del calls
         torch.cuda.empty_cache()
+    return res
+
+
+# the PageRank cells whose matrices the graphs cells time
+GRAPHS = ("soc-livejournal1", "road_usa")
+
+
+def pagerank_matrix(traffic: str, dev):
+    """The transition matrix P of the benchmark's PageRank cell on
+    ``traffic`` as a host CSR: the graph from ``loopsbench/gen`` (the same
+    for every seed), rows the destinations, ``P[v, u] = 0.85 / out(u)``,
+    as ``loopsbench/drivers/pagerank.py`` builds it."""
+    import importlib
+
+    import torch
+    from loops_tpu_torch.formats import CSR
+
+    if REPO not in sys.path:
+        sys.path.append(REPO)
+    with open(os.path.join(REPO, "loopsbench", "traffic",
+                           f"{traffic}.json")) as f:
+        graph = json.load(f)["graph"]
+    gen = importlib.import_module(f"loopsbench.gen.{graph['generator']}")
+    g = gen.make(graph, 0, dev)
+    n, src, dst = g["num_nodes"], g["src"], g["dst"]
+    out = torch.bincount(src, minlength=n)
+    order = torch.argsort(dst * n + src)
+    rows, cols = dst[order], src[order]
+    vals = (0.85 / out.to(torch.float32))[cols]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    host = [t.cpu().numpy() for t in (offsets.to(torch.int32),
+                                      cols.to(torch.int32), vals)]
+    del g, src, dst, out, order, rows, cols, vals, offsets
+    torch.cuda.empty_cache()
+    return CSR((n, n), *host)
+
+
+def graph_cells(dev, y_dir=None) -> dict:
+    """K1 on the PageRank cells' matrices, and on the same rows with
+    local columns (each column the row's own id): apply and card ms, the
+    byte bound; with ``y_dir``, K1's y held across trees (``same_y``)."""
+    import torch
+    from loops_tpu_torch.formats import CSR
+    from loops_tpu_torch.ops.spmv import SpMVOperator
+    from loops_tpu_torch.utils import counters, generate
+
+    bench = _timing()
+    res = {}
+    for traffic in GRAPHS:
+        csr = pagerank_matrix(traffic, dev)
+        n = csr.shape[0]
+        local = CSR(csr.shape, csr.offsets, np.repeat(
+            np.arange(n, dtype=np.int32), np.diff(csr.offsets)), csr.vals)
+        xd = torch.from_numpy(generate.make_input_vector(n)).to(dev)
+        for label, m in ((traffic, csr), (f"{traffic} local", local)):
+            op = SpMVOperator(m, "sorted_flat", device=dev)
+            res[f"K1 {label}"] = dict(apply_ms=bench.apply_ms(op, xd),
+                                      device_ms=bench.device_ms(op, xd))
+            if m is csr:
+                res.update(same_y(y_dir, traffic, op, xd))
+            del op
+            torch.cuda.empty_cache()
+        res[f"bound {traffic}"] = counters.bound_of(
+            counters.csr_spmv_work(n, n, csr.nnz))[0]
+        del csr, local
     return res
 
 

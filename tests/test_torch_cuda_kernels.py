@@ -453,6 +453,57 @@ def test_sorted_equals_its_mirror(cuda_device, monkeypatch, name, block,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+@pytest.mark.parametrize("block", [64, 4096])
+@pytest.mark.parametrize("deep", [0, 1])
+def test_sorted_both_paths_equal_the_mirror(cuda_device, monkeypatch, deep,
+                                            block, shape):
+    # hub rows at random ids, longer than PIECE_MAX, cut across CTA ranges
+    # (blocks of 64) and across pieces (blocks of 4096), between empty
+    # rows: the register path and the deep path give the mirror's y bit
+    # for bit
+    sms, piece = K1_SHAPES[shape]
+    if sms is not None:
+        monkeypatch.setitem(_build._SMS, torch.cuda.current_device(), sms)
+    if piece is not None:
+        monkeypatch.setattr(spmv_sorted, "PIECE_MAX", piece)
+    if not deep:
+        monkeypatch.setattr(spmv_sorted, "DEEP_LINES", 2.0)
+    csr = generate.scattered_hubs_csr(1 << 14, seed=5)
+    assert np.diff(csr.offsets).max() > spmv_sorted.PIECE_MAX
+    fn = _k1_holds_mirror(csr, block, cuda_device,
+                          f"deep {deep}/{block}/{shape}")
+    assert fn.launch.plan.deep == deep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep", [0, 1])
+def test_sorted_trace_reads_the_gathers_ready_share(cuda_device, monkeypatch,
+                                                    deep, tmp_path):
+    # under trace.profile the record carries the share of the deep path's
+    # pieces found gathered, and the depth the launches used; the register
+    # path counts no gathers
+    from loops_tpu_torch.utils import trace
+
+    if not deep:
+        monkeypatch.setattr(spmv_sorted, "DEEP_LINES", 2.0)
+    csr = generate.scattered_hubs_csr(1 << 16, seed=6)
+    x, xd, b, fn = _sorted_case(csr, 1024, cuda_device)
+    fn(b, xd)
+    with trace.profile(str(tmp_path)):
+        for _ in range(3):
+            fn(b, xd)
+    rec = trace.read_record(str(tmp_path))
+    assert rec["k1.gather_depth"] == (spmv_sorted.GATHER_DEPTH if deep
+                                      else 0)
+    share = rec["k1.gathers_ready_share"]
+    if deep:
+        assert 0.0 <= share <= 1.0
+    else:
+        assert share is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "hub", "pieces"])
 def test_sorted_ranges_of_many_blocks(cuda_device, case):
     # nb several times the grid (3 CTAs on each SM): each CTA carries rows

@@ -527,9 +527,10 @@ def test_k1_packs_the_staged_pointers_once(fake_card, monkeypatch):
     assert (plan.grid, plan.piece, plan.window) == (
         min(nb, 3 * 132), launch.shape["piece"], launch.shape["window"])
     assert plan.piece == 64 and plan.window % 4 == 0
+    assert plan.deep == launch.shape["deep"] == int(p["gather_depth"] > 0)
     assert launch.plan_ptr == ctypes.addressof(plan)
-    # the C struct: six pointers, then six ints
-    assert ctypes.sizeof(spmv_sorted._SortedPlan) == 6 * 8 + 6 * 4
+    # the C struct: six pointers, then seven ints, padded to 8 bytes
+    assert ctypes.sizeof(spmv_sorted._SortedPlan) == 6 * 8 + 8 * 4
 
 
 @pytest.mark.parametrize("out", ["none", "good", "short"])

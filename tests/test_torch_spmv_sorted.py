@@ -385,3 +385,177 @@ def test_k1_four_lanes_a_thread_is_the_lane_tree(g):
             p[rng.integers(0, n)] = -0.0
             want, got = _lane_tree(p, g), _four_lanes(p, g, piece)
             assert want.view(np.uint32) == got.view(np.uint32), (g, n, piece)
+
+
+# ------------------------------- K1's two paths: the plan's locality reading
+def _street_grid(width=64):
+    """A grid ``width`` nodes wide, ids row by row, each node joined to
+    its four neighbours: every gather within about ``width`` ids."""
+    n = width * width
+    r = np.repeat(np.arange(n), 4)
+    c = r + np.tile([-width, -1, 1, width], n)
+    keep = (c >= 0) & (c < n)
+    return tf.COO((n, n), r[keep], c[keep],
+                  np.ones(int(keep.sum()), np.float32)).to_csr()
+
+
+def _one_hub_row(n=1 << 15):
+    """Random short rows and one row of 4096 random columns: under 1% of
+    the atoms in rows longer than a piece."""
+    t = generate.random_csr(n, n, 16 / n, seed=4)
+    lengths = np.diff(t.offsets)
+    lengths[n // 3] = 4096
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    rng = np.random.default_rng(4)
+    return tf.csr_from_arrays(t.shape, offsets,
+                              rng.integers(0, n, int(offsets[-1])),
+                              np.ones(int(offsets[-1]), np.float32))
+
+
+# matrix -> (its gathers spread, K1's deep path)
+LOCALITY = {
+    "power law, hubs at random ids": (
+        lambda: generate.scattered_hubs_csr(1 << 16, seed=3), True, True),
+    "random, short rows": (
+        lambda: generate.random_csr(1 << 15, 1 << 15, 16 / (1 << 15),
+                                    seed=3), True, False),
+    "random, one hub row": (_one_hub_row, True, False),
+    "banded": (lambda: generate.banded_csr(1 << 14, 1 << 14, band=3),
+               False, False),
+    "street grid": (_street_grid, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOCALITY))
+def test_k1_gather_depth_follows_the_locality_reading(case):
+    # random gathers with a share of the atoms in rows longer than a piece
+    # take the deep path; local gathers, or random ones over short rows
+    # (one hub row among them too), the register path
+    build, spread, deep = LOCALITY[case]
+    csr = build()
+    a, params = spmv_sorted.sorted_spmv_plan(csr)
+    lines = params["x_lines_per_atom"]
+    assert 0 < lines <= 1
+    assert (lines >= spmv_sorted.DEEP_LINES) == spread, lines
+    assert lines > 0.5 if spread else lines < 0.1
+    row_len = np.diff(csr.offsets)
+    share = params["long_row_share"]
+    if spread:
+        assert share == (row_len[row_len > spmv_sorted.PIECE_MAX].sum()
+                         / csr.nnz)
+        assert (share >= spmv_sorted.DEEP_LONG_SHARE) == deep, share
+    else:
+        # local gathers: the long rows are not read
+        assert share is None
+    assert params["gather_depth"] == (spmv_sorted.GATHER_DEPTH if deep
+                                      else 0)
+    assert 0 < params["reading_ms"] <= params["plan_ms"]
+
+
+@pytest.mark.parametrize("case", sorted(LOCALITY))
+def test_k1_locality_reading_is_the_fixed_sample(case):
+    # the same reading on every call, from evenly spaced blocks alone:
+    # columns moved in a block outside the sample leave it, in a sampled
+    # block move it
+    a, params = spmv_sorted.sorted_spmv_plan(LOCALITY[case][0](),
+                                             block_atoms=8)
+    cols, cuts = a["cols"], a["cuts"]
+    nb = params["num_blocks"]
+    assert nb > 2 * spmv_sorted.LOCALITY_BLOCKS
+    got = spmv_sorted.x_lines_per_atom(cols, cuts)
+    assert got == spmv_sorted.x_lines_per_atom(cols.copy(), cuts.copy())
+    assert got == params["x_lines_per_atom"]
+    if got >= spmv_sorted.DEEP_LINES:
+        assert params["long_row_share"] == spmv_sorted.long_row_share(
+            np.diff(a["offsets"]), int(a["cuts"][-1]))
+    sampled = set(np.linspace(0, nb - 1, spmv_sorted.LOCALITY_BLOCKS)
+                  .astype(np.int64).tolist())
+    spread = np.arange(8, dtype=np.int32) * 32  # eight lines of x
+    outside = next(b for b in range(nb) if b not in sampled
+                   and cuts[b + 1] - cuts[b] == 8)
+    moved = cols.copy()
+    moved[cuts[outside]:cuts[outside + 1]] = spread
+    assert spmv_sorted.x_lines_per_atom(moved, cuts) == got
+    inside = next(b for b in sorted(sampled) if cuts[b + 1] - cuts[b] == 8
+                  and len(set(cols[cuts[b]:cuts[b + 1]] >> 5)) < 8)
+    moved = cols.copy()
+    moved[cuts[inside]:cuts[inside + 1]] = spread
+    assert spmv_sorted.x_lines_per_atom(moved, cuts) > got
+
+
+def _spmv_cu():
+    import os
+
+    with open(os.path.join(os.path.dirname(spmv_sorted.__file__), "..", "..",
+                           "csrc", "spmv.cu")) as f:
+        return f.read()
+
+
+def _c_struct_fields(name):
+    """The field names of struct ``name`` in ``csrc/spmv.cu``, in order."""
+    import re
+
+    body = re.search(r"struct %s \{(.*?)\};" % name, _spmv_cu(),
+                     re.S).group(1)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            fields += [f.strip(" *") for f in
+                       re.sub(r"^(const )?\w+\*? ?", "", decl).split(",")]
+    return fields
+
+
+@pytest.mark.parametrize("sms", [2, 132])
+@pytest.mark.parametrize("deep", [0, 1])
+def test_k1_launch_carries_the_path(monkeypatch, deep, sms):
+    # SortedLaunch packs the plan's path (deep where its gather depth is
+    # above 0) into _SortedPlan, which is the kernel's SortedPlan field for
+    # field; the depth is the kernel's own constant, and the rest of the
+    # launch shape does not depend on the path
+    import re
+
+    from loops_tpu_torch.ops.kernels import _build
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setitem(_build._SMS, 0, sms)
+    assert [f for f, _ in spmv_sorted._SortedPlan._fields_] == \
+        _c_struct_fields("SortedPlan")
+    assert int(re.search(r"constexpr int kK1Depth = (\d+);",
+                         _spmv_cu()).group(1)) == spmv_sorted.GATHER_DEPTH
+    assert 1 <= spmv_sorted.GATHER_DEPTH < spmv_sorted.STAGES
+    t = generate.random_csr(3000, 2500, 0.004, seed=7)
+    b, fn = spmv_sorted.sorted_spmv(t, block_atoms=8, device="cpu")
+    params = dict(fn.params,
+                  gather_depth=deep and spmv_sorted.GATHER_DEPTH)
+    launch = spmv_sorted.SortedLaunch(
+        b, params, torch.device("cpu"),
+        spmv_sorted.max_block_rows(b["row_first"], b["row_last"]))
+    assert launch.plan.deep == launch.shape["deep"] == deep
+    assert launch.plan.grid == min(params["num_blocks"],
+                                   sms * spmv_sorted.CTAS_PER_SM)
+    assert (launch.plan.piece, launch.plan.window) == (
+        launch.shape["piece"], launch.shape["window"])
+
+
+def test_k1_cached_plan_reads_its_own_columns(tmp_path):
+    # the plan cache's key holds the offsets only: a matrix with another's
+    # offsets and its own columns is read anew on a hit, and takes its own
+    # path
+    hubs = generate.scattered_hubs_csr(1 << 14, seed=5)
+    n = hubs.shape[0]
+    local = tf.csr_from_arrays(hubs.shape, hubs.offsets, np.repeat(
+        np.arange(n), np.diff(hubs.offsets)), hubs.vals)
+    _, fn = spmv_sorted.sorted_spmv(hubs, device="cpu", cache_dir=tmp_path)
+    assert fn.meta["plan_source"] == "built"
+    assert fn.meta["gather_depth"] == spmv_sorted.GATHER_DEPTH
+    _, fn = spmv_sorted.sorted_spmv(local, device="cpu", cache_dir=tmp_path)
+    assert fn.meta["plan_source"] == "cache"
+    assert fn.meta["gather_depth"] == 0
+    assert fn.meta["x_lines_per_atom"] < spmv_sorted.DEEP_LINES
+    assert fn.meta["long_row_share"] is None
+    # the load's plan_ms holds the reading's cost
+    assert 0 < fn.meta["reading_ms"] <= fn.meta["plan_ms"]
+    _, fn = spmv_sorted.sorted_spmv(hubs, device="cpu", cache_dir=tmp_path)
+    assert fn.meta["plan_source"] == "cache"
+    assert fn.meta["gather_depth"] == spmv_sorted.GATHER_DEPTH

@@ -175,3 +175,62 @@ def test_launch_outside_a_window_skips_the_record(fake_card):
     assert _build.RECORDER is None
     _fake_launch()
     assert len(fake_card["loops_saxpy_f32"].calls) == 1
+
+
+def _k1_stand_in(pieces, ready):
+    """K1's entry point as a stand-in: each launch on the deep path (the
+    packed plan's ``deep``) adds ``pieces``, ``ready`` and one launch into
+    words 1 to 3 of its scratch buffer, as the kernel's CTAs do; the
+    register path counts nothing."""
+    import ctypes
+
+    from loops_tpu_torch.ops.kernels import spmv_sorted
+
+    def fn(plan, x, y, scratch, stream):
+        if ctypes.cast(plan, ctypes.POINTER(
+                spmv_sorted._SortedPlan)).contents.deep:
+            for word, n in ((1, pieces), (2, ready), (3, 1)):
+                ctypes.c_uint32.from_address(scratch + 4 * word).value += n
+        return 0
+    return fn
+
+
+@pytest.mark.parametrize("case", ["deep", "register", "idle", "two depths"])
+def test_profile_reads_k1_gathers_ready_share(fake_card, monkeypatch,
+                                              tmp_path, case):
+    # the counts K1 leaves in its scratch before the window are zeroed at
+    # its start; those of the window's launches are read after it into the
+    # record, with the depth of the launches that ran
+    from loops_tpu_torch.ops.kernels import spmv_sorted
+    from loops_tpu_torch.utils import generate
+
+    monkeypatch.setitem(_build._SMS, 0, 132)
+    fake_card["loops_sorted_spmv_f32"] = _k1_stand_in(10, 7)
+    csr = generate.random_csr(300, 200, 0.05, seed=4)
+    b, fn = spmv_sorted.sorted_spmv(csr, block_atoms=64,
+                                    device=torch.device("cpu"))
+    rows = spmv_sorted.max_block_rows(b["row_first"], b["row_last"])
+
+    def launch(depth):
+        return spmv_sorted.SortedLaunch(b, dict(fn.params, gather_depth=depth),
+                                        torch.device("cpu"), rows)
+    d = spmv_sorted.GATHER_DEPTH
+    deep, register = launch(d), launch(0)
+    assert spmv_sorted.GATHERS in _build.WINDOW_COUNTERS
+    assert deep in spmv_sorted.GATHERS.launches
+    assert register not in spmv_sorted.GATHERS.launches
+    x = torch.ones(200)
+    deep(x)
+    register(x)
+    with trace.profile(str(tmp_path)):
+        if case in ("deep", "two depths"):
+            deep(x)
+            deep(x)
+        if case in ("register", "two depths"):
+            register(x)
+    rec = trace.read_record(str(tmp_path))
+    share, depth = rec["k1.gathers_ready_share"], rec["k1.gather_depth"]
+    assert (share, depth) == {"deep": (0.7, d), "register": (None, 0),
+                              "idle": (None, None),
+                              "two depths": (0.7, [0, d])}[case]
+    assert _build.RECORDER is None
